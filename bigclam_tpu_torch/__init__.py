@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of tpu-bigclam for NVIDIA Hopper (H100).
+
+The JAX package `bigclam_tpu` stays the reference; this package imports
+`torch` and `numpy` only, never `jax` and nothing of `bigclam_tpu`, and
+keeps its own copy of what it needs. Its first slice is the dense
+single-device `fit`: graph ingest, conductance seeding, the train loop
+on the CSR edge kernels (CUDA C++ for sm_90a, csrc/), extraction and the
+CLI (`python -m bigclam_tpu_torch.cli fit`).
+"""
+
+from bigclam_tpu_torch.config import BigClamConfig
+
+__all__ = ["BigClamConfig"]

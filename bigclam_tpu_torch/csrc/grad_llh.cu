@@ -1,0 +1,70 @@
+// Kernel B: per-node gradient and LLH of BigCLAM, for Hopper.
+//
+// Replaces the TPU kernel bigclam_tpu/ops/pallas_csr.py `grad_llh_csr`
+// (`_grad_blocks` / `_grad_kernel`), the first half of the split schedule
+// (path `csr`). Per node u (one warp): over N(u), x = F_u.F_v, omp, ell;
+// grad = sum_v F_v/omp - sumF + F_u and node_llh = sum_v ell - F_u.sumF +
+// F_u.F_u. The TPU wrapper adds the -sumF + F fold and the node tail in XLA;
+// here both are done in-kernel. Outputs: grad (n,K), node_llh (n,).
+//
+// What bounds it on this card: memory. The function needs ~4 float32
+// operations per column per directed edge, and its bytes (F read once, grad
+// written once) take longer than that at the card's rates. The kernel reads
+// one 4 K-byte neighbour row per directed edge, which L2 serves in part;
+// every node's sum runs in a warp's registers with no atomics and no
+// gathered (E, K) buffer (the TPU path's `fd` gather is gone).
+#include "edge_common.cuh"
+
+namespace {
+
+using bigclam::StepParams;
+using bigclam::kWarp;
+using bigclam::kWarpsPerBlock;
+
+template <int KPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ sumF,
+                const int64_t* __restrict__ indptr,
+                const int* __restrict__ indices, int n, int K, StepParams p,
+                float* __restrict__ grad, float* __restrict__ node_llh) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
+  if (u >= n) return;  // whole warp
+  float fu[KPL];
+  bigclam::load_row<KPL>(F, u, K, lane, fu);
+  float g[KPL];
+  const float llh_nbr =
+      bigclam::grad_pass<KPL>(F, indptr, indices, u, K, lane, fu, g, p);
+  float tail;
+  bigclam::fold_grad<KPL>(sumF, K, lane, fu, g, tail);
+  bigclam::store_row<KPL>(grad, u, K, lane, g);
+  if (lane == 0) node_llh[u] = llh_nbr + tail;
+}
+
+template <int KPL>
+void launch(const float* F, const float* sumF, const int64_t* indptr,
+            const int* indices, int n, int K, const StepParams& p, float* grad,
+            float* node_llh, cudaStream_t stream) {
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  grad_llh_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
+      F, sumF, indptr, indices, n, K, p, grad, node_llh);
+}
+
+}  // namespace
+
+// Launches kernel B on `stream`; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for K outside [1, 1024]).
+extern "C" int bigclam_grad_llh(const float* F, const float* sumF,
+                                const int64_t* indptr, const int* indices,
+                                int n, int K, float omp_lo, float omp_hi,
+                                float* grad, float* node_llh, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  // the survival clip bounds only: no ladder
+  const StepParams p =
+      bigclam::make_params(nullptr, nullptr, 0, omp_lo, omp_hi, 0.f, 0.f);
+  int rc = cudaSuccess;
+  BIGCLAM_DISPATCH_KPL(K, launch, rc, F, sumF, indptr, indices, n, K, p, grad,
+                       node_llh, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return rc;
+  return cudaGetLastError();
+}

@@ -1,0 +1,91 @@
+"""Host-side graph container: symmetric CSR over contiguous node ids.
+
+Copied from bigclam_tpu/graph/csr.py (`Graph`), plus `DeviceCSR`: the
+graph's CSR arrays on a torch device, which the edge kernels read
+directly (each node's neighbor list is one contiguous slice of
+`indices`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Undirected simple graph in CSR form.
+
+    Attributes:
+      indptr:  (N+1,) int64 — CSR row pointers.
+      indices: (2E,) int32 — concatenated sorted neighbor lists.
+      raw_ids: (N,) original node ids from the input file (raw_ids[i] is the
+               id that was remapped to i); identity for synthetic graphs.
+    """
+
+    indptr: np.ndarray
+    indices: np.ndarray
+    raw_ids: np.ndarray
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.indptr.shape[0] - 1)
+
+    @property
+    def num_edges(self) -> int:
+        """Number of undirected edges E (indices stores both directions)."""
+        return int(self.indices.shape[0] // 2)
+
+    @property
+    def num_directed_edges(self) -> int:
+        return int(self.indices.shape[0])
+
+    @functools.cached_property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int64)
+
+    @functools.cached_property
+    def src(self) -> np.ndarray:
+        """(2E,) int32 source node of each directed edge, aligned with indices."""
+        return np.repeat(
+            np.arange(self.num_nodes, dtype=np.int32), self.degrees
+        )
+
+    @property
+    def dst(self) -> np.ndarray:
+        """(2E,) int32 destination node of each directed edge (= indices)."""
+        return self.indices
+
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.indices[self.indptr[u] : self.indptr[u + 1]]
+
+    def to_device(self, device: Optional[torch.device]) -> "DeviceCSR":
+        return DeviceCSR(
+            indptr=torch.as_tensor(np.asarray(self.indptr, np.int64), device=device),
+            indices=torch.as_tensor(np.asarray(self.indices, np.int32), device=device),
+            src=torch.as_tensor(self.src.astype(np.int64), device=device),
+            dst=torch.as_tensor(self.indices.astype(np.int64), device=device),
+        )
+
+
+class DeviceCSR(NamedTuple):
+    """The CSR on a device. `indptr`/`indices` feed the CUDA kernels;
+    `src`/`dst` (int64 directed-edge endpoints, CSR order) feed the plain
+    torch edge sweeps."""
+
+    indptr: torch.Tensor    # (N+1,) int64
+    indices: torch.Tensor   # (2E,) int32
+    src: torch.Tensor       # (2E,) int64
+    dst: torch.Tensor       # (2E,) int64
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.indptr.shape[0] - 1)
+
+    @property
+    def num_directed_edges(self) -> int:
+        return int(self.indices.shape[0])

@@ -1,0 +1,170 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/<name>.cu` (with the shared `csrc/*.cuh` headers) is compiled
+by `nvcc` for Hopper (`sm_90a`) into an object, one nvcc per source, all
+started together; the objects are linked into one shared library with a
+plain C interface, loaded with `ctypes`. The library lands in
+`bigclam_tpu_torch/_build/`, named by a hash of the sources and flags, so
+a changed source rebuilds and an unchanged tree loads at once. It is built
+at first use; nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+SOURCES = ("fused_superstep", "grad_llh", "candidates")
+
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",                # registers / spills into the build log
+)
+LINK_FLAGS = (*ARCH, "-shared")
+
+# ctypes argument types of the C entries: every pointer and the stream as
+# c_void_p (a plain int would be cut to 32 bits)
+P, I, R = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRIES = {
+    # F, sumF, indptr, indices, n, K, etas, coefs, num_s, omp_lo, omp_hi,
+    # min_f, max_f, F_new, grad, node_llh, ok, stream
+    "bigclam_fused_superstep": [P, P, P, P, I, I, P, P, I, R, R, R, R, P, P, P, P, P],
+    # F, sumF, indptr, indices, n, K, omp_lo, omp_hi, grad, node_llh, stream
+    "bigclam_grad_llh": [P, P, P, P, I, I, R, R, P, P, P],
+    # F, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
+    # min_f, max_f, cand, stream
+    "bigclam_candidates": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A CUDA kernel launch was refused."""
+
+
+def nvcc_path() -> str:
+    cands = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels build only where the CUDA toolkit is "
+        "installed"
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    paths = [CSRC_DIR / f"{n}.cu" for n in SOURCES] + sorted(CSRC_DIR.glob("*.cuh"))
+    for path in paths:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libbigclam-{source_hash()}.so"
+
+
+def build() -> dict:
+    """Build the kernel library unless it is there: one nvcc per source,
+    all started together, then one link. Returns {"seconds", "cached",
+    "logs"} ("logs" holds each source's ptxas register and spill report).
+    Raises KernelBuildError naming every failed source."""
+    final = library_path()
+    if final.exists():
+        return {"seconds": 0.0, "cached": True, "logs": {}}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="work-"))
+    try:
+        procs = {
+            name: subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c",
+                 "-o", str(work / f"{name}.o"), str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for name in SOURCES
+        }
+        logs, failed = {}, []
+        for name, proc in procs.items():
+            logs[name], _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc rc {proc.returncode}):\n{logs[name]}")
+        if failed:
+            raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(work / "lib.so"),
+             *(str(work / f"{name}.o") for name in SOURCES)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise KernelBuildError(
+                f"kernel link failed (nvcc rc {link.returncode}):\n{link.stdout}"
+            )
+        os.replace(work / "lib.so", final)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"seconds": time.perf_counter() - t0, "cached": False, "logs": logs}
+
+
+_LIBRARY: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed, with every C entry
+    of ENTRIES bound (argtypes set, int cudaError_t return) and
+    `bigclam_error_string(int)`."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        path = library_path()
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        lib.bigclam_error_string.argtypes = [I]
+        lib.bigclam_error_string.restype = ctypes.c_char_p
+        for entry, argtypes in ENTRIES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = I
+        _LIBRARY = lib
+    return _LIBRARY
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise KernelLaunchError when a C entry returned a CUDA error."""
+    if rc != 0:
+        msg = lib.bigclam_error_string(rc).decode()
+        raise KernelLaunchError(f"{what} launch failed: {msg} (cuda error {rc})")
+
+
+def stream_handle(device) -> int:
+    """The current torch stream of `device` as a raw cudaStream_t."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,190 @@
+"""The split CSR edge kernels (path `csr`): per-node gradient + LLH
+(kernel B) and the full Armijo candidate LLH (kernel C).
+
+Port of bigclam_tpu/ops/pallas_csr.py `grad_llh_csr` and
+`candidates_csr`. The CUDA sources are csrc/grad_llh.cu and
+csrc/candidates.cu (one warp per node over the graph's CSR, see their
+headers for the design and what bounds each on an H100). Each wrapper:
+
+* on CPU tensors runs its plain PyTorch version (the same function,
+  edge-chunked; the CPU tests hold it against the JAX kernels in
+  interpret mode);
+* on CUDA tensors checks device, dtype, contiguity and shapes, launches
+  its kernel and counts the launch in `<wrapper>.launches`, or raises.
+  It never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from bigclam_tpu_torch.config import BigClamConfig
+from bigclam_tpu_torch.graph.csr import DeviceCSR
+from bigclam_tpu_torch.ops import build
+from bigclam_tpu_torch.ops.linesearch import candidates_pass, step_etas
+from bigclam_tpu_torch.ops.objective import EdgeChunks, edge_chunk_bound, grad_llh
+
+# kernel bounds (csrc/edge_common.cuh): 32 columns per lane, 16 candidates
+MAX_K = 1024
+MAX_S = 16
+
+
+class KernelKLimitError(ValueError):
+    """K above what the single-pass CUDA kernels hold in registers."""
+
+
+def edge_chunks(F: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig) -> EdgeChunks:
+    """The CSR's directed edges, chunked for the plain versions."""
+    return EdgeChunks(
+        csr.src, csr.dst,
+        edge_chunk_bound(cfg, F.shape[1], F.element_size()),
+    )
+
+
+def kernel_constants(cfg: BigClamConfig) -> dict:
+    """The scalars the kernels take, rounded to float32 as the JAX kernels
+    see them: step sizes, float32(alpha*eta) (the fused kernel's threshold
+    coefficient, product taken in float64), and the clip bounds
+    1-max_p / 1-min_p (computed in float64)."""
+    etas = cfg.step_candidates
+    if len(etas) > MAX_S:
+        raise ValueError(
+            f"the CUDA kernels take at most {MAX_S} step candidates, "
+            f"got {len(etas)} (max_backtracks={cfg.max_backtracks})"
+        )
+    return {
+        "etas": np.asarray(etas, np.float32),
+        "coefs": np.asarray([cfg.alpha * e for e in etas], np.float32),
+        "num_s": len(etas),
+        "omp_lo": float(np.float32(1.0 - cfg.max_p)),
+        "omp_hi": float(np.float32(1.0 - cfg.min_p)),
+        "min_f": float(np.float32(cfg.min_f)),
+        "max_f": float(np.float32(cfg.max_f)),
+    }
+
+
+def check_cuda_inputs(F: torch.Tensor, csr: DeviceCSR, *vecs, rows=()) -> None:
+    """Validate what the CUDA kernels take: float32, contiguous, on one
+    cuda device; (n, K) matrices with K <= MAX_K; (K,) vectors; int64
+    indptr of n+1 entries and int32 indices."""
+    if F.dim() != 2:
+        raise ValueError(f"F must be (n, K), got {tuple(F.shape)}")
+    n, k = F.shape
+    if k > MAX_K:
+        raise KernelKLimitError(
+            f"K={k} exceeds the single-pass CUDA kernels' bound of {MAX_K} "
+            "columns; larger K needs the K-blocked fused path "
+            "(csr_fused_kb), a later slice of the port"
+        )
+    if k < 1:
+        raise ValueError("F needs at least one column")
+    for name, t, shape in (
+        [("F", F, (n, k))]
+        + [(f"row matrix {i}", t, (n, k)) for i, t in enumerate(rows)]
+        + [(f"vector {i}", t, (k,)) for i, t in enumerate(vecs)]
+    ):
+        if t.device != F.device:
+            raise ValueError(f"{name} is on {t.device}, F on {F.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if csr.indptr.device != F.device or csr.indices.device != F.device:
+        raise ValueError("the CSR must be on F's device")
+    if csr.indptr.dtype != torch.int64 or tuple(csr.indptr.shape) != (n + 1,):
+        raise ValueError("indptr must be int64 of n+1 entries")
+    if csr.indices.dtype != torch.int32 or not csr.indices.is_contiguous():
+        raise ValueError("indices must be contiguous int32")
+
+
+# --- kernel B: gradient + node LLH -----------------------------------------
+
+
+def grad_llh_csr_plain(
+    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch kernel B: (grad (n,K), node_llh (n,)), the -sumF + F
+    fold and the node tail included."""
+    return grad_llh(F, sumF, edge_chunks(F, csr, cfg), cfg)
+
+
+def grad_llh_csr(
+    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-node gradient + LLH (kernel B; counterpart of the TPU
+    `grad_llh_csr`). Returns (grad (n,K), node_llh (n,))."""
+    if F.device.type == "cpu":
+        return grad_llh_csr_plain(F, sumF, csr, cfg)
+    check_cuda_inputs(F, csr, sumF)
+    c = kernel_constants(cfg)
+    n, k = F.shape
+    grad = torch.empty_like(F)
+    node_llh = torch.empty(n, dtype=F.dtype, device=F.device)
+    lib = build.load_library()
+    rc = lib.bigclam_grad_llh(
+        F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
+        csr.indices.data_ptr(), n, k, c["omp_lo"], c["omp_hi"],
+        grad.data_ptr(), node_llh.data_ptr(), build.stream_handle(F.device),
+    )
+    build.check_launch(lib, rc, "grad_llh")
+    grad_llh_csr.launches += 1
+    return grad, node_llh
+
+
+grad_llh_csr.launches = 0
+
+
+# --- kernel C: candidate LLH, tails included --------------------------------
+
+
+def candidates_csr_plain(
+    F: torch.Tensor,
+    grad: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+) -> torch.Tensor:
+    """Plain PyTorch kernel C: (S, n) full candidate LLH, the neighbor
+    terms plus the Armijo tails nf.(F - sumF) (the TPU kernel's form)."""
+    fms = F - sumF[None, :]
+    tails = torch.stack([
+        (torch.clamp(F + eta * grad, cfg.min_f, cfg.max_f) * fms).sum(dim=1)
+        for eta in step_etas(cfg, F)
+    ])
+    return tails + candidates_pass(F, grad, edge_chunks(F, csr, cfg), cfg)
+
+
+def candidates_csr(
+    F: torch.Tensor,
+    grad: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+) -> torch.Tensor:
+    """FULL candidate LLH (neighbor terms + Armijo tails) for every step
+    (kernel C; counterpart of the TPU `candidates_csr`). Returns (S, n);
+    feed it to armijo_select, not armijo_update."""
+    if F.device.type == "cpu":
+        return candidates_csr_plain(F, grad, sumF, csr, cfg)
+    check_cuda_inputs(F, csr, sumF, rows=(grad,))
+    c = kernel_constants(cfg)
+    n, k = F.shape
+    cand = torch.empty((c["num_s"], n), dtype=F.dtype, device=F.device)
+    lib = build.load_library()
+    rc = lib.bigclam_candidates(
+        F.data_ptr(), grad.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
+        csr.indices.data_ptr(), n, k, c["etas"].ctypes.data, c["num_s"],
+        c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"], cand.data_ptr(),
+        build.stream_handle(F.device),
+    )
+    build.check_launch(lib, rc, "candidates")
+    candidates_csr.launches += 1
+    return cand
+
+
+candidates_csr.launches = 0

@@ -1,0 +1,233 @@
+"""The plain versions of the port's three CUDA kernels against the JAX
+package's Pallas kernels in interpret mode (as tests/test_fused.py runs
+them: block 8, tile 8, float32), and — on a card only — each CUDA kernel
+against its plain version.
+
+Tolerances: F_new, grad and node_llh at rtol = atol = 3e-5 (the float32
+band tests/test_fused.py holds fused vs split vs xla to). The 0/1
+acceptance mask must be equal except where
+|cand - threshold| <= 1e-5 * max(1, |threshold|): a near-tie that another
+summation order may flip. F_new rows are compared wherever the chosen
+(largest accepted) step agrees, which includes every row whose whole
+mask agrees.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from bigclam_tpu.config import BigClamConfig as JaxConfig
+from bigclam_tpu.graph.ingest import graph_from_edges as jax_graph_from_edges
+from bigclam_tpu.ops.csr_tiles import build_block_tiles
+from bigclam_tpu.ops.pallas_csr import candidates_csr as jax_candidates_csr
+from bigclam_tpu.ops.pallas_csr import device_tiles
+from bigclam_tpu.ops.pallas_csr import grad_llh_csr as jax_grad_llh_csr
+from bigclam_tpu.ops.pallas_fused import fused_superstep_csr
+
+from bigclam_tpu_torch.config import BigClamConfig
+from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.ops import csr_kernels as ck
+from bigclam_tpu_torch.ops import fused
+
+torch.set_num_threads(2)
+
+RTOL = ATOL = 3e-5
+TIE = 1e-5
+
+
+def _random_graph(seed, n=57, p=0.12, isolated=()):
+    """tests/test_fused.py's random graph, optionally with isolated nodes
+    (their edges removed; node count unchanged)."""
+    rng = np.random.default_rng(seed)
+    a = rng.random((n, n)) < p
+    edges = [(i, j) for i in range(n) for j in range(i + 1, n) if a[i, j]]
+    edges.append((0, n - 1))
+    edges = [e for e in edges if e[0] not in isolated and e[1] not in isolated]
+    return jax_graph_from_edges(edges, num_nodes=n)
+
+
+# (graph seed, K, isolated nodes, all-zero F row, Armijo ladder length)
+CASES = {
+    "fused_test_graph": (0, 6, (), None, 16),
+    "isolated_nodes": (1, 5, (3, 20), None, 16),
+    "k_not_multiple_of_pad": (2, 37, (), 11, 16),
+    "short_ladder": (3, 12, (), None, 8),
+}
+
+
+def _case(name):
+    seed, k, isolated, zero_row, num_s = CASES[name]
+    g = _random_graph(seed, isolated=isolated)
+    assert all(g.degrees[u] == 0 for u in isolated)
+    F = np.random.default_rng(seed + 10).uniform(0.0, 1.0, (g.num_nodes, k))
+    if zero_row is not None:
+        F[zero_row] = 0.0
+    cfg = JaxConfig(num_communities=k, max_backtracks=num_s - 1)
+    return g, F.astype(np.float32), cfg
+
+
+def _jax_tiles(g, with_seq):
+    return device_tiles(build_block_tiles(g, 8, 8), jnp.float32, with_seq=with_seq)
+
+
+def _jax_F(F, n_pad):
+    Fp = np.zeros((n_pad, F.shape[1]), np.float32)
+    Fp[: F.shape[0]] = F
+    return jnp.asarray(Fp)
+
+
+def _port(g, F, jcfg):
+    cfg = BigClamConfig(**dataclasses.asdict(jcfg))
+    csr = Graph(g.indptr, g.indices, g.raw_ids).to_device(torch.device("cpu"))
+    Ft = torch.as_tensor(F)
+    return Ft, Ft.sum(dim=0), csr, cfg
+
+
+def _same_step_rows(ok_a, ok_b):
+    """Nodes whose chosen step (first accepted candidate, or none) agrees."""
+    ok_a, ok_b = np.asarray(ok_a, bool), np.asarray(ok_b, bool)
+    first = lambda ok: np.where(ok.any(axis=0), ok.argmax(axis=0), -1)  # noqa: E731
+    return first(ok_a) == first(ok_b)
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_grad_plain_matches_pallas_grad_llh_csr(case):
+    g, F, jcfg = _case(case)
+    n = g.num_nodes
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    grad_p, llh_p = ck.grad_llh_csr(Ft, sumF, csr, cfg)        # cpu: plain
+    tiles = _jax_tiles(g, with_seq=False)
+    Fj = _jax_F(F, tiles.n_pad)
+    grad_j, llh_j = jax_grad_llh_csr(Fj, Fj.sum(axis=0), tiles, jcfg, interpret=True)
+    _close(grad_p.numpy(), np.asarray(grad_j)[:n])
+    _close(llh_p.numpy(), np.asarray(llh_j)[:n])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_candidates_plain_matches_pallas_candidates_csr(case):
+    g, F, jcfg = _case(case)
+    n = g.num_nodes
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    grad, _ = ck.grad_llh_csr(Ft, sumF, csr, cfg)
+    cand_p = ck.candidates_csr(Ft, grad, sumF, csr, cfg)
+    tiles = _jax_tiles(g, with_seq=False)
+    Fj = _jax_F(F, tiles.n_pad)
+    gj = _jax_F(grad.numpy(), tiles.n_pad)
+    cand_j = jax_candidates_csr(Fj, gj, Fj.sum(axis=0), tiles, jcfg, interpret=True)
+    assert cand_p.shape == (len(cfg.step_candidates), n)
+    _close(cand_p.numpy(), np.asarray(cand_j)[:, :n])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_plain_matches_pallas_fused_superstep(case):
+    g, F, jcfg = _case(case)
+    n = g.num_nodes
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    Fn_p, grad_p, llh_p, ok_p = fused.fused_superstep(Ft, sumF, csr, cfg)
+    _, _, cand, thr = fused.acceptance_inputs_plain(Ft, sumF, csr, cfg)
+    tiles = _jax_tiles(g, with_seq=True)
+    Fj = _jax_F(F, tiles.n_pad)
+    Fn_j, grad_j, llh_j, ok_j = fused_superstep_csr(
+        Fj, Fj.sum(axis=0), tiles, jcfg, interpret=True
+    )
+    _close(grad_p.numpy(), np.asarray(grad_j)[:n])
+    _close(llh_p.numpy(), np.asarray(llh_j)[:n])
+    ok_j = np.asarray(ok_j)[:, :n] > 0
+    diff = ok_p.numpy() != ok_j
+    tie = np.abs((cand - thr).numpy()) <= TIE * np.maximum(1.0, np.abs(thr.numpy()))
+    assert not (diff & ~tie).any(), "acceptance differs away from a near-tie"
+    rows = _same_step_rows(ok_p.numpy(), ok_j)
+    assert rows.sum() > n // 2
+    _close(Fn_p.numpy()[rows], np.asarray(Fn_j)[:n][rows])
+
+
+def test_zero_isolated_row_stays_put():
+    """An all-zero isolated row is inert (grad = -sumF <= 0 clips back to
+    zero, as padding rows are); an isolated node gets only its tail
+    terms."""
+    g, F, jcfg = _case("isolated_nodes")
+    F[20] = 0.0                                     # isolated, all zero
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    Fn, grad, llh, ok = fused.fused_superstep(Ft, sumF, csr, cfg)
+    assert torch.all(Fn[20] == 0) and not ok[:, 20].any()
+    u = 3                                           # isolated
+    tail = float(-(Ft[u] @ sumF) + (Ft[u] * Ft[u]).sum())
+    np.testing.assert_allclose(float(llh[u]), tail, rtol=1e-6)
+    np.testing.assert_allclose(grad[u].numpy(), (Ft[u] - sumF).numpy(), rtol=1e-6)
+
+
+def test_cuda_input_checks_name_the_k_limit():
+    """The CUDA wrappers' input checks run before any launch: K above the
+    single-pass bound raises the named error pointing at csr_fused_kb."""
+    g, F, jcfg = _case("fused_test_graph")
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    wide = torch.zeros((g.num_nodes, ck.MAX_K + 1))
+    with pytest.raises(ck.KernelKLimitError, match="csr_fused_kb"):
+        ck.check_cuda_inputs(wide, csr, torch.zeros(ck.MAX_K + 1))
+    with pytest.raises(TypeError, match="float32"):
+        ck.check_cuda_inputs(Ft.double(), csr, sumF.double())
+    with pytest.raises(ValueError, match="shape"):
+        ck.check_cuda_inputs(Ft, csr, sumF[:-1])
+    ck.check_cuda_inputs(Ft, csr, sumF, rows=(Ft,))        # well-formed
+
+
+def test_kernel_constants_are_float32_rounded():
+    c = ck.kernel_constants(BigClamConfig())
+    assert c["num_s"] == 16 and c["etas"].dtype == np.float32
+    assert c["coefs"][3] == np.float32(0.05 * BigClamConfig().step_candidates[3])
+    assert c["omp_lo"] == float(np.float32(1.0 - 0.9999))
+    with pytest.raises(ValueError, match="16 step candidates"):
+        ck.kernel_constants(BigClamConfig(max_backtracks=16))
+
+
+# --- on the card ------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernels_match_plain(case, cuda_device):
+    g, F, jcfg = _case(case)
+    Ft, sumF, csr, cfg = _port(g, F, jcfg)
+    Ft, sumF = Ft.to(cuda_device), sumF.to(cuda_device)
+    csr = Graph(g.indptr, g.indices, g.raw_ids).to_device(cuda_device)
+    grad_p, llh_p, cand_p, thr_p = fused.acceptance_inputs_plain(Ft, sumF, csr, cfg)
+    before = fused.launch_counts()
+    grad_k, llh_k = ck.grad_llh_csr(Ft, sumF, csr, cfg)
+    cand_k = ck.candidates_csr(Ft, grad_p, sumF, csr, cfg)
+    Fn_k, g_k, l_k, ok_k = fused.fused_superstep(Ft, sumF, csr, cfg)
+    Fn_p, _, _, ok_p = fused.fused_superstep_plain(Ft, sumF, csr, cfg)
+    torch.cuda.synchronize()
+    after = fused.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+    for a, b in ((grad_k, grad_p), (llh_k, llh_p), (cand_k, cand_p),
+                 (g_k, grad_p), (l_k, llh_p)):
+        _close(a.cpu().numpy(), b.cpu().numpy())
+    diff = (ok_k != ok_p).cpu().numpy()
+    tie = ((cand_p - thr_p).abs() <= TIE * thr_p.abs().clamp_min(1.0)).cpu().numpy()
+    assert not (diff & ~tie).any()
+    rows = _same_step_rows(ok_k.cpu().numpy(), ok_p.cpu().numpy())
+    _close(Fn_k.cpu().numpy()[rows], Fn_p.cpu().numpy()[rows])
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_above_k_bound(cuda_device):
+    g, _, _ = _case("fused_test_graph")
+    csr = Graph(g.indptr, g.indices, g.raw_ids).to_device(cuda_device)
+    F = torch.zeros((g.num_nodes, ck.MAX_K + 32), device=cuda_device)
+    with pytest.raises(ck.KernelKLimitError):
+        fused.fused_superstep(F, F.sum(0), csr, BigClamConfig())
