@@ -10,9 +10,11 @@ same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`, `k`,
 
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 --device cpu
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 3000   # csr_fused_kb
 
 It runs on `cuda` unless `--device cpu` is given, and refuses to start
-when no card is present.
+when no card is present. Above K = 1024 the model takes the K-blocked
+path by itself (`kernel_path` in the JSON says which).
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     f.add_argument(
         "--csr-fused", default="auto", choices=["auto", "off"],
-        help="fused superstep kernel (auto: wherever the CSR kernels "
-             "engage; off: the split gradient/candidate kernel pair)",
+        help="fused schedule (auto: wherever the CSR kernels engage — "
+             "`csr_fused`, or `csr_fused_kb` above K=1024; off: the split "
+             "schedule — `csr`, or `csr_grouped_kb` above K=1024)",
     )
     f.add_argument(
         "--dtype", default="float32", choices=["float32", "float64"],

@@ -1,5 +1,8 @@
-// Shared device code of the three BigCLAM edge kernels for Hopper
-// (fused_superstep.cu, grad_llh.cu, candidates.cu).
+// Shared device code of the BigCLAM edge kernels for Hopper: the
+// single-pass ones (fused_superstep.cu, grad_llh.cu, candidates.cu) and the
+// K-blocked ones (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu,
+// cand_from_x.cu), which take a window of at most kMaxK columns of wider
+// rows.
 //
 // Layout: the kernels read the graph's CSR directly. One warp owns one
 // source node u; its neighbours are the contiguous slice
@@ -178,6 +181,43 @@ __device__ __forceinline__ void store_row(float* __restrict__ M, int64_t row,
   }
 }
 
+// Column windows of the K-blocked kernels (edge_dots_kb.cu, grad_from_x.cu,
+// cand_dots_kb.cu): lane j holds the columns col0 + j + 32 i of `row` in a
+// matrix of row stride `stride`; window columns at or past kc load as 0 and
+// are not stored.
+template <int KPL>
+__device__ __forceinline__ void load_window(const float* __restrict__ M,
+                                            int64_t row, int64_t stride,
+                                            int col0, int kc, int lane,
+                                            float (&r)[KPL]) {
+  const float* p = M + row * stride + col0;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int k = lane + kWarp * i;
+    r[i] = k < kc ? __ldg(p + k) : 0.f;
+  }
+}
+
+template <int KPL>
+__device__ __forceinline__ void store_window(float* __restrict__ M,
+                                             int64_t row, int64_t stride,
+                                             int col0, int kc, int lane,
+                                             const float (&r)[KPL]) {
+  float* p = M + row * stride + col0;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int k = lane + kWarp * i;
+    if (k < kc) p[k] = r[i];
+  }
+}
+
+// The window arguments every K-blocked entry takes: a window of kc in
+// [1, kMaxK] columns starting at col0 inside rows of k_pad columns.
+inline bool window_ok(int k_pad, int col0, int kc) {
+  return kc >= 1 && kc <= kMaxK && col0 >= 0 &&
+         static_cast<int64_t>(col0) + kc <= k_pad;
+}
+
 // Calls body(v) for every neighbour v of u, in CSR order. The warp reads 32
 // neighbour ids at once (one per lane) and broadcasts them by shuffle, so
 // the row loads do not wait on a dependent index load per edge.
@@ -192,6 +232,21 @@ __device__ __forceinline__ void for_each_neighbor(
     const int cnt = rem < kWarp ? static_cast<int>(rem) : kWarp;
     const int mine = lane < cnt ? __ldg(indices + base + lane) : 0;
     for (int j = 0; j < cnt; ++j) body(__shfl_sync(kFull, mine, j));
+  }
+}
+
+// for_each_neighbor that also passes the edge's CSR position: body(e, v).
+template <typename Body>
+__device__ __forceinline__ void for_each_neighbor_at(
+    const int64_t* __restrict__ indptr, const int* __restrict__ indices,
+    int u, int lane, Body&& body) {
+  const int64_t e0 = indptr[u];
+  const int64_t e1 = indptr[u + 1];
+  for (int64_t base = e0; base < e1; base += kWarp) {
+    const int64_t rem = e1 - base;
+    const int cnt = rem < kWarp ? static_cast<int>(rem) : kWarp;
+    const int mine = lane < cnt ? __ldg(indices + base + lane) : 0;
+    for (int j = 0; j < cnt; ++j) body(base + j, __shfl_sync(kFull, mine, j));
   }
 }
 

@@ -5,13 +5,20 @@ One outer iteration is
 
     grad/LLH pass  ->  16-candidate Armijo pass  ->  masked Jacobi update
 
-on one of three kernel paths, named as in the JAX package:
+on one of five kernel paths, named as in the JAX package:
 
-* `csr_fused` — one launch of the fused superstep kernel per iteration
-  (ops.fused; the default wherever the CSR kernels engage);
-* `csr`       — the split pair: the gradient kernel, then the candidate
-  kernel, then the selection in torch (ops.csr_kernels);
-* `xla`       — the plain torch edge sweeps (ops.objective /
+* `csr_fused`      — one launch of the fused superstep kernel per
+  iteration (ops.fused; the default wherever the CSR kernels engage and
+  K fits one warp's row, round_up(K, 32) <= 1024);
+* `csr`            — the split pair: the gradient kernel, then the
+  candidate kernel, then the selection in torch (ops.csr_kernels);
+* `csr_fused_kb`   — large K: the K-blocked pass over windows of kc <= 1024
+  columns (ops.kblocked; the -sumF + F fold in the gradient kernel), then
+  the node tail, Armijo tails and selection in torch. Taken by itself
+  above K = 1024, or for any K with cfg.csr_k_block > 0;
+* `csr_grouped_kb` — its split twin (csr_fused=False): the same four
+  kernels with the fold done in torch;
+* `xla`            — the plain torch edge sweeps (ops.objective /
   ops.linesearch), chunked over edges.
 
 Auto mode (cfg.use_pallas_csr=None) engages the CSR kernels on `cuda` and
@@ -22,7 +29,9 @@ the relative LLH change falls below conv_tol.
 
 The CUDA kernels read the graph's CSR directly, so rows are never padded
 (n_pad == N). K is padded to a multiple of 32 on the CSR paths (warp-wide
-rows); padding columns stay zero only with min_f == 0, which is checked.
+rows), and on the K-blocked paths further to a whole number of K blocks
+(`k_block_plan`); padding columns stay zero only with min_f == 0, which is
+checked.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     grad_llh_csr,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
+from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked
 from bigclam_tpu_torch.ops.linesearch import (
     accept_stats,
     armijo_select,
@@ -54,6 +64,7 @@ from bigclam_tpu_torch.ops.objective import (
     accum_dtype,
     edge_chunk_bound,
     grad_llh,
+    node_tail,
 )
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
 
@@ -101,6 +112,38 @@ def csr_fused_want(cfg: BigClamConfig) -> bool:
     """The fused superstep engages wherever the CSR kernels do, unless
     csr_fused=False asks for the split pair."""
     return cfg.csr_fused is not False
+
+
+def k_block_plan(num_communities: int, csr_k_block: int = 0) -> tuple[int, int]:
+    """(kc, k_pad) of the CSR paths: kc columns per K block (0: one pass
+    over whole rows) and the padded K.
+
+    csr_k_block > 0 forces K blocks of that width (the JAX package's test
+    hook, bigclam_tpu/models/bigclam.py:1328-1331): k_pad =
+    round_up(round_up(K, 32), kc). Otherwise rows of round_up(K, 32) <=
+    MAX_K columns take the single-pass kernels, and wider ones the fewest
+    blocks of at most MAX_K columns, each a multiple of 32: K = 3,000
+    gives (1024, 3072), K = 1,100 gives (576, 1152)."""
+    k32 = _round_up(num_communities, CSR_K_MULTIPLE)
+    if csr_k_block > 0:
+        return csr_k_block, _round_up(k32, csr_k_block)
+    if k32 <= MAX_K:
+        return 0, k32
+    n_kb = -(-k32 // MAX_K)
+    kc = _round_up(-(-k32 // n_kb), CSR_K_MULTIPLE)
+    return kc, n_kb * kc
+
+
+def check_k_block(kc: int, device: torch.device) -> None:
+    """The CUDA kernels take windows of at most MAX_K columns; only an
+    explicit csr_k_block can ask for more (the CPU plain versions take any
+    width)."""
+    if device.type == "cuda" and kc > MAX_K:
+        raise KernelKLimitError(
+            f"csr_k_block={kc} exceeds the K-blocked CUDA kernels' window of "
+            f"{MAX_K} columns; leave csr_k_block at 0 and the model picks "
+            "the K blocks itself (csr_fused_kb above K = 1024)"
+        )
 
 
 # --- host initializers (copied bit-identically from the JAX package) -----
@@ -160,9 +203,10 @@ def _rel_change(new: float, old: float) -> float:
 
 
 def make_train_step(
-    csr, edges: EdgeChunks, cfg: BigClamConfig, path: str
+    csr, edges: EdgeChunks, cfg: BigClamConfig, path: str, kc: int = 0
 ) -> Callable[[TrainState], TrainState]:
-    """The one-iteration update on kernel path `path`."""
+    """The one-iteration update on kernel path `path` (kc: the K block of
+    the K-blocked paths)."""
 
     def fused_step(state: TrainState) -> TrainState:
         F = state.F
@@ -197,7 +241,29 @@ def make_train_step(
             accept_hist=hist,
         )
 
-    steps = {"csr_fused": fused_step, "csr": split_step, "xla": xla_step}
+    def kblocked_step(state: TrainState) -> TrainState:
+        # large K: neighbour terms from the K-blocked kernels; the node
+        # tail, the Armijo tails and the selection in torch, as the JAX
+        # step does (candidate terms are neighbour-only)
+        F, sumF = state.F, state.sumF
+        adt = accum_dtype(cfg, F)
+        grad, llh_nbr, cand_nbr = train_pass_kblocked(
+            F, sumF, csr, cfg, kc, fold=path == "csr_fused_kb"
+        )
+        node_llh = llh_nbr.to(adt) + node_tail(F, sumF).to(adt)
+        F_new, sumF_new, hist = armijo_update(
+            F, sumF, grad, node_llh, cand_nbr.to(adt), cfg, with_stats=True
+        )
+        return TrainState(
+            F=F_new, sumF=sumF_new, llh=node_llh.sum(), it=state.it + 1,
+            accept_hist=hist,
+        )
+
+    steps = {
+        "csr_fused": fused_step, "csr": split_step,
+        "csr_fused_kb": kblocked_step, "csr_grouped_kb": kblocked_step,
+        "xla": xla_step,
+    }
     return steps[path]
 
 
@@ -314,16 +380,16 @@ class BigClamModel:
                 f"requires float32 F/accum (dtype={self.dtype}, "
                 f"accum_dtype={cfg.accum_dtype})"
             )
+        self.kc = 0
         if want:
-            self.k_pad = _round_up(self.k_pad, CSR_K_MULTIPLE)
-            if self.device.type == "cuda" and self.k_pad > MAX_K:
-                raise KernelKLimitError(
-                    f"K={cfg.num_communities} (k_pad={self.k_pad}) exceeds "
-                    f"the single-pass CUDA kernels' bound of {MAX_K}; larger "
-                    "K needs the K-blocked fused path (csr_fused_kb), a "
-                    "later slice of the port"
+            self.kc, self.k_pad = k_block_plan(cfg.num_communities, cfg.csr_k_block)
+            check_k_block(self.kc, self.device)
+            if self.kc:
+                self.engaged_path = (
+                    "csr_fused_kb" if csr_fused_want(cfg) else "csr_grouped_kb"
                 )
-            self.engaged_path = "csr_fused" if csr_fused_want(cfg) else "csr"
+            else:
+                self.engaged_path = "csr_fused" if csr_fused_want(cfg) else "csr"
         else:
             self.engaged_path = "xla"
         self.path_reason = reason
@@ -340,7 +406,7 @@ class BigClamModel:
             edge_chunk_bound(cfg, self.k_pad, itemsize),
         )
         self._step = make_train_step(
-            self.csr, self.edges, cfg, self.engaged_path
+            self.csr, self.edges, cfg, self.engaged_path, self.kc
         )
 
     def init_state(self, F0: Optional[np.ndarray] = None) -> TrainState:

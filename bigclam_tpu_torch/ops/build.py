@@ -27,7 +27,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-SOURCES = ("fused_superstep", "grad_llh", "candidates")
+SOURCES = (
+    "fused_superstep", "grad_llh", "candidates",
+    "edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x",
+)
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
@@ -38,7 +41,7 @@ LINK_FLAGS = (*ARCH, "-shared")
 
 # ctypes argument types of the C entries: every pointer and the stream as
 # c_void_p (a plain int would be cut to 32 bits)
-P, I, R = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, R = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
     # F, sumF, indptr, indices, n, K, etas, coefs, num_s, omp_lo, omp_hi,
     # min_f, max_f, F_new, grad, node_llh, ok, stream
@@ -48,6 +51,16 @@ ENTRIES = {
     # F, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
     # min_f, max_f, cand, stream
     "bigclam_candidates": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+    # F, indptr, indices, n, k_pad, col0, kc, x, stream
+    "bigclam_edge_dots_kb": [P, P, P, I, I, I, I, P, P],
+    # x, F, sumF, indptr, indices, n, k_pad, col0, kc, omp_lo, omp_hi, fold,
+    # grad_kb, llh_nbr (null: not written), stream
+    "bigclam_grad_from_x": [P, P, P, P, P, I, I, I, I, R, R, I, P, P, P],
+    # F, grad_kb, indptr, indices, n, E, k_pad, col0, kc, etas, num_s,
+    # omp_lo, omp_hi, min_f, max_f, xc, stream
+    "bigclam_cand_dots_kb": [P, P, P, P, I, L, I, I, I, P, I, R, R, R, R, P, P],
+    # xc, indptr, n, E, num_s, omp_lo, omp_hi, out, stream
+    "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
 }
 
 

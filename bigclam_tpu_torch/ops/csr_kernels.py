@@ -33,7 +33,8 @@ MAX_S = 16
 
 
 class KernelKLimitError(ValueError):
-    """K above what the single-pass CUDA kernels hold in registers."""
+    """More columns than one warp's row (or K-blocked window) holds in
+    registers."""
 
 
 def edge_chunks(F: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig) -> EdgeChunks:
@@ -66,40 +67,53 @@ def kernel_constants(cfg: BigClamConfig) -> dict:
     }
 
 
+def check_float32(device: torch.device, named) -> None:
+    """Each (name, tensor, shape) of `named` is float32, contiguous, of that
+    shape and on `device`."""
+    for name, t, shape in named:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, want {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+
+
+def check_csr(csr: DeviceCSR, n: int, device: torch.device) -> None:
+    """int64 indptr of n+1 entries and contiguous int32 indices on `device`."""
+    if csr.indptr.device != device or csr.indices.device != device:
+        raise ValueError(f"the CSR must be on {device}")
+    if csr.indptr.dtype != torch.int64 or tuple(csr.indptr.shape) != (n + 1,):
+        raise ValueError("indptr must be int64 of n+1 entries")
+    if csr.indices.dtype != torch.int32 or not csr.indices.is_contiguous():
+        raise ValueError("indices must be contiguous int32")
+
+
 def check_cuda_inputs(F: torch.Tensor, csr: DeviceCSR, *vecs, rows=()) -> None:
-    """Validate what the CUDA kernels take: float32, contiguous, on one
-    cuda device; (n, K) matrices with K <= MAX_K; (K,) vectors; int64
-    indptr of n+1 entries and int32 indices."""
+    """Validate what the single-pass CUDA kernels take: float32,
+    contiguous, on one cuda device; (n, K) matrices with K <= MAX_K; (K,)
+    vectors; int64 indptr of n+1 entries and int32 indices."""
     if F.dim() != 2:
         raise ValueError(f"F must be (n, K), got {tuple(F.shape)}")
     n, k = F.shape
     if k > MAX_K:
         raise KernelKLimitError(
             f"K={k} exceeds the single-pass CUDA kernels' bound of {MAX_K} "
-            "columns; larger K needs the K-blocked fused path "
-            "(csr_fused_kb), a later slice of the port"
+            "columns, and these wrappers refuse it; BigClamModel takes the "
+            "K-blocked path (csr_fused_kb, or csr_grouped_kb with "
+            "csr_fused=False) above that bound by itself"
         )
     if k < 1:
         raise ValueError("F needs at least one column")
-    for name, t, shape in (
+    check_float32(
+        F.device,
         [("F", F, (n, k))]
         + [(f"row matrix {i}", t, (n, k)) for i, t in enumerate(rows)]
-        + [(f"vector {i}", t, (k,)) for i, t in enumerate(vecs)]
-    ):
-        if t.device != F.device:
-            raise ValueError(f"{name} is on {t.device}, F on {F.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-    if csr.indptr.device != F.device or csr.indices.device != F.device:
-        raise ValueError("the CSR must be on F's device")
-    if csr.indptr.dtype != torch.int64 or tuple(csr.indptr.shape) != (n + 1,):
-        raise ValueError("indptr must be int64 of n+1 entries")
-    if csr.indices.dtype != torch.int32 or not csr.indices.is_contiguous():
-        raise ValueError("indices must be contiguous int32")
+        + [(f"vector {i}", t, (k,)) for i, t in enumerate(vecs)],
+    )
+    check_csr(csr, n, F.device)
 
 
 # --- kernel B: gradient + node LLH -----------------------------------------

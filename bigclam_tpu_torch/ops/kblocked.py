@@ -1,0 +1,341 @@
+"""The K-blocked edge kernels (paths `csr_fused_kb` and `csr_grouped_kb`):
+large K on one card, kc columns of F at a time.
+
+Port of the single-chip large-K passes of the JAX package,
+bigclam_tpu/ops/pallas_fused.py `train_pass_csr_kblocked_fused` and
+bigclam_tpu/ops/pallas_csr.py `train_pass_csr_grouped_kblocked`. A step
+runs four kernels:
+
+* `edge_dots_kb`   — window share of every edge dot F_u.F_v, added into x
+  (csrc/edge_dots_kb.cu; the TPU's `edge_dots_fused` and `edge_dots_csr`);
+* `grad_from_x_kb` — from the full x, the window's gradient columns
+  (optionally folded with -sumF + F) and the neighbour LLH
+  (csrc/grad_from_x.cu; `grad_nbr_from_x_fused`, `grad_nbr_from_x_csr`);
+* `cand_dots_kb`   — window share of every edge's 16 candidate dots, added
+  into xc (csrc/cand_dots_kb.cu; `cand_dots_fused`, `cand_dots_csr`);
+* `cand_nbr_from_x` — from the full xc, the neighbour candidate LLH
+  (csrc/cand_from_x.cu; `cand_nbr_from_x_csr`).
+
+The TPU keeps two copies of the first three (one DMAs the window in-kernel,
+one takes a gathered fd); on the card a warp reads each neighbour row's
+window directly, so each pair is one kernel. Per-edge arrays (x (E,), xc
+(S, E)) are indexed by CSR position, the order of `DeviceCSR.src/dst`.
+
+Each wrapper runs its plain PyTorch version on CPU tensors; on CUDA tensors
+it checks its inputs, launches its kernel and counts the launch in
+`<wrapper>.launches`, or raises. It never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from bigclam_tpu_torch.config import BigClamConfig
+from bigclam_tpu_torch.graph.csr import DeviceCSR
+from bigclam_tpu_torch.ops import build
+from bigclam_tpu_torch.ops.csr_kernels import (
+    MAX_K,
+    KernelKLimitError,
+    check_csr,
+    check_float32,
+    kernel_constants,
+)
+from bigclam_tpu_torch.ops.linesearch import step_etas
+from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, edge_terms
+
+# plain versions' edge chunking where no config is given (edge_dots_kb)
+_DEFAULT_CFG = BigClamConfig()
+
+
+def _chunks(csr: DeviceCSR, cols: int, like: torch.Tensor, cfg: BigClamConfig):
+    """(lo, src, dst) edge chunks in CSR order, each gather of `cols`
+    columns bounded as the plain edge sweeps bound theirs."""
+    e = csr.num_directed_edges
+    step = edge_chunk_bound(cfg, cols, like.element_size())
+    for lo in range(0, e, step):
+        yield lo, csr.src[lo : lo + step], csr.dst[lo : lo + step]
+
+
+def check_window(F: torch.Tensor, col0: int, kc: int) -> None:
+    """A window of kc in [1, MAX_K] columns inside F's rows."""
+    if F.dim() != 2:
+        raise ValueError(f"F must be (n, K_pad), got {tuple(F.shape)}")
+    if not 1 <= kc <= MAX_K:
+        raise KernelKLimitError(
+            f"a K block of kc={kc} columns is outside the K-blocked CUDA "
+            f"kernels' range 1..{MAX_K} (32 columns per lane)"
+        )
+    if col0 < 0 or col0 + kc > F.shape[1]:
+        raise ValueError(
+            f"window [{col0}, {col0 + kc}) is outside F's {F.shape[1]} columns"
+        )
+
+
+def _check_cuda(F: torch.Tensor, csr: DeviceCSR, col0: int, kc: int, named) -> None:
+    check_window(F, col0, kc)
+    check_float32(F.device, [("F", F, tuple(F.shape)), *named])
+    check_csr(csr, F.shape[0], F.device)
+
+
+# --- edge dots ----------------------------------------------------------------
+
+
+def edge_dots_kb_plain(
+    F: torch.Tensor, csr: DeviceCSR, col0: int, kc: int, x: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch edge_dots_kb: x[e] += F_u[win] . F_v[win]."""
+    Fw = F[:, col0 : col0 + kc]
+    for lo, s, d in _chunks(csr, kc, F, _DEFAULT_CFG):
+        x[lo : lo + s.shape[0]] += (Fw.index_select(0, s) * Fw.index_select(0, d)).sum(dim=1)
+    return x
+
+
+def edge_dots_kb(
+    F: torch.Tensor, csr: DeviceCSR, col0: int, kc: int, x: torch.Tensor
+) -> torch.Tensor:
+    """Add window [col0, col0+kc) of every directed edge's dot F_u.F_v into
+    x (E,), in place; returns x. Over every window in order, x ends as the
+    full dots."""
+    if F.device.type == "cpu":
+        return edge_dots_kb_plain(F, csr, col0, kc, x)
+    _check_cuda(F, csr, col0, kc, [("x", x, (csr.num_directed_edges,))])
+    n, k_pad = F.shape
+    lib = build.load_library()
+    rc = lib.bigclam_edge_dots_kb(
+        F.data_ptr(), csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k_pad,
+        col0, kc, x.data_ptr(), build.stream_handle(F.device),
+    )
+    build.check_launch(lib, rc, "edge_dots_kb")
+    edge_dots_kb.launches += 1
+    return x
+
+
+edge_dots_kb.launches = 0
+
+
+# --- gradient columns from x --------------------------------------------------
+
+
+def grad_from_x_kb_plain(
+    x: torch.Tensor,
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    col0: int,
+    kc: int,
+    cfg: BigClamConfig,
+    fold: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch grad_from_x_kb."""
+    n = F.shape[0]
+    Fw = F[:, col0 : col0 + kc]
+    omp, ell = edge_terms(x, cfg)
+    coeff = 1.0 / omp
+    acc = torch.zeros((n, kc), dtype=F.dtype, device=F.device)
+    for lo, s, d in _chunks(csr, kc, F, cfg):
+        acc.index_add_(0, s, Fw.index_select(0, d) * coeff[lo : lo + s.shape[0], None])
+    llh_nbr = None
+    if col0 == 0:
+        adt = accum_dtype(cfg, F)
+        llh_nbr = torch.zeros(n, dtype=adt, device=F.device).index_add_(
+            0, csr.src, ell.to(adt)
+        )
+    if fold:
+        acc = acc - sumF[None, col0 : col0 + kc] + Fw
+    return acc, llh_nbr
+
+
+def grad_from_x_kb(
+    x: torch.Tensor,
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    col0: int,
+    kc: int,
+    cfg: BigClamConfig,
+    fold: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """From the FULL edge dots x (E,): the gradient columns [col0, col0+kc)
+    (n, kc), sum_v F_v[win]/omp(x) with the -sumF + F fold when `fold`,
+    and the neighbour LLH (n,). The LLH does not depend on the window, so
+    it is computed for the window at col0 == 0 only and is None for the
+    others."""
+    if F.device.type == "cpu":
+        return grad_from_x_kb_plain(x, F, sumF, csr, col0, kc, cfg, fold)
+    _check_cuda(F, csr, col0, kc, [
+        ("x", x, (csr.num_directed_edges,)), ("sumF", sumF, (F.shape[1],)),
+    ])
+    c = kernel_constants(cfg)
+    n, k_pad = F.shape
+    grad_kb = torch.empty((n, kc), dtype=F.dtype, device=F.device)
+    llh_nbr = torch.empty(n, dtype=F.dtype, device=F.device) if col0 == 0 else None
+    lib = build.load_library()
+    rc = lib.bigclam_grad_from_x(
+        x.data_ptr(), F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
+        csr.indices.data_ptr(), n, k_pad, col0, kc, c["omp_lo"], c["omp_hi"],
+        int(bool(fold)), grad_kb.data_ptr(),
+        None if llh_nbr is None else llh_nbr.data_ptr(),
+        build.stream_handle(F.device),
+    )
+    build.check_launch(lib, rc, "grad_from_x")
+    grad_from_x_kb.launches += 1
+    return grad_kb, llh_nbr
+
+
+grad_from_x_kb.launches = 0
+
+
+# --- candidate dots -----------------------------------------------------------
+
+
+def cand_dots_kb_plain(
+    F: torch.Tensor,
+    grad_kb: torch.Tensor,
+    csr: DeviceCSR,
+    col0: int,
+    kc: int,
+    cfg: BigClamConfig,
+    xc: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch cand_dots_kb."""
+    Fw = F[:, col0 : col0 + kc]
+    etas = step_etas(cfg, F)
+    for lo, s, d in _chunks(csr, kc, F, cfg):
+        fs, gs, fd = Fw.index_select(0, s), grad_kb.index_select(0, s), Fw.index_select(0, d)
+        for i in range(etas.shape[0]):
+            nf = torch.clamp(fs + etas[i] * gs, cfg.min_f, cfg.max_f)
+            xc[i, lo : lo + s.shape[0]] += (nf * fd).sum(dim=1)
+    return xc
+
+
+def cand_dots_kb(
+    F: torch.Tensor,
+    grad_kb: torch.Tensor,
+    csr: DeviceCSR,
+    col0: int,
+    kc: int,
+    cfg: BigClamConfig,
+    xc: torch.Tensor,
+) -> torch.Tensor:
+    """Add window [col0, col0+kc) of every edge's candidate dots
+    clip(F_u + eta_s grad_u, min_f, max_f) . F_v into xc (S, E), in place;
+    grad_kb (n, kc) holds the window's (folded) gradient columns. Returns
+    xc."""
+    if F.device.type == "cpu":
+        return cand_dots_kb_plain(F, grad_kb, csr, col0, kc, cfg, xc)
+    c = kernel_constants(cfg)
+    e = csr.num_directed_edges
+    _check_cuda(F, csr, col0, kc, [
+        ("grad_kb", grad_kb, (F.shape[0], kc)), ("xc", xc, (c["num_s"], e)),
+    ])
+    n, k_pad = F.shape
+    lib = build.load_library()
+    rc = lib.bigclam_cand_dots_kb(
+        F.data_ptr(), grad_kb.data_ptr(), csr.indptr.data_ptr(),
+        csr.indices.data_ptr(), n, e, k_pad, col0, kc, c["etas"].ctypes.data,
+        c["num_s"], c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"],
+        xc.data_ptr(), build.stream_handle(F.device),
+    )
+    build.check_launch(lib, rc, "cand_dots_kb")
+    cand_dots_kb.launches += 1
+    return xc
+
+
+cand_dots_kb.launches = 0
+
+
+# --- candidate LLH from xc ----------------------------------------------------
+
+
+def cand_nbr_from_x_plain(
+    xc: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+) -> torch.Tensor:
+    """Plain PyTorch cand_nbr_from_x."""
+    out = torch.zeros((xc.shape[0], csr.num_nodes), dtype=xc.dtype, device=xc.device)
+    for i in range(xc.shape[0]):
+        _, ell = edge_terms(xc[i], cfg)
+        out[i].index_add_(0, csr.src, ell)
+    return out
+
+
+def cand_nbr_from_x(
+    xc: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+) -> torch.Tensor:
+    """NEIGHBOR candidate LLH (S, n) from the FULL candidate dots xc (S, E):
+    sum over each node's edges of log(omp(xc)) + xc. No Armijo tails: feed
+    armijo_update, which adds them."""
+    if xc.device.type == "cpu":
+        return cand_nbr_from_x_plain(xc, csr, cfg)
+    c = kernel_constants(cfg)
+    n, e = csr.num_nodes, csr.num_directed_edges
+    check_float32(xc.device, [("xc", xc, (c["num_s"], e))])
+    check_csr(csr, n, xc.device)
+    out = torch.empty((c["num_s"], n), dtype=xc.dtype, device=xc.device)
+    lib = build.load_library()
+    rc = lib.bigclam_cand_from_x(
+        xc.data_ptr(), csr.indptr.data_ptr(), n, e, c["num_s"], c["omp_lo"],
+        c["omp_hi"], out.data_ptr(), build.stream_handle(xc.device),
+    )
+    build.check_launch(lib, rc, "cand_from_x")
+    cand_nbr_from_x.launches += 1
+    return out
+
+
+cand_nbr_from_x.launches = 0
+
+
+# --- the K-blocked train pass -------------------------------------------------
+
+
+def train_pass_kblocked(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    kc: int,
+    fold: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step's edge work over K blocks of kc columns (kc | F.shape[1]):
+    (1) every block's edge_dots_kb, so x holds the FULL dots before any
+    consumer reads it; (2) per block, grad_from_x_kb then cand_dots_kb on
+    that block's gradient columns; (3) one cand_nbr_from_x. With fold=True
+    the -sumF + F fold runs in the gradient kernel (`csr_fused_kb`), else
+    in torch (`csr_grouped_kb`). Returns (grad (n, K_pad), llh_nbr (n,),
+    cand_nbr (S, n)); the candidate terms are neighbour-only."""
+    n, k_pad = F.shape
+    if kc < 1 or k_pad % kc:
+        raise ValueError(f"K block kc={kc} must divide K_pad={k_pad}")
+    e = csr.num_directed_edges
+    x = torch.zeros(e, dtype=F.dtype, device=F.device)
+    for col0 in range(0, k_pad, kc):
+        edge_dots_kb(F, csr, col0, kc, x)
+    xc = torch.zeros((len(cfg.step_candidates), e), dtype=F.dtype, device=F.device)
+    grads = []
+    for col0 in range(0, k_pad, kc):
+        grad_kb, llh = grad_from_x_kb(x, F, sumF, csr, col0, kc, cfg, fold)
+        if col0 == 0:
+            llh_nbr = llh
+        if not fold:
+            grad_kb = grad_kb - sumF[None, col0 : col0 + kc] + F[:, col0 : col0 + kc]
+        cand_dots_kb(F, grad_kb, csr, col0, kc, cfg, xc)
+        grads.append(grad_kb)
+    cand_nbr = cand_nbr_from_x(xc, csr, cfg)
+    return torch.cat(grads, dim=1), llh_nbr, cand_nbr
+
+
+def reset_launch_counts() -> None:
+    """Set the launch counter of every K-blocked wrapper to 0."""
+    for fn in (edge_dots_kb, grad_from_x_kb, cand_dots_kb, cand_nbr_from_x):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {
+        "edge_dots_kb": edge_dots_kb.launches,
+        "grad_from_x": grad_from_x_kb.launches,
+        "cand_dots_kb": cand_dots_kb.launches,
+        "cand_from_x": cand_nbr_from_x.launches,
+    }

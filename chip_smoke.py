@@ -28,15 +28,37 @@ exits non-zero:
   parity    planted N=2,400, K=100: 5 steps on the card (f32 kernels)
             against the port's CPU `xla` path in float64
 
+and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
+(bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
+k_pad 3,072 in 3 blocks of 1,024 columns):
+
+  kb_graph  that graph, written as a SNAP edge list
+  kb_main   `cli fit --graph` at K=3,000, conductance init, 5 iterations,
+            no --out; path `csr_fused_kb`, per step 3 launches of each
+            window kernel and 1 of cand_from_x, counted from 0 around
+            the fit; the LLH rises
+  kb_split  the same with --csr-fused off (path `csr_grouped_kb`), 2
+            steps; its LLHs equal kb_main's first two within 1e-4
+  kb_full   each K-blocked kernel against its plain version from
+            kb_main's F (x, grad with and without the fold, llh_nbr, xc,
+            cand_nbr), both timed per full step as `full` times them,
+            and the whole step timed split into the kernels and the
+            torch node tail + Armijo tails + selection
+  kb_odd    K=1,100 (2 blocks of 576) on the odd graph, kernels vs plain
+  kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
+            both K-blocked paths on the card against the CPU float64
+            `xla` path
+
 Then one `kernels` line (per kernel: launches on its path, error against
 the plain version, kernel / plain time, the card's lower bound for the
 same work) and, last, {"ok": true, "device": {...}}.
 
-Tolerances: F_new, grad, node_llh and the candidate LLH at
-rtol = atol = 3e-5 (relative errors are reported as |got - want| /
-(|want| + 3e-5)) (the float32 band the JAX package holds its fused,
-split and XLA paths to); the 0/1 acceptance mask must be equal except
-where |cand - threshold| <= 1e-5 * max(1, |threshold|) (a near-tie that
+Tolerances: F_new, grad, node_llh, the candidate LLH and the K-blocked
+kernels' x, grad, llh_nbr, xc and cand_nbr at rtol = atol = 3e-5
+(relative errors are reported as |got - want| / (|want| + 3e-5)) (the
+float32 band the JAX package holds its fused, split and XLA paths to); the
+0/1 acceptance mask must be equal except where
+|cand - threshold| <= 1e-5 * max(1, |threshold|) (a near-tie that
 another summation order may flip); F_new is compared on every row with the
 plain selection and projection applied to the kernel's own mask. LLH
 histories agree at rtol 1e-4.
@@ -67,6 +89,9 @@ DEVICE = "cuda"
 FULL = dict(n=300_000, k=1000, p_in=0.1, seed=1)
 ODD = dict(n=400, k=37, blocks=20, p_in=0.3, isolated=5, seed=3)
 PARITY = dict(n=2400, k=100, p_in=0.3, seed=0)
+XLK = dict(n=60_000, k=3000, p_in=0.5, seed=3)
+KB_ODD_K = 1100
+KB_PARITY_KC = 32
 
 KERNELS = {
     "fused_superstep": dict(
@@ -84,12 +109,56 @@ KERNELS = {
         replaces="bigclam_tpu/ops/pallas_csr.py:409",
         tpu_kernel="candidates_csr",
     ),
+    # the K-blocked kernels: one CUDA kernel for each pair of TPU twins
+    "edge_dots_kb": dict(
+        source="bigclam_tpu_torch/csrc/edge_dots_kb.cu",
+        replaces="bigclam_tpu/ops/pallas_fused.py:573",
+        tpu_kernel="edge_dots_fused",
+        also_replaces="bigclam_tpu/ops/pallas_csr.py:465 (edge_dots_csr)",
+    ),
+    "grad_from_x": dict(
+        source="bigclam_tpu_torch/csrc/grad_from_x.cu",
+        replaces="bigclam_tpu/ops/pallas_fused.py:668",
+        tpu_kernel="grad_nbr_from_x_fused",
+        also_replaces="bigclam_tpu/ops/pallas_csr.py:523 (grad_nbr_from_x_csr)",
+    ),
+    "cand_dots_kb": dict(
+        source="bigclam_tpu_torch/csrc/cand_dots_kb.cu",
+        replaces="bigclam_tpu/ops/pallas_fused.py:760",
+        tpu_kernel="cand_dots_fused",
+        also_replaces="bigclam_tpu/ops/pallas_csr.py:585 (cand_dots_csr)",
+    ),
+    "cand_from_x": dict(
+        source="bigclam_tpu_torch/csrc/cand_from_x.cu",
+        replaces="bigclam_tpu/ops/pallas_csr.py:645",
+        tpu_kernel="cand_nbr_from_x_csr",
+    ),
 }
+SINGLE_PASS = ("fused_superstep", "grad_llh_csr", "candidates_csr")
+K_BLOCKED = ("edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x")
 NO_LIBRARY = (
     "no single PyTorch call computes this function (gather, clipped "
     "log-survival edge terms and per-node sums, and for the candidate "
     "kernels the 16-step Armijo ladder)"
 )
+LIBRARY_NOTES = {
+    "edge_dots_kb": (
+        "torch.sparse.sampled_addmm(A, F, F.T) on the graph's CSR pattern: "
+        "every edge's full dot F_u.F_v in one call (all K blocks at once)"
+    ),
+    "grad_from_x": (
+        "no single PyTorch call: a sparse product gives sum_v F_v/omp only "
+        "after the edge terms are formed, and not the LLH or the fold"
+    ),
+    "cand_dots_kb": (
+        "no single PyTorch call: each of the 16 clipped candidate rows "
+        "would need its own sampled product"
+    ),
+    "cand_from_x": (
+        "no single PyTorch call: the clipped log-survival terms come "
+        "before the per-node sum (index_add_)"
+    ),
+}
 
 
 def emit(obj) -> None:
@@ -115,7 +184,9 @@ class Check:
         rel = float((err / (want.abs() + ATOL)).max())
         self.max_abs = max(self.max_abs, abs_err)
         self.max_rel = max(self.max_rel, rel)
-        self.parts[what] = {"max_abs_err": abs_err, "max_rel_err": rel}
+        prev = self.parts.get(what, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+        self.parts[what] = {"max_abs_err": max(prev["max_abs_err"], abs_err),
+                            "max_rel_err": max(prev["max_rel_err"], rel)}
         if not (excess <= 0.0 and torch.isfinite(got).all()):
             raise AssertionError(
                 f"{self.name}: {what} disagrees with the plain version "
@@ -142,7 +213,7 @@ def compare_kernels(F, csr, cfg):
     from bigclam_tpu_torch.ops import fused
 
     sumF = F.sum(dim=0)
-    checks = {n: Check(n) for n in KERNELS}
+    checks = {n: Check(n) for n in SINGLE_PASS}
     grad_p, llh_p, cand_p, thr_p = fused.acceptance_inputs_plain(F, sumF, csr, cfg)
 
     c = checks["grad_llh_csr"]
@@ -167,6 +238,79 @@ def compare_kernels(F, csr, cfg):
     return checks
 
 
+def kb_plain_inputs(F, csr, cfg, kc):
+    """The K-blocked pass's intermediates from the plain versions: the full
+    dots x, the folded gradient windows and the full candidate dots xc."""
+    from bigclam_tpu_torch.ops import kblocked as kb
+
+    sumF = F.sum(dim=0)
+    e, k_pad = csr.num_directed_edges, F.shape[1]
+    x = torch.zeros(e, device=F.device)
+    for col0 in range(0, k_pad, kc):
+        kb.edge_dots_kb_plain(F, csr, col0, kc, x)
+    grads, llh = [], None
+    for col0 in range(0, k_pad, kc):
+        g, ln = kb.grad_from_x_kb_plain(x, F, sumF, csr, col0, kc, cfg, True)
+        grads.append(g)
+        llh = ln if col0 == 0 else llh
+    xc = torch.zeros((len(cfg.step_candidates), e), device=F.device)
+    for col0, g in zip(range(0, k_pad, kc), grads):
+        kb.cand_dots_kb_plain(F, g, csr, col0, kc, cfg, xc)
+    return sumF, x, grads, llh, xc
+
+
+def compare_kb_kernels(F, csr, cfg, kc, plain):
+    """Each K-blocked kernel against its plain version on the same inputs
+    (`plain` = kb_plain_inputs(...)), over every K block; the gradient
+    kernel with the fold (csr_fused_kb) and without it (csr_grouped_kb).
+    Returns {name: Check}."""
+    from bigclam_tpu_torch.ops import kblocked as kb
+
+    sumF, x_p, grads_p, llh_p, xc_p = plain
+    k_pad = F.shape[1]
+    checks = {n: Check(n) for n in K_BLOCKED}
+    x_k = torch.zeros_like(x_p)
+    for col0 in range(0, k_pad, kc):
+        kb.edge_dots_kb(F, csr, col0, kc, x_k)
+    torch.cuda.synchronize()
+    checks["edge_dots_kb"].close("x", x_k, x_p)
+    c = checks["grad_from_x"]
+    for col0, g_p in zip(range(0, k_pad, kc), grads_p):
+        g_k, l_k = kb.grad_from_x_kb(x_p, F, sumF, csr, col0, kc, cfg, True)
+        torch.cuda.synchronize()
+        c.close("grad_fold", g_k, g_p)
+        if col0 == 0:
+            c.close("llh_nbr", l_k, llh_p)
+        elif l_k is not None:
+            raise AssertionError("grad_from_x wrote llh_nbr past block 0")
+        g_k, _ = kb.grad_from_x_kb(x_p, F, sumF, csr, col0, kc, cfg, False)
+        g_n, _ = kb.grad_from_x_kb_plain(x_p, F, sumF, csr, col0, kc, cfg, False)
+        torch.cuda.synchronize()
+        c.close("grad_no_fold", g_k, g_n)
+    xc_k = torch.zeros_like(xc_p)
+    for col0, g_p in zip(range(0, k_pad, kc), grads_p):
+        kb.cand_dots_kb(F, g_p, csr, col0, kc, cfg, xc_k)
+    torch.cuda.synchronize()
+    checks["cand_dots_kb"].close("xc", xc_k, xc_p)
+    out_k = kb.cand_nbr_from_x(xc_p, csr, cfg)
+    torch.cuda.synchronize()
+    checks["cand_from_x"].close("cand_nbr", out_k, kb.cand_nbr_from_x_plain(xc_p, csr, cfg))
+    return checks
+
+
+def reset_launch_counts() -> None:
+    from bigclam_tpu_torch.ops import fused, kblocked
+
+    fused.reset_launch_counts()
+    kblocked.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    from bigclam_tpu_torch.ops import fused, kblocked
+
+    return {**fused.launch_counts(), **kblocked.launch_counts()}
+
+
 def time_ms(fn, reps: int = 5) -> list:
     """CUDA-event times (ms) of `reps` runs of fn() after a warm-up."""
     fn()
@@ -183,6 +327,17 @@ def time_ms(fn, reps: int = 5) -> list:
     return times
 
 
+def time_pair(kern, plain) -> dict:
+    """Median CUDA-event times of a kernel and its plain version over 10
+    runs each, taken in the order plain, kernel, kernel, plain (5 runs
+    after a warm-up each), so that drift on the card hits both alike."""
+    p = time_ms(plain)
+    k = time_ms(kern) + time_ms(kern)
+    p += time_ms(plain)
+    return {"ms": statistics.median(k), "plain_ms": statistics.median(p),
+            "ms_runs": k, "plain_ms_runs": p}
+
+
 def bounds(n: int, e: int, k: int, s: int) -> dict:
     """Least time the card could take for each kernel's work at these
     inputs: max(bytes moved once / HBM rate, float32 operations / FP32
@@ -191,11 +346,18 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
     gradient accumulation are 4K operations (+3 for expm1, log and the
     division), and each candidate's dot nf_s . F_v is 2K (+2); nf_s =
     clip(F_u + eta_s g_u) depends on u alone. Per node: fold + tail 6K,
-    building nf_s and its tail 6K per candidate, selection 6K."""
+    building nf_s and its tail 6K per candidate, selection 6K.
+
+    The K-blocked kernels are counted per full step (every K block): the
+    dots 2K per edge into x (E,); the gradient from x 2K (+3) per edge and
+    the fold 2K per node; the candidate dots 2K (+2) per edge and
+    candidate plus 3K per node and candidate to build nf_s, into xc (S, E);
+    cand_from_x 3 per edge and candidate from xc."""
     f4 = 4.0 * n * k
     csr_bytes = 8.0 * (n + 1) + 4.0 * e + 4.0 * k
     grad_ops = e * (4.0 * k + 3) + n * 6.0 * k
     cand_ops = e * s * (2.0 * k + 2) + n * s * 6.0 * k
+    x_bytes, xc_bytes = 4.0 * e, 4.0 * s * e
     work = {
         "grad_llh_csr": (f4 + csr_bytes + f4 + 4.0 * n, grad_ops),
         "candidates_csr": (2 * f4 + csr_bytes + 4.0 * s * n, cand_ops),
@@ -203,6 +365,16 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
             f4 + csr_bytes + 2 * f4 + 4.0 * n + 1.0 * s * n,
             grad_ops + cand_ops + n * 6.0 * k,
         ),
+        "edge_dots_kb": (f4 + csr_bytes + x_bytes, e * 2.0 * k),
+        "grad_from_x": (
+            x_bytes + f4 + csr_bytes + f4 + 4.0 * n,
+            e * (2.0 * k + 3) + n * 2.0 * k,
+        ),
+        "cand_dots_kb": (
+            2 * f4 + csr_bytes + xc_bytes,
+            e * s * (2.0 * k + 2) + n * s * 3.0 * k,
+        ),
+        "cand_from_x": (xc_bytes + 8.0 * (n + 1) + 4.0 * s * n, e * s * 3.0),
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -245,9 +417,9 @@ def phase_build() -> dict:
     return {"build_s": res["seconds"], "cached": res["cached"], "ptxas": regs}
 
 
-def odd_case():
-    """Planted blocks plus isolated nodes at K=37 (not a multiple of 32),
-    with an all-zero F row."""
+def odd_case(k: int = ODD["k"]):
+    """Planted blocks plus isolated nodes at K=37 (not a multiple of 32;
+    or the K given), with an all-zero F row."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.graph.ingest import graph_from_edges
     from bigclam_tpu_torch.models.agm import sample_planted_graph
@@ -258,9 +430,9 @@ def odd_case():
     )
     pairs = np.stack([g0.src, g0.dst], axis=1)
     g = graph_from_edges(pairs, num_nodes=o["n"] + o["isolated"])
-    F = np.random.default_rng(o["seed"] + 1).uniform(0.0, 1.0, (g.num_nodes, o["k"]))
+    F = np.random.default_rng(o["seed"] + 1).uniform(0.0, 1.0, (g.num_nodes, k))
     F[7] = 0.0
-    cfg = BigClamConfig(num_communities=o["k"])
+    cfg = BigClamConfig(num_communities=k)
     dev = torch.device(DEVICE)
     return torch.as_tensor(F, dtype=torch.float32, device=dev), g.to_device(dev), cfg
 
@@ -293,20 +465,20 @@ def planted_file(cfg, path):
     return g
 
 
-def run_path(g, path, extra, tmp):
-    """`cli fit --graph path` (g is the graph written there) with launch
-    counters zeroed just before it and read just after."""
+def run_path(g, path, k, extra, out_path=None):
+    """`cli fit --graph path --k k` (g is the graph written there; with
+    `--out out_path` when given) with every launch counter zeroed just
+    before it and read just after."""
     from bigclam_tpu_torch import cli
-    from bigclam_tpu_torch.ops import fused
 
     args = fit_args([
-        "--graph", path, "--k", str(FULL["k"]), "--init", "conductance",
+        "--graph", path, "--k", str(k), "--init", "conductance",
         "--conv-tol", "0", "--device", DEVICE,
-        "--out", os.path.join(tmp, "communities.txt"), *extra,
+        *(["--out", out_path] if out_path else []), *extra,
     ])
-    fused.reset_launch_counts()
+    reset_launch_counts()
     out, res = cli.fit(args)
-    counts = fused.launch_counts()
+    counts = launch_counts()
     if (out["n"], out["edges"]) != (g.num_nodes, g.num_edges):
         raise AssertionError(
             f"ingest read {out['n']} nodes / {out['edges']} edges, the file "
@@ -315,13 +487,14 @@ def run_path(g, path, extra, tmp):
     hist = out["llh_history"]
     if not all(math.isfinite(v) for v in hist):
         raise AssertionError(f"non-finite LLH in {hist}")
-    if res.F.shape != (g.num_nodes, FULL["k"]) or not np.isfinite(res.F).all():
+    if res.F.shape != (g.num_nodes, k) or not np.isfinite(res.F).all():
         raise AssertionError("fit returned a malformed F")
     return out, res, counts
 
 
 def phase_main(g, path, tmp):
-    out, res, counts = run_path(g, path, ["--max-iters", "5"], tmp)
+    out, res, counts = run_path(g, path, FULL["k"], ["--max-iters", "5"],
+                                os.path.join(tmp, "communities.txt"))
     hist = out["llh_history"]
     if out["kernel_path"] != "csr_fused":
         raise AssertionError(f"main path ran {out['kernel_path']}")
@@ -347,7 +520,8 @@ def phase_main(g, path, tmp):
 
 def phase_split(g, path, tmp, main_hist):
     out, _, counts = run_path(
-        g, path, ["--max-iters", "1", "--csr-fused", "off"], tmp
+        g, path, FULL["k"], ["--max-iters", "1", "--csr-fused", "off"],
+        os.path.join(tmp, "communities.txt"),
     )
     hist = out["llh_history"]
     if out["kernel_path"] != "csr":
@@ -392,19 +566,12 @@ def phase_full(g, F_host):
             lambda: ck.candidates_csr_plain(F, grad, sumF, csr, cfg),
         ),
     }
-    times = {}
-    for name, (kern, plain) in calls.items():
-        # plain, kernel, kernel, plain: drift on the card hits both alike
-        p = time_ms(plain)
-        k = time_ms(kern) + time_ms(kern)
-        p += time_ms(plain)
-        times[name] = {"ms": statistics.median(k), "plain_ms": statistics.median(p),
-                       "ms_runs": k, "plain_ms_runs": p}
+    times = {name: time_pair(kern, plain) for name, (kern, plain) in calls.items()}
     bnd = bounds(g.num_nodes, g.num_directed_edges, FULL["k"],
                  len(cfg.step_candidates))
     return checks, times, bnd, {
         "kernels": {
-            n: {**checks[n].parts, **times[n], **bnd[n]} for n in KERNELS
+            n: {**checks[n].parts, **times[n], **bnd[n]} for n in SINGLE_PASS
         },
         "k_pad": int(F.shape[1]),
     }
@@ -429,11 +596,210 @@ def phase_parity(tmp) -> dict:
             "n": gpu["n"], "edges": gpu["edges"]}
 
 
+def kb_launches_want(counts, n_kb: int, steps: int) -> dict:
+    """The launch counts of `steps` K-blocked steps over n_kb blocks: each
+    window kernel once per block, cand_from_x once, nothing else."""
+    want = dict.fromkeys(counts, 0)
+    want.update(edge_dots_kb=n_kb * steps, grad_from_x=n_kb * steps,
+                cand_dots_kb=n_kb * steps, cand_from_x=steps)
+    return want
+
+
+def run_kb_path(g, path, extra, want_path):
+    """`cli fit` at the xl_k K on the K-blocked path `want_path`, with its
+    launch counts checked."""
+    from bigclam_tpu_torch.models.bigclam import k_block_plan
+
+    out, res, counts = run_path(g, path, XLK["k"], extra)
+    if out["kernel_path"] != want_path:
+        raise AssertionError(f"K={XLK['k']} ran {out['kernel_path']}, want {want_path}")
+    kc, k_pad = k_block_plan(XLK["k"])
+    want = kb_launches_want(counts, k_pad // kc, out["steps"])
+    if counts != want:
+        raise AssertionError(f"{want_path} launches {counts}, want {want}")
+    e = g.num_directed_edges
+    return out, res, counts, {
+        "kernel_path": out["kernel_path"],
+        "llh_history": out["llh_history"],
+        "steps": out["steps"],
+        "iters": out["iters"],
+        "sec_per_iter": out["sec_per_iter"],
+        "directed_edges_per_s": e / out["sec_per_iter"],
+        "stage_seconds": out["stage_seconds"],
+        "launches": counts,
+        "n": g.num_nodes, "directed_edges": e, "k": XLK["k"], "kc": kc,
+        "k_pad": k_pad, "max_degree": int(g.degrees.max()),
+    }
+
+
+def phase_kb_main(g, path):
+    out, res, counts, body = run_kb_path(g, path, ["--max-iters", "5"],
+                                         "csr_fused_kb")
+    hist = out["llh_history"]
+    if not hist[-1] > hist[0]:
+        raise AssertionError(f"LLH did not increase: {hist}")
+    return res, counts, body
+
+
+def phase_kb_split(g, path, main_hist):
+    out, _, counts, body = run_kb_path(
+        g, path, ["--max-iters", "1", "--csr-fused", "off"], "csr_grouped_kb"
+    )
+    hist = out["llh_history"]
+    for a, b in zip(hist[:2], main_hist[:2]):
+        if abs(a - b) > LLH_RTOL * abs(b):
+            raise AssertionError(f"grouped LLH {hist} vs fused {main_hist}")
+    return counts, body
+
+
+def phase_kb_full(g, F_host):
+    """The K-blocked kernels vs plain at kb_main's shapes, timed per full
+    step, and the whole step split into kernels and torch."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.ops import kblocked as kb
+    from bigclam_tpu_torch.ops.linesearch import armijo_update
+    from bigclam_tpu_torch.ops.objective import node_tail
+
+    cfg = BigClamConfig(num_communities=XLK["k"])
+    model = BigClamModel(g, cfg, device=DEVICE)
+    state = model.init_state(F_host)
+    F, csr, kc = state.F, model.csr, model.kc
+    plain = kb_plain_inputs(F, csr, cfg, kc)
+    checks = compare_kb_kernels(F, csr, cfg, kc, plain)
+    sumF, x_p, grads_p, _, xc_p = plain
+    n, k_pad = F.shape
+    e, s = csr.num_directed_edges, len(cfg.step_candidates)
+    cols = range(0, k_pad, kc)
+
+    def dots(fn):
+        x = torch.zeros(e, device=F.device)
+        for col0 in cols:
+            fn(F, csr, col0, kc, x)
+        return x
+
+    def grads(fn):
+        return [fn(x_p, F, sumF, csr, col0, kc, cfg, True) for col0 in cols]
+
+    def cands(fn):
+        xc = torch.zeros((s, e), device=F.device)
+        for col0, g_kb in zip(cols, grads_p):
+            fn(F, g_kb, csr, col0, kc, cfg, xc)
+        return xc
+
+    calls = {
+        "edge_dots_kb": (lambda: dots(kb.edge_dots_kb),
+                         lambda: dots(kb.edge_dots_kb_plain)),
+        "grad_from_x": (lambda: grads(kb.grad_from_x_kb),
+                        lambda: grads(kb.grad_from_x_kb_plain)),
+        "cand_dots_kb": (lambda: cands(kb.cand_dots_kb),
+                         lambda: cands(kb.cand_dots_kb_plain)),
+        "cand_from_x": (lambda: kb.cand_nbr_from_x(xc_p, csr, cfg),
+                        lambda: kb.cand_nbr_from_x_plain(xc_p, csr, cfg)),
+    }
+    times = {name: time_pair(kern, pl) for name, (kern, pl) in calls.items()}
+    for name in calls:
+        times[name]["library_ms"] = None
+    # the one library call that computes a K-blocked kernel's function:
+    # every edge's full dot, sampled from F F^T on the CSR pattern
+    pattern = torch.sparse_csr_tensor(
+        csr.indptr, csr.indices.long(), torch.zeros(e, device=F.device),
+        size=(n, n), check_invariants=True,
+    )
+    lib_x = torch.sparse.sampled_addmm(pattern, F, F.t()).values()
+    torch.cuda.synchronize()
+    lib_runs = time_ms(lambda: torch.sparse.sampled_addmm(pattern, F, F.t()))
+    times["edge_dots_kb"]["library_ms"] = statistics.median(lib_runs)
+    times["edge_dots_kb"]["library_max_abs_err"] = float((lib_x - x_p).abs().max())
+
+    # the step: the K-blocked pass, then node tail + Armijo tails +
+    # selection in torch
+    grad, llh_nbr, cand_nbr = kb.train_pass_kblocked(F, sumF, csr, cfg, kc)
+
+    def tails():
+        node_llh = llh_nbr + node_tail(F, sumF)
+        return armijo_update(F, sumF, grad, node_llh, cand_nbr, cfg,
+                             with_stats=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    step = {
+        "step_ms": statistics.median(time_ms(lambda: model._step(state))),
+        "kernels_ms": statistics.median(
+            time_ms(lambda: kb.train_pass_kblocked(F, sumF, csr, cfg, kc))
+        ),
+        "torch_tails_ms": statistics.median(time_ms(tails)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    bnd = bounds(n, e, XLK["k"], s)
+    return checks, times, bnd, {
+        "kernels": {
+            name: {**checks[name].parts, **times[name], **bnd[name]}
+            for name in K_BLOCKED
+        },
+        "step": step, "kc": kc, "k_pad": k_pad,
+    }
+
+
+def phase_kb_odd() -> dict:
+    """K=1,100 (two blocks of 576) on the odd graph: isolated nodes and an
+    all-zero row."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import k_block_plan
+
+    F, csr, _ = odd_case(KB_ODD_K)
+    kc, k_pad = k_block_plan(KB_ODD_K)
+    F = torch.nn.functional.pad(F, (0, k_pad - KB_ODD_K)).contiguous()
+    cfg = BigClamConfig(num_communities=KB_ODD_K)
+    checks = compare_kb_kernels(F, csr, cfg, kc, kb_plain_inputs(F, csr, cfg, kc))
+    return {
+        "n": int(F.shape[0]), "k": KB_ODD_K, "kc": kc, "k_pad": k_pad,
+        "kernels": {n: c.parts for n, c in checks.items()},
+    }
+
+
+def phase_kb_parity(tmp) -> dict:
+    """csr_k_block=32 (4 blocks) on both K-blocked paths on the card
+    against the CPU float64 `xla` path, from one conductance init."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+
+    path = os.path.join(tmp, "kb_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    cfg = BigClamConfig(num_communities=PARITY["k"], max_iters=4, conv_tol=0.0,
+                        csr_k_block=KB_PARITY_KC)
+    F0 = cli.init_F(g, cfg, "conductance")
+    cpu = BigClamModel(g, cfg.replace(dtype="float64"), device="cpu")
+    if cpu.engaged_path != "xla":
+        raise AssertionError(cpu.engaged_path)
+    b = cpu.fit(F0).llh_history
+    out = {"cpu_f64_llh": b}
+    for csr_fused, want in ((None, "csr_fused_kb"), (False, "csr_grouped_kb")):
+        m = BigClamModel(g, cfg.replace(csr_fused=csr_fused), device=DEVICE)
+        if m.engaged_path != want:
+            raise AssertionError(f"ran {m.engaged_path}, want {want}")
+        reset_launch_counts()
+        a = m.fit(F0).llh_history
+        counts = launch_counts()
+        if counts != kb_launches_want(counts, m.k_pad // m.kc, len(a)):
+            raise AssertionError(f"{want} launches {counts}")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        if len(a) != len(b) or rel > LLH_RTOL:
+            raise AssertionError(f"{want} card LLH {a} vs cpu float64 {b}")
+        out[want] = {"gpu_llh": a, "max_rel": rel, "launches": counts}
+    out.update(n=g.num_nodes, edges=g.num_edges, k=PARITY["k"],
+               kc=KB_PARITY_KC)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
-    import bigclam_tpu_torch  # noqa: F401  (fails outside a checkout)
+    # fails outside a checkout
+    from bigclam_tpu_torch.graph.ingest import build_graph
 
     t_all = time.perf_counter()
 
@@ -459,22 +825,47 @@ def main() -> int:
         checks, times, bnd, _ = run("full", phase_full, g, res.F)
         del g, res
         run("parity", phase_parity, tmp)
+
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "xl_k_graph.txt")
+        sampled = planted_file(XLK, path)
+        # the graph as `cli fit --graph` reads it: an edge list has no
+        # isolated nodes, so the sampled graph's drop out
+        g = build_graph(path)
+        emit({"phase": "kb_graph", "seconds": time.perf_counter() - t0,
+              "n_sampled": sampled.num_nodes, "n": g.num_nodes,
+              "directed_edges": g.num_directed_edges})
+        del sampled
+        res, kb_counts, _ = run("kb_main", phase_kb_main, g, path)
+        kb_split_counts, _ = run("kb_split", phase_kb_split, g, path,
+                                 list(res.llh_history))
+        kb_checks, kb_times, kb_bnd, _ = run("kb_full", phase_kb_full, g, res.F)
+        del g, res
+        run("kb_odd", phase_kb_odd)
+        run("kb_parity", phase_kb_parity, tmp)
+    checks.update(kb_checks)
+    times.update(kb_times)
+    bnd.update({name: kb_bnd[name] for name in K_BLOCKED})
     launches = {
         "fused_superstep": main_counts["fused_superstep"],
         "grad_llh_csr": split_counts["grad_llh_csr"],
         "candidates_csr": split_counts["candidates_csr"],
+        **{name: kb_counts[name] for name in K_BLOCKED},
     }
     emit({"kernels": [
         {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name],
+            **({"launches_csr_grouped_kb": kb_split_counts[name]}
+               if name in K_BLOCKED else {}),
             "max_abs_err": checks[name].max_abs,
             "max_rel_err": checks[name].max_rel,
             "ms": times[name]["ms"], "kernel_ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"],
-            "library_ms": None, "library_note": NO_LIBRARY,
+            "library_ms": times[name].get("library_ms"),
+            "library_note": LIBRARY_NOTES.get(name, NO_LIBRARY),
         }
         for name in KERNELS
     ], "total_seconds": time.perf_counter() - t_all})
