@@ -2,10 +2,11 @@
 
 The JAX package `bigclam_tpu` stays the reference; this package imports
 `torch` and `numpy` only, never `jax` and nothing of `bigclam_tpu`, and
-keeps its own copy of what it needs. Its first slice is the dense
-single-device `fit`: graph ingest, conductance seeding, the train loop
-on the CSR edge kernels (CUDA C++ for sm_90a, csrc/), extraction and the
-CLI (`python -m bigclam_tpu_torch.cli fit`).
+keeps its own copy of what it needs. Ported so far: the single-device
+`fit` — graph ingest, conductance seeding, the train loop on the CSR edge
+kernels (CUDA C++ for sm_90a, csrc/) at any K, or on the sparse top-M
+member lists with the member-lookup kernel, extraction and the CLI
+(`python -m bigclam_tpu_torch.cli fit`).
 """
 
 from bigclam_tpu_torch.config import BigClamConfig

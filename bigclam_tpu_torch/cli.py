@@ -11,10 +11,15 @@ same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`, `k`,
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 --device cpu
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 3000   # csr_fused_kb
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
+        --representation sparse --sparse-m 64                  # sparse_merge_pallas
 
 It runs on `cuda` unless `--device cpu` is given, and refuses to start
 when no card is present. Above K = 1024 the model takes the K-blocked
-path by itself (`kernel_path` in the JSON says which).
+path by itself (`kernel_path` in the JSON says which). `--representation
+sparse` trains the top-M member lists of models.sparse instead of a dense
+F, with the member-lookup CUDA kernel on the card (`sparse_xla`, the plain
+lookup, on the CPU); its JSON adds `sparse_m`.
 """
 
 from __future__ import annotations
@@ -59,6 +64,23 @@ def build_parser() -> argparse.ArgumentParser:
              "schedule — `csr`, or `csr_grouped_kb` above K=1024)",
     )
     f.add_argument(
+        "--representation", default="dense", choices=["dense", "sparse"],
+        help="affiliation-state representation: dense (N, K) F (default) "
+             "or sparse per-node top-M member lists (models/sparse.py) — "
+             "device memory and bytes per edge scale with --sparse-m, not K",
+    )
+    f.add_argument(
+        "--sparse-m", type=int, default=64,
+        help="member slots per node on --representation sparse (M; "
+             "clamped to K — M >= K reproduces the dense trajectory)",
+    )
+    f.add_argument(
+        "--support-every", type=int, default=1,
+        help="iterations between sparse support updates (candidate-"
+             "community admission from neighbour lists; 1 = every step, "
+             "required for dense parity)",
+    )
+    f.add_argument(
         "--dtype", default="float32", choices=["float32", "float64"],
         help="F dtype (float64 runs on cpu only)",
     )
@@ -82,7 +104,31 @@ def config_from_args(args):
         seed=args.seed,
         use_pallas_csr={"auto": None, "on": True, "off": False}[args.csr_kernels],
         csr_fused={"auto": None, "off": False}[args.csr_fused],
+        representation=args.representation,
+        sparse_m=args.sparse_m,
+        support_every=args.support_every,
     )
+
+
+def make_model(g, cfg, device):
+    """The trainer of cfg.representation on `device`."""
+    if cfg.representation == "sparse":
+        if cfg.use_pallas_csr:
+            # "on" means require: the CSR edge kernels take a dense F, so
+            # honouring it with sparse member lists means refusing
+            raise SystemExit(
+                "error: --csr-kernels on is not supported with "
+                "--representation sparse (the CSR edge kernels take a dense "
+                "F; the sparse path has its own CUDA member-lookup kernel, "
+                "csrc/member_lookup.cu, engaged by itself on cuda — use "
+                "--csr-kernels auto)"
+            )
+        from bigclam_tpu_torch.models.sparse import SparseBigClamModel
+
+        return SparseBigClamModel(g, cfg, device=device)
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+
+    return BigClamModel(g, cfg, device=device)
 
 
 def init_F(g, cfg, init: str) -> Optional[np.ndarray]:
@@ -99,9 +145,9 @@ def init_F(g, cfg, init: str) -> Optional[np.ndarray]:
 
 def fit(args):
     """Run `fit` for parsed arguments. Returns (the JSON-ready result dict,
-    the FitResult)."""
+    the FitResult, the final train state)."""
     from bigclam_tpu_torch.graph.ingest import build_graph
-    from bigclam_tpu_torch.models.bigclam import BigClamModel, run_fit_loop
+    from bigclam_tpu_torch.models.bigclam import FitResult, run_fit_loop
     from bigclam_tpu_torch.ops import extraction
     from bigclam_tpu_torch.utils.device import device_kind
 
@@ -117,7 +163,7 @@ def fit(args):
 
     g = build_graph(args.graph)
     stage("graph")
-    model = BigClamModel(g, cfg, device=args.device)
+    model = make_model(g, cfg, args.device)
     stage("model_build")
     F0 = init_F(g, cfg, args.init)
     stage("seeding")
@@ -125,11 +171,13 @@ def fit(args):
     stage("upload")
     step_ends = []
     t0 = time.perf_counter()
-    res = run_fit_loop(
+    state, llh, iters, hist = run_fit_loop(
         model._step, state, cfg,
         callback=lambda it, llh: step_ends.append(time.perf_counter()),
-        extract_F=model.extract_F,
     )
+    F = model.extract_F(state)
+    res = FitResult(F=F, sumF=F.sum(axis=0), llh=llh, num_iters=iters,
+                    llh_history=hist)
     stage("fit")
     steps = len(res.llh_history)
     out = {
@@ -149,6 +197,8 @@ def fit(args):
         "steps": steps,
         "llh_history": list(res.llh_history),
     }
+    if cfg.representation == "sparse":
+        out["sparse_m"] = model.m
     if args.out:
         com = extraction.extract_communities(res.F, g)
         extraction.save_communities(args.out, com)
@@ -156,13 +206,13 @@ def fit(args):
         out["out"] = args.out
         stage("extract")
     out["stage_seconds"] = stages
-    return out, res
+    return out, res, state
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "fit":
-        out, _ = fit(args)
+        out, _, _ = fit(args)
         print(json.dumps(out))
         return 0
     return 2

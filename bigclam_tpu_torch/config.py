@@ -2,11 +2,11 @@
 
 Copied from bigclam_tpu/config.py (`BigClamConfig`): the same field names,
 defaults and order, so a JAX config carries over unchanged with
-`BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port's first slice
-(dense single-device `fit`) reads the model, clipping, line-search, loop,
-seeding, numerics and kernel-path fields; the rest (quality mode,
-resilience, sparse representation, sharding, telemetry) are carried for
-that round trip and are read by no code of this slice.
+`BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port reads the
+model, clipping, line-search, loop, seeding, numerics, kernel-path and
+single-device sparse-representation fields; the rest (quality mode,
+resilience, the sharded sparse exchange, sharding, telemetry) are carried
+for that round trip and are read by no code of the port yet.
 """
 
 from __future__ import annotations
@@ -70,12 +70,12 @@ class BigClamConfig:
     rollback_snapshot_every: int = 8
     step_scale: float = 1.0             # global scale on the Armijo ladder
 
-    # --- sparse membership representation (not in this slice) ---
-    representation: str = "dense"
-    sparse_m: int = 64
-    support_every: int = 1
-    sparse_score_block: int = 1 << 22
-    sparse_comm_cap: int = 0
+    # --- sparse membership representation (models/sparse.py) ---
+    representation: str = "dense"       # "dense" (N, K) F, or "sparse"
+    sparse_m: int = 64                  # member slots per node (clamped to K)
+    support_every: int = 1              # iterations between support updates
+    sparse_score_block: int = 1 << 22   # support-update block size budget
+    sparse_comm_cap: int = 0            # (sharded sparse exchange; not ported)
     sparse_cap_slack: float = 2.0
     sparse_dense_fallback: float = 0.5
 
@@ -107,7 +107,10 @@ class BigClamConfig:
                                         # whenever the CSR kernels engage;
                                         # False = the split grad/candidate
                                         # kernel pair (path `csr`)
-    sparse_pallas_merge: Optional[bool] = None
+    sparse_pallas_merge: Optional[bool] = None  # member-lookup kernel:
+                                        # None = auto (on for cuda), True =
+                                        # require (plain version on cpu),
+                                        # False = the plain `sparse_xla` path
     pallas_interpret: bool = False      # (Pallas interpret mode; no port use)
 
     # --- model-health diagnostics (not in this slice) ---

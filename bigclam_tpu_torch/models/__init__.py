@@ -1,1 +1,1 @@
-"""The BigCLAM trainer and the AGM graph generator."""
+"""The BigCLAM trainers (dense and sparse) and the AGM graph generator."""

@@ -1,0 +1,252 @@
+"""Single-device BigCLAM trainer on the sparse top-M membership
+representation (ops.sparse_members).
+
+Port of the single-device parts of bigclam_tpu/models/sparse.py. One
+outer iteration is
+
+    [support update every cfg.support_every iterations: admit candidate
+     communities from neighbour member lists, keep the top M]
+    -> sparse grad/LLH pass -> 16-candidate Armijo pass (one member
+       lookup per edge chunk in each pass) -> masked Jacobi update ->
+       sparse sumF
+
+on one of two paths, named as in the JAX package: `sparse_merge_pallas`,
+where every member lookup runs in the CUDA kernel csrc/member_lookup.cu
+(auto on `cuda`; cfg.sparse_pallas_merge=True on the CPU runs the
+kernel's plain version), and `sparse_xla`, the plain torch lookup. The
+iteration counter is a host int, so the support-update decision is a
+plain `if`.
+
+Rows are padded to a whole number of support-update blocks (n_pad =
+round_up(N, block_b), as the JAX model pads); padding rows and empty
+slots hold the sentinel id K with weight 0, which stays 0 only with
+min_f == 0 (checked). Edge chunks are bounded by the (chunk, M) width,
+not K.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from bigclam_tpu_torch.config import BigClamConfig
+from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.models.bigclam import (
+    FitResult,
+    _round_up,
+    rowkeyed_init_F,
+    run_fit_loop,
+)
+from bigclam_tpu_torch.ops import sparse_members as sm
+from bigclam_tpu_torch.ops.objective import EdgeChunks, edge_chunk_bound
+from bigclam_tpu_torch.ops.sparse_members import SparseTrainState
+from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
+
+
+def effective_m(cfg: BigClamConfig) -> int:
+    """The slot count actually allocated: cfg.sparse_m clamped to K (more
+    slots than communities hold nothing; M >= K is the dense-parity
+    regime)."""
+    return max(1, min(int(cfg.sparse_m), int(cfg.num_communities)))
+
+
+def make_sparse_train_step(
+    edges: EdgeChunks,
+    blocks: sm.SupportBlocks,
+    cfg: BigClamConfig,
+    k_pad: int,
+    m: int,
+) -> Callable[[SparseTrainState], SparseTrainState]:
+    """One sparse iteration; the same step contract as
+    models.bigclam.make_train_step (the state's LLH is that of its input)."""
+    sup_every = max(int(cfg.support_every), 1)
+
+    def step(state: SparseTrainState) -> SparseTrainState:
+        ids, w = state.ids, state.F
+        if state.it % sup_every == 0:
+            ids, w = sm.support_update(ids, w, blocks, m, k_pad)
+        # recomputed, not carried: a support update may drop members
+        sumF = sm.sparse_sumF(ids, w, k_pad)
+        grad, node_llh = sm.sparse_grad_llh(ids, w, sumF, edges, cfg, k_pad)
+        cand_nbr = sm.sparse_candidates(ids, w, grad, edges, cfg, k_pad)
+        w_new, hist = sm.sparse_armijo_update(
+            ids, w, sumF, grad, node_llh, cand_nbr, cfg, k_pad
+        )
+        return SparseTrainState(
+            F=w_new,
+            ids=ids,
+            sumF=sm.sparse_sumF(ids, w_new, k_pad),
+            llh=node_llh.sum().to(w.dtype),
+            it=state.it + 1,
+            accept_hist=hist,
+        )
+
+    return step
+
+
+def new_sparse_state(
+    ids: torch.Tensor, w: torch.Tensor, k_pad: int, num_s: int,
+    llh: Optional[float] = None, it: int = 0,
+) -> SparseTrainState:
+    """SparseTrainState around device-resident (ids, w): sumF by the
+    sparse scatter, LLH -inf until a step evaluates one, a zero
+    accepted-step histogram."""
+    return SparseTrainState(
+        F=w,
+        ids=ids,
+        sumF=sm.sparse_sumF(ids, w, k_pad),
+        llh=torch.tensor(
+            -float("inf") if llh is None else llh, dtype=w.dtype, device=w.device
+        ),
+        it=int(it),
+        accept_hist=torch.zeros(num_s + 1, dtype=torch.int32, device=w.device),
+    )
+
+
+def state_from_jax_sparse_arrays(
+    ids: np.ndarray,
+    w: np.ndarray,
+    n: int,
+    m: int,
+    k: int,
+    dtype: torch.dtype,
+    device: torch.device,
+    llh: Optional[float] = None,
+    it: int = 0,
+    n_pad: Optional[int] = None,
+    num_s: int = 16,
+) -> SparseTrainState:
+    """A SparseTrainState of this port from the JAX package's sparse state
+    arrays (`ids`, and the weights it names `F`): the rows past n stripped
+    and re-padded to n_pad (default n) with sentinel rows. The sentinel
+    is K in both packages (both pad K to itself on the sparse path)."""
+    ids, w = np.asarray(ids)[:n], np.asarray(w)[:n]
+    if ids.shape != (n, m) or w.shape != (n, m):
+        raise ValueError(f"ids {ids.shape} / weights {w.shape}, want ({n}, {m})")
+    n_pad = n if n_pad is None else n_pad
+    ids_p = torch.full((n_pad, m), k, dtype=torch.int32)
+    w_p = torch.zeros((n_pad, m), dtype=dtype)
+    ids_p[:n] = torch.as_tensor(np.array(ids, np.int32))
+    w_p[:n] = torch.as_tensor(np.array(w)).to(dtype)
+    return new_sparse_state(
+        ids_p.to(device), w_p.to(device), k, num_s, llh=llh, it=it
+    )
+
+
+class SparseBigClamModel:
+    """Single-device sparse-representation trainer.
+
+    Usage:
+        model = SparseBigClamModel(graph, cfg)     # cfg.representation="sparse"
+        model = SparseBigClamModel(graph, cfg, device="cpu")
+        result = model.fit(F0)                     # F0: dense (N, K) init,
+                                                   # sparsified to top-M rows
+    """
+
+    def __init__(self, g: Graph, cfg: BigClamConfig, device=None):
+        if cfg.representation != "sparse":
+            raise ValueError(
+                "SparseBigClamModel requires cfg.representation='sparse' "
+                f"(got {cfg.representation!r})"
+            )
+        if cfg.min_f != 0.0:
+            # sentinel slots rely on clip(0 + eta*0) staying 0, as dense
+            # padding does
+            raise ValueError(
+                f"sparse representation requires min_f == 0.0 (got {cfg.min_f})"
+            )
+        self.g = g
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(cfg.dtype, self.device)
+        self.m = effective_m(cfg)
+        self.k_pad = cfg.num_communities
+        self.block_b = sm.pick_block_b(
+            cfg.sparse_score_block, g.num_nodes, self.m,
+            g.num_directed_edges / max(g.num_nodes, 1),
+        )
+        self.n_pad = _round_up(max(g.num_nodes, 1), self.block_b)
+        if sm.merge_kernel_want(cfg, self.device):
+            if self.device.type == "cuda":
+                sm.check_member_limit(self.m)
+            self.engaged_path = "sparse_merge_pallas"
+        else:
+            self.engaged_path = "sparse_xla"
+        self.path_reason = f"representation=sparse M={self.m}"
+        self.csr = g.to_device(self.device)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        # edge chunks bounded by the (chunk, M) gather width: M, not K
+        self.edges = EdgeChunks(
+            self.csr.src, self.csr.dst, edge_chunk_bound(cfg, self.m, itemsize)
+        )
+        self.blocks = sm.build_support_blocks(
+            g, self.n_pad, self.block_b, dtype=self.dtype, device=self.device
+        )
+        self._step = make_sparse_train_step(
+            self.edges, self.blocks, cfg, self.k_pad, self.m
+        )
+
+    # ------------------------------------------------------------ state
+    def init_state(self, F0: Optional[np.ndarray] = None) -> SparseTrainState:
+        """Sparsify a dense (N, K) init (rowkeyed when None) to top-M rows."""
+        n, k = self.g.num_nodes, self.cfg.num_communities
+        if F0 is None:
+            F0 = rowkeyed_init_F(self.g, self.cfg)
+        if F0.shape != (n, k):
+            raise ValueError(f"F0 has shape {F0.shape}, want {(n, k)}")
+        ids, w, _ = sm.from_dense(np.asarray(F0), self.m, self.k_pad, self.n_pad)
+        return new_sparse_state(
+            torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(w).to(self.dtype).to(self.device),
+            self.k_pad, len(self.cfg.step_candidates),
+        )
+
+    def state_from_jax(
+        self, ids: np.ndarray, w: np.ndarray, llh: Optional[float] = None,
+        it: int = 0,
+    ) -> SparseTrainState:
+        """state_from_jax_sparse_arrays at this model's layout."""
+        return state_from_jax_sparse_arrays(
+            ids, w, self.g.num_nodes, self.m, self.cfg.num_communities,
+            self.dtype, self.device, llh=llh, it=it, n_pad=self.n_pad,
+            num_s=len(self.cfg.step_candidates),
+        )
+
+    def extract_F(self, state: SparseTrainState) -> np.ndarray:
+        """Densify the live (N, K) block on the host."""
+        return sm.to_dense(
+            state.ids.cpu().numpy(), state.F.cpu().numpy(),
+            self.g.num_nodes, self.cfg.num_communities,
+        )
+
+    def state_nbytes(self, state: Optional[SparseTrainState] = None) -> int:
+        """Affiliation-state bytes (ids + weights + sumF), from the model's
+        shapes without a state."""
+        if state is None:
+            isz = torch.empty((), dtype=self.dtype).element_size()
+            return int(self.n_pad * self.m * (isz + 4) + self.k_pad * isz)
+        return int(sum(
+            t.numel() * t.element_size() for t in (state.F, state.ids, state.sumF)
+        ))
+
+    # -------------------------------------------------------------- fit
+    def fit(
+        self,
+        F0: Optional[np.ndarray] = None,
+        callback: Optional[Callable[[int, float], None]] = None,
+    ) -> FitResult:
+        """Train to convergence from F0 (rowkeyed init when None)."""
+        return run_fit_loop(
+            self._step, self.init_state(F0), self.cfg, callback, self.extract_F
+        )
+
+    def fit_state(
+        self,
+        state: SparseTrainState,
+        callback: Optional[Callable[[int, float], None]] = None,
+    ):
+        """The convergence loop from a state, with no dense F anywhere:
+        returns (final_state, final_llh, num_iters, llh_history)."""
+        return run_fit_loop(self._step, state, self.cfg, callback)

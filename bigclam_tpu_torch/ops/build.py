@@ -30,6 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
     "fused_superstep", "grad_llh", "candidates",
     "edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x",
+    "member_lookup",
 )
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -61,6 +62,8 @@ ENTRIES = {
     "bigclam_cand_dots_kb": [P, P, P, P, I, L, I, I, I, P, I, R, R, R, R, P, P],
     # xc, indptr, n, E, num_s, omp_lo, omp_hi, out, stream
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
+    # ids, w, src, dst, E, M, k_pad, out, stream
+    "bigclam_member_lookup": [P, P, P, P, L, I, I, P, P],
 }
 
 

@@ -12,6 +12,10 @@ exits non-zero:
             and links them into one library
   odd       each kernel against its plain PyTorch version on a small odd
             case (K=37, isolated nodes)
+  sparse_odd the member-lookup kernel against its plain version, bit for
+            bit, on the odd case's sparse state at M=5 (M < K, truncating)
+            and M=37 (not a multiple of 32), before and after a support
+            update, plus a random edge batch at M=1
   graph     AGM planted N=300,000, K=1,000, p_in=0.1, numpy rng seed 1,
             written as a SNAP edge list to a temporary directory
   main      the port's `cli fit` entry on the CUDA device at full width on
@@ -25,8 +29,24 @@ exits non-zero:
             events: the median of 10 runs, taken as two rounds of 5
             after a warm-up each, in the order plain, kernel, kernel,
             plain
+  sparse_main `cli fit --representation sparse --sparse-m 64` on the same
+            file, conductance init, 5 iterations, no --out; path
+            `sparse_merge_pallas`, the member-lookup launches counted from
+            0 around the fit (2 edge sweeps x chunks x steps); the LLH
+            rises; peak device memory and the state's bytes against a
+            dense F's
+  sparse_full the member-lookup kernel against its plain version over
+            every edge of sparse_main's final state (bit for bit), both
+            timed as `full` times kernels, and one step timed split into
+            the member kernel, the rest of the grad/candidate passes, the
+            Armijo update, the support update and the two sumF scatters,
+            and traced once with torch.profiler (device busy time, top
+            ops and kernels)
   parity    planted N=2,400, K=100: 5 steps on the card (f32 kernels)
             against the port's CPU `xla` path in float64
+  sparse_parity the same graph on the sparse path at M=16 and M=100: 5
+            steps on the card against the port's CPU float64 sparse path,
+            and at M=100 = K against the card's dense `csr_fused` path
 
 and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 (bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
@@ -61,7 +81,9 @@ float32 band the JAX package holds its fused, split and XLA paths to); the
 |cand - threshold| <= 1e-5 * max(1, |threshold|) (a near-tie that
 another summation order may flip); F_new is compared on every row with the
 plain selection and projection applied to the kernel's own mask. LLH
-histories agree at rtol 1e-4.
+histories agree at rtol 1e-4. The member lookup is exact (a hit copies
+the stored weight, a miss gives 0), so it must equal its plain version
+bit for bit (torch.equal).
 """
 
 from __future__ import annotations
@@ -92,6 +114,9 @@ PARITY = dict(n=2400, k=100, p_in=0.3, seed=0)
 XLK = dict(n=60_000, k=3000, p_in=0.5, seed=3)
 KB_ODD_K = 1100
 KB_PARITY_KC = 32
+SPARSE_M = 64
+SPARSE_ODD_M = (5, 37)
+SPARSE_PARITY_M = (16, 100)
 
 KERNELS = {
     "fused_superstep": dict(
@@ -133,6 +158,11 @@ KERNELS = {
         replaces="bigclam_tpu/ops/pallas_csr.py:645",
         tpu_kernel="cand_nbr_from_x_csr",
     ),
+    "member_lookup": dict(
+        source="bigclam_tpu_torch/csrc/member_lookup.cu",
+        replaces="bigclam_tpu/ops/sparse_members.py:234",
+        tpu_kernel="member_lookup_pallas",
+    ),
 }
 SINGLE_PASS = ("fused_superstep", "grad_llh_csr", "candidates_csr")
 K_BLOCKED = ("edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x")
@@ -157,6 +187,11 @@ LIBRARY_NOTES = {
     "cand_from_x": (
         "no single PyTorch call: the clipped log-survival terms come "
         "before the per-node sum (index_add_)"
+    ),
+    "member_lookup": (
+        "no single PyTorch call: torch.searchsorted gives positions only; "
+        "the hit test, the sentinel mask and the weight gather are further "
+        "calls"
     ),
 }
 
@@ -191,6 +226,21 @@ class Check:
             raise AssertionError(
                 f"{self.name}: {what} disagrees with the plain version "
                 f"(max abs err {abs_err}, beyond tolerance by {excess})"
+            )
+
+    def equal(self, what, got, want):
+        """Bit-for-bit equality, for an exact function."""
+        abs_err = (
+            float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        )
+        self.max_abs = max(self.max_abs, abs_err)
+        prev = self.parts.get(what, {"max_abs_err": 0.0, "checked": 0})
+        self.parts[what] = {"max_abs_err": max(prev["max_abs_err"], abs_err),
+                            "checked": prev["checked"] + got.numel()}
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(
+                f"{self.name}: {what} is not bit-equal to the plain version "
+                f"(max abs err {abs_err})"
             )
 
     def ok_mask(self, ok_k, ok_p, cand, thr):
@@ -299,16 +349,18 @@ def compare_kb_kernels(F, csr, cfg, kc, plain):
 
 
 def reset_launch_counts() -> None:
-    from bigclam_tpu_torch.ops import fused, kblocked
+    from bigclam_tpu_torch.ops import fused, kblocked, sparse_members
 
     fused.reset_launch_counts()
     kblocked.reset_launch_counts()
+    sparse_members.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from bigclam_tpu_torch.ops import fused, kblocked
+    from bigclam_tpu_torch.ops import fused, kblocked, sparse_members
 
-    return {**fused.launch_counts(), **kblocked.launch_counts()}
+    return {**fused.launch_counts(), **kblocked.launch_counts(),
+            **sparse_members.launch_counts()}
 
 
 def time_ms(fn, reps: int = 5) -> list:
@@ -336,6 +388,39 @@ def time_pair(kern, plain) -> dict:
     p += time_ms(plain)
     return {"ms": statistics.median(k), "plain_ms": statistics.median(p),
             "ms_runs": k, "plain_ms_runs": p}
+
+
+def profile_call(fn, top: int = 8) -> dict:
+    """One call of fn under torch.profiler (after a warm-up): its wall
+    time, the device's busy time (the kernels' summed device time), the
+    idle share of the wall time, and the aten ops and kernels with the most
+    device time (an op's time includes its kernels; ops nest). The
+    profiler's own overhead lengthens the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    ops = sorted((e for e in events
+                  if e.device_type == DeviceType.CPU and e.key.startswith("aten::")),
+                 key=lambda e: -e.device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "ops_device_ms": {e.key: [e.device_time_total / 1e3, e.count]
+                          for e in ops[:top]},
+        "kernels_device_ms": {e.key[:90]: [e.self_device_time_total / 1e3, e.count]
+                              for e in kernels[:top]},
+    }
 
 
 def bounds(n: int, e: int, k: int, s: int) -> dict:
@@ -386,6 +471,20 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
             "ops": ops,
         }
     return out
+
+
+def member_bound(n: int, e: int, m: int) -> dict:
+    """Least time for one member-lookup sweep over e edges at m slots: the
+    n live state rows read once (ids and weights, 8 bytes a slot), src and
+    dst (16 bytes an edge) and the (e, m) float32 output written once,
+    over the HBM rate; the binary-search compares (log2 m + 1 per slot)
+    over the float32 rate, as the card's table names no int32 rate."""
+    nbytes = 8.0 * n * m + 16.0 * e + 4.0 * e * m
+    ops = e * m * (math.log2(m) + 1.0)
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def phase_card() -> dict:
@@ -477,7 +576,7 @@ def run_path(g, path, k, extra, out_path=None):
         *(["--out", out_path] if out_path else []), *extra,
     ])
     reset_launch_counts()
-    out, res = cli.fit(args)
+    out, res, state = cli.fit(args)
     counts = launch_counts()
     if (out["n"], out["edges"]) != (g.num_nodes, g.num_edges):
         raise AssertionError(
@@ -489,12 +588,12 @@ def run_path(g, path, k, extra, out_path=None):
         raise AssertionError(f"non-finite LLH in {hist}")
     if res.F.shape != (g.num_nodes, k) or not np.isfinite(res.F).all():
         raise AssertionError("fit returned a malformed F")
-    return out, res, counts
+    return out, res, counts, state
 
 
 def phase_main(g, path, tmp):
-    out, res, counts = run_path(g, path, FULL["k"], ["--max-iters", "5"],
-                                os.path.join(tmp, "communities.txt"))
+    out, res, counts, _ = run_path(g, path, FULL["k"], ["--max-iters", "5"],
+                                   os.path.join(tmp, "communities.txt"))
     hist = out["llh_history"]
     if out["kernel_path"] != "csr_fused":
         raise AssertionError(f"main path ran {out['kernel_path']}")
@@ -519,7 +618,7 @@ def phase_main(g, path, tmp):
 
 
 def phase_split(g, path, tmp, main_hist):
-    out, _, counts = run_path(
+    out, _, counts, _ = run_path(
         g, path, FULL["k"], ["--max-iters", "1", "--csr-fused", "off"],
         os.path.join(tmp, "communities.txt"),
     )
@@ -584,8 +683,8 @@ def phase_parity(tmp) -> dict:
     planted_file(PARITY, path)
     base = ["--graph", path, "--k", str(PARITY["k"]), "--max-iters", "4",
             "--conv-tol", "0"]
-    gpu, _ = cli.fit(fit_args(base + ["--device", DEVICE]))
-    cpu, _ = cli.fit(fit_args(base + ["--device", "cpu", "--dtype", "float64"]))
+    gpu, _, _ = cli.fit(fit_args(base + ["--device", DEVICE]))
+    cpu, _, _ = cli.fit(fit_args(base + ["--device", "cpu", "--dtype", "float64"]))
     if gpu["kernel_path"] != "csr_fused" or cpu["kernel_path"] != "xla":
         raise AssertionError((gpu["kernel_path"], cpu["kernel_path"]))
     a, b = gpu["llh_history"], cpu["llh_history"]
@@ -610,7 +709,7 @@ def run_kb_path(g, path, extra, want_path):
     launch counts checked."""
     from bigclam_tpu_torch.models.bigclam import k_block_plan
 
-    out, res, counts = run_path(g, path, XLK["k"], extra)
+    out, res, counts, _ = run_path(g, path, XLK["k"], extra)
     if out["kernel_path"] != want_path:
         raise AssertionError(f"K={XLK['k']} ran {out['kernel_path']}, want {want_path}")
     kc, k_pad = k_block_plan(XLK["k"])
@@ -794,6 +893,230 @@ def phase_kb_parity(tmp) -> dict:
     return out
 
 
+def sparse_cfg(k: int, m: int, **kw):
+    from bigclam_tpu_torch.config import BigClamConfig
+
+    return BigClamConfig(num_communities=k, representation="sparse",
+                         sparse_m=m, **kw)
+
+
+def sparse_launches(e: int, m: int, steps: int) -> int:
+    """Member-lookup launches of `steps` sparse steps: one per edge chunk
+    in each of the two edge sweeps (grad/LLH and candidates)."""
+    from bigclam_tpu_torch.ops.objective import edge_chunk_bound
+
+    chunk = edge_chunk_bound(sparse_cfg(1, m), m, 4)
+    return 2 * -(-e // chunk) * steps
+
+
+def compare_member(check, what, ids, w, edges, k_pad):
+    """The member-lookup kernel against its plain version on every edge
+    chunk, bit for bit."""
+    from bigclam_tpu_torch.ops import sparse_members as sm
+
+    for s, d in edges.slices():
+        got = sm.member_lookup_rows(ids, w, s, d, k_pad)
+        want = sm.member_lookup_rows_plain(ids, w, s, d, k_pad)
+        torch.cuda.synchronize()
+        check.equal(what, got, want)
+
+
+def phase_sparse_odd() -> dict:
+    """The member kernel vs plain on the odd case's sparse state (the
+    all-zero row is an all-sentinel row; rows are padded with sentinel
+    rows) at M < K and M = K, before and after a support update (which
+    admits members at weight 0), and on a random batch at M = 1."""
+    from bigclam_tpu_torch.ops import sparse_members as sm
+    from bigclam_tpu_torch.ops.objective import EdgeChunks
+
+    F, csr, _ = odd_case()
+    n, k = F.shape
+    dev = F.device
+    check = Check("member_lookup")
+    edges = EdgeChunks(csr.src, csr.dst, 1000)      # ragged last chunk
+    avg_deg = csr.num_directed_edges / n
+    out = {"n": int(n), "k": int(k), "directed_edges": csr.num_directed_edges}
+    for m in SPARSE_ODD_M:
+        block_b = sm.pick_block_b(1 << 22, n, m, avg_deg)
+        n_pad = -(-n // block_b) * block_b
+        ids, w, truncated = sm.from_dense(F.double().cpu().numpy(), m, k, n_pad)
+        ids, w = torch.as_tensor(ids, device=dev), torch.as_tensor(w, device=dev).float()
+        if not bool((ids[7] == k).all()):
+            raise AssertionError("the all-zero row is not all sentinel")
+        compare_member(check, f"m{m}_init", ids, w, edges, k)
+        blocks = sm.build_support_blocks(_host_graph(csr), n_pad, block_b, device=dev)
+        ids2, w2 = sm.support_update(ids, w, blocks, m, k)
+        compare_member(check, f"m{m}_support", ids2, w2, edges, k)
+        out[f"m{m}"] = {"truncated": truncated, "n_pad": n_pad,
+                        "zero_weight_members": int(((ids2 < k) & (w2 == 0)).sum())}
+    rng = np.random.default_rng(ODD["seed"])
+    ids = torch.as_tensor(rng.integers(0, k + 1, (n, 1)), dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.random((n, 1)), dtype=torch.float32, device=dev)
+    w[ids == k] = 0.0
+    src = torch.as_tensor(rng.integers(0, n, 10_001), device=dev)
+    dst = torch.as_tensor(rng.integers(0, n, 10_001), device=dev)
+    compare_member(check, "m1_random", ids, w, EdgeChunks(src, dst, 10_001), k)
+    out["kernels"] = {"member_lookup": check.parts}
+    return out
+
+
+def _host_graph(csr):
+    """The host Graph of a DeviceCSR."""
+    from bigclam_tpu_torch.graph.csr import Graph
+
+    return Graph(csr.indptr.cpu().numpy(), csr.indices.cpu().numpy(),
+                 np.arange(csr.num_nodes))
+
+
+def phase_sparse_main(g, path):
+    torch.cuda.reset_peak_memory_stats()
+    out, res, counts, state = run_path(
+        g, path, FULL["k"],
+        ["--max-iters", "5", "--representation", "sparse",
+         "--sparse-m", str(SPARSE_M)],
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["llh_history"]
+    if out["kernel_path"] != "sparse_merge_pallas" or out["sparse_m"] != SPARSE_M:
+        raise AssertionError(f"sparse path ran {out['kernel_path']} M={out['sparse_m']}")
+    e = g.num_directed_edges
+    want = dict.fromkeys(counts, 0)
+    want["member_lookup"] = sparse_launches(e, SPARSE_M, out["steps"])
+    if counts != want or want["member_lookup"] < 1:
+        raise AssertionError(f"sparse launches {counts}, want {want}")
+    if not hist[-1] > hist[0]:
+        raise AssertionError(f"LLH did not increase: {hist}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (state.F, state.ids, state.sumF))
+    return state, counts, {
+        "kernel_path": out["kernel_path"],
+        "llh_history": hist,
+        "steps": out["steps"],
+        "iters": out["iters"],
+        "sec_per_iter": out["sec_per_iter"],
+        "directed_edges_per_s": e / out["sec_per_iter"],
+        "stage_seconds": out["stage_seconds"],
+        "launches": counts,
+        "peak_device_gb": peak_gb,
+        "state_bytes": state_bytes,
+        "dense_F_bytes": 4 * g.num_nodes * FULL["k"],
+        "n": g.num_nodes, "directed_edges": e, "k": FULL["k"], "m": SPARSE_M,
+    }
+
+
+def phase_sparse_full(g, state):
+    """The member kernel vs plain over every edge of sparse_main's final
+    state, both timed per sweep, then one step timed and split."""
+    from bigclam_tpu_torch.models.sparse import SparseBigClamModel
+    from bigclam_tpu_torch.ops import sparse_members as sm
+
+    cfg = sparse_cfg(FULL["k"], SPARSE_M)
+    model = SparseBigClamModel(g, cfg, device=DEVICE)
+    if model.engaged_path != "sparse_merge_pallas" or model.n_pad != state.F.shape[0]:
+        raise AssertionError((model.engaged_path, model.n_pad, tuple(state.F.shape)))
+    ids, w, k_pad, edges = state.ids, state.F, model.k_pad, model.edges
+    check = Check("member_lookup")
+    compare_member(check, "every_edge", ids, w, edges, k_pad)
+
+    def sweep(fn):
+        def run():
+            for s, d in edges.slices():
+                fn(ids, w, s, d, k_pad)
+        return run
+
+    times = {"member_lookup": time_pair(sweep(sm.member_lookup_rows),
+                                        sweep(sm.member_lookup_rows_plain))}
+    times["member_lookup"]["library_ms"] = None
+    e, m = g.num_directed_edges, model.m
+    bnd = {"member_lookup": member_bound(g.num_nodes, e, m)}
+
+    # the step, and its parts on the step's own inputs (the support update
+    # runs every step at support_every = 1)
+    med = lambda fn: statistics.median(time_ms(fn))  # noqa: E731
+    ids_s, w_s = sm.support_update(ids, w, model.blocks, m, k_pad)
+    sumF = sm.sparse_sumF(ids_s, w_s, k_pad)
+    grad, node_llh = sm.sparse_grad_llh(ids_s, w_s, sumF, edges, cfg, k_pad)
+    cand = sm.sparse_candidates(ids_s, w_s, grad, edges, cfg, k_pad)
+    torch.cuda.reset_peak_memory_stats()
+    step = {
+        "step_ms": med(lambda: model._step(state)),
+        "support_ms": med(lambda: sm.support_update(ids, w, model.blocks, m, k_pad)),
+        "passes_ms": med(lambda: (
+            sm.sparse_grad_llh(ids_s, w_s, sumF, edges, cfg, k_pad),
+            sm.sparse_candidates(ids_s, w_s, grad, edges, cfg, k_pad),
+        )),
+        "armijo_ms": med(lambda: sm.sparse_armijo_update(
+            ids_s, w_s, sumF, grad, node_llh, cand, cfg, k_pad)),
+        "sumF_ms": med(lambda: sm.sparse_sumF(ids_s, w_s, k_pad)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profile_call(lambda: model._step(state)),
+    }
+    # the passes run two member-lookup sweeps
+    step["member_kernel_ms"] = 2 * times["member_lookup"]["ms"]
+    step["passes_rest_ms"] = step["passes_ms"] - step["member_kernel_ms"]
+    # the step computes sumF twice (before the passes and after Armijo)
+    step["other_ms"] = step["step_ms"] - (
+        step["support_ms"] + step["passes_ms"] + step["armijo_ms"] + 2 * step["sumF_ms"]
+    )
+    return check, times, bnd, {
+        "kernels": {"member_lookup": {**check.parts, **times["member_lookup"],
+                                      **bnd["member_lookup"]}},
+        "step": step, "m": m, "n_pad": model.n_pad, "block_b": model.block_b,
+        "edge_chunk": edges.chunk,
+    }
+
+
+def phase_sparse_parity(tmp) -> dict:
+    """The sparse path at M=16 (M < K) and M=100 (= K) on the card against
+    the CPU float64 sparse path, from one conductance init; at M = K also
+    against the card's dense `csr_fused` path."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.models.sparse import SparseBigClamModel
+
+    path = os.path.join(tmp, "sparse_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    k = PARITY["k"]
+    kw = dict(max_iters=4, conv_tol=0.0)
+    F0 = cli.init_F(g, sparse_cfg(k, k, **kw), "conductance")
+
+    def rel(a, b):
+        if len(a) != len(b):
+            raise AssertionError(f"histories differ in length: {a} vs {b}")
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    out = {"n": g.num_nodes, "edges": g.num_edges, "k": k}
+    for m in SPARSE_PARITY_M:
+        cfg = sparse_cfg(k, m, **kw)
+        card = SparseBigClamModel(g, cfg, device=DEVICE)
+        cpu = SparseBigClamModel(g, cfg.replace(dtype="float64"), device="cpu")
+        if (card.engaged_path, cpu.engaged_path) != ("sparse_merge_pallas", "sparse_xla"):
+            raise AssertionError((card.engaged_path, cpu.engaged_path))
+        reset_launch_counts()
+        a = card.fit(F0).llh_history
+        launches = launch_counts()["member_lookup"]
+        if launches != sparse_launches(g.num_directed_edges, card.m, len(a)):
+            raise AssertionError(f"M={m}: {launches} member launches for {len(a)} steps")
+        b = cpu.fit(F0).llh_history
+        r = rel(a, b)
+        if r > LLH_RTOL:
+            raise AssertionError(f"M={m}: card LLH {a} vs cpu float64 {b}")
+        out[f"m{m}"] = {"gpu_llh": a, "cpu_f64_llh": b, "max_rel": r,
+                        "launches": launches}
+        if m >= k:
+            dense = BigClamModel(g, cfg.replace(representation="dense"), device=DEVICE)
+            if dense.engaged_path != "csr_fused":
+                raise AssertionError(dense.engaged_path)
+            d = dense.fit(F0).llh_history
+            r = rel(a, d)
+            if r > LLH_RTOL:
+                raise AssertionError(f"M=K sparse LLH {a} vs dense csr_fused {d}")
+            out[f"m{m}"].update(dense_llh=d, max_rel_vs_dense=r)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -813,6 +1136,7 @@ def main() -> int:
     run("card", phase_card)
     run("build", phase_build)
     run("odd", phase_odd)
+    run("sparse_odd", phase_sparse_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
@@ -823,8 +1147,12 @@ def main() -> int:
         split_counts, _ = run("split", phase_split, g, path, tmp,
                               list(res.llh_history))
         checks, times, bnd, _ = run("full", phase_full, g, res.F)
-        del g, res
+        del res
+        state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
+        sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
+        del g, state
         run("parity", phase_parity, tmp)
+        run("sparse_parity", phase_sparse_parity, tmp)
 
         t0 = time.perf_counter()
         path = os.path.join(tmp, "xl_k_graph.txt")
@@ -843,14 +1171,15 @@ def main() -> int:
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)
-    checks.update(kb_checks)
-    times.update(kb_times)
-    bnd.update({name: kb_bnd[name] for name in K_BLOCKED})
+    checks.update(kb_checks, member_lookup=sp_check)
+    times.update(kb_times, **sp_times)
+    bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd)
     launches = {
         "fused_superstep": main_counts["fused_superstep"],
         "grad_llh_csr": split_counts["grad_llh_csr"],
         "candidates_csr": split_counts["candidates_csr"],
         **{name: kb_counts[name] for name in K_BLOCKED},
+        "member_lookup": sparse_counts["member_lookup"],
     }
     emit({"kernels": [
         {

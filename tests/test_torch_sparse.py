@@ -1,0 +1,527 @@
+"""The port's sparse top-M representation against the JAX package's.
+
+* Host code (`pick_block_b`, `from_dense`, `to_dense`,
+  `support_blocks_host`) is bit-identical.
+* The plain member lookup equals the JAX `member_lookup` and the
+  interpret-mode Pallas `member_lookup_pallas` exactly (the function is
+  exact: a hit copies the stored weight, a miss gives 0).
+* The sparse sweeps, the Armijo update and the support update match the
+  JAX ones in float64 (rtol 1e-12; support ids and weights equal).
+* Six-step trajectories of `SparseBigClamModel` match the JAX model in
+  float64 (LLH rtol 1e-10, ids equal) on both merge paths, and in float32
+  at LLH rtol 1e-5; at M >= K the sparse trajectory equals the port's
+  dense `xla` one (rtol 1e-11, as tests/test_sparse.py holds the JAX pair).
+* `cli fit --representation sparse --device cpu` and its refusals.
+* On a card only: the CUDA member-lookup kernel equals its plain version
+  bit for bit.
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from bigclam_tpu.config import BigClamConfig as JaxConfig
+from bigclam_tpu.graph.ingest import graph_from_edges as jax_graph_from_edges
+from bigclam_tpu.models.agm import sample_planted_graph
+from bigclam_tpu.models.sparse import SparseBigClamModel as JaxSparseModel
+from bigclam_tpu.ops import sparse_members as jsm
+
+from bigclam_tpu_torch import cli
+from bigclam_tpu_torch.config import BigClamConfig
+from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.models.bigclam import BigClamModel
+from bigclam_tpu_torch.models.sparse import (
+    SparseBigClamModel,
+    effective_m,
+    state_from_jax_sparse_arrays,
+)
+from bigclam_tpu_torch.ops import sparse_members as sm
+from bigclam_tpu_torch.utils.device import DeviceUnavailableError
+
+torch.set_num_threads(2)
+
+
+def _random_graph(seed, n=57, p=0.12, isolated=()):
+    rng = np.random.default_rng(seed)
+    a = rng.random((n, n)) < p
+    edges = [(i, j) for i in range(n) for j in range(i + 1, n) if a[i, j]]
+    edges.append((0, n - 1))
+    edges = [e for e in edges if e[0] not in isolated and e[1] not in isolated]
+    return jax_graph_from_edges(edges, num_nodes=n)
+
+
+def _port_graph(g):
+    return Graph(indptr=g.indptr, indices=g.indices, raw_ids=g.raw_ids)
+
+
+def _jcfg(k, m, **kw):
+    base = dict(
+        num_communities=k, representation="sparse", sparse_m=m,
+        dtype="float64", max_iters=6, conv_tol=0.0, edge_chunk=64,
+        use_pallas=False, use_pallas_csr=False, sparse_pallas_merge=False,
+    )
+    base.update(kw)
+    return JaxConfig(**base)
+
+
+def _models(g, jcfg):
+    jm = JaxSparseModel(g, jcfg)
+    pm = SparseBigClamModel(
+        _port_graph(g), BigClamConfig(**dataclasses.asdict(jcfg)), device="cpu"
+    )
+    return jm, pm
+
+
+def _member_rows(rng, e, m, k, fill=0.6):
+    """Sorted unique member-id rows with sentinel (k) padding and weights
+    (tests/test_fused.py's generator)."""
+    ids = np.full((e, m), k, np.int32)
+    w = np.zeros((e, m), np.float32)
+    for r in range(e):
+        cnt = int(rng.integers(0, m + 1) * fill) if fill < 1 else m
+        pick = np.sort(rng.choice(k, size=min(cnt, k), replace=False))
+        ids[r, : pick.size] = pick
+        w[r, : pick.size] = rng.random(pick.size).astype(np.float32)
+    return ids, w
+
+
+@pytest.fixture(scope="module")
+def planted():
+    """tests/test_sparse.py's planted AGM blocks (N=1,024, K=256) with a
+    community-localized init."""
+    g, truth = sample_planted_graph(
+        1024, 256, p_in=0.6, rng=np.random.default_rng(11)
+    )
+    F0 = np.zeros((g.num_nodes, 256))
+    for c, nodes in enumerate(truth):
+        F0[nodes, c] = 1.0
+    return g, F0
+
+
+# --- host code -------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "args",
+    [(1 << 22, 300_000, 64, 28.4), (1 << 22, 57, 6, 3.1), (1000, 13, 9, 0.0),
+     (1 << 10, 5000, 300, 2.5), (1 << 22, 3, 1, 0.0)],
+)
+def test_pick_block_b_is_bit_identical(args):
+    assert sm.pick_block_b(*args) == jsm.pick_block_b(*args)
+
+
+@pytest.mark.parametrize("m,k,n_pad", [(9, 9, 16), (3, 9, 13), (1, 5, 13), (9, 9, 13)])
+def test_from_dense_and_to_dense_are_bit_identical(m, k, n_pad):
+    rng = np.random.default_rng(m + k)
+    F = rng.uniform(0.0, 1.0, size=(13, k))
+    F[F < 0.4] = 0.0
+    F[4] = 0.0                                  # an all-sentinel row
+    F[6, :3] = 0.5                              # ties go to the lower id
+    got, want = sm.from_dense(F, m, k, n_pad), jsm.from_dense(F, m, k, n_pad)
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    assert got[2] == want[2]
+    ids, w, _ = got
+    np.testing.assert_array_equal(sm.to_dense(ids, w, 13, k), jsm.to_dense(ids, w, 13, k))
+
+
+@pytest.mark.parametrize("block_b", [8, 16, 64])
+def test_support_blocks_host_is_bit_identical(block_b):
+    g = _random_graph(3, isolated=(5,))
+    n_pad = -(-g.num_nodes // block_b) * block_b
+    for a, b in zip(sm.support_blocks_host(_port_graph(g), n_pad, block_b),
+                    jsm.support_blocks_host(g, n_pad, block_b)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+# --- member lookup ---------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "e,m,k,fill", [(53, 8, 20, 0.6), (300, 5, 37, 0.6), (257, 1, 7, 1.0),
+                   (40, 64, 100, 0.6), (9, 4, 7, 0.0)],
+)
+def test_plain_member_lookup_equals_jax_and_pallas_interpret(e, m, k, fill):
+    """E not a multiple of the Pallas kernel's 256-row block, M = 1, and
+    (fill 0) all-sentinel rows on both sides: the sentinel == sentinel
+    collision must not count as a hit."""
+    rng = np.random.default_rng(e + m)
+    iv, wv = _member_rows(rng, e, m, k, fill)
+    iu, _ = _member_rows(rng, e, m, k, fill)
+    iv[0], wv[0] = k, 0.0                       # an all-sentinel neighbour row
+    got = sm.member_lookup(torch.as_tensor(iv), torch.as_tensor(wv),
+                           torch.as_tensor(iu), k).numpy()
+    ref = jsm.member_lookup(jnp.asarray(iv), jnp.asarray(wv), jnp.asarray(iu), k)
+    pal = jsm.member_lookup_pallas(jnp.asarray(iv), jnp.asarray(wv),
+                                   jnp.asarray(iu), k, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got, np.asarray(pal))
+    assert (got[iu >= k] == 0).all()
+
+
+def test_rows_form_equals_the_gathered_jax_lookup():
+    """member_lookup_rows reads (ids, w) at src/dst: exactly
+    member_lookup(ids[dst], w[dst], ids[src]) of the JAX package."""
+    rng = np.random.default_rng(7)
+    n, m, k, e = 40, 6, 15, 333
+    ids, w = _member_rows(rng, n, m, k)
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    sm.reset_launch_counts()
+    got = sm.member_lookup_rows(torch.as_tensor(ids), torch.as_tensor(w),
+                                torch.as_tensor(src), torch.as_tensor(dst), k)
+    ref = jsm.member_lookup(jnp.asarray(ids[dst]), jnp.asarray(w[dst]),
+                            jnp.asarray(ids[src]), k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert sm.member_lookup_rows.launches == 0          # the CPU runs plain
+
+
+def test_merge_dispatch_and_member_limit():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    cfg = BigClamConfig(representation="sparse")
+    assert not sm.merge_kernel_want(cfg, cpu) and sm.merge_kernel_want(cfg, cuda)
+    assert sm.merge_kernel_want(cfg.replace(sparse_pallas_merge=True), cpu)
+    assert not sm.merge_kernel_want(cfg.replace(sparse_pallas_merge=False), cuda)
+    sm.check_member_limit(1)
+    sm.check_member_limit(sm.MAX_M)
+    for m in (0, sm.MAX_M + 1):
+        with pytest.raises(sm.MemberLimitError, match="--sparse-m"):
+            sm.check_member_limit(m)
+
+
+# --- sweeps, Armijo and support update -------------------------------------
+
+
+def _state_pair(g, jcfg, F0):
+    jm, pm = _models(g, jcfg)
+    sj, sp = jm.init_state(F0), pm.init_state(F0)
+    np.testing.assert_array_equal(sp.ids.numpy(), np.asarray(sj.ids))
+    np.testing.assert_array_equal(sp.F.numpy(), np.asarray(sj.F))
+    return jm, pm, sj, sp
+
+
+@pytest.mark.parametrize("k,m", [(6, 6), (8, 3)])
+def test_sweeps_and_armijo_match_jax_in_float64(k, m):
+    g = _random_graph(0)
+    F0 = np.random.default_rng(1).uniform(0.0, 1.0, (g.num_nodes, k))
+    jm, pm, sj, sp = _state_pair(g, _jcfg(k, m), F0)
+    jcfg, cfg = jm.cfg, pm.cfg
+    ids_j, w_j, ids_p, w_p = sj.ids, sj.F, sp.ids, sp.F
+    close = lambda a, b: np.testing.assert_allclose(  # noqa: E731
+        a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-12)
+    sumF_p, sumF_j = sm.sparse_sumF(ids_p, w_p, k), jsm.sparse_sumF(ids_j, w_j, k)
+    close(sumF_p, sumF_j)
+    grad_p, llh_p = sm.sparse_grad_llh(ids_p, w_p, sumF_p, pm.edges, cfg, k)
+    grad_j, llh_j = jsm.sparse_grad_llh(ids_j, w_j, sumF_j, jm._edges, jcfg, k)
+    close(grad_p, grad_j)
+    close(llh_p, llh_j)
+    cand_p = sm.sparse_candidates(ids_p, w_p, grad_p, pm.edges, cfg, k)
+    cand_j = jsm.sparse_candidates(ids_j, w_j, grad_j, jm._edges, jcfg, k)
+    close(cand_p, cand_j)
+    wn_p, hist_p = sm.sparse_armijo_update(ids_p, w_p, sumF_p, grad_p, llh_p, cand_p, cfg, k)
+    wn_j, hist_j = jsm.sparse_armijo_update(ids_j, w_j, sumF_j, grad_j, llh_j, cand_j, jcfg, k)
+    close(wn_p, wn_j)
+    np.testing.assert_array_equal(hist_p.numpy(), np.asarray(hist_j))
+
+
+def _support_pair(g, F, m, k, n_pad, block_b):
+    ids, w, _ = sm.from_dense(F, m, k, n_pad)
+    got = sm.support_update(
+        torch.as_tensor(ids), torch.as_tensor(w),
+        sm.build_support_blocks(_port_graph(g), n_pad, block_b, torch.float64),
+        m, k,
+    )
+    want = jsm.support_update(
+        jnp.asarray(ids), jnp.asarray(w),
+        jsm.build_support_blocks(g, n_pad, block_b, np.float64), m, k,
+    )
+    return [t.numpy() for t in got], [np.asarray(t) for t in want]
+
+
+def test_support_update_star_matches_jax(toy_graphs):
+    """tests/test_sparse.py's star: the hub admits its neighbour's
+    community at weight 0, the neighbour keeps its weight exactly."""
+    g = toy_graphs["star"]
+    F = np.zeros((g.num_nodes, 6))
+    F[1, 2] = 0.7
+    (ids, w), (ids_j, w_j) = _support_pair(g, F, 4, 6, 8, 8)
+    np.testing.assert_array_equal(ids, ids_j)
+    np.testing.assert_array_equal(w, w_j)
+    assert 2 in ids[0] and w[0][ids[0] == 2] == 0.0
+    assert w[1][ids[1] == 2] == 0.7 and 2 not in ids[3]
+
+
+@pytest.mark.parametrize(
+    "m,block_b,batch",
+    [(3, 8, sm.SUPPORT_BATCH_ENTRIES), (3, 16, 1), (8, 64, sm.SUPPORT_BATCH_ENTRIES),
+     (2, 8, 500)],
+)
+def test_support_update_matches_jax_truncating_and_batched(m, block_b, batch, monkeypatch):
+    """M < K truncation (ties to the lower id; integer ranks make many),
+    and the node blocks batched together or one at a time."""
+    g = _random_graph(5, isolated=(9,))
+    k = 8
+    rng = np.random.default_rng(m)
+    F = np.where(rng.random((g.num_nodes, k)) < 0.5, 1.0, 0.0)
+    F[3] = rng.uniform(0.0, 1.0, k)
+    n_pad = -(-g.num_nodes // block_b) * block_b
+    ids, w, _ = sm.from_dense(F, m, k, n_pad)
+    blocks = sm.build_support_blocks(_port_graph(g), n_pad, block_b, torch.float64)
+    monkeypatch.setattr(sm, "SUPPORT_BATCH_ENTRIES", batch)
+    got = sm.support_update(torch.as_tensor(ids), torch.as_tensor(w), blocks, m, k)
+    want = jsm.support_update(jnp.asarray(ids), jnp.asarray(w),
+                              jsm.build_support_blocks(g, n_pad, block_b, np.float64), m, k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_support_update_keeps_a_nan_weight_as_jax_does():
+    """A NaN weight ranks +inf and keeps its slot (it must reach the LLH,
+    not be dropped by the top-M cut)."""
+    g = _random_graph(6)
+    k, m = 7, 2
+    F = np.random.default_rng(2).uniform(0.0, 1.0, (g.num_nodes, k))
+    ids, w, _ = sm.from_dense(F, m, k, 64)
+    w[5, 1] = np.nan
+    blocks_p = sm.build_support_blocks(_port_graph(g), 64, 8, torch.float64)
+    got = sm.support_update(torch.as_tensor(ids), torch.as_tensor(w), blocks_p, m, k)
+    want = jsm.support_update(jnp.asarray(ids), jnp.asarray(w),
+                              jsm.build_support_blocks(g, 64, 8, np.float64), m, k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert int(ids[5, 1]) in got[0][5].tolist() and torch.isnan(got[1][5]).any()
+
+
+# --- trajectories ----------------------------------------------------------
+
+
+def _trajectory(jm, pm, F0, steps=6, rtol=1e-10, ids_equal=True):
+    sj, sp = jm.init_state(F0), pm.init_state(F0)
+    for _ in range(steps):
+        sj, sp = jm._step(sj), pm._step(sp)
+        np.testing.assert_allclose(float(sp.llh), float(sj.llh), rtol=rtol)
+        if ids_equal:
+            np.testing.assert_array_equal(sp.ids.numpy(), np.asarray(sj.ids))
+    assert sp.it == int(sj.it) == steps
+    return sj, sp
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize("k,m", [(6, 6), (6, 9), (8, 3)])
+def test_six_f64_steps_match_jax(k, m, merge):
+    """Both merge paths: sparse_xla, and the kernel's plain version against
+    the interpret-mode Pallas merge (sparse_merge_pallas)."""
+    g = _random_graph(0)
+    F0 = np.random.default_rng(1).uniform(0.0, 1.0, (g.num_nodes, k))
+    jm, pm = _models(g, _jcfg(k, m, sparse_pallas_merge=merge, pallas_interpret=merge))
+    path = "sparse_merge_pallas" if merge else "sparse_xla"
+    assert jm.engaged_path == pm.engaged_path == path
+    assert pm.m == jm.m == min(m, k) and pm.n_pad == jm.n_pad
+    sj, sp = _trajectory(jm, pm, F0)
+    np.testing.assert_allclose(sp.F.numpy(), np.asarray(sj.F), rtol=1e-10, atol=1e-12)
+
+
+def test_six_f64_steps_match_jax_on_planted_truncating(planted):
+    g, F0 = planted
+    jm, pm = _models(g, _jcfg(256, 8, edge_chunk=1 << 20))
+    _trajectory(jm, pm, F0)
+
+
+def test_six_f32_steps_match_jax(planted):
+    g, F0 = planted
+    jm, pm = _models(g, _jcfg(256, 8, dtype="float32", edge_chunk=1 << 20))
+    _trajectory(jm, pm, F0, rtol=1e-5, ids_equal=False)
+
+
+def test_m_ge_k_trajectory_matches_the_port_dense_path(toy_graphs):
+    """The twin of tests/test_sparse.py::test_m_ge_k_trajectory_matches_dense
+    on the port: at M >= K with a support update every step the sparse
+    trajectory is the dense `xla` one."""
+    g = _port_graph(toy_graphs["two_cliques"])
+    F0 = np.random.default_rng(5).uniform(0.1, 1.0, size=(g.num_nodes, 4))
+    base = dict(num_communities=4, dtype="float64", max_iters=8, conv_tol=0.0)
+    dm = BigClamModel(g, BigClamConfig(**base), device="cpu")
+    sp = SparseBigClamModel(
+        g, BigClamConfig(representation="sparse", sparse_m=4, **base), device="cpu"
+    )
+    assert dm.engaged_path == "xla"
+    ds, ss = dm.init_state(F0), sp.init_state(F0)
+    for _ in range(8):
+        ds, ss = dm._step(ds), sp._step(ss)
+        np.testing.assert_allclose(float(ss.llh), float(ds.llh), rtol=1e-11)
+    np.testing.assert_allclose(sp.extract_F(ss), dm.extract_F(ds), rtol=1e-10, atol=1e-12)
+    rd = dm.fit(F0)
+    rs = sp.fit(F0)
+    assert rs.num_iters == rd.num_iters
+    np.testing.assert_allclose(rs.llh_history, rd.llh_history, rtol=1e-11)
+
+
+def test_fit_state_and_state_bytes():
+    g = _random_graph(1)
+    jm, pm = _models(g, _jcfg(10, 4))
+    F0 = np.random.default_rng(2).uniform(0.0, 1.0, (g.num_nodes, 10))
+    st, llh, iters, hist = pm.fit_state(pm.init_state(F0))
+    assert iters == 6 and len(hist) == 7 and llh == hist[-1]
+    assert pm.state_nbytes(st) == pm.state_nbytes() == jm.state_nbytes()
+    assert pm.state_nbytes() == pm.n_pad * 4 * (8 + 4) + 10 * 8
+
+
+def test_state_from_jax_round_trip():
+    """Two JAX steps, the state carried across (rows past N stripped and
+    re-padded), then one more step in each package."""
+    g = _random_graph(4)
+    k, m = 8, 3
+    F0 = np.random.default_rng(7).uniform(0.0, 1.0, (g.num_nodes, k))
+    jm, pm = _models(g, _jcfg(k, m))
+    sj = jm._step(jm._step(jm.init_state(F0)))
+    sp = pm.state_from_jax(np.asarray(sj.ids), np.asarray(sj.F),
+                           llh=float(sj.llh), it=int(sj.it))
+    assert tuple(sp.F.shape) == (pm.n_pad, m) and sp.it == 2
+    assert (sp.ids[g.num_nodes:] == k).all() and (sp.F[g.num_nodes:] == 0).all()
+    np.testing.assert_array_equal(sp.ids.numpy(), np.asarray(sj.ids))
+    np.testing.assert_allclose(sp.sumF.numpy(), np.asarray(sj.sumF), rtol=1e-12)
+    sj2, sp2 = jm._step(sj), pm._step(sp)
+    np.testing.assert_allclose(float(sp2.llh), float(sj2.llh), rtol=1e-10)
+    np.testing.assert_array_equal(sp2.ids.numpy(), np.asarray(sj2.ids))
+    n = g.num_nodes
+    bare = state_from_jax_sparse_arrays(
+        np.asarray(sj.ids), np.asarray(sj.F), n, m, k, torch.float64,
+        torch.device("cpu"),
+    )
+    assert tuple(bare.ids.shape) == (n, m)
+    assert torch.equal(bare.F, sp.F[:n]) and torch.equal(bare.ids, sp.ids[:n])
+
+
+def test_model_checks(toy_graphs):
+    g = _port_graph(toy_graphs["two_cliques"])
+    cfg = BigClamConfig(num_communities=4, representation="sparse", sparse_m=64)
+    assert effective_m(cfg) == 4
+    assert effective_m(cfg.replace(num_communities=100)) == 64
+    m = SparseBigClamModel(g, cfg, device="cpu")
+    assert m.engaged_path == "sparse_xla" and m.path_reason == "representation=sparse M=4"
+    m = SparseBigClamModel(g, cfg.replace(sparse_pallas_merge=True), device="cpu")
+    assert m.engaged_path == "sparse_merge_pallas"
+    with pytest.raises(ValueError, match="min_f"):
+        SparseBigClamModel(g, cfg.replace(min_f=0.1), device="cpu")
+    with pytest.raises(ValueError, match="representation"):
+        SparseBigClamModel(g, cfg.replace(representation="dense"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(DeviceUnavailableError):
+            SparseBigClamModel(g, cfg)
+
+
+# --- cli -------------------------------------------------------------------
+
+
+def _edge_file(tmp_path):
+    rng = np.random.default_rng(0)
+    edges = set()
+    while len(edges) < 200:
+        u, v = rng.integers(0, 64, 2)
+        if u != v:
+            edges.add((min(int(u), int(v)), max(int(u), int(v))))
+    path = tmp_path / "g.txt"
+    path.write_text("".join(f"{u}\t{v}\n" for u, v in sorted(edges)))
+    return str(path)
+
+
+def test_cli_sparse_fit_on_cpu_matches_jax_cli(tmp_path):
+    from bigclam_tpu.cli import main as jax_main
+
+    path = _edge_file(tmp_path)
+    argv = ["fit", "--graph", path, "--k", "8", "--representation", "sparse",
+            "--sparse-m", "4", "--max-iters", "4", "--init", "random",
+            "--dtype", "float64"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "c.txt")]) == 0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert out["representation"] == "sparse" and out["sparse_m"] == 4
+    assert out["kernel_path"] == "sparse_xla" and out["device_kind"] == "cpu"
+    assert out["kernel_path_reason"] == "representation=sparse M=4"
+    assert out["communities"] >= 1
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jax_main(argv + ["--quiet"]) == 0
+    ref = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert ref["kernel_path"] == out["kernel_path"] and ref["sparse_m"] == 4
+    assert out["iters"] == ref["iters"]
+    np.testing.assert_allclose(out["llh"], ref["llh"], rtol=1e-10)
+
+
+def test_cli_sparse_refuses_csr_kernels_on_and_needs_a_card(tmp_path):
+    path = _edge_file(tmp_path)
+    argv = ["fit", "--graph", path, "--k", "4", "--representation", "sparse",
+            "--max-iters", "2", "--init", "random"]
+    with pytest.raises(SystemExit, match="member-lookup kernel"):
+        cli.main(argv + ["--csr-kernels", "on", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(DeviceUnavailableError):
+            cli.main(argv)
+
+
+# --- on the card -----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 17, 37, 64, 100, 1024])
+def test_cuda_member_lookup_equals_plain(m, cuda_device):
+    rng = np.random.default_rng(m)
+    n, k, e = 300, max(2 * m, 8), 5_003
+    ids, w = _member_rows(rng, n, m, k)
+    ids, w = torch.as_tensor(ids, device=cuda_device), torch.as_tensor(w, device=cuda_device)
+    src = torch.as_tensor(rng.integers(0, n, e), device=cuda_device)
+    dst = torch.as_tensor(rng.integers(0, n, e), device=cuda_device)
+    sm.reset_launch_counts()
+    got = sm.member_lookup_rows(ids, w, src, dst, k)
+    torch.cuda.synchronize()
+    assert sm.launch_counts() == {"member_lookup": 1}
+    assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, src, dst, k))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_passes_match_the_plain_merge(cuda_device):
+    """The grad/LLH and candidate passes on the kernel path against the
+    plain merge path on the card: equal lookups, sums in another atomic
+    order, so held to the float32 band (rtol = atol = 3e-5)."""
+    g = _port_graph(_random_graph(0))
+    cfg = BigClamConfig(num_communities=8, representation="sparse", sparse_m=3)
+    F0 = np.random.default_rng(1).uniform(0.0, 1.0, (g.num_nodes, 8))
+    mk = SparseBigClamModel(g, cfg, device=cuda_device)
+    plain = cfg.replace(sparse_pallas_merge=False)
+    assert mk.engaged_path == "sparse_merge_pallas"
+    st = mk.init_state(F0)
+    sm.reset_launch_counts()
+    out = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        grad, llh = sm.sparse_grad_llh(st.ids, st.F, st.sumF, mk.edges, c, 8)
+        cand = sm.sparse_candidates(st.ids, st.F, grad, mk.edges, c, 8)
+        out[name] = [t.cpu().numpy() for t in (grad, llh, cand)]
+    torch.cuda.synchronize()
+    chunks = -(-g.num_directed_edges // mk.edges.chunk)
+    assert sm.launch_counts() == {"member_lookup": 2 * chunks}
+    for a, b in zip(out["kernel"], out["plain"]):
+        np.testing.assert_allclose(a, b, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_above_the_member_bound(cuda_device):
+    ids = torch.full((4, sm.MAX_M + 1), 3, dtype=torch.int32, device=cuda_device)
+    e = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(sm.MemberLimitError):
+        sm.member_lookup_rows(ids, ids.float(), e, e, 3)
