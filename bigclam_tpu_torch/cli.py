@@ -1,22 +1,33 @@
-"""Command line of the PyTorch port: `fit`.
+"""Command line of the PyTorch port: `fit`, `sweep` and `eval`.
 
-Port of the dense single-device `fit` of bigclam_tpu/cli.py: load a text
-edge list, seed F by conductance (or a {0,1} random / row-keyed init),
-train to convergence on the chosen device and kernel path, extract the
-communities by the delta threshold, and print one JSON line with the
-same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`, `k`,
-`representation`, `kernel_path`, `kernel_path_reason`, `partition`) plus
-`sec_per_iter`, `device_kind` and the LLH history.
+Port of the single-device `fit`, `sweep` and `eval` of bigclam_tpu/cli.py.
+`fit` loads a text edge list, seeds F by conductance (or a {0,1} random /
+row-keyed init), trains to convergence on the chosen device and kernel
+path, extracts the communities by the delta threshold, and prints one JSON
+line with the same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`,
+`k`, `representation`, `kernel_path`, `kernel_path_reason`, `partition`)
+plus `sec_per_iter`, `device_kind` and the LLH history. `sweep` trains
+across the log-spaced K grid (models.model_selection) and prints the JAX
+keys `chosen_k`, `kset`, `llh_by_k`, `n`, `edges`, `representation`, with
+one `{"k", "llh"}` line per K on stderr. `eval` scores a community file
+against a ground truth (`f1`, `nmi`).
 
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 --device cpu
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 3000   # csr_fused_kb
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
+        --csr-kernels off                                      # pallas_vmem
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
         --representation sparse --sparse-m 64                  # sparse_merge_pallas
+    python -m bigclam_tpu_torch.cli sweep --graph g.txt --min-com 50 \
+        --max-com 200 --div-com 15 --checkpoint-dir sweep/
+    python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
 
-It runs on `cuda` unless `--device cpu` is given, and refuses to start
-when no card is present. Above K = 1024 the model takes the K-blocked
-path by itself (`kernel_path` in the JSON says which). `--representation
+`fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
+to start when no card is present. Above K = 1024 the model takes the
+K-blocked path by itself (`kernel_path` in the JSON says which).
+`--csr-kernels off` takes the non-CSR step: `pallas_vmem` (the candidate
+edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
 F, with the member-lookup CUDA kernel on the card (`sparse_xla`, the plain
 lookup, on the CPU); its JSON adds `sparse_m`.
@@ -33,6 +44,60 @@ from typing import Optional
 import numpy as np
 
 
+SWEEP_EPILOG = (
+    "Not ported yet (the parser refuses these JAX `sweep` flags by name): "
+    "--quality and --device-annealing (quality mode, ROADMAP queue 1 item "
+    "13); --checkpoint-every, --telemetry-dir and --retry-budget "
+    "(within-K checkpoints, telemetry and the retry supervisor, item 8)."
+)
+
+
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    """The flags `fit` and `sweep` share."""
+    p.add_argument("--graph", required=True, help="SNAP edge-list path")
+    p.add_argument("--max-iters", type=int, default=1000)
+    p.add_argument("--conv-tol", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--csr-kernels", default="auto", choices=["auto", "on", "off"],
+        help="CSR edge kernels (auto: on for cuda; on: require — on cpu "
+             "their plain versions run; off: the non-CSR step — "
+             "`pallas_vmem` on cuda, `xla` on cpu)",
+    )
+    p.add_argument(
+        "--csr-fused", default="auto", choices=["auto", "off"],
+        help="fused schedule (auto: wherever the CSR kernels engage — "
+             "`csr_fused`, or `csr_fused_kb` above K=1024; off: the split "
+             "schedule — `csr`, or `csr_grouped_kb` above K=1024)",
+    )
+    p.add_argument(
+        "--representation", default="dense", choices=["dense", "sparse"],
+        help="affiliation-state representation: dense (N, K) F (default) "
+             "or sparse per-node top-M member lists (models/sparse.py) — "
+             "device memory and bytes per edge scale with --sparse-m, not K",
+    )
+    p.add_argument(
+        "--sparse-m", type=int, default=64,
+        help="member slots per node on --representation sparse (M; "
+             "clamped to K — M >= K reproduces the dense trajectory)",
+    )
+    p.add_argument(
+        "--support-every", type=int, default=1,
+        help="iterations between sparse support updates (candidate-"
+             "community admission from neighbour lists; 1 = every step, "
+             "required for dense parity)",
+    )
+    p.add_argument(
+        "--dtype", default="float32", choices=["float32", "float64"],
+        help="F dtype (float64 runs on cpu only)",
+    )
+    p.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="device to train on (default cuda; there is no silent CPU "
+             "fallback)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bigclam_tpu_torch.cli",
@@ -40,11 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     f = sub.add_parser("fit", help="train at a fixed K and extract communities")
-    f.add_argument("--graph", required=True, help="SNAP edge-list path")
+    _add_train_flags(f)
     f.add_argument("--k", type=int, required=True, help="number of communities")
-    f.add_argument("--max-iters", type=int, default=1000)
-    f.add_argument("--conv-tol", type=float, default=1e-4)
-    f.add_argument("--seed", type=int, default=0)
     f.add_argument(
         "--init", default="conductance",
         choices=["conductance", "random", "rowkeyed"],
@@ -52,52 +114,39 @@ def build_parser() -> argparse.ArgumentParser:
              "default), a {0,1} Bernoulli(0.5) random init, or the "
              "row-keyed counter init",
     )
-    f.add_argument(
-        "--csr-kernels", default="auto", choices=["auto", "on", "off"],
-        help="CSR edge kernels (auto: on for cuda; on: require — on cpu "
-             "their plain versions run; off: the plain torch `xla` path)",
-    )
-    f.add_argument(
-        "--csr-fused", default="auto", choices=["auto", "off"],
-        help="fused schedule (auto: wherever the CSR kernels engage — "
-             "`csr_fused`, or `csr_fused_kb` above K=1024; off: the split "
-             "schedule — `csr`, or `csr_grouped_kb` above K=1024)",
-    )
-    f.add_argument(
-        "--representation", default="dense", choices=["dense", "sparse"],
-        help="affiliation-state representation: dense (N, K) F (default) "
-             "or sparse per-node top-M member lists (models/sparse.py) — "
-             "device memory and bytes per edge scale with --sparse-m, not K",
-    )
-    f.add_argument(
-        "--sparse-m", type=int, default=64,
-        help="member slots per node on --representation sparse (M; "
-             "clamped to K — M >= K reproduces the dense trajectory)",
-    )
-    f.add_argument(
-        "--support-every", type=int, default=1,
-        help="iterations between sparse support updates (candidate-"
-             "community admission from neighbour lists; 1 = every step, "
-             "required for dense parity)",
-    )
-    f.add_argument(
-        "--dtype", default="float32", choices=["float32", "float64"],
-        help="F dtype (float64 runs on cpu only)",
-    )
     f.add_argument("--out", default=None, help="write communities (SNAP cmty)")
-    f.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
-        help="device to train on (default cuda; there is no silent CPU "
-             "fallback)",
+
+    w = sub.add_parser("sweep", help="automatic K selection over a log grid",
+                       epilog=SWEEP_EPILOG)
+    _add_train_flags(w)
+    w.add_argument("--min-com", type=int, default=1000)
+    w.add_argument("--max-com", type=int, default=9000)
+    w.add_argument("--div-com", type=int, default=100)
+    w.add_argument("--ksweep-tol", type=float, default=1e-3)
+    w.add_argument(
+        "--checkpoint-dir", default=None,
+        help="journal each trained K's LLH in <dir>/sweep_state.json and "
+             "skip journaled Ks when the sweep is run again",
     )
+    w.add_argument(
+        "--resume", default="auto", choices=["auto", "never"],
+        help="auto: resume from the --checkpoint-dir journal; never: "
+             "retrain every K (still journaling)",
+    )
+
+    e = sub.add_parser("eval", help="score predicted vs ground-truth communities")
+    e.add_argument("--pred", required=True)
+    e.add_argument("--truth", required=True)
+    e.add_argument("--no-nmi", action="store_true")
     return p
 
 
 def config_from_args(args):
     from bigclam_tpu_torch.config import BigClamConfig
 
+    sweep = args.command == "sweep"
     return BigClamConfig(
-        num_communities=args.k,
+        num_communities=args.max_com if sweep else args.k,
         dtype=args.dtype,
         max_iters=args.max_iters,
         conv_tol=args.conv_tol,
@@ -107,6 +156,9 @@ def config_from_args(args):
         representation=args.representation,
         sparse_m=args.sparse_m,
         support_every=args.support_every,
+        **(dict(min_com=args.min_com, max_com=args.max_com,
+                div_com=args.div_com, ksweep_tol=args.ksweep_tol)
+           if sweep else {}),
     )
 
 
@@ -209,13 +261,56 @@ def fit(args):
     return out, res, state
 
 
+def sweep(args, callback=None) -> dict:
+    """Run `sweep` for parsed arguments; callback(k, llh) after each K.
+    Returns the JSON-ready result dict."""
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.model_selection import sweep_k
+
+    cfg = config_from_args(args)
+    g = build_graph(args.graph)
+    res = sweep_k(
+        g, cfg,
+        model_factory=lambda c: make_model(g, c, args.device),
+        callback=callback,
+        state_dir=args.checkpoint_dir,
+        resume=args.resume != "never",
+    )
+    return {
+        "chosen_k": res.chosen_k,
+        "kset": res.kset,
+        "llh_by_k": {str(k): v for k, v in res.llh_by_k.items()},
+        "n": g.num_nodes,
+        "edges": g.num_edges,
+        "representation": cfg.representation,
+    }
+
+
+def evaluate(args) -> dict:
+    """Run `eval`: F1 (and the overlapping NMI unless --no-nmi) of the
+    --pred communities against the --truth ones."""
+    from bigclam_tpu_torch.evaluation import avg_f1, overlapping_nmi
+    from bigclam_tpu_torch.ops.extraction import load_communities
+
+    pred = load_communities(args.pred)
+    truth = load_communities(args.truth)
+    out = {"f1": avg_f1(pred, truth)}
+    if not args.no_nmi:
+        out["nmi"] = overlapping_nmi(pred, truth)
+    return out
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "fit":
         out, _, _ = fit(args)
-        print(json.dumps(out))
-        return 0
-    return 2
+    elif args.command == "sweep":
+        out = sweep(args, callback=lambda k, llh: print(
+            json.dumps({"k": k, "llh": llh}), file=sys.stderr, flush=True))
+    else:
+        out = evaluate(args)
+    print(json.dumps(out))
+    return 0
 
 
 if __name__ == "__main__":

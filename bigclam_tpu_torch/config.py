@@ -3,10 +3,11 @@
 Copied from bigclam_tpu/config.py (`BigClamConfig`): the same field names,
 defaults and order, so a JAX config carries over unchanged with
 `BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port reads the
-model, clipping, line-search, loop, seeding, numerics, kernel-path and
-single-device sparse-representation fields; the rest (quality mode,
-resilience, the sharded sparse exchange, sharding, telemetry) are carried
-for that round trip and are read by no code of the port yet.
+model, clipping, line-search, loop, K-sweep, seeding, numerics,
+kernel-path and single-device sparse-representation fields; the rest
+(quality mode, resilience, the sharded sparse exchange, sharding,
+telemetry) are carried for that round trip, and the K sweep refuses the
+ones it cannot honour yet.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ class BigClamConfig:
     conv_tol: float = 1e-4              # stop when |1 - LLH_new/LLH_old| < tol
     max_iters: int = 1000               # safety cap
 
-    # --- K-sweep model selection (not in this slice) ---
+    # --- K-sweep model selection (models/model_selection.py) ---
     min_com: int = 1000
     max_com: int = 9000
     div_com: int = 100
@@ -94,7 +95,11 @@ class BigClamConfig:
     replica_cols: int = 1
     grad_exchange: str = "closure"
     closure_grad_cap: int = 0
-    use_pallas: Optional[bool] = None   # (TPU VMEM candidate kernel)
+    use_pallas: Optional[bool] = None   # candidate edge-terms kernel of
+                                        # the non-CSR step: None = auto
+                                        # (on for cuda), True = require
+                                        # (plain version on cpu), False =
+                                        # the plain `xla` path
     use_pallas_csr: Optional[bool] = None  # CSR edge kernels: None = auto
                                         # (on for cuda devices), True =
                                         # require (plain versions on cpu),

@@ -5,7 +5,7 @@ One outer iteration is
 
     grad/LLH pass  ->  16-candidate Armijo pass  ->  masked Jacobi update
 
-on one of five kernel paths, named as in the JAX package:
+on one of six kernel paths, named as in the JAX package:
 
 * `csr_fused`      — one launch of the fused superstep kernel per
   iteration (ops.fused; the default wherever the CSR kernels engage and
@@ -18,12 +18,18 @@ on one of five kernel paths, named as in the JAX package:
   above K = 1024, or for any K with cfg.csr_k_block > 0;
 * `csr_grouped_kb` — its split twin (csr_fused=False): the same four
   kernels with the fold done in torch;
+* `pallas_vmem`    — the non-CSR step: the plain torch grad/LLH sweep, then
+  the candidate pass with its edge terms from the CUDA kernel
+  csrc/candidate_edge_terms.cu (ops.edge_kernels), one launch per edge
+  chunk;
 * `xla`            — the plain torch edge sweeps (ops.objective /
   ops.linesearch), chunked over edges.
 
 Auto mode (cfg.use_pallas_csr=None) engages the CSR kernels on `cuda` and
 resolves to `xla` on `cpu`; use_pallas_csr=True on `cpu` runs the CSR
-paths on the kernels' plain versions. The LLH each step reports is the
+paths on the kernels' plain versions. Where the CSR kernels do not engage,
+`pick_candidates_impl` chooses between `pallas_vmem` and `xla` by the
+same rule on cfg.use_pallas. The LLH each step reports is the
 LLH of its INPUT F, so the fit loop stops with the previous state when
 the relative LLH change falls below conv_tol.
 
@@ -50,6 +56,11 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     KernelKLimitError,
     candidates_csr,
     grad_llh_csr,
+    kernel_supports,
+)
+from bigclam_tpu_torch.ops.edge_kernels import (
+    CandidateKernelError,
+    candidates_pass_kernel,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
 from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked
@@ -106,6 +117,37 @@ def csr_want_reason(cfg: BigClamConfig, device: torch.device) -> tuple[bool, str
     if cfg.use_pallas_csr is False:
         return False, "use_pallas_csr=False"
     return False, f"auto: device {device.type!r} is not cuda"
+
+
+def pick_candidates_impl(
+    cfg: BigClamConfig, device: torch.device, dtype: torch.dtype
+) -> tuple[str, str]:
+    """The candidate pass of the non-CSR step: (path, reason), path
+    `pallas_vmem` (ops.edge_kernels.candidates_pass_kernel) or `xla`
+    (ops.linesearch.candidates_pass); reason says why not `pallas_vmem`.
+
+    The rule of bigclam_tpu/models/bigclam.py `pick_candidates_impl`:
+    cfg.use_pallas None = on for cuda devices, True = require (on the CPU
+    the kernel's plain version runs, in any dtype), False = `xla`. On cuda
+    the kernel takes what `kernel_supports` allows; anything else is
+    refused with CandidateKernelError, in auto mode too: the plain `xla`
+    step runs on the card only when use_pallas=False asks for it."""
+    want = cfg.use_pallas
+    if want is None:
+        want = device.type == "cuda"
+    if not want:
+        if cfg.use_pallas is False:
+            return "xla", "use_pallas=False"
+        return "xla", f"auto: device {device.type!r} is not cuda"
+    if device.type == "cuda":
+        reason = kernel_supports(cfg, dtype)
+        if reason:
+            raise CandidateKernelError(
+                f"use_pallas={cfg.use_pallas}: the candidate edge-terms kernel "
+                f"cannot run: {reason}; use_pallas=False selects the plain "
+                "`xla` step"
+            )
+    return "pallas_vmem", ""
 
 
 def csr_fused_want(cfg: BigClamConfig) -> bool:
@@ -207,6 +249,7 @@ def make_train_step(
 ) -> Callable[[TrainState], TrainState]:
     """The one-iteration update on kernel path `path` (kc: the K block of
     the K-blocked paths)."""
+    cand_impl = candidates_pass_kernel if path == "pallas_vmem" else candidates_pass
 
     def fused_step(state: TrainState) -> TrainState:
         F = state.F
@@ -232,7 +275,7 @@ def make_train_step(
     def xla_step(state: TrainState) -> TrainState:
         F, sumF = state.F, state.sumF
         grad, node_llh = grad_llh(F, sumF, edges, cfg)
-        cand_nbr = candidates_pass(F, grad, edges, cfg)
+        cand_nbr = cand_impl(F, grad, edges, cfg)
         F_new, sumF_new, hist = armijo_update(
             F, sumF, grad, node_llh, cand_nbr, cfg, with_stats=True
         )
@@ -262,7 +305,7 @@ def make_train_step(
     steps = {
         "csr_fused": fused_step, "csr": split_step,
         "csr_fused_kb": kblocked_step, "csr_grouped_kb": kblocked_step,
-        "xla": xla_step,
+        "pallas_vmem": xla_step, "xla": xla_step,
     }
     return steps[path]
 
@@ -365,21 +408,15 @@ class BigClamModel:
         self.n_pad = g.num_nodes
         self.k_pad = cfg.num_communities
         want, reason = csr_want_reason(cfg, self.device)
-        explicit = cfg.use_pallas_csr is True
-        if want and (
-            self.dtype != torch.float32
-            or cfg.accum_dtype not in (None, "float32")
-        ):
-            # the kernels accumulate in float32
-            if explicit:
+        why = kernel_supports(cfg, self.dtype) if want else ""
+        if why:
+            # auto mode leaves the choice to pick_candidates_impl, which
+            # refuses the same configuration on cuda unless use_pallas=False
+            if cfg.use_pallas_csr is True:
                 raise ValueError(
-                    "use_pallas_csr requires float32 F and accum_dtype in "
-                    "(None, 'float32')"
+                    f"use_pallas_csr=True: the CSR kernels cannot run: {why}"
                 )
-            want, reason = False, (
-                f"requires float32 F/accum (dtype={self.dtype}, "
-                f"accum_dtype={cfg.accum_dtype})"
-            )
+            want, reason = False, f"csr {why}"
         self.kc = 0
         if want:
             self.kc, self.k_pad = k_block_plan(cfg.num_communities, cfg.csr_k_block)
@@ -391,7 +428,11 @@ class BigClamModel:
             else:
                 self.engaged_path = "csr_fused" if csr_fused_want(cfg) else "csr"
         else:
-            self.engaged_path = "xla"
+            self.engaged_path, vmem_reason = pick_candidates_impl(
+                cfg, self.device, self.dtype
+            )
+            if vmem_reason not in ("", reason):
+                reason = f"{reason}; {vmem_reason}"
         self.path_reason = reason
         if self.k_pad > cfg.num_communities and cfg.min_f != 0.0:
             # padding inertness relies on clip(0 + eta*grad) staying 0

@@ -30,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
     "fused_superstep", "grad_llh", "candidates",
     "edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x",
-    "member_lookup",
+    "member_lookup", "candidate_edge_terms",
 )
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -64,6 +64,9 @@ ENTRIES = {
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
     # ids, w, src, dst, E, M, k_pad, out, stream
     "bigclam_member_lookup": [P, P, P, P, L, I, I, P, P],
+    # F, grad, src, dst, E, K, etas, num_s, omp_lo, omp_hi, min_f, max_f,
+    # out, stream
+    "bigclam_candidate_edge_terms": [P, P, P, P, L, I, P, I, R, R, R, R, P, P],
 }
 
 

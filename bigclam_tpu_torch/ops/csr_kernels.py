@@ -37,6 +37,25 @@ class KernelKLimitError(ValueError):
     registers."""
 
 
+def kernel_supports(cfg: BigClamConfig, dtype: torch.dtype) -> str:
+    """Why the CUDA kernels (the CSR ones and the candidate edge-terms
+    kernel alike) cannot run F of `dtype` under `cfg`, or "" when they
+    can: they take float32 F, accumulate in float32 and hold at most
+    MAX_S step candidates. K and the chunk length are limited elsewhere
+    (KernelKLimitError) or not at all."""
+    if dtype != torch.float32 or cfg.accum_dtype not in (None, "float32"):
+        return (
+            f"float32 F and accumulation are required (dtype={dtype}, "
+            f"accum_dtype={cfg.accum_dtype})"
+        )
+    if len(cfg.step_candidates) > MAX_S:
+        return (
+            f"at most {MAX_S} step candidates are supported, got "
+            f"{len(cfg.step_candidates)} (max_backtracks={cfg.max_backtracks})"
+        )
+    return ""
+
+
 def edge_chunks(F: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig) -> EdgeChunks:
     """The CSR's directed edges, chunked for the plain versions."""
     return EdgeChunks(

@@ -14,6 +14,8 @@ candidate keep their row (the Jacobi simultaneous update).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from bigclam_tpu_torch.config import BigClamConfig
@@ -23,6 +25,39 @@ from bigclam_tpu_torch.ops.objective import EdgeChunks, accum_dtype, edge_terms
 def step_etas(cfg: BigClamConfig, like: torch.Tensor) -> torch.Tensor:
     """(S,) candidate steps in `like`'s dtype and device."""
     return torch.tensor(cfg.step_candidates, dtype=like.dtype, device=like.device)
+
+
+def candidates_scan(
+    F: torch.Tensor,
+    edges: EdgeChunks,
+    cfg: BigClamConfig,
+    terms_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """Shared chunk loop of the candidate pass (bigclam_tpu/ops/linesearch.py
+    `candidates_scan`): terms_fn(src, dst) gives a chunk's (S, chunk) LLH
+    edge terms, and one `index_add_` along dim 1 sums them into (S, N) in
+    the accumulation dtype. terms_fn is the plain body of candidates_pass
+    or the CUDA kernel (ops.edge_kernels.candidates_pass_kernel)."""
+    n = F.shape[0]
+    adt = accum_dtype(cfg, F)
+    out = torch.zeros((len(cfg.step_candidates), n), dtype=adt, device=F.device)
+    for s, d in edges.slices():
+        out.index_add_(1, s, terms_fn(s, d).to(adt))
+    return out
+
+
+def candidate_edge_terms_body(
+    fs: torch.Tensor, gs: torch.Tensor, fd: torch.Tensor, cfg: BigClamConfig
+) -> torch.Tensor:
+    """(S, chunk) unmasked LLH edge terms from gathered (chunk, K) rows:
+    for each eta_s, ell(clip(fs + eta_s*gs, min_f, max_f) . fd)."""
+    etas = step_etas(cfg, fs)
+    rows = []
+    for i in range(etas.shape[0]):
+        nf = torch.clamp(fs + etas[i] * gs, cfg.min_f, cfg.max_f)
+        _, ell = edge_terms((nf * fd).sum(dim=1), cfg)
+        rows.append(ell)
+    return torch.stack(rows)
 
 
 def candidates_pass(
@@ -36,17 +71,13 @@ def candidates_pass(
     Returns (S, N): for each eta_i and node u,
     sum_{v in N(u)} [log(1 - clip(exp(-F_u'.F_v))) + F_u'.F_v].
     """
-    n = F.shape[0]
-    adt = accum_dtype(cfg, F)
-    etas = step_etas(cfg, F)
-    out = torch.zeros((etas.shape[0], n), dtype=adt, device=F.device)
-    for s, d in edges.slices():
-        fs, gs, fd = F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d)
-        for i in range(etas.shape[0]):
-            nf = torch.clamp(fs + etas[i] * gs, cfg.min_f, cfg.max_f)
-            _, ell = edge_terms((nf * fd).sum(dim=1), cfg)
-            out[i].index_add_(0, s, ell.to(adt))
-    return out
+
+    def terms(s, d):
+        return candidate_edge_terms_body(
+            F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d), cfg
+        )
+
+    return candidates_scan(F, edges, cfg, terms)
 
 
 def accept_stats(ok: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,9 @@ exits non-zero:
             bit, on the odd case's sparse state at M=5 (M < K, truncating)
             and M=37 (not a multiple of 32), before and after a support
             update, plus a random edge batch at M=1
+  vmem_odd  the candidate edge-terms kernel against its plain version on
+            the odd graph at K=37 and K=1,100, in edge chunks of 1,000
+            (not a multiple of 32, the last one ragged)
   graph     AGM planted N=300,000, K=1,000, p_in=0.1, numpy rng seed 1,
             written as a SNAP edge list to a temporary directory
   main      the port's `cli fit` entry on the CUDA device at full width on
@@ -42,11 +45,31 @@ exits non-zero:
             Armijo update, the support update and the two sumF scatters,
             and traced once with torch.profiler (device busy time, top
             ops and kernels)
+  vmem_main `cli fit --csr-kernels off` on the same file, conductance
+            init, 5 iterations, no --out; path `pallas_vmem`, the
+            candidate edge-terms launches counted from 0 around the fit
+            (one per edge chunk and step); the LLH rises and stays within
+            1e-4 of main's `csr_fused` history; peak device memory
+  vmem_full the candidate edge-terms kernel against its plain version
+            over every edge chunk of vmem_main's final F, both timed as
+            `full` times kernels, one `pallas_vmem` step timed split into
+            the torch grad pass, the kernel, the `index_add_` sums and
+            the Armijo update, and traced once with torch.profiler; one
+            `xla` step (use_pallas=False) on the same state for comparison
+  sweep_main `cli sweep --min-com 500 --max-com 1000 --div-com 4
+            --max-iters 5` on the same file: the grid, at least 2 trained
+            Ks, finite LLHs, the seconds per K; path `csr_fused`
   parity    planted N=2,400, K=100: 5 steps on the card (f32 kernels)
             against the port's CPU `xla` path in float64
   sparse_parity the same graph on the sparse path at M=16 and M=100: 5
             steps on the card against the port's CPU float64 sparse path,
             and at M=100 = K against the card's dense `csr_fused` path
+  vmem_parity the same graph on `pallas_vmem`: 5 steps on the card against
+            the port's CPU `xla` path in float64
+  sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
+            on the card against `--device cpu --dtype float64`: the same
+            grid and chosen K (unless a stop ratio lies within 1e-4 of
+            ksweep_tol), each K's LLH within 1e-4
 
 and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 (bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
@@ -73,8 +96,9 @@ Then one `kernels` line (per kernel: launches on its path, error against
 the plain version, kernel / plain time, the card's lower bound for the
 same work) and, last, {"ok": true, "device": {...}}.
 
-Tolerances: F_new, grad, node_llh, the candidate LLH and the K-blocked
-kernels' x, grad, llh_nbr, xc and cand_nbr at rtol = atol = 3e-5
+Tolerances: F_new, grad, node_llh, the candidate LLH, the candidate edge
+terms and the K-blocked kernels' x, grad, llh_nbr, xc and cand_nbr at
+rtol = atol = 3e-5
 (relative errors are reported as |got - want| / (|want| + 3e-5)) (the
 float32 band the JAX package holds its fused, split and XLA paths to); the
 0/1 acceptance mask must be equal except where
@@ -117,6 +141,11 @@ KB_PARITY_KC = 32
 SPARSE_M = 64
 SPARSE_ODD_M = (5, 37)
 SPARSE_PARITY_M = (16, 100)
+VMEM_ODD_K = (37, 1100)
+VMEM_ODD_CHUNK = 1000
+SWEEP_MAIN = dict(min_com=500, max_com=1000, div_com=4,
+                  kset=[500, 594, 706, 839, 997, 1000])
+SWEEP_PARITY = dict(min_com=50, max_com=100, div_com=3)
 
 KERNELS = {
     "fused_superstep": dict(
@@ -163,6 +192,11 @@ KERNELS = {
         replaces="bigclam_tpu/ops/sparse_members.py:234",
         tpu_kernel="member_lookup_pallas",
     ),
+    "candidate_edge_terms": dict(
+        source="bigclam_tpu_torch/csrc/candidate_edge_terms.cu",
+        replaces="bigclam_tpu/ops/pallas_kernels.py:71",
+        tpu_kernel="candidate_edge_terms",
+    ),
 }
 SINGLE_PASS = ("fused_superstep", "grad_llh_csr", "candidates_csr")
 K_BLOCKED = ("edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x")
@@ -192,6 +226,10 @@ LIBRARY_NOTES = {
         "no single PyTorch call: torch.searchsorted gives positions only; "
         "the hit test, the sentinel mask and the weight gather are further "
         "calls"
+    ),
+    "candidate_edge_terms": (
+        "no single PyTorch call forms the 16 clipped candidate rows and "
+        "their log-survival edge terms"
     ),
 }
 
@@ -349,18 +387,19 @@ def compare_kb_kernels(F, csr, cfg, kc, plain):
 
 
 def reset_launch_counts() -> None:
-    from bigclam_tpu_torch.ops import fused, kblocked, sparse_members
+    from bigclam_tpu_torch.ops import edge_kernels, fused, kblocked, sparse_members
 
     fused.reset_launch_counts()
     kblocked.reset_launch_counts()
     sparse_members.reset_launch_counts()
+    edge_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from bigclam_tpu_torch.ops import fused, kblocked, sparse_members
+    from bigclam_tpu_torch.ops import edge_kernels, fused, kblocked, sparse_members
 
     return {**fused.launch_counts(), **kblocked.launch_counts(),
-            **sparse_members.launch_counts()}
+            **sparse_members.launch_counts(), **edge_kernels.launch_counts()}
 
 
 def time_ms(fn, reps: int = 5) -> list:
@@ -379,13 +418,14 @@ def time_ms(fn, reps: int = 5) -> list:
     return times
 
 
-def time_pair(kern, plain) -> dict:
-    """Median CUDA-event times of a kernel and its plain version over 10
-    runs each, taken in the order plain, kernel, kernel, plain (5 runs
-    after a warm-up each), so that drift on the card hits both alike."""
-    p = time_ms(plain)
-    k = time_ms(kern) + time_ms(kern)
-    p += time_ms(plain)
+def time_pair(kern, plain, reps: int = 5) -> dict:
+    """Median CUDA-event times of a kernel and its plain version over
+    2 x reps runs each, taken in the order plain, kernel, kernel, plain
+    (reps runs after a warm-up each), so that drift on the card hits both
+    alike."""
+    p = time_ms(plain, reps)
+    k = time_ms(kern, reps) + time_ms(kern, reps)
+    p += time_ms(plain, reps)
     return {"ms": statistics.median(k), "plain_ms": statistics.median(p),
             "ms_runs": k, "plain_ms_runs": p}
 
@@ -481,6 +521,20 @@ def member_bound(n: int, e: int, m: int) -> dict:
     over the float32 rate, as the card's table names no int32 rate."""
     nbytes = 8.0 * n * m + 16.0 * e + 4.0 * e * m
     ops = e * m * (math.log2(m) + 1.0)
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def edge_terms_bound(n: int, e: int, k: int, s: int) -> dict:
+    """Least time for one candidate edge-terms sweep over e edges: F and
+    grad (n, k) read once, src/dst (16 bytes an edge) and the (s, e)
+    float32 output written once, over the HBM rate; one 2K dot and the
+    edge term (+2) per edge and candidate over the float32 rate (nf_s
+    depends on the source node alone)."""
+    nbytes = 8.0 * n * k + 16.0 * e + 4.0 * s * e
+    ops = e * s * (2.0 * k + 2)
     tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
     return {"bound_ms": max(tb, to) * 1e3,
             "bound_by": "bytes" if tb >= to else "operations",
@@ -1066,6 +1120,13 @@ def phase_sparse_full(g, state):
     }
 
 
+def llh_rel(a, b) -> float:
+    """Largest relative difference of two LLH histories of one length."""
+    if len(a) != len(b):
+        raise AssertionError(f"histories differ in length: {a} vs {b}")
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
 def phase_sparse_parity(tmp) -> dict:
     """The sparse path at M=16 (M < K) and M=100 (= K) on the card against
     the CPU float64 sparse path, from one conductance init; at M = K also
@@ -1082,11 +1143,6 @@ def phase_sparse_parity(tmp) -> dict:
     kw = dict(max_iters=4, conv_tol=0.0)
     F0 = cli.init_F(g, sparse_cfg(k, k, **kw), "conductance")
 
-    def rel(a, b):
-        if len(a) != len(b):
-            raise AssertionError(f"histories differ in length: {a} vs {b}")
-        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
-
     out = {"n": g.num_nodes, "edges": g.num_edges, "k": k}
     for m in SPARSE_PARITY_M:
         cfg = sparse_cfg(k, m, **kw)
@@ -1100,7 +1156,7 @@ def phase_sparse_parity(tmp) -> dict:
         if launches != sparse_launches(g.num_directed_edges, card.m, len(a)):
             raise AssertionError(f"M={m}: {launches} member launches for {len(a)} steps")
         b = cpu.fit(F0).llh_history
-        r = rel(a, b)
+        r = llh_rel(a, b)
         if r > LLH_RTOL:
             raise AssertionError(f"M={m}: card LLH {a} vs cpu float64 {b}")
         out[f"m{m}"] = {"gpu_llh": a, "cpu_f64_llh": b, "max_rel": r,
@@ -1110,11 +1166,277 @@ def phase_sparse_parity(tmp) -> dict:
             if dense.engaged_path != "csr_fused":
                 raise AssertionError(dense.engaged_path)
             d = dense.fit(F0).llh_history
-            r = rel(a, d)
+            r = llh_rel(a, d)
             if r > LLH_RTOL:
                 raise AssertionError(f"M=K sparse LLH {a} vs dense csr_fused {d}")
             out[f"m{m}"].update(dense_llh=d, max_rel_vs_dense=r)
     return out
+
+
+def compare_edge_terms(check, what, F, grad, edges, cfg):
+    """The candidate edge-terms kernel against its plain version on every
+    edge chunk."""
+    from bigclam_tpu_torch.ops import edge_kernels as ek
+
+    for s, d in edges.slices():
+        got = ek.candidate_edge_terms(F, grad, s, d, cfg)
+        want = ek.candidate_edge_terms_plain(
+            F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d),
+            None, cfg,
+        )
+        torch.cuda.synchronize()
+        check.close(what, got, want)
+
+
+def phase_vmem_odd() -> dict:
+    """The edge-terms kernel vs plain on the odd graph (isolated nodes, an
+    all-zero row) at K=37 and K=1,100, in chunks of 1,000 edges."""
+    from bigclam_tpu_torch.ops.objective import EdgeChunks, grad_llh
+
+    check = Check("candidate_edge_terms")
+    out = {}
+    for k in VMEM_ODD_K:
+        F, csr, cfg = odd_case(k)
+        edges = EdgeChunks(csr.src, csr.dst, VMEM_ODD_CHUNK)
+        grad, _ = grad_llh(F, F.sum(dim=0), edges, cfg)
+        compare_edge_terms(check, f"k{k}", F, grad, edges, cfg)
+        out[f"k{k}"] = {"n": int(F.shape[0]), "directed_edges": csr.num_directed_edges,
+                        "chunk": VMEM_ODD_CHUNK}
+    out["kernels"] = {"candidate_edge_terms": check.parts}
+    return out
+
+
+def vmem_launches(e: int, k: int, steps: int) -> int:
+    """Candidate edge-terms launches of `steps` pallas_vmem steps: one per
+    edge chunk (the plain sweeps' chunking at K columns)."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.ops.objective import edge_chunk_bound
+
+    chunk = edge_chunk_bound(BigClamConfig(num_communities=k), k, 4)
+    return -(-e // chunk) * steps
+
+
+def phase_vmem_main(g, path, main_hist):
+    torch.cuda.reset_peak_memory_stats()
+    out, res, counts, _ = run_path(
+        g, path, FULL["k"], ["--max-iters", "5", "--csr-kernels", "off"]
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["llh_history"]
+    if out["kernel_path"] != "pallas_vmem":
+        raise AssertionError(f"--csr-kernels off ran {out['kernel_path']}")
+    e = g.num_directed_edges
+    want = dict.fromkeys(counts, 0)
+    want["candidate_edge_terms"] = vmem_launches(e, FULL["k"], out["steps"])
+    if counts != want or want["candidate_edge_terms"] < 1:
+        raise AssertionError(f"pallas_vmem launches {counts}, want {want}")
+    if not hist[-1] > hist[0]:
+        raise AssertionError(f"LLH did not increase: {hist}")
+    rel = llh_rel(hist, main_hist)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"pallas_vmem LLH {hist} vs csr_fused {main_hist}")
+    return res, counts, {
+        "kernel_path": out["kernel_path"],
+        "kernel_path_reason": out["kernel_path_reason"],
+        "llh_history": hist,
+        "max_rel_vs_csr_fused": rel,
+        "steps": out["steps"],
+        "iters": out["iters"],
+        "sec_per_iter": out["sec_per_iter"],
+        "directed_edges_per_s": e / out["sec_per_iter"],
+        "stage_seconds": out["stage_seconds"],
+        "launches": counts,
+        "peak_device_gb": peak_gb,
+        "n": g.num_nodes, "directed_edges": e, "k": FULL["k"],
+    }
+
+
+def phase_vmem_full(g, F_host):
+    """The edge-terms kernel vs plain over every chunk of vmem_main's final
+    F, both timed per sweep; one pallas_vmem step timed and split, and one
+    xla step on the same state."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.ops import edge_kernels as ek
+    from bigclam_tpu_torch.ops.linesearch import armijo_update, candidates_scan
+    from bigclam_tpu_torch.ops.objective import grad_llh
+
+    cfg = BigClamConfig(num_communities=FULL["k"], use_pallas_csr=False)
+    model = BigClamModel(g, cfg, device=DEVICE)
+    if model.engaged_path != "pallas_vmem":
+        raise AssertionError(model.engaged_path)
+    state = model.init_state(F_host)
+    F, sumF, edges = state.F, state.sumF, model.edges
+    grad, node_llh = grad_llh(F, sumF, edges, cfg)
+    check = Check("candidate_edge_terms")
+    compare_edge_terms(check, "every_chunk", F, grad, edges, cfg)
+
+    def sweep(fn):
+        def run():
+            for s, d in edges.slices():
+                fn(s, d)
+        return run
+
+    times = {"candidate_edge_terms": time_pair(
+        sweep(lambda s, d: ek.candidate_edge_terms(F, grad, s, d, cfg)),
+        sweep(lambda s, d: ek.candidate_edge_terms_plain(
+            F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d),
+            None, cfg)),
+        reps=2,
+    )}
+    times["candidate_edge_terms"]["library_ms"] = None
+    n, k = F.shape
+    e, num_s = g.num_directed_edges, len(cfg.step_candidates)
+    bnd = {"candidate_edge_terms": edge_terms_bound(n, e, k, num_s)}
+
+    # the step and its parts on the step's own inputs
+    med = lambda fn, reps=5: statistics.median(time_ms(fn, reps))  # noqa: E731
+    terms = [ek.candidate_edge_terms(F, grad, s, d, cfg) for s, d in edges.slices()]
+
+    def sums_only():
+        it = iter(terms)
+        return candidates_scan(F, edges, cfg, lambda s, d: next(it))
+
+    cand = sums_only()
+    torch.cuda.reset_peak_memory_stats()
+    step = {
+        "step_ms": med(lambda: model._step(state)),
+        "grad_pass_ms": med(lambda: grad_llh(F, sumF, edges, cfg)),
+        "kernel_ms": times["candidate_edge_terms"]["ms"],
+        "index_add_ms": med(sums_only),
+        "armijo_ms": med(lambda: armijo_update(F, sumF, grad, node_llh, cand, cfg,
+                                               with_stats=True)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profile_call(lambda: model._step(state)),
+    }
+    del terms
+    step["other_ms"] = step["step_ms"] - (
+        step["grad_pass_ms"] + step["kernel_ms"] + step["index_add_ms"] + step["armijo_ms"]
+    )
+    xla = BigClamModel(g, cfg.replace(use_pallas=False), device=DEVICE)
+    if xla.engaged_path != "xla":
+        raise AssertionError(xla.engaged_path)
+    step["xla_step_ms"] = med(lambda: xla._step(state), reps=2)
+    return check, times, bnd, {
+        "kernels": {"candidate_edge_terms": {
+            **check.parts, **times["candidate_edge_terms"],
+            **bnd["candidate_edge_terms"]}},
+        "step": step, "edge_chunk": edges.chunk,
+        "chunks": -(-e // edges.chunk), "k_pad": int(k),
+    }
+
+
+def sweep_args(path, grid, extra):
+    from bigclam_tpu_torch import cli
+
+    return cli.build_parser().parse_args([
+        "sweep", "--graph", path, "--min-com", str(grid["min_com"]),
+        "--max-com", str(grid["max_com"]), "--div-com", str(grid["div_com"]),
+        "--max-iters", "5", *extra,
+    ])
+
+
+def run_sweep(path, grid, extra):
+    """`cli sweep` with the launch counters zeroed just before it; returns
+    (JSON, launch counts, [(k, seconds since the previous K ended)])."""
+    from bigclam_tpu_torch import cli
+
+    ends = [time.perf_counter()]
+    ks = []
+
+    def on_k(k, llh):
+        ks.append(k)
+        ends.append(time.perf_counter())
+
+    reset_launch_counts()
+    out = cli.sweep(sweep_args(path, grid, extra), callback=on_k)
+    counts = launch_counts()
+    if list(out["llh_by_k"]) != [str(k) for k in ks]:
+        raise AssertionError(f"callback Ks {ks} vs {list(out['llh_by_k'])}")
+    if not all(math.isfinite(v) for v in out["llh_by_k"].values()):
+        raise AssertionError(f"non-finite LLH in {out['llh_by_k']}")
+    if str(out["chosen_k"]) not in out["llh_by_k"]:
+        raise AssertionError(f"chosen K {out['chosen_k']} was not trained")
+    return out, counts, [(k, b - a) for k, a, b in zip(ks, ends, ends[1:])]
+
+
+def phase_sweep_main(g, path) -> dict:
+    out, counts, sec = run_sweep(path, SWEEP_MAIN, ["--device", DEVICE])
+    trained = len(out["llh_by_k"])
+    if out["kset"] != SWEEP_MAIN["kset"]:
+        raise AssertionError(f"grid {out['kset']}, want {SWEEP_MAIN['kset']}")
+    if trained < 2:
+        raise AssertionError(f"only {trained} K trained: {out['llh_by_k']}")
+    if (out["n"], out["edges"]) != (g.num_nodes, g.num_edges):
+        raise AssertionError(f"sweep read {out['n']} nodes / {out['edges']} edges")
+    # csr_fused at k_pad 1,024: one fused launch per step, at most
+    # max_iters + 1 steps per K, nothing else
+    fused = counts["fused_superstep"]
+    others = {n: c for n, c in counts.items() if n != "fused_superstep" and c}
+    if not trained <= fused <= 6 * trained or others:
+        raise AssertionError(f"sweep launches {counts} for {trained} Ks")
+    return {**out, "trained": trained, "launches": counts,
+            "seconds_by_k": {str(k): t for k, t in sec},
+            "seconds_first_k_includes": "ingest, conductance seeding, model build"}
+
+
+def phase_vmem_parity(tmp) -> dict:
+    """pallas_vmem on the card against the CPU float64 `xla` path, from
+    one conductance init."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+
+    path = os.path.join(tmp, "vmem_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    cfg = BigClamConfig(num_communities=PARITY["k"], max_iters=4, conv_tol=0.0,
+                        use_pallas_csr=False)
+    F0 = cli.init_F(g, cfg, "conductance")
+    card = BigClamModel(g, cfg, device=DEVICE)
+    cpu = BigClamModel(g, cfg.replace(dtype="float64"), device="cpu")
+    if (card.engaged_path, cpu.engaged_path) != ("pallas_vmem", "xla"):
+        raise AssertionError((card.engaged_path, cpu.engaged_path))
+    reset_launch_counts()
+    a = card.fit(F0).llh_history
+    launches = launch_counts()["candidate_edge_terms"]
+    if launches != vmem_launches(g.num_directed_edges, PARITY["k"], len(a)):
+        raise AssertionError(f"{launches} edge-terms launches for {len(a)} steps")
+    b = cpu.fit(F0).llh_history
+    rel = llh_rel(a, b)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"pallas_vmem card LLH {a} vs cpu float64 {b}")
+    return {"gpu_llh": a, "cpu_f64_llh": b, "max_rel": rel, "launches": launches,
+            "n": g.num_nodes, "edges": g.num_edges, "k": PARITY["k"]}
+
+
+def phase_sweep_parity(tmp) -> dict:
+    """`cli sweep` on the card against `--device cpu --dtype float64`."""
+    path = os.path.join(tmp, "sweep_parity_graph.txt")
+    planted_file(PARITY, path)
+    gpu, counts, _ = run_sweep(path, SWEEP_PARITY, ["--device", DEVICE])
+    cpu, _, _ = run_sweep(path, SWEEP_PARITY, ["--device", "cpu", "--dtype", "float64"])
+    if gpu["kset"] != cpu["kset"]:
+        raise AssertionError(f"grids differ: {gpu['kset']} vs {cpu['kset']}")
+    common = [k for k in gpu["llh_by_k"] if k in cpu["llh_by_k"]]
+    if not common:
+        raise AssertionError("no K trained on both devices")
+    rel = max(abs(gpu["llh_by_k"][k] - cpu["llh_by_k"][k]) / abs(cpu["llh_by_k"][k])
+              for k in common)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"card {gpu['llh_by_k']} vs cpu float64 {cpu['llh_by_k']}")
+    # the stop ratios (1 - LLH_K / LLH_Kold) of the CPU run
+    llh = [cpu["llh_by_k"][str(k)] for k in cpu["kset"] if str(k) in cpu["llh_by_k"]]
+    ratios = [1.0 - b / a for a, b in zip(llh, llh[1:])]
+    tol = 1e-3                                  # cli sweep's --ksweep-tol default
+    near_tie = any(abs(r - tol) <= 1e-4 for r in ratios)
+    if gpu["chosen_k"] != cpu["chosen_k"] and not near_tie:
+        raise AssertionError(f"chosen K {gpu['chosen_k']} vs cpu {cpu['chosen_k']}")
+    return {"kset": gpu["kset"], "gpu_llh_by_k": gpu["llh_by_k"],
+            "cpu_f64_llh_by_k": cpu["llh_by_k"], "max_rel": rel,
+            "chosen_k": [gpu["chosen_k"], cpu["chosen_k"]], "stop_ratios": ratios,
+            "launches": counts}
 
 
 def main() -> int:
@@ -1137,6 +1459,7 @@ def main() -> int:
     run("build", phase_build)
     run("odd", phase_odd)
     run("sparse_odd", phase_sparse_odd)
+    run("vmem_odd", phase_vmem_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
@@ -1144,15 +1467,22 @@ def main() -> int:
         emit({"phase": "graph", "seconds": time.perf_counter() - t0,
               "n": g.num_nodes, "directed_edges": g.num_directed_edges})
         _, res, main_counts, _ = run("main", phase_main, g, path, tmp)
-        split_counts, _ = run("split", phase_split, g, path, tmp,
-                              list(res.llh_history))
+        main_hist = list(res.llh_history)
+        split_counts, _ = run("split", phase_split, g, path, tmp, main_hist)
         checks, times, bnd, _ = run("full", phase_full, g, res.F)
         del res
         state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
-        del g, state
+        del state
+        res, vmem_counts, _ = run("vmem_main", phase_vmem_main, g, path, main_hist)
+        vm_check, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
+        del res
+        run("sweep_main", phase_sweep_main, g, path)
+        del g
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
+        run("vmem_parity", phase_vmem_parity, tmp)
+        run("sweep_parity", phase_sweep_parity, tmp)
 
         t0 = time.perf_counter()
         path = os.path.join(tmp, "xl_k_graph.txt")
@@ -1171,15 +1501,16 @@ def main() -> int:
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)
-    checks.update(kb_checks, member_lookup=sp_check)
-    times.update(kb_times, **sp_times)
-    bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd)
+    checks.update(kb_checks, member_lookup=sp_check, candidate_edge_terms=vm_check)
+    times.update(kb_times, **sp_times, **vm_times)
+    bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd)
     launches = {
         "fused_superstep": main_counts["fused_superstep"],
         "grad_llh_csr": split_counts["grad_llh_csr"],
         "candidates_csr": split_counts["candidates_csr"],
         **{name: kb_counts[name] for name in K_BLOCKED},
         "member_lookup": sparse_counts["member_lookup"],
+        "candidate_edge_terms": vmem_counts["candidate_edge_terms"],
     }
     emit({"kernels": [
         {

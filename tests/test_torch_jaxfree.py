@@ -1,6 +1,8 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
-a fresh interpreter imports every module of bigclam_tpu_torch and runs
-`cli fit --help`, then finds no jax and no bigclam_tpu module loaded; a
+a fresh interpreter imports every module of bigclam_tpu_torch (the
+non-CSR candidate kernel's ops.edge_kernels and the K sweep's
+models.model_selection among them) and runs `cli fit|sweep|eval --help`,
+then finds no jax and no bigclam_tpu module loaded; a
 static scan finds no such import in any port file or in chip_smoke.py."""
 
 import ast
@@ -32,10 +34,13 @@ def test_port_imports_no_jax_in_fresh_interpreter():
             bigclam_tpu_torch.__path__, "bigclam_tpu_torch."
         ):
             __import__(m.name)
-        try:
-            cli.main(["fit", "--help"])
-        except SystemExit as e:
-            assert e.code == 0, e.code
+        for sub in ("fit", "sweep", "eval"):
+            try:
+                cli.main([sub, "--help"])
+            except SystemExit as e:
+                assert e.code == 0, e.code
+        for name in ("ops.edge_kernels", "models.model_selection"):
+            assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "bigclam_tpu")
@@ -53,6 +58,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     assert r.returncode == 0, (r.stdout, r.stderr)
     assert r.stdout.strip().splitlines()[-1] == "clean"
     assert "--csr-fused" in r.stdout        # the fit help was printed
+    assert "--ksweep-tol" in r.stdout and "--no-nmi" in r.stdout
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
