@@ -21,11 +21,19 @@ against a ground truth (`f1`, `nmi`).
         --representation sparse --sparse-m 64                  # sparse_merge_pallas
     python -m bigclam_tpu_torch.cli sweep --graph g.txt --min-com 50 \
         --max-com 200 --div-com 15 --checkpoint-dir sweep/
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
+        --mesh 4,1 --schedule ring                             # csr_ring_fused
     python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
-to start when no card is present. Above K = 1024 the model takes the
-K-blocked path by itself (`kernel_path` in the JSON says which).
+to start when no card is present. `fit --mesh DP,1` shards the nodes over
+the first DP cards (`--device cpu`: DP shards on the CPU) on the
+all-gather schedule (`csr_fused`, `csr` with `--csr-fused off`) or, with
+`--schedule ring`, the ring (`csr_ring_fused`, `csr_ring`); `xla` on the
+CPU. Its JSON adds `mesh` ("4x1"). A K-sharded mesh (TP > 1), K above
+1024 on a mesh, `--mesh` with `--representation sparse` and `sweep
+--mesh` are refused by name. Above K = 1024 the single-device model takes
+the K-blocked path by itself (`kernel_path` in the JSON says which).
 `--csr-kernels off` takes the non-CSR step: `pallas_vmem` (the candidate
 edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
@@ -96,6 +104,24 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
         help="device to train on (default cuda; there is no silent CPU "
              "fallback)",
     )
+    p.add_argument(
+        "--mesh", default=None,
+        help="'DP,TP' device mesh, e.g. 4,1: the nodes sharded over the "
+             "first DP cards (with --device cpu, DP shards on the CPU); "
+             "TP > 1 is not ported (default: single device)",
+    )
+    p.add_argument(
+        "--balance", action="store_true",
+        help="degree-balanced node relabeling before sharding (evens "
+             "per-shard edge counts on power-law graphs; results are mapped "
+             "back to original ids)",
+    )
+    p.add_argument(
+        "--schedule", default="allgather", choices=["allgather", "ring"],
+        help="F-row exchange schedule for --mesh runs: allgather gives each "
+             "shard a full F; ring rotates the shards around the mesh "
+             "(O(N/DP) F rows per device)",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,8 +188,45 @@ def config_from_args(args):
     )
 
 
+def parse_mesh(text: str) -> tuple:
+    """'DP,TP' -> (dp, tp)."""
+    try:
+        dp, tp = (int(x) for x in text.split(","))
+    except ValueError:
+        raise SystemExit(f"error: --mesh wants 'DP,TP', got {text!r}") from None
+    return dp, tp
+
+
+def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False):
+    """The sharded trainer of `schedule` on a `mesh` ('DP,TP') of the first
+    DP*TP cards, or of DP*TP shards on the CPU for device `cpu`."""
+    import torch
+
+    from bigclam_tpu_torch.parallel import (
+        RingBigClamModel,
+        ShardedBigClamModel,
+        make_mesh,
+    )
+    from bigclam_tpu_torch.utils.device import resolve_device
+
+    if cfg.representation == "sparse":
+        raise SystemExit(
+            "error: --mesh is not supported with --representation sparse yet "
+            "(the sparse sharded trainer is ROADMAP queue 1 item 16)"
+        )
+    dp, tp = parse_mesh(mesh)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = devices[: dp * tp]
+    else:
+        devices = [dev] * (dp * tp)
+    cls = RingBigClamModel if schedule == "ring" else ShardedBigClamModel
+    return cls(g, cfg, make_mesh((dp, tp), devices), balance=balance)
+
+
 def make_model(g, cfg, device):
-    """The trainer of cfg.representation on `device`."""
+    """The single-device trainer of cfg.representation on `device`."""
     if cfg.representation == "sparse":
         if cfg.use_pallas_csr:
             # "on" means require: the CSR edge kernels take a dense F, so
@@ -215,7 +278,11 @@ def fit(args):
 
     g = build_graph(args.graph)
     stage("graph")
-    model = make_model(g, cfg, args.device)
+    if args.mesh:
+        model = make_mesh_model(g, cfg, args.device, args.mesh, args.schedule,
+                                args.balance)
+    else:
+        model = make_model(g, cfg, args.device)
     stage("model_build")
     F0 = init_F(g, cfg, args.init)
     stage("seeding")
@@ -251,6 +318,8 @@ def fit(args):
     }
     if cfg.representation == "sparse":
         out["sparse_m"] = model.m
+    if args.mesh:
+        out["mesh"] = model.mesh.label()
     if args.out:
         com = extraction.extract_communities(res.F, g)
         extraction.save_communities(args.out, com)
@@ -267,6 +336,11 @@ def sweep(args, callback=None) -> dict:
     from bigclam_tpu_torch.graph.ingest import build_graph
     from bigclam_tpu_torch.models.model_selection import sweep_k
 
+    if args.mesh:
+        raise SystemExit(
+            "error: `sweep --mesh` is not ported yet (ROADMAP queue 1 item 14: "
+            "a sweep over a device mesh); the port sweeps on one device"
+        )
     cfg = config_from_args(args)
     g = build_graph(args.graph)
     res = sweep_k(

@@ -1,5 +1,6 @@
 // Shared device code of the BigCLAM edge kernels for Hopper: the
-// single-pass ones (fused_superstep.cu, grad_llh.cu, candidates.cu) and the
+// single-pass ones (fused_superstep.cu, grad_llh.cu, candidates.cu), the
+// ring-phase ones (ring_grad_phase.cu, ring_cand_phase.cu) and the
 // K-blocked ones (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu,
 // cand_from_x.cu), which take a window of at most kMaxK columns of wider
 // rows.
@@ -251,10 +252,13 @@ __device__ __forceinline__ void for_each_neighbor_at(
 }
 
 // Pass 1: neighbour gradient sum_v F_v / omp(F_u.F_v) into acc, and the
-// neighbour LLH sum_v ell (returned, the same in every lane).
+// neighbour LLH sum_v ell (returned, the same in every lane). The
+// neighbour rows F_v are rows of Fd, which the CSR's indices index: F
+// itself on one device, the gathered F on a mesh's all-gather schedule,
+// the rotating shard in a ring phase.
 template <int KPL>
 __device__ __forceinline__ float grad_pass(
-    const float* __restrict__ F, const int64_t* __restrict__ indptr,
+    const float* __restrict__ Fd, const int64_t* __restrict__ indptr,
     const int* __restrict__ indices, int u, int K, int lane,
     const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
 #pragma unroll
@@ -262,7 +266,7 @@ __device__ __forceinline__ float grad_pass(
   float llh = 0.f;
   for_each_neighbor(indptr, indices, u, lane, [&](int v) {
     float fv[KPL];
-    load_row<KPL>(F, v, K, lane, fv);
+    load_row<KPL>(Fd, v, K, lane, fv);
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < KPL; ++i) part = fmaf(fu[i], fv[i], part);
@@ -320,17 +324,18 @@ __device__ __forceinline__ float armijo_tails(const float* __restrict__ sumF,
 }
 
 // Pass 2: for every candidate s, sum_v ell(clip(F_u + eta_s g_u) . F_v)
-// added to `cand` (the lane's candidate lane >> 1). The 16 candidate rows
-// are recomputed per neighbour rather than held (16 x KPL registers).
+// added to `cand` (the lane's candidate lane >> 1), with F_v a row of Fd as
+// in grad_pass. The 16 candidate rows are recomputed per neighbour rather
+// than held (16 x KPL registers).
 template <int KPL>
 __device__ __forceinline__ float cand_pass(
-    const float* __restrict__ F, const int64_t* __restrict__ indptr,
+    const float* __restrict__ Fd, const int64_t* __restrict__ indptr,
     const int* __restrict__ indices, int u, int K, int lane,
     const float (&fu)[KPL], const float (&g)[KPL], const StepParams& p,
     float cand) {
   for_each_neighbor(indptr, indices, u, lane, [&](int v) {
     float fv[KPL];
-    load_row<KPL>(F, v, K, lane, fv);
+    load_row<KPL>(Fd, v, K, lane, fv);
     float part[kMaxS];
 #pragma unroll
     for (int s = 0; s < kMaxS; ++s) part[s] = 0.f;

@@ -10,6 +10,10 @@
 //           kernel's rounding); F_new = clip(F_u + max accepted eta * g), or
 //           F_u when nothing is accepted.
 // Outputs: F_new (n,K), grad (n,K), node_llh (n,), ok (S,n) 0/1 bytes.
+// Neighbour rows come from F_dst and the node's own row from F: on one
+// device both are the same tensor; on a mesh's all-gather schedule F holds
+// the shard's n rows and F_dst the gathered F of every shard, which the
+// CSR's global destination ids index (the TPU kernel's F_gather).
 //
 // What bounds it on this card: arithmetic. The function needs, per directed
 // edge, the 2K-operation dot and 2K gradient fma, and per candidate one 2K
@@ -37,6 +41,7 @@ using bigclam::kWarpsPerBlock;
 template <int KPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 fused_superstep_kernel(const float* __restrict__ F,
+                       const float* __restrict__ F_dst,
                        const float* __restrict__ sumF,
                        const int64_t* __restrict__ indptr,
                        const int* __restrict__ indices, int n, int K,
@@ -50,12 +55,13 @@ fused_superstep_kernel(const float* __restrict__ F,
   bigclam::load_row<KPL>(F, u, K, lane, fu);
   float g[KPL];
   const float llh_nbr =
-      bigclam::grad_pass<KPL>(F, indptr, indices, u, K, lane, fu, g, p);
+      bigclam::grad_pass<KPL>(F_dst, indptr, indices, u, K, lane, fu, g, p);
   float tail;
   const float gg = bigclam::fold_grad<KPL>(sumF, K, lane, fu, g, tail);
   const float llh = llh_nbr + tail;
   float cand = bigclam::armijo_tails<KPL>(sumF, K, lane, fu, g, p);
-  cand = bigclam::cand_pass<KPL>(F, indptr, indices, u, K, lane, fu, g, p, cand);
+  cand = bigclam::cand_pass<KPL>(F_dst, indptr, indices, u, K, lane, fu, g, p,
+                                cand);
 
   const int s = lane >> 1;  // this lane's candidate
   float eta, coef;
@@ -78,13 +84,13 @@ fused_superstep_kernel(const float* __restrict__ F,
 }
 
 template <int KPL>
-void launch(const float* F, const float* sumF, const int64_t* indptr,
-            const int* indices, int n, int K, const StepParams& p,
-            float* F_new, float* grad, float* node_llh, uint8_t* ok,
-            cudaStream_t stream) {
+void launch(const float* F, const float* F_dst, const float* sumF,
+            const int64_t* indptr, const int* indices, int n, int K,
+            const StepParams& p, float* F_new, float* grad, float* node_llh,
+            uint8_t* ok, cudaStream_t stream) {
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   fused_superstep_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
-      F, sumF, indptr, indices, n, K, p, F_new, grad, node_llh, ok);
+      F, F_dst, sumF, indptr, indices, n, K, p, F_new, grad, node_llh, ok);
 }
 
 }  // namespace
@@ -93,7 +99,7 @@ void launch(const float* F, const float* sumF, const int64_t* indptr,
 // (cudaErrorInvalidValue for K outside [1, 1024] or more than 16 steps).
 // `etas` and `coefs` are host arrays of num_s floats.
 extern "C" int bigclam_fused_superstep(
-    const float* F, const float* sumF, const int64_t* indptr,
+    const float* F, const float* F_dst, const float* sumF, const int64_t* indptr,
     const int* indices, int n, int K, const float* etas, const float* coefs,
     int num_s, float omp_lo, float omp_hi, float min_f, float max_f,
     float* F_new, float* grad, float* node_llh, uint8_t* ok, void* stream) {
@@ -102,8 +108,9 @@ extern "C" int bigclam_fused_superstep(
   const StepParams p = bigclam::make_params(etas, coefs, num_s, omp_lo, omp_hi,
                                             min_f, max_f);
   int rc = cudaSuccess;
-  BIGCLAM_DISPATCH_KPL(K, launch, rc, F, sumF, indptr, indices, n, K, p, F_new,
-                       grad, node_llh, ok, static_cast<cudaStream_t>(stream));
+  BIGCLAM_DISPATCH_KPL(K, launch, rc, F, F_dst, sumF, indptr, indices, n, K, p,
+                       F_new, grad, node_llh, ok,
+                       static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return rc;
   return cudaGetLastError();
 }

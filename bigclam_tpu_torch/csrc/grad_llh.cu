@@ -6,6 +6,8 @@
 // grad = sum_v F_v/omp - sumF + F_u and node_llh = sum_v ell - F_u.sumF +
 // F_u.F_u. The TPU wrapper adds the -sumF + F fold and the node tail in XLA;
 // here both are done in-kernel. Outputs: grad (n,K), node_llh (n,).
+// Neighbour rows come from F_dst, the node's own row from F (the same
+// tensor on one device; the gathered F on a mesh's all-gather schedule).
 //
 // What bounds it on this card: memory. The function needs ~4 float32
 // operations per column per directed edge, and its bytes (F read once, grad
@@ -23,7 +25,8 @@ using bigclam::kWarpsPerBlock;
 
 template <int KPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ sumF,
+grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ F_dst,
+                const float* __restrict__ sumF,
                 const int64_t* __restrict__ indptr,
                 const int* __restrict__ indices, int n, int K, StepParams p,
                 float* __restrict__ grad, float* __restrict__ node_llh) {
@@ -34,7 +37,7 @@ grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ sumF,
   bigclam::load_row<KPL>(F, u, K, lane, fu);
   float g[KPL];
   const float llh_nbr =
-      bigclam::grad_pass<KPL>(F, indptr, indices, u, K, lane, fu, g, p);
+      bigclam::grad_pass<KPL>(F_dst, indptr, indices, u, K, lane, fu, g, p);
   float tail;
   bigclam::fold_grad<KPL>(sumF, K, lane, fu, g, tail);
   bigclam::store_row<KPL>(grad, u, K, lane, g);
@@ -42,20 +45,22 @@ grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ sumF,
 }
 
 template <int KPL>
-void launch(const float* F, const float* sumF, const int64_t* indptr,
-            const int* indices, int n, int K, const StepParams& p, float* grad,
-            float* node_llh, cudaStream_t stream) {
+void launch(const float* F, const float* F_dst, const float* sumF,
+            const int64_t* indptr, const int* indices, int n, int K,
+            const StepParams& p, float* grad, float* node_llh,
+            cudaStream_t stream) {
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   grad_llh_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
-      F, sumF, indptr, indices, n, K, p, grad, node_llh);
+      F, F_dst, sumF, indptr, indices, n, K, p, grad, node_llh);
 }
 
 }  // namespace
 
 // Launches kernel B on `stream`; returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for K outside [1, 1024]).
-extern "C" int bigclam_grad_llh(const float* F, const float* sumF,
-                                const int64_t* indptr, const int* indices,
+extern "C" int bigclam_grad_llh(const float* F, const float* F_dst,
+                                const float* sumF, const int64_t* indptr,
+                                const int* indices,
                                 int n, int K, float omp_lo, float omp_hi,
                                 float* grad, float* node_llh, void* stream) {
   if (n <= 0) return cudaSuccess;
@@ -63,8 +68,8 @@ extern "C" int bigclam_grad_llh(const float* F, const float* sumF,
   const StepParams p =
       bigclam::make_params(nullptr, nullptr, 0, omp_lo, omp_hi, 0.f, 0.f);
   int rc = cudaSuccess;
-  BIGCLAM_DISPATCH_KPL(K, launch, rc, F, sumF, indptr, indices, n, K, p, grad,
-                       node_llh, static_cast<cudaStream_t>(stream));
+  BIGCLAM_DISPATCH_KPL(K, launch, rc, F, F_dst, sumF, indptr, indices, n, K, p,
+                       grad, node_llh, static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return rc;
   return cudaGetLastError();
 }

@@ -63,6 +63,25 @@ class Graph:
     def neighbors(self, u: int) -> np.ndarray:
         return self.indices[self.indptr[u] : self.indptr[u + 1]]
 
+    def permute(self, perm: np.ndarray) -> "Graph":
+        """Relabel nodes: old id u becomes perm[u]. Returns a new CSR graph
+        over the same edges (used by the shard-balance transform,
+        parallel/balance.py). perm must be a permutation of [0, N)."""
+        n = self.num_nodes
+        perm = np.asarray(perm)
+        if perm.shape != (n,):
+            raise ValueError(f"perm has shape {perm.shape}, want {(n,)}")
+        new_src = perm[self.src].astype(np.int64)
+        new_dst = perm[self.dst].astype(np.int64)
+        order = np.lexsort((new_dst, new_src))
+        indices = new_dst[order].astype(np.int32)
+        degrees = np.bincount(new_src, minlength=n)
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(degrees, out=indptr[1:])
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n)
+        return Graph(indptr=indptr, indices=indices, raw_ids=self.raw_ids[inv])
+
     def to_device(self, device: Optional[torch.device]) -> "DeviceCSR":
         return DeviceCSR(
             indptr=torch.as_tensor(np.asarray(self.indptr, np.int64), device=device),

@@ -31,6 +31,7 @@ SOURCES = (
     "fused_superstep", "grad_llh", "candidates",
     "edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x",
     "member_lookup", "candidate_edge_terms",
+    "ring_grad_phase", "ring_cand_phase",
 )
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,14 +45,20 @@ LINK_FLAGS = (*ARCH, "-shared")
 # c_void_p (a plain int would be cut to 32 bits)
 P, I, L, R = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
-    # F, sumF, indptr, indices, n, K, etas, coefs, num_s, omp_lo, omp_hi,
-    # min_f, max_f, F_new, grad, node_llh, ok, stream
-    "bigclam_fused_superstep": [P, P, P, P, I, I, P, P, I, R, R, R, R, P, P, P, P, P],
-    # F, sumF, indptr, indices, n, K, omp_lo, omp_hi, grad, node_llh, stream
-    "bigclam_grad_llh": [P, P, P, P, I, I, R, R, P, P, P],
-    # F, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
-    # min_f, max_f, cand, stream
-    "bigclam_candidates": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+    # F, F_dst, sumF, indptr, indices, n, K, etas, coefs, num_s, omp_lo,
+    # omp_hi, min_f, max_f, F_new, grad, node_llh, ok, stream
+    "bigclam_fused_superstep": [P, P, P, P, P, I, I, P, P, I, R, R, R, R, P, P, P, P, P],
+    # F, F_dst, sumF, indptr, indices, n, K, omp_lo, omp_hi, grad, node_llh,
+    # stream
+    "bigclam_grad_llh": [P, P, P, P, P, I, I, R, R, P, P, P],
+    # F, F_dst, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo,
+    # omp_hi, min_f, max_f, cand, stream
+    "bigclam_candidates": [P, P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+    # F_loc, F_rot, indptr, indices, n, K, omp_lo, omp_hi, gn, ln, stream
+    "bigclam_ring_grad_phase": [P, P, P, P, I, I, R, R, P, P, P],
+    # F_loc, grad, F_rot, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
+    # min_f, max_f, cb, stream
+    "bigclam_ring_cand_phase": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
     # F, indptr, indices, n, k_pad, col0, kc, x, stream
     "bigclam_edge_dots_kb": [P, P, P, I, I, I, I, P, P],
     # x, F, sumF, indptr, indices, n, k_pad, col0, kc, omp_lo, omp_hi, fold,
@@ -187,3 +194,15 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
 def stream_handle(device) -> int:
     """The current torch stream of `device` as a raw cudaStream_t."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(device, entry: str, *args) -> None:
+    """Call the C entry `entry` of the library with `args` and then the
+    current stream of `device`, with `device` the current CUDA device for
+    the call (a kernel launches on the current device, which on a mesh of
+    several cards is not always the tensors' one); raise KernelLaunchError
+    when it returns a CUDA error."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, stream_handle(device))
+    check_launch(lib, rc, entry.removeprefix("bigclam_"))

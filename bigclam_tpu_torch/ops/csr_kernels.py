@@ -16,7 +16,7 @@ headers for the design and what bounds each on an H100). Each wrapper:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,10 +110,13 @@ def check_csr(csr: DeviceCSR, n: int, device: torch.device) -> None:
         raise ValueError("indices must be contiguous int32")
 
 
-def check_cuda_inputs(F: torch.Tensor, csr: DeviceCSR, *vecs, rows=()) -> None:
+def check_cuda_inputs(
+    F: torch.Tensor, csr: DeviceCSR, *vecs, rows=(), dst=None
+) -> None:
     """Validate what the single-pass CUDA kernels take: float32,
     contiguous, on one cuda device; (n, K) matrices with K <= MAX_K; (K,)
-    vectors; int64 indptr of n+1 entries and int32 indices."""
+    vectors; int64 indptr of n+1 entries and int32 indices; `dst`, the
+    matrix of destination rows (any row count, K columns), when given."""
     if F.dim() != 2:
         raise ValueError(f"F must be (n, K), got {tuple(F.shape)}")
     n, k = F.shape
@@ -130,7 +133,8 @@ def check_cuda_inputs(F: torch.Tensor, csr: DeviceCSR, *vecs, rows=()) -> None:
         F.device,
         [("F", F, (n, k))]
         + [(f"row matrix {i}", t, (n, k)) for i, t in enumerate(rows)]
-        + [(f"vector {i}", t, (k,)) for i, t in enumerate(vecs)],
+        + [(f"vector {i}", t, (k,)) for i, t in enumerate(vecs)]
+        + ([] if dst is None else [("F_dst", dst, (dst.shape[0], k))]),
     )
     check_csr(csr, n, F.device)
 
@@ -139,32 +143,42 @@ def check_cuda_inputs(F: torch.Tensor, csr: DeviceCSR, *vecs, rows=()) -> None:
 
 
 def grad_llh_csr_plain(
-    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch kernel B: (grad (n,K), node_llh (n,)), the -sumF + F
     fold and the node tail included."""
-    return grad_llh(F, sumF, edge_chunks(F, csr, cfg), cfg)
+    return grad_llh(F, sumF, edge_chunks(F, csr, cfg), cfg, F_dst)
 
 
 def grad_llh_csr(
-    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-node gradient + LLH (kernel B; counterpart of the TPU
-    `grad_llh_csr`). Returns (grad (n,K), node_llh (n,))."""
+    `grad_llh_csr`). Returns (grad (n,K), node_llh (n,)). The CSR's
+    indices are rows of F_dst (default F: one device; on a mesh's
+    all-gather schedule, the gathered F)."""
     if F.device.type == "cpu":
-        return grad_llh_csr_plain(F, sumF, csr, cfg)
-    check_cuda_inputs(F, csr, sumF)
+        return grad_llh_csr_plain(F, sumF, csr, cfg, F_dst)
+    F_dst = F if F_dst is None else F_dst
+    check_cuda_inputs(F, csr, sumF, dst=F_dst)
     c = kernel_constants(cfg)
     n, k = F.shape
     grad = torch.empty_like(F)
     node_llh = torch.empty(n, dtype=F.dtype, device=F.device)
-    lib = build.load_library()
-    rc = lib.bigclam_grad_llh(
-        F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
+    build.launch(
+        F.device, "bigclam_grad_llh",
+        F.data_ptr(), F_dst.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, k, c["omp_lo"], c["omp_hi"],
-        grad.data_ptr(), node_llh.data_ptr(), build.stream_handle(F.device),
+        grad.data_ptr(), node_llh.data_ptr(),
     )
-    build.check_launch(lib, rc, "grad_llh")
     grad_llh_csr.launches += 1
     return grad, node_llh
 
@@ -181,6 +195,7 @@ def candidates_csr_plain(
     sumF: torch.Tensor,
     csr: DeviceCSR,
     cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch kernel C: (S, n) full candidate LLH, the neighbor
     terms plus the Armijo tails nf.(F - sumF) (the TPU kernel's form)."""
@@ -189,7 +204,7 @@ def candidates_csr_plain(
         (torch.clamp(F + eta * grad, cfg.min_f, cfg.max_f) * fms).sum(dim=1)
         for eta in step_etas(cfg, F)
     ])
-    return tails + candidates_pass(F, grad, edge_chunks(F, csr, cfg), cfg)
+    return tails + candidates_pass(F, grad, edge_chunks(F, csr, cfg), cfg, F_dst)
 
 
 def candidates_csr(
@@ -198,24 +213,26 @@ def candidates_csr(
     sumF: torch.Tensor,
     csr: DeviceCSR,
     cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """FULL candidate LLH (neighbor terms + Armijo tails) for every step
     (kernel C; counterpart of the TPU `candidates_csr`). Returns (S, n);
-    feed it to armijo_select, not armijo_update."""
+    feed it to armijo_select, not armijo_update. The CSR's indices are rows
+    of F_dst (default F), as in grad_llh_csr."""
     if F.device.type == "cpu":
-        return candidates_csr_plain(F, grad, sumF, csr, cfg)
-    check_cuda_inputs(F, csr, sumF, rows=(grad,))
+        return candidates_csr_plain(F, grad, sumF, csr, cfg, F_dst)
+    F_dst = F if F_dst is None else F_dst
+    check_cuda_inputs(F, csr, sumF, rows=(grad,), dst=F_dst)
     c = kernel_constants(cfg)
     n, k = F.shape
     cand = torch.empty((c["num_s"], n), dtype=F.dtype, device=F.device)
-    lib = build.load_library()
-    rc = lib.bigclam_candidates(
-        F.data_ptr(), grad.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
-        csr.indices.data_ptr(), n, k, c["etas"].ctypes.data, c["num_s"],
-        c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"], cand.data_ptr(),
-        build.stream_handle(F.device),
+    build.launch(
+        F.device, "bigclam_candidates",
+        F.data_ptr(), F_dst.data_ptr(), grad.data_ptr(), sumF.data_ptr(),
+        csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k,
+        c["etas"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
+        c["min_f"], c["max_f"], cand.data_ptr(),
     )
-    build.check_launch(lib, rc, "candidates")
     candidates_csr.launches += 1
     return cand
 

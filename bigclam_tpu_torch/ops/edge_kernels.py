@@ -96,13 +96,12 @@ def candidate_edge_terms(
     c = kernel_constants(cfg)
     e, k = int(src.shape[0]), int(F.shape[1])
     out = torch.empty((c["num_s"], e), dtype=F.dtype, device=F.device)
-    lib = build.load_library()
-    rc = lib.bigclam_candidate_edge_terms(
+    build.launch(
+        F.device, "bigclam_candidate_edge_terms",
         F.data_ptr(), grad.data_ptr(), src.data_ptr(), dst.data_ptr(), e, k,
         c["etas"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
-        c["min_f"], c["max_f"], out.data_ptr(), build.stream_handle(F.device),
+        c["min_f"], c["max_f"], out.data_ptr(),
     )
-    build.check_launch(lib, rc, "candidate_edge_terms")
     candidate_edge_terms.launches += 1
     return out
 

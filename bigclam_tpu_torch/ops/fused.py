@@ -11,7 +11,7 @@ tensors it launches the kernel and counts the launch in
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,14 +28,18 @@ from bigclam_tpu_torch.ops.linesearch import step_etas
 
 
 def acceptance_inputs_plain(
-    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """What kernel A's acceptance test compares, in plain PyTorch:
     (grad (n,K), node_llh (n,), cand (S,n), threshold (S,n)), the
     threshold rounded as the fused TPU kernel rounds it:
     llh + float32(alpha*eta) * ||g||^2."""
-    grad, node_llh = grad_llh_csr_plain(F, sumF, csr, cfg)
-    cand = candidates_csr_plain(F, grad, sumF, csr, cfg)
+    grad, node_llh = grad_llh_csr_plain(F, sumF, csr, cfg, F_dst)
+    cand = candidates_csr_plain(F, grad, sumF, csr, cfg, F_dst)
     coefs = torch.tensor(
         [cfg.alpha * e for e in cfg.step_candidates], dtype=F.dtype,
         device=F.device,
@@ -60,39 +64,49 @@ def project_accepted(
 
 
 def fused_superstep_plain(
-    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch kernel A. Returns (F_new (n,K), grad (n,K),
     node_llh (n,), ok (S,n) bool)."""
-    grad, node_llh, cand, thr = acceptance_inputs_plain(F, sumF, csr, cfg)
+    grad, node_llh, cand, thr = acceptance_inputs_plain(F, sumF, csr, cfg, F_dst)
     ok = cand >= thr
     return project_accepted(F, grad, ok, cfg), grad, node_llh, ok
 
 
 def fused_superstep(
-    F: torch.Tensor, sumF: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole edge superstep (kernel A; counterpart of the TPU
     `fused_superstep_csr`). Returns (F_new (n,K), grad (n,K),
-    node_llh (n,), ok (S,n) bool acceptance mask — feed accept_stats)."""
+    node_llh (n,), ok (S,n) bool acceptance mask — feed accept_stats).
+    The CSR's indices are rows of F_dst (default F: one device; on a mesh's
+    all-gather schedule, the gathered F, the TPU kernel's F_gather)."""
     if F.device.type == "cpu":
-        return fused_superstep_plain(F, sumF, csr, cfg)
-    check_cuda_inputs(F, csr, sumF)
+        return fused_superstep_plain(F, sumF, csr, cfg, F_dst)
+    F_dst = F if F_dst is None else F_dst
+    check_cuda_inputs(F, csr, sumF, dst=F_dst)
     c = kernel_constants(cfg)
     n, k = F.shape
     F_new = torch.empty_like(F)
     grad = torch.empty_like(F)
     node_llh = torch.empty(n, dtype=F.dtype, device=F.device)
     ok = torch.empty((c["num_s"], n), dtype=torch.bool, device=F.device)
-    lib = build.load_library()
-    rc = lib.bigclam_fused_superstep(
-        F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
+    build.launch(
+        F.device, "bigclam_fused_superstep",
+        F.data_ptr(), F_dst.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, k, c["etas"].ctypes.data,
         c["coefs"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
         c["min_f"], c["max_f"], F_new.data_ptr(), grad.data_ptr(),
-        node_llh.data_ptr(), ok.data_ptr(), build.stream_handle(F.device),
+        node_llh.data_ptr(), ok.data_ptr(),
     )
-    build.check_launch(lib, rc, "fused_superstep")
     fused_superstep.launches += 1
     return F_new, grad, node_llh, ok
 

@@ -102,12 +102,11 @@ def edge_dots_kb(
         return edge_dots_kb_plain(F, csr, col0, kc, x)
     _check_cuda(F, csr, col0, kc, [("x", x, (csr.num_directed_edges,))])
     n, k_pad = F.shape
-    lib = build.load_library()
-    rc = lib.bigclam_edge_dots_kb(
+    build.launch(
+        F.device, "bigclam_edge_dots_kb",
         F.data_ptr(), csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k_pad,
-        col0, kc, x.data_ptr(), build.stream_handle(F.device),
+        col0, kc, x.data_ptr(),
     )
-    build.check_launch(lib, rc, "edge_dots_kb")
     edge_dots_kb.launches += 1
     return x
 
@@ -171,15 +170,13 @@ def grad_from_x_kb(
     n, k_pad = F.shape
     grad_kb = torch.empty((n, kc), dtype=F.dtype, device=F.device)
     llh_nbr = torch.empty(n, dtype=F.dtype, device=F.device) if col0 == 0 else None
-    lib = build.load_library()
-    rc = lib.bigclam_grad_from_x(
+    build.launch(
+        F.device, "bigclam_grad_from_x",
         x.data_ptr(), F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, k_pad, col0, kc, c["omp_lo"], c["omp_hi"],
         int(bool(fold)), grad_kb.data_ptr(),
         None if llh_nbr is None else llh_nbr.data_ptr(),
-        build.stream_handle(F.device),
     )
-    build.check_launch(lib, rc, "grad_from_x")
     grad_from_x_kb.launches += 1
     return grad_kb, llh_nbr
 
@@ -231,14 +228,13 @@ def cand_dots_kb(
         ("grad_kb", grad_kb, (F.shape[0], kc)), ("xc", xc, (c["num_s"], e)),
     ])
     n, k_pad = F.shape
-    lib = build.load_library()
-    rc = lib.bigclam_cand_dots_kb(
+    build.launch(
+        F.device, "bigclam_cand_dots_kb",
         F.data_ptr(), grad_kb.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, e, k_pad, col0, kc, c["etas"].ctypes.data,
         c["num_s"], c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"],
-        xc.data_ptr(), build.stream_handle(F.device),
+        xc.data_ptr(),
     )
-    build.check_launch(lib, rc, "cand_dots_kb")
     cand_dots_kb.launches += 1
     return xc
 
@@ -273,12 +269,11 @@ def cand_nbr_from_x(
     check_float32(xc.device, [("xc", xc, (c["num_s"], e))])
     check_csr(csr, n, xc.device)
     out = torch.empty((c["num_s"], n), dtype=xc.dtype, device=xc.device)
-    lib = build.load_library()
-    rc = lib.bigclam_cand_from_x(
+    build.launch(
+        xc.device, "bigclam_cand_from_x",
         xc.data_ptr(), csr.indptr.data_ptr(), n, e, c["num_s"], c["omp_lo"],
-        c["omp_hi"], out.data_ptr(), build.stream_handle(xc.device),
+        c["omp_hi"], out.data_ptr(),
     )
-    build.check_launch(lib, rc, "cand_from_x")
     cand_nbr_from_x.launches += 1
     return out
 

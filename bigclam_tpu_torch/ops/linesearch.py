@@ -14,7 +14,7 @@ candidate keep their row (the Jacobi simultaneous update).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -65,16 +65,21 @@ def candidates_pass(
     grad: torch.Tensor,
     edges: EdgeChunks,
     cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Neighbor-sum part of ell_eta(u) for every candidate step.
 
     Returns (S, N): for each eta_i and node u,
-    sum_{v in N(u)} [log(1 - clip(exp(-F_u'.F_v))) + F_u'.F_v].
+    sum_{v in N(u)} [log(1 - clip(exp(-F_u'.F_v))) + F_u'.F_v], with the
+    neighbour rows F_v from F_dst (default F; on a mesh, the gathered F or
+    a ring phase's rotating shard).
     """
+    fdst = F if F_dst is None else F_dst
 
     def terms(s, d):
         return candidate_edge_terms_body(
-            F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d), cfg
+            F.index_select(0, s), grad.index_select(0, s), fdst.index_select(0, d),
+            cfg,
         )
 
     return candidates_scan(F, edges, cfg, terms)

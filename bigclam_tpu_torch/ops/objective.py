@@ -69,25 +69,44 @@ def node_tail(F: torch.Tensor, sumF: torch.Tensor) -> torch.Tensor:
     return -(F @ sumF) + (F * F).sum(dim=1)
 
 
-def grad_llh(
-    F: torch.Tensor, sumF: torch.Tensor, edges: EdgeChunks, cfg: BigClamConfig
+def neighbour_sums(
+    F: torch.Tensor,
+    edges: EdgeChunks,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-node gradient + per-node LLH in one edge sweep.
-
-    Returns (grad (N,K), node_llh (N,)); global LLH = node_llh.sum().
-    """
-    n = F.shape[0]
+    """The edge sweep of grad_llh: (sum_v F_v / omp(F_u.F_v) (N,K),
+    sum_v ell (N,) in the accumulation dtype), with the source rows from F
+    and the destination rows F_v from F_dst (default F) — on a mesh, the
+    gathered F or a ring phase's rotating shard."""
+    fdst = F if F_dst is None else F_dst
     adt = accum_dtype(cfg, F)
-    nbr_llh = torch.zeros(n, dtype=adt, device=F.device)
+    nbr_llh = torch.zeros(F.shape[0], dtype=adt, device=F.device)
     nbr_grad = torch.zeros_like(F)
     for s, d in edges.slices():
-        fd = F.index_select(0, d)
+        fd = fdst.index_select(0, d)
         x = (F.index_select(0, s) * fd).sum(dim=1)
         omp, ell = edge_terms(x, cfg)
         nbr_llh.index_add_(0, s, ell.to(adt))
         nbr_grad.index_add_(0, s, fd * (1.0 / omp)[:, None])
+    return nbr_grad, nbr_llh
+
+
+def grad_llh(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    edges: EdgeChunks,
+    cfg: BigClamConfig,
+    F_dst: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-node gradient + per-node LLH in one edge sweep (neighbour rows
+    from F_dst, default F; see neighbour_sums).
+
+    Returns (grad (N,K), node_llh (N,)); global LLH = node_llh.sum().
+    """
+    nbr_grad, nbr_llh = neighbour_sums(F, edges, cfg, F_dst)
     grad = nbr_grad - sumF[None, :] + F
-    node_llh = nbr_llh + node_tail(F, sumF).to(adt)
+    node_llh = nbr_llh + node_tail(F, sumF).to(nbr_llh.dtype)
     return grad, node_llh
 
 

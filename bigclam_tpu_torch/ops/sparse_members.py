@@ -241,12 +241,11 @@ def member_lookup_rows(
     _check_cuda(ids, w, s, d)
     e, m = int(s.shape[0]), int(ids.shape[1])
     out = torch.empty((e, m), dtype=w.dtype, device=w.device)
-    lib = build.load_library()
-    rc = lib.bigclam_member_lookup(
+    build.launch(
+        ids.device, "bigclam_member_lookup",
         ids.data_ptr(), w.data_ptr(), s.data_ptr(), d.data_ptr(), e, m,
-        int(k_pad), out.data_ptr(), build.stream_handle(ids.device),
+        int(k_pad), out.data_ptr(),
     )
-    build.check_launch(lib, rc, "member_lookup")
     member_lookup_rows.launches += 1
     return out
 

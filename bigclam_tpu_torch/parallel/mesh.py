@@ -1,0 +1,62 @@
+"""Device meshes of the port's sharded trainers.
+
+Port of bigclam_tpu/parallel/mesh.py `make_mesh` (the 1D (nodes, k) mesh;
+the 2D partition's `make_mesh_2d` is not ported). The port runs a mesh
+single-controller, as the JAX package does: one Python process launches
+each shard's work on that shard's `torch.device`. A device may repeat, so
+`[torch.device("cuda:0")] * 4` is a 4-shard mesh on one card and
+`[torch.device("cpu")] * 4` one on the CPU — the counterpart of the JAX
+tests' fake CPU devices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+NODES_AXIS = "nodes"
+K_AXIS = "k"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (dp, tp) grid of torch devices: row i holds node shard i."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def shape(self) -> dict:
+        """{NODES_AXIS: dp, K_AXIS: tp}, as a JAX mesh's `shape`."""
+        return {NODES_AXIS: len(self.devices), K_AXIS: len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    def node_devices(self) -> list:
+        """The device of each node shard (the first of its row)."""
+        return [row[0] for row in self.devices]
+
+    def label(self) -> str:
+        """'dpxtp', the JAX CLI's `_mesh_label` of a 1D mesh."""
+        return f"{self.shape[NODES_AXIS]}x{self.shape[K_AXIS]}"
+
+
+def make_mesh(
+    shape: Tuple[int, int] = (1, 1),
+    devices: Optional[Sequence] = None,
+) -> Mesh:
+    """Build a (nodes, k) mesh over the given devices (default: every
+    visible card). shape = (node_shards, k_shards); their product must equal
+    the number of devices given, which may repeat."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    dp, tp = shape
+    if dp < 1 or tp < 1 or dp * tp != len(devices):
+        raise ValueError(
+            f"mesh shape {tuple(shape)} needs {dp * tp} devices, got {len(devices)}"
+        )
+    return Mesh(tuple(tuple(devices[i * tp : (i + 1) * tp]) for i in range(dp)))

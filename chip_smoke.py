@@ -12,6 +12,10 @@ exits non-zero:
             and links them into one library
   odd       each kernel against its plain PyTorch version on a small odd
             case (K=37, isolated nodes)
+  ring_odd  the ring-phase kernels #8 and #9 against their plain versions
+            over every (shard, phase) bucket of the odd graph at dp = 3 on
+            a repeated-device mesh (n_pad 405, an empty bucket, a zero
+            row), at K=37 and K=1,024, accumulating across the phases
   sparse_odd the member-lookup kernel against its plain version, bit for
             bit, on the odd case's sparse state at M=5 (M < K, truncating)
             and M=37 (not a multiple of 32), before and after a support
@@ -66,10 +70,35 @@ exits non-zero:
             and at M=100 = K against the card's dense `csr_fused` path
   vmem_parity the same graph on `pallas_vmem`: 5 steps on the card against
             the port's CPU `xla` path in float64
+  ring_main `cli fit --mesh 1,1 --schedule ring` on the same file,
+            conductance init, 5 iterations, no --out; path
+            `csr_ring_fused`, one launch of each ring kernel per step,
+            counted from 0 around the fit; the LLH rises and stays within
+            1e-4 of main's
+  mesh_init the file ingested as `cli fit` reads it and its conductance F0
+  ring_dp4  RingBigClamModel on 4 shards of one card (balanced), 5 steps
+            of `csr_ring_fused` from that F0 (16 launches of each ring
+            kernel a step), 2 of `csr_ring`, LLHs within 1e-4 of main's;
+            one step timed whole and split into rotation 1, the fold,
+            rotation 2, the Armijo tails and selection and the psums, and
+            traced; peak device memory
+  ring_full #8 and #9 against their plain versions over every bucket of
+            that layout on the final F, each timed per sweep of 16
+            buckets as `full` times kernels, with their bound; both
+            sweeps timed again on the unbalanced layout of the same F
+  allgather_main `cli fit --mesh 1,1` (path `csr_fused`, LLH within 1e-4
+            of main's), then ShardedBigClamModel on 4 shards of one card:
+            5 steps of `csr_fused`, 2 of `csr`, with launches and LLH
+  ring_multi ring_dp4 on min(4, count) real cards, where the hops are
+            copies, with the serial rotation equal to the overlapped one
+            bit for bit; with one card it prints why it was skipped
   sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
             on the card against `--device cpu --dtype float64`: the same
             grid and chosen K (unless a stop ratio lies within 1e-4 of
             ksweep_tol), each K's LLH within 1e-4
+  mesh_parity the parity graph: the ring and the all-gather schedules at
+            dp = 4 on the card against the port's CPU float64 `xla` at
+            dp = 4 and on one device, 5 steps, LLH within 1e-4
 
 and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 (bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
@@ -94,7 +123,9 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
 
 Then one `kernels` line (per kernel: launches on its path, error against
 the plain version, kernel / plain time, the card's lower bound for the
-same work) and, last, {"ok": true, "device": {...}}.
+same work) and, last, {"ok": true, "device": {...}}. The ring and mesh
+phases run after sweep_main, in the order listed; mesh_parity after
+sweep_parity.
 
 Tolerances: F_new, grad, node_llh, the candidate LLH, the candidate edge
 terms and the K-blocked kernels' x, grad, llh_nbr, xc and cand_nbr at
@@ -197,7 +228,21 @@ KERNELS = {
         replaces="bigclam_tpu/ops/pallas_kernels.py:71",
         tpu_kernel="candidate_edge_terms",
     ),
+    "ring_grad_phase": dict(
+        source="bigclam_tpu_torch/csrc/ring_grad_phase.cu",
+        replaces="bigclam_tpu/ops/pallas_fused.py:413",
+        tpu_kernel="_grad_blocks_fused",
+    ),
+    "ring_cand_phase": dict(
+        source="bigclam_tpu_torch/csrc/ring_cand_phase.cu",
+        replaces="bigclam_tpu/ops/pallas_fused.py:503",
+        tpu_kernel="_cand_blocks_fused",
+    ),
 }
+RING = ("ring_grad_phase", "ring_cand_phase")
+RING_DP = 4
+RING_ODD_DP = 3
+RING_ODD_K = (37, 1024)
 SINGLE_PASS = ("fused_superstep", "grad_llh_csr", "candidates_csr")
 K_BLOCKED = ("edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x")
 NO_LIBRARY = (
@@ -230,6 +275,15 @@ LIBRARY_NOTES = {
     "candidate_edge_terms": (
         "no single PyTorch call forms the 16 clipped candidate rows and "
         "their log-survival edge terms"
+    ),
+    "ring_grad_phase": (
+        "none: no single PyTorch call forms the per-edge survival terms, "
+        "the neighbour-gradient and LLH sums and their addition to the "
+        "accumulator"
+    ),
+    "ring_cand_phase": (
+        "none: no single PyTorch call forms the 16 clipped candidate rows, "
+        "their log-survival edge terms and per-node sums"
     ),
 }
 
@@ -387,19 +441,25 @@ def compare_kb_kernels(F, csr, cfg, kc, plain):
 
 
 def reset_launch_counts() -> None:
-    from bigclam_tpu_torch.ops import edge_kernels, fused, kblocked, sparse_members
+    from bigclam_tpu_torch.ops import (
+        edge_kernels, fused, kblocked, ring_kernels, sparse_members,
+    )
 
     fused.reset_launch_counts()
     kblocked.reset_launch_counts()
     sparse_members.reset_launch_counts()
     edge_kernels.reset_launch_counts()
+    ring_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from bigclam_tpu_torch.ops import edge_kernels, fused, kblocked, sparse_members
+    from bigclam_tpu_torch.ops import (
+        edge_kernels, fused, kblocked, ring_kernels, sparse_members,
+    )
 
     return {**fused.launch_counts(), **kblocked.launch_counts(),
-            **sparse_members.launch_counts(), **edge_kernels.launch_counts()}
+            **sparse_members.launch_counts(), **edge_kernels.launch_counts(),
+            **ring_kernels.launch_counts()}
 
 
 def time_ms(fn, reps: int = 5) -> list:
@@ -570,10 +630,8 @@ def phase_build() -> dict:
     return {"build_s": res["seconds"], "cached": res["cached"], "ptxas": regs}
 
 
-def odd_case(k: int = ODD["k"]):
-    """Planted blocks plus isolated nodes at K=37 (not a multiple of 32;
-    or the K given), with an all-zero F row."""
-    from bigclam_tpu_torch.config import BigClamConfig
+def odd_graph():
+    """Planted blocks plus isolated nodes (the odd case's graph)."""
     from bigclam_tpu_torch.graph.ingest import graph_from_edges
     from bigclam_tpu_torch.models.agm import sample_planted_graph
 
@@ -582,7 +640,16 @@ def odd_case(k: int = ODD["k"]):
         o["n"], o["blocks"], p_in=o["p_in"], rng=np.random.default_rng(o["seed"])
     )
     pairs = np.stack([g0.src, g0.dst], axis=1)
-    g = graph_from_edges(pairs, num_nodes=o["n"] + o["isolated"])
+    return graph_from_edges(pairs, num_nodes=o["n"] + o["isolated"])
+
+
+def odd_case(k: int = ODD["k"]):
+    """Planted blocks plus isolated nodes at K=37 (not a multiple of 32;
+    or the K given), with an all-zero F row."""
+    from bigclam_tpu_torch.config import BigClamConfig
+
+    o = ODD
+    g = odd_graph()
     F = np.random.default_rng(o["seed"] + 1).uniform(0.0, 1.0, (g.num_nodes, k))
     F[7] = 0.0
     cfg = BigClamConfig(num_communities=k)
@@ -1439,6 +1506,477 @@ def phase_sweep_parity(tmp) -> dict:
             "launches": counts}
 
 
+# --- the mesh phases: the ring and all-gather schedules -----------------------
+
+
+def repeated_mesh(dp: int):
+    """A dp-shard mesh on one card (the device repeated)."""
+    from bigclam_tpu_torch.parallel import make_mesh
+
+    return make_mesh((dp, 1), [torch.device(DEVICE)] * dp)
+
+
+def ring_fold(model, F, gn, ln):
+    """The ring's fold after rotation 1: (sumF per shard, grad, node_llh)."""
+    from bigclam_tpu_torch.ops.objective import node_tail
+    from bigclam_tpu_torch.parallel.sharded import psum
+
+    sumF = psum([f.sum(dim=0) for f in F], model.devices)
+    grad = [g - s[None, :] + f for g, s, f in zip(gn, sumF, F)]
+    node_llh = [l + node_tail(f, s) for l, f, s in zip(ln, F, sumF)]
+    return sumF, grad, node_llh
+
+
+def ring_sweep(fn, model, F, acc, *, grad=None):
+    """One rotation of kernel #8 (grad None: acc = (gn, ln)) or #9 (acc =
+    cb) over every (shard, phase) bucket of `model` on a repeated-device
+    mesh, where shard i's phase-r rotating shard is F[(i + r) % dp]."""
+    dp = len(F)
+    for r in range(dp):
+        for i in range(dp):
+            rot = F[(i + r) % dp]
+            if grad is None:
+                fn(F[i], rot, model.buckets[i][r], acc[0][i], acc[1][i], model.cfg)
+            else:
+                fn(F[i], grad[i], rot, model.buckets[i][r], acc[i], model.cfg)
+    return acc
+
+
+def grad_accs(F):
+    return [torch.zeros_like(f) for f in F], [f.new_zeros(f.shape[0]) for f in F]
+
+
+def cand_accs(F, s):
+    return [f.new_zeros((s, f.shape[0])) for f in F]
+
+
+def compare_ring_kernels(checks, model, F, grad, cfg, tag):
+    """Kernels #8 and #9 against their plain versions over every (shard,
+    phase) bucket of `model`'s layout, on F shards `F` (any K), each
+    accumulating across the phases from the same random accumulators;
+    compared after every phase."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+
+    dp, s = len(F), len(cfg.step_candidates)
+    torch.manual_seed(0)
+    for i in range(dp):
+        n, k = F[i].shape
+        dev = F[i].device
+        acc0 = (torch.rand((n, k), device=dev), torch.rand(n, device=dev),
+                torch.rand((s, n), device=dev))
+        kern = [a.clone() for a in acc0]
+        plain = [a.clone() for a in acc0]
+        for r in range(dp):
+            rot, b = F[(i + r) % dp], model.buckets[i][r]
+            rk.ring_grad_phase(F[i], rot, b, kern[0], kern[1], cfg)
+            rk.ring_grad_phase_plain(F[i], rot, b, plain[0], plain[1], cfg)
+            rk.ring_cand_phase(F[i], grad[i], rot, b, kern[2], cfg)
+            rk.ring_cand_phase_plain(F[i], grad[i], rot, b, plain[2], cfg)
+            torch.cuda.synchronize()
+            checks["ring_grad_phase"].close(f"{tag}_gn", kern[0], plain[0])
+            checks["ring_grad_phase"].close(f"{tag}_ln", kern[1], plain[1])
+            checks["ring_cand_phase"].close(f"{tag}_cb", kern[2], plain[2])
+
+
+def bucket_edges(model) -> list:
+    return [[b.num_directed_edges for b in row] for row in model.buckets]
+
+
+def phase_ring_odd():
+    """#8 and #9 vs plain on the odd graph at dp = 3 on a repeated-device
+    mesh: n_pad 405 (odd), shard 0's phase-2 bucket empty (the planted
+    blocks never reach shard 2 from shard 0), an all-zero row, at K = 37
+    (unpadded) and K = 1,024."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import RingBigClamModel
+
+    g = odd_graph()
+    checks = {n: Check(n) for n in RING}
+    out = {"dp": RING_ODD_DP}
+    for k in RING_ODD_K:
+        cfg = BigClamConfig(num_communities=k)
+        model = RingBigClamModel(g, cfg, repeated_mesh(RING_ODD_DP), balance=False)
+        sizes = bucket_edges(model)
+        if min(map(min, sizes)) != 0 or model.n_pad % 2 == 0:
+            raise AssertionError(f"want an empty bucket and odd n_pad: {sizes}")
+        rng = np.random.default_rng(k)
+        rows = model.n_pad // RING_ODD_DP
+        F = np.zeros((model.n_pad, k))
+        F[: g.num_nodes] = rng.uniform(0.0, 1.0, (g.num_nodes, k))
+        F[7] = 0.0
+        G = rng.uniform(-1.5, 1.5, (model.n_pad, k))
+        shard = lambda M, i: torch.as_tensor(  # noqa: E731
+            M[i * rows : (i + 1) * rows], dtype=torch.float32, device=DEVICE)
+        compare_ring_kernels(
+            checks, model, [shard(F, i) for i in range(RING_ODD_DP)],
+            [shard(G, i) for i in range(RING_ODD_DP)], cfg, f"k{k}",
+        )
+        out[f"k{k}"] = {"n_pad": model.n_pad, "bucket_edges": sizes}
+    return checks, {**out, "kernels": {n: c.parts for n, c in checks.items()}}
+
+
+def mesh_init(path):
+    """The ingested full graph and its conductance F0 (float64, host): the
+    in-process mesh phases start where `main` started."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+
+    g = build_graph(path)
+    return g, cli.init_F(g, BigClamConfig(num_communities=FULL["k"]), "conductance")
+
+
+def ring_launches_want(counts, dp: int, steps: int) -> dict:
+    want = dict.fromkeys(counts, 0)
+    want.update(ring_grad_phase=dp * dp * steps, ring_cand_phase=dp * dp * steps)
+    return want
+
+
+def phase_ring_main(g, path, main_hist):
+    torch.cuda.reset_peak_memory_stats()
+    out, _, counts, _ = run_path(
+        g, path, FULL["k"],
+        ["--max-iters", "5", "--mesh", "1,1", "--schedule", "ring"],
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["llh_history"]
+    if (out["kernel_path"], out.get("mesh")) != ("csr_ring_fused", "1x1"):
+        raise AssertionError(f"ring ran {out['kernel_path']} on {out.get('mesh')}")
+    want = ring_launches_want(counts, 1, out["steps"])
+    if counts != want:
+        raise AssertionError(f"csr_ring_fused launches {counts}, want {want}")
+    if not hist[-1] > hist[0]:
+        raise AssertionError(f"LLH did not increase: {hist}")
+    rel = llh_rel(hist, main_hist)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"ring LLH {hist} vs csr_fused {main_hist}")
+    e = g.num_directed_edges
+    return counts, {
+        "kernel_path": out["kernel_path"], "mesh": out["mesh"],
+        "llh_history": hist, "max_rel_vs_csr_fused": rel,
+        "steps": out["steps"], "sec_per_iter": out["sec_per_iter"],
+        "directed_edges_per_s": e / out["sec_per_iter"],
+        "stage_seconds": out["stage_seconds"], "launches": counts,
+        "peak_device_gb": peak_gb,
+    }
+
+
+def fit_mesh(model, F0, want_path, main_hist, counts_want):
+    """model.fit_state from F0 with the launch counters zeroed just before
+    and read just after; checks the path, launches and LLH against main's
+    history. Returns (final state, body)."""
+    if model.engaged_path != want_path:
+        raise AssertionError(f"ran {model.engaged_path}, want {want_path}")
+    state0 = model.init_state(F0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _, _, hist = model.fit_state(state0)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = counts_want(counts, len(hist))
+    if counts != want:
+        raise AssertionError(f"{want_path} launches {counts}, want {want}")
+    rel = llh_rel(list(hist), main_hist[: len(hist)])
+    if rel > LLH_RTOL:
+        raise AssertionError(f"{want_path} LLH {hist} vs csr_fused {main_hist}")
+    return state, {
+        "kernel_path": want_path, "llh_history": list(hist),
+        "max_rel_vs_csr_fused": rel, "steps": len(hist),
+        "sec_per_iter": wall / len(hist), "launches": counts,
+    }
+
+
+def ring_step_split(model, state) -> dict:
+    """One csr_ring_fused step on `state`, whole and in parts: rotation 1
+    (kernel #8, fresh accumulators), the fold and node tail, rotation 2
+    (kernel #9), the Armijo tails and selection of every shard, and the
+    psums (column sums, LLH, histogram)."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.parallel.sharded import armijo_tail_select_sharded, psum
+
+    F, cfg, devices = state.F, model.cfg, model.devices
+    s = len(cfg.step_candidates)
+    med = lambda fn: statistics.median(time_ms(fn, 3))  # noqa: E731
+    gn, ln = ring_sweep(rk.ring_grad_phase, model, F, grad_accs(F))
+    sumF, grad, node_llh = ring_fold(model, F, gn, ln)
+    cb = ring_sweep(rk.ring_cand_phase, model, F, cand_accs(F, s), grad=grad)
+    outs = [
+        armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg)
+        for i in range(len(F))
+    ]
+
+    def psums():
+        psum([f.sum(dim=0) for f in F], devices)
+        psum([o[1] for o in outs], devices)
+        psum([nl.sum() for nl in node_llh], devices)
+        psum([o[2] for o in outs], devices)
+
+    split = {
+        "step_ms": med(lambda: model._step(state)),
+        "rotation1_ms": med(lambda: ring_sweep(rk.ring_grad_phase, model, F,
+                                               grad_accs(F))),
+        "fold_ms": med(lambda: ring_fold(model, F, gn, ln)),
+        "rotation2_ms": med(lambda: ring_sweep(rk.ring_cand_phase, model, F,
+                                               cand_accs(F, s), grad=grad)),
+        "armijo_ms": med(lambda: [
+            armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg)
+            for i in range(len(F))
+        ]),
+        "psums_ms": med(psums),
+    }
+    split["other_ms"] = split["step_ms"] - sum(
+        v for name, v in split.items() if name != "step_ms"
+    )
+    return split
+
+
+def phase_ring_dp4(g, F0, main_hist):
+    """RingBigClamModel at full width on 4 shards of one card, 5 steps of
+    csr_ring_fused from main's F0, then 2 of csr_ring; one step timed in
+    parts and traced; peak device memory. The planted graph's ids are
+    locality-ordered (contiguous blocks), so without the balance
+    relabeling nearly every edge would sit in a diagonal bucket; balanced,
+    every (shard, phase) bucket holds a quarter of a shard's edges, the
+    layout a multi-card ring runs."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import RingBigClamModel
+
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=4, conv_tol=0.0)
+    t0 = time.perf_counter()
+    model = RingBigClamModel(g, cfg, repeated_mesh(RING_DP), balance=True)
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    state, fused = fit_mesh(
+        model, F0, "csr_ring_fused", main_hist,
+        lambda c, steps: ring_launches_want(c, RING_DP, steps),
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = fused["launches"]
+    model.cfg = cfg.replace(csr_fused=False, max_iters=1)
+    model.rebuild_step()
+    _, split_path = fit_mesh(
+        model, F0, "csr_ring", main_hist,
+        lambda c, steps: ring_launches_want(c, RING_DP, steps),
+    )
+    model.cfg = cfg
+    model.rebuild_step()
+    step = ring_step_split(model, state)
+    step["profile"] = profile_call(lambda: model._step(state))
+    return model, state, counts, {
+        "dp": RING_DP, "devices": [str(d) for d in model.devices],
+        "balanced": model._perm is not None, "model_build_s": build_s,
+        "bucket_edges": bucket_edges(model), "csr_ring_fused": fused,
+        "csr_ring": split_path, "step": step, "peak_device_gb": peak_gb,
+    }
+
+
+def ring_bounds(model, k: int, s: int) -> dict:
+    """Least time of one sweep of kernel #8 / #9 over all dp*dp buckets at
+    these inputs: per launch the bucket's CSR, F_rot (n_loc rows), and for
+    the nz rows with an edge in the bucket F_u (and grad_u for #9) read
+    and the accumulator read and written once; operations as kernels B
+    and C's neighbour terms count them (`bounds`): 4K (+3) per edge for
+    #8, S (2K + 2) per edge plus 3K per nz row and candidate (building
+    nf_s) for #9, at the live K."""
+    nbytes = {"ring_grad_phase": 0.0, "ring_cand_phase": 0.0}
+    ops = {"ring_grad_phase": 0.0, "ring_cand_phase": 0.0}
+    for row in model.buckets:
+        for b in row:
+            n_loc, e = b.num_nodes, b.num_directed_edges
+            nz = int((b.indptr[1:] > b.indptr[:-1]).sum())
+            csr = 8.0 * (n_loc + 1) + 4.0 * e
+            nbytes["ring_grad_phase"] += csr + 4.0 * k * (n_loc + 3 * nz) + 8.0 * nz
+            nbytes["ring_cand_phase"] += csr + 4.0 * k * (n_loc + 2 * nz) + 8.0 * s * nz
+            ops["ring_grad_phase"] += e * (4.0 * k + 3)
+            ops["ring_cand_phase"] += e * s * (2.0 * k + 2) + nz * s * 3.0 * k
+    out = {}
+    for name in nbytes:
+        tb, to = nbytes[name] / PEAK_BYTES_PER_S, ops[name] / PEAK_FP32_PER_S
+        out[name] = {"bound_ms": max(tb, to) * 1e3,
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "bytes": nbytes[name], "ops": ops[name]}
+    return out
+
+
+def phase_ring_full(model, state):
+    """#8 and #9 vs plain over every (shard, phase) bucket of ring_dp4's
+    layout on its final F, each timed per sweep of all 16 buckets as
+    `full` times kernels."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+
+    F, cfg = state.F, model.cfg
+    s = len(cfg.step_candidates)
+    gn, ln = ring_sweep(rk.ring_grad_phase_plain, model, F, grad_accs(F))
+    _, grad, _ = ring_fold(model, F, gn, ln)
+    checks = {n: Check(n) for n in RING}
+    compare_ring_kernels(checks, model, F, grad, cfg, "full")
+    gacc, cacc = grad_accs(F), cand_accs(F, s)
+    times = {
+        "ring_grad_phase": time_pair(
+            lambda: ring_sweep(rk.ring_grad_phase, model, F, gacc),
+            lambda: ring_sweep(rk.ring_grad_phase_plain, model, F, gacc), reps=2),
+        "ring_cand_phase": time_pair(
+            lambda: ring_sweep(rk.ring_cand_phase, model, F, cacc, grad=grad),
+            lambda: ring_sweep(rk.ring_cand_phase_plain, model, F, cacc, grad=grad),
+            reps=2),
+    }
+    for t in times.values():
+        t["library_ms"] = None
+    bnd = ring_bounds(model, FULL["k"], s)
+    return checks, times, bnd, {
+        "kernels": {n: {**checks[n].parts, **times[n], **bnd[n]} for n in RING},
+        "launches_per_sweep": RING_DP * RING_DP, "k_pad": int(F[0].shape[1]),
+        "unbalanced_layout": unbalanced_sweeps(model, state),
+    }
+
+
+def unbalanced_sweeps(model, state) -> dict:
+    """Both ring kernels' sweeps on the same F laid out WITHOUT the balance
+    relabeling: the planted blocks' rows stay contiguous, so a node's
+    neighbour rows lie close together (and nearly every edge sits in a
+    diagonal bucket)."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.parallel import RingBigClamModel
+
+    raw = RingBigClamModel(model.g_original, model.cfg, repeated_mesh(RING_DP),
+                           balance=False)
+    F = raw.init_state(model.extract_F(state)).F
+    gn, ln = ring_sweep(rk.ring_grad_phase, raw, F, grad_accs(F))
+    _, grad, _ = ring_fold(raw, F, gn, ln)
+    gacc, cacc = grad_accs(F), cand_accs(F, len(raw.cfg.step_candidates))
+    med = lambda fn: statistics.median(time_ms(fn, 5))  # noqa: E731
+    return {
+        "bucket_edges": bucket_edges(raw),
+        "ring_grad_phase_ms": med(lambda: ring_sweep(rk.ring_grad_phase, raw, F, gacc)),
+        "ring_cand_phase_ms": med(lambda: ring_sweep(rk.ring_cand_phase, raw, F, cacc,
+                                                     grad=grad)),
+    }
+
+
+def phase_allgather_main(g, path, gi, F0, main_hist):
+    """`cli fit --mesh 1,1` (all-gather, csr_fused) at full width, then
+    ShardedBigClamModel on 4 shards of one card: 5 steps of csr_fused and
+    2 of csr from main's F0."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import ShardedBigClamModel
+
+    out, _, counts, _ = run_path(g, path, FULL["k"], ["--max-iters", "5", "--mesh", "1,1"])
+    hist = out["llh_history"]
+    if (out["kernel_path"], out.get("mesh")) != ("csr_fused", "1x1"):
+        raise AssertionError(f"all-gather ran {out['kernel_path']} on {out.get('mesh')}")
+    want = dict.fromkeys(counts, 0)
+    want["fused_superstep"] = out["steps"]
+    if counts != want:
+        raise AssertionError(f"all-gather launches {counts}, want {want}")
+    rel = llh_rel(hist, main_hist)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"all-gather LLH {hist} vs csr_fused {main_hist}")
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=4, conv_tol=0.0)
+    model = ShardedBigClamModel(gi, cfg, repeated_mesh(RING_DP))
+
+    def per_step(names):
+        def want_fn(c, steps):
+            w = dict.fromkeys(c, 0)
+            w.update({n: RING_DP * steps for n in names})
+            return w
+        return want_fn
+
+    _, dp_fused = fit_mesh(model, F0, "csr_fused", main_hist,
+                           per_step(["fused_superstep"]))
+    model.cfg = cfg.replace(csr_fused=False, max_iters=1)
+    model.rebuild_step()
+    _, dp_split = fit_mesh(model, F0, "csr", main_hist,
+                           per_step(["grad_llh_csr", "candidates_csr"]))
+    return {
+        "cli": {"kernel_path": out["kernel_path"], "mesh": out["mesh"],
+                "llh_history": hist, "max_rel_vs_csr_fused": rel,
+                "steps": out["steps"], "sec_per_iter": out["sec_per_iter"],
+                "stage_seconds": out["stage_seconds"], "launches": counts},
+        "dp": RING_DP, "csr_fused": dp_fused, "csr": dp_split,
+    }
+
+
+def phase_ring_multi(g, F0, main_hist):
+    """ring_dp4 on real cards (dp = min(4, count)): the hops are copies;
+    overlapped and serial rotations give the same bits."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import RingBigClamModel, make_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"needs two CUDA devices, this machine has {count}"}
+    dp = min(RING_DP, count)
+    mesh = make_mesh((dp, 1), [torch.device("cuda", i) for i in range(dp)])
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=4, conv_tol=0.0)
+    model = RingBigClamModel(g, cfg, mesh, balance=True)
+    state, fused = fit_mesh(
+        model, F0, "csr_ring_fused", main_hist,
+        lambda c, steps: ring_launches_want(c, dp, steps),
+    )
+    serial = RingBigClamModel(g, cfg.replace(ring_overlap=False), mesh,
+                              balance=True)
+    a = serial._step(serial.init_state(F0))
+    b = model._step(model.init_state(F0))
+    if not (torch.equal(a.llh, b.llh)
+            and all(torch.equal(x, y) for x, y in zip(a.F, b.F))):
+        raise AssertionError("serial and overlapped rotations differ")
+    def step_wall_ms():
+        # host clock around a step, every card synchronized before and after
+        for d in model.devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        model._step(state)
+        for d in model.devices:
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t0) * 1e3
+
+    step_wall_ms()
+    step_ms = statistics.median(step_wall_ms() for _ in range(5))
+    return {"dp": dp, "devices": [str(d) for d in model.devices],
+            "csr_ring_fused": fused, "step_ms": step_ms,
+            "serial_equals_overlapped": True}
+
+
+def phase_mesh_parity(tmp) -> dict:
+    """N=2,400, K=100: ring and all-gather at dp = 4 on the card (float32
+    kernels, balanced) against the port's CPU float64 `xla` at dp = 4 (not
+    balanced) and on one device, 5 steps from one conductance init."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.parallel import (
+        RingBigClamModel, ShardedBigClamModel, make_mesh,
+    )
+
+    path = os.path.join(tmp, "mesh_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    cfg = BigClamConfig(num_communities=PARITY["k"], max_iters=4, conv_tol=0.0)
+    F0 = cli.init_F(g, cfg, "conductance")
+    f64 = cfg.replace(dtype="float64")
+    one = BigClamModel(g, f64, device="cpu").fit(F0).llh_history
+    cpu_mesh = make_mesh((RING_DP, 1), ["cpu"] * RING_DP)
+    out = {"cpu_f64_single_llh": one, "n": g.num_nodes, "edges": g.num_edges}
+    for cls, want in ((RingBigClamModel, "csr_ring_fused"),
+                      (ShardedBigClamModel, "csr_fused")):
+        card = cls(g, cfg, repeated_mesh(RING_DP), balance=True)
+        cpu = cls(g, f64, cpu_mesh, balance=False)
+        if (card.engaged_path, cpu.engaged_path) != (want, "xla"):
+            raise AssertionError((card.engaged_path, cpu.engaged_path))
+        reset_launch_counts()
+        a = card.fit(F0).llh_history
+        counts = {n: c for n, c in launch_counts().items() if c}
+        b = cpu.fit(F0).llh_history
+        rel = max(llh_rel(a, b), llh_rel(a, one))
+        if rel > LLH_RTOL or not counts:
+            raise AssertionError(f"{want} card LLH {a} vs cpu float64 {b} / {one}")
+        out[want] = {"gpu_llh": a, "cpu_f64_dp4_llh": b, "max_rel": rel,
+                     "launches": counts}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
@@ -1458,6 +1996,7 @@ def main() -> int:
     run("card", phase_card)
     run("build", phase_build)
     run("odd", phase_odd)
+    ring_odd_checks, _ = run("ring_odd", phase_ring_odd)
     run("sparse_odd", phase_sparse_odd)
     run("vmem_odd", phase_vmem_odd)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1478,11 +2017,24 @@ def main() -> int:
         vm_check, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
         del res
         run("sweep_main", phase_sweep_main, g, path)
-        del g
+        ring_main_counts, _ = run("ring_main", phase_ring_main, g, path, main_hist)
+        t0 = time.perf_counter()
+        gi, F0 = mesh_init(path)
+        emit({"phase": "mesh_init", "seconds": time.perf_counter() - t0,
+              "n": gi.num_nodes, "directed_edges": gi.num_directed_edges})
+        model, state, ring_counts, _ = run("ring_dp4", phase_ring_dp4, gi, F0,
+                                           main_hist)
+        ring_checks, ring_times, ring_bnd, _ = run("ring_full", phase_ring_full,
+                                                   model, state)
+        del model, state
+        run("allgather_main", phase_allgather_main, g, path, gi, F0, main_hist)
+        run("ring_multi", phase_ring_multi, gi, F0, main_hist)
+        del g, gi, F0
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
         run("vmem_parity", phase_vmem_parity, tmp)
         run("sweep_parity", phase_sweep_parity, tmp)
+        run("mesh_parity", phase_mesh_parity, tmp)
 
         t0 = time.perf_counter()
         path = os.path.join(tmp, "xl_k_graph.txt")
@@ -1501,9 +2053,17 @@ def main() -> int:
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)
-    checks.update(kb_checks, member_lookup=sp_check, candidate_edge_terms=vm_check)
-    times.update(kb_times, **sp_times, **vm_times)
-    bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd)
+    for name in RING:
+        # the odd case's comparisons count toward the kernel's error too
+        ring_checks[name].max_abs = max(ring_checks[name].max_abs,
+                                        ring_odd_checks[name].max_abs)
+        ring_checks[name].max_rel = max(ring_checks[name].max_rel,
+                                        ring_odd_checks[name].max_rel)
+    checks.update(kb_checks, member_lookup=sp_check, candidate_edge_terms=vm_check,
+                  **ring_checks)
+    times.update(kb_times, **sp_times, **vm_times, **ring_times)
+    bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd,
+               **ring_bnd)
     launches = {
         "fused_superstep": main_counts["fused_superstep"],
         "grad_llh_csr": split_counts["grad_llh_csr"],
@@ -1511,6 +2071,7 @@ def main() -> int:
         **{name: kb_counts[name] for name in K_BLOCKED},
         "member_lookup": sparse_counts["member_lookup"],
         "candidate_edge_terms": vmem_counts["candidate_edge_terms"],
+        **{name: ring_counts[name] for name in RING},
     }
     emit({"kernels": [
         {
@@ -1518,6 +2079,8 @@ def main() -> int:
             "launches": launches[name],
             **({"launches_csr_grouped_kb": kb_split_counts[name]}
                if name in K_BLOCKED else {}),
+            **({"launches_ring_main": ring_main_counts[name]}
+               if name in RING else {}),
             "max_abs_err": checks[name].max_abs,
             "max_rel_err": checks[name].max_rel,
             "ms": times[name]["ms"], "kernel_ms": times[name]["ms"],

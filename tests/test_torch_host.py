@@ -97,6 +97,22 @@ def test_initializers_are_bit_identical(planted):
     )
 
 
+@pytest.mark.parametrize("dp, n_pad", [(2, 240), (3, 243), (4, 256), (8, 240)])
+def test_balance_relabeling_is_bit_identical(planted, dp, n_pad):
+    """parallel/balance.py's copy: the same permutation and relabeled
+    graph (Graph.permute) as the JAX `balance_graph` for the same
+    (g, dp, n_pad)."""
+    from bigclam_tpu.parallel.balance import balance_graph as j_balance_graph
+    from bigclam_tpu_torch.parallel.balance import balance_graph
+
+    gj, gp, _ = planted
+    hj, pj = j_balance_graph(gj, dp, n_pad)
+    hp, pp = balance_graph(gp, dp, n_pad)
+    np.testing.assert_array_equal(pp, pj)
+    assert pp.dtype == pj.dtype
+    _same_graph(hp, hj)
+
+
 def test_conductance_and_seeds_are_bit_identical(planted):
     gj, gp, _ = planted
     np.testing.assert_array_equal(pseed.triangle_counts(gp), jseed.triangle_counts(gj))
