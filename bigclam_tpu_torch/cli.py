@@ -132,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     f = sub.add_parser("fit", help="train at a fixed K and extract communities")
     _add_train_flags(f)
-    f.add_argument("--k", type=int, required=True, help="number of communities")
+    f.add_argument("--k", type=int, default=100,
+                   help="number of communities (default 100, as in the JAX CLI)")
     f.add_argument(
         "--init", default="conductance",
         choices=["conductance", "random", "rowkeyed"],

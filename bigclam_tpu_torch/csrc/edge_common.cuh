@@ -351,6 +351,298 @@ __device__ __forceinline__ float cand_pass(
   return cand;
 }
 
+
+// ---------------------------------------------------------------------------
+// The candidate ladder on a staged gather (kernels A and #9).
+//
+// cand_pass above rebuilds nf_s = clip(F_u + eta_s g_u) for every neighbour
+// (an fma, a max, a min and then the dot's fma, where the function needs one
+// fma) and walks one neighbour row at a time. ladder_pass computes the same
+// sums as a blocked product on the FP32 cores. The function needs S(2K + 2)
+// operations per directed edge (about 272 GFLOP at N=300,000, K=1,024, 8.5 M
+// edges: 4.1 ms at 67 TFLOP/s) and one gathered neighbour row per edge
+// (34.8 GB there, which kernel B reads in about 10 ms with help from L2):
+//
+//  * the neighbours are taken in tiles of kLadderRows and K in chunks of
+//    kLadderChunk columns; per (tile, chunk) stage the warp builds nf_s for
+//    the chunk once in shared memory (16 x 32 values, 1/32 of a full tile's
+//    fmas), and cp.async copies the next stage's rows (16-byte copies, 8
+//    lanes per 128-byte row segment, coalesced; 4-byte copies when K is not
+//    a multiple of 4) into the other of two buffers while this one's fmas
+//    run. Rows are gathered by index, which TMA cannot do; the ladder's 16
+//    candidates and a B operand that changes with every node do not fit
+//    wgmma, and tensor cores would change the dots' rounding.
+//  * lane = 8 cg + ng owns the 4 x 4 dots of candidates 4cg..4cg+3 with the
+//    tile's neighbours ng, ng+8, ng+16, ng+24: per 4 columns it loads 4 float4
+//    of nf (the same address in the 8 lanes of a group: a broadcast) and 4
+//    float4 of rows (8 distinct rows per group), then issues 64 fmas. The
+//    paddings (kTileStride, kNfGroupStride) put those reads on distinct banks.
+//    On an H100 (chip_smoke.py) #9 takes 21.9 ms a sweep of the unbalanced
+//    ring layout where kernel #8 gathers the same rows in 11.1: no one part
+//    binds the pass. Builds with the copies, the fmas or the shared-memory
+//    reads taken out in turn each ran faster, the last least: the copies'
+//    latency is only partly hidden behind one stage of fmas, and the fma
+//    issue and the per-stage work (nf, bookkeeping) share the rest.
+//  * with kRowGroups, a tile of cnt < 25 edges runs only its ceil(cnt / 8)
+//    row groups (a separate instantiation each): in a ring bucket a node has
+//    about a quarter of its edges, and a full 32-row tile would spend most of
+//    its fmas and shared-memory reads on rows without an edge. Kernel A
+//    walks whole neighbourhoods and takes the 4-group code only: on an H100
+//    the three extra instantiations cost it more in instruction fetch than
+//    they saved.
+//  * after a tile's last chunk each lane evaluates its own dots' terms
+//    ell(x) = log(clip(-expm1(-x))) + x; the 4 candidate sums go across the 8
+//    lanes of the group by a fixed butterfly and then over the tiles in CSR
+//    order, so a hub loops over tiles and a run is reproducible bit for bit.
+//
+// One warp's shared memory, kLadderFloats floats: two tile buffers of
+// kLadderRows rows x kTileStride floats, then nf as [group][column][4] with
+// groups kNfGroupStride floats apart. ops/csr_kernels.py `ladder_launch_plan`
+// mirrors these sizes; the C entries check that the two agree.
+constexpr int kLadderRows = 32;                          // neighbours a tile
+constexpr int kLadderChunk = 32;                         // columns a chunk
+constexpr int kTileStride = kLadderChunk + 4;            // floats a tile row
+constexpr int kTileFloats = kLadderRows * kTileStride;
+constexpr int kNfGroupStride = 4 * kLadderChunk + 4;     // floats a group
+constexpr int kNfFloats = 4 * kNfGroupStride;
+constexpr int kLadderFloats = 2 * kTileFloats + kNfFloats;
+constexpr int kSmemDefault = 48 * 1024;  // above: cudaFuncSetAttribute
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes, zero-filled when `on` is false.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(on ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(on ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The ids of tile t of u's neighbours (lane r holds row r's id) and, in
+// `cnt`, how many of its kLadderRows rows are edges.
+__device__ __forceinline__ int tile_ids(const int* __restrict__ indices,
+                                        int64_t e0, int64_t e1, int64_t t,
+                                        int lane, int& cnt) {
+  const int64_t base = e0 + kLadderRows * t;
+  const int64_t rem = e1 - base;
+  cnt = rem < kLadderRows ? static_cast<int>(rem) : kLadderRows;
+  return lane < cnt ? __ldg(indices + base + lane) : 0;
+}
+
+// Copies columns [col0, col0 + kLadderChunk) of the tile's cnt rows of Fd
+// into `buf`, columns past K zero-filled; rows past cnt are not copied (their
+// dots are never read). `vec`: K is a multiple of 4 and Fd 16-byte aligned,
+// so every 16-byte segment is whole.
+__device__ __forceinline__ void issue_stage(float* buf, const float* Fd, int K,
+                                            int ids, int cnt, int col0,
+                                            int lane, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < kLadderRows * kLadderChunk / (4 * kWarp); ++i) {
+      const int q = lane + kWarp * i;
+      const int r = q >> 3, seg = q & 7;
+      const int v = __shfl_sync(kFull, ids, r);
+      const int k = col0 + 4 * seg;
+      if (r < cnt)
+        cp_async16(buf + r * kTileStride + 4 * seg,
+                   k < K ? Fd + static_cast<int64_t>(v) * K + k : Fd, k < K);
+    }
+  } else {
+    const int k = col0 + lane;
+    for (int r = 0; r < cnt; ++r) {
+      const int v = __shfl_sync(kFull, ids, r);
+      cp_async4(buf + r * kTileStride + lane,
+                k < K ? Fd + static_cast<int64_t>(v) * K + k : Fd, k < K);
+    }
+  }
+}
+
+// nf_s for the columns of chunk c: lane j builds column c * kLadderChunk + j
+// (0 past K) from F_u and g_u, which col(k, f, g) reads.
+template <typename Col>
+__device__ __forceinline__ void build_nf(float* nf, Col& col, int c, int K,
+                                         int lane, const StepParams& p) {
+  const int k = c * kLadderChunk + lane;
+  const bool in = k < K;
+  float f = 0.f, g = 0.f;
+  if (in) col(k, f, g);
+#pragma unroll
+  for (int cg = 0; cg < 4; ++cg) {
+    float4 v;
+    v.x = in ? clip_f(fmaf(p.etas[4 * cg + 0], g, f), p) : 0.f;
+    v.y = in ? clip_f(fmaf(p.etas[4 * cg + 1], g, f), p) : 0.f;
+    v.z = in ? clip_f(fmaf(p.etas[4 * cg + 2], g, f), p) : 0.f;
+    v.w = in ? clip_f(fmaf(p.etas[4 * cg + 3], g, f), p) : 0.f;
+    *reinterpret_cast<float4*>(nf + cg * kNfGroupStride + 4 * lane) = v;
+  }
+}
+
+// acc[c][j] += a[c] * b[j] for one column and the first JN rows.
+template <int JN>
+__device__ __forceinline__ void fma4xj(float (&acc)[4][4], const float4& a,
+                                       const float (&b)[4]) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int j = 0; j < JN; ++j) acc[c][j] = fmaf(av[c], b[j], acc[c][j]);
+}
+
+// One stage's dots: the lane's 4 candidates (nfg = its group's nf) against
+// its rows ng + 8j, j < JN, of the tile (the tile's rows past 8 JN hold no
+// edge), over the chunk's columns in order.
+template <int JN>
+__device__ __forceinline__ void ladder_fma(const float* tile, const float* nfg,
+                                           int ng, float (&acc)[4][4]) {
+#pragma unroll
+  for (int k4 = 0; k4 < kLadderChunk / 4; ++k4) {
+    float4 b[JN];
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+      b[j] = *reinterpret_cast<const float4*>(tile + (8 * j + ng) * kTileStride +
+                                              4 * k4);
+    float bx[4], by[4], bz[4], bw[4];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      bx[j] = b[j].x;
+      by[j] = b[j].y;
+      bz[j] = b[j].z;
+      bw[j] = b[j].w;
+    }
+    const float4* a = reinterpret_cast<const float4*>(nfg + 16 * k4);
+    fma4xj<JN>(acc, a[0], bx);
+    fma4xj<JN>(acc, a[1], by);
+    fma4xj<JN>(acc, a[2], bz);
+    fma4xj<JN>(acc, a[3], bw);
+  }
+}
+
+// Where the copies of a ladder pass stand: the last issued stage (tile tn,
+// chunk cn) and that tile's ids and row count.
+struct LadderIssue {
+  int64_t e0, e1, ntiles, st, stages;
+  int64_t tn;
+  int cn, nch, ids, cnt;
+};
+
+// The chunks of one tile of cnt rows, JN = ceil(cnt / 8) row groups: per
+// chunk, sends the next stage's copies (the next tile's first chunk after
+// the last), builds nf and waits for the chunk's rows; then adds the tile's
+// ell terms to out[].
+template <int JN, typename Col>
+__device__ __forceinline__ void ladder_tile(
+    const float* Fd, const int* __restrict__ indices, int K, int lane,
+    bool vec, const StepParams& p, float* const (&buf)[2], float* nf,
+    const float* nfg, int ng, int cnt, Col& col, LadderIssue& q,
+    float (&out)[4]) {
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+  for (int c = 0; c < q.nch; ++c, ++q.st) {
+    if (++q.cn == q.nch) {
+      q.cn = 0;
+      if (++q.tn < q.ntiles) q.ids = tile_ids(indices, q.e0, q.e1, q.tn, lane, q.cnt);
+    }
+    if (q.st + 1 < q.stages)
+      issue_stage(buf[(q.st + 1) & 1], Fd, K, q.ids, q.cnt, q.cn * kLadderChunk,
+                  lane, vec);
+    cp_async_commit();
+    build_nf(nf, col, c, K, lane, p);
+    cp_async_wait_prior();
+    __syncwarp();
+    ladder_fma<JN>(buf[q.st & 1], nfg, ng, acc);
+    __syncwarp();
+  }
+  float ts[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < JN; ++j) {
+    if (8 * j + ng < cnt) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ts[a] += logf(survival(acc[a][j], p)) + acc[a][j];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) ts[a] += __shfl_xor_sync(kFull, ts[a], o);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) out[a] += ts[a];
+}
+
+// For every candidate s, sum_v ell(nf_s . F_v) over u's neighbours, with F_v
+// rows of Fd (as in grad_pass) and F_u, g_u read by col(k, f, g) for k < K.
+// On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the same
+// bits in the 8 lanes of the group (0 for a node without neighbours). `sm`
+// is the warp's kLadderFloats floats of shared memory; `vec` as in
+// issue_stage; kRowGroups: skip a tile's row groups without an edge.
+template <bool kRowGroups, typename Col>
+__device__ __forceinline__ void ladder_pass(
+    const float* Fd, const int64_t* __restrict__ indptr,
+    const int* __restrict__ indices, int u, int K, int lane, bool vec,
+    const StepParams& p, float* sm, Col&& col, float (&out)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) out[c] = 0.f;
+  LadderIssue q;
+  q.e0 = indptr[u];
+  q.e1 = indptr[u + 1];
+  if (q.e1 == q.e0) return;
+  q.nch = (K + kLadderChunk - 1) / kLadderChunk;
+  q.ntiles = (q.e1 - q.e0 + kLadderRows - 1) / kLadderRows;
+  q.stages = q.ntiles * q.nch;
+  q.st = 0;
+  q.tn = 0;
+  q.cn = 0;
+  float* const buf[2] = {sm, sm + kTileFloats};
+  float* const nf = sm + 2 * kTileFloats;
+  const float* const nfg = nf + (lane >> 3) * kNfGroupStride;
+  const int ng = lane & 7;
+  q.ids = tile_ids(indices, q.e0, q.e1, 0, lane, q.cnt);
+  issue_stage(buf[0], Fd, K, q.ids, q.cnt, 0, lane, vec);
+  cp_async_commit();
+  for (int64_t t = 0; t < q.ntiles; ++t) {
+    const int64_t rem = q.e1 - q.e0 - kLadderRows * t;
+    const int cnt = rem < kLadderRows ? static_cast<int>(rem) : kLadderRows;
+#define BIGCLAM_LADDER_TILE(JN)                                         \
+  ladder_tile<JN>(Fd, indices, K, lane, vec, p, buf, nf, nfg, ng, cnt, col, \
+                  q, out)
+    switch (kRowGroups ? (cnt + 7) >> 3 : 4) {  // row groups with an edge
+      case 1: BIGCLAM_LADDER_TILE(1); break;
+      case 2: BIGCLAM_LADDER_TILE(2); break;
+      case 3: BIGCLAM_LADDER_TILE(3); break;
+      default: BIGCLAM_LADDER_TILE(4); break;
+    }
+#undef BIGCLAM_LADDER_TILE
+  }
+}
+
+// Shared-memory bytes of one block of the ladder kernels (4 warps): kernel A
+// keeps F_u (32 KPL floats) and the 16 pass-2 sums beside each warp's ladder
+// buffers; #9 only the ladder buffers.
+inline int fused_smem_bytes(int kpl) {
+  return 4 * kWarpsPerBlock * (kWarp * kpl + kLadderFloats + kMaxS);
+}
+inline int ring_cand_smem_bytes() {
+  return 4 * kWarpsPerBlock * kLadderFloats;
+}
+
 }  // namespace bigclam
 
 // The CUDA error text for the codes the C entries return. Every source of

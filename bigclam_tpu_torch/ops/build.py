@@ -46,8 +46,8 @@ LINK_FLAGS = (*ARCH, "-shared")
 P, I, L, R = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
     # F, F_dst, sumF, indptr, indices, n, K, etas, coefs, num_s, omp_lo,
-    # omp_hi, min_f, max_f, F_new, grad, node_llh, ok, stream
-    "bigclam_fused_superstep": [P, P, P, P, P, I, I, P, P, I, R, R, R, R, P, P, P, P, P],
+    # omp_hi, min_f, max_f, F_new, grad, node_llh, ok, smem_bytes, stream
+    "bigclam_fused_superstep": [P, P, P, P, P, I, I, P, P, I, R, R, R, R, P, P, P, P, I, P],
     # F, F_dst, sumF, indptr, indices, n, K, omp_lo, omp_hi, grad, node_llh,
     # stream
     "bigclam_grad_llh": [P, P, P, P, P, I, I, R, R, P, P, P],
@@ -57,8 +57,8 @@ ENTRIES = {
     # F_loc, F_rot, indptr, indices, n, K, omp_lo, omp_hi, gn, ln, stream
     "bigclam_ring_grad_phase": [P, P, P, P, I, I, R, R, P, P, P],
     # F_loc, grad, F_rot, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
-    # min_f, max_f, cb, stream
-    "bigclam_ring_cand_phase": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+    # min_f, max_f, cb, smem_bytes, stream
+    "bigclam_ring_cand_phase": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, I, P],
     # F, indptr, indices, n, k_pad, col0, kc, x, stream
     "bigclam_edge_dots_kb": [P, P, P, I, I, I, I, P, P],
     # x, F, sumF, indptr, indices, n, k_pad, col0, kc, omp_lo, omp_hi, fold,

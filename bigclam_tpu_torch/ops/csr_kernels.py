@@ -32,6 +32,13 @@ MAX_K = 1024
 MAX_S = 16
 
 
+# the candidate-ladder kernels' launch geometry (csrc/edge_common.cuh)
+LADDER_ROWS = 32            # neighbour rows a staged tile
+LADDER_CHUNK = 32           # columns a staged chunk
+LADDER_WARPS = 4            # warps (nodes) a block
+SMEM_DEFAULT = 48 * 1024    # above this a block needs cudaFuncSetAttribute
+
+
 class KernelKLimitError(ValueError):
     """More columns than one warp's row (or K-blocked window) holds in
     registers."""
@@ -54,6 +61,42 @@ def kernel_supports(cfg: BigClamConfig, dtype: torch.dtype) -> str:
             f"{len(cfg.step_candidates)} (max_backtracks={cfg.max_backtracks})"
         )
     return ""
+
+
+def kpl_bucket(k: int) -> int:
+    """Columns per lane of the single-pass kernels at K (edge_common.cuh
+    `kpl_bucket`): ceil(K/32) rounded up to a power of two."""
+    need = -(-k // 32)
+    return 1 << (need - 1).bit_length()
+
+
+def ladder_launch_plan(kernel: str, k: int) -> dict:
+    """The launch geometry of kernel A ("fused_superstep") or #9
+    ("ring_cand_phase") at K columns, as the C entries compute it: blocks of
+    LADDER_WARPS warps, one node a warp; per warp two staged tiles of
+    LADDER_ROWS rows of LADDER_CHUNK + 4 floats and the 16 candidate rows of
+    a chunk, 4 groups of 4 LADDER_CHUNK + 4 floats; kernel A adds F_u (32
+    kpl floats) and the 16 candidate sums. The wrappers pass `smem_bytes`
+    and the entries refuse any other value; `opt_in` says the entry raises
+    the block's limit with cudaFuncSetAttribute."""
+    if not 1 <= k <= MAX_K:
+        raise KernelKLimitError(
+            f"K={k} is outside the single-pass CUDA kernels' range 1..{MAX_K}; "
+            "BigClamModel takes the K-blocked path (csr_fused_kb, or "
+            "csr_grouped_kb with csr_fused=False) above that bound by itself"
+        )
+    kpl = kpl_bucket(k)
+    ladder = 2 * LADDER_ROWS * (LADDER_CHUNK + 4) + 4 * (4 * LADDER_CHUNK + 4)
+    per_warp = {
+        "fused_superstep": 32 * kpl + ladder + MAX_S,
+        "ring_cand_phase": ladder,
+    }[kernel]
+    smem = 4 * LADDER_WARPS * per_warp
+    return {
+        "kpl": kpl, "rows": LADDER_ROWS, "chunk": LADDER_CHUNK,
+        "warps_per_block": LADDER_WARPS, "smem_bytes": smem,
+        "opt_in": smem > SMEM_DEFAULT,
+    }
 
 
 def edge_chunks(F: torch.Tensor, csr: DeviceCSR, cfg: BigClamConfig) -> EdgeChunks:

@@ -2,11 +2,12 @@
 the 16-step Armijo ladder, selection and projection in one launch.
 
 Port of bigclam_tpu/ops/pallas_fused.py `fused_superstep_csr`. The CUDA
-source is csrc/fused_superstep.cu (one warp per node over the graph's CSR;
-its header says what bounds it on an H100 and what the design does about
-it). The wrapper runs the plain PyTorch version for CPU tensors; for CUDA
-tensors it launches the kernel and counts the launch in
-`fused_superstep.launches`, or raises.
+source is csrc/fused_superstep.cu (one warp per node over the graph's CSR,
+the candidate pass on staged neighbour tiles in shared memory sized by
+`csr_kernels.ladder_launch_plan`; its header says what bounds it on an
+H100 and what the design does about it). The wrapper runs the plain
+PyTorch version for CPU tensors; for CUDA tensors it launches the kernel
+and counts the launch in `fused_superstep.launches`, or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     check_cuda_inputs,
     grad_llh_csr_plain,
     kernel_constants,
+    ladder_launch_plan,
 )
 from bigclam_tpu_torch.ops.linesearch import step_etas
 
@@ -95,6 +97,7 @@ def fused_superstep(
     check_cuda_inputs(F, csr, sumF, dst=F_dst)
     c = kernel_constants(cfg)
     n, k = F.shape
+    plan = ladder_launch_plan("fused_superstep", k)
     F_new = torch.empty_like(F)
     grad = torch.empty_like(F)
     node_llh = torch.empty(n, dtype=F.dtype, device=F.device)
@@ -105,7 +108,7 @@ def fused_superstep(
         csr.indices.data_ptr(), n, k, c["etas"].ctypes.data,
         c["coefs"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
         c["min_f"], c["max_f"], F_new.data_ptr(), grad.data_ptr(),
-        node_llh.data_ptr(), ok.data_ptr(),
+        node_llh.data_ptr(), ok.data_ptr(), plan["smem_bytes"],
     )
     fused_superstep.launches += 1
     return F_new, grad, node_llh, ok

@@ -35,6 +35,7 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     check_float32,
     edge_chunks,
     kernel_constants,
+    ladder_launch_plan,
 )
 from bigclam_tpu_torch.ops.linesearch import candidates_pass
 from bigclam_tpu_torch.ops.objective import neighbour_sums
@@ -118,13 +119,14 @@ def ring_cand_phase(
     n, k = F_loc.shape
     c = kernel_constants(cfg)
     check_cuda_inputs(F_loc, bucket, rows=(grad, F_rot))
+    plan = ladder_launch_plan("ring_cand_phase", k)
     check_float32(F_loc.device, [("cb", cb, (c["num_s"], n))])
     build.launch(
         F_loc.device, "bigclam_ring_cand_phase",
         F_loc.data_ptr(), grad.data_ptr(), F_rot.data_ptr(),
         bucket.indptr.data_ptr(), bucket.indices.data_ptr(), n, k,
         c["etas"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
-        c["min_f"], c["max_f"], cb.data_ptr(),
+        c["min_f"], c["max_f"], cb.data_ptr(), plan["smem_bytes"],
     )
     ring_cand_phase.launches += 1
     return cb

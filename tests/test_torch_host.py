@@ -214,3 +214,26 @@ def test_cli_fit_cpu_prints_the_fit_keys_and_matches_jax_fit(tmp_path, planted):
         str(tmp_path / "j.txt")
     )
     assert out["communities"] == ref["communities"]
+
+
+def test_cli_fit_without_k_trains_at_the_jax_default(tmp_path, planted):
+    """`fit --graph g.txt` with no `--k` trains at K = 100 in both CLIs
+    (the JAX CLI's default), with equal float64 LLH histories."""
+    from bigclam_tpu.cli import main as jax_main
+
+    _, gp, _ = planted
+    path = tmp_path / "g.txt"
+    keep = gp.src < gp.dst
+    np.savetxt(path, np.stack([gp.src[keep], gp.dst[keep]], axis=1), fmt="%d")
+    argv = ["fit", "--graph", str(path), "--max-iters", "3", "--dtype", "float64"]
+    assert cli.build_parser().parse_args(argv).k == 100
+    out = _cli_json(cli.main, argv + ["--device", "cpu"])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ref = _cli_json(jax_main, argv + ["--csr-kernels", "off"])
+    # the JAX CLI logs one JSON line per iteration on stderr
+    ref_hist = [json.loads(ln)["llh"] for ln in err.getvalue().splitlines()
+                if ln.startswith("{") and '"iter"' in ln]
+    assert out["k"] == ref["k"] == 100
+    assert len(out["llh_history"]) == len(ref_hist) == 4
+    np.testing.assert_allclose(out["llh_history"], ref_hist, rtol=1e-9)

@@ -1,7 +1,7 @@
 """The plain versions of the port's three CUDA kernels against the JAX
 package's Pallas kernels in interpret mode (as tests/test_fused.py runs
 them: block 8, tile 8, float32), and — on a card only — each CUDA kernel
-against its plain version.
+against its plain version run in float64.
 
 Tolerances: F_new, grad and node_llh at rtol = atol = 3e-5 (the float32
 band tests/test_fused.py holds fused vs split vs xla to). The 0/1
@@ -50,18 +50,41 @@ def _random_graph(seed, n=57, p=0.12, isolated=()):
     return jax_graph_from_edges(edges, num_nodes=n)
 
 
-# (graph seed, K, isolated nodes, all-zero F row, Armijo ladder length)
+def _hub_graph(isolated, n=760, degrees=(100, 700), p=0.005, seed=5):
+    """A sparse random graph plus hubs: node i gets `degrees[i]` random
+    neighbours, so its edges fill many 32-neighbour tiles of the CUDA
+    kernels' candidate pass (and the isolated nodes lose their edges)."""
+    rng = np.random.default_rng(seed)
+    a = np.triu(rng.random((n, n)) < p, 1)
+    for hub, deg in enumerate(degrees):
+        others = np.setdiff1d(np.arange(n), [hub, *isolated])
+        a[hub, rng.choice(others, deg, replace=False)] = True
+    a = a | a.T
+    a[list(isolated), :] = False
+    a[:, list(isolated)] = False
+    i, j = np.nonzero(np.triu(a, 1))
+    return jax_graph_from_edges(list(zip(i.tolist(), j.tolist())), num_nodes=n)
+
+
+# (graph seed or "hub", K, isolated nodes, all-zero F row, Armijo ladder
+# length)
 CASES = {
     "fused_test_graph": (0, 6, (), None, 16),
     "isolated_nodes": (1, 5, (3, 20), None, 16),
     "k_not_multiple_of_pad": (2, 37, (), 11, 16),
     "short_ladder": (3, 12, (), None, 8),
+    "hub_k37": ("hub", 37, (3, 20), 11, 16),
+    "hub_k100": ("hub", 100, (3, 20), 11, 16),
 }
 
 
 def _case(name):
     seed, k, isolated, zero_row, num_s = CASES[name]
-    g = _random_graph(seed, isolated=isolated)
+    if seed == "hub":
+        g, seed = _hub_graph(isolated), 5
+        assert g.degrees[0] >= 100 and g.degrees[1] >= 700
+    else:
+        g = _random_graph(seed, isolated=isolated)
     assert all(g.degrees[u] == 0 for u in isolated)
     F = np.random.default_rng(seed + 10).uniform(0.0, 1.0, (g.num_nodes, k))
     if zero_row is not None:
@@ -188,6 +211,45 @@ def test_kernel_constants_are_float32_rounded():
         ck.kernel_constants(BigClamConfig(max_backtracks=16))
 
 
+LADDER_KERNELS = ("fused_superstep", "ring_cand_phase")
+
+
+def _header_constant(name):
+    """A `constexpr int` of csrc/edge_common.cuh, by name."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(ck.__file__).parent.parent / "csrc" / "edge_common.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("k", [1, 37, 1000, 1024])
+@pytest.mark.parametrize("kernel", LADDER_KERNELS)
+def test_ladder_launch_plan_fits_one_block(kernel, k):
+    """The launch plan the wrappers pass and the C entries check: the
+    block's shared memory within Hopper's 227 KB, the opt-in above 48 KB,
+    and the sizes of csrc/edge_common.cuh (`fused_smem_bytes`,
+    `ring_cand_smem_bytes`)."""
+    plan = ck.ladder_launch_plan(kernel, k)
+    assert plan["smem_bytes"] <= 227 * 1024       # an H100 block's most
+    assert plan["opt_in"] == (plan["smem_bytes"] > 48 * 1024)
+    kpl = plan["kpl"]
+    assert kpl == ck.kpl_bucket(k) and k <= 32 * kpl and (kpl == 1 or 16 * kpl < k)
+    assert (plan["rows"], plan["chunk"]) == (
+        _header_constant("kLadderRows"), _header_constant("kLadderChunk"))
+    assert plan["warps_per_block"] == _header_constant("kWarpsPerBlock")
+    ladder = 2 * plan["rows"] * (plan["chunk"] + 4) + 4 * (4 * plan["chunk"] + 4)
+    per_warp = ladder + (32 * kpl + 16 if kernel == "fused_superstep" else 0)
+    assert plan["smem_bytes"] == 4 * plan["warps_per_block"] * per_warp
+
+
+@pytest.mark.parametrize("kernel", LADDER_KERNELS)
+def test_ladder_launch_plan_refuses_k_outside_the_single_pass_range(kernel):
+    for k in (0, ck.MAX_K + 1, 3000):
+        with pytest.raises(ck.KernelKLimitError, match="csr_fused_kb"):
+            ck.ladder_launch_plan(kernel, k)
+
+
 # --- on the card ------------------------------------------------------------
 
 
@@ -205,16 +267,22 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     Ft, sumF, csr, cfg = _port(g, F, jcfg)
     Ft, sumF = Ft.to(cuda_device), sumF.to(cuda_device)
     csr = Graph(g.indptr, g.indices, g.raw_ids).to_device(cuda_device)
-    grad_p, llh_p, cand_p, thr_p = fused.acceptance_inputs_plain(Ft, sumF, csr, cfg)
+    # the plain versions on float64 copies of the same inputs: in float32
+    # their own rounding and index_add_'s run-to-run atomic order can flip
+    # a decision outside the near-tie band on the hub cases
+    F64, sumF64 = Ft.double(), sumF.double()
+    grad_p, llh_p, cand_p, thr_p = fused.acceptance_inputs_plain(F64, sumF64, csr, cfg)
+    grad_in = grad_p.float()
     before = fused.launch_counts()
     grad_k, llh_k = ck.grad_llh_csr(Ft, sumF, csr, cfg)
-    cand_k = ck.candidates_csr(Ft, grad_p, sumF, csr, cfg)
+    cand_k = ck.candidates_csr(Ft, grad_in, sumF, csr, cfg)
     Fn_k, g_k, l_k, ok_k = fused.fused_superstep(Ft, sumF, csr, cfg)
-    Fn_p, _, _, ok_p = fused.fused_superstep_plain(Ft, sumF, csr, cfg)
+    Fn_p, _, _, ok_p = fused.fused_superstep_plain(F64, sumF64, csr, cfg)
     torch.cuda.synchronize()
     after = fused.launch_counts()
     assert all(after[k] == before[k] + 1 for k in after)
-    for a, b in ((grad_k, grad_p), (llh_k, llh_p), (cand_k, cand_p),
+    cand_in = ck.candidates_csr_plain(F64, grad_in.double(), sumF64, csr, cfg)
+    for a, b in ((grad_k, grad_p), (llh_k, llh_p), (cand_k, cand_in),
                  (g_k, grad_p), (l_k, llh_p)):
         _close(a.cpu().numpy(), b.cpu().numpy())
     diff = (ok_k != ok_p).cpu().numpy()
@@ -222,6 +290,30 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     assert not (diff & ~tie).any()
     rows = _same_step_rows(ok_k.cpu().numpy(), ok_p.cpu().numpy())
     _close(Fn_k.cpu().numpy()[rows], Fn_p.cpu().numpy()[rows])
+
+
+@pytest.mark.cuda
+def test_cuda_entry_refuses_another_launch_plan(cuda_device):
+    """The C entry of kernel A checks the wrapper's shared-memory bytes."""
+    from bigclam_tpu_torch.ops import build
+
+    g, F, jcfg = _case("fused_test_graph")
+    _, _, _, cfg = _port(g, F, jcfg)
+    Ft = torch.as_tensor(F, device=cuda_device)
+    sumF = Ft.sum(0)
+    csr = Graph(g.indptr, g.indices, g.raw_ids).to_device(cuda_device)
+    c = ck.kernel_constants(cfg)
+    n, k = Ft.shape
+    out = [torch.empty_like(Ft), torch.empty_like(Ft), torch.empty(n, device=cuda_device),
+           torch.empty((c["num_s"], n), dtype=torch.bool, device=cuda_device)]
+    wrong = ck.ladder_launch_plan("fused_superstep", k)["smem_bytes"] + 16
+    with pytest.raises(build.KernelLaunchError):
+        build.launch(
+            Ft.device, "bigclam_fused_superstep", Ft.data_ptr(), Ft.data_ptr(),
+            sumF.data_ptr(), csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k,
+            c["etas"].ctypes.data, c["coefs"].ctypes.data, c["num_s"], c["omp_lo"],
+            c["omp_hi"], c["min_f"], c["max_f"], *(t.data_ptr() for t in out), wrong,
+        )
 
 
 @pytest.mark.cuda

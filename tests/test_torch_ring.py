@@ -159,8 +159,22 @@ def test_phase_kernels_plain_match_pallas(dp):
     """Per (shard, phase) bucket at the JAX CSR n_pad: the plain #8 partials
     (accumulated onto zeros) against `_grad_blocks_fused`, and the plain #9
     partials against `_cand_blocks_fused`, in interpret mode."""
-    k = 12
-    g = _random_graph(1, isolated=(5, 40))
+    _check_phase_kernels(_random_graph(1, isolated=(5, 40)), dp, 12)
+
+
+@pytest.mark.parametrize("k", [37, 100])
+def test_phase_kernels_plain_match_pallas_on_a_hub(k):
+    """As above at dp = 3 on a graph with nodes of degree 100 and 700, whose
+    buckets hold many 32-neighbour tiles of one node, at K = 37 and 100
+    (not multiples of 32; 2 and 4 column chunks)."""
+    from test_torch_kernels import _hub_graph
+
+    g = _hub_graph((5, 40))
+    assert g.degrees[0] >= 100 and g.degrees[1] >= 700
+    _check_phase_kernels(g, 3, k)
+
+
+def _check_phase_kernels(g, dp, k):
     rows = -(-g.num_nodes // (dp * BLOCK)) * BLOCK
     n_pad = rows * dp
     rng = np.random.default_rng(dp)
