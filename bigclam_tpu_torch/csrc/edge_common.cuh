@@ -353,7 +353,8 @@ __device__ __forceinline__ float cand_pass(
 
 
 // ---------------------------------------------------------------------------
-// The candidate ladder on a staged gather (kernels A and #9).
+// The candidate ladder on a staged gather (kernels A, #9 and, over runs of
+// edges with one source, #14).
 //
 // cand_pass above rebuilds nf_s = clip(F_u + eta_s g_u) for every neighbour
 // (an fma, a max, a min and then the dot's fma, where the function needs one
@@ -391,9 +392,11 @@ __device__ __forceinline__ float cand_pass(
 //    the three extra instantiations cost it more in instruction fetch than
 //    they saved.
 //  * after a tile's last chunk each lane evaluates its own dots' terms
-//    ell(x) = log(clip(-expm1(-x))) + x; the 4 candidate sums go across the 8
-//    lanes of the group by a fixed butterfly and then over the tiles in CSR
-//    order, so a hub loops over tiles and a run is reproducible bit for bit.
+//    ell(x) = log(clip(-expm1(-x))) + x. The epilogue is the caller's: A and
+//    #9 (LadderSum) add the 4 candidate sums across the 8 lanes of the group
+//    by a fixed butterfly and then over the tiles in CSR order, so a hub
+//    loops over tiles and a run is reproducible bit for bit; #14 stores each
+//    term as it is (candidate_edge_terms.cu).
 //
 // One warp's shared memory, kLadderFloats floats: two tile buffers of
 // kLadderRows rows x kTileStride floats, then nf as [group][column][4] with
@@ -434,15 +437,22 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// The ids of tile t of u's neighbours (lane r holds row r's id) and, in
-// `cnt`, how many of its kLadderRows rows are edges.
-__device__ __forceinline__ int tile_ids(const int* __restrict__ indices,
+// A row id of Fd from an int32 CSR index or an int64 edge endpoint.
+__device__ __forceinline__ int load_id(const int* p) { return __ldg(p); }
+__device__ __forceinline__ int load_id(const int64_t* p) {
+  return static_cast<int>(__ldg(reinterpret_cast<const long long*>(p)));
+}
+
+// The ids of tile t of the edge range [e0, e1) (lane r holds row r's id)
+// and, in `cnt`, how many of its kLadderRows rows are edges.
+template <typename Id>
+__device__ __forceinline__ int tile_ids(const Id* __restrict__ indices,
                                         int64_t e0, int64_t e1, int64_t t,
                                         int lane, int& cnt) {
   const int64_t base = e0 + kLadderRows * t;
   const int64_t rem = e1 - base;
   cnt = rem < kLadderRows ? static_cast<int>(rem) : kLadderRows;
-  return lane < cnt ? __ldg(indices + base + lane) : 0;
+  return lane < cnt ? load_id(indices + base + lane) : 0;
 }
 
 // Copies columns [col0, col0 + kLadderChunk) of the tile's cnt rows of Fd
@@ -541,16 +551,43 @@ struct LadderIssue {
   int cn, nch, ids, cnt;
 };
 
-// The chunks of one tile of cnt rows, JN = ceil(cnt / 8) row groups: per
+// The sum epilogue of kernels A and #9: adds the tile's ell terms to out[],
+// the lane's 4 candidates summed over its rows and then across the 8 lanes
+// of its group by a fixed butterfly.
+struct LadderSum {
+  float (&out)[4];
+
+  template <int JN>
+  __device__ __forceinline__ void tile(const float (&acc)[4][4], int cnt,
+                                       int ng, int64_t, const StepParams& p) {
+    float ts[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      if (8 * j + ng < cnt) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ts[a] += logf(survival(acc[a][j], p)) + acc[a][j];
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ts[a] += __shfl_xor_sync(kFull, ts[a], o);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) out[a] += ts[a];
+  }
+};
+
+// The chunks of tile t (cnt rows, JN = ceil(cnt / 8) row groups): per
 // chunk, sends the next stage's copies (the next tile's first chunk after
-// the last), builds nf and waits for the chunk's rows; then adds the tile's
-// ell terms to out[].
-template <int JN, typename Col>
+// the last), builds nf and waits for the chunk's rows; then hands the
+// lane's dots acc[a][j] (candidate 4 (lane >> 3) + a, tile row 8j + ng) to
+// epi.tile<JN>.
+template <int JN, typename Id, typename Col, typename Epi>
 __device__ __forceinline__ void ladder_tile(
-    const float* Fd, const int* __restrict__ indices, int K, int lane,
+    const float* Fd, const Id* __restrict__ indices, int K, int lane,
     bool vec, const StepParams& p, float* const (&buf)[2], float* nf,
-    const float* nfg, int ng, int cnt, Col& col, LadderIssue& q,
-    float (&out)[4]) {
+    const float* nfg, int ng, int cnt, int64_t t, Col& col, LadderIssue& q,
+    Epi& epi) {
   float acc[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -571,38 +608,22 @@ __device__ __forceinline__ void ladder_tile(
     ladder_fma<JN>(buf[q.st & 1], nfg, ng, acc);
     __syncwarp();
   }
-  float ts[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < JN; ++j) {
-    if (8 * j + ng < cnt) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) ts[a] += logf(survival(acc[a][j], p)) + acc[a][j];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) ts[a] += __shfl_xor_sync(kFull, ts[a], o);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) out[a] += ts[a];
+  epi.template tile<JN>(acc, cnt, ng, t, p);
 }
 
-// For every candidate s, sum_v ell(nf_s . F_v) over u's neighbours, with F_v
-// rows of Fd (as in grad_pass) and F_u, g_u read by col(k, f, g) for k < K.
-// On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the same
-// bits in the 8 lanes of the group (0 for a node without neighbours). `sm`
-// is the warp's kLadderFloats floats of shared memory; `vec` as in
+// The ladder over the edge range [e0, e1) of one source u: the rows
+// indices[e] of Fd (int32 CSR indices or int64 edge endpoints), with F_u
+// and g_u read by col(k, f, g) for k < K; each tile's dots go to `epi`.
+// `sm` is the warp's kLadderFloats floats of shared memory; `vec` as in
 // issue_stage; kRowGroups: skip a tile's row groups without an edge.
-template <bool kRowGroups, typename Col>
-__device__ __forceinline__ void ladder_pass(
-    const float* Fd, const int64_t* __restrict__ indptr,
-    const int* __restrict__ indices, int u, int K, int lane, bool vec,
-    const StepParams& p, float* sm, Col&& col, float (&out)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[c] = 0.f;
+template <bool kRowGroups, typename Id, typename Col, typename Epi>
+__device__ __forceinline__ void ladder_range(
+    const float* Fd, const Id* __restrict__ indices, int64_t e0, int64_t e1,
+    int K, int lane, bool vec, const StepParams& p, float* sm, Col& col,
+    Epi& epi) {
   LadderIssue q;
-  q.e0 = indptr[u];
-  q.e1 = indptr[u + 1];
+  q.e0 = e0;
+  q.e1 = e1;
   if (q.e1 == q.e0) return;
   q.nch = (K + kLadderChunk - 1) / kLadderChunk;
   q.ntiles = (q.e1 - q.e0 + kLadderRows - 1) / kLadderRows;
@@ -621,8 +642,8 @@ __device__ __forceinline__ void ladder_pass(
     const int64_t rem = q.e1 - q.e0 - kLadderRows * t;
     const int cnt = rem < kLadderRows ? static_cast<int>(rem) : kLadderRows;
 #define BIGCLAM_LADDER_TILE(JN)                                         \
-  ladder_tile<JN>(Fd, indices, K, lane, vec, p, buf, nf, nfg, ng, cnt, col, \
-                  q, out)
+  ladder_tile<JN>(Fd, indices, K, lane, vec, p, buf, nf, nfg, ng, cnt, t, \
+                  col, q, epi)
     switch (kRowGroups ? (cnt + 7) >> 3 : 4) {  // row groups with an edge
       case 1: BIGCLAM_LADDER_TILE(1); break;
       case 2: BIGCLAM_LADDER_TILE(2); break;
@@ -633,15 +654,33 @@ __device__ __forceinline__ void ladder_pass(
   }
 }
 
+// For every candidate s, sum_v ell(nf_s . F_v) over u's neighbours, with F_v
+// rows of Fd (as in grad_pass) and F_u, g_u read by col(k, f, g) for k < K.
+// On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the same
+// bits in the 8 lanes of the group (0 for a node without neighbours); the
+// sums run over the tiles in CSR order. Arguments as in ladder_range.
+template <bool kRowGroups, typename Col>
+__device__ __forceinline__ void ladder_pass(
+    const float* Fd, const int64_t* __restrict__ indptr,
+    const int* __restrict__ indices, int u, int K, int lane, bool vec,
+    const StepParams& p, float* sm, Col&& col, float (&out)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) out[c] = 0.f;
+  LadderSum sum{out};
+  ladder_range<kRowGroups>(Fd, indices, indptr[u], indptr[u + 1], K, lane, vec,
+                           p, sm, col, sum);
+}
+
 // Shared-memory bytes of one block of the ladder kernels (4 warps): kernel A
 // keeps F_u (32 KPL floats) and the 16 pass-2 sums beside each warp's ladder
-// buffers; #9 only the ladder buffers.
+// buffers; #9 and #14 only the ladder buffers.
 inline int fused_smem_bytes(int kpl) {
   return 4 * kWarpsPerBlock * (kWarp * kpl + kLadderFloats + kMaxS);
 }
 inline int ring_cand_smem_bytes() {
   return 4 * kWarpsPerBlock * kLadderFloats;
 }
+inline int edge_terms_smem_bytes() { return ring_cand_smem_bytes(); }
 
 }  // namespace bigclam
 

@@ -94,12 +94,15 @@ class Graph:
 class DeviceCSR(NamedTuple):
     """The CSR on a device. `indptr`/`indices` feed the CUDA kernels;
     `src`/`dst` (int64 directed-edge endpoints, CSR order) feed the plain
-    torch edge sweeps."""
+    torch edge sweeps. `order`, where set (a ring bucket's visit order,
+    parallel/ring.py `visit_order`), lists the rows with an edge in the
+    order kernel #8's warps take them."""
 
     indptr: torch.Tensor    # (N+1,) int64
     indices: torch.Tensor   # (2E,) int32
     src: torch.Tensor       # (2E,) int64
     dst: torch.Tensor       # (2E,) int64
+    order: Optional[torch.Tensor] = None   # (rows with an edge,) int32
 
     @property
     def num_nodes(self) -> int:

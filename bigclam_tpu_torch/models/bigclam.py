@@ -61,6 +61,7 @@ from bigclam_tpu_torch.ops.csr_kernels import (
 from bigclam_tpu_torch.ops.edge_kernels import (
     CandidateKernelError,
     candidates_pass_kernel,
+    with_runs,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
 from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked
@@ -446,6 +447,9 @@ class BigClamModel:
             self.csr.src, self.csr.dst,
             edge_chunk_bound(cfg, self.k_pad, itemsize),
         )
+        if self.engaged_path == "pallas_vmem":
+            # the edge-terms kernel's runs, once per chunk
+            self.edges = with_runs(self.edges)
         self._step = make_train_step(
             self.csr, self.edges, cfg, self.engaged_path, self.kc
         )

@@ -54,8 +54,9 @@ ENTRIES = {
     # F, F_dst, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo,
     # omp_hi, min_f, max_f, cand, stream
     "bigclam_candidates": [P, P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
-    # F_loc, F_rot, indptr, indices, n, K, omp_lo, omp_hi, gn, ln, stream
-    "bigclam_ring_grad_phase": [P, P, P, P, I, I, R, R, P, P, P],
+    # F_loc, F_rot, indptr, indices, order (null: all rows), m, n, K, omp_lo,
+    # omp_hi, gn, ln, stream
+    "bigclam_ring_grad_phase": [P, P, P, P, P, I, I, I, R, R, P, P, P],
     # F_loc, grad, F_rot, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
     # min_f, max_f, cb, smem_bytes, stream
     "bigclam_ring_cand_phase": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, I, P],
@@ -71,9 +72,9 @@ ENTRIES = {
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
     # ids, w, src, dst, E, M, k_pad, out, stream
     "bigclam_member_lookup": [P, P, P, P, L, I, I, P, P],
-    # F, grad, src, dst, E, K, etas, num_s, omp_lo, omp_hi, min_f, max_f,
-    # out, stream
-    "bigclam_candidate_edge_terms": [P, P, P, P, L, I, P, I, R, R, R, R, P, P],
+    # F, grad, src, dst, runs, n_runs, E, K, etas, num_s, omp_lo, omp_hi,
+    # min_f, max_f, out, smem_bytes, stream
+    "bigclam_candidate_edge_terms": [P, P, P, P, P, L, L, I, P, I, R, R, R, R, P, I, P],
 }
 
 

@@ -71,26 +71,28 @@ def kpl_bucket(k: int) -> int:
 
 
 def ladder_launch_plan(kernel: str, k: int) -> dict:
-    """The launch geometry of kernel A ("fused_superstep") or #9
-    ("ring_cand_phase") at K columns, as the C entries compute it: blocks of
-    LADDER_WARPS warps, one node a warp; per warp two staged tiles of
-    LADDER_ROWS rows of LADDER_CHUNK + 4 floats and the 16 candidate rows of
-    a chunk, 4 groups of 4 LADDER_CHUNK + 4 floats; kernel A adds F_u (32
-    kpl floats) and the 16 candidate sums. The wrappers pass `smem_bytes`
-    and the entries refuse any other value; `opt_in` says the entry raises
-    the block's limit with cudaFuncSetAttribute."""
-    if not 1 <= k <= MAX_K:
+    """The launch geometry of kernel A ("fused_superstep"), #9
+    ("ring_cand_phase") or #14 ("candidate_edge_terms") at K columns, as the
+    C entries compute it: blocks of LADDER_WARPS warps, one node (#14: one
+    run of edges) a warp; per warp two staged tiles of LADDER_ROWS rows of
+    LADDER_CHUNK + 4 floats and the 16 candidate rows of a chunk, 4 groups
+    of 4 LADDER_CHUNK + 4 floats; kernel A adds F_u (32 kpl floats) and the
+    16 candidate sums. The wrappers pass `smem_bytes` and the entries refuse
+    any other value; `opt_in` says the entry raises the block's limit with
+    cudaFuncSetAttribute. #14 reads F_u and grad_u per column chunk, so it
+    takes any K (its `kpl` is None); A and #9 take K <= MAX_K."""
+    if kernel not in ("fused_superstep", "ring_cand_phase", "candidate_edge_terms"):
+        raise ValueError(f"no ladder kernel named {kernel!r}")
+    edge_terms = kernel == "candidate_edge_terms"
+    if not (1 <= k if edge_terms else 1 <= k <= MAX_K):
         raise KernelKLimitError(
             f"K={k} is outside the single-pass CUDA kernels' range 1..{MAX_K}; "
             "BigClamModel takes the K-blocked path (csr_fused_kb, or "
             "csr_grouped_kb with csr_fused=False) above that bound by itself"
         )
-    kpl = kpl_bucket(k)
+    kpl = None if edge_terms else kpl_bucket(k)
     ladder = 2 * LADDER_ROWS * (LADDER_CHUNK + 4) + 4 * (4 * LADDER_CHUNK + 4)
-    per_warp = {
-        "fused_superstep": 32 * kpl + ladder + MAX_S,
-        "ring_cand_phase": ladder,
-    }[kernel]
+    per_warp = ladder + (32 * kpl + MAX_S if kernel == "fused_superstep" else 0)
     smem = 4 * LADDER_WARPS * per_warp
     return {
         "kpl": kpl, "rows": LADDER_ROWS, "chunk": LADDER_CHUNK,

@@ -24,11 +24,14 @@ from bigclam_tpu_torch.config import BigClamConfig
 
 
 class EdgeChunks(NamedTuple):
-    """Directed edges in CSR order, swept `chunk` edges at a time."""
+    """Directed edges in CSR order, swept `chunk` edges at a time. `runs`,
+    where set, holds each chunk's run offsets (ops.edge_kernels.edge_runs),
+    which the candidate edge-terms kernel takes."""
 
     src: torch.Tensor   # (E,) int64
     dst: torch.Tensor   # (E,) int64
     chunk: int
+    runs: Optional[Tuple[torch.Tensor, ...]] = None
 
     def slices(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         e = int(self.src.shape[0])

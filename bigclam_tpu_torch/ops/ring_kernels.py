@@ -6,9 +6,10 @@ Port of bigclam_tpu/ops/pallas_fused.py `_grad_blocks_fused` and
 `_cand_blocks_fused`, the kernels the JAX ring schedule runs per phase
 (bigclam_tpu/parallel/ring.py, `make_ring_csr_train_step`). The CUDA
 sources are csrc/ring_grad_phase.cu and csrc/ring_cand_phase.cu (one warp
-per node over the bucket's CSR; their headers say what bounds each on an
-H100). A bucket is a DeviceCSR over the shard's n rows whose indices are
-rows of the rotating shard F_rot. Each wrapper:
+per node over the bucket's CSR, #8 taking the nodes in the bucket's visit
+order; their headers say what bounds each on an H100). A bucket is a
+DeviceCSR over the shard's n rows whose indices are rows of the rotating
+shard F_rot. Each wrapper:
 
 * on CPU tensors runs its plain PyTorch version (the same partials,
   edge-chunked, with index_select/index_add_ in the input dtype, added to
@@ -68,18 +69,30 @@ def ring_grad_phase(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ring phase of the gradient pass (kernel #8; counterpart of the
     TPU `_grad_blocks_fused`): adds the bucket's neighbour-gradient and
-    neighbour-LLH partials to gn (n, K) and ln (n,) in place."""
+    neighbour-LLH partials to gn (n, K) and ln (n,) in place. The kernel's
+    warps take the rows in `bucket.order` where it is set (the result does
+    not depend on it), else all n rows in order."""
     if F_loc.device.type == "cpu":
         return ring_grad_phase_plain(F_loc, F_rot, bucket, gn, ln, cfg)
     n, k = F_loc.shape
     check_cuda_inputs(F_loc, bucket, rows=(F_rot, gn))
     check_float32(F_loc.device, [("ln", ln, (n,))])
+    order = bucket.order
+    if order is not None and (
+        order.dtype != torch.int32 or order.dim() != 1 or not order.is_contiguous()
+        or order.device != F_loc.device or order.shape[0] > n
+    ):
+        raise ValueError(
+            f"the bucket's visit order must be a contiguous int32 vector of at "
+            f"most {n} rows on {F_loc.device}"
+        )
     c = kernel_constants(cfg)
     build.launch(
         F_loc.device, "bigclam_ring_grad_phase",
         F_loc.data_ptr(), F_rot.data_ptr(), bucket.indptr.data_ptr(),
-        bucket.indices.data_ptr(), n, k, c["omp_lo"], c["omp_hi"],
-        gn.data_ptr(), ln.data_ptr(),
+        bucket.indices.data_ptr(), 0 if order is None else order.data_ptr(),
+        0 if order is None else int(order.shape[0]), n, k,
+        c["omp_lo"], c["omp_hi"], gn.data_ptr(), ln.data_ptr(),
     )
     ring_grad_phase.launches += 1
     return gn, ln

@@ -22,7 +22,9 @@ imbalance, which the balance relabeling evens out.
 The phase sweep is kernel #8 (gradient) and #9 (candidates) on the paths
 `csr_ring_fused` and `csr_ring` (ops.ring_kernels; the TPU difference
 between the two, an fd gather, has no counterpart here, so both run the
-same kernels), or their plain versions on `xla`.
+same kernels), or their plain versions on `xla`. Each bucket carries
+kernel #8's visit order of its rows (`visit_order`), computed once from
+the graph when the model builds its buckets.
 """
 
 from __future__ import annotations
@@ -117,6 +119,38 @@ def ring_shard_edges(g: Graph, dp: int, n_pad: int) -> list:
             row.append((indptr, dst.astype(np.int32)))
         buckets.append(row)
     return buckets
+
+
+# kernel #8's visit orders of a bucket's rows (visit_order) and the one the
+# model takes: the fastest on an H100 at full width (PERF.md kernel table)
+VISIT_ORDERS = ("identity", "pre_balance", "first_neighbour")
+VISIT_ORDER = "pre_balance"
+
+
+def visit_order(indptr: np.ndarray, indices: np.ndarray, how: str,
+                rank=None) -> np.ndarray:
+    """The rows of a bucket with an edge, as int32, in the order kernel #8's
+    warps take them (which rows run together, and so which gathered rows
+    the L2 cache holds; no sum depends on it):
+
+    * "identity": ascending row;
+    * "pre_balance": ascending rank[row], the node's id before the balance
+      relabeling (rank None: no relabeling, so "identity");
+    * "first_neighbour": ascending first neighbour (its row in the rotating
+      shard), ties by row.
+
+    Deterministic: a stable sort of the graph's own arrays."""
+    indptr = np.asarray(indptr, np.int64)
+    rows = np.flatnonzero(np.diff(indptr) > 0)
+    if how == "identity" or (how == "pre_balance" and rank is None):
+        key = rows
+    elif how == "pre_balance":
+        key = np.asarray(rank)[rows]
+    elif how == "first_neighbour":
+        key = np.asarray(indices)[indptr[rows]]
+    else:
+        raise ValueError(f"visit order {how!r} is not one of {VISIT_ORDERS}")
+    return rows[np.argsort(key, kind="stable")].astype(np.int32)
 
 
 class RingRotation:
@@ -289,7 +323,25 @@ class RingBigClamModel(ShardedBigClamModel):
             [device_csr(indptr, indices, d) for indptr, indices in host[i]]
             for i, d in enumerate(self.devices)
         ]
+        self.set_visit_order(VISIT_ORDER)
         self.rebuild_step()
+
+    def set_visit_order(self, how: str) -> None:
+        """Give every bucket kernel #8's visit order `how` (visit_order; the
+        pre-balance rank of a row is its node's original id), in place, so a
+        built step takes it too."""
+        rank = None
+        if self._perm is not None:
+            rank = np.arange(self.n_pad)
+            rank[self._perm] = np.arange(self._perm.shape[0])
+        rows = self.n_pad // len(self.devices)
+        for i, row in enumerate(self.buckets):
+            shard_rank = None if rank is None else rank[i * rows : (i + 1) * rows]
+            for r, b in enumerate(row):
+                order = visit_order(b.indptr.cpu().numpy(), b.indices.cpu().numpy(),
+                                    how, shard_rank)
+                row[r] = b._replace(order=torch.as_tensor(order, device=b.indptr.device))
+        self.visit_order = how
 
     def rebuild_step(self) -> None:
         self._step = make_ring_train_step(

@@ -10,8 +10,8 @@ exits non-zero:
   build     nvcc builds every kernel source under bigclam_tpu_torch/csrc/
             for sm_90a, one process per source, all started together,
             and links them into one library; the registers and spill bytes
-            of the two staged-ladder kernels (A, #9) per KPL bucket and
-            their launch plans
+            of the three staged-ladder kernels (A, #9, #14) per KPL bucket
+            and of #8, and the ladder kernels' launch plans
   odd       each kernel against its plain PyTorch version on a small odd
             case (K=37, isolated nodes), then on a hub graph (planted
             blocks plus nodes of degree 100 and 700, isolated nodes, a
@@ -20,14 +20,19 @@ exits non-zero:
             over every (shard, phase) bucket of the odd graph at dp = 3 on
             a repeated-device mesh (n_pad 405, an empty bucket, a zero
             row), at K=37 and K=1,024, accumulating across the phases;
-            then the hub graph at dp = 3, K=37, 1,000 and 1,024
+            then the hub graph at dp = 3, K=37, 1,000 and 1,024; in every
+            case #8 under each visit order of the buckets' rows equals #8
+            under the identity order bit for bit
   sparse_odd the member-lookup kernel against its plain version, bit for
             bit, on the odd case's sparse state at M=5 (M < K, truncating)
             and M=37 (not a multiple of 32), before and after a support
             update, plus a random edge batch at M=1
   vmem_odd  the candidate edge-terms kernel against its plain version on
             the odd graph at K=37 and K=1,100, in edge chunks of 1,000
-            (not a multiple of 32, the last one ragged)
+            (not a multiple of 32, the last one ragged); then on the hub
+            graph at K=37 and 1,000 in chunks of 500 with their runs
+            (the degree-700 hub split across two chunks), and with each
+            chunk's edges shuffled
   graph     AGM planted N=300,000, K=1,000, p_in=0.1, numpy rng seed 1,
             written as a SNAP edge list to a temporary directory
   main      the port's `cli fit` entry on the CUDA device at full width on
@@ -60,7 +65,8 @@ exits non-zero:
             (one per edge chunk and step); the LLH rises and stays within
             1e-4 of main's `csr_fused` history; peak device memory
   vmem_full the candidate edge-terms kernel against its plain version
-            over every edge chunk of vmem_main's final F, both timed as
+            over every edge chunk of vmem_main's final F (with the runs the
+            model caches), both timed as
             `full` times kernels, one `pallas_vmem` step timed split into
             the torch grad pass, the kernel, the `index_add_` sums and
             the Armijo update, and traced once with torch.profiler; one
@@ -89,8 +95,11 @@ exits non-zero:
             traced; peak device memory
   ring_full #8 and #9 against their plain versions over every bucket of
             that layout on the final F, each timed per sweep of 16
-            buckets as `full` times kernels, with their bound; both
-            sweeps timed again on the unbalanced layout of the same F
+            buckets as `full` times kernels, with their bound; #8 under
+            each visit order (identity, pre-balance node order, first
+            neighbour), bit-equal to the identity order and timed per
+            sweep; both sweeps timed again on the unbalanced layout of the
+            same F, #8 there under each visit order too
   allgather_main `cli fit --mesh 1,1` (path `csr_fused`, LLH within 1e-4
             of main's), then ShardedBigClamModel on 4 shards of one card:
             5 steps of `csr_fused`, 2 of `csr`, with launches and LLH
@@ -181,6 +190,8 @@ SPARSE_ODD_M = (5, 37)
 SPARSE_PARITY_M = (16, 100)
 VMEM_ODD_K = (37, 1100)
 VMEM_ODD_CHUNK = 1000
+VMEM_HUB_K = (37, 1000)
+VMEM_HUB_CHUNK = 500      # splits the degree-700 hub across two chunks
 SWEEP_MAIN = dict(min_com=500, max_com=1000, div_com=4,
                   kset=[500, 594, 706, 839, 997, 1000])
 SWEEP_PARITY = dict(min_com=50, max_com=100, div_com=3)
@@ -190,6 +201,7 @@ KERNELS = {
         source="bigclam_tpu_torch/csrc/fused_superstep.cu",
         replaces="bigclam_tpu/ops/pallas_fused.py:287",
         tpu_kernel="fused_superstep_csr",
+        redesigned="the staged candidate ladder (edge_common.cuh ladder_range)",
     ),
     "grad_llh_csr": dict(
         source="bigclam_tpu_torch/csrc/grad_llh.cu",
@@ -234,20 +246,24 @@ KERNELS = {
         source="bigclam_tpu_torch/csrc/candidate_edge_terms.cu",
         replaces="bigclam_tpu/ops/pallas_kernels.py:71",
         tpu_kernel="candidate_edge_terms",
+        redesigned="the staged candidate ladder over runs of one source's edges",
     ),
     "ring_grad_phase": dict(
         source="bigclam_tpu_torch/csrc/ring_grad_phase.cu",
         replaces="bigclam_tpu/ops/pallas_fused.py:413",
         tpu_kernel="_grad_blocks_fused",
+        redesigned="a visit order per bucket, neighbour rows staged by cp.async",
     ),
     "ring_cand_phase": dict(
         source="bigclam_tpu_torch/csrc/ring_cand_phase.cu",
         replaces="bigclam_tpu/ops/pallas_fused.py:503",
         tpu_kernel="_cand_blocks_fused",
+        redesigned="the staged candidate ladder with row groups",
     ),
 }
 RING = ("ring_grad_phase", "ring_cand_phase")
-LADDER = ("fused_superstep", "ring_cand_phase")   # the staged candidate pass
+# the staged candidate ladder (csrc/edge_common.cuh `ladder_range`)
+LADDER = ("fused_superstep", "ring_cand_phase", "candidate_edge_terms")
 RING_DP = 4
 RING_ODD_DP = 3
 RING_ODD_K = (37, 1024)
@@ -673,9 +689,10 @@ def phase_build() -> dict:
         ]
         for name, log in res["logs"].items()
     }
-    # the ladder kernels, per KPL bucket (#9 has one instantiation for all)
+    # the ladder kernels per KPL bucket (#9 and #14 have one instantiation
+    # for all K) and the staged gather of #8
     ladder = {name: ptxas_kernels(res["logs"][name])
-              for name in LADDER if name in res["logs"]}
+              for name in (*LADDER, "ring_grad_phase") if name in res["logs"]}
     plans = {name: {k: ladder_launch_plan(name, k) for k in (32, 64, 128, 256, 512, 1024)}
              for name in LADDER}
     return {"build_s": res["seconds"], "cached": res["cached"],
@@ -1322,11 +1339,13 @@ def phase_sparse_parity(tmp) -> dict:
 
 def compare_edge_terms(check, what, F, grad, edges, cfg):
     """The candidate edge-terms kernel against its plain version on every
-    edge chunk."""
+    edge chunk (with the chunks' cached runs where `edges` has them, else
+    the runs the wrapper computes)."""
     from bigclam_tpu_torch.ops import edge_kernels as ek
 
-    for s, d in edges.slices():
-        got = ek.candidate_edge_terms(F, grad, s, d, cfg)
+    runs = edges.runs or [None] * len(list(edges.slices()))
+    for (s, d), r in zip(edges.slices(), runs):
+        got = ek.candidate_edge_terms(F, grad, s, d, cfg, r)
         want = ek.candidate_edge_terms_plain(
             F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d),
             None, cfg,
@@ -1337,7 +1356,12 @@ def compare_edge_terms(check, what, F, grad, edges, cfg):
 
 def phase_vmem_odd() -> dict:
     """The edge-terms kernel vs plain on the odd graph (isolated nodes, an
-    all-zero row) at K=37 and K=1,100, in chunks of 1,000 edges."""
+    all-zero row) at K=37 and K=1,100, in chunks of 1,000 edges; then on
+    the hub graph at K=37 and 1,000 in chunks of 500 edges with their runs
+    cached (the degree-700 hub split across two chunks and over many
+    32-edge tiles) and with every chunk's edges shuffled (runs of about
+    one edge, computed by the wrapper)."""
+    from bigclam_tpu_torch.ops.edge_kernels import with_runs
     from bigclam_tpu_torch.ops.objective import EdgeChunks, grad_llh
 
     check = Check("candidate_edge_terms")
@@ -1349,6 +1373,26 @@ def phase_vmem_odd() -> dict:
         compare_edge_terms(check, f"k{k}", F, grad, edges, cfg)
         out[f"k{k}"] = {"n": int(F.shape[0]), "directed_edges": csr.num_directed_edges,
                         "chunk": VMEM_ODD_CHUNK}
+    g = hub_graph()
+    for k in VMEM_HUB_K:
+        F, csr, cfg = odd_case(k, g)
+        edges = with_runs(EdgeChunks(csr.src, csr.dst, VMEM_HUB_CHUNK))
+        grad, _ = grad_llh(F, F.sum(dim=0), edges, cfg)
+        compare_edge_terms(check, f"hub_k{k}", F, grad, edges, cfg)
+        perm = torch.as_tensor(
+            np.random.default_rng(k).permutation(csr.num_directed_edges), device=F.device)
+        shuffled = EdgeChunks(csr.src[perm], csr.dst[perm], VMEM_HUB_CHUNK)
+        compare_edge_terms(check, f"hub_shuffled_k{k}", F, grad, shuffled, cfg)
+        hub_chunks = [int((s[r[:-1]] == 1).sum()) for (s, _), r in
+                      zip(edges.slices(), edges.runs)]
+        if sum(hub_chunks) < 2:
+            raise AssertionError(f"the hub is not split across chunks: {hub_chunks}")
+        out[f"hub_k{k}"] = {
+            "n": g.num_nodes, "directed_edges": csr.num_directed_edges,
+            "chunk": VMEM_HUB_CHUNK, "hub_degree": int(g.degrees[1]),
+            "runs": [int(r.shape[0]) - 1 for r in edges.runs],
+            "shuffled_runs": [int(r.shape[0]) - 1 for r in with_runs(shuffled).runs],
+        }
     out["kernels"] = {"candidate_edge_terms": check.parts}
     return out
 
@@ -1418,15 +1462,18 @@ def phase_vmem_full(g, F_host):
     check = Check("candidate_edge_terms")
     compare_edge_terms(check, "every_chunk", F, grad, edges, cfg)
 
+    if edges.runs is None:
+        raise AssertionError("pallas_vmem's edge chunks carry no runs")
+
     def sweep(fn):
         def run():
-            for s, d in edges.slices():
-                fn(s, d)
+            for (s, d), r in zip(edges.slices(), edges.runs):
+                fn(s, d, r)
         return run
 
     times = {"candidate_edge_terms": time_pair(
-        sweep(lambda s, d: ek.candidate_edge_terms(F, grad, s, d, cfg)),
-        sweep(lambda s, d: ek.candidate_edge_terms_plain(
+        sweep(lambda s, d, r: ek.candidate_edge_terms(F, grad, s, d, cfg, r)),
+        sweep(lambda s, d, r: ek.candidate_edge_terms_plain(
             F.index_select(0, s), grad.index_select(0, s), F.index_select(0, d),
             None, cfg)),
         reps=2,
@@ -1438,7 +1485,8 @@ def phase_vmem_full(g, F_host):
 
     # the step and its parts on the step's own inputs
     med = lambda fn, reps=5: statistics.median(time_ms(fn, reps))  # noqa: E731
-    terms = [ek.candidate_edge_terms(F, grad, s, d, cfg) for s, d in edges.slices()]
+    terms = [ek.candidate_edge_terms(F, grad, s, d, cfg, r)
+             for (s, d), r in zip(edges.slices(), edges.runs)]
 
     def sums_only():
         it = iter(terms)
@@ -1470,6 +1518,7 @@ def phase_vmem_full(g, F_host):
             **bnd["candidate_edge_terms"]}},
         "step": step, "edge_chunk": edges.chunk,
         "chunks": -(-e // edges.chunk), "k_pad": int(k),
+        "runs": sum(int(r.shape[0]) - 1 for r in edges.runs),
     }
 
 
@@ -1662,11 +1711,55 @@ def bucket_edges(model) -> list:
     return [[b.num_directed_edges for b in row] for row in model.buckets]
 
 
+def visit_orders_agree(model, F) -> dict:
+    """Kernel #8's rotation under every visit order against the identity
+    order, bit for bit (the order decides which warps run together, never
+    a node's sum); leaves the model's own order in place. Returns
+    {order: rows visited}."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.parallel.ring import VISIT_ORDERS
+
+    chosen = model.visit_order
+    want, rows = None, {}
+    for how in ("identity", *[h for h in VISIT_ORDERS if h != "identity"]):
+        model.set_visit_order(how)
+        gn, ln = ring_sweep(rk.ring_grad_phase, model, F, grad_accs(F))
+        torch.cuda.synchronize()
+        got = gn + ln
+        if want is None:
+            want = got
+        elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"kernel #8 under visit order {how} differs from "
+                                 "the identity order")
+        rows[how] = sum(int(b.order.shape[0]) for row in model.buckets for b in row)
+    model.set_visit_order(chosen)
+    return rows
+
+
+def visit_order_ms(model, F) -> dict:
+    """Median CUDA-event time of one kernel #8 sweep under each visit order
+    (2 x 5 runs each, in the order of VISIT_ORDERS and then reversed);
+    leaves the model's own order in place."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.parallel.ring import VISIT_ORDERS
+
+    chosen, acc = model.visit_order, grad_accs(F)
+    runs = {how: [] for how in VISIT_ORDERS}
+    for seq in (VISIT_ORDERS, VISIT_ORDERS[::-1]):
+        for how in seq:
+            model.set_visit_order(how)
+            runs[how] += time_ms(lambda: ring_sweep(rk.ring_grad_phase, model, F, acc))
+    model.set_visit_order(chosen)
+    return {how: statistics.median(t) for how, t in runs.items()}
+
+
 def phase_ring_odd():
     """#8 and #9 vs plain on the odd graph at dp = 3 on a repeated-device
     mesh: n_pad 405 (odd), shard 0's phase-2 bucket empty (the planted
     blocks never reach shard 2 from shard 0), an all-zero row, at K = 37
-    (unpadded) and K = 1,024; then the hub graph at K = 37, 1,000, 1,024."""
+    (unpadded) and K = 1,024; then the hub graph at K = 37, 1,000, 1,024.
+    Every case also runs #8 under each visit order, bit-equal to the
+    identity order."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.parallel import RingBigClamModel
 
@@ -1683,11 +1776,12 @@ def phase_ring_odd():
         G = rng.uniform(-1.5, 1.5, (model.n_pad, k))
         shard = lambda M, i: torch.as_tensor(  # noqa: E731
             M[i * rows : (i + 1) * rows], dtype=torch.float32, device=DEVICE)
+        shards = [shard(F, i) for i in range(RING_ODD_DP)]
         compare_ring_kernels(
-            checks, model, [shard(F, i) for i in range(RING_ODD_DP)],
-            [shard(G, i) for i in range(RING_ODD_DP)], cfg, tag,
+            checks, model, shards, [shard(G, i) for i in range(RING_ODD_DP)], cfg, tag,
         )
-        out[tag] = {"n_pad": model.n_pad, "bucket_edges": bucket_edges(model)}
+        out[tag] = {"n_pad": model.n_pad, "bucket_edges": bucket_edges(model),
+                    "visit_order_rows": visit_orders_agree(model, shards)}
         return out[tag]
 
     checks = {n: Check(n) for n in RING}
@@ -1867,9 +1961,12 @@ def ring_bounds(model, k: int, s: int) -> dict:
     and the accumulator read and written once; operations as kernels B
     and C's neighbour terms count them (`bounds`): 4K (+3) per edge for
     #8, S (2K + 2) per edge plus 3K per nz row and candidate (building
-    nf_s) for #9, at the live K."""
+    nf_s) for #9, at the live K. For #8 also the floor of a sweep that
+    finds no gathered row in L2: one F_rot row read per edge instead of
+    per launch (`no_reuse_bytes`, `no_reuse_ms`)."""
     nbytes = {"ring_grad_phase": 0.0, "ring_cand_phase": 0.0}
     ops = {"ring_grad_phase": 0.0, "ring_cand_phase": 0.0}
+    no_reuse = 0.0
     for row in model.buckets:
         for b in row:
             n_loc, e = b.num_nodes, b.num_directed_edges
@@ -1877,6 +1974,7 @@ def ring_bounds(model, k: int, s: int) -> dict:
             csr = 8.0 * (n_loc + 1) + 4.0 * e
             nbytes["ring_grad_phase"] += csr + 4.0 * k * (n_loc + 3 * nz) + 8.0 * nz
             nbytes["ring_cand_phase"] += csr + 4.0 * k * (n_loc + 2 * nz) + 8.0 * s * nz
+            no_reuse += csr + 4.0 * k * (e + 3 * nz) + 8.0 * nz
             ops["ring_grad_phase"] += e * (4.0 * k + 3)
             ops["ring_cand_phase"] += e * s * (2.0 * k + 2) + nz * s * 3.0 * k
     out = {}
@@ -1885,16 +1983,22 @@ def ring_bounds(model, k: int, s: int) -> dict:
         out[name] = {"bound_ms": max(tb, to) * 1e3,
                      "bound_by": "bytes" if tb >= to else "operations",
                      "bytes": nbytes[name], "ops": ops[name]}
+    out["ring_grad_phase"].update(no_reuse_bytes=no_reuse,
+                                  no_reuse_ms=no_reuse / PEAK_BYTES_PER_S * 1e3)
     return out
 
 
 def phase_ring_full(model, state):
     """#8 and #9 vs plain over every (shard, phase) bucket of ring_dp4's
     layout on its final F, each timed per sweep of all 16 buckets as
-    `full` times kernels."""
+    `full` times kernels; #8 under every visit order, bit-equal to the
+    identity order and timed per sweep."""
     from bigclam_tpu_torch.ops import ring_kernels as rk
 
     F, cfg = state.F, model.cfg
+    orders = {"model_order": model.visit_order,
+              "rows_visited": visit_orders_agree(model, F),
+              "sweep_ms": visit_order_ms(model, F)}
     s = len(cfg.step_candidates)
     gn, ln = ring_sweep(rk.ring_grad_phase_plain, model, F, grad_accs(F))
     _, grad, _ = ring_fold(model, F, gn, ln)
@@ -1916,6 +2020,7 @@ def phase_ring_full(model, state):
     return checks, times, bnd, {
         "kernels": {n: {**checks[n].parts, **times[n], **bnd[n]} for n in RING},
         "launches_per_sweep": RING_DP * RING_DP, "k_pad": int(F[0].shape[1]),
+        "visit_orders": orders,
         "unbalanced_layout": unbalanced_sweeps(model, state),
     }
 
@@ -1940,6 +2045,9 @@ def unbalanced_sweeps(model, state) -> dict:
         "ring_grad_phase_ms": med(lambda: ring_sweep(rk.ring_grad_phase, raw, F, gacc)),
         "ring_cand_phase_ms": med(lambda: ring_sweep(rk.ring_cand_phase, raw, F, cacc,
                                                      grad=grad)),
+        "ring_grad_phase_visit_orders": {"model_order": raw.visit_order,
+                                         "rows_visited": visit_orders_agree(raw, F),
+                                         "sweep_ms": visit_order_ms(raw, F)},
     }
 
 

@@ -51,8 +51,10 @@ from bigclam_tpu_torch.parallel import (
     make_mesh,
 )
 from bigclam_tpu_torch.parallel.ring import (
+    VISIT_ORDERS,
     ring_bucket_imbalance,
     ring_shard_edges,
+    visit_order,
 )
 from bigclam_tpu_torch.parallel.sharded import device_csr
 
@@ -441,6 +443,7 @@ def test_cuda_ring_kernels_match_plain(k, cuda_device):
     rng = np.random.default_rng(k)
     F = torch.as_tensor(rng.uniform(0.0, 1.0, (n_pad, k)), dtype=torch.float32)
     G = torch.as_tensor(rng.uniform(-1.5, 1.5, (n_pad, k)), dtype=torch.float32)
+    rank = rng.permutation(rows)      # a stand-in pre-balance rank
     for i in range(dp):
         for r in range(dp):
             j = (i + r) % dp
@@ -453,6 +456,16 @@ def test_cuda_ring_kernels_match_plain(k, cuda_device):
                 device_csr(*host[i][r], cuda_device),
                 *(t.to(cuda_device) for t in acc), cfg,
             )
+            # the bucket with each visit order: the same bits as without one
+            for how in VISIT_ORDERS:
+                order = torch.as_tensor(visit_order(*host[i][r], how, rank),
+                                        device=cuda_device)
+                go, lo = rk.ring_grad_phase(
+                    *(t.contiguous().to(cuda_device) for t in args),
+                    device_csr(*host[i][r], cuda_device)._replace(order=order),
+                    *(t.to(cuda_device) for t in acc), cfg,
+                )
+                assert torch.equal(go, gk) and torch.equal(lo, lk), how
             cb0 = torch.rand(16, rows)
             cp = rk.ring_cand_phase(args[0], G[i * rows : (i + 1) * rows], args[1],
                                     device_csr(*host[i][r], CPU), cb0.clone(), cfg)

@@ -281,6 +281,18 @@ def test_cuda_kernel_matches_plain(k, e, cuda_device):
     torch.cuda.synchronize()
     assert ek.candidate_edge_terms.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=RTOL32, atol=ATOL32)
+    # the runs given as a model caches them, and the same edges shuffled
+    # (runs of about one edge): each edge's terms are its own
+    runs = ek.edge_runs(src.to(cuda_device))
+    again = ek.candidate_edge_terms(
+        *(t.to(cuda_device) for t in (F, grad, src, dst)), cfg, runs)
+    assert torch.equal(again, got)
+    perm = torch.as_tensor(rng.permutation(e))
+    shuffled = ek.candidate_edge_terms(
+        *(t.to(cuda_device) for t in (F, grad, src[perm], dst[perm])), cfg)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(shuffled.cpu().numpy(), want[:, perm].numpy(),
+                               rtol=RTOL32, atol=ATOL32)
 
 
 @pytest.mark.cuda
