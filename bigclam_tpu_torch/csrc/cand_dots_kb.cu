@@ -12,67 +12,90 @@
 // it, so there are no atomics.
 //
 // What bounds it on this card: arithmetic, one 2kc dot per candidate and
-// edge (nf_s depends on u alone, so building it is per-node work). The
-// kernel is the candidate pass of candidates.cu on a window: F_u and g_u in
-// registers, nf_s rebuilt per neighbour (3x the needed operations) rather
-// than held as 16 x KPL registers, the 16 per-edge dots reduced with one
-// transposing butterfly after which lane 2s holds candidate s's dot. It
-// takes the one StepParams block: split per kernel, nvcc hoisted the
-// candidate rows out of the neighbour loop into local memory (PERF.md).
+// edge (about 50 GFLOP a step of the 3 windows at the repo's xl_k, K=3,000
+// and 431,092 directed edges: 0.75 ms at 67 TFLOP/s; nf_s depends on u
+// alone, so building it is per-node work). The kernel walks u's
+// neighbourhood on edge_common.cuh's staged candidate ladder
+// (`ladder_range`) over the window: nf_s built once per (32-row tile,
+// 32-column chunk) in shared memory from F_u[win] and grad_kb[u] (read by
+// __ldg), the window of each neighbour row staged by cp.async in a double
+// buffer (rows k_pad floats apart; 16-byte copies when the window starts on
+// 16 bytes and kc and k_pad are multiples of 4, else 4-byte ones), the dots
+// as a 4 x 4 register-blocked product with one fma per multiply-add, and
+// only the row groups of a tile that hold an edge multiplied: at xl_k a
+// node has about 7 edges, a quarter of a tile. The epilogue adds each dot
+// to its edge's sum: lane (cg, ng) adds candidate 4cg + a of tile row
+// 8j + ng to xc[4cg + a, e]. The earlier design rebuilt nf_s for every
+// neighbour (an fma, a max and a min besides the dot's fma) from F_u and
+// grad_u held in registers and walked one row at a time. One instantiation
+// serves every kc up to 1,024. On an H100 (chip_smoke.py) a step of the 3
+// windows takes about 4.6 ms at xl_k, 6x its bound; 74% of its tiles run
+// one row group (7.2 edges a tile), and without row groups it took 7.1 ms.
+// Trial builds with the copies, the fmas or the nf build taken out took
+// 25%, 38% and 23% less time: a stage's parts run one after another, and
+// at 7 rows a tile none of them is long enough to hide the others.
 #include "edge_common.cuh"
 
 namespace {
 
 using bigclam::StepParams;
-using bigclam::kFull;
 using bigclam::kMaxS;
 using bigclam::kWarp;
 using bigclam::kWarpsPerBlock;
 
-template <int KPL>
+// Adds the tile's dots: candidate 4 cg + a of tile row 8j + ng to
+// xc[s, e0 + 32 t + 8j + ng] for the live rows and candidates.
+struct LadderStoreAdd {
+  float* xc;
+  int64_t e_total;
+  int64_t e0;  // the node's first edge
+  int cg;      // lane >> 3
+
+  template <int JN>
+  __device__ __forceinline__ void tile(const float (&acc)[4][4], int cnt,
+                                       int ng, int64_t t, const StepParams& p) {
+    const int64_t base = e0 + bigclam::kLadderRows * t;
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      if (8 * j + ng < cnt) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int s = 4 * cg + a;
+          if (s < p.num_s) {
+            float* const at = xc + static_cast<int64_t>(s) * e_total + base + 8 * j + ng;
+            *at += acc[a][j];
+          }
+        }
+      }
+    }
+  }
+};
+
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 cand_dots_kernel(const float* __restrict__ F,
                  const float* __restrict__ grad_kb,
                  const int64_t* __restrict__ indptr,
                  const int* __restrict__ indices, int n, int64_t e_total,
-                 int64_t k_pad, int col0, int kc, StepParams p,
+                 int k_pad, int col0, int kc, StepParams p, bool vec,
                  float* __restrict__ xc) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
-  const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
+  const int u = blockIdx.x * kWarpsPerBlock + warp;
   if (u >= n) return;  // whole warp
-  float fu[KPL], g[KPL];
-  bigclam::load_window<KPL>(F, u, k_pad, col0, kc, lane, fu);
-  bigclam::load_window<KPL>(grad_kb, u, kc, 0, kc, lane, g);
-  const int s = lane >> 1;  // this lane's candidate after the reduction
-  const bool writer = s < p.num_s && (lane & 1) == 0;
-  float* __restrict__ xs = xc + static_cast<int64_t>(writer ? s : 0) * e_total;
-  bigclam::for_each_neighbor_at(indptr, indices, u, lane,
-                                [&](int64_t e, int v) {
-    float fv[KPL];
-    bigclam::load_window<KPL>(F, v, k_pad, col0, kc, lane, fv);
-    float part[kMaxS];
-#pragma unroll
-    for (int t = 0; t < kMaxS; ++t) part[t] = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-#pragma unroll
-      for (int t = 0; t < kMaxS; ++t)
-        part[t] = fmaf(bigclam::clip_f(fmaf(p.etas[t], g[i], fu[i]), p), fv[i],
-                       part[t]);
-    }
-    const float d = bigclam::reduce16_transpose(part, lane);
-    if (writer) xs[e] += d;
-  });
-}
-
-template <int KPL>
-void launch(const float* F, const float* grad_kb, const int64_t* indptr,
-            const int* indices, int n, int64_t e_total, int64_t k_pad,
-            int col0, int kc, const StepParams& p, float* xc,
-            cudaStream_t stream) {
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  cand_dots_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
-      F, grad_kb, indptr, indices, n, e_total, k_pad, col0, kc, p, xc);
+  const int64_t e0 = indptr[u];
+  const int64_t e1 = indptr[u + 1];
+  if (e0 == e1) return;
+  const float* const fu = F + static_cast<int64_t>(u) * k_pad + col0;
+  const float* const gu = grad_kb + static_cast<int64_t>(u) * kc;
+  auto col = [&](int k, float& f, float& g) {
+    f = __ldg(fu + k);
+    g = __ldg(gu + k);
+  };
+  LadderStoreAdd st{xc, e_total, e0, lane >> 3};
+  bigclam::ladder_range<true>(
+      F + col0, indices, e0, e1, kc, k_pad, lane, vec, p,
+      reinterpret_cast<float*>(smem4) + warp * bigclam::kLadderFloats, col, st);
 }
 
 }  // namespace
@@ -80,25 +103,28 @@ void launch(const float* F, const float* grad_kb, const int64_t* indptr,
 // Adds window [col0, col0 + kc) of every edge's num_s candidate dots into
 // xc (num_s, e_total) on `stream`; returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a window outside the rows or wider than
-// 1024 columns, or more than 16 steps). `etas` is a host array of num_s
-// floats.
+// 1024 columns, more than 16 steps, or a smem_bytes other than the block's
+// shared memory, which ops/csr_kernels.py `ladder_launch_plan` computes).
+// `etas` is a host array of num_s floats.
 extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
                                     const int64_t* indptr, const int* indices,
                                     int n, int64_t e_total, int k_pad,
                                     int col0, int kc, const float* etas,
                                     int num_s, float omp_lo, float omp_hi,
                                     float min_f, float max_f, float* xc,
-                                    void* stream) {
-  if (num_s < 1 || num_s > bigclam::kMaxS) return cudaErrorInvalidValue;
+                                    int smem_bytes, void* stream) {
+  if (num_s < 1 || num_s > kMaxS) return cudaErrorInvalidValue;
   if (!bigclam::window_ok(k_pad, col0, kc)) return cudaErrorInvalidValue;
+  if (smem_bytes != bigclam::cand_dots_smem_bytes()) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   // the ladder without acceptance coefficients (selection runs in torch)
   const StepParams p = bigclam::make_params(etas, nullptr, num_s, omp_lo,
                                             omp_hi, min_f, max_f);
-  int rc = cudaSuccess;
-  BIGCLAM_DISPATCH_KPL(kc, launch, rc, F, grad_kb, indptr, indices, n,
-                       e_total, k_pad, col0, kc, p, xc,
-                       static_cast<cudaStream_t>(stream));
-  if (rc != cudaSuccess) return rc;
+  const bool vec = kc % 4 == 0 && k_pad % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(F + col0) % 16 == 0;
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  cand_dots_kernel<<<blocks, kWarpsPerBlock * kWarp, smem_bytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+      F, grad_kb, indptr, indices, n, e_total, k_pad, col0, kc, p, vec, xc);
   return cudaGetLastError();
 }

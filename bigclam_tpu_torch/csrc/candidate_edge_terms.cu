@@ -90,7 +90,7 @@ candidate_edge_terms_kernel(const float* __restrict__ F,
   };
   LadderStore st{out, e_count, e0, lane >> 3};
   bigclam::ladder_range<true>(
-      F, dst, e0, e1, K, lane, vec, p,
+      F, dst, e0, e1, K, K, lane, vec, p,
       reinterpret_cast<float*>(smem4) + warp * bigclam::kLadderFloats, col, st);
 }
 

@@ -1,9 +1,10 @@
 // Shared device code of the BigCLAM edge kernels for Hopper: the
 // single-pass ones (fused_superstep.cu, grad_llh.cu, candidates.cu), the
-// ring-phase ones (ring_grad_phase.cu, ring_cand_phase.cu) and the
-// K-blocked ones (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu,
-// cand_from_x.cu), which take a window of at most kMaxK columns of wider
-// rows.
+// ring-phase ones (ring_grad_phase.cu, ring_cand_phase.cu), the candidate
+// edge terms (candidate_edge_terms.cu) and the K-blocked ones
+// (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu, cand_from_x.cu), which
+// take a window of at most kMaxK columns of wider rows. The candidate
+// kernels (A, C, #9, #14 and cand_dots_kb) share the staged ladder below.
 //
 // Layout: the kernels read the graph's CSR directly. One warp owns one
 // source node u; its neighbours are the contiguous slice
@@ -182,8 +183,8 @@ __device__ __forceinline__ void store_row(float* __restrict__ M, int64_t row,
   }
 }
 
-// Column windows of the K-blocked kernels (edge_dots_kb.cu, grad_from_x.cu,
-// cand_dots_kb.cu): lane j holds the columns col0 + j + 32 i of `row` in a
+// Column windows of the K-blocked kernels (edge_dots_kb.cu, grad_from_x.cu):
+// lane j holds the columns col0 + j + 32 i of `row` in a
 // matrix of row stride `stride`; window columns at or past kc load as 0 and
 // are not stored.
 template <int KPL>
@@ -233,21 +234,6 @@ __device__ __forceinline__ void for_each_neighbor(
     const int cnt = rem < kWarp ? static_cast<int>(rem) : kWarp;
     const int mine = lane < cnt ? __ldg(indices + base + lane) : 0;
     for (int j = 0; j < cnt; ++j) body(__shfl_sync(kFull, mine, j));
-  }
-}
-
-// for_each_neighbor that also passes the edge's CSR position: body(e, v).
-template <typename Body>
-__device__ __forceinline__ void for_each_neighbor_at(
-    const int64_t* __restrict__ indptr, const int* __restrict__ indices,
-    int u, int lane, Body&& body) {
-  const int64_t e0 = indptr[u];
-  const int64_t e1 = indptr[u + 1];
-  for (int64_t base = e0; base < e1; base += kWarp) {
-    const int64_t rem = e1 - base;
-    const int cnt = rem < kWarp ? static_cast<int>(rem) : kWarp;
-    const int mine = lane < cnt ? __ldg(indices + base + lane) : 0;
-    for (int j = 0; j < cnt; ++j) body(base + j, __shfl_sync(kFull, mine, j));
   }
 }
 
@@ -301,65 +287,17 @@ __device__ __forceinline__ float fold_grad(const float* __restrict__ sumF,
   return warp_sum(gg);
 }
 
-// Armijo tails nf_s . (F_u - sumF), nf_s = clip(F_u + eta_s g_u): returns
-// the tail of candidate lane >> 1.
-template <int KPL>
-__device__ __forceinline__ float armijo_tails(const float* __restrict__ sumF,
-                                              int K, int lane,
-                                              const float (&fu)[KPL],
-                                              const float (&g)[KPL],
-                                              const StepParams& p) {
-  float part[kMaxS];
-#pragma unroll
-  for (int s = 0; s < kMaxS; ++s) part[s] = 0.f;
-#pragma unroll
-  for (int i = 0; i < KPL; ++i) {
-    const int k = lane + kWarp * i;
-    const float fms = fu[i] - (k < K ? __ldg(sumF + k) : 0.f);
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s)
-      part[s] = fmaf(clip_f(fmaf(p.etas[s], g[i], fu[i]), p), fms, part[s]);
-  }
-  return reduce16_transpose(part, lane);
-}
-
-// Pass 2: for every candidate s, sum_v ell(clip(F_u + eta_s g_u) . F_v)
-// added to `cand` (the lane's candidate lane >> 1), with F_v a row of Fd as
-// in grad_pass. The 16 candidate rows are recomputed per neighbour rather
-// than held (16 x KPL registers).
-template <int KPL>
-__device__ __forceinline__ float cand_pass(
-    const float* __restrict__ Fd, const int64_t* __restrict__ indptr,
-    const int* __restrict__ indices, int u, int K, int lane,
-    const float (&fu)[KPL], const float (&g)[KPL], const StepParams& p,
-    float cand) {
-  for_each_neighbor(indptr, indices, u, lane, [&](int v) {
-    float fv[KPL];
-    load_row<KPL>(Fd, v, K, lane, fv);
-    float part[kMaxS];
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s) part[s] = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-#pragma unroll
-      for (int s = 0; s < kMaxS; ++s)
-        part[s] = fmaf(clip_f(fmaf(p.etas[s], g[i], fu[i]), p), fv[i], part[s]);
-    }
-    const float x = reduce16_transpose(part, lane);
-    cand += logf(survival(x, p)) + x;
-  });
-  return cand;
-}
-
-
 // ---------------------------------------------------------------------------
-// The candidate ladder on a staged gather (kernels A, #9 and, over runs of
-// edges with one source, #14).
+// The candidate ladder on a staged gather: kernels A, C and #9 over a
+// node's neighbourhood (ladder_pass), #14 over runs of edges with one source
+// and cand_dots_kb over a column window of a node's neighbourhood
+// (ladder_range with their own epilogues).
 //
-// cand_pass above rebuilds nf_s = clip(F_u + eta_s g_u) for every neighbour
-// (an fma, a max, a min and then the dot's fma, where the function needs one
-// fma) and walks one neighbour row at a time. ladder_pass computes the same
-// sums as a blocked product on the FP32 cores. The function needs S(2K + 2)
+// Rebuilding nf_s = clip(F_u + eta_s g_u) for every neighbour (the design
+// these kernels had before) costs an fma, a max and a min besides the dot's
+// fma, where the function needs one fma, and walks one neighbour row at a
+// time. The ladder computes the same sums as a blocked product on the FP32
+// cores. The function needs S(2K + 2)
 // operations per directed edge (about 272 GFLOP at N=300,000, K=1,024, 8.5 M
 // edges: 4.1 ms at 67 TFLOP/s) and one gathered neighbour row per edge
 // (34.8 GB there, which kernel B reads in about 10 ms with help from L2):
@@ -368,8 +306,10 @@ __device__ __forceinline__ float cand_pass(
 //    kLadderChunk columns; per (tile, chunk) stage the warp builds nf_s for
 //    the chunk once in shared memory (16 x 32 values, 1/32 of a full tile's
 //    fmas), and cp.async copies the next stage's rows (16-byte copies, 8
-//    lanes per 128-byte row segment, coalesced; 4-byte copies when K is not
-//    a multiple of 4) into the other of two buffers while this one's fmas
+//    lanes per 128-byte row segment, coalesced; 4-byte copies when a row's
+//    columns do not start on 16 bytes or K is not a multiple of 4; rows sit
+//    `ld` floats apart, so the columns may be a window of wider rows, as in
+//    cand_dots_kb) into the other of two buffers while this one's fmas
 //    run. Rows are gathered by index, which TMA cannot do; the ladder's 16
 //    candidates and a B operand that changes with every node do not fit
 //    wgmma, and tensor cores would change the dots' rounding.
@@ -386,17 +326,19 @@ __device__ __forceinline__ float cand_pass(
 //    issue and the per-stage work (nf, bookkeeping) share the rest.
 //  * with kRowGroups, a tile of cnt < 25 edges runs only its ceil(cnt / 8)
 //    row groups (a separate instantiation each): in a ring bucket a node has
-//    about a quarter of its edges, and a full 32-row tile would spend most of
-//    its fmas and shared-memory reads on rows without an edge. Kernel A
-//    walks whole neighbourhoods and takes the 4-group code only: on an H100
-//    the three extra instantiations cost it more in instruction fetch than
-//    they saved.
+//    about a quarter of its edges, at xl_k about 7 in all, and a full 32-row
+//    tile would spend most of its fmas and shared-memory reads on rows
+//    without an edge (#9, #14, cand_dots_kb). Kernels A and C walk whole
+//    neighbourhoods and take the 4-group code only: on an H100 the three
+//    extra instantiations cost A more in instruction fetch than they saved.
 //  * after a tile's last chunk each lane evaluates its own dots' terms
-//    ell(x) = log(clip(-expm1(-x))) + x. The epilogue is the caller's: A and
-//    #9 (LadderSum) add the 4 candidate sums across the 8 lanes of the group
-//    by a fixed butterfly and then over the tiles in CSR order, so a hub
-//    loops over tiles and a run is reproducible bit for bit; #14 stores each
-//    term as it is (candidate_edge_terms.cu).
+//    ell(x) = log(clip(-expm1(-x))) + x, or takes the dots as they are. The
+//    epilogue is the caller's: A, C and #9 (LadderSum) add the 4 candidate
+//    sums across the 8 lanes of the group by a fixed butterfly and then over
+//    the tiles in CSR order, so a hub loops over tiles and a run is
+//    reproducible bit for bit; #14 stores each term as it is
+//    (candidate_edge_terms.cu); cand_dots_kb adds each dot, without a term,
+//    to the edge's window sum (cand_dots_kb.cu).
 //
 // One warp's shared memory, kLadderFloats floats: two tile buffers of
 // kLadderRows rows x kTileStride floats, then nf as [group][column][4] with
@@ -456,11 +398,12 @@ __device__ __forceinline__ int tile_ids(const Id* __restrict__ indices,
 }
 
 // Copies columns [col0, col0 + kLadderChunk) of the tile's cnt rows of Fd
-// into `buf`, columns past K zero-filled; rows past cnt are not copied (their
-// dots are never read). `vec`: K is a multiple of 4 and Fd 16-byte aligned,
-// so every 16-byte segment is whole.
+// (row v at Fd + v * ld) into `buf`, columns past K zero-filled; rows past
+// cnt are not copied (their dots are never read). `vec`: K and ld are
+// multiples of 4 and Fd is 16-byte aligned, so every 16-byte segment is
+// whole.
 __device__ __forceinline__ void issue_stage(float* buf, const float* Fd, int K,
-                                            int ids, int cnt, int col0,
+                                            int ld, int ids, int cnt, int col0,
                                             int lane, bool vec) {
   if (vec) {
 #pragma unroll
@@ -471,14 +414,14 @@ __device__ __forceinline__ void issue_stage(float* buf, const float* Fd, int K,
       const int k = col0 + 4 * seg;
       if (r < cnt)
         cp_async16(buf + r * kTileStride + 4 * seg,
-                   k < K ? Fd + static_cast<int64_t>(v) * K + k : Fd, k < K);
+                   k < K ? Fd + static_cast<int64_t>(v) * ld + k : Fd, k < K);
     }
   } else {
     const int k = col0 + lane;
     for (int r = 0; r < cnt; ++r) {
       const int v = __shfl_sync(kFull, ids, r);
       cp_async4(buf + r * kTileStride + lane,
-                k < K ? Fd + static_cast<int64_t>(v) * K + k : Fd, k < K);
+                k < K ? Fd + static_cast<int64_t>(v) * ld + k : Fd, k < K);
     }
   }
 }
@@ -584,7 +527,7 @@ struct LadderSum {
 // epi.tile<JN>.
 template <int JN, typename Id, typename Col, typename Epi>
 __device__ __forceinline__ void ladder_tile(
-    const float* Fd, const Id* __restrict__ indices, int K, int lane,
+    const float* Fd, const Id* __restrict__ indices, int K, int ld, int lane,
     bool vec, const StepParams& p, float* const (&buf)[2], float* nf,
     const float* nfg, int ng, int cnt, int64_t t, Col& col, LadderIssue& q,
     Epi& epi) {
@@ -599,8 +542,8 @@ __device__ __forceinline__ void ladder_tile(
       if (++q.tn < q.ntiles) q.ids = tile_ids(indices, q.e0, q.e1, q.tn, lane, q.cnt);
     }
     if (q.st + 1 < q.stages)
-      issue_stage(buf[(q.st + 1) & 1], Fd, K, q.ids, q.cnt, q.cn * kLadderChunk,
-                  lane, vec);
+      issue_stage(buf[(q.st + 1) & 1], Fd, K, ld, q.ids, q.cnt,
+                  q.cn * kLadderChunk, lane, vec);
     cp_async_commit();
     build_nf(nf, col, c, K, lane, p);
     cp_async_wait_prior();
@@ -611,16 +554,17 @@ __device__ __forceinline__ void ladder_tile(
   epi.template tile<JN>(acc, cnt, ng, t, p);
 }
 
-// The ladder over the edge range [e0, e1) of one source u: the rows
-// indices[e] of Fd (int32 CSR indices or int64 edge endpoints), with F_u
-// and g_u read by col(k, f, g) for k < K; each tile's dots go to `epi`.
-// `sm` is the warp's kLadderFloats floats of shared memory; `vec` as in
-// issue_stage; kRowGroups: skip a tile's row groups without an edge.
+// The ladder over the edge range [e0, e1) of one source u: columns [0, K)
+// of the rows indices[e] of Fd (int32 CSR indices or int64 edge endpoints;
+// row v at Fd + v * ld), with F_u and g_u read by col(k, f, g) for k < K;
+// each tile's dots go to `epi`. `sm` is the warp's kLadderFloats floats of
+// shared memory; `vec` as in issue_stage; kRowGroups: skip a tile's row
+// groups without an edge.
 template <bool kRowGroups, typename Id, typename Col, typename Epi>
 __device__ __forceinline__ void ladder_range(
     const float* Fd, const Id* __restrict__ indices, int64_t e0, int64_t e1,
-    int K, int lane, bool vec, const StepParams& p, float* sm, Col& col,
-    Epi& epi) {
+    int K, int ld, int lane, bool vec, const StepParams& p, float* sm,
+    Col& col, Epi& epi) {
   LadderIssue q;
   q.e0 = e0;
   q.e1 = e1;
@@ -636,14 +580,14 @@ __device__ __forceinline__ void ladder_range(
   const float* const nfg = nf + (lane >> 3) * kNfGroupStride;
   const int ng = lane & 7;
   q.ids = tile_ids(indices, q.e0, q.e1, 0, lane, q.cnt);
-  issue_stage(buf[0], Fd, K, q.ids, q.cnt, 0, lane, vec);
+  issue_stage(buf[0], Fd, K, ld, q.ids, q.cnt, 0, lane, vec);
   cp_async_commit();
   for (int64_t t = 0; t < q.ntiles; ++t) {
     const int64_t rem = q.e1 - q.e0 - kLadderRows * t;
     const int cnt = rem < kLadderRows ? static_cast<int>(rem) : kLadderRows;
 #define BIGCLAM_LADDER_TILE(JN)                                         \
-  ladder_tile<JN>(Fd, indices, K, lane, vec, p, buf, nf, nfg, ng, cnt, t, \
-                  col, q, epi)
+  ladder_tile<JN>(Fd, indices, K, ld, lane, vec, p, buf, nf, nfg, ng, cnt, \
+                  t, col, q, epi)
     switch (kRowGroups ? (cnt + 7) >> 3 : 4) {  // row groups with an edge
       case 1: BIGCLAM_LADDER_TILE(1); break;
       case 2: BIGCLAM_LADDER_TILE(2); break;
@@ -658,7 +602,8 @@ __device__ __forceinline__ void ladder_range(
 // rows of Fd (as in grad_pass) and F_u, g_u read by col(k, f, g) for k < K.
 // On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the same
 // bits in the 8 lanes of the group (0 for a node without neighbours); the
-// sums run over the tiles in CSR order. Arguments as in ladder_range.
+// sums run over the tiles in CSR order. Arguments as in ladder_range, with
+// rows of K floats (ld = K).
 template <bool kRowGroups, typename Col>
 __device__ __forceinline__ void ladder_pass(
     const float* Fd, const int64_t* __restrict__ indptr,
@@ -667,20 +612,24 @@ __device__ __forceinline__ void ladder_pass(
 #pragma unroll
   for (int c = 0; c < 4; ++c) out[c] = 0.f;
   LadderSum sum{out};
-  ladder_range<kRowGroups>(Fd, indices, indptr[u], indptr[u + 1], K, lane, vec,
-                           p, sm, col, sum);
+  ladder_range<kRowGroups>(Fd, indices, indptr[u], indptr[u + 1], K, K, lane,
+                           vec, p, sm, col, sum);
 }
 
 // Shared-memory bytes of one block of the ladder kernels (4 warps): kernel A
 // keeps F_u (32 KPL floats) and the 16 pass-2 sums beside each warp's ladder
-// buffers; #9 and #14 only the ladder buffers.
+// buffers, C the 16 sums; #9, #14 and cand_dots_kb only the ladder buffers.
 inline int fused_smem_bytes(int kpl) {
   return 4 * kWarpsPerBlock * (kWarp * kpl + kLadderFloats + kMaxS);
+}
+inline int candidates_smem_bytes() {
+  return 4 * kWarpsPerBlock * (kLadderFloats + kMaxS);
 }
 inline int ring_cand_smem_bytes() {
   return 4 * kWarpsPerBlock * kLadderFloats;
 }
 inline int edge_terms_smem_bytes() { return ring_cand_smem_bytes(); }
+inline int cand_dots_smem_bytes() { return ring_cand_smem_bytes(); }
 
 }  // namespace bigclam
 

@@ -52,8 +52,8 @@ ENTRIES = {
     # stream
     "bigclam_grad_llh": [P, P, P, P, P, I, I, R, R, P, P, P],
     # F, F_dst, grad, sumF, indptr, indices, n, K, etas, num_s, omp_lo,
-    # omp_hi, min_f, max_f, cand, stream
-    "bigclam_candidates": [P, P, P, P, P, P, I, I, P, I, R, R, R, R, P, P],
+    # omp_hi, min_f, max_f, cand, smem_bytes, stream
+    "bigclam_candidates": [P, P, P, P, P, P, I, I, P, I, R, R, R, R, P, I, P],
     # F_loc, F_rot, indptr, indices, order (null: all rows), m, n, K, omp_lo,
     # omp_hi, gn, ln, stream
     "bigclam_ring_grad_phase": [P, P, P, P, P, I, I, I, R, R, P, P, P],
@@ -66,8 +66,8 @@ ENTRIES = {
     # grad_kb, llh_nbr (null: not written), stream
     "bigclam_grad_from_x": [P, P, P, P, P, I, I, I, I, R, R, I, P, P, P],
     # F, grad_kb, indptr, indices, n, E, k_pad, col0, kc, etas, num_s,
-    # omp_lo, omp_hi, min_f, max_f, xc, stream
-    "bigclam_cand_dots_kb": [P, P, P, P, I, L, I, I, I, P, I, R, R, R, R, P, P],
+    # omp_lo, omp_hi, min_f, max_f, xc, smem_bytes, stream
+    "bigclam_cand_dots_kb": [P, P, P, P, I, L, I, I, I, P, I, R, R, R, R, P, I, P],
     # xc, indptr, n, E, num_s, omp_lo, omp_hi, out, stream
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
     # ids, w, src, dst, E, M, k_pad, out, stream
@@ -105,9 +105,9 @@ def nvcc_path() -> str:
     )
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC_DIR) -> str:
     h = hashlib.sha256()
-    paths = [CSRC_DIR / f"{n}.cu" for n in SOURCES] + sorted(CSRC_DIR.glob("*.cuh"))
+    paths = [csrc / f"{n}.cu" for n in SOURCES] + sorted(csrc.glob("*.cuh"))
     for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -115,18 +115,19 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libbigclam-{source_hash()}.so"
+def library_path(csrc: Path = CSRC_DIR) -> Path:
+    return BUILD_DIR / f"libbigclam-{source_hash(csrc)}.so"
 
 
-def build() -> dict:
-    """Build the kernel library unless it is there: one nvcc per source,
-    all started together, then one link. Returns {"seconds", "cached",
-    "logs"} ("logs" holds each source's ptxas register and spill report).
-    Raises KernelBuildError naming every failed source."""
-    final = library_path()
+def build(csrc: Path = CSRC_DIR) -> dict:
+    """Build the kernel library of the sources in `csrc` (default: this
+    package's) unless it is there: one nvcc per source, all started
+    together, then one link. Returns {"seconds", "cached", "logs", "path"}
+    ("logs" holds each source's ptxas register and spill report). Raises
+    KernelBuildError naming every failed source."""
+    final = library_path(csrc)
     if final.exists():
-        return {"seconds": 0.0, "cached": True, "logs": {}}
+        return {"seconds": 0.0, "cached": True, "logs": {}, "path": final}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = nvcc_path()
@@ -134,8 +135,8 @@ def build() -> dict:
     try:
         procs = {
             name: subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c",
-                 "-o", str(work / f"{name}.o"), str(CSRC_DIR / f"{name}.cu")],
+                [nvcc, *COMPILE_FLAGS, "-I", str(csrc), "-c",
+                 "-o", str(work / f"{name}.o"), str(csrc / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for name in SOURCES
@@ -159,29 +160,35 @@ def build() -> dict:
         os.replace(work / "lib.so", final)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"seconds": time.perf_counter() - t0, "cached": False, "logs": logs}
+    return {"seconds": time.perf_counter() - t0, "cached": False, "logs": logs,
+            "path": final}
 
 
 _LIBRARY: Optional[ctypes.CDLL] = None
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed, with every C entry
-    of ENTRIES bound (argtypes set, int cudaError_t return) and
+def bind(path: Path) -> ctypes.CDLL:
+    """The kernel library at `path`, loaded with every C entry of ENTRIES
+    bound (argtypes set, int cudaError_t return) and
     `bigclam_error_string(int)`."""
+    lib = ctypes.CDLL(str(path))
+    lib.bigclam_error_string.argtypes = [I]
+    lib.bigclam_error_string.restype = ctypes.c_char_p
+    for entry, argtypes in ENTRIES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = I
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """This package's kernel library, built first if needed, and bound."""
     global _LIBRARY
     if _LIBRARY is None:
         path = library_path()
         if not path.exists():
             build()
-        lib = ctypes.CDLL(str(path))
-        lib.bigclam_error_string.argtypes = [I]
-        lib.bigclam_error_string.restype = ctypes.c_char_p
-        for entry, argtypes in ENTRIES.items():
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = I
-        _LIBRARY = lib
+        _LIBRARY = bind(path)
     return _LIBRARY
 
 

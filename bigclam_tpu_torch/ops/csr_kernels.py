@@ -3,8 +3,9 @@
 
 Port of bigclam_tpu/ops/pallas_csr.py `grad_llh_csr` and
 `candidates_csr`. The CUDA sources are csrc/grad_llh.cu and
-csrc/candidates.cu (one warp per node over the graph's CSR, see their
-headers for the design and what bounds each on an H100). Each wrapper:
+csrc/candidates.cu (one warp per node over the graph's CSR; C walks the
+neighbourhood on the staged candidate ladder of csrc/edge_common.cuh; see
+their headers for the design and what bounds each on an H100). Each wrapper:
 
 * on CPU tensors runs its plain PyTorch version (the same function,
   edge-chunked; the CPU tests hold it against the JAX kernels in
@@ -70,20 +71,34 @@ def kpl_bucket(k: int) -> int:
     return 1 << (need - 1).bit_length()
 
 
+LADDER_KERNELS = (
+    "fused_superstep", "candidates_csr", "ring_cand_phase",
+    "candidate_edge_terms", "cand_dots_kb",
+)
+
+
 def ladder_launch_plan(kernel: str, k: int) -> dict:
-    """The launch geometry of kernel A ("fused_superstep"), #9
-    ("ring_cand_phase") or #14 ("candidate_edge_terms") at K columns, as the
-    C entries compute it: blocks of LADDER_WARPS warps, one node (#14: one
-    run of edges) a warp; per warp two staged tiles of LADDER_ROWS rows of
-    LADDER_CHUNK + 4 floats and the 16 candidate rows of a chunk, 4 groups
-    of 4 LADDER_CHUNK + 4 floats; kernel A adds F_u (32 kpl floats) and the
-    16 candidate sums. The wrappers pass `smem_bytes` and the entries refuse
-    any other value; `opt_in` says the entry raises the block's limit with
-    cudaFuncSetAttribute. #14 reads F_u and grad_u per column chunk, so it
-    takes any K (its `kpl` is None); A and #9 take K <= MAX_K."""
-    if kernel not in ("fused_superstep", "ring_cand_phase", "candidate_edge_terms"):
+    """The launch geometry of a staged-ladder kernel (csrc/edge_common.cuh
+    `ladder_range`) at K columns (for "cand_dots_kb": a window of kc = k
+    columns), as the C entries compute it: blocks of LADDER_WARPS warps,
+    one node (#14: one run of edges) a warp; per warp two staged tiles of
+    LADDER_ROWS rows of LADDER_CHUNK + 4 floats and the 16 candidate rows of
+    a chunk, 4 groups of 4 LADDER_CHUNK + 4 floats. Kernel A
+    ("fused_superstep") adds F_u (32 kpl floats) and the 16 candidate sums,
+    C ("candidates_csr") the 16 sums; #9 ("ring_cand_phase"), #14
+    ("candidate_edge_terms") and "cand_dots_kb" nothing. The wrappers pass
+    `smem_bytes` and the entries refuse any other value; `opt_in` says the
+    entry raises the block's limit with cudaFuncSetAttribute. #14 reads F_u
+    and grad_u per column chunk, so it takes any K (its `kpl` is None); A,
+    C and #9 take K <= MAX_K, cand_dots_kb a window of kc <= MAX_K."""
+    if kernel not in LADDER_KERNELS:
         raise ValueError(f"no ladder kernel named {kernel!r}")
     edge_terms = kernel == "candidate_edge_terms"
+    if kernel == "cand_dots_kb" and not 1 <= k <= MAX_K:
+        raise KernelKLimitError(
+            f"a K block of kc={k} columns is outside the K-blocked CUDA "
+            f"kernels' range 1..{MAX_K} (32 columns per lane)"
+        )
     if not (1 <= k if edge_terms else 1 <= k <= MAX_K):
         raise KernelKLimitError(
             f"K={k} is outside the single-pass CUDA kernels' range 1..{MAX_K}; "
@@ -92,7 +107,11 @@ def ladder_launch_plan(kernel: str, k: int) -> dict:
         )
     kpl = None if edge_terms else kpl_bucket(k)
     ladder = 2 * LADDER_ROWS * (LADDER_CHUNK + 4) + 4 * (4 * LADDER_CHUNK + 4)
-    per_warp = ladder + (32 * kpl + MAX_S if kernel == "fused_superstep" else 0)
+    per_warp = ladder
+    if kernel == "fused_superstep":
+        per_warp += 32 * kpl + MAX_S
+    elif kernel == "candidates_csr":
+        per_warp += MAX_S
     smem = 4 * LADDER_WARPS * per_warp
     return {
         "kpl": kpl, "rows": LADDER_ROWS, "chunk": LADDER_CHUNK,
@@ -277,6 +296,7 @@ def candidates_csr(
         csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k,
         c["etas"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"],
         c["min_f"], c["max_f"], cand.data_ptr(),
+        ladder_launch_plan("candidates_csr", k)["smem_bytes"],
     )
     candidates_csr.launches += 1
     return cand

@@ -12,7 +12,8 @@ runs four kernels:
   (optionally folded with -sumF + F) and the neighbour LLH
   (csrc/grad_from_x.cu; `grad_nbr_from_x_fused`, `grad_nbr_from_x_csr`);
 * `cand_dots_kb`   — window share of every edge's 16 candidate dots, added
-  into xc (csrc/cand_dots_kb.cu; `cand_dots_fused`, `cand_dots_csr`);
+  into xc (csrc/cand_dots_kb.cu, on the staged candidate ladder of
+  csrc/edge_common.cuh; `cand_dots_fused`, `cand_dots_csr`);
 * `cand_nbr_from_x` — from the full xc, the neighbour candidate LLH
   (csrc/cand_from_x.cu; `cand_nbr_from_x_csr`).
 
@@ -41,6 +42,7 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     check_csr,
     check_float32,
     kernel_constants,
+    ladder_launch_plan,
 )
 from bigclam_tpu_torch.ops.linesearch import step_etas
 from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, edge_terms
@@ -233,7 +235,7 @@ def cand_dots_kb(
         F.data_ptr(), grad_kb.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, e, k_pad, col0, kc, c["etas"].ctypes.data,
         c["num_s"], c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"],
-        xc.data_ptr(),
+        xc.data_ptr(), ladder_launch_plan("cand_dots_kb", kc)["smem_bytes"],
     )
     cand_dots_kb.launches += 1
     return xc

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of BigCLAM (bigclam_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR=KERNEL[,KERNEL...]]...
 
 Phases, each printed as one JSON line; any failure raises, so the script
 exits non-zero:
@@ -10,8 +10,15 @@ exits non-zero:
   build     nvcc builds every kernel source under bigclam_tpu_torch/csrc/
             for sm_90a, one process per source, all started together,
             and links them into one library; the registers and spill bytes
-            of the three staged-ladder kernels (A, #9, #14) per KPL bucket
-            and of #8, and the ladder kernels' launch plans
+            of the five staged-ladder kernels (A, C, #9, #14, cand_dots_kb)
+            per KPL bucket and of #8, and the ladder kernels' launch plans
+  against   with --against DIR=KERNELS (any number of them; DIR holds
+            another tree's kernel sources, e.g. an earlier commit's
+            bigclam_tpu_torch/csrc unpacked into a git-ignored directory,
+            with this tree's C signatures): each DIR built the same way
+            into a library of its own, and the SASS of the named kernels
+            (instruction counts, opcode sequences) set beside this tree's;
+            without --against it prints why it was skipped
   odd       each kernel against its plain PyTorch version on a small odd
             case (K=37, isolated nodes), then on a hub graph (planted
             blocks plus nodes of degree 100 and 700, isolated nodes, a
@@ -45,7 +52,7 @@ exits non-zero:
             shapes (the main fit's final F), and both timed with CUDA
             events: the median of 10 runs, taken as two rounds of 5
             after a warm-up each, in the order plain, kernel, kernel,
-            plain
+            plain; the graph's ladder tiles by the row groups they run
   sparse_main `cli fit --representation sparse --sparse-m 64` on the same
             file, conductance init, 5 iterations, no --out; path
             `sparse_merge_pallas`, the member-lookup launches counted from
@@ -129,15 +136,24 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
             kb_main's F (x, grad with and without the fold, llh_nbr, xc,
             cand_nbr), both timed per full step as `full` times them,
             and the whole step timed split into the kernels and the
-            torch node tail + Armijo tails + selection
-  kb_odd    K=1,100 (2 blocks of 576) on the odd graph, kernels vs plain
+            torch node tail + Armijo tails + selection; the graph's ladder
+            tiles by the row groups they run
+  kb_odd    K=1,100 (2 blocks of 576) on the odd graph and on the hub
+            graph (the degree-700 hub crosses 22 ladder tiles in each
+            window), and K=37 in windows of kc=3 (csr_k_block) on the odd
+            graph (windows off 16 bytes: the 4-byte copies), kernels vs
+            plain
   kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
             both K-blocked paths on the card against the CPU float64
             `xla` path
 
-Then one `kernels` line (per kernel: launches on its path, error against
-the plain version, kernel / plain time, the card's lower bound for the
-same work) and, last, {"ok": true, "device": {...}}. The ring and mesh
+Then one `side_by_side` line (with --against: each named kernel on the
+inputs of its timing phase (`full`, `vmem_full`, `ring_full`, `kb_full`)
+under this tree's library and the other one, outputs compared bit for bit
+and both timed as `full` times a kernel and its plain version), one
+`kernels` line (per kernel: launches on its path, error against the plain
+version, kernel / plain time, the card's lower bound for the same work)
+and, last, {"ok": true, "device": {...}}. The ring and mesh
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
 
@@ -157,9 +173,12 @@ bit for bit (torch.equal).
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -184,6 +203,7 @@ HUB_K = (37, 1000, 1024)
 PARITY = dict(n=2400, k=100, p_in=0.3, seed=0)
 XLK = dict(n=60_000, k=3000, p_in=0.5, seed=3)
 KB_ODD_K = 1100
+KB_ODD_KC = 3             # csr_k_block windows that start off 16 bytes
 KB_PARITY_KC = 32
 SPARSE_M = 64
 SPARSE_ODD_M = (5, 37)
@@ -212,6 +232,7 @@ KERNELS = {
         source="bigclam_tpu_torch/csrc/candidates.cu",
         replaces="bigclam_tpu/ops/pallas_csr.py:409",
         tpu_kernel="candidates_csr",
+        redesigned="kernel A's tails and staged candidate ladder (ladder_pass)",
     ),
     # the K-blocked kernels: one CUDA kernel for each pair of TPU twins
     "edge_dots_kb": dict(
@@ -231,6 +252,7 @@ KERNELS = {
         replaces="bigclam_tpu/ops/pallas_fused.py:760",
         tpu_kernel="cand_dots_fused",
         also_replaces="bigclam_tpu/ops/pallas_csr.py:585 (cand_dots_csr)",
+        redesigned="the staged candidate ladder over a column window, with row groups",
     ),
     "cand_from_x": dict(
         source="bigclam_tpu_torch/csrc/cand_from_x.cu",
@@ -263,7 +285,8 @@ KERNELS = {
 }
 RING = ("ring_grad_phase", "ring_cand_phase")
 # the staged candidate ladder (csrc/edge_common.cuh `ladder_range`)
-LADDER = ("fused_superstep", "ring_cand_phase", "candidate_edge_terms")
+LADDER = ("fused_superstep", "candidates_csr", "ring_cand_phase",
+          "candidate_edge_terms", "cand_dots_kb")
 RING_DP = 4
 RING_ODD_DP = 3
 RING_ODD_K = (37, 1024)
@@ -310,6 +333,13 @@ LIBRARY_NOTES = {
         "their log-survival edge terms and per-node sums"
     ),
 }
+
+
+# --against: other trees' kernel libraries by directory, {"lib": the bound
+# library, "kernels": the KERNELS names to set beside this tree's}; and the
+# side_by_side results, {kernel: {directory: {...}}}
+AGAINST = {}
+SIDE = {}
 
 
 def emit(obj) -> None:
@@ -562,6 +592,158 @@ def profile_call(fn, top: int = 8) -> dict:
     }
 
 
+@contextlib.contextmanager
+def using_library(lib):
+    """The port's wrappers launch through the kernel library `lib` inside
+    the block."""
+    from bigclam_tpu_torch.ops import build
+
+    keep, build._LIBRARY = build._LIBRARY, lib
+    try:
+        yield
+    finally:
+        build._LIBRARY = keep
+
+
+def tensors(out) -> list:
+    """The tensors of a (nested) result, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in tensors(o)]
+    return []
+
+
+def side_by_side(name: str, fn) -> None:
+    """fn() (fresh outputs on every call) under this tree's kernel library
+    and under each --against library that names kernel `name`: the outputs
+    compared bit for bit, and both timed as time_pair times a kernel and its
+    plain version (this tree's as "ms", the other's as "against_ms")."""
+    for tag, other in AGAINST.items():
+        if name not in other["kernels"]:
+            continue
+
+        def theirs():
+            with using_library(other["lib"]):
+                return fn()
+
+        a, b = tensors(fn()), tensors(theirs())
+        torch.cuda.synchronize()
+        equal = len(a) == len(b) and all(
+            x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+        diff = max((float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a, b) if x.shape == y.shape and x.numel()),
+                   default=0.0)
+        del a, b
+        t = time_pair(fn, theirs)
+        SIDE.setdefault(name, {})[tag] = {
+            "bit_equal": equal, "max_abs_diff": diff,
+            "ms": t["ms"], "against_ms": t["plain_ms"],
+            "ms_runs": t["ms_runs"], "against_ms_runs": t["plain_ms_runs"],
+        }
+
+
+def kernel_function(mangled: str) -> str:
+    """`name<N>` of a mangled kernel `[namespaces::]name<N>(...)` (Itanium
+    ABI: length-prefixed names, then ILi<N>E for an int template
+    argument), so that two builds' anonymous namespaces compare equal."""
+    nested = mangled.startswith("_ZN")
+    pos, name = 3 if nested else 2, None
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(digits)
+        name = mangled[pos : pos + int(digits)]
+        pos += int(digits)
+        if not nested:
+            break
+    if name is None:
+        return mangled
+    t = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def sass_opcodes(lib_path) -> dict:
+    """{kernel function: its SASS opcodes in order (modifiers kept,
+    operands and predicates dropped)} of a kernel library, from cuobjdump;
+    a function is named by its kernel and template argument, e.g.
+    `fused_superstep_kernel<32>`."""
+    from bigclam_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = kernel_function(m.group(1))
+            out[fn] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@\S+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m and fn:
+            out[fn].append(m.group(1))
+    return out
+
+
+def phase_against(specs) -> dict:
+    """Build each --against DIR=KERNELS library and set the SASS of every
+    kernel function of the named kernels' sources beside this tree's."""
+    from pathlib import Path
+
+    from bigclam_tpu_torch.ops import build
+
+    if not specs:
+        return {"skipped": "no --against DIR=KERNELS given"}
+    ours = sass_opcodes(build.library_path())
+    out = {}
+    for spec in specs:
+        d, _, names = spec.partition("=")
+        kernels = [k for k in names.split(",") if k]
+        unknown = sorted(set(kernels) - set(KERNELS))
+        if not kernels or unknown:
+            raise ValueError(f"--against {spec}: name kernels of {sorted(KERNELS)}")
+        res = build.build(Path(d).resolve())
+        AGAINST[d] = {"lib": build.bind(res["path"]), "kernels": kernels}
+        theirs = sass_opcodes(res["path"])
+        stems = {source_name(k).removesuffix("_kb") for k in kernels}
+        funcs = {
+            f: {"instructions": len(ours.get(f, [])),
+                "against_instructions": len(theirs.get(f, [])),
+                "same_opcodes": ours.get(f) == theirs.get(f)}
+            for f in sorted(set(ours) | set(theirs))
+            if any(f.startswith(st) for st in stems)
+        }
+        out[d] = {
+            "kernels": kernels, "build_s": res["seconds"],
+            "ptxas": {k: ptxas_kernels(res["logs"].get(source_name(k), ""))
+                      for k in kernels},
+            "sass": funcs,
+        }
+    return out
+
+
+def ladder_tiles(degrees) -> dict:
+    """The staged ladder's tiles over whole neighbourhoods of these
+    degrees, by the row groups (8 rows each) a tile with row groups runs:
+    a full tile 4, the last one ceil(rows / 8). Every tile takes the same
+    number of column chunks, so the shares are also the shares of stages;
+    `rows_per_tile` is the edges over the tiles."""
+    from bigclam_tpu_torch.ops.csr_kernels import LADDER_ROWS
+
+    d = np.asarray(degrees, np.int64)
+    d = d[d > 0]
+    rem = d % LADDER_ROWS
+    groups = np.bincount(-(-rem[rem > 0] // 8), minlength=5)
+    groups[4] += int((d // LADDER_ROWS).sum())
+    tiles = int(groups.sum())
+    return {
+        "tiles": tiles,
+        "by_row_groups": {g: int(groups[g]) for g in range(1, 5)},
+        "share": {g: float(groups[g]) / tiles for g in range(1, 5)},
+        "rows_per_tile": float(d.sum()) / tiles,
+    }
+
+
 def bounds(n: int, e: int, k: int, s: int) -> dict:
     """Least time the card could take for each kernel's work at these
     inputs: max(bytes moved once / HBM rate, float32 operations / FP32
@@ -658,8 +840,6 @@ def phase_card() -> dict:
 def ptxas_kernels(log: str) -> dict:
     """{kernel function (mangled): {"registers", "spill_stores",
     "spill_loads"}} from one source's `ptxas -v` report."""
-    import re
-
     out, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$",
@@ -677,6 +857,11 @@ def ptxas_kernels(log: str) -> dict:
     return {f: v for f, v in out.items() if "registers" in v}
 
 
+def source_name(kernel: str) -> str:
+    """The csrc/ source (build.SOURCES name) of a KERNELS entry."""
+    return os.path.basename(KERNELS[kernel]["source"]).removesuffix(".cu")
+
+
 def phase_build() -> dict:
     from bigclam_tpu_torch.ops import build
     from bigclam_tpu_torch.ops.csr_kernels import ladder_launch_plan
@@ -689,10 +874,11 @@ def phase_build() -> dict:
         ]
         for name, log in res["logs"].items()
     }
-    # the ladder kernels per KPL bucket (#9 and #14 have one instantiation
-    # for all K) and the staged gather of #8
-    ladder = {name: ptxas_kernels(res["logs"][name])
-              for name in (*LADDER, "ring_grad_phase") if name in res["logs"]}
+    # the ladder kernels per KPL bucket (C, #9, #14 and cand_dots_kb have
+    # one instantiation for all K) and the staged gather of #8
+    ladder = {name: ptxas_kernels(res["logs"][source_name(name)])
+              for name in (*LADDER, "ring_grad_phase")
+              if source_name(name) in res["logs"]}
     plans = {name: {k: ladder_launch_plan(name, k) for k in (32, 64, 128, 256, 512, 1024)}
              for name in LADDER}
     return {"build_s": res["seconds"], "cached": res["cached"],
@@ -884,6 +1070,8 @@ def phase_full(g, F_host):
         ),
     }
     times = {name: time_pair(kern, plain) for name, (kern, plain) in calls.items()}
+    for name in ("fused_superstep", "candidates_csr"):
+        side_by_side(name, calls[name][0])
     bnd = bounds(g.num_nodes, g.num_directed_edges, FULL["k"],
                  len(cfg.step_candidates))
     return checks, times, bnd, {
@@ -891,6 +1079,7 @@ def phase_full(g, F_host):
             n: {**checks[n].parts, **times[n], **bnd[n]} for n in SINGLE_PASS
         },
         "k_pad": int(F.shape[1]),
+        "ladder_tiles": ladder_tiles(g.degrees),
     }
 
 
@@ -1017,6 +1206,7 @@ def phase_kb_full(g, F_host):
     times = {name: time_pair(kern, pl) for name, (kern, pl) in calls.items()}
     for name in calls:
         times[name]["library_ms"] = None
+    side_by_side("cand_dots_kb", calls["cand_dots_kb"][0])
     # the one library call that computes a K-blocked kernel's function:
     # every edge's full dot, sampled from F F^T on the CSR pattern
     pattern = torch.sparse_csr_tensor(
@@ -1054,23 +1244,36 @@ def phase_kb_full(g, F_host):
             for name in K_BLOCKED
         },
         "step": step, "kc": kc, "k_pad": k_pad,
+        "ladder_tiles": ladder_tiles(g.degrees),
+    }
+
+
+def kb_odd_case(k: int, csr_k_block: int = 0, g=None) -> dict:
+    """The K-blocked kernels vs plain on odd_case(k, g) (isolated nodes and
+    an all-zero row) padded to the K-blocked layout of k."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import k_block_plan
+
+    F, csr, _ = odd_case(k, g)
+    kc, k_pad = k_block_plan(k, csr_k_block)
+    F = torch.nn.functional.pad(F, (0, k_pad - k)).contiguous()
+    cfg = BigClamConfig(num_communities=k)
+    checks = compare_kb_kernels(F, csr, cfg, kc, kb_plain_inputs(F, csr, cfg, kc))
+    return {
+        "n": int(F.shape[0]), "k": k, "kc": kc, "k_pad": k_pad,
+        "kernels": {n: c.parts for n, c in checks.items()},
     }
 
 
 def phase_kb_odd() -> dict:
-    """K=1,100 (two blocks of 576) on the odd graph: isolated nodes and an
-    all-zero row."""
-    from bigclam_tpu_torch.config import BigClamConfig
-    from bigclam_tpu_torch.models.bigclam import k_block_plan
-
-    F, csr, _ = odd_case(KB_ODD_K)
-    kc, k_pad = k_block_plan(KB_ODD_K)
-    F = torch.nn.functional.pad(F, (0, k_pad - KB_ODD_K)).contiguous()
-    cfg = BigClamConfig(num_communities=KB_ODD_K)
-    checks = compare_kb_kernels(F, csr, cfg, kc, kb_plain_inputs(F, csr, cfg, kc))
+    """K=1,100 (two blocks of 576) on the odd graph and on the hub graph,
+    and K=37 in windows of kc=3 on the odd graph."""
+    g = hub_graph()
     return {
-        "n": int(F.shape[0]), "k": KB_ODD_K, "kc": kc, "k_pad": k_pad,
-        "kernels": {n: c.parts for n, c in checks.items()},
+        **kb_odd_case(KB_ODD_K),
+        "hub": {**kb_odd_case(KB_ODD_K, g=g),
+                "degrees": [int(d) for d in g.degrees[:2]]},
+        f"kc{KB_ODD_KC}": kb_odd_case(ODD["k"], KB_ODD_KC),
     }
 
 
@@ -1479,6 +1682,9 @@ def phase_vmem_full(g, F_host):
         reps=2,
     )}
     times["candidate_edge_terms"]["library_ms"] = None
+    side_by_side("candidate_edge_terms", lambda: [
+        ek.candidate_edge_terms(F, grad, s, d, cfg, r)
+        for (s, d), r in zip(edges.slices(), edges.runs)])
     n, k = F.shape
     e, num_s = g.num_directed_edges, len(cfg.step_candidates)
     bnd = {"candidate_edge_terms": edge_terms_bound(n, e, k, num_s)}
@@ -2016,6 +2222,8 @@ def phase_ring_full(model, state):
     }
     for t in times.values():
         t["library_ms"] = None
+    side_by_side("ring_cand_phase", lambda: ring_sweep(
+        rk.ring_cand_phase, model, F, cand_accs(F, s), grad=grad))
     bnd = ring_bounds(model, FULL["k"], s)
     return checks, times, bnd, {
         "kernels": {n: {**checks[n].parts, **times[n], **bnd[n]} for n in RING},
@@ -2174,7 +2382,15 @@ def phase_mesh_parity(tmp) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--against", action="append", default=[], metavar="DIR=KERNELS",
+        help="another tree's kernel sources (a csrc directory with this "
+        "tree's C signatures) and the KERNELS names, comma-separated, to set "
+        "beside this tree's build: SASS, outputs bit for bit, times",
+    )
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2192,6 +2408,7 @@ def main() -> int:
 
     run("card", phase_card)
     run("build", phase_build)
+    run("against", phase_against, args.against)
     run("odd", phase_odd)
     ring_odd_checks, _ = run("ring_odd", phase_ring_odd)
     run("sparse_odd", phase_sparse_odd)
@@ -2270,6 +2487,8 @@ def main() -> int:
         "candidate_edge_terms": vmem_counts["candidate_edge_terms"],
         **{name: ring_counts[name] for name in RING},
     }
+    emit({"phase": "side_by_side", "kernels": SIDE} if AGAINST else
+         {"phase": "side_by_side", "skipped": "no --against DIR=KERNELS given"})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", **KERNELS[name],

@@ -69,11 +69,30 @@ def _random_graph(seed, n=57, p=0.12, isolated=()):
     return jax_graph_from_edges(edges, num_nodes=n)
 
 
-# (graph seed, K, kc, isolated nodes, all-zero F row, Armijo ladder length)
+def _hub_graph(isolated, n=240, degrees=(96, 75), p=0.01, seed=8):
+    """A sparse random graph plus hubs: node i gets `degrees[i]` random
+    neighbours (three 32-row tiles of the CUDA kernels' candidate ladder),
+    and the isolated nodes lose their edges."""
+    rng = np.random.default_rng(seed)
+    a = np.triu(rng.random((n, n)) < p, 1)
+    for hub, deg in enumerate(degrees):
+        others = np.setdiff1d(np.arange(n), [hub, *isolated])
+        a[hub, rng.choice(others, deg, replace=False)] = True
+    a = a | a.T
+    a[list(isolated), :] = False
+    a[:, list(isolated)] = False
+    i, j = np.nonzero(np.triu(a, 1))
+    return jax_graph_from_edges(list(zip(i.tolist(), j.tolist())), num_nodes=n)
+
+
+# (graph seed or "hub", K, kc, isolated nodes, all-zero F row, Armijo ladder
+# length). kc = 3 windows start off 16 bytes (the kernel's 4-byte copies);
+# the hub's kc = 20 windows start on them (its 16-byte copies)
 CASES = {
     "fused_test_graph_k6_kc3": (0, 6, 3, (), None, 16),
     "k37_kc16_isolated_zero_row": (1, 37, 16, (3, 20), 11, 16),
     "short_ladder_k12_kc8": (2, 12, 8, (), None, 8),
+    "hub_k40_kc20": ("hub", 40, 20, (4, 30), 12, 16),
 }
 
 
@@ -82,7 +101,11 @@ class Case:
 
     def __init__(self, name):
         seed, k, kc, isolated, zero_row, num_s = CASES[name]
-        g = _random_graph(seed, isolated=isolated)
+        if seed == "hub":
+            g, seed = _hub_graph(isolated), 8
+            assert g.degrees[0] >= 96 and g.degrees[1] >= 75
+        else:
+            g = _random_graph(seed, isolated=isolated)
         assert all(g.degrees[u] == 0 for u in isolated)
         self.g, self.k, self.kc = g, k, kc
         self.n, self.e = g.num_nodes, g.num_directed_edges

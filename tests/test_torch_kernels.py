@@ -66,7 +66,15 @@ def _hub_graph(isolated, n=760, degrees=(100, 700), p=0.005, seed=5):
     return jax_graph_from_edges(list(zip(i.tolist(), j.tolist())), num_nodes=n)
 
 
-# (graph seed or "hub", K, isolated nodes, all-zero F row, Armijo ladder
+# the hub graphs by name: _hub_graph's arguments. "hub_tiles": a small
+# graph whose hubs (degrees 96 and 76) fill three 32-row ladder tiles each,
+# the last one whole or of 12 rows
+HUBS = {
+    "hub": dict(n=760, degrees=(100, 700), p=0.005, seed=5),
+    "hub_tiles": dict(n=240, degrees=(96, 75), p=0.01, seed=8),
+}
+
+# (graph seed or hub name, K, isolated nodes, all-zero F row, Armijo ladder
 # length)
 CASES = {
     "fused_test_graph": (0, 6, (), None, 16),
@@ -75,14 +83,16 @@ CASES = {
     "short_ladder": (3, 12, (), None, 8),
     "hub_k37": ("hub", 37, (3, 20), 11, 16),
     "hub_k100": ("hub", 100, (3, 20), 11, 16),
+    "hub_tiles_k37": ("hub_tiles", 37, (4, 30), 12, 16),
 }
 
 
 def _case(name):
     seed, k, isolated, zero_row, num_s = CASES[name]
-    if seed == "hub":
-        g, seed = _hub_graph(isolated), 5
-        assert g.degrees[0] >= 100 and g.degrees[1] >= 700
+    if seed in HUBS:
+        hub = HUBS[seed]
+        g, seed = _hub_graph(isolated, **hub), hub["seed"]
+        assert all(g.degrees[i] >= d for i, d in enumerate(hub["degrees"]))
     else:
         g = _random_graph(seed, isolated=isolated)
     assert all(g.degrees[u] == 0 for u in isolated)
@@ -211,7 +221,8 @@ def test_kernel_constants_are_float32_rounded():
         ck.kernel_constants(BigClamConfig(max_backtracks=16))
 
 
-LADDER_KERNELS = ("fused_superstep", "ring_cand_phase")
+# the ladder kernels with a per-bucket plan (#14's takes any K)
+LADDER_KERNELS = ("fused_superstep", "candidates_csr", "ring_cand_phase", "cand_dots_kb")
 
 
 def _header_constant(name):
@@ -229,7 +240,8 @@ def test_ladder_launch_plan_fits_one_block(kernel, k):
     """The launch plan the wrappers pass and the C entries check: the
     block's shared memory within Hopper's 227 KB, the opt-in above 48 KB,
     and the sizes of csrc/edge_common.cuh (`fused_smem_bytes`,
-    `ring_cand_smem_bytes`)."""
+    `candidates_smem_bytes`, `ring_cand_smem_bytes`,
+    `cand_dots_smem_bytes`)."""
     plan = ck.ladder_launch_plan(kernel, k)
     assert plan["smem_bytes"] <= 227 * 1024       # an H100 block's most
     assert plan["opt_in"] == (plan["smem_bytes"] > 48 * 1024)
@@ -239,14 +251,17 @@ def test_ladder_launch_plan_fits_one_block(kernel, k):
         _header_constant("kLadderRows"), _header_constant("kLadderChunk"))
     assert plan["warps_per_block"] == _header_constant("kWarpsPerBlock")
     ladder = 2 * plan["rows"] * (plan["chunk"] + 4) + 4 * (4 * plan["chunk"] + 4)
-    per_warp = ladder + (32 * kpl + 16 if kernel == "fused_superstep" else 0)
+    extra = {"fused_superstep": 32 * kpl + 16, "candidates_csr": 16}
+    per_warp = ladder + extra.get(kernel, 0)
     assert plan["smem_bytes"] == 4 * plan["warps_per_block"] * per_warp
 
 
 @pytest.mark.parametrize("kernel", LADDER_KERNELS)
 def test_ladder_launch_plan_refuses_k_outside_the_single_pass_range(kernel):
+    # cand_dots_kb's k is a K block's width: its message names that range
+    match = "1..1024" if kernel == "cand_dots_kb" else "csr_fused_kb"
     for k in (0, ck.MAX_K + 1, 3000):
-        with pytest.raises(ck.KernelKLimitError, match="csr_fused_kb"):
+        with pytest.raises(ck.KernelKLimitError, match=match):
             ck.ladder_launch_plan(kernel, k)
 
 

@@ -130,7 +130,7 @@ def test_ladder_plan_of_the_edge_terms_kernel_takes_any_k():
     with pytest.raises(ck.KernelKLimitError):
         ck.ladder_launch_plan("candidate_edge_terms", 0)
     with pytest.raises(ValueError):
-        ck.ladder_launch_plan("candidates_csr", 37)
+        ck.ladder_launch_plan("grad_llh_csr", 37)
 
 
 # --- visit orders ---------------------------------------------------------
