@@ -4,7 +4,8 @@
 // edge terms (candidate_edge_terms.cu) and the K-blocked ones
 // (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu, cand_from_x.cu), which
 // take a window of at most kMaxK columns of wider rows. The candidate
-// kernels (A, C, #9, #14 and cand_dots_kb) share the staged ladder below.
+// kernels (A, C, #9, #14 and cand_dots_kb) share the staged ladder below,
+// B and #8 the staged neighbour gradient (staged_grad_pass).
 //
 // Layout: the kernels read the graph's CSR directly. One warp owns one
 // source node u; its neighbours are the contiguous slice
@@ -237,35 +238,6 @@ __device__ __forceinline__ void for_each_neighbor(
   }
 }
 
-// Pass 1: neighbour gradient sum_v F_v / omp(F_u.F_v) into acc, and the
-// neighbour LLH sum_v ell (returned, the same in every lane). The
-// neighbour rows F_v are rows of Fd, which the CSR's indices index: F
-// itself on one device, the gathered F on a mesh's all-gather schedule,
-// the rotating shard in a ring phase.
-template <int KPL>
-__device__ __forceinline__ float grad_pass(
-    const float* __restrict__ Fd, const int64_t* __restrict__ indptr,
-    const int* __restrict__ indices, int u, int K, int lane,
-    const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
-#pragma unroll
-  for (int i = 0; i < KPL; ++i) acc[i] = 0.f;
-  float llh = 0.f;
-  for_each_neighbor(indptr, indices, u, lane, [&](int v) {
-    float fv[KPL];
-    load_row<KPL>(Fd, v, K, lane, fv);
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) part = fmaf(fu[i], fv[i], part);
-    const float x = warp_sum(part);
-    const float omp = survival(x, p);
-    const float coeff = 1.0f / omp;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) acc[i] = fmaf(fv[i], coeff, acc[i]);
-    llh += logf(omp) + x;
-  });
-  return llh;
-}
-
 // Fold: g <- nbr - sumF + F_u in place. Returns ||g||^2; `tail` gets the
 // node tail -F_u.sumF + F_u.F_u.
 template <int KPL>
@@ -300,7 +272,7 @@ __device__ __forceinline__ float fold_grad(const float* __restrict__ sumF,
 // cores. The function needs S(2K + 2)
 // operations per directed edge (about 272 GFLOP at N=300,000, K=1,024, 8.5 M
 // edges: 4.1 ms at 67 TFLOP/s) and one gathered neighbour row per edge
-// (34.8 GB there, which kernel B reads in about 10 ms with help from L2):
+// (34.8 GB there, which kernel B gathers with help from L2):
 //
 //  * the neighbours are taken in tiles of kLadderRows and K in chunks of
 //    kLadderChunk columns; per (tile, chunk) stage the warp builds nf_s for
@@ -599,11 +571,11 @@ __device__ __forceinline__ void ladder_range(
 }
 
 // For every candidate s, sum_v ell(nf_s . F_v) over u's neighbours, with F_v
-// rows of Fd (as in grad_pass) and F_u, g_u read by col(k, f, g) for k < K.
-// On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the same
-// bits in the 8 lanes of the group (0 for a node without neighbours); the
-// sums run over the tiles in CSR order. Arguments as in ladder_range, with
-// rows of K floats (ld = K).
+// rows of Fd (as in staged_grad_pass) and F_u, g_u read by col(k, f, g) for
+// k < K. On return out[c] holds the sum of candidate 4 (lane >> 3) + c, the
+// same bits in the 8 lanes of the group (0 for a node without neighbours);
+// the sums run over the tiles in CSR order. Arguments as in ladder_range,
+// with rows of K floats (ld = K).
 template <bool kRowGroups, typename Col>
 __device__ __forceinline__ void ladder_pass(
     const float* Fd, const int64_t* __restrict__ indptr,
@@ -614,6 +586,99 @@ __device__ __forceinline__ void ladder_pass(
   LadderSum sum{out};
   ladder_range<kRowGroups>(Fd, indices, indptr[u], indptr[u + 1], K, K, lane,
                            vec, p, sm, col, sum);
+}
+
+// ---------------------------------------------------------------------------
+// The staged neighbour gradient: kernels B (grad_llh.cu) and #8
+// (ring_grad_phase.cu) over a node's neighbourhood.
+//
+// Per neighbour the pass needs the dot F_u.F_v, a warp_sum, expm1f/logf and
+// a division before the axpy acc += F_v / omp can run. Loading each row
+// into registers and only then starting that chain leaves one row in
+// flight a warp. Here the warp stages the next
+// kGradStages - 1 rows of its neighbour list in shared memory by cp.async
+// (16-byte copies, 4-byte when K is not a multiple of 4 or the rows are not
+// 16-byte aligned) while it works on the current one. Lane j reads columns
+// j, j + 32, ... of each staged row (conflict-free shared reads), so every
+// dot and sum runs in neighbour order, in the same operations as a pass
+// over rows in registers would.
+constexpr int kGradStages = 3;  // staged rows a warp: one in use, two in flight
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies row v of Fd (K floats) into `dst`, the columns past K not written.
+__device__ __forceinline__ void stage_row(float* dst, const float* Fd, int v,
+                                          int K, int lane, bool vec) {
+  const float* src = Fd + static_cast<int64_t>(v) * K;
+  if (vec) {
+    for (int q = lane; 4 * q < K; q += kWarp)
+      cp_async16(dst + 4 * q, src + 4 * q, true);
+  } else {
+    for (int k = lane; k < K; k += kWarp) cp_async4(dst + k, src + k, true);
+  }
+}
+
+// Over the edges [e0, e1) with the rows indices[e] of Fd staged in `ring`
+// (kGradStages rows of 32 KPL floats): acc = sum_v F_v / omp(F_u.F_v),
+// returns sum_v ell (the same in every lane); acc = 0 and 0 for an empty
+// range. Fd is F itself on one device, the gathered F on a mesh's
+// all-gather schedule, the rotating shard in a ring phase.
+template <int KPL>
+__device__ __forceinline__ float staged_grad_pass(
+    const float* __restrict__ Fd, const int* __restrict__ indices, int64_t e0,
+    int64_t e1, int K, int lane, bool vec, float* ring,
+    const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
+  constexpr int kRow = kWarp * KPL;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) acc[i] = 0.f;
+  float llh = 0.f;
+  int64_t ei = e0;  // the next edge whose row is staged
+  int ids = 0;      // lane j: the id of edge e0 + 32 floor((ei - e0) / 32) + j
+  auto issue = [&](int slot) {
+    if (ei < e1) {
+      const int at = static_cast<int>((ei - e0) & (kWarp - 1));
+      if (at == 0) ids = ei + lane < e1 ? __ldg(indices + ei + lane) : 0;
+      stage_row(ring + slot * kRow, Fd, __shfl_sync(kFull, ids, at), K, lane, vec);
+    }
+    ++ei;
+    cp_async_commit();  // one group an edge, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < kGradStages - 1; ++s) issue(s);
+  int slot = 0;
+  for (int64_t e = e0; e < e1; ++e) {
+    issue(slot == 0 ? kGradStages - 1 : slot - 1);
+    cp_async_wait<kGradStages - 1>();  // edge e's row has landed
+    __syncwarp();
+    float fv[KPL];
+    const float* row = ring + slot * kRow;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int k = lane + kWarp * i;
+      fv[i] = k < K ? row[k] : 0.f;
+    }
+    __syncwarp();  // the slot is free for the next issue
+    slot = slot == kGradStages - 1 ? 0 : slot + 1;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) part = fmaf(fu[i], fv[i], part);
+    const float x = warp_sum(part);
+    const float omp = survival(x, p);
+    const float coeff = 1.0f / omp;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) acc[i] = fmaf(fv[i], coeff, acc[i]);
+    llh += logf(omp) + x;
+  }
+  return llh;
+}
+
+// Shared-memory bytes of one block (4 warps) of the staged gradient kernels
+// at KPL columns a lane: 48 KB at KPL 32.
+constexpr int grad_smem_bytes(int kpl) {
+  return 4 * kWarpsPerBlock * kGradStages * kWarp * kpl;
 }
 
 // Shared-memory bytes of one block of the ladder kernels (4 warps): kernel A

@@ -12,14 +12,24 @@
 // What bounds it on this card: memory. The function needs ~4 float32
 // operations per column per directed edge, and its bytes (F read once, grad
 // written once) take longer than that at the card's rates. The kernel reads
-// one 4 K-byte neighbour row per directed edge, which L2 serves in part;
-// every node's sum runs in a warp's registers with no atomics and no
-// gathered (E, K) buffer (the TPU path's `fd` gather is gone).
+// one 4 K-byte neighbour row per directed edge (34.9 GB at N=300,000,
+// K=1,024, 8.5 M edges: 10.4 ms at 3.35 TB/s if L2 served none of them).
+// Every node's sum runs in a warp's registers with no atomics and no
+// gathered (E, K) buffer (the TPU path's `fd` gather is gone), and the
+// neighbour rows are staged kGradStages - 1 edges ahead in shared memory
+// by cp.async (edge_common.cuh `staged_grad_pass`, shared with ring kernel
+// #8), so a warp keeps rows in flight while the dependent dot, warp_sum,
+// transcendentals and axpy of the current edge run. On one card the
+// graph's own id order is the locality order, so no visit order is taken:
+// warps resident together gather the rows of neighbouring nodes, which L2
+// holds. A node without an edge still gets its fold and tail
+// (grad = F_u - sumF).
 #include "edge_common.cuh"
 
 namespace {
 
 using bigclam::StepParams;
+using bigclam::kGradStages;
 using bigclam::kWarp;
 using bigclam::kWarpsPerBlock;
 
@@ -29,29 +39,39 @@ grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ F_dst,
                 const float* __restrict__ sumF,
                 const int64_t* __restrict__ indptr,
                 const int* __restrict__ indices, int n, int K, StepParams p,
-                float* __restrict__ grad, float* __restrict__ node_llh) {
+                bool vec, float* __restrict__ grad,
+                float* __restrict__ node_llh) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x & (kWarp - 1);
-  const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
+  const int u = blockIdx.x * kWarpsPerBlock + warp;
   if (u >= n) return;  // whole warp
   float fu[KPL];
   bigclam::load_row<KPL>(F, u, K, lane, fu);
   float g[KPL];
-  const float llh_nbr =
-      bigclam::grad_pass<KPL>(F_dst, indptr, indices, u, K, lane, fu, g, p);
+  const float llh_nbr = bigclam::staged_grad_pass<KPL>(
+      F_dst, indices, indptr[u], indptr[u + 1], K, lane, vec,
+      reinterpret_cast<float*>(smem4) + warp * kGradStages * kWarp * KPL, fu,
+      g, p);
   float tail;
   bigclam::fold_grad<KPL>(sumF, K, lane, fu, g, tail);
   bigclam::store_row<KPL>(grad, u, K, lane, g);
   if (lane == 0) node_llh[u] = llh_nbr + tail;
 }
 
+// every KPL bucket's ring fits the default shared memory: no opt-in
+static_assert(bigclam::grad_smem_bytes(bigclam::kMaxK / kWarp) <=
+              bigclam::kSmemDefault);
+
 template <int KPL>
 void launch(const float* F, const float* F_dst, const float* sumF,
             const int64_t* indptr, const int* indices, int n, int K,
-            const StepParams& p, float* grad, float* node_llh,
+            const StepParams& p, bool vec, float* grad, float* node_llh,
             cudaStream_t stream) {
+  constexpr int smem = bigclam::grad_smem_bytes(KPL);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  grad_llh_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
-      F, F_dst, sumF, indptr, indices, n, K, p, grad, node_llh);
+  grad_llh_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, smem, stream>>>(
+      F, F_dst, sumF, indptr, indices, n, K, p, vec, grad, node_llh);
 }
 
 }  // namespace
@@ -67,9 +87,11 @@ extern "C" int bigclam_grad_llh(const float* F, const float* F_dst,
   // the survival clip bounds only: no ladder
   const StepParams p =
       bigclam::make_params(nullptr, nullptr, 0, omp_lo, omp_hi, 0.f, 0.f);
+  // 16-byte copies need every row of F_dst to start on 16 bytes
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(F_dst) % 16 == 0;
   int rc = cudaSuccess;
   BIGCLAM_DISPATCH_KPL(K, launch, rc, F, F_dst, sumF, indptr, indices, n, K, p,
-                       grad, node_llh, static_cast<cudaStream_t>(stream));
+                       vec, grad, node_llh, static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return rc;
   return cudaGetLastError();
 }

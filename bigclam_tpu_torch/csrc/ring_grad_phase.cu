@@ -29,101 +29,22 @@
 //    so any order gives the same bits. Rows without an edge are not in it,
 //    so no warp is spent on them. A null order visits all n rows in order;
 //  * rows in flight: the warp stages the next kGradStages - 1 rows of its
-//    neighbour list in shared memory by cp.async (16-byte copies, 4-byte
-//    when K is not a multiple of 4) while it works on the current one.
-//    Before (edge_common.cuh `grad_pass`, kernel B's) a warp loaded one row
-//    into registers, then ran a dependent warp_sum, the transcendentals and
-//    the axpy before the next row's load could start.
-// Lane j reads columns j, j + 32, ... of each staged row (conflict-free
-// shared reads), so each dot runs in grad_pass's order and the kernel's
-// results equal that pass's bit for bit. A node with no neighbour in the
-// bucket leaves its accumulator row untouched. The TPU kernel's blocked
-// tiles, one-hot matmuls and DMA double buffer have no counterpart: the
-// bucket is a CSR over the shard's rows.
+//    neighbour list in shared memory by cp.async while it runs the
+//    dependent warp_sum, transcendentals and axpy of the current one
+//    (edge_common.cuh `staged_grad_pass`, which kernel B shares).
+// Each dot and sum runs in neighbour order, so the results do not depend on
+// the staging. A node with no neighbour in the bucket leaves its accumulator
+// row untouched. The TPU kernel's blocked tiles, one-hot matmuls and DMA
+// double buffer have no counterpart: the bucket is a CSR over the shard's
+// rows.
 #include "edge_common.cuh"
 
 namespace {
 
 using bigclam::StepParams;
-using bigclam::kFull;
+using bigclam::kGradStages;
 using bigclam::kWarp;
 using bigclam::kWarpsPerBlock;
-
-constexpr int kGradStages = 3;  // staged rows a warp: one in use, two in flight
-
-// Shared-memory bytes of one block at KPL columns a lane.
-inline int grad_smem_bytes(int kpl) {
-  return 4 * kWarpsPerBlock * kGradStages * kWarp * kpl;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copies row v of Fd (K floats) into `dst`, the columns past K not written.
-__device__ __forceinline__ void stage_row(float* dst, const float* Fd, int v,
-                                          int K, int lane, bool vec) {
-  const float* src = Fd + static_cast<int64_t>(v) * K;
-  if (vec) {
-    for (int q = lane; 4 * q < K; q += kWarp)
-      bigclam::cp_async16(dst + 4 * q, src + 4 * q, true);
-  } else {
-    for (int k = lane; k < K; k += kWarp) bigclam::cp_async4(dst + k, src + k, true);
-  }
-}
-
-// grad_pass over the edges [e0, e1) with the rows staged in `ring`
-// (kGradStages rows of 32 KPL floats): acc = sum_v F_v / omp(F_u.F_v),
-// returns sum_v ell (the same in every lane).
-template <int KPL>
-__device__ __forceinline__ float staged_grad_pass(
-    const float* __restrict__ Fd, const int* __restrict__ indices, int64_t e0,
-    int64_t e1, int K, int lane, bool vec, float* ring,
-    const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
-  constexpr int kRow = kWarp * KPL;
-#pragma unroll
-  for (int i = 0; i < KPL; ++i) acc[i] = 0.f;
-  float llh = 0.f;
-  int64_t ei = e0;  // the next edge whose row is staged
-  int ids = 0;      // lane j: the id of edge e0 + 32 floor((ei - e0) / 32) + j
-  auto issue = [&](int slot) {
-    if (ei < e1) {
-      const int at = static_cast<int>((ei - e0) & (kWarp - 1));
-      if (at == 0) ids = ei + lane < e1 ? __ldg(indices + ei + lane) : 0;
-      stage_row(ring + slot * kRow, Fd, __shfl_sync(kFull, ids, at), K, lane, vec);
-    }
-    ++ei;
-    bigclam::cp_async_commit();  // one group an edge, empty past the end
-  };
-#pragma unroll
-  for (int s = 0; s < kGradStages - 1; ++s) issue(s);
-  int slot = 0;
-  for (int64_t e = e0; e < e1; ++e) {
-    issue(slot == 0 ? kGradStages - 1 : slot - 1);
-    cp_async_wait<kGradStages - 1>();  // edge e's row has landed
-    __syncwarp();
-    float fv[KPL];
-    const float* row = ring + slot * kRow;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int k = lane + kWarp * i;
-      fv[i] = k < K ? row[k] : 0.f;
-    }
-    __syncwarp();  // the slot is free for the next issue
-    slot = slot == kGradStages - 1 ? 0 : slot + 1;
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) part = fmaf(fu[i], fv[i], part);
-    const float x = bigclam::warp_sum(part);
-    const float omp = bigclam::survival(x, p);
-    const float coeff = 1.0f / omp;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) acc[i] = fmaf(fv[i], coeff, acc[i]);
-    llh += logf(omp) + x;
-  }
-  return llh;
-}
 
 template <int KPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
@@ -146,7 +67,7 @@ ring_grad_phase_kernel(const float* __restrict__ F_loc,
   float fu[KPL];
   bigclam::load_row<KPL>(F_loc, u, K, lane, fu);
   float part[KPL];
-  const float llh = staged_grad_pass<KPL>(
+  const float llh = bigclam::staged_grad_pass<KPL>(
       F_rot, indices, e0, e1, K, lane, vec,
       reinterpret_cast<float*>(smem4) + warp * kGradStages * kWarp * KPL, fu,
       part, p);
@@ -165,7 +86,7 @@ void launch(const float* F_loc, const float* F_rot, const int64_t* indptr,
             const int* indices, const int* order, int m, int K,
             const StepParams& p, bool vec, float* gn, float* ln,
             cudaStream_t stream, int& rc) {
-  const int smem = grad_smem_bytes(KPL);
+  const int smem = bigclam::grad_smem_bytes(KPL);
   if (smem > bigclam::kSmemDefault) {
     rc = cudaFuncSetAttribute(ring_grad_phase_kernel<KPL>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -10,8 +10,9 @@ exits non-zero:
   build     nvcc builds every kernel source under bigclam_tpu_torch/csrc/
             for sm_90a, one process per source, all started together,
             and links them into one library; the registers and spill bytes
-            of the five staged-ladder kernels (A, C, #9, #14, cand_dots_kb)
-            per KPL bucket and of #8, and the ladder kernels' launch plans
+            of every redesigned kernel (the staged ladder's A, C, #9, #14,
+            cand_dots_kb, the staged gradient's B and #8, the member
+            lookup) per instantiation, and the ladder kernels' launch plans
   against   with --against DIR=KERNELS (any number of them; DIR holds
             another tree's kernel sources, e.g. an earlier commit's
             bigclam_tpu_torch/csrc unpacked into a git-ignored directory,
@@ -33,7 +34,9 @@ exits non-zero:
   sparse_odd the member-lookup kernel against its plain version, bit for
             bit, on the odd case's sparse state at M=5 (M < K, truncating)
             and M=37 (not a multiple of 32), before and after a support
-            update, plus a random edge batch at M=1
+            update, plus a random edge batch at M=1, and random member
+            rows of 1,100 ids (above the table's k_pad of 1,024: the
+            staged search) at M=37 and 64 on the graph's edges
   vmem_odd  the candidate edge-terms kernel against its plain version on
             the odd graph at K=37 and K=1,100, in edge chunks of 1,000
             (not a multiple of 32, the last one ragged); then on the hub
@@ -148,7 +151,8 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
             `xla` path
 
 Then one `side_by_side` line (with --against: each named kernel on the
-inputs of its timing phase (`full`, `vmem_full`, `ring_full`, `kb_full`)
+inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
+`ring_full`, `kb_full`)
 under this tree's library and the other one, outputs compared bit for bit
 and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
@@ -207,6 +211,7 @@ KB_ODD_KC = 3             # csr_k_block windows that start off 16 bytes
 KB_PARITY_KC = 32
 SPARSE_M = 64
 SPARSE_ODD_M = (5, 37)
+SPARSE_SEARCH_K = 1100    # k_pad above the member lookup's table (1,024)
 SPARSE_PARITY_M = (16, 100)
 VMEM_ODD_K = (37, 1100)
 VMEM_ODD_CHUNK = 1000
@@ -227,6 +232,7 @@ KERNELS = {
         source="bigclam_tpu_torch/csrc/grad_llh.cu",
         replaces="bigclam_tpu/ops/pallas_csr.py:333",
         tpu_kernel="grad_llh_csr",
+        redesigned="neighbour rows staged by cp.async (edge_common.cuh staged_grad_pass)",
     ),
     "candidates_csr": dict(
         source="bigclam_tpu_torch/csrc/candidates.cu",
@@ -263,6 +269,8 @@ KERNELS = {
         source="bigclam_tpu_torch/csrc/member_lookup.cu",
         replaces="bigclam_tpu/ops/sparse_members.py:234",
         tpu_kernel="member_lookup_pallas",
+        redesigned=("spans of 32 edges a warp, u's ids in registers, v's members in a "
+                    "tagged id table (k_pad <= 1,024), else staged by cp.async and searched"),
     ),
     "candidate_edge_terms": dict(
         source="bigclam_tpu_torch/csrc/candidate_edge_terms.cu",
@@ -874,15 +882,16 @@ def phase_build() -> dict:
         ]
         for name, log in res["logs"].items()
     }
-    # the ladder kernels per KPL bucket (C, #9, #14 and cand_dots_kb have
-    # one instantiation for all K) and the staged gather of #8
-    ladder = {name: ptxas_kernels(res["logs"][source_name(name)])
-              for name in (*LADDER, "ring_grad_phase")
-              if source_name(name) in res["logs"]}
+    # the redesigned kernels per instantiation (KPL bucket of the ladder
+    # and staged-gradient kernels; C, #9, #14 and cand_dots_kb have one for
+    # all K; the member lookup's lane groups and spans by M)
+    redesigned = {name: ptxas_kernels(res["logs"][source_name(name)])
+                  for name in KERNELS if "redesigned" in KERNELS[name]
+                  and source_name(name) in res["logs"]}
     plans = {name: {k: ladder_launch_plan(name, k) for k in (32, 64, 128, 256, 512, 1024)}
              for name in LADDER}
     return {"build_s": res["seconds"], "cached": res["cached"],
-            "ladder_ptxas": ladder, "ladder_plan": plans, "ptxas": regs}
+            "redesigned_ptxas": redesigned, "ladder_plan": plans, "ptxas": regs}
 
 
 def odd_graph():
@@ -1070,7 +1079,7 @@ def phase_full(g, F_host):
         ),
     }
     times = {name: time_pair(kern, plain) for name, (kern, plain) in calls.items()}
-    for name in ("fused_superstep", "candidates_csr"):
+    for name in SINGLE_PASS:
         side_by_side(name, calls[name][0])
     bnd = bounds(g.num_nodes, g.num_directed_edges, FULL["k"],
                  len(cfg.step_candidates))
@@ -1377,6 +1386,18 @@ def phase_sparse_odd() -> dict:
     src = torch.as_tensor(rng.integers(0, n, 10_001), device=dev)
     dst = torch.as_tensor(rng.integers(0, n, 10_001), device=dev)
     compare_member(check, "m1_random", ids, w, EdgeChunks(src, dst, 10_001), k)
+    # the staged search: random member rows of SPARSE_SEARCH_K ids on the
+    # graph's edges, 4-byte copies at M=37 and 16-byte at M=64
+    for m in (37, 64):
+        ids = np.sort(np.argsort(rng.random((n, SPARSE_SEARCH_K)), axis=1)[:, :m], axis=1)
+        pad = np.arange(m) >= rng.integers(0, m + 1, n)[:, None]
+        ids[pad] = SPARSE_SEARCH_K
+        w = rng.random((n, m))
+        w[pad] = 0.0
+        compare_member(check, f"m{m}_k{SPARSE_SEARCH_K}_search",
+                       torch.as_tensor(ids, dtype=torch.int32, device=dev),
+                       torch.as_tensor(w, dtype=torch.float32, device=dev),
+                       edges, SPARSE_SEARCH_K)
     out["kernels"] = {"member_lookup": check.parts}
     return out
 
@@ -1441,13 +1462,13 @@ def phase_sparse_full(g, state):
 
     def sweep(fn):
         def run():
-            for s, d in edges.slices():
-                fn(ids, w, s, d, k_pad)
+            return [fn(ids, w, s, d, k_pad) for s, d in edges.slices()]
         return run
 
     times = {"member_lookup": time_pair(sweep(sm.member_lookup_rows),
                                         sweep(sm.member_lookup_rows_plain))}
     times["member_lookup"]["library_ms"] = None
+    side_by_side("member_lookup", sweep(sm.member_lookup_rows))
     e, m = g.num_directed_edges, model.m
     bnd = {"member_lookup": member_bound(g.num_nodes, e, m)}
 
@@ -2222,6 +2243,8 @@ def phase_ring_full(model, state):
     }
     for t in times.values():
         t["library_ms"] = None
+    side_by_side("ring_grad_phase", lambda: ring_sweep(
+        rk.ring_grad_phase, model, F, grad_accs(F)))
     side_by_side("ring_cand_phase", lambda: ring_sweep(
         rk.ring_cand_phase, model, F, cand_accs(F, s), grad=grad))
     bnd = ring_bounds(model, FULL["k"], s)

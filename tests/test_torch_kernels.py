@@ -307,6 +307,92 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     _close(Fn_k.cpu().numpy()[rows], Fn_p.cpu().numpy()[rows])
 
 
+def _planted_hub_graph():
+    """chip_smoke.py's hub graph: 40 planted blocks of 20 nodes (p_in 0.3),
+    node i joined to 100 and 700 random nodes (degrees 105 and 700 with
+    their block edges), and 5 isolated nodes."""
+    from bigclam_tpu_torch.graph.ingest import graph_from_edges
+    from bigclam_tpu_torch.models.agm import sample_planted_graph
+
+    rng = np.random.default_rng(5)
+    g0, _ = sample_planted_graph(800, 40, p_in=0.3, rng=rng)
+    pairs = [np.stack([g0.src, g0.dst], axis=1)]
+    for hub, deg in enumerate((100, 700)):
+        nbrs = rng.choice(np.setdiff1d(np.arange(800), [hub]), deg, replace=False)
+        pairs.append(np.stack([np.full(deg, hub), nbrs], axis=1))
+    return graph_from_edges(np.concatenate(pairs), num_nodes=805)
+
+
+def _grad_case(g, k, device, seed=7):
+    F = np.random.default_rng(seed).uniform(0.0, 1.0, (g.num_nodes, k))
+    F[11] = 0.0
+    Ft = torch.as_tensor(F, dtype=torch.float32, device=device)
+    return Ft, Ft.sum(dim=0), BigClamConfig(num_communities=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [37, 1000, 1024])
+def test_cuda_grad_llh_on_the_hub_graph(k, cuda_device):
+    """Kernel B (staged rows; 4-byte copies at K=37) against its plain
+    version in float64 at rtol = atol = 3e-5 on a graph with hubs of degree
+    105 and 700 and isolated nodes."""
+    g = _planted_hub_graph()
+    assert [int(d) for d in g.degrees[:2]] == [105, 700]
+    Ft, sumF, cfg = _grad_case(g, k, cuda_device)
+    csr = g.to_device(cuda_device)
+    before = ck.grad_llh_csr.launches
+    grad_k, llh_k = ck.grad_llh_csr(Ft, sumF, csr, cfg)
+    torch.cuda.synchronize()
+    assert ck.grad_llh_csr.launches == before + 1
+    grad_p, llh_p = ck.grad_llh_csr_plain(Ft.double(), sumF.double(), csr, cfg)
+    _close(grad_k.double().cpu().numpy(), grad_p.cpu().numpy())
+    _close(llh_k.double().cpu().numpy(), llh_p.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [37, 1000])
+def test_cuda_grad_llh_reads_neighbour_rows_of_a_gathered_f(k, cuda_device):
+    """The all-gather form: the rows [lo, hi) of the hub graph (the
+    degree-700 hub among them), their CSR indexing the gathered F (more
+    rows than the local F). It equals its plain version and, bit for bit,
+    kernel B's rows [lo, hi) on the whole graph."""
+    from bigclam_tpu_torch.parallel.sharded import device_csr
+
+    g = _planted_hub_graph()
+    Ft, sumF, cfg = _grad_case(g, k, cuda_device)
+    lo, hi = 1, 600
+    indptr = np.asarray(g.indptr[lo : hi + 1], np.int64)
+    csr = device_csr(indptr - indptr[0], g.indices[indptr[0] : indptr[-1]], cuda_device)
+    F_loc = Ft[lo:hi].contiguous()
+    grad_k, llh_k = ck.grad_llh_csr(F_loc, sumF, csr, cfg, F_dst=Ft)
+    whole_grad, whole_llh = ck.grad_llh_csr(Ft, sumF, g.to_device(cuda_device), cfg)
+    torch.cuda.synchronize()
+    grad_p, llh_p = ck.grad_llh_csr_plain(F_loc.double(), sumF.double(), csr, cfg,
+                                          Ft.double())
+    _close(grad_k.double().cpu().numpy(), grad_p.cpu().numpy())
+    _close(llh_k.double().cpu().numpy(), llh_p.cpu().numpy())
+    assert torch.equal(grad_k, whole_grad[lo:hi])
+    assert torch.equal(llh_k, whole_llh[lo:hi])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [37, 1024])
+def test_cuda_grad_llh_of_an_isolated_node_is_f_minus_sumf(k, cuda_device):
+    """A node without an edge runs no staged row but still gets its fold:
+    grad = F_u - sumF exactly, node_llh = its tail."""
+    g = _planted_hub_graph()
+    iso = np.flatnonzero(g.degrees == 0)
+    assert iso.tolist() == [800, 801, 802, 803, 804]
+    Ft, sumF, cfg = _grad_case(g, k, cuda_device)
+    grad_k, llh_k = ck.grad_llh_csr(Ft, sumF, g.to_device(cuda_device), cfg)
+    torch.cuda.synchronize()
+    rows = torch.as_tensor(iso, device=cuda_device)
+    assert torch.equal(grad_k[rows], Ft[rows] - sumF)
+    F64, s64 = Ft[rows].double(), sumF.double()
+    _close(llh_k[rows].double().cpu().numpy(),
+           (-(F64 * s64).sum(1) + (F64 * F64).sum(1)).cpu().numpy())
+
+
 @pytest.mark.cuda
 def test_cuda_entry_refuses_another_launch_plan(cuda_device):
     """The C entry of kernel A checks the wrapper's shared-memory bytes."""

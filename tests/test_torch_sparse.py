@@ -43,6 +43,7 @@ from bigclam_tpu_torch.models.sparse import (
     state_from_jax_sparse_arrays,
 )
 from bigclam_tpu_torch.ops import sparse_members as sm
+from bigclam_tpu_torch.ops.objective import EdgeChunks
 from bigclam_tpu_torch.utils.device import DeviceUnavailableError
 
 torch.set_num_threads(2)
@@ -492,6 +493,82 @@ def test_cuda_member_lookup_equals_plain(m, cuda_device):
     torch.cuda.synchronize()
     assert sm.launch_counts() == {"member_lookup": 1}
     assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, src, dst, k))
+
+
+def _csr_order_edges(rng, n, hub_degree=200, max_degree=60):
+    """Directed edges in CSR order (each source's edges in a row, its
+    destinations sorted): node 0 a hub of `hub_degree` edges (a run across
+    several 32-edge spans), the others up to max_degree - 1 edges, some
+    none."""
+    deg = rng.integers(0, max_degree, n)
+    deg[0] = hub_degree
+    dst = [np.sort(rng.choice(n, d, replace=False)) for d in deg]
+    return np.repeat(np.arange(n), deg), np.concatenate(dst)
+
+
+def _member_state(rng, n, m, device, k=None, offset=0):
+    """Member rows of k ids (default 2m: about half of a row's slots hit
+    in another) on `device`; with `offset` > 0 the rows start `offset`
+    elements into their storage, so not on 16 bytes."""
+    k = max(2 * m, 8) if k is None else k
+    ids_np, w_np = _member_rows(rng, n, m, k)
+    ids = torch.empty(n * m + offset, dtype=torch.int32, device=device)[offset:]
+    w = torch.empty(n * m + offset, dtype=torch.float32, device=device)[offset:]
+    ids, w = ids.view(n, m), w.view(n, m)
+    ids.copy_(torch.as_tensor(ids_np))
+    w.copy_(torch.as_tensor(w_np))
+    return ids, w, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,offset", [
+    (4, 8, 0), (37, 74, 0), (64, 128, 0), (128, 256, 0), (64, 1024, 0),
+    (64, 1025, 0), (200, 400, 0), (37, 2000, 0), (64, 2000, 0), (64, 2000, 1),
+    (1024, 2048, 0),
+])
+def test_cuda_member_lookup_on_csr_runs(m, k, offset, cuda_device):
+    """The kernel on edges in CSR order, swept in chunks of 150 edges
+    (runs of one source cut at chunk borders, the hub's among them, and
+    spans cut short), equal to its plain version bit for bit: lane groups
+    at M=4; the table up to k_pad 1,024 and M=128; above either the staged
+    search, with 4-byte copies at M=37 and at M=64 on rows off 16 bytes,
+    16-byte copies at M=64 and 200, and the shared-memory opt-in at
+    M=1,024."""
+    rng = np.random.default_rng(m + k + offset)
+    n = 300
+    ids, w, k = _member_state(rng, n, m, cuda_device, k, offset)
+    assert (ids.data_ptr() % 16 == 0) == (offset == 0)
+    src, dst = _csr_order_edges(rng, n)
+    edges = EdgeChunks(torch.as_tensor(src, device=cuda_device),
+                       torch.as_tensor(dst, device=cuda_device), 150)
+    assert src.size % 150 and src[149] == src[150]   # the hub's run cut
+    sm.reset_launch_counts()
+    for s, d in edges.slices():
+        got = sm.member_lookup_rows(ids, w, s, d, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, s, d, k))
+    assert sm.launch_counts() == {"member_lookup": -(-src.size // 150)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(5, 10), (64, 128), (64, 2000)])
+@pytest.mark.parametrize("e", [1, 31, 33, 129, 1000])
+def test_cuda_member_lookup_edge_counts(e, m, k, cuda_device):
+    """Edge batches of 1, 31, 33, 129 and 1,000 edges (a warp's 32-edge
+    span and one either side, one past four spans, and a non-multiple of
+    the span), starting inside a run of the CSR order, equal to the plain
+    version bit for bit on each layout: lane groups, the table and the
+    staged search."""
+    rng = np.random.default_rng(e)
+    n = 300
+    ids, w, k = _member_state(rng, n, m, cuda_device, k)
+    src, dst = _csr_order_edges(rng, n)
+    s = torch.as_tensor(src, device=cuda_device)[5 : 5 + e]
+    d = torch.as_tensor(dst, device=cuda_device)[5 : 5 + e]
+    got = sm.member_lookup_rows(ids, w, s, d, k)
+    torch.cuda.synchronize()
+    assert got.shape == (e, m)
+    assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, s, d, k))
 
 
 @pytest.mark.cuda
