@@ -7,7 +7,8 @@
 // node u (one warp), edge e = (u, v) and step eta_s, with
 // nf_s = clip(F_u[win] + eta_s grad_kb[u], min_f, max_f):
 //   xc[s, e] += nf_s . F_v[win]
-// grad_kb is the window's gradient columns (n, kc), already folded. xc is
+// grad_kb is the window's gradient columns, already folded, row u at
+// grad_kb + u * ld_grad (a window of the step's gradient). xc is
 // (S, E), indexed by CSR position; only the warp that owns an edge writes
 // it, so there are no atomics.
 //
@@ -73,7 +74,7 @@ struct LadderStoreAdd {
 
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 cand_dots_kernel(const float* __restrict__ F,
-                 const float* __restrict__ grad_kb,
+                 const float* __restrict__ grad_kb, int ld_grad,
                  const int64_t* __restrict__ indptr,
                  const int* __restrict__ indices, int n, int64_t e_total,
                  int k_pad, int col0, int kc, StepParams p, bool vec,
@@ -87,7 +88,7 @@ cand_dots_kernel(const float* __restrict__ F,
   const int64_t e1 = indptr[u + 1];
   if (e0 == e1) return;
   const float* const fu = F + static_cast<int64_t>(u) * k_pad + col0;
-  const float* const gu = grad_kb + static_cast<int64_t>(u) * kc;
+  const float* const gu = grad_kb + static_cast<int64_t>(u) * ld_grad;
   auto col = [&](int k, float& f, float& g) {
     f = __ldg(fu + k);
     g = __ldg(gu + k);
@@ -101,13 +102,15 @@ cand_dots_kernel(const float* __restrict__ F,
 }  // namespace
 
 // Adds window [col0, col0 + kc) of every edge's num_s candidate dots into
-// xc (num_s, e_total) on `stream`; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a window outside the rows or wider than
-// 1024 columns, more than 16 steps, or a smem_bytes other than the block's
-// shared memory, which ops/csr_kernels.py `ladder_launch_plan` computes).
-// `etas` is a host array of num_s floats.
+// xc (num_s, e_total) on `stream`, from the gradient window grad_kb (row u
+// at grad_kb + u * ld_grad); returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a window outside the rows or wider than 1024
+// columns, ld_grad < kc, more than 16 steps, or a smem_bytes other than the
+// block's shared memory, which ops/csr_kernels.py `ladder_launch_plan`
+// computes). `etas` is a host array of num_s floats.
 extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
-                                    const int64_t* indptr, const int* indices,
+                                    int ld_grad, const int64_t* indptr,
+                                    const int* indices,
                                     int n, int64_t e_total, int k_pad,
                                     int col0, int kc, const float* etas,
                                     int num_s, float omp_lo, float omp_hi,
@@ -115,6 +118,7 @@ extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
                                     int smem_bytes, void* stream) {
   if (num_s < 1 || num_s > kMaxS) return cudaErrorInvalidValue;
   if (!bigclam::window_ok(k_pad, col0, kc)) return cudaErrorInvalidValue;
+  if (ld_grad < kc) return cudaErrorInvalidValue;
   if (smem_bytes != bigclam::cand_dots_smem_bytes()) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   // the ladder without acceptance coefficients (selection runs in torch)
@@ -125,6 +129,7 @@ extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cand_dots_kernel<<<blocks, kWarpsPerBlock * kWarp, smem_bytes,
                      static_cast<cudaStream_t>(stream)>>>(
-      F, grad_kb, indptr, indices, n, e_total, k_pad, col0, kc, p, vec, xc);
+      F, grad_kb, ld_grad, indptr, indices, n, e_total, k_pad, col0, kc, p, vec,
+      xc);
   return cudaGetLastError();
 }

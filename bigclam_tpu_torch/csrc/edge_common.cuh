@@ -5,7 +5,8 @@
 // (edge_dots_kb.cu, grad_from_x.cu, cand_dots_kb.cu, cand_from_x.cu), which
 // take a window of at most kMaxK columns of wider rows. The candidate
 // kernels (A, C, #9, #14 and cand_dots_kb) share the staged ladder below,
-// B and #8 the staged neighbour gradient (staged_grad_pass).
+// B and #8 the staged neighbour gradient (staged_grad_pass), edge_dots_kb
+// and grad_from_x the staged window walk (window_walk).
 //
 // Layout: the kernels read the graph's CSR directly. One warp owns one
 // source node u; its neighbours are the contiguous slice
@@ -590,7 +591,8 @@ __device__ __forceinline__ void ladder_pass(
 
 // ---------------------------------------------------------------------------
 // The staged neighbour gradient: kernels B (grad_llh.cu) and #8
-// (ring_grad_phase.cu) over a node's neighbourhood.
+// (ring_grad_phase.cu) over a node's neighbourhood, on the staged row walk
+// (window_walk) that the K-blocked window passes share.
 //
 // Per neighbour the pass needs the dot F_u.F_v, a warp_sum, expm1f/logf and
 // a division before the axpy acc += F_v / omp can run. Loading each row
@@ -609,10 +611,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copies row v of Fd (K floats) into `dst`, the columns past K not written.
+// Copies the K floats of row v of Fd (row v at Fd + v * ld; a column window
+// of wider rows when Fd points at the window's first column) into `dst`,
+// the columns past K not written.
 __device__ __forceinline__ void stage_row(float* dst, const float* Fd, int v,
-                                          int K, int lane, bool vec) {
-  const float* src = Fd + static_cast<int64_t>(v) * K;
+                                          int K, int ld, int lane, bool vec) {
+  const float* src = Fd + static_cast<int64_t>(v) * ld;
   if (vec) {
     for (int q = lane; 4 * q < K; q += kWarp)
       cp_async16(dst + 4 * q, src + 4 * q, true);
@@ -621,27 +625,23 @@ __device__ __forceinline__ void stage_row(float* dst, const float* Fd, int v,
   }
 }
 
-// Over the edges [e0, e1) with the rows indices[e] of Fd staged in `ring`
-// (kGradStages rows of 32 KPL floats): acc = sum_v F_v / omp(F_u.F_v),
-// returns sum_v ell (the same in every lane); acc = 0 and 0 for an empty
-// range. Fd is F itself on one device, the gathered F on a mesh's
-// all-gather schedule, the rotating shard in a ring phase.
-template <int KPL>
-__device__ __forceinline__ float staged_grad_pass(
+// Calls body(e, j, fv) for every edge e of [e0, e1) in order, j = (e - e0)
+// mod 32 and fv the K columns of row indices[e] of Fd (rows ld apart),
+// staged in `ring` (kGradStages rows of 32 KPL floats) kGradStages - 1
+// edges ahead; lane j holds columns j, j + 32, ... (0 past K).
+template <int KPL, typename Body>
+__device__ __forceinline__ void window_walk(
     const float* __restrict__ Fd, const int* __restrict__ indices, int64_t e0,
-    int64_t e1, int K, int lane, bool vec, float* ring,
-    const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
+    int64_t e1, int K, int ld, int lane, bool vec, float* ring, Body&& body) {
   constexpr int kRow = kWarp * KPL;
-#pragma unroll
-  for (int i = 0; i < KPL; ++i) acc[i] = 0.f;
-  float llh = 0.f;
   int64_t ei = e0;  // the next edge whose row is staged
   int ids = 0;      // lane j: the id of edge e0 + 32 floor((ei - e0) / 32) + j
   auto issue = [&](int slot) {
     if (ei < e1) {
       const int at = static_cast<int>((ei - e0) & (kWarp - 1));
       if (at == 0) ids = ei + lane < e1 ? __ldg(indices + ei + lane) : 0;
-      stage_row(ring + slot * kRow, Fd, __shfl_sync(kFull, ids, at), K, lane, vec);
+      stage_row(ring + slot * kRow, Fd, __shfl_sync(kFull, ids, at), K, ld,
+                lane, vec);
     }
     ++ei;
     cp_async_commit();  // one group an edge, empty past the end
@@ -662,6 +662,25 @@ __device__ __forceinline__ float staged_grad_pass(
     }
     __syncwarp();  // the slot is free for the next issue
     slot = slot == kGradStages - 1 ? 0 : slot + 1;
+    body(e, static_cast<int>((e - e0) & (kWarp - 1)), fv);
+  }
+}
+
+// Over the edges [e0, e1) with the rows indices[e] of Fd staged in `ring`
+// (window_walk, rows K apart): acc = sum_v F_v / omp(F_u.F_v), returns
+// sum_v ell (the same in every lane); acc = 0 and 0 for an empty range. Fd
+// is F itself on one device, the gathered F on a mesh's all-gather
+// schedule, the rotating shard in a ring phase.
+template <int KPL>
+__device__ __forceinline__ float staged_grad_pass(
+    const float* __restrict__ Fd, const int* __restrict__ indices, int64_t e0,
+    int64_t e1, int K, int lane, bool vec, float* ring,
+    const float (&fu)[KPL], float (&acc)[KPL], const StepParams& p) {
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) acc[i] = 0.f;
+  float llh = 0.f;
+  window_walk<KPL>(Fd, indices, e0, e1, K, K, lane, vec, ring,
+                   [&](int64_t, int, const float (&fv)[KPL]) {
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < KPL; ++i) part = fmaf(fu[i], fv[i], part);
@@ -671,15 +690,17 @@ __device__ __forceinline__ float staged_grad_pass(
 #pragma unroll
     for (int i = 0; i < KPL; ++i) acc[i] = fmaf(fv[i], coeff, acc[i]);
     llh += logf(omp) + x;
-  }
+  });
   return llh;
 }
 
 // Shared-memory bytes of one block (4 warps) of the staged gradient kernels
-// at KPL columns a lane: 48 KB at KPL 32.
+// and the K-blocked window passes at KPL columns a lane: 48 KB at KPL 32.
 constexpr int grad_smem_bytes(int kpl) {
   return 4 * kWarpsPerBlock * kGradStages * kWarp * kpl;
 }
+// every KPL bucket's rings fit the default shared memory: no opt-in
+static_assert(grad_smem_bytes(kMaxK / kWarp) <= kSmemDefault);
 
 // Shared-memory bytes of one block of the ladder kernels (4 warps): kernel A
 // keeps F_u (32 KPL floats) and the 16 pass-2 sums beside each warp's ladder

@@ -59,10 +59,6 @@ grad_llh_kernel(const float* __restrict__ F, const float* __restrict__ F_dst,
   if (lane == 0) node_llh[u] = llh_nbr + tail;
 }
 
-// every KPL bucket's ring fits the default shared memory: no opt-in
-static_assert(bigclam::grad_smem_bytes(bigclam::kMaxK / kWarp) <=
-              bigclam::kSmemDefault);
-
 template <int KPL>
 void launch(const float* F, const float* F_dst, const float* sumF,
             const int64_t* indptr, const int* indices, int n, int K,

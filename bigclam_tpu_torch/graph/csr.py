@@ -96,13 +96,16 @@ class DeviceCSR(NamedTuple):
     `src`/`dst` (int64 directed-edge endpoints, CSR order) feed the plain
     torch edge sweeps. `order`, where set (a ring bucket's visit order,
     parallel/ring.py `visit_order`), lists the rows with an edge in the
-    order kernel #8's warps take them."""
+    order kernel #8's warps take them. `rev`, where set (the K-blocked
+    paths, ops/kblocked.py `reverse_edges`), gives for each CSR position
+    of (u, v) the position of (v, u)."""
 
     indptr: torch.Tensor    # (N+1,) int64
     indices: torch.Tensor   # (2E,) int32
     src: torch.Tensor       # (2E,) int64
     dst: torch.Tensor       # (2E,) int64
     order: Optional[torch.Tensor] = None   # (rows with an edge,) int32
+    rev: Optional[torch.Tensor] = None     # (2E,) int32
 
     @property
     def num_nodes(self) -> int:

@@ -64,7 +64,7 @@ from bigclam_tpu_torch.ops.edge_kernels import (
     with_runs,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
-from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked
+from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked, with_rev
 from bigclam_tpu_torch.ops.linesearch import (
     accept_stats,
     armijo_select,
@@ -442,6 +442,9 @@ class BigClamModel:
                 f"min_f={cfg.min_f} with K {cfg.num_communities}->{self.k_pad}"
             )
         self.csr = g.to_device(self.device)
+        if self.kc:
+            # the K-blocked edge dots' reverse-edge index, once per graph
+            self.csr = with_rev(self.csr)
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         self.edges = EdgeChunks(
             self.csr.src, self.csr.dst,

@@ -7,10 +7,14 @@ bigclam_tpu/ops/pallas_csr.py `train_pass_csr_grouped_kblocked`. A step
 runs four kernels:
 
 * `edge_dots_kb`   — window share of every edge dot F_u.F_v, added into x
-  (csrc/edge_dots_kb.cu; the TPU's `edge_dots_fused` and `edge_dots_csr`);
+  (csrc/edge_dots_kb.cu; the TPU's `edge_dots_fused` and `edge_dots_csr`),
+  each undirected pair computed once and written to both of its positions
+  through the CSR's reverse-edge index (`reverse_edges`, cached as
+  `DeviceCSR.rev`);
 * `grad_from_x_kb` — from the full x, the window's gradient columns
-  (optionally folded with -sumF + F) and the neighbour LLH
-  (csrc/grad_from_x.cu; `grad_nbr_from_x_fused`, `grad_nbr_from_x_csr`);
+  (optionally folded with -sumF + F), written in place into the step's
+  gradient, and the neighbour LLH (csrc/grad_from_x.cu;
+  `grad_nbr_from_x_fused`, `grad_nbr_from_x_csr`);
 * `cand_dots_kb`   — window share of every edge's 16 candidate dots, added
   into xc (csrc/cand_dots_kb.cu, on the staged candidate ladder of
   csrc/edge_common.cuh; `cand_dots_fused`, `cand_dots_csr`);
@@ -81,6 +85,55 @@ def _check_cuda(F: torch.Tensor, csr: DeviceCSR, col0: int, kc: int, named) -> N
     check_csr(csr, F.shape[0], F.device)
 
 
+def check_window_rows(name: str, t: torch.Tensor, n: int, kc: int,
+                      device: torch.device) -> int:
+    """`t` is an (n, kc) float32 matrix on `device` whose rows are
+    contiguous (a window of a wider matrix, or a matrix of its own); returns
+    its row stride, which the kernels take."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, want {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != (n, kc):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {(n, kc)}")
+    if (t.stride(1) != 1 and kc > 1) or t.stride(0) < kc:
+        raise ValueError(f"{name} must have contiguous rows, got strides {t.stride()}")
+    return t.stride(0)
+
+
+# --- the reverse-edge index ---------------------------------------------------
+
+
+class AsymmetricCSRError(ValueError):
+    """A CSR that edge_dots_kb cannot take: some edge (u, v) has no
+    (v, u), or an edge is a self-loop."""
+
+
+def reverse_edges(csr: DeviceCSR) -> torch.Tensor:
+    """(2E,) int32: for each CSR position of (u, v), the position of
+    (v, u). The rows are sorted, so it is the stable argsort of the key
+    dst * n + src. Raises AsymmetricCSRError for a CSR that is not
+    symmetric (a ring bucket's, say) or holds a self-loop, where
+    edge_dots_kb's one pass per pair would give a wrong x."""
+    n, e = csr.num_nodes, csr.num_directed_edges
+    if e >= 2**31:
+        raise ValueError(f"{e} directed edges exceed the int32 reverse-edge index")
+    if bool((csr.src == csr.dst).any()):
+        raise AsymmetricCSRError("edge_dots_kb needs a CSR without self-loops")
+    rev = torch.argsort(csr.dst * n + csr.src, stable=True)
+    if not (torch.equal(csr.src[rev], csr.dst) and torch.equal(csr.dst[rev], csr.src)):
+        raise AsymmetricCSRError(
+            "edge_dots_kb needs a symmetric CSR with sorted rows (each edge "
+            "(u, v) with its (v, u)); this one is not"
+        )
+    return rev.to(torch.int32)
+
+
+def with_rev(csr: DeviceCSR) -> DeviceCSR:
+    """`csr` with its reverse-edge index (reverse_edges) cached."""
+    return csr if csr.rev is not None else csr._replace(rev=reverse_edges(csr))
+
+
 # --- edge dots ----------------------------------------------------------------
 
 
@@ -99,15 +152,21 @@ def edge_dots_kb(
 ) -> torch.Tensor:
     """Add window [col0, col0+kc) of every directed edge's dot F_u.F_v into
     x (E,), in place; returns x. Over every window in order, x ends as the
-    full dots."""
+    full dots. On CUDA the CSR must be symmetric without self-loops: the
+    kernel computes each pair once through `csr.rev`, built here when it is
+    not cached (reverse_edges refuses another CSR)."""
     if F.device.type == "cpu":
         return edge_dots_kb_plain(F, csr, col0, kc, x)
-    _check_cuda(F, csr, col0, kc, [("x", x, (csr.num_directed_edges,))])
+    e = csr.num_directed_edges
+    _check_cuda(F, csr, col0, kc, [("x", x, (e,))])
+    rev = csr.rev if csr.rev is not None else reverse_edges(csr)
+    if rev.dtype != torch.int32 or tuple(rev.shape) != (e,) or rev.device != F.device:
+        raise ValueError(f"csr.rev must be ({e},) int32 on {F.device}")
     n, k_pad = F.shape
     build.launch(
         F.device, "bigclam_edge_dots_kb",
-        F.data_ptr(), csr.indptr.data_ptr(), csr.indices.data_ptr(), n, k_pad,
-        col0, kc, x.data_ptr(),
+        F.data_ptr(), csr.indptr.data_ptr(), csr.indices.data_ptr(),
+        rev.data_ptr(), n, k_pad, col0, kc, x.data_ptr(),
     )
     edge_dots_kb.launches += 1
     return x
@@ -128,6 +187,7 @@ def grad_from_x_kb_plain(
     kc: int,
     cfg: BigClamConfig,
     fold: bool,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch grad_from_x_kb."""
     n = F.shape[0]
@@ -145,6 +205,8 @@ def grad_from_x_kb_plain(
         )
     if fold:
         acc = acc - sumF[None, col0 : col0 + kc] + Fw
+    if out is not None:
+        acc = out.copy_(acc)
     return acc, llh_nbr
 
 
@@ -157,30 +219,35 @@ def grad_from_x_kb(
     kc: int,
     cfg: BigClamConfig,
     fold: bool,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """From the FULL edge dots x (E,): the gradient columns [col0, col0+kc)
     (n, kc), sum_v F_v[win]/omp(x) with the -sumF + F fold when `fold`,
-    and the neighbour LLH (n,). The LLH does not depend on the window, so
-    it is computed for the window at col0 == 0 only and is None for the
-    others."""
+    and the neighbour LLH (n,). The columns go into `out` when it is given
+    (an (n, kc) matrix with contiguous rows, such as the window's columns
+    of the step's (n, K_pad) gradient), else into a new (n, kc) matrix.
+    The LLH does not depend on the window, so it is computed for the window
+    at col0 == 0 only and is None for the others."""
     if F.device.type == "cpu":
-        return grad_from_x_kb_plain(x, F, sumF, csr, col0, kc, cfg, fold)
+        return grad_from_x_kb_plain(x, F, sumF, csr, col0, kc, cfg, fold, out)
     _check_cuda(F, csr, col0, kc, [
         ("x", x, (csr.num_directed_edges,)), ("sumF", sumF, (F.shape[1],)),
     ])
     c = kernel_constants(cfg)
     n, k_pad = F.shape
-    grad_kb = torch.empty((n, kc), dtype=F.dtype, device=F.device)
+    if out is None:
+        out = torch.empty((n, kc), dtype=F.dtype, device=F.device)
+    ld = check_window_rows("out", out, n, kc, F.device)
     llh_nbr = torch.empty(n, dtype=F.dtype, device=F.device) if col0 == 0 else None
     build.launch(
         F.device, "bigclam_grad_from_x",
         x.data_ptr(), F.data_ptr(), sumF.data_ptr(), csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, k_pad, col0, kc, c["omp_lo"], c["omp_hi"],
-        int(bool(fold)), grad_kb.data_ptr(),
+        int(bool(fold)), out.data_ptr(), ld,
         None if llh_nbr is None else llh_nbr.data_ptr(),
     )
     grad_from_x_kb.launches += 1
-    return grad_kb, llh_nbr
+    return out, llh_nbr
 
 
 grad_from_x_kb.launches = 0
@@ -220,19 +287,19 @@ def cand_dots_kb(
 ) -> torch.Tensor:
     """Add window [col0, col0+kc) of every edge's candidate dots
     clip(F_u + eta_s grad_u, min_f, max_f) . F_v into xc (S, E), in place;
-    grad_kb (n, kc) holds the window's (folded) gradient columns. Returns
+    grad_kb (n, kc) holds the window's (folded) gradient columns, with
+    contiguous rows (a window of the step's gradient will do). Returns
     xc."""
     if F.device.type == "cpu":
         return cand_dots_kb_plain(F, grad_kb, csr, col0, kc, cfg, xc)
     c = kernel_constants(cfg)
     e = csr.num_directed_edges
-    _check_cuda(F, csr, col0, kc, [
-        ("grad_kb", grad_kb, (F.shape[0], kc)), ("xc", xc, (c["num_s"], e)),
-    ])
+    _check_cuda(F, csr, col0, kc, [("xc", xc, (c["num_s"], e))])
     n, k_pad = F.shape
+    ld = check_window_rows("grad_kb", grad_kb, n, kc, F.device)
     build.launch(
         F.device, "bigclam_cand_dots_kb",
-        F.data_ptr(), grad_kb.data_ptr(), csr.indptr.data_ptr(),
+        F.data_ptr(), grad_kb.data_ptr(), ld, csr.indptr.data_ptr(),
         csr.indices.data_ptr(), n, e, k_pad, col0, kc, c["etas"].ctypes.data,
         c["num_s"], c["omp_lo"], c["omp_hi"], c["min_f"], c["max_f"],
         xc.data_ptr(), ladder_launch_plan("cand_dots_kb", kc)["smem_bytes"],
@@ -296,11 +363,12 @@ def train_pass_kblocked(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step's edge work over K blocks of kc columns (kc | F.shape[1]):
     (1) every block's edge_dots_kb, so x holds the FULL dots before any
-    consumer reads it; (2) per block, grad_from_x_kb then cand_dots_kb on
-    that block's gradient columns; (3) one cand_nbr_from_x. With fold=True
-    the -sumF + F fold runs in the gradient kernel (`csr_fused_kb`), else
-    in torch (`csr_grouped_kb`). Returns (grad (n, K_pad), llh_nbr (n,),
-    cand_nbr (S, n)); the candidate terms are neighbour-only."""
+    consumer reads it; (2) per block, grad_from_x_kb into that block's
+    columns of the step's gradient, then cand_dots_kb on them; (3) one
+    cand_nbr_from_x. With fold=True the -sumF + F fold runs in the gradient
+    kernel (`csr_fused_kb`), else in torch, in place (`csr_grouped_kb`).
+    Returns (grad (n, K_pad), llh_nbr (n,), cand_nbr (S, n)); the candidate
+    terms are neighbour-only."""
     n, k_pad = F.shape
     if kc < 1 or k_pad % kc:
         raise ValueError(f"K block kc={kc} must divide K_pad={k_pad}")
@@ -309,17 +377,17 @@ def train_pass_kblocked(
     for col0 in range(0, k_pad, kc):
         edge_dots_kb(F, csr, col0, kc, x)
     xc = torch.zeros((len(cfg.step_candidates), e), dtype=F.dtype, device=F.device)
-    grads = []
+    grad = torch.empty_like(F)
     for col0 in range(0, k_pad, kc):
-        grad_kb, llh = grad_from_x_kb(x, F, sumF, csr, col0, kc, cfg, fold)
+        grad_kb = grad[:, col0 : col0 + kc]
+        _, llh = grad_from_x_kb(x, F, sumF, csr, col0, kc, cfg, fold, out=grad_kb)
         if col0 == 0:
             llh_nbr = llh
         if not fold:
-            grad_kb = grad_kb - sumF[None, col0 : col0 + kc] + F[:, col0 : col0 + kc]
+            grad_kb.sub_(sumF[None, col0 : col0 + kc]).add_(F[:, col0 : col0 + kc])
         cand_dots_kb(F, grad_kb, csr, col0, kc, cfg, xc)
-        grads.append(grad_kb)
     cand_nbr = cand_nbr_from_x(xc, csr, cfg)
-    return torch.cat(grads, dim=1), llh_nbr, cand_nbr
+    return grad, llh_nbr, cand_nbr
 
 
 def reset_launch_counts() -> None:

@@ -12,7 +12,8 @@ exits non-zero:
             and links them into one library; the registers and spill bytes
             of every redesigned kernel (the staged ladder's A, C, #9, #14,
             cand_dots_kb, the staged gradient's B and #8, the member
-            lookup) per instantiation, and the ladder kernels' launch plans
+            lookup, the staged windows of edge_dots_kb and grad_from_x) per
+            instantiation, and the ladder kernels' launch plans
   against   with --against DIR=KERNELS (any number of them; DIR holds
             another tree's kernel sources, e.g. an earlier commit's
             bigclam_tpu_torch/csrc unpacked into a git-ignored directory,
@@ -51,11 +52,14 @@ exits non-zero:
             the fit
   split     the same graph and init with --csr-fused off (path `csr`),
             2 steps, launches counted from 0 around the fit
+  mesh_init the file ingested as `cli fit` reads it and its conductance F0
   full      each kernel against its plain version at the main path's
             shapes (the main fit's final F), and both timed with CUDA
             events: the median of 10 runs, taken as two rounds of 5
             after a warm-up each, in the order plain, kernel, kernel,
-            plain; the graph's ladder tiles by the row groups they run
+            plain; the graph's ladder tiles by the row groups they run;
+            kernel C and its float32 plain version against float64 on the
+            conductance F0 (errors reported: the tails cancel there)
   sparse_main `cli fit --representation sparse --sparse-m 64` on the same
             file, conductance init, 5 iterations, no --out; path
             `sparse_merge_pallas`, the member-lookup launches counted from
@@ -96,7 +100,6 @@ exits non-zero:
             `csr_ring_fused`, one launch of each ring kernel per step,
             counted from 0 around the fit; the LLH rises and stays within
             1e-4 of main's
-  mesh_init the file ingested as `cli fit` reads it and its conductance F0
   ring_dp4  RingBigClamModel on 4 shards of one card (balanced), 5 steps
             of `csr_ring_fused` from that F0 (16 launches of each ring
             kernel a step), 2 of `csr_ring`, LLHs within 1e-4 of main's;
@@ -136,23 +139,30 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
   kb_split  the same with --csr-fused off (path `csr_grouped_kb`), 2
             steps; its LLHs equal kb_main's first two within 1e-4
   kb_full   each K-blocked kernel against its plain version from
-            kb_main's F (x, grad with and without the fold, llh_nbr, xc,
-            cand_nbr), both timed per full step as `full` times them,
-            and the whole step timed split into the kernels and the
-            torch node tail + Armijo tails + selection; the graph's ladder
-            tiles by the row groups they run
+            kb_main's F (x, x symmetric bit for bit through the reverse-edge
+            index, grad with and without the fold, llh_nbr, xc, cand_nbr),
+            both timed per full step as `full` times them, and the whole
+            step timed split into the kernels and the torch node tail +
+            Armijo tails + selection; the dots and the gradient again, vs
+            plain and timed, on the graph relabelled by a seeded
+            permutation (F's rows permuted to match: no id locality);
+            `sampled_addmm` beside the dots (library_ms) and a sparse
+            product of the 1/omp coefficients with F beside the gradient
+            (its aggregation alone); the graph's ladder tiles by the row
+            groups they run
   kb_odd    K=1,100 (2 blocks of 576) on the odd graph and on the hub
             graph (the degree-700 hub crosses 22 ladder tiles in each
             window), and K=37 in windows of kc=3 (csr_k_block) on the odd
             graph (windows off 16 bytes: the 4-byte copies), kernels vs
-            plain
+            plain, the dots symmetric bit for bit
   kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
             both K-blocked paths on the card against the CPU float64
             `xla` path
 
 Then one `side_by_side` line (with --against: each named kernel on the
 inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
-`ring_full`, `kb_full`)
+`ring_full`, `kb_full`; in `kb_full` the gradient also without the fold,
+and the dots and the gradient also on the shuffled ids)
 under this tree's library and the other one, outputs compared bit for bit
 and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
@@ -246,12 +256,16 @@ KERNELS = {
         replaces="bigclam_tpu/ops/pallas_fused.py:573",
         tpu_kernel="edge_dots_fused",
         also_replaces="bigclam_tpu/ops/pallas_csr.py:465 (edge_dots_csr)",
+        redesigned=("each undirected pair once through the reverse-edge index, "
+                    "neighbour windows staged by cp.async (edge_common.cuh window_walk)"),
     ),
     "grad_from_x": dict(
         source="bigclam_tpu_torch/csrc/grad_from_x.cu",
         replaces="bigclam_tpu/ops/pallas_fused.py:668",
         tpu_kernel="grad_nbr_from_x_fused",
         also_replaces="bigclam_tpu/ops/pallas_csr.py:523 (grad_nbr_from_x_csr)",
+        redesigned=("neighbour windows staged by cp.async (edge_common.cuh "
+                    "window_walk), written in place into the step's gradient"),
     ),
     "cand_dots_kb": dict(
         source="bigclam_tpu_torch/csrc/cand_dots_kb.cu",
@@ -480,9 +494,11 @@ def kb_plain_inputs(F, csr, cfg, kc):
 
 def compare_kb_kernels(F, csr, cfg, kc, plain):
     """Each K-blocked kernel against its plain version on the same inputs
-    (`plain` = kb_plain_inputs(...)), over every K block; the gradient
-    kernel with the fold (csr_fused_kb) and without it (csr_grouped_kb).
-    Returns {name: Check}."""
+    (`plain` = kb_plain_inputs(...)), over every K block; the dots also
+    symmetric bit for bit (x[e] == x[rev[e]]); the gradient kernel with the
+    fold (csr_fused_kb), written into its window of an (n, K_pad) gradient
+    as the pass writes it, and without the fold (csr_grouped_kb) into a
+    matrix of its own. Returns {name: Check}."""
     from bigclam_tpu_torch.ops import kblocked as kb
 
     sumF, x_p, grads_p, llh_p, xc_p = plain
@@ -493,9 +509,13 @@ def compare_kb_kernels(F, csr, cfg, kc, plain):
         kb.edge_dots_kb(F, csr, col0, kc, x_k)
     torch.cuda.synchronize()
     checks["edge_dots_kb"].close("x", x_k, x_p)
+    rev = (csr.rev if csr.rev is not None else kb.reverse_edges(csr)).long()
+    checks["edge_dots_kb"].equal("x_rev", x_k[rev], x_k)
     c = checks["grad_from_x"]
+    grad = torch.empty_like(F)
     for col0, g_p in zip(range(0, k_pad, kc), grads_p):
-        g_k, l_k = kb.grad_from_x_kb(x_p, F, sumF, csr, col0, kc, cfg, True)
+        g_k, l_k = kb.grad_from_x_kb(x_p, F, sumF, csr, col0, kc, cfg, True,
+                                     out=grad[:, col0 : col0 + kc])
         torch.cuda.synchronize()
         c.close("grad_fold", g_k, g_p)
         if col0 == 0:
@@ -622,11 +642,13 @@ def tensors(out) -> list:
     return []
 
 
-def side_by_side(name: str, fn) -> None:
+def side_by_side(name: str, fn, label: str = "") -> None:
     """fn() (fresh outputs on every call) under this tree's kernel library
     and under each --against library that names kernel `name`: the outputs
     compared bit for bit, and both timed as time_pair times a kernel and its
-    plain version (this tree's as "ms", the other's as "against_ms")."""
+    plain version (this tree's as "ms", the other's as "against_ms"). The
+    result goes to SIDE[name], or SIDE[f"{name} ({label})"] for another
+    input of the same kernel."""
     for tag, other in AGAINST.items():
         if name not in other["kernels"]:
             continue
@@ -644,7 +666,7 @@ def side_by_side(name: str, fn) -> None:
                    default=0.0)
         del a, b
         t = time_pair(fn, theirs)
-        SIDE.setdefault(name, {})[tag] = {
+        SIDE.setdefault(f"{name} ({label})" if label else name, {})[tag] = {
             "bit_equal": equal, "max_abs_diff": diff,
             "ms": t["ms"], "against_ms": t["plain_ms"],
             "ms_runs": t["ms_runs"], "against_ms_runs": t["plain_ms_runs"],
@@ -1050,8 +1072,42 @@ def phase_split(g, path, tmp, main_hist):
     }
 
 
-def phase_full(g, F_host):
-    """Kernels vs plain at the main path's shapes, then timed."""
+def c_on_f0(F, csr, cfg) -> dict:
+    """Kernel C and its float32 plain version, each against the float64
+    plain version, on F (the conductance-init F0, where C once missed the
+    float64 version by 1.1e-4 beyond the 3e-5 band): the largest absolute
+    error, the same in float32 ulps of the float64 value (of 1 below 1),
+    the largest excess over the band and how many values lie outside it. C
+    no further outside the band than the float32 plain version is
+    float32's limit, not a fault of the kernel."""
+    from bigclam_tpu_torch.ops import csr_kernels as ck
+
+    sumF = F.sum(dim=0)
+    F64, sumF64 = F.double(), sumF.double()
+    grad = ck.grad_llh_csr_plain(F64, sumF64, csr, cfg)[0].float()
+    want = ck.candidates_csr_plain(F64, grad.double(), sumF64, csr, cfg)
+    got = {"kernel": ck.candidates_csr(F, grad, sumF, csr, cfg),
+           "plain_f32": ck.candidates_csr_plain(F, grad, sumF, csr, cfg)}
+    torch.cuda.synchronize()
+    band = ATOL + RTOL * want.abs()
+    # float32 spacing at |want|, and at 1 below 1 (near 0 it would vanish)
+    w32 = want.float().abs().clamp_min(1.0)
+    ulp = (torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32).double()
+    out = {}
+    for name, c in got.items():
+        err = (c.double() - want).abs()
+        out[name] = {"max_abs_err": float(err.max()),
+                     "max_ulps": float((err / ulp).max()),
+                     "max_excess": float((err - band).max()),
+                     "outside_band": int((err > band).sum())}
+    out["largest_abs_cand"] = float(want.abs().max())
+    return out
+
+
+def phase_full(g, F_host, F0):
+    """Kernels vs plain at the main path's shapes (the main fit's final F),
+    then timed; kernel C and its float32 plain version against float64 on
+    the conductance F0."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models.bigclam import BigClamModel
     from bigclam_tpu_torch.ops import csr_kernels as ck
@@ -1062,6 +1118,7 @@ def phase_full(g, F_host):
     F = model.init_state(F_host).F
     csr = model.csr
     checks = compare_kernels(F, csr, cfg)
+    c_f0 = c_on_f0(model.init_state(F0).F, csr, cfg)
     sumF = F.sum(dim=0)
     grad, _ = ck.grad_llh_csr_plain(F, sumF, csr, cfg)
     calls = {
@@ -1089,6 +1146,7 @@ def phase_full(g, F_host):
         },
         "k_pad": int(F.shape[1]),
         "ladder_tiles": ladder_tiles(g.degrees),
+        "candidates_csr_on_f0": c_f0,
     }
 
 
@@ -1169,12 +1227,13 @@ def phase_kb_split(g, path, main_hist):
 
 def phase_kb_full(g, F_host):
     """The K-blocked kernels vs plain at kb_main's shapes, timed per full
-    step, and the whole step split into kernels and torch."""
+    step, and the whole step split into kernels and torch; the dots and the
+    gradient again on the same graph with shuffled ids."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models.bigclam import BigClamModel
     from bigclam_tpu_torch.ops import kblocked as kb
     from bigclam_tpu_torch.ops.linesearch import armijo_update
-    from bigclam_tpu_torch.ops.objective import node_tail
+    from bigclam_tpu_torch.ops.objective import edge_terms, node_tail
 
     cfg = BigClamConfig(num_communities=XLK["k"])
     model = BigClamModel(g, cfg, device=DEVICE)
@@ -1187,14 +1246,18 @@ def phase_kb_full(g, F_host):
     e, s = csr.num_directed_edges, len(cfg.step_candidates)
     cols = range(0, k_pad, kc)
 
-    def dots(fn):
-        x = torch.zeros(e, device=F.device)
+    def dots(fn, F=F, csr=csr):
+        x = torch.zeros(csr.num_directed_edges, device=F.device)
         for col0 in cols:
             fn(F, csr, col0, kc, x)
         return x
 
-    def grads(fn):
-        return [fn(x_p, F, sumF, csr, col0, kc, cfg, True) for col0 in cols]
+    def grads(fn, fold=True, F=F, sumF=sumF, csr=csr, x=x_p):
+        # as the pass writes them: each window into the step's gradient
+        grad = torch.empty_like(F)
+        llh = [fn(x, F, sumF, csr, col0, kc, cfg, fold,
+                  out=grad[:, col0 : col0 + kc])[1] for col0 in cols]
+        return grad, llh[0]
 
     def cands(fn):
         xc = torch.zeros((s, e), device=F.device)
@@ -1215,7 +1278,9 @@ def phase_kb_full(g, F_host):
     times = {name: time_pair(kern, pl) for name, (kern, pl) in calls.items()}
     for name in calls:
         times[name]["library_ms"] = None
-    side_by_side("cand_dots_kb", calls["cand_dots_kb"][0])
+    for name in K_BLOCKED:
+        side_by_side(name, calls[name][0])
+    side_by_side("grad_from_x", lambda: grads(kb.grad_from_x_kb, False), "fold off")
     # the one library call that computes a K-blocked kernel's function:
     # every edge's full dot, sampled from F F^T on the CSR pattern
     pattern = torch.sparse_csr_tensor(
@@ -1227,6 +1292,51 @@ def phase_kb_full(g, F_host):
     lib_runs = time_ms(lambda: torch.sparse.sampled_addmm(pattern, F, F.t()))
     times["edge_dots_kb"]["library_ms"] = statistics.median(lib_runs)
     times["edge_dots_kb"]["library_max_abs_err"] = float((lib_x - x_p).abs().max())
+    del pattern, lib_x
+    # a yardstick for the gradient's aggregation alone (not library_ms: the
+    # edge terms, the fold and the LLH are further calls): the CSR carrying
+    # the coefficients 1/omp(x) times F, every window at once
+    coeff = torch.sparse_csr_tensor(
+        csr.indptr, csr.indices.long(), 1.0 / edge_terms(x_p, cfg)[0], size=(n, n),
+        check_invariants=True,
+    )
+    agg = torch.sparse.mm(coeff, F)
+    want = grads(kb.grad_from_x_kb_plain, False)[0]
+    torch.cuda.synchronize()
+    times["grad_from_x"]["sparse_mm_ms"] = statistics.median(
+        time_ms(lambda: torch.sparse.mm(coeff, F)))
+    times["grad_from_x"]["sparse_mm_max_abs_err"] = float((agg - want).abs().max())
+    del coeff, agg, want
+
+    # the same graph and F with the ids relabelled by a seeded permutation:
+    # no id locality, so the neighbour windows are not near each other in L2
+    perm = np.random.default_rng(XLK["seed"]).permutation(n)
+    F_s = torch.empty_like(F)
+    F_s[torch.as_tensor(perm, device=F.device)] = F
+    sumF_s = F_s.sum(dim=0)
+    csr_s = kb.with_rev(g.permute(perm).to_device(F.device))
+    x_s = dots(kb.edge_dots_kb_plain, F_s, csr_s)
+    x_k = dots(kb.edge_dots_kb, F_s, csr_s)
+    g_s, l_s = grads(kb.grad_from_x_kb_plain, True, F_s, sumF_s, csr_s, x_s)
+    g_k, l_k = grads(kb.grad_from_x_kb, True, F_s, sumF_s, csr_s, x_s)
+    torch.cuda.synchronize()
+    checks["edge_dots_kb"].close("x_shuffled", x_k, x_s)
+    checks["edge_dots_kb"].equal("x_rev_shuffled", x_k[csr_s.rev.long()], x_k)
+    checks["grad_from_x"].close("grad_fold_shuffled", g_k, g_s)
+    checks["grad_from_x"].close("llh_nbr_shuffled", l_k, l_s)
+    del x_k, g_s, l_s, g_k, l_k
+    shuffled = {
+        "edge_dots_kb": (lambda: dots(kb.edge_dots_kb, F_s, csr_s),
+                         lambda: dots(kb.edge_dots_kb_plain, F_s, csr_s)),
+        "grad_from_x": (
+            lambda: grads(kb.grad_from_x_kb, True, F_s, sumF_s, csr_s, x_s),
+            lambda: grads(kb.grad_from_x_kb_plain, True, F_s, sumF_s, csr_s, x_s),
+        ),
+    }
+    for name, (kern, pl) in shuffled.items():
+        times[name]["shuffled_ids"] = time_pair(kern, pl)
+        side_by_side(name, kern, "shuffled ids")
+    del F_s, sumF_s, csr_s, x_s
 
     # the step: the K-blocked pass, then node tail + Armijo tails +
     # selection in torch
@@ -2445,7 +2555,11 @@ def main(argv=None) -> int:
         _, res, main_counts, _ = run("main", phase_main, g, path, tmp)
         main_hist = list(res.llh_history)
         split_counts, _ = run("split", phase_split, g, path, tmp, main_hist)
-        checks, times, bnd, _ = run("full", phase_full, g, res.F)
+        t0 = time.perf_counter()
+        gi, F0 = mesh_init(path)
+        emit({"phase": "mesh_init", "seconds": time.perf_counter() - t0,
+              "n": gi.num_nodes, "directed_edges": gi.num_directed_edges})
+        checks, times, bnd, _ = run("full", phase_full, g, res.F, F0)
         del res
         state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
@@ -2455,10 +2569,6 @@ def main(argv=None) -> int:
         del res
         run("sweep_main", phase_sweep_main, g, path)
         ring_main_counts, _ = run("ring_main", phase_ring_main, g, path, main_hist)
-        t0 = time.perf_counter()
-        gi, F0 = mesh_init(path)
-        emit({"phase": "mesh_init", "seconds": time.perf_counter() - t0,
-              "n": gi.num_nodes, "directed_edges": gi.num_directed_edges})
         model, state, ring_counts, _ = run("ring_dp4", phase_ring_dp4, gi, F0,
                                            main_hist)
         ring_checks, ring_times, ring_bnd, _ = run("ring_full", phase_ring_full,
