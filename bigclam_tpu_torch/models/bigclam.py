@@ -12,16 +12,18 @@ on one of six kernel paths, named as in the JAX package:
   K fits one warp's row, round_up(K, 32) <= 1024);
 * `csr`            — the split pair: the gradient kernel, then the
   candidate kernel, then the selection in torch (ops.csr_kernels);
-* `csr_fused_kb`   — large K: the K-blocked pass over windows of kc <= 1024
-  columns (ops.kblocked; the -sumF + F fold in the gradient kernel), then
-  the node tail, Armijo tails and selection in torch. Taken by itself
-  above K = 1024, or for any K with cfg.csr_k_block > 0;
+* `csr_fused_kb`   — large K: the K-blocked edge terms over windows of
+  kc <= 1024 columns (ops.kblocked; the -sumF + F fold in the gradient
+  kernel), then the node pass (neighbour candidate sums, node tail, Armijo
+  tails and selection in one kernel, `cand_select_from_x`). Taken by
+  itself above K = 1024, or for any K with cfg.csr_k_block > 0;
 * `csr_grouped_kb` — its split twin (csr_fused=False): the same four
   kernels with the fold done in torch;
 * `pallas_vmem`    — the non-CSR step: the plain torch grad/LLH sweep, then
   the candidate pass with its edge terms from the CUDA kernel
   csrc/candidate_edge_terms.cu (ops.edge_kernels), one launch per edge
-  chunk;
+  chunk, then the Armijo tails and selection in one kernel
+  (ops.linesearch.armijo_update_kernel);
 * `xla`            — the plain torch edge sweeps (ops.objective /
   ops.linesearch), chunked over edges.
 
@@ -64,11 +66,12 @@ from bigclam_tpu_torch.ops.edge_kernels import (
     with_runs,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
-from bigclam_tpu_torch.ops.kblocked import train_pass_kblocked, with_rev
+from bigclam_tpu_torch.ops.kblocked import cand_select_from_x, kblocked_terms, with_rev
 from bigclam_tpu_torch.ops.linesearch import (
     accept_stats,
     armijo_select,
     armijo_update,
+    armijo_update_kernel,
     candidates_pass,
 )
 from bigclam_tpu_torch.ops.objective import (
@@ -76,7 +79,6 @@ from bigclam_tpu_torch.ops.objective import (
     accum_dtype,
     edge_chunk_bound,
     grad_llh,
-    node_tail,
 )
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
 
@@ -251,6 +253,7 @@ def make_train_step(
     """The one-iteration update on kernel path `path` (kc: the K block of
     the K-blocked paths)."""
     cand_impl = candidates_pass_kernel if path == "pallas_vmem" else candidates_pass
+    select_impl = armijo_update_kernel if path == "pallas_vmem" else armijo_update
 
     def fused_step(state: TrainState) -> TrainState:
         F = state.F
@@ -277,7 +280,7 @@ def make_train_step(
         F, sumF = state.F, state.sumF
         grad, node_llh = grad_llh(F, sumF, edges, cfg)
         cand_nbr = cand_impl(F, grad, edges, cfg)
-        F_new, sumF_new, hist = armijo_update(
+        F_new, sumF_new, hist = select_impl(
             F, sumF, grad, node_llh, cand_nbr, cfg, with_stats=True
         )
         return TrainState(
@@ -286,21 +289,18 @@ def make_train_step(
         )
 
     def kblocked_step(state: TrainState) -> TrainState:
-        # large K: neighbour terms from the K-blocked kernels; the node
-        # tail, the Armijo tails and the selection in torch, as the JAX
-        # step does (candidate terms are neighbour-only)
+        # large K: the edge terms from the K-blocked kernels, then the node
+        # pass (neighbour candidate sums, node tail, Armijo tails and
+        # selection in one kernel); the column sums and the histogram in
+        # torch, as in fused_step
         F, sumF = state.F, state.sumF
-        adt = accum_dtype(cfg, F)
-        grad, llh_nbr, cand_nbr = train_pass_kblocked(
+        grad, llh_nbr, xc = kblocked_terms(
             F, sumF, csr, cfg, kc, fold=path == "csr_fused_kb"
         )
-        node_llh = llh_nbr.to(adt) + node_tail(F, sumF).to(adt)
-        F_new, sumF_new, hist = armijo_update(
-            F, sumF, grad, node_llh, cand_nbr.to(adt), cfg, with_stats=True
-        )
+        F_new, node_llh, ok = cand_select_from_x(xc, F, sumF, grad, llh_nbr, csr, cfg)
         return TrainState(
-            F=F_new, sumF=sumF_new, llh=node_llh.sum(), it=state.it + 1,
-            accept_hist=hist,
+            F=F_new, sumF=F_new.sum(dim=0), llh=node_llh.sum(), it=state.it + 1,
+            accept_hist=accept_stats(ok),
         )
 
     steps = {

@@ -70,6 +70,13 @@ ENTRIES = {
     "bigclam_cand_dots_kb": [P, P, I, P, P, I, L, I, I, I, P, I, R, R, R, R, P, I, P],
     # xc, indptr, n, E, num_s, omp_lo, omp_hi, out, stream
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
+    # xc, E, indptr, F, sumF, grad, llh_nbr, n, K, etas, coefs, num_s,
+    # omp_lo, omp_hi, min_f, max_f, F_new, node_llh, ok, stream
+    "bigclam_cand_select_from_x": [P, L, P, P, P, P, P, I, I, P, P, I, R, R, R, R,
+                                   P, P, P, P],
+    # F, sumF, grad, node_llh, cand_nbr, n, K, etas, coefs, num_s, min_f,
+    # max_f, F_new, ok, stream
+    "bigclam_armijo_select": [P, P, P, P, P, I, I, P, P, I, R, R, P, P, P],
     # ids, w, src, dst, E, M, k_pad, out, stream
     "bigclam_member_lookup": [P, P, P, P, L, I, I, P, P],
     # F, grad, src, dst, runs, n_runs, E, K, etas, num_s, omp_lo, omp_hi,
@@ -167,14 +174,18 @@ def build(csrc: Path = CSRC_DIR) -> dict:
 _LIBRARY: Optional[ctypes.CDLL] = None
 
 
-def bind(path: Path) -> ctypes.CDLL:
+def bind(path: Path, require_all: bool = True) -> ctypes.CDLL:
     """The kernel library at `path`, loaded with every C entry of ENTRIES
     bound (argtypes set, int cudaError_t return) and
-    `bigclam_error_string(int)`."""
+    `bigclam_error_string(int)`. With require_all=False an entry the
+    library lacks (another tree's build, say) is left unbound instead of
+    raising AttributeError."""
     lib = ctypes.CDLL(str(path))
     lib.bigclam_error_string.argtypes = [I]
     lib.bigclam_error_string.restype = ctypes.c_char_p
     for entry, argtypes in ENTRIES.items():
+        if not require_all and not hasattr(lib, entry):
+            continue
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = I

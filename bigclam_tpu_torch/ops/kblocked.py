@@ -18,8 +18,12 @@ runs four kernels:
 * `cand_dots_kb`   — window share of every edge's 16 candidate dots, added
   into xc (csrc/cand_dots_kb.cu, on the staged candidate ladder of
   csrc/edge_common.cuh; `cand_dots_fused`, `cand_dots_csr`);
-* `cand_nbr_from_x` — from the full xc, the neighbour candidate LLH
-  (csrc/cand_from_x.cu; `cand_nbr_from_x_csr`).
+* `cand_select_from_x` — the node pass that ends the step: from the full
+  xc, each node's neighbour candidate sums, its node tail and the 16 Armijo
+  tails, the acceptance test and the selection, F_new written once
+  (csrc/cand_from_x.cu; it absorbs `cand_nbr_from_x_csr`). The neighbour
+  sums alone stay as `cand_nbr_from_x`, the JAX function, for callers that
+  psum them before the tails (`train_pass_kblocked`).
 
 The TPU keeps two copies of the first three (one DMAs the window in-kernel,
 one takes a gathered fd); on the card a warp reads each neighbour row's
@@ -48,8 +52,13 @@ from bigclam_tpu_torch.ops.csr_kernels import (
     kernel_constants,
     ladder_launch_plan,
 )
-from bigclam_tpu_torch.ops.linesearch import step_etas
-from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, edge_terms
+from bigclam_tpu_torch.ops.linesearch import armijo_tail_select_plain, step_etas
+from bigclam_tpu_torch.ops.objective import (
+    accum_dtype,
+    edge_chunk_bound,
+    edge_terms,
+    node_tail,
+)
 
 # plain versions' edge chunking where no config is given (edge_dots_kb)
 _DEFAULT_CFG = BigClamConfig()
@@ -330,7 +339,8 @@ def cand_nbr_from_x(
 ) -> torch.Tensor:
     """NEIGHBOR candidate LLH (S, n) from the FULL candidate dots xc (S, E):
     sum over each node's edges of log(omp(xc)) + xc. No Armijo tails: feed
-    armijo_update, which adds them."""
+    armijo_update (or armijo_update_kernel), which adds them; the one-card
+    step takes cand_select_from_x, which does all of it in one pass."""
     if xc.device.type == "cpu":
         return cand_nbr_from_x_plain(xc, csr, cfg)
     c = kernel_constants(cfg)
@@ -350,10 +360,76 @@ def cand_nbr_from_x(
 cand_nbr_from_x.launches = 0
 
 
+# --- the node pass -------------------------------------------------------------
+
+
+def cand_select_from_x_plain(
+    xc: torch.Tensor,
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    grad: torch.Tensor,
+    llh_nbr: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch cand_select_from_x: cand_nbr_from_x_plain, then the node
+    tail, then armijo_update's tails and selection."""
+    adt = accum_dtype(cfg, F)
+    cand_nbr = cand_nbr_from_x_plain(xc, csr, cfg)
+    node_llh = llh_nbr.to(adt) + node_tail(F, sumF).to(adt)
+    F_new, ok = armijo_tail_select_plain(F, sumF, grad, node_llh, cand_nbr.to(adt), cfg)
+    return F_new, node_llh, ok
+
+
+def cand_select_from_x(
+    xc: torch.Tensor,
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    grad: torch.Tensor,
+    llh_nbr: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The node pass that ends a K-blocked step: from the FULL candidate
+    dots xc (S, E), F (n, K_pad), sumF, the folded gradient (n, K_pad) and
+    the neighbour LLH (n,), per node the neighbour candidate sums, the node
+    tail -F.sumF + F.F, the Armijo tails clip(F + eta g).(F - sumF), the
+    acceptance test (threshold rounded as kernel A rounds it) and the
+    largest accepted step. Returns (F_new (n, K_pad), node_llh (n,), ok
+    (S, n) bool), as fused_superstep returns them."""
+    if xc.device.type == "cpu":
+        return cand_select_from_x_plain(xc, F, sumF, grad, llh_nbr, csr, cfg)
+    if F.dim() != 2:
+        raise ValueError(f"F must be (n, K_pad), got {tuple(F.shape)}")
+    c = kernel_constants(cfg)
+    n, k_pad = F.shape
+    e = csr.num_directed_edges
+    check_float32(F.device, [
+        ("xc", xc, (c["num_s"], e)), ("F", F, (n, k_pad)), ("grad", grad, (n, k_pad)),
+        ("sumF", sumF, (k_pad,)), ("llh_nbr", llh_nbr, (n,)),
+    ])
+    check_csr(csr, n, F.device)
+    F_new = torch.empty_like(F)
+    node_llh = torch.empty(n, dtype=F.dtype, device=F.device)
+    ok = torch.empty((c["num_s"], n), dtype=torch.bool, device=F.device)
+    build.launch(
+        F.device, "bigclam_cand_select_from_x",
+        xc.data_ptr(), e, csr.indptr.data_ptr(), F.data_ptr(), sumF.data_ptr(),
+        grad.data_ptr(), llh_nbr.data_ptr(), n, k_pad, c["etas"].ctypes.data,
+        c["coefs"].ctypes.data, c["num_s"], c["omp_lo"], c["omp_hi"], c["min_f"],
+        c["max_f"], F_new.data_ptr(), node_llh.data_ptr(), ok.data_ptr(),
+    )
+    cand_select_from_x.launches += 1
+    return F_new, node_llh, ok
+
+
+cand_select_from_x.launches = 0
+
+
 # --- the K-blocked train pass -------------------------------------------------
 
 
-def train_pass_kblocked(
+def kblocked_terms(
     F: torch.Tensor,
     sumF: torch.Tensor,
     csr: DeviceCSR,
@@ -361,14 +437,13 @@ def train_pass_kblocked(
     kc: int,
     fold: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One step's edge work over K blocks of kc columns (kc | F.shape[1]):
+    """One step's edge terms over K blocks of kc columns (kc | F.shape[1]):
     (1) every block's edge_dots_kb, so x holds the FULL dots before any
     consumer reads it; (2) per block, grad_from_x_kb into that block's
-    columns of the step's gradient, then cand_dots_kb on them; (3) one
-    cand_nbr_from_x. With fold=True the -sumF + F fold runs in the gradient
-    kernel (`csr_fused_kb`), else in torch, in place (`csr_grouped_kb`).
-    Returns (grad (n, K_pad), llh_nbr (n,), cand_nbr (S, n)); the candidate
-    terms are neighbour-only."""
+    columns of the step's gradient, then cand_dots_kb on them. With
+    fold=True the -sumF + F fold runs in the gradient kernel
+    (`csr_fused_kb`), else in torch, in place (`csr_grouped_kb`). Returns
+    (grad (n, K_pad), llh_nbr (n,), xc (S, E)), the full candidate dots."""
     n, k_pad = F.shape
     if kc < 1 or k_pad % kc:
         raise ValueError(f"K block kc={kc} must divide K_pad={k_pad}")
@@ -386,13 +461,30 @@ def train_pass_kblocked(
         if not fold:
             grad_kb.sub_(sumF[None, col0 : col0 + kc]).add_(F[:, col0 : col0 + kc])
         cand_dots_kb(F, grad_kb, csr, col0, kc, cfg, xc)
-    cand_nbr = cand_nbr_from_x(xc, csr, cfg)
-    return grad, llh_nbr, cand_nbr
+    return grad, llh_nbr, xc
+
+
+def train_pass_kblocked(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    csr: DeviceCSR,
+    cfg: BigClamConfig,
+    kc: int,
+    fold: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX K-blocked pass's interface: kblocked_terms, then one
+    cand_nbr_from_x. Returns (grad (n, K_pad), llh_nbr (n,), cand_nbr
+    (S, n)); the candidate terms are neighbour-only (a caller that psums
+    them over a K-sharded mesh adds the tails after). The one-card step
+    ends with cand_select_from_x instead."""
+    grad, llh_nbr, xc = kblocked_terms(F, sumF, csr, cfg, kc, fold)
+    return grad, llh_nbr, cand_nbr_from_x(xc, csr, cfg)
 
 
 def reset_launch_counts() -> None:
     """Set the launch counter of every K-blocked wrapper to 0."""
-    for fn in (edge_dots_kb, grad_from_x_kb, cand_dots_kb, cand_nbr_from_x):
+    for fn in (edge_dots_kb, grad_from_x_kb, cand_dots_kb, cand_nbr_from_x,
+               cand_select_from_x):
         fn.launches = 0
 
 
@@ -403,4 +495,5 @@ def launch_counts() -> dict:
         "grad_from_x": grad_from_x_kb.launches,
         "cand_dots_kb": cand_dots_kb.launches,
         "cand_from_x": cand_nbr_from_x.launches,
+        "cand_select_from_x": cand_select_from_x.launches,
     }

@@ -10,6 +10,11 @@ sumF' = sumF - F_u + F_u', accepted iff
 
 and the chosen step is the LARGEST accepted eta; nodes with no accepted
 candidate keep their row (the Jacobi simultaneous update).
+
+`armijo_update_kernel` computes armijo_update with the tails, the test and
+the selection in one CUDA kernel (`armijo_tail_select`, the epilogue of the
+node pass in csrc/cand_from_x.cu); the `pallas_vmem` and ring steps take
+it where the kernels engage.
 """
 
 from __future__ import annotations
@@ -99,20 +104,18 @@ def accept_stats(ok: torch.Tensor) -> torch.Tensor:
     return torch.cat([counts, rejected[None]]).to(torch.int32)
 
 
-def armijo_select(
+def armijo_accept(
     F: torch.Tensor,
     grad: torch.Tensor,
     node_llh: torch.Tensor,
     cand_llh: torch.Tensor,
     cfg: BigClamConfig,
-    with_stats: bool = False,
 ):
     """Acceptance test + max-accepted-step selection + Jacobi update, given
     the FULL per-candidate LLH (neighbor terms + Armijo tails), (S, N).
 
-    Returns (F_new, sumF_new) with sumF as fresh column sums; with
-    with_stats=True additionally the accept_stats histogram.
-    """
+    Returns (F_new, ok): ok is the (S, N) acceptance mask (feed
+    accept_stats)."""
     adt = accum_dtype(cfg, F)
     etas = step_etas(cfg, F)
     gg = (grad * grad).sum(dim=1).to(adt)
@@ -125,6 +128,20 @@ def armijo_select(
         torch.clamp(F + best_eta[:, None] * grad, cfg.min_f, cfg.max_f),
         F,
     )
+    return F_new, ok
+
+
+def armijo_select(
+    F: torch.Tensor,
+    grad: torch.Tensor,
+    node_llh: torch.Tensor,
+    cand_llh: torch.Tensor,
+    cfg: BigClamConfig,
+    with_stats: bool = False,
+):
+    """armijo_accept, returning (F_new, sumF_new) with sumF as fresh column
+    sums; with with_stats=True additionally the accept_stats histogram."""
+    F_new, ok = armijo_accept(F, grad, node_llh, cand_llh, cfg)
     if with_stats:
         return F_new, F_new.sum(dim=0), accept_stats(ok)
     return F_new, F_new.sum(dim=0)
@@ -158,3 +175,95 @@ def armijo_update(
         F, grad, node_llh, cand_nbr + armijo_tails(F, sumF, grad, cfg), cfg,
         with_stats=with_stats,
     )
+
+
+# --- the tails and the selection in one CUDA kernel -------------------------
+
+
+def armijo_tail_select_plain(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    grad: torch.Tensor,
+    node_llh: torch.Tensor,
+    cand_nbr: torch.Tensor,
+    cfg: BigClamConfig,
+):
+    """Plain PyTorch armijo_tail_select: armijo_update's tails and
+    armijo_accept."""
+    return armijo_accept(
+        F, grad, node_llh, cand_nbr + armijo_tails(F, sumF, grad, cfg), cfg
+    )
+
+
+def armijo_tail_select(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    grad: torch.Tensor,
+    node_llh: torch.Tensor,
+    cand_nbr: torch.Tensor,
+    cfg: BigClamConfig,
+):
+    """From the NEIGHBOUR candidate terms (S, N): the Armijo tails, the
+    acceptance test and the selection of every row in one launch
+    (csrc/cand_from_x.cu `bigclam_armijo_select`, the node pass's epilogue;
+    the threshold rounded as kernel A rounds it). Returns (F_new, ok (S, N)
+    bool). On CPU tensors the plain version runs; on CUDA tensors F, grad,
+    sumF, node_llh and cand_nbr must be float32 and contiguous and the
+    ladder at most 16 steps, or it raises. Counts its launches in
+    `armijo_tail_select.launches`."""
+    if F.device.type == "cpu":
+        return armijo_tail_select_plain(F, sumF, grad, node_llh, cand_nbr, cfg)
+    # csr_kernels imports this module: its helpers come in at the call
+    from bigclam_tpu_torch.ops import build
+    from bigclam_tpu_torch.ops.csr_kernels import check_float32, kernel_constants
+
+    if F.dim() != 2:
+        raise ValueError(f"F must be (n, K), got {tuple(F.shape)}")
+    c = kernel_constants(cfg)
+    n, k = F.shape
+    check_float32(F.device, [
+        ("F", F, (n, k)), ("grad", grad, (n, k)), ("sumF", sumF, (k,)),
+        ("node_llh", node_llh, (n,)), ("cand_nbr", cand_nbr, (c["num_s"], n)),
+    ])
+    F_new = torch.empty_like(F)
+    ok = torch.empty((c["num_s"], n), dtype=torch.bool, device=F.device)
+    build.launch(
+        F.device, "bigclam_armijo_select",
+        F.data_ptr(), sumF.data_ptr(), grad.data_ptr(), node_llh.data_ptr(),
+        cand_nbr.data_ptr(), n, k, c["etas"].ctypes.data, c["coefs"].ctypes.data,
+        c["num_s"], c["min_f"], c["max_f"], F_new.data_ptr(), ok.data_ptr(),
+    )
+    armijo_tail_select.launches += 1
+    return F_new, ok
+
+
+armijo_tail_select.launches = 0
+
+
+def armijo_update_kernel(
+    F: torch.Tensor,
+    sumF: torch.Tensor,
+    grad: torch.Tensor,
+    node_llh: torch.Tensor,
+    cand_nbr: torch.Tensor,
+    cfg: BigClamConfig,
+    with_stats: bool = False,
+):
+    """armijo_update with the tails, the test and the selection in one CUDA
+    kernel (armijo_tail_select); the column sums and the histogram stay in
+    torch. On CPU tensors armijo_tail_select runs its plain version, and
+    this is armijo_update bit for bit."""
+    F_new, ok = armijo_tail_select(F, sumF, grad, node_llh, cand_nbr, cfg)
+    if with_stats:
+        return F_new, F_new.sum(dim=0), accept_stats(ok)
+    return F_new, F_new.sum(dim=0)
+
+
+def reset_launch_counts() -> None:
+    """Set the launch counter of the epilogue kernel's wrapper to 0."""
+    armijo_tail_select.launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {"armijo_tail_select": armijo_tail_select.launches}

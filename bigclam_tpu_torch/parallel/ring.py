@@ -24,7 +24,10 @@ The phase sweep is kernel #8 (gradient) and #9 (candidates) on the paths
 between the two, an fd gather, has no counterpart here, so both run the
 same kernels), or their plain versions on `xla`. Each bucket carries
 kernel #8's visit order of its rows (`visit_order`), computed once from
-the graph when the model builds its buckets.
+the graph when the model builds its buckets. Where the kernels engage, the
+Armijo tails and the selection of each shard run in one more kernel, the
+node pass's epilogue (ops.linesearch.armijo_update_kernel); `xla` keeps
+them in torch.
 """
 
 from __future__ import annotations
@@ -260,7 +263,8 @@ def make_ring_train_step(
             l.to(adt) + node_tail(f, s).to(adt) for l, f, s in zip(ln, F, sumF)
         ]
 
-        # rotation 2: the 16 candidates' neighbour terms (tails come after)
+        # rotation 2: the 16 candidates' neighbour terms (the tails and the
+        # selection come after, in one kernel where the kernels engage)
         cb = [f.new_zeros((num_s, f.shape[0])) for f in F]
 
         def cand_sweep(r, rot):
@@ -271,7 +275,8 @@ def make_ring_train_step(
         outs = []
         for i in range(dp):
             F_new, sum_loc, hist = armijo_tail_select_sharded(
-                F[i], grad[i], node_llh[i], cb[i].to(adt), sumF[i], cfg
+                F[i], grad[i], node_llh[i], cb[i].to(adt), sumF[i], cfg,
+                kernel=path != "xla",
             )
             outs.append((F_new, sum_loc, node_llh[i].sum(), hist))
         return finish_step(state, outs, devices)

@@ -61,6 +61,7 @@ from bigclam_tpu_torch.ops.linesearch import (
     accept_stats,
     armijo_select,
     armijo_update,
+    armijo_update_kernel,
     candidates_pass,
 )
 from bigclam_tpu_torch.ops.objective import grad_llh
@@ -145,15 +146,19 @@ def armijo_tail_select_sharded(
     cand_nbr: torch.Tensor,
     sumF: torch.Tensor,
     cfg: BigClamConfig,
+    kernel: bool = False,
 ):
     """Armijo tails + acceptance + max-accepted-step Jacobi update of one
     shard's rows, given its NEIGHBOUR candidate terms: ONE implementation
     shared by the `xla` all-gather step and every ring step (JAX
     `armijo_tail_select_sharded`). At tp = 1 every row dot is a plain row
     dot, so this is ops.linesearch.armijo_update on the shard's rows with
-    the global sumF. Returns (F_new, the shard's column sums of F_new —
-    the caller psums them —, the shard's accepted-step histogram)."""
-    return armijo_update(F_loc, sumF, grad, node_llh, cand_nbr, cfg, with_stats=True)
+    the global sumF; with kernel=True (the steps whose kernels engage:
+    `csr_ring_fused`, `csr_ring`) its CUDA kernel, armijo_update_kernel.
+    Returns (F_new, the shard's column sums of F_new — the caller psums
+    them —, the shard's accepted-step histogram)."""
+    update = armijo_update_kernel if kernel else armijo_update
+    return update(F_loc, sumF, grad, node_llh, cand_nbr, cfg, with_stats=True)
 
 
 def mesh_kernels_want(

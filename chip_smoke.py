@@ -12,8 +12,9 @@ exits non-zero:
             and links them into one library; the registers and spill bytes
             of every redesigned kernel (the staged ladder's A, C, #9, #14,
             cand_dots_kb, the staged gradient's B and #8, the member
-            lookup, the staged windows of edge_dots_kb and grad_from_x) per
-            instantiation, and the ladder kernels' launch plans
+            lookup, the staged windows of edge_dots_kb and grad_from_x, the
+            node pass of cand_from_x.cu) per instantiation, and the ladder
+            kernels' launch plans
   against   with --against DIR=KERNELS (any number of them; DIR holds
             another tree's kernel sources, e.g. an earlier commit's
             bigclam_tpu_torch/csrc unpacked into a git-ignored directory,
@@ -31,7 +32,8 @@ exits non-zero:
             row), at K=37 and K=1,024, accumulating across the phases;
             then the hub graph at dp = 3, K=37, 1,000 and 1,024; in every
             case #8 under each visit order of the buckets' rows equals #8
-            under the identity order bit for bit
+            under the identity order bit for bit, and the node pass's
+            epilogue (armijo_tail_select) of every shard matches plain
   sparse_odd the member-lookup kernel against its plain version, bit for
             bit, on the odd case's sparse state at M=5 (M < K, truncating)
             and M=37 (not a multiple of 32), before and after a support
@@ -76,15 +78,19 @@ exits non-zero:
   vmem_main `cli fit --csr-kernels off` on the same file, conductance
             init, 5 iterations, no --out; path `pallas_vmem`, the
             candidate edge-terms launches counted from 0 around the fit
-            (one per edge chunk and step); the LLH rises and stays within
-            1e-4 of main's `csr_fused` history; peak device memory
+            (one per edge chunk and step) and the node pass's epilogue
+            (one a step); the LLH rises and stays within 1e-4 of main's
+            `csr_fused` history; peak device memory
   vmem_full the candidate edge-terms kernel against its plain version
             over every edge chunk of vmem_main's final F (with the runs the
             model caches), both timed as
-            `full` times kernels, one `pallas_vmem` step timed split into
-            the torch grad pass, the kernel, the `index_add_` sums and
-            the Armijo update, and traced once with torch.profiler; one
-            `xla` step (use_pallas=False) on the same state for comparison
+            `full` times kernels; the epilogue kernel against its plain
+            version on the step's inputs, timed beside torch
+            `armijo_update`; one `pallas_vmem` step timed split into the
+            torch grad pass, the kernel, the `index_add_` sums and the
+            Armijo update (the epilogue kernel, the column sums, the
+            histogram), and traced once with torch.profiler; one `xla`
+            step (use_pallas=False) on the same state for comparison
   sweep_main `cli sweep --min-com 500 --max-com 1000 --div-com 4
             --max-iters 5` on the same file: the grid, at least 2 trained
             Ks, finite LLHs, the seconds per K; path `csr_fused`
@@ -97,22 +103,25 @@ exits non-zero:
             the port's CPU `xla` path in float64
   ring_main `cli fit --mesh 1,1 --schedule ring` on the same file,
             conductance init, 5 iterations, no --out; path
-            `csr_ring_fused`, one launch of each ring kernel per step,
-            counted from 0 around the fit; the LLH rises and stays within
-            1e-4 of main's
+            `csr_ring_fused`, one launch of each ring kernel and of the
+            epilogue per step, counted from 0 around the fit; the LLH rises
+            and stays within 1e-4 of main's
   ring_dp4  RingBigClamModel on 4 shards of one card (balanced), 5 steps
             of `csr_ring_fused` from that F0 (16 launches of each ring
-            kernel a step), 2 of `csr_ring`, LLHs within 1e-4 of main's;
-            one step timed whole and split into rotation 1, the fold,
-            rotation 2, the Armijo tails and selection and the psums, and
-            traced; peak device memory
+            kernel and 4 of the epilogue a step), 2 of `csr_ring`, LLHs
+            within 1e-4 of main's; one step timed whole and split into
+            rotation 1, the fold, rotation 2, the epilogue of every shard
+            (with the column sums and histograms) and the psums, beside the
+            torch tails it replaced, and traced; peak device memory
   ring_full #8 and #9 against their plain versions over every bucket of
             that layout on the final F, each timed per sweep of 16
             buckets as `full` times kernels, with their bound; #8 under
             each visit order (identity, pre-balance node order, first
             neighbour), bit-equal to the identity order and timed per
             sweep; both sweeps timed again on the unbalanced layout of the
-            same F, #8 there under each visit order too
+            same F, #8 there under each visit order too; the epilogue of
+            every shard against plain, timed over the 4 shards beside torch
+            `armijo_update`
   allgather_main `cli fit --mesh 1,1` (path `csr_fused`, LLH within 1e-4
             of main's), then ShardedBigClamModel on 4 shards of one card:
             5 steps of `csr_fused`, 2 of `csr`, with launches and LLH
@@ -134,16 +143,19 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
   kb_graph  that graph, written as a SNAP edge list
   kb_main   `cli fit --graph` at K=3,000, conductance init, 5 iterations,
             no --out; path `csr_fused_kb`, per step 3 launches of each
-            window kernel and 1 of cand_from_x, counted from 0 around
-            the fit; the LLH rises
+            window kernel and 1 of the node pass (cand_select_from_x),
+            counted from 0 around the fit; the LLH rises
   kb_split  the same with --csr-fused off (path `csr_grouped_kb`), 2
             steps; its LLHs equal kb_main's first two within 1e-4
   kb_full   each K-blocked kernel against its plain version from
             kb_main's F (x, x symmetric bit for bit through the reverse-edge
-            index, grad with and without the fold, llh_nbr, xc, cand_nbr),
-            both timed per full step as `full` times them, and the whole
-            step timed split into the kernels and the torch node tail +
-            Armijo tails + selection; the dots and the gradient again, vs
+            index, grad with and without the fold, llh_nbr, xc, cand_nbr,
+            and the node pass's node_llh, mask and F_new), both timed per
+            full step as `full` times them, the node pass also beside the
+            torch epilogue it replaced (the neighbour-only entry, the node
+            tail and `armijo_update`), and the whole step timed split into
+            the edge kernels, the node pass and the torch rest (column
+            sums, histogram, LLH); the dots and the gradient again, vs
             plain and timed, on the graph relabelled by a seeded
             permutation (F's rows permuted to match: no id locality);
             `sampled_addmm` beside the dots (library_ms) and a sparse
@@ -154,7 +166,7 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
             graph (the degree-700 hub crosses 22 ladder tiles in each
             window), and K=37 in windows of kc=3 (csr_k_block) on the odd
             graph (windows off 16 bytes: the 4-byte copies), kernels vs
-            plain, the dots symmetric bit for bit
+            plain (the node pass included), the dots symmetric bit for bit
   kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
             both K-blocked paths on the card against the CPU float64
             `xla` path
@@ -172,8 +184,8 @@ phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
 
 Tolerances: F_new, grad, node_llh, the candidate LLH, the candidate edge
-terms and the K-blocked kernels' x, grad, llh_nbr, xc and cand_nbr at
-rtol = atol = 3e-5
+terms, the K-blocked kernels' x, grad, llh_nbr, xc and cand_nbr and the
+node pass's node_llh and F_new at rtol = atol = 3e-5
 (relative errors are reported as |got - want| / (|want| + 3e-5)) (the
 float32 band the JAX package holds its fused, split and XLA paths to); the
 0/1 acceptance mask must be equal except where
@@ -274,10 +286,27 @@ KERNELS = {
         also_replaces="bigclam_tpu/ops/pallas_csr.py:585 (cand_dots_csr)",
         redesigned="the staged candidate ladder over a column window, with row groups",
     ),
+    # row 7's source: the node pass that ends the K-blocked step (its
+    # launches are `cand_select_from_x`'s) and the neighbour-only entry
     "cand_from_x": dict(
         source="bigclam_tpu_torch/csrc/cand_from_x.cu",
         replaces="bigclam_tpu/ops/pallas_csr.py:645",
         tpu_kernel="cand_nbr_from_x_csr",
+        entry="bigclam_cand_select_from_x",
+        also_computes="bigclam_tpu/ops/linesearch.py:141 (armijo_update, XLA)",
+        redesigned=("the node pass that ends the step: a warp (K <= 1,024) or a block "
+                    "a node, F_u and g_u in registers by float4, the neighbour sums "
+                    "in sectors, tails, test and selection, F_new written once"),
+    ),
+    # the node pass's epilogue from given neighbour sums (the ring and
+    # pallas_vmem steps): the same kernel template
+    "armijo_tail_select": dict(
+        source="bigclam_tpu_torch/csrc/cand_from_x.cu",
+        replaces="bigclam_tpu/ops/pallas_csr.py:645",
+        tpu_kernel="cand_nbr_from_x_csr",
+        entry="bigclam_armijo_select",
+        also_computes="bigclam_tpu/ops/linesearch.py:141 (armijo_update, XLA)",
+        redesigned="the node pass's epilogue (node_pass_kernel<Nbr::kGiven>)",
     ),
     "member_lookup": dict(
         source="bigclam_tpu_torch/csrc/member_lookup.cu",
@@ -314,6 +343,8 @@ RING_ODD_DP = 3
 RING_ODD_K = (37, 1024)
 SINGLE_PASS = ("fused_superstep", "grad_llh_csr", "candidates_csr")
 K_BLOCKED = ("edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x")
+# the launch counter of a KERNELS entry where it is not the entry's name
+COUNTER = {"cand_from_x": "cand_select_from_x"}
 NO_LIBRARY = (
     "no single PyTorch call computes this function (gather, clipped "
     "log-survival edge terms and per-node sums, and for the candidate "
@@ -334,7 +365,12 @@ LIBRARY_NOTES = {
     ),
     "cand_from_x": (
         "no single PyTorch call: the clipped log-survival terms come "
-        "before the per-node sum (index_add_)"
+        "before the per-node sum (index_add_), and the 16 clipped candidate "
+        "rows, their dots, the test and the selection are further calls"
+    ),
+    "armijo_tail_select": (
+        "no single PyTorch call forms the 16 clipped candidate rows, their "
+        "dots with F_u - sumF, the acceptance test and the selection"
     ),
     "member_lookup": (
         "no single PyTorch call: torch.searchsorted gives positions only; "
@@ -411,14 +447,14 @@ class Check:
                 f"(max abs err {abs_err})"
             )
 
-    def ok_mask(self, ok_k, ok_p, cand, thr):
+    def ok_mask(self, ok_k, ok_p, cand, thr, what="ok"):
         """Acceptance masks equal except at near-ties."""
         diff = ok_k != ok_p
         band = TIE * thr.abs().clamp_min(1.0)
         tie = (cand - thr).abs() <= band
         bad = int((diff & ~tie).sum())
         ratio = ((cand - thr).abs() / band)[diff]
-        self.parts["ok"] = {
+        self.parts[what] = {
             "flips": int(diff.sum()), "flips_outside_ties": bad,
             # the flipped decision farthest from its threshold, in bands
             "max_flip_margin": float(ratio.max()) if ratio.numel() else 0.0,
@@ -534,12 +570,65 @@ def compare_kb_kernels(F, csr, cfg, kc, plain):
     out_k = kb.cand_nbr_from_x(xc_p, csr, cfg)
     torch.cuda.synchronize()
     checks["cand_from_x"].close("cand_nbr", out_k, kb.cand_nbr_from_x_plain(xc_p, csr, cfg))
+    check_node_pass(checks["cand_from_x"], "node", xc_p, F, sumF,
+                    torch.cat(grads_p, dim=1), llh_p, csr, cfg)
     return checks
+
+
+def select_plain(F, sumF, grad, node_llh, cand_nbr, cfg):
+    """What the node pass's acceptance test compares, in float64: (cand
+    (S, n), the neighbour sums plus the Armijo tails; thr (S, n), node_llh +
+    float32(alpha eta) ||g||^2, the threshold rounded as kernel A rounds
+    it)."""
+    from bigclam_tpu_torch.ops.csr_kernels import kernel_constants
+    from bigclam_tpu_torch.ops.linesearch import armijo_tails
+
+    F, sumF, grad, node_llh, cand_nbr = (
+        t.double() for t in (F, sumF, grad, node_llh, cand_nbr))
+    coefs = torch.as_tensor(kernel_constants(cfg)["coefs"], device=F.device).double()
+    gg = (grad * grad).sum(dim=1)
+    return (cand_nbr + armijo_tails(F, sumF, grad, cfg),
+            node_llh[None, :] + coefs[:, None] * gg[None, :])
+
+
+def check_node_pass(check, tag, xc, F, sumF, grad, llh_nbr, csr, cfg):
+    """The node pass (cand_select_from_x) against its plain version on
+    float64 copies of the same inputs: node_llh in the 3e-5 band, the mask
+    through Check.ok_mask, F_new on every row against the plain projection
+    on the kernel's own mask."""
+    from bigclam_tpu_torch.ops import kblocked as kb
+    from bigclam_tpu_torch.ops.fused import project_accepted
+    from bigclam_tpu_torch.ops.objective import node_tail
+
+    F_new, node_llh, ok = kb.cand_select_from_x(xc, F, sumF, grad, llh_nbr, csr, cfg)
+    torch.cuda.synchronize()
+    F64, sumF64, grad64 = F.double(), sumF.double(), grad.double()
+    node_llh_p = llh_nbr.double() + node_tail(F64, sumF64)
+    check.close(f"{tag}_node_llh", node_llh, node_llh_p)
+    cand, thr = select_plain(F64, sumF64, grad64, node_llh_p,
+                             kb.cand_nbr_from_x_plain(xc.double(), csr, cfg), cfg)
+    check.ok_mask(ok, cand >= thr, cand, thr, f"{tag}_ok")
+    check.close(f"{tag}_F_new", F_new, project_accepted(F64, grad64, ok, cfg))
+
+
+def check_epilogue(check, tag, F, sumF, grad, node_llh, cand_nbr, cfg):
+    """The node pass's epilogue from given neighbour sums
+    (armijo_tail_select) against its plain version on float64 copies of the
+    same inputs, as check_node_pass holds the node pass."""
+    from bigclam_tpu_torch.ops.fused import project_accepted
+    from bigclam_tpu_torch.ops.linesearch import armijo_tail_select
+
+    F_new, ok = armijo_tail_select(F, sumF, grad, node_llh, cand_nbr, cfg)
+    torch.cuda.synchronize()
+    cand, thr = select_plain(F, sumF, grad, node_llh, cand_nbr, cfg)
+    check.ok_mask(ok, cand >= thr, cand, thr, f"{tag}_ok")
+    check.close(f"{tag}_F_new", F_new,
+                project_accepted(F.double(), grad.double(), ok, cfg))
 
 
 def reset_launch_counts() -> None:
     from bigclam_tpu_torch.ops import (
-        edge_kernels, fused, kblocked, ring_kernels, sparse_members,
+        edge_kernels, fused, kblocked, linesearch, ring_kernels, sparse_members,
     )
 
     fused.reset_launch_counts()
@@ -547,16 +636,17 @@ def reset_launch_counts() -> None:
     sparse_members.reset_launch_counts()
     edge_kernels.reset_launch_counts()
     ring_kernels.reset_launch_counts()
+    linesearch.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     from bigclam_tpu_torch.ops import (
-        edge_kernels, fused, kblocked, ring_kernels, sparse_members,
+        edge_kernels, fused, kblocked, linesearch, ring_kernels, sparse_members,
     )
 
     return {**fused.launch_counts(), **kblocked.launch_counts(),
             **sparse_members.launch_counts(), **edge_kernels.launch_counts(),
-            **ring_kernels.launch_counts()}
+            **ring_kernels.launch_counts(), **linesearch.launch_counts()}
 
 
 def time_ms(fn, reps: int = 5) -> list:
@@ -733,7 +823,9 @@ def phase_against(specs) -> dict:
         if not kernels or unknown:
             raise ValueError(f"--against {spec}: name kernels of {sorted(KERNELS)}")
         res = build.build(Path(d).resolve())
-        AGAINST[d] = {"lib": build.bind(res["path"]), "kernels": kernels}
+        # another tree's library may lack this tree's newer C entries
+        AGAINST[d] = {"lib": build.bind(res["path"], require_all=False),
+                      "kernels": kernels}
         theirs = sass_opcodes(res["path"])
         stems = {source_name(k).removesuffix("_kb") for k in kernels}
         funcs = {
@@ -787,8 +879,12 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
     The K-blocked kernels are counted per full step (every K block): the
     dots 2K per edge into x (E,); the gradient from x 2K (+3) per edge and
     the fold 2K per node; the candidate dots 2K (+2) per edge and
-    candidate plus 3K per node and candidate to build nf_s, into xc (S, E);
-    cand_from_x 3 per edge and candidate from xc."""
+    candidate plus 3K per node and candidate to build nf_s, into xc (S, E).
+    cand_from_x is the node pass that ends the step (cand_select_from_x): xc
+    read once, F and the gradient read and F_new written once, the node
+    LLH and the (S, n) mask written, 3 operations per edge and candidate
+    from xc and per node select_bound's count; `cand_from_x_neighbour_only`
+    is the neighbour sums alone (S, n)."""
     f4 = 4.0 * n * k
     csr_bytes = 8.0 * (n + 1) + 4.0 * e + 4.0 * k
     grad_ops = e * (4.0 * k + 3) + n * 6.0 * k
@@ -810,7 +906,12 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
             2 * f4 + csr_bytes + xc_bytes,
             e * s * (2.0 * k + 2) + n * s * 3.0 * k,
         ),
-        "cand_from_x": (xc_bytes + 8.0 * (n + 1) + 4.0 * s * n, e * s * 3.0),
+        "cand_from_x": (
+            xc_bytes + 8.0 * (n + 1) + select_bytes(n, k, s) - 4.0 * s * n + 4.0 * n,
+            e * s * 3.0 + select_ops(n, k, s),
+        ),
+        "cand_from_x_neighbour_only": (xc_bytes + 8.0 * (n + 1) + 4.0 * s * n,
+                                       e * s * 3.0),
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -822,6 +923,30 @@ def bounds(n: int, e: int, k: int, s: int) -> dict:
             "ops": ops,
         }
     return out
+
+
+def select_bytes(n: int, k: int, s: int) -> float:
+    """Bytes of the node pass's epilogue over n rows: F and g read and F_new
+    written once (12 bytes a live column), sumF, node_llh and the (s, n)
+    neighbour sums read, the (s, n) mask written (a byte each)."""
+    return 12.0 * n * k + 4.0 * k + 4.0 * n + 4.0 * s * n + 1.0 * s * n
+
+
+def select_ops(n: int, k: int, s: int) -> float:
+    """Operations of the node pass's epilogue over n rows: 6 a column and
+    candidate (clip(F + eta g) and its dot with F - sumF), 10 a column
+    besides (||g||^2, F.F, F.sumF, F - sumF, the projection)."""
+    return n * k * (6.0 * s + 10.0)
+
+
+def select_bound(n: int, k: int, s: int) -> dict:
+    """Least time of the node pass's epilogue from given neighbour sums
+    (armijo_tail_select) over n rows at the live K."""
+    nbytes, ops = select_bytes(n, k, s), select_ops(n, k, s)
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def member_bound(n: int, e: int, m: int) -> dict:
@@ -1171,10 +1296,11 @@ def phase_parity(tmp) -> dict:
 
 def kb_launches_want(counts, n_kb: int, steps: int) -> dict:
     """The launch counts of `steps` K-blocked steps over n_kb blocks: each
-    window kernel once per block, cand_from_x once, nothing else."""
+    window kernel once per block, the node pass (cand_select_from_x) once,
+    nothing else (not the neighbour-only entry, not the epilogue)."""
     want = dict.fromkeys(counts, 0)
     want.update(edge_dots_kb=n_kb * steps, grad_from_x=n_kb * steps,
-                cand_dots_kb=n_kb * steps, cand_from_x=steps)
+                cand_dots_kb=n_kb * steps, cand_select_from_x=steps)
     return want
 
 
@@ -1227,12 +1353,14 @@ def phase_kb_split(g, path, main_hist):
 
 def phase_kb_full(g, F_host):
     """The K-blocked kernels vs plain at kb_main's shapes, timed per full
-    step, and the whole step split into kernels and torch; the dots and the
-    gradient again on the same graph with shuffled ids."""
+    step (the node pass also beside the torch epilogue it replaced), and
+    the whole step split into the edge kernels, the node pass and the torch
+    rest; the dots and the gradient again on the same graph with shuffled
+    ids."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models.bigclam import BigClamModel
     from bigclam_tpu_torch.ops import kblocked as kb
-    from bigclam_tpu_torch.ops.linesearch import armijo_update
+    from bigclam_tpu_torch.ops.linesearch import accept_stats, armijo_update
     from bigclam_tpu_torch.ops.objective import edge_terms, node_tail
 
     cfg = BigClamConfig(num_communities=XLK["k"])
@@ -1241,7 +1369,8 @@ def phase_kb_full(g, F_host):
     F, csr, kc = state.F, model.csr, model.kc
     plain = kb_plain_inputs(F, csr, cfg, kc)
     checks = compare_kb_kernels(F, csr, cfg, kc, plain)
-    sumF, x_p, grads_p, _, xc_p = plain
+    sumF, x_p, grads_p, llh_p, xc_p = plain
+    grad_p = torch.cat(grads_p, dim=1)
     n, k_pad = F.shape
     e, s = csr.num_directed_edges, len(cfg.step_candidates)
     cols = range(0, k_pad, kc)
@@ -1272,12 +1401,33 @@ def phase_kb_full(g, F_host):
                         lambda: grads(kb.grad_from_x_kb_plain)),
         "cand_dots_kb": (lambda: cands(kb.cand_dots_kb),
                          lambda: cands(kb.cand_dots_kb_plain)),
-        "cand_from_x": (lambda: kb.cand_nbr_from_x(xc_p, csr, cfg),
-                        lambda: kb.cand_nbr_from_x_plain(xc_p, csr, cfg)),
+        "cand_from_x": (
+            lambda: kb.cand_select_from_x(xc_p, F, sumF, grad_p, llh_p, csr, cfg),
+            lambda: kb.cand_select_from_x_plain(xc_p, F, sumF, grad_p, llh_p, csr, cfg),
+        ),
     }
     times = {name: time_pair(kern, pl) for name, (kern, pl) in calls.items()}
     for name in calls:
         times[name]["library_ms"] = None
+    # beside the node pass: the neighbour-only entry, and the route it
+    # replaced (that entry, then the node tail and armijo_update in torch)
+    times["cand_from_x"]["neighbour_only"] = time_pair(
+        lambda: kb.cand_nbr_from_x(xc_p, csr, cfg),
+        lambda: kb.cand_nbr_from_x_plain(xc_p, csr, cfg))
+
+    def torch_epilogue():
+        node_llh = llh_p + node_tail(F, sumF)
+        return armijo_update(F, sumF, grad_p, node_llh, kb.cand_nbr_from_x(xc_p, csr, cfg),
+                             cfg, with_stats=True)
+
+    times["cand_from_x"]["torch_epilogue_ms"] = statistics.median(
+        time_ms(torch_epilogue, 3))
+    # device time apart from the wrapper's host work, which the event pair
+    # around a call also holds (it sets the neighbour-only entry's time)
+    times["cand_from_x"]["profile"] = profile_call(
+        lambda: kb.cand_select_from_x(xc_p, F, sumF, grad_p, llh_p, csr, cfg), top=3)
+    times["cand_from_x"]["neighbour_only"]["profile"] = profile_call(
+        lambda: kb.cand_nbr_from_x(xc_p, csr, cfg), top=3)
     for name in K_BLOCKED:
         side_by_side(name, calls[name][0])
     side_by_side("grad_from_x", lambda: grads(kb.grad_from_x_kb, False), "fold off")
@@ -1338,25 +1488,30 @@ def phase_kb_full(g, F_host):
         side_by_side(name, kern, "shuffled ids")
     del F_s, sumF_s, csr_s, x_s
 
-    # the step: the K-blocked pass, then node tail + Armijo tails +
-    # selection in torch
-    grad, llh_nbr, cand_nbr = kb.train_pass_kblocked(F, sumF, csr, cfg, kc)
+    # the step: the K-blocked edge kernels, the node pass, then the column
+    # sums, the histogram and the LLH in torch
+    grad, llh_nbr, xc = kb.kblocked_terms(F, sumF, csr, cfg, kc)
+    F_new, node_llh, ok = kb.cand_select_from_x(xc, F, sumF, grad, llh_nbr, csr, cfg)
 
-    def tails():
-        node_llh = llh_nbr + node_tail(F, sumF)
-        return armijo_update(F, sumF, grad, node_llh, cand_nbr, cfg,
-                             with_stats=True)
+    def torch_rest():
+        return F_new.sum(dim=0), accept_stats(ok), node_llh.sum()
 
+    med = lambda fn: statistics.median(time_ms(fn))  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     step = {
-        "step_ms": statistics.median(time_ms(lambda: model._step(state))),
-        "kernels_ms": statistics.median(
-            time_ms(lambda: kb.train_pass_kblocked(F, sumF, csr, cfg, kc))
-        ),
-        "torch_tails_ms": statistics.median(time_ms(tails)),
+        "step_ms": med(lambda: model._step(state)),
+        "kernels_ms": med(lambda: kb.kblocked_terms(F, sumF, csr, cfg, kc)),
+        "node_pass_ms": med(
+            lambda: kb.cand_select_from_x(xc, F, sumF, grad, llh_nbr, csr, cfg)),
+        "torch_rest_ms": med(torch_rest),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    step["other_ms"] = step["step_ms"] - (
+        step["kernels_ms"] + step["node_pass_ms"] + step["torch_rest_ms"])
+    del grad, llh_nbr, xc, F_new, node_llh, ok
     bnd = bounds(n, e, XLK["k"], s)
+    times["cand_from_x"]["neighbour_only"].update(
+        bound_ms=bnd["cand_from_x_neighbour_only"]["bound_ms"])
     return checks, times, bnd, {
         "kernels": {
             name: {**checks[name].parts, **times[name], **bnd[name]}
@@ -1753,6 +1908,7 @@ def phase_vmem_main(g, path, main_hist):
     e = g.num_directed_edges
     want = dict.fromkeys(counts, 0)
     want["candidate_edge_terms"] = vmem_launches(e, FULL["k"], out["steps"])
+    want["armijo_tail_select"] = out["steps"]
     if counts != want or want["candidate_edge_terms"] < 1:
         raise AssertionError(f"pallas_vmem launches {counts}, want {want}")
     if not hist[-1] > hist[0]:
@@ -1778,11 +1934,14 @@ def phase_vmem_main(g, path, main_hist):
 
 def phase_vmem_full(g, F_host):
     """The edge-terms kernel vs plain over every chunk of vmem_main's final
-    F, both timed per sweep; one pallas_vmem step timed and split, and one
-    xla step on the same state."""
+    F, both timed per sweep; the node pass's epilogue (armijo_tail_select)
+    vs plain on the step's own inputs, timed beside torch armijo_update; one
+    pallas_vmem step timed and split, and one xla step on the same
+    state."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models.bigclam import BigClamModel
     from bigclam_tpu_torch.ops import edge_kernels as ek
+    from bigclam_tpu_torch.ops import linesearch as ls
     from bigclam_tpu_torch.ops.linesearch import armijo_update, candidates_scan
     from bigclam_tpu_torch.ops.objective import grad_llh
 
@@ -1830,17 +1989,32 @@ def phase_vmem_full(g, F_host):
         return candidates_scan(F, edges, cfg, lambda s, d: next(it))
 
     cand = sums_only()
+    select_check = Check("armijo_tail_select")
+    check_epilogue(select_check, "vmem", F, sumF, grad, node_llh, cand, cfg)
+    times["armijo_tail_select"] = time_pair(
+        lambda: ls.armijo_tail_select(F, sumF, grad, node_llh, cand, cfg),
+        lambda: ls.armijo_tail_select_plain(F, sumF, grad, node_llh, cand, cfg),
+        reps=2)
+    times["armijo_tail_select"]["library_ms"] = None
+    side_by_side("armijo_tail_select",
+                 lambda: ls.armijo_tail_select(F, sumF, grad, node_llh, cand, cfg))
     torch.cuda.reset_peak_memory_stats()
     step = {
         "step_ms": med(lambda: model._step(state)),
         "grad_pass_ms": med(lambda: grad_llh(F, sumF, edges, cfg)),
         "kernel_ms": times["candidate_edge_terms"]["ms"],
         "index_add_ms": med(sums_only),
-        "armijo_ms": med(lambda: armijo_update(F, sumF, grad, node_llh, cand, cfg,
-                                               with_stats=True)),
+        # the step's route: the epilogue kernel, the column sums and the
+        # histogram in torch
+        "armijo_ms": med(lambda: ls.armijo_update_kernel(F, sumF, grad, node_llh, cand,
+                                                         cfg, with_stats=True)),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": profile_call(lambda: model._step(state)),
     }
+    # the route it replaced, outside the peak
+    step["torch_armijo_update_ms"] = med(
+        lambda: armijo_update(F, sumF, grad, node_llh, cand, cfg, with_stats=True), 3)
+    times["armijo_tail_select"]["torch_armijo_update_ms"] = step["torch_armijo_update_ms"]
     del terms
     step["other_ms"] = step["step_ms"] - (
         step["grad_pass_ms"] + step["kernel_ms"] + step["index_add_ms"] + step["armijo_ms"]
@@ -1849,10 +2023,11 @@ def phase_vmem_full(g, F_host):
     if xla.engaged_path != "xla":
         raise AssertionError(xla.engaged_path)
     step["xla_step_ms"] = med(lambda: xla._step(state), reps=2)
-    return check, times, bnd, {
-        "kernels": {"candidate_edge_terms": {
-            **check.parts, **times["candidate_edge_terms"],
-            **bnd["candidate_edge_terms"]}},
+    bnd["armijo_tail_select"] = select_bound(n, k, num_s)
+    checks = {"candidate_edge_terms": check, "armijo_tail_select": select_check}
+    return checks, times, bnd, {
+        "kernels": {name: {**checks[name].parts, **times[name], **bnd[name]}
+                    for name in checks},
         "step": step, "edge_chunk": edges.chunk,
         "chunks": -(-e // edges.chunk), "k_pad": int(k),
         "runs": sum(int(r.shape[0]) - 1 for r in edges.runs),
@@ -1933,9 +2108,13 @@ def phase_vmem_parity(tmp) -> dict:
         raise AssertionError((card.engaged_path, cpu.engaged_path))
     reset_launch_counts()
     a = card.fit(F0).llh_history
-    launches = launch_counts()["candidate_edge_terms"]
+    counts = launch_counts()
+    launches = counts["candidate_edge_terms"]
     if launches != vmem_launches(g.num_directed_edges, PARITY["k"], len(a)):
         raise AssertionError(f"{launches} edge-terms launches for {len(a)} steps")
+    if counts["armijo_tail_select"] != len(a):
+        raise AssertionError(f"{counts['armijo_tail_select']} epilogue launches for "
+                             f"{len(a)} steps")
     b = cpu.fit(F0).llh_history
     rel = llh_rel(a, b)
     if rel > LLH_RTOL:
@@ -2096,7 +2275,8 @@ def phase_ring_odd():
     blocks never reach shard 2 from shard 0), an all-zero row, at K = 37
     (unpadded) and K = 1,024; then the hub graph at K = 37, 1,000, 1,024.
     Every case also runs #8 under each visit order, bit-equal to the
-    identity order."""
+    identity order, and the node pass's epilogue of every shard against
+    plain (ring_epilogues)."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.parallel import RingBigClamModel
 
@@ -2117,11 +2297,12 @@ def phase_ring_odd():
         compare_ring_kernels(
             checks, model, shards, [shard(G, i) for i in range(RING_ODD_DP)], cfg, tag,
         )
+        ring_epilogues(checks["armijo_tail_select"], tag, model, shards)
         out[tag] = {"n_pad": model.n_pad, "bucket_edges": bucket_edges(model),
                     "visit_order_rows": visit_orders_agree(model, shards)}
         return out[tag]
 
-    checks = {n: Check(n) for n in RING}
+    checks = {n: Check(n) for n in (*RING, "armijo_tail_select")}
     out = {"dp": RING_ODD_DP}
     g = odd_graph()
     for k in RING_ODD_K:
@@ -2147,8 +2328,11 @@ def mesh_init(path):
 
 
 def ring_launches_want(counts, dp: int, steps: int) -> dict:
+    """Per step each ring kernel once per (shard, phase) bucket and the
+    node pass's epilogue once per shard."""
     want = dict.fromkeys(counts, 0)
-    want.update(ring_grad_phase=dp * dp * steps, ring_cand_phase=dp * dp * steps)
+    want.update(ring_grad_phase=dp * dp * steps, ring_cand_phase=dp * dp * steps,
+                armijo_tail_select=dp * steps)
     return want
 
 
@@ -2207,6 +2391,22 @@ def fit_mesh(model, F0, want_path, main_hist, counts_want):
     }
 
 
+def ring_epilogues(check, tag, model, F):
+    """The node pass's epilogue (armijo_tail_select) of every shard against
+    plain, on the inputs a ring step gives it: the fold of the plain #8
+    sweep and the plain #9 sweep's neighbour sums."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+
+    gn, ln = ring_sweep(rk.ring_grad_phase_plain, model, F, grad_accs(F))
+    sumF, grad, node_llh = ring_fold(model, F, gn, ln)
+    cb = ring_sweep(rk.ring_cand_phase_plain, model, F,
+                    cand_accs(F, len(model.cfg.step_candidates)), grad=grad)
+    for i in range(len(F)):
+        check_epilogue(check, f"{tag}_shard{i}", F[i], sumF[i], grad[i], node_llh[i],
+                       cb[i], model.cfg)
+    return sumF, grad, node_llh, cb
+
+
 def ring_step_split(model, state) -> dict:
     """One csr_ring_fused step on `state`, whole and in parts: rotation 1
     (kernel #8, fresh accumulators), the fold and node tail, rotation 2
@@ -2222,7 +2422,8 @@ def ring_step_split(model, state) -> dict:
     sumF, grad, node_llh = ring_fold(model, F, gn, ln)
     cb = ring_sweep(rk.ring_cand_phase, model, F, cand_accs(F, s), grad=grad)
     outs = [
-        armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg)
+        armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg,
+                                   kernel=True)
         for i in range(len(F))
     ]
 
@@ -2239,8 +2440,11 @@ def ring_step_split(model, state) -> dict:
         "fold_ms": med(lambda: ring_fold(model, F, gn, ln)),
         "rotation2_ms": med(lambda: ring_sweep(rk.ring_cand_phase, model, F,
                                                cand_accs(F, s), grad=grad)),
+        # the step's route: the epilogue kernel per shard, the column sums
+        # and the histogram in torch
         "armijo_ms": med(lambda: [
-            armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg)
+            armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg,
+                                       kernel=True)
             for i in range(len(F))
         ]),
         "psums_ms": med(psums),
@@ -2248,6 +2452,11 @@ def ring_step_split(model, state) -> dict:
     split["other_ms"] = split["step_ms"] - sum(
         v for name, v in split.items() if name != "step_ms"
     )
+    # the route the kernel replaced, beside the split
+    split["torch_armijo_ms"] = med(lambda: [
+        armijo_tail_select_sharded(F[i], grad[i], node_llh[i], cb[i], sumF[i], cfg)
+        for i in range(len(F))
+    ])
     return split
 
 
@@ -2329,17 +2538,21 @@ def phase_ring_full(model, state):
     """#8 and #9 vs plain over every (shard, phase) bucket of ring_dp4's
     layout on its final F, each timed per sweep of all 16 buckets as
     `full` times kernels; #8 under every visit order, bit-equal to the
-    identity order and timed per sweep."""
+    identity order and timed per sweep; the node pass's epilogue of every
+    shard vs plain, timed over the 4 shards beside torch armijo_update."""
     from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.ops.linesearch import (
+        armijo_tail_select, armijo_tail_select_plain, armijo_update,
+    )
 
     F, cfg = state.F, model.cfg
     orders = {"model_order": model.visit_order,
               "rows_visited": visit_orders_agree(model, F),
               "sweep_ms": visit_order_ms(model, F)}
     s = len(cfg.step_candidates)
-    gn, ln = ring_sweep(rk.ring_grad_phase_plain, model, F, grad_accs(F))
-    _, grad, _ = ring_fold(model, F, gn, ln)
-    checks = {n: Check(n) for n in RING}
+    checks = {n: Check(n) for n in (*RING, "armijo_tail_select")}
+    sumF, grad, node_llh, cb = ring_epilogues(checks["armijo_tail_select"], "full",
+                                              model, F)
     compare_ring_kernels(checks, model, F, grad, cfg, "full")
     gacc, cacc = grad_accs(F), cand_accs(F, s)
     times = {
@@ -2353,6 +2566,17 @@ def phase_ring_full(model, state):
     }
     for t in times.values():
         t["library_ms"] = None
+    # the node pass's epilogue over the shards, beside torch armijo_update
+    dp = len(F)
+    epilogue = time_pair(
+        lambda: [armijo_tail_select(F[i], sumF[i], grad[i], node_llh[i], cb[i], cfg)
+                 for i in range(dp)],
+        lambda: [armijo_tail_select_plain(F[i], sumF[i], grad[i], node_llh[i], cb[i], cfg)
+                 for i in range(dp)], reps=2)
+    epilogue["torch_armijo_update_ms"] = statistics.median(time_ms(lambda: [
+        armijo_update(F[i], sumF[i], grad[i], node_llh[i], cb[i], cfg, with_stats=True)
+        for i in range(dp)], 3))
+    epilogue.update(select_bound(sum(f.shape[0] for f in F), FULL["k"], s))
     side_by_side("ring_grad_phase", lambda: ring_sweep(
         rk.ring_grad_phase, model, F, grad_accs(F)))
     side_by_side("ring_cand_phase", lambda: ring_sweep(
@@ -2360,6 +2584,8 @@ def phase_ring_full(model, state):
     bnd = ring_bounds(model, FULL["k"], s)
     return checks, times, bnd, {
         "kernels": {n: {**checks[n].parts, **times[n], **bnd[n]} for n in RING},
+        "armijo_tail_select": {**checks["armijo_tail_select"].parts,
+                               "sweep_of_shards": epilogue},
         "launches_per_sweep": RING_DP * RING_DP, "k_pad": int(F[0].shape[1]),
         "visit_orders": orders,
         "unbalanced_layout": unbalanced_sweeps(model, state),
@@ -2565,7 +2791,7 @@ def main(argv=None) -> int:
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
         del state
         res, vmem_counts, _ = run("vmem_main", phase_vmem_main, g, path, main_hist)
-        vm_check, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
+        vm_checks, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
         del res
         run("sweep_main", phase_sweep_main, g, path)
         ring_main_counts, _ = run("ring_main", phase_ring_main, g, path, main_hist)
@@ -2600,14 +2826,18 @@ def main(argv=None) -> int:
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)
-    for name in RING:
+    for name in (*RING, "armijo_tail_select"):
         # the odd case's comparisons count toward the kernel's error too
         ring_checks[name].max_abs = max(ring_checks[name].max_abs,
                                         ring_odd_checks[name].max_abs)
         ring_checks[name].max_rel = max(ring_checks[name].max_rel,
                                         ring_odd_checks[name].max_rel)
-    checks.update(kb_checks, member_lookup=sp_check, candidate_edge_terms=vm_check,
-                  **ring_checks)
+    # the epilogue's error over vmem_full and the ring phases
+    sel = vm_checks["armijo_tail_select"]
+    sel.max_abs = max(sel.max_abs, ring_checks["armijo_tail_select"].max_abs)
+    sel.max_rel = max(sel.max_rel, ring_checks["armijo_tail_select"].max_rel)
+    checks.update(kb_checks, member_lookup=sp_check, **vm_checks,
+                  **{name: ring_checks[name] for name in RING})
     times.update(kb_times, **sp_times, **vm_times, **ring_times)
     bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd,
                **ring_bnd)
@@ -2615,9 +2845,10 @@ def main(argv=None) -> int:
         "fused_superstep": main_counts["fused_superstep"],
         "grad_llh_csr": split_counts["grad_llh_csr"],
         "candidates_csr": split_counts["candidates_csr"],
-        **{name: kb_counts[name] for name in K_BLOCKED},
+        **{name: kb_counts[COUNTER.get(name, name)] for name in K_BLOCKED},
         "member_lookup": sparse_counts["member_lookup"],
         "candidate_edge_terms": vmem_counts["candidate_edge_terms"],
+        "armijo_tail_select": vmem_counts["armijo_tail_select"],
         **{name: ring_counts[name] for name in RING},
     }
     emit({"phase": "side_by_side", "kernels": SIDE} if AGAINST else
@@ -2626,10 +2857,11 @@ def main(argv=None) -> int:
         {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name],
-            **({"launches_csr_grouped_kb": kb_split_counts[name]}
+            **({"launches_csr_grouped_kb": kb_split_counts[COUNTER.get(name, name)]}
                if name in K_BLOCKED else {}),
-            **({"launches_ring_main": ring_main_counts[name]}
-               if name in RING else {}),
+            **({"launches_ring_main": ring_main_counts[name],
+                "launches_ring_dp4": ring_counts[name]}
+               if name in (*RING, "armijo_tail_select") else {}),
             "max_abs_err": checks[name].max_abs,
             "max_rel_err": checks[name].max_rel,
             "ms": times[name]["ms"], "kernel_ms": times[name]["ms"],

@@ -475,7 +475,8 @@ def test_cuda_kb_kernels_match_plain(name, fold, cuda_device):
     torch.cuda.synchronize()
     n_kb = c.k_pad // c.kc
     assert kb.launch_counts() == {"edge_dots_kb": n_kb, "grad_from_x": n_kb,
-                                  "cand_dots_kb": n_kb, "cand_from_x": 1}
+                                  "cand_dots_kb": n_kb, "cand_from_x": 1,
+                                  "cand_select_from_x": 0}
     x_p = torch.zeros(c.e, device=dev)
     for col0 in range(0, c.k_pad, c.kc):
         kb.edge_dots_kb_plain(F, csr, col0, c.kc, x_p)
