@@ -3,8 +3,9 @@
 Port of the single-device `fit`, `sweep` and `eval` of bigclam_tpu/cli.py.
 `fit` loads a text edge list, seeds F by conductance (or a {0,1} random /
 row-keyed init), trains to convergence on the chosen device and kernel
-path, extracts the communities by the delta threshold, and prints one JSON
-line with the same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`,
+path, extracts the communities by the delta threshold (`--out`: written
+through ops.extraction's arrays, the bytes of the JAX writer), and prints
+one JSON line with the same keys as the JAX `fit` (`llh`, `iters`, `n`, `edges`,
 `k`, `representation`, `kernel_path`, `kernel_path_reason`, `partition`)
 plus `sec_per_iter`, `device_kind` and the LLH history. `sweep` trains
 across the log-spaced K grid (models.model_selection) and prints the JAX
@@ -38,7 +39,11 @@ the K-blocked path by itself (`kernel_path` in the JSON says which).
 edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
 F, with the member-lookup CUDA kernel on the card (`sparse_xla`, the plain
-lookup, on the CPU); its JSON adds `sparse_m`.
+lookup, on the CPU); its JSON adds `sparse_m`. `--seeding-degree-cap`
+and `--seed-backend` choose the conductance scorer as in the JAX CLI
+(ops.seeding.conductance; its device backends run on `--device`); the
+port reads no graph cache, so `--seed-backend baked` exits with the JAX
+CLI's message for a text graph.
 """
 
 from __future__ import annotations
@@ -94,6 +99,25 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
         help="iterations between sparse support updates (candidate-"
              "community admission from neighbour lists; 1 = every step, "
              "required for dense parity)",
+    )
+    p.add_argument(
+        "--seeding-degree-cap", type=int, default=None,
+        help="sample at most this many neighbors per node in conductance "
+             "seeding (exact pass is edge-quadratic on hubs; exact when "
+             "cap >= max degree)",
+    )
+    p.add_argument(
+        "--seed-backend", default="auto",
+        choices=["auto", "baked", "numpy", "dense", "sampled",
+                 "sampled_device"],
+        help="conductance scorer backend (ops.seeding.conductance): numpy "
+             "(exact host counts, native when the host library builds), "
+             "dense (A@A on --device, N <= 16,384), sampled (the "
+             "degree-capped estimator on the host), sampled_device (the "
+             "same estimator on --device); auto: sampled when "
+             "--seeding-degree-cap binds, dense where it fits, else numpy. "
+             "baked needs a graph cache with ingest-baked scores, which "
+             "the port cannot read yet",
     )
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64"],
@@ -178,6 +202,7 @@ def config_from_args(args):
         max_iters=args.max_iters,
         conv_tol=args.conv_tol,
         seed=args.seed,
+        seeding_degree_cap=args.seeding_degree_cap,
         use_pallas_csr={"auto": None, "on": True, "off": False}[args.csr_kernels],
         csr_fused={"auto": None, "off": False}[args.csr_fused],
         representation=args.representation,
@@ -247,15 +272,35 @@ def make_model(g, cfg, device):
     return BigClamModel(g, cfg, device=device)
 
 
-def init_F(g, cfg, init: str) -> Optional[np.ndarray]:
-    """Host F0 for `--init`; None for rowkeyed (the model generates it)."""
+BAKED_REFUSAL = (
+    "error: --seed-backend baked needs the graph to come from a compiled "
+    "cache with baked seed scores (run `cli ingest` and pass the cache dir "
+    "as --graph)"
+)
+
+
+def check_seed_backend(backend: str) -> None:
+    """`baked` reads ingest-baked scores from a graph cache; the port reads
+    text edge lists only, so it exits as the JAX CLI does for a text
+    --graph."""
+    if backend == "baked":
+        raise SystemExit(BAKED_REFUSAL)
+
+
+def init_F(g, cfg, init: str, backend: str = "auto",
+           device=None) -> Optional[np.ndarray]:
+    """Host F0 for `--init`; None for rowkeyed (the model generates it).
+    Conductance seeding scores with `backend`, its device backends on
+    `device`."""
     from bigclam_tpu_torch.models.bigclam import random_init_F
     from bigclam_tpu_torch.ops import seeding
 
     if init == "rowkeyed":
         return None
     if init == "conductance":
-        return seeding.init_F(g, seeding.conductance_seeds(g, cfg), cfg)
+        check_seed_backend(backend)
+        seeds = seeding.conductance_seeds(g, cfg, backend=backend, device=device)
+        return seeding.init_F(g, seeds, cfg)
     return random_init_F(g, cfg)
 
 
@@ -285,7 +330,7 @@ def fit(args):
     else:
         model = make_model(g, cfg, args.device)
     stage("model_build")
-    F0 = init_F(g, cfg, args.init)
+    F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
     stage("seeding")
     state = model.init_state(F0)
     stage("upload")
@@ -322,8 +367,8 @@ def fit(args):
     if args.mesh:
         out["mesh"] = model.mesh.label()
     if args.out:
-        com = extraction.extract_communities(res.F, g)
-        extraction.save_communities(args.out, com)
+        com = extraction.extract_community_arrays(res.F, g)
+        extraction.write_communities(args.out, com)
         out["communities"] = len(com)
         out["out"] = args.out
         stage("extract")
@@ -343,6 +388,7 @@ def sweep(args, callback=None) -> dict:
             "a sweep over a device mesh); the port sweeps on one device"
         )
     cfg = config_from_args(args)
+    check_seed_backend(args.seed_backend)
     g = build_graph(args.graph)
     res = sweep_k(
         g, cfg,
@@ -350,6 +396,7 @@ def sweep(args, callback=None) -> dict:
         callback=callback,
         state_dir=args.checkpoint_dir,
         resume=args.resume != "never",
+        seed_backend=args.seed_backend,
     )
     return {
         "chosen_k": res.chosen_k,

@@ -47,8 +47,8 @@ class BigClamConfig:
     # --- seeding ---
     seed_include_self: bool = True      # ego-net indicator includes the seed
     isolated_phi_sentinel: float = 10.0  # conductance of neighbor-less nodes
-    seeding_degree_cap: Optional[int] = None  # capped scorer (not in this
-                                        # slice: the port's scorer is exact)
+    seeding_degree_cap: Optional[int] = None  # sample at most this many
+                                        # neighbors per node in seeding
 
     # --- quality mode (not in this slice) ---
     quality_mode: bool = False

@@ -1,9 +1,11 @@
 """SNAP edge-list ingest: parse -> remap -> symmetrize -> dedup -> CSR.
 
-Copied from bigclam_tpu/graph/ingest.py (`dedup_directed`,
-`graph_from_edges`) and the parse grammar of bigclam_tpu/graph/stream.py
-(`parse_bytes`). This slice reads text edge lists only, with one plain
-numpy parse of the whole file; the graph cache/store is a later slice.
+Copied from bigclam_tpu/graph/ingest.py (`load_edge_list`,
+`dedup_directed`, `graph_from_edges`) and the parse grammar of
+bigclam_tpu/graph/stream.py (`parse_bytes`). The file is parsed by the
+native library's `bc_parse_edge_list` (graph/native), or, where that
+library is unavailable, by one numpy parse of the whole file
+(`parse_bytes`); the graph cache/store is a later slice.
 
 Format: SNAP edge lists — ``#``-prefixed comment lines, then one
 whitespace-separated integer pair per line. Self-loops are dropped;
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from bigclam_tpu_torch.graph import native
 from bigclam_tpu_torch.graph.csr import Graph
 
 
@@ -37,7 +40,12 @@ def parse_bytes(data: bytes, where: str = "") -> np.ndarray:
 
 
 def load_edge_list(path: str) -> np.ndarray:
-    """Parse a SNAP edge-list file into an (M, 2) int64 array of raw id pairs."""
+    """Parse a SNAP edge-list file into an (M, 2) int64 array of raw id
+    pairs: natively, else with parse_bytes."""
+    try:
+        return native.parse_edge_list(path)
+    except native.NativeUnavailableError:
+        pass
     with open(path, "rb") as f:
         return parse_bytes(f.read(), where=path)
 

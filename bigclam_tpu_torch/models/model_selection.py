@@ -106,6 +106,7 @@ def sweep_k(
     device_annealing: bool = False,
     resume: bool = True,
     device=None,
+    seed_backend: str = "auto",
 ) -> SweepResult:
     """Train across the K grid and pick KforC (bigclam4-7.scala:244-266).
 
@@ -117,7 +118,9 @@ def sweep_k(
     state_dir/sweep_state.json and already-trained Ks are skipped on
     restart; `resume=False` ignores an existing journal (every K retrains)
     while still journaling fresh results. callback(k, llh) is called for
-    every K the sweep reaches, journaled or trained.
+    every K the sweep reaches, journaled or trained. The seeds come from
+    ops.seeding.conductance_seeds at K_max with cfg.seeding_degree_cap and
+    the `seed_backend` scorer, its device backends on the model's device.
     """
     check_sweep_supported(cfg, device_annealing)
     kset = build_kset(cfg.min_com, cfg.max_com, cfg.div_com)
@@ -137,7 +140,9 @@ def sweep_k(
         k_rngs = {
             k: np.random.default_rng(int(s)) for k, s in zip(kset, child)
         }
-    seeds = seeding.conductance_seeds(g, cfg_max)    # once, at K_max
+    seeds = seeding.conductance_seeds(                # once, at K_max
+        g, cfg_max, backend=seed_backend, device=model.device
+    )
 
     llh_by_k: Dict[int, float] = {}
     state_path = None

@@ -380,6 +380,18 @@ class ShardedBigClamModel:
         F_host[:n, :k] = np.asarray(F)[:n, :k]
         return self._shard_state(F_host, llh=llh, it=it)
 
+    def internal_row_to_node(self) -> Optional[np.ndarray]:
+        """Trainer row index -> ORIGINAL node index, or None when rows were
+        never relabeled: the `row_to_node` of
+        ops.extraction.extract_communities_device for callers holding the
+        original graph (with the trainer's own `model.g` the raw ids
+        already agree)."""
+        if self._perm is None:
+            return None
+        inv = np.empty_like(self._perm)
+        inv[self._perm] = np.arange(self._perm.size)
+        return inv
+
     def extract_F(self, state: TrainState) -> np.ndarray:
         """Fetch the live (N, K) F block to the host in ORIGINAL node ids."""
         n, k = self.g.num_nodes, self.cfg.num_communities

@@ -46,12 +46,31 @@ exits non-zero:
             graph at K=37 and 1,000 in chunks of 500 with their runs
             (the degree-700 hub split across two chunks), and with each
             chunk's edges shuffled
+  host_odd  the dense conductance backend (A@A in float32 on the card)
+            against the native exact triangle counts on the hub graph and
+            the parity graph
   graph     AGM planted N=300,000, K=1,000, p_in=0.1, numpy rng seed 1,
             written as a SNAP edge list to a temporary directory
   main      the port's `cli fit` entry on the CUDA device at full width on
             that file (`--graph`, text ingest included), conductance init,
-            5 iterations; path `csr_fused`, launches counted from 0 around
-            the fit
+            5 iterations, `--out communities.txt`; path `csr_fused`,
+            launches counted from 0 around the fit; the native host
+            library loaded; the graph, seeding and extract stage seconds
+            beside those before the native library and the array writer;
+            the file's sha256 equal to that of the plain
+            dict writer's file (extract_communities + save_communities)
+            for the same F and graph
+  host_full the host stages at full, each against its plain version and
+            timed: the native parse against parse_bytes (equal arrays),
+            then graph_from_edges; the native exact triangle counts, and
+            the seeding stage split into conductance, rank_seeds and
+            init_F; the capped estimator at cap
+            16 natively, in numpy and as sampled_device on the card (rtol
+            1e-9 and 2e-5 to native, identical rank_seeds), and
+            sampled_device at cap 64 (>= the max degree) equal to the
+            exact counts; the device extraction of main's F on the card
+            against the host one (equal ids, offsets and members), with
+            its peak device memory
   split     the same graph and init with --csr-fused off (path `csr`),
             2 steps, launches counted from 0 around the fit
   mesh_init the file ingested as `cli fit` reads it and its conductance F0
@@ -141,6 +160,7 @@ and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 k_pad 3,072 in 3 blocks of 1,024 columns):
 
   kb_graph  that graph, written as a SNAP edge list
+  host_xlk  the numpy triangle loop against the native pass on it
   kb_main   `cli fit --graph` at K=3,000, conductance init, 5 iterations,
             no --out; path `csr_fused_kb`, per step 3 launches of each
             window kernel and 1 of the node pass (cand_select_from_x),
@@ -201,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -242,6 +263,14 @@ VMEM_HUB_CHUNK = 500      # splits the degree-700 hub across two chunks
 SWEEP_MAIN = dict(min_com=500, max_com=1000, div_com=4,
                   kset=[500, 594, 706, 839, 997, 1000])
 SWEEP_PARITY = dict(min_com=50, max_com=100, div_com=3)
+HOST_CAP = 16             # the capped estimator's cap at full (binds: max degree 58)
+HOST_EXACT_CAP = 64       # >= full's max degree: the estimate is the exact count
+HOST_RTOL_NATIVE = 1e-9   # native vs numpy estimates (summation order only)
+HOST_RTOL_DEVICE = 2e-5   # the float32 device estimate vs the host one
+# `cli fit` stage seconds at full before the native host library and the
+# array writer (this script on the code before them, NVIDIA H100 80GB
+# HBM3, 700 W)
+BEFORE_STAGE_SECONDS = {"graph": 5.31, "seeding": 9.53, "extract": 39.2}
 
 KERNELS = {
     "fused_superstep": dict(
@@ -977,6 +1006,33 @@ def edge_terms_bound(n: int, e: int, k: int, s: int) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
+def wall(fn, *a, **kw):
+    """(fn's result, its seconds on the host clock, the card synchronized
+    after it)."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def file_sha256(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def native_status() -> dict:
+    """The native host library's status; raises unless it loaded."""
+    from bigclam_tpu_torch.graph import native
+
+    st = native.status()
+    if not st["loaded"]:
+        raise AssertionError(f"the native host library did not load: {st['reason']}")
+    return st
+
+
 def phase_card() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1152,8 +1208,11 @@ def run_path(g, path, k, extra, out_path=None):
 
 
 def phase_main(g, path, tmp):
-    out, res, counts, _ = run_path(g, path, FULL["k"], ["--max-iters", "5"],
-                                   os.path.join(tmp, "communities.txt"))
+    from bigclam_tpu_torch.ops.extraction import extract_communities, save_communities
+
+    status = native_status()
+    cpath = os.path.join(tmp, "communities.txt")
+    out, res, counts, state = run_path(g, path, FULL["k"], ["--max-iters", "5"], cpath)
     hist = out["llh_history"]
     if out["kernel_path"] != "csr_fused":
         raise AssertionError(f"main path ran {out['kernel_path']}")
@@ -1161,20 +1220,164 @@ def phase_main(g, path, tmp):
         raise AssertionError(f"fused kernel launches {counts} vs {out['steps']} steps")
     if not hist[-1] > hist[0]:
         raise AssertionError(f"LLH did not increase: {hist}")
+    # the array writer's file against the plain dict writer's for this F
+    plain = os.path.join(tmp, "communities_plain.txt")
+    t0 = time.perf_counter()
+    save_communities(plain, extract_communities(res.F, g))
+    plain_s = time.perf_counter() - t0
+    sha, sha_plain = file_sha256(cpath), file_sha256(plain)
+    if sha != sha_plain:
+        raise AssertionError(f"communities.txt {sha} != the plain writer's {sha_plain}")
+    size = os.path.getsize(plain)
+    os.remove(plain)
     e = g.num_directed_edges
-    return out, res, counts, {
+    stages = out["stage_seconds"]
+    return out, res, counts, state, {
         "kernel_path": out["kernel_path"],
         "llh_history": hist,
         "steps": out["steps"],
         "iters": out["iters"],
         "sec_per_iter": out["sec_per_iter"],
         "directed_edges_per_s": e / out["sec_per_iter"],
-        "stage_seconds": out["stage_seconds"],
+        "native": status,
+        "stage_seconds": stages,
+        "host_stages_s": {name: stages[name] for name in BEFORE_STAGE_SECONDS},
+        "host_stages_s_before": BEFORE_STAGE_SECONDS,
         "communities": out["communities"],
+        "communities_bytes": size,
+        "communities_sha256": sha,
+        "plain_writer": {"sha256_equal": True, "extract_and_save_s": plain_s},
         "launches": counts,
         "n": g.num_nodes, "directed_edges": e, "k": FULL["k"],
         "max_degree": int(g.degrees.max()),
     }
+
+
+def phase_host_full(g, path, state, F_host) -> dict:
+    """The host stages of `cli fit` at full, each against its plain
+    version: the parse, the exact triangle counts, the capped estimator
+    (native, numpy and sampled_device on the card, at HOST_CAP and, exact,
+    at HOST_EXACT_CAP) and the device extraction of main's F on the card
+    against the host one."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph import native
+    from bigclam_tpu_torch.graph.ingest import graph_from_edges, parse_bytes
+    from bigclam_tpu_torch.ops import extraction, seeding
+
+    out = {}
+    pairs, native_s = wall(native.parse_edge_list, path)
+
+    def plain_parse():
+        with open(path, "rb") as f:
+            return parse_bytes(f.read(), path)
+
+    plain, plain_s = wall(plain_parse)
+    if not np.array_equal(pairs, plain):
+        raise AssertionError("the native parse differs from parse_bytes")
+    gi, csr_s = wall(graph_from_edges, pairs)
+    out["parse"] = {"pairs": int(pairs.shape[0]), "native_s": native_s,
+                    "parse_bytes_s": plain_s, "equal": True,
+                    "graph_from_edges_s": csr_s}
+    del pairs, plain
+
+    # the seeding stage of `cli fit` (exact counts), part by part
+    exact, exact_s = wall(native.triangle_counts, g)
+    cfg = BigClamConfig(num_communities=FULL["k"])
+    phi, phi_s = wall(seeding.conductance, gi, backend="numpy")
+    seeds, rank_s = wall(seeding.rank_seeds, gi, phi, cfg)
+    _, init_s = wall(seeding.init_F, gi, seeds, cfg)
+    out["exact_triangles"] = {"native_s": exact_s,
+                              "triangles": int(exact.sum()) // 3}
+    out["seeding_split_s"] = {"conductance": phi_s, "rank_seeds": rank_s,
+                              "init_F": init_s}
+    del gi, phi, seeds
+
+    cap = HOST_CAP
+    if not int(g.degrees.max()) > cap:
+        raise AssertionError(f"cap {cap} does not bind (max degree {g.degrees.max()})")
+    rng_seed = FULL["seed"]
+    seed = int(np.random.default_rng(rng_seed).integers(2**63))
+    nat, nat_s = wall(native.triangle_counts_capped, g, cap, seed)
+    npy, npy_s = wall(seeding.triangle_counts_sampled, g, cap,
+                      np.random.default_rng(rng_seed), use_native=False)
+    dev, dev_s = wall(seeding.triangle_counts_sampled_device, g, cap, seed,
+                      device=DEVICE)
+    np.testing.assert_allclose(npy, nat, rtol=HOST_RTOL_NATIVE, atol=HOST_RTOL_NATIVE)
+    np.testing.assert_allclose(dev, nat, rtol=HOST_RTOL_DEVICE, atol=HOST_RTOL_DEVICE)
+    ranks = [seeding.rank_seeds(g, seeding.conductance(g, tri=t), cfg)
+             for t in (nat, npy, dev)]
+    for r in ranks[1:]:
+        if not np.array_equal(r, ranks[0]):
+            raise AssertionError("capped estimates rank the seeds differently")
+    rel = lambda a: float(np.max(np.abs(a - nat) / (np.abs(nat) + HOST_RTOL_DEVICE)))
+    out["capped"] = {
+        "cap": cap, "native_s": nat_s, "numpy_s": npy_s,
+        "sampled_device_s": dev_s, "numpy_max_rel_err": rel(npy),
+        "sampled_device_max_rel_err": rel(dev), "rank_seeds_equal": True,
+        "max_abs_vs_exact": float(np.max(np.abs(nat - exact))),
+    }
+    del nat, npy, dev
+    full_cap, full_s = wall(seeding.triangle_counts_sampled_device, g,
+                            HOST_EXACT_CAP, seed, device=DEVICE)
+    if not np.array_equal(full_cap, exact.astype(np.float64)):
+        raise AssertionError(f"sampled_device at cap {HOST_EXACT_CAP} is not exact")
+    out["capped_exact"] = {"cap": HOST_EXACT_CAP, "sampled_device_s": full_s,
+                           "equal_to_exact": True}
+
+    k = FULL["k"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dev_arr, dev_s = wall(extraction.extract_community_arrays_device, state.F, g,
+                          num_communities=k)
+    peak = torch.cuda.max_memory_allocated() - base
+    host_arr, host_s = wall(extraction.extract_community_arrays, F_host, g)
+    for name in ("ids", "offsets", "nodes"):
+        if not np.array_equal(getattr(dev_arr, name), getattr(host_arr, name)):
+            raise AssertionError(f"device extraction {name} differ from the host's")
+    out["extract"] = {
+        "pairs": int(host_arr.nodes.size), "communities": len(host_arr),
+        "device_s": dev_s, "host_s": host_s, "equal_pairs": True,
+        "device_peak_gb_over_state": peak / 1e9,
+        "chunk_rows": min(1 << 16, (1 << 27) // k),
+    }
+    return out
+
+
+def phase_host_odd() -> dict:
+    """The dense backend on the card against the exact counts on the hub
+    graph and the parity graph (the native library built and the dense
+    product run once before the timed calls)."""
+    from bigclam_tpu_torch.graph import native
+    from bigclam_tpu_torch.models.agm import sample_planted_graph
+    from bigclam_tpu_torch.ops import seeding
+
+    p = PARITY
+    parity, _ = sample_planted_graph(p["n"], p["k"], p_in=p["p_in"],
+                                     rng=np.random.default_rng(p["seed"]))
+    out = {"native": native_status()}
+    seeding.triangle_counts_dense_device(parity, DEVICE)
+    for name, g in (("hub", hub_graph()), ("parity", parity)):
+        got, dense_s = wall(seeding.triangle_counts_dense_device, g, DEVICE)
+        want, native_s = wall(native.triangle_counts, g)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"dense counts differ from the exact ones on {name}")
+        out[name] = {"n": g.num_nodes, "max_degree": int(g.degrees.max()),
+                     "dense_s": dense_s, "native_s": native_s, "equal": True}
+    return out
+
+
+def phase_host_xlk(g) -> dict:
+    """The numpy triangle loop against the native pass on the xl_k graph."""
+    from bigclam_tpu_torch.graph import native
+    from bigclam_tpu_torch.ops import seeding
+
+    nat, native_s = wall(native.triangle_counts, g)
+    npy, numpy_s = wall(seeding.triangle_counts_numpy, g)
+    if not np.array_equal(nat, npy):
+        raise AssertionError("native triangle counts differ from the numpy loop")
+    return {"n": g.num_nodes, "native_s": native_s, "numpy_s": numpy_s,
+            "equal": True, "triangles": int(nat.sum()) // 3}
 
 
 def phase_split(g, path, tmp, main_hist):
@@ -2772,13 +2975,16 @@ def main(argv=None) -> int:
     ring_odd_checks, _ = run("ring_odd", phase_ring_odd)
     run("sparse_odd", phase_sparse_odd)
     run("vmem_odd", phase_vmem_odd)
+    run("host_odd", phase_host_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
         g = planted_file(FULL, path)
         emit({"phase": "graph", "seconds": time.perf_counter() - t0,
               "n": g.num_nodes, "directed_edges": g.num_directed_edges})
-        _, res, main_counts, _ = run("main", phase_main, g, path, tmp)
+        _, res, main_counts, state, _ = run("main", phase_main, g, path, tmp)
+        run("host_full", phase_host_full, g, path, state, res.F)
+        del state
         main_hist = list(res.llh_history)
         split_counts, _ = run("split", phase_split, g, path, tmp, main_hist)
         t0 = time.perf_counter()
@@ -2819,6 +3025,7 @@ def main(argv=None) -> int:
               "n_sampled": sampled.num_nodes, "n": g.num_nodes,
               "directed_edges": g.num_directed_edges})
         del sampled
+        run("host_xlk", phase_host_xlk, g)
         res, kb_counts, _ = run("kb_main", phase_kb_main, g, path)
         kb_split_counts, _ = run("kb_split", phase_kb_split, g, path,
                                  list(res.llh_history))
