@@ -44,6 +44,21 @@ and `--seed-backend` choose the conductance scorer as in the JAX CLI
 (ops.seeding.conductance; its device backends run on `--device`); the
 port reads no graph cache, so `--seed-backend baked` exits with the JAX
 CLI's message for a text graph.
+
+A fit survives and reports itself as in the JAX CLI: `--checkpoint-dir`
+saves the state every `--checkpoint-every` iterations (50 when only the
+directory is given) and `--resume auto` continues from the newest valid
+checkpoint (`never`: a cold start that still saves); a non-finite LLH
+rolls back to the last finite state with a cut Armijo ladder
+(cfg.rollback_budget, default 3) before it aborts; `--retry-budget`
+retries a transiently failed fit, resuming; `--telemetry-dir` writes
+events.jsonl and run_report.json (stages, spans, device-memory
+watermarks, kernel builds, `--health-every` model-health samples, the
+`--heartbeat-s` stall watchdog); `--metrics` appends one JSON record per
+step; `--save-f` writes the final F as .npy. `BIGCLAM_FAULTS` (inline
+JSON or @path) injects faults at the fit.step and checkpoint.save sites.
+`--perf-ledger` and `--profile-dir` are refused by name: they come with
+the rest of the observability layer.
 """
 
 from __future__ import annotations
@@ -60,9 +75,13 @@ import numpy as np
 SWEEP_EPILOG = (
     "Not ported yet (the parser refuses these JAX `sweep` flags by name): "
     "--quality and --device-annealing (quality mode, ROADMAP queue 1 item "
-    "13); --checkpoint-every, --telemetry-dir and --retry-budget "
-    "(within-K checkpoints, telemetry and the retry supervisor, item 8)."
+    "13)."
 )
+
+NOT_PORTED_FIT_FLAGS = {
+    "perf_ledger": "--perf-ledger (the perf ledger, obs/ledger.py)",
+    "profile_dir": "--profile-dir (the torch.profiler capture)",
+}
 
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
@@ -70,6 +89,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--graph", required=True, help="SNAP edge-list path")
     p.add_argument("--max-iters", type=int, default=1000)
     p.add_argument("--conv-tol", type=float, default=1e-4)
+    p.add_argument("--alpha", type=float, default=0.05)
+    p.add_argument("--beta", type=float, default=0.1)
+    p.add_argument("--max-backtracks", type=int, default=15)
+    p.add_argument(
+        "--edge-chunk", type=int, default=None,
+        help="directed edges per chunk of the plain edge sweeps (default: "
+             "config default)",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--csr-kernels", default="auto", choices=["auto", "on", "off"],
@@ -146,6 +173,72 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "shard a full F; ring rotates the shards around the mesh "
              "(O(N/DP) F rows per device)",
     )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="iterations between checkpoints into --checkpoint-dir (sweep: "
+             "within each K, in <dir>/k_<K>/; 0 = off)",
+    )
+    p.add_argument(
+        "--telemetry-dir", default=None,
+        help="run-telemetry directory (bigclam_tpu_torch.obs): events.jsonl "
+             "+ run_report.json — step metrics, stage transitions, device-"
+             "memory watermarks, kernel builds, stall heartbeat; the JAX "
+             "package's `cli report <dir>` renders it",
+    )
+    p.add_argument(
+        "--retry-budget", type=int, default=2,
+        help="transient-failure retries for the whole fit attempt "
+             "(resilience supervisor: each retry RESUMES from the newest "
+             "checkpoint; fatal errors never retry; 0 disables)",
+    )
+
+
+def _add_fit_flags(p: argparse.ArgumentParser) -> None:
+    """The resilience and observability flags of `fit` (JAX CLI
+    defaults)."""
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument(
+        "--resume", default="auto", choices=["auto", "never"],
+        help="auto (default): restore the newest VALID checkpoint from "
+             "--checkpoint-dir (falling back past truncated/corrupt newer "
+             "ones), record the attempt in the telemetry resume lineage, "
+             "and continue the trajectory; never: cold-start (existing "
+             "checkpoints are kept but ignored; new ones still save)",
+    )
+    p.add_argument("--save-f", default=None,
+                   help="write the final (N, K) F as a .npy file")
+    p.add_argument("--metrics", default=None, help="JSONL metrics path")
+    p.add_argument(
+        "--heartbeat-s", type=float, default=300.0,
+        help="stall-heartbeat deadline with --telemetry-dir: emit a stall "
+             "event when no step/stage completes within this many seconds "
+             "(0 disables; --quiet silences the stderr echo, never the "
+             "JSONL)",
+    )
+    p.add_argument(
+        "--heartbeat-escalate", type=int, default=3,
+        help="consecutive stall-heartbeat deadlines before a "
+             "stall_escalated event fires (0 disables escalation; the "
+             "watchdog then only keeps emitting stall events)",
+    )
+    p.add_argument(
+        "--health-every", type=int, default=10,
+        help="iterations between model-health samples (grad/update norms, "
+             "effective Armijo step, dead communities, membership churn; "
+             "sparse runs add support churn), emitted as `health` events "
+             "with anomaly detection (divergence/plateau/oscillation/dead-"
+             "communities) when --telemetry-dir is active (without it the "
+             "steps compute no pack). 0 disables — the step then computes "
+             "nothing and the trajectory is bit-identical either way",
+    )
+    p.add_argument(
+        "--quiet", action="store_true",
+        help="silence the per-step echo and the heartbeat's stderr "
+             "warnings (telemetry JSONL stays complete)",
+    )
+    for dest in NOT_PORTED_FIT_FLAGS:
+        p.add_argument("--" + dest.replace("_", "-"), default=None,
+                       help=argparse.SUPPRESS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -166,6 +259,7 @@ def build_parser() -> argparse.ArgumentParser:
              "row-keyed counter init",
     )
     f.add_argument("--out", default=None, help="write communities (SNAP cmty)")
+    _add_fit_flags(f)
 
     w = sub.add_parser("sweep", help="automatic K selection over a log grid",
                        epilog=SWEEP_EPILOG)
@@ -196,12 +290,32 @@ def config_from_args(args):
     from bigclam_tpu_torch.config import BigClamConfig
 
     sweep = args.command == "sweep"
+    checkpoint_every = args.checkpoint_every
+    if not sweep and args.checkpoint_dir and checkpoint_every <= 0:
+        # a checkpoint dir without a cadence would restore but never save
+        checkpoint_every = 50
+        print(
+            "note: --checkpoint-dir given without --checkpoint-every; "
+            "defaulting to every 50 iterations",
+            file=sys.stderr,
+        )
     return BigClamConfig(
         num_communities=args.max_com if sweep else args.k,
         dtype=args.dtype,
         max_iters=args.max_iters,
         conv_tol=args.conv_tol,
+        alpha=args.alpha,
+        beta=args.beta,
+        max_backtracks=args.max_backtracks,
+        edge_chunk=args.edge_chunk or BigClamConfig.edge_chunk,
         seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        metrics_path=getattr(args, "metrics", None),
+        # the steps compute health packs only for a monitor to read: with
+        # no --telemetry-dir there is none, and they compute nothing
+        health_every=(max(getattr(args, "health_every", 0) or 0, 0)
+                      if getattr(args, "telemetry_dir", None) else 0),
         seeding_degree_cap=args.seeding_degree_cap,
         use_pallas_csr={"auto": None, "on": True, "off": False}[args.csr_kernels],
         csr_fused={"auto": None, "off": False}[args.csr_fused],
@@ -304,47 +418,132 @@ def init_F(g, cfg, init: str, backend: str = "auto",
     return random_init_F(g, cfg)
 
 
+def refuse_unported(args) -> None:
+    """Exit naming a JAX `fit` flag whose layer is not ported yet."""
+    for dest, what in NOT_PORTED_FIT_FLAGS.items():
+        if getattr(args, dest, None) is not None:
+            raise SystemExit(
+                f"error: {what} is not ported yet (ROADMAP queue 1 item 8b, "
+                "the rest of the observability layer)"
+            )
+
+
+def make_supervisor(args, cfg, tel):
+    """The entry-point retry supervisor: --retry-budget extra attempts for
+    transient-classified failures (each re-entering the fit WITH its
+    checkpoints, so a retry is a resume), its stall-escalation hook
+    attached to the telemetry heartbeat when one runs."""
+    from bigclam_tpu_torch.resilience import RetryPolicy, Supervisor
+
+    sup = Supervisor(RetryPolicy(
+        transient_attempts=max(getattr(args, "retry_budget", 2), 0) + 1,
+        seed=cfg.seed,
+    ))
+    if tel is not None:
+        sup.attach(tel)
+    return sup
+
+
+def open_telemetry(args, entry: str):
+    """Create + install the run telemetry when --telemetry-dir was given
+    (None otherwise)."""
+    tdir = getattr(args, "telemetry_dir", None)
+    if not tdir:
+        return None
+    from bigclam_tpu_torch.obs import RunTelemetry, install
+
+    return install(RunTelemetry(
+        tdir,
+        entry=entry,
+        heartbeat_s=getattr(args, "heartbeat_s", 0.0),
+        quiet=getattr(args, "quiet", False),
+        heartbeat_escalate=getattr(args, "heartbeat_escalate", 0),
+    ))
+
+
+def close_telemetry(tel) -> None:
+    if tel is None:
+        return
+    from bigclam_tpu_torch.obs import uninstall
+
+    tel.finalize()
+    uninstall(tel)
+
+
 def fit(args):
     """Run `fit` for parsed arguments. Returns (the JSON-ready result dict,
     the FitResult, the final train state)."""
+    refuse_unported(args)
+    tel = open_telemetry(args, "fit")
+    try:
+        return _fit(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _fit(args, tel):
     from bigclam_tpu_torch.graph.ingest import build_graph
-    from bigclam_tpu_torch.models.bigclam import FitResult, run_fit_loop
+    from bigclam_tpu_torch.models.bigclam import FitResult
+    from bigclam_tpu_torch.obs import trace
     from bigclam_tpu_torch.ops import extraction
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
     from bigclam_tpu_torch.utils.device import device_kind
+    from bigclam_tpu_torch.utils.metrics import MetricsLogger
+    from bigclam_tpu_torch.utils.profiling import StageProfile
 
     cfg = config_from_args(args)
-    stages = {}
-    clock = time.perf_counter()
+    # stage ends forward into the telemetry (event + device-memory
+    # watermark + heartbeat beat) when --telemetry-dir is active
+    prof = StageProfile()
+    with prof.stage("graph"):
+        g = build_graph(args.graph)
+    with prof.stage("model_build"):
+        if args.mesh:
+            model = make_mesh_model(g, cfg, args.device, args.mesh,
+                                    args.schedule, args.balance)
+        else:
+            model = make_model(g, cfg, args.device)
+    with prof.stage("seeding"):
+        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
+    with prof.stage("upload"):
+        state0 = model.init_state(F0)
+    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
+    resume = args.resume != "never"
+    if ckpt is not None and resume:
+        # record the resume attempt (event + lineage file) BEFORE the fit,
+        # so even a re-crashed attempt leaves its trace; the step is the
+        # newest VALID one, the one restore will use
+        valid_step = ckpt.latest_valid_step()
+        if valid_step is not None:
+            from bigclam_tpu_torch.resilience import record_resume
 
-    def stage(name):
-        nonlocal clock
-        now = time.perf_counter()
-        stages[name] = now - clock
-        clock = now
-
-    g = build_graph(args.graph)
-    stage("graph")
-    if args.mesh:
-        model = make_mesh_model(g, cfg, args.device, args.mesh, args.schedule,
-                                args.balance)
-    else:
-        model = make_model(g, cfg, args.device)
-    stage("model_build")
-    F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
-    stage("seeding")
-    state = model.init_state(F0)
-    stage("upload")
+            record_resume(args.telemetry_dir, valid_step)
+    sup = make_supervisor(args, cfg, tel)
+    mesh = getattr(model, "mesh", None)
     step_ends = []
-    t0 = time.perf_counter()
-    state, llh, iters, hist = run_fit_loop(
-        model._step, state, cfg,
-        callback=lambda it, llh: step_ends.append(time.perf_counter()),
-    )
-    F = model.extract_F(state)
+    with MetricsLogger(args.metrics, echo=not args.quiet) as ml:
+        log_step = ml.step_callback(
+            g.num_directed_edges, chips=mesh.size if mesh is not None else 1,
+            path=model.engaged_path, num_nodes=g.num_nodes,
+        )
+
+        def callback(it, llh, extras=None):
+            step_ends.append(time.perf_counter())
+            log_step(it, llh, extras)
+
+        with prof.stage("fit"):
+            t0 = time.perf_counter()
+            # the supervisor retries transient-classified failures: each
+            # retried attempt re-enters the fit WITH the checkpoints, so a
+            # retry resumes instead of restarting
+            state, llh, iters, hist = sup.run_fit(
+                lambda: model.fit_state(state0, callback, checkpoints=ckpt,
+                                        resume=resume)
+            )
+            with trace.span("fit_loop/extract_F"):
+                F = model.extract_F(state)
     res = FitResult(F=F, sumF=F.sum(axis=0), llh=llh, num_iters=iters,
                     llh_history=hist)
-    stage("fit")
-    steps = len(res.llh_history)
     out = {
         "llh": res.llh,
         "iters": res.num_iters,
@@ -355,50 +554,81 @@ def fit(args):
         "kernel_path": model.engaged_path,
         "kernel_path_reason": model.path_reason,
         "partition": cfg.partition,
-        # wall time per step of the train loop (each step ends in the
+        # wall time per step this run evaluated (each step ends in the
         # host's read of its LLH), F upload and host extraction excluded
-        "sec_per_iter": (step_ends[-1] - t0) / steps,
+        "sec_per_iter": (step_ends[-1] - t0) / len(step_ends),
         "device_kind": device_kind(model.device),
-        "steps": steps,
+        "steps": len(res.llh_history),
         "llh_history": list(res.llh_history),
     }
     if cfg.representation == "sparse":
         out["sparse_m"] = model.m
     if args.mesh:
         out["mesh"] = model.mesh.label()
-    if args.out:
-        com = extraction.extract_community_arrays(res.F, g)
-        extraction.write_communities(args.out, com)
-        out["communities"] = len(com)
-        out["out"] = args.out
-        stage("extract")
-    out["stage_seconds"] = stages
+    if args.out or args.save_f:
+        with prof.stage("extract"):
+            if args.out:
+                com = extraction.extract_community_arrays(res.F, g)
+                extraction.write_communities(args.out, com)
+                out["communities"] = len(com)
+                out["out"] = args.out
+            if args.save_f:
+                np.save(args.save_f, res.F)
+                out["save_f"] = args.save_f
+    out["stage_seconds"] = dict(prof.seconds)
+    if tel is not None:
+        tel.set_final({k: v for k, v in out.items() if k != "llh_history"})
     return out, res, state
 
 
 def sweep(args, callback=None) -> dict:
     """Run `sweep` for parsed arguments; callback(k, llh) after each K.
     Returns the JSON-ready result dict."""
-    from bigclam_tpu_torch.graph.ingest import build_graph
-    from bigclam_tpu_torch.models.model_selection import sweep_k
-
     if args.mesh:
         raise SystemExit(
             "error: `sweep --mesh` is not ported yet (ROADMAP queue 1 item 14: "
             "a sweep over a device mesh); the port sweeps on one device"
         )
+    tel = open_telemetry(args, "sweep")
+    try:
+        return _sweep(args, callback, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _sweep(args, callback, tel) -> dict:
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.model_selection import sweep_k
+
     cfg = config_from_args(args)
     check_seed_backend(args.seed_backend)
     g = build_graph(args.graph)
-    res = sweep_k(
-        g, cfg,
-        model_factory=lambda c: make_model(g, c, args.device),
-        callback=callback,
-        state_dir=args.checkpoint_dir,
-        resume=args.resume != "never",
-        seed_backend=args.seed_backend,
-    )
-    return {
+
+    def per_k(k, llh):
+        if tel is not None:
+            tel.metric_record({"k": k, "llh": llh})
+        if callback is not None:
+            callback(k, llh)
+
+    # retried sweep attempts resume from sweep_state.json (the per-K
+    # journal) and the within-K checkpoints; --resume never ignores the
+    # journal on the first attempt only
+    sup = make_supervisor(args, cfg, tel)
+    first_attempt = [True]
+
+    def attempt():
+        first, first_attempt[0] = first_attempt[0], False
+        return sweep_k(
+            g, cfg,
+            model_factory=lambda c: make_model(g, c, args.device),
+            callback=per_k,
+            state_dir=args.checkpoint_dir,
+            resume=args.resume != "never" or not first,
+            seed_backend=args.seed_backend,
+        )
+
+    res = sup.run_fit(attempt, site="sweep")
+    out = {
         "chosen_k": res.chosen_k,
         "kset": res.kset,
         "llh_by_k": {str(k): v for k, v in res.llh_by_k.items()},
@@ -406,6 +636,9 @@ def sweep(args, callback=None) -> dict:
         "edges": g.num_edges,
         "representation": cfg.representation,
     }
+    if tel is not None:
+        tel.set_final(out)
+    return out
 
 
 def evaluate(args) -> dict:

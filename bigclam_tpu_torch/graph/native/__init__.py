@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -129,8 +130,13 @@ def library() -> ctypes.CDLL:
     if _ERROR is not None:
         raise NativeUnavailableError(_ERROR)
     try:
+        from bigclam_tpu_torch.obs.telemetry import note_compile
+
+        t0 = time.perf_counter()
+        cached = library_path().exists()
         path = build()
         _LIB = _register(ctypes.CDLL(str(path)))
+        note_compile("g++:native", time.perf_counter() - t0, cached=cached)
     except NativeUnavailableError as e:
         _ERROR = str(e)
         raise

@@ -45,7 +45,9 @@ checked.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
+import os
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -53,6 +55,7 @@ import torch
 
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops.csr_kernels import (
     MAX_K,
     KernelKLimitError,
@@ -94,6 +97,10 @@ class TrainState(NamedTuple):
     # (S+1,) int32 accepted-step histogram of the update that produced
     # this state (ops.linesearch.accept_stats); zeros at init
     accept_hist: torch.Tensor
+    # (ops.diagnostics.HEALTH_LEN,) float32 health pack of the update that
+    # produced this state, on cfg.health_every cadence iterations; None
+    # otherwise and always with health off
+    health: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,13 +262,21 @@ def make_train_step(
     cand_impl = candidates_pass_kernel if path == "pallas_vmem" else candidates_pass
     select_impl = armijo_update_kernel if path == "pallas_vmem" else armijo_update
 
+    def health(state, F_new, sumF_new, grad, hist):
+        # the health pack on cadence iterations (ops.diagnostics); None
+        # otherwise, with no work
+        return dx.health_pack(cfg, state.it, state.F, F_new, sumF_new, hist,
+                              grad=grad)
+
     def fused_step(state: TrainState) -> TrainState:
         F = state.F
-        F_new, _, node_llh, ok = fused_superstep(F, state.sumF, csr, cfg)
+        F_new, grad, node_llh, ok = fused_superstep(F, state.sumF, csr, cfg)
         llh = node_llh.to(accum_dtype(cfg, F)).sum()
+        sumF_new, hist = F_new.sum(dim=0), accept_stats(ok)
         return TrainState(
-            F=F_new, sumF=F_new.sum(dim=0), llh=llh.to(F.dtype),
-            it=state.it + 1, accept_hist=accept_stats(ok),
+            F=F_new, sumF=sumF_new, llh=llh.to(F.dtype),
+            it=state.it + 1, accept_hist=hist,
+            health=health(state, F_new, sumF_new, grad, hist),
         )
 
     def split_step(state: TrainState) -> TrainState:
@@ -274,6 +289,7 @@ def make_train_step(
         return TrainState(
             F=F_new, sumF=sumF_new, llh=node_llh.sum(), it=state.it + 1,
             accept_hist=hist,
+            health=health(state, F_new, sumF_new, grad, hist),
         )
 
     def xla_step(state: TrainState) -> TrainState:
@@ -286,6 +302,7 @@ def make_train_step(
         return TrainState(
             F=F_new, sumF=sumF_new, llh=node_llh.sum(), it=state.it + 1,
             accept_hist=hist,
+            health=health(state, F_new, sumF_new, grad, hist),
         )
 
     def kblocked_step(state: TrainState) -> TrainState:
@@ -298,9 +315,11 @@ def make_train_step(
             F, sumF, csr, cfg, kc, fold=path == "csr_fused_kb"
         )
         F_new, node_llh, ok = cand_select_from_x(xc, F, sumF, grad, llh_nbr, csr, cfg)
+        sumF_new, hist = F_new.sum(dim=0), accept_stats(ok)
         return TrainState(
-            F=F_new, sumF=F_new.sum(dim=0), llh=node_llh.sum(), it=state.it + 1,
-            accept_hist=accept_stats(ok),
+            F=F_new, sumF=sumF_new, llh=node_llh.sum(), it=state.it + 1,
+            accept_hist=hist,
+            health=health(state, F_new, sumF_new, grad, hist),
         )
 
     steps = {
@@ -311,46 +330,407 @@ def make_train_step(
     return steps[path]
 
 
+def clone_state(state):
+    """A device copy of a train state (tensors cloned, tuples of shards
+    and NamedTuples rebuilt, ints and None kept): the rollback snapshot,
+    never a reference to a tensor a later step could write."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, tuple):
+        parts = [clone_state(x) for x in state]
+        return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+    return state
+
+
+def refresh_state(twin, state):
+    """`state` copied INTO `twin`'s tensors where the shapes agree
+    (Tensor.copy_: the same buffers, refreshed on the device), else into
+    fresh clones; returns the refreshed twin."""
+    if isinstance(state, torch.Tensor):
+        if (isinstance(twin, torch.Tensor) and twin.shape == state.shape
+                and twin.dtype == state.dtype and twin.device == state.device):
+            return twin.copy_(state)
+        return state.clone()
+    if isinstance(state, tuple):
+        twins = twin if isinstance(twin, tuple) and len(twin) == len(state) else (
+            (None,) * len(state))
+        parts = [refresh_state(t, x) for t, x in zip(twins, state)]
+        return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+    return state
+
+
+def poison_entry(F, i: int, j: int):
+    """A copy of F (a tensor, or a tuple of row shards) with entry (i, j)
+    set to NaN — the nan_inject fault. The caller may still hold F, so F
+    itself is never written."""
+    if isinstance(F, torch.Tensor):
+        out = F.clone()
+        out[i, j] = float("nan")
+        return out
+    shards = list(F)
+    rows = shards[0].shape[0]
+    s, r = divmod(int(i), rows)
+    shards[s] = shards[s].clone()
+    shards[s][r, j] = float("nan")
+    return tuple(shards)
+
+
+def _callback_arity(callback) -> int:
+    """3 when the callback takes the extras dict, else 2 (the JAX rule:
+    only parameters that can take a positional argument count; *args
+    accepts the extras)."""
+    if callback is None:
+        return 0
+    try:
+        params = inspect.signature(callback).parameters.values()
+    except (TypeError, ValueError):
+        return 2
+    if any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params):
+        return 3
+    return sum(
+        p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                   inspect.Parameter.POSITIONAL_OR_KEYWORD)
+        for p in params
+    )
+
+
 def run_fit_loop(
     step_fn: Callable[[TrainState], TrainState],
     state: TrainState,
     cfg: BigClamConfig,
     callback: Optional[Callable[[int, float], None]] = None,
     extract_F: Optional[Callable[[TrainState], np.ndarray]] = None,
+    checkpoints=None,
+    state_to_arrays: Optional[Callable[[TrainState], dict]] = None,
+    initial_hist: tuple = (),
+    ckpt_meta: Optional[dict] = None,
+    rebuild_step: Optional[Callable[[float], Callable]] = None,
+    health_sig: Optional[Callable] = None,
+    health_n: Optional[int] = None,
 ):
-    """Convergence loop. The step that takes F_t reports LLH(F_t) and
-    eagerly produces F_{t+1}; when |1 - LLH(F_t)/LLH(F_{t-1})| < conv_tol
-    the loop stops and returns F_t — the speculative F_{t+1} is discarded.
-    It also stops after the step that evaluated iteration max_iters. A
-    non-finite LLH raises FloatingPointError.
+    """Convergence loop, shared by every trainer (port of
+    bigclam_tpu/models/bigclam.py `run_fit_loop`).
 
-    With extract_F=None returns (final_state, final_llh, num_iters,
-    llh_history); otherwise a FitResult with extract_F(final_state)."""
-    hist: list[float] = []
+    The step that takes F_t reports LLH(F_t) and eagerly produces F_{t+1};
+    when |1 - LLH(F_t)/LLH(F_{t-1})| < conv_tol the loop stops and returns
+    F_t — the speculative F_{t+1} is discarded. It also stops after the
+    step that evaluated iteration max_iters.
+
+    CHECKPOINTS: with a utils.checkpoint.CheckpointManager, the state is
+    saved every cfg.checkpoint_every iterations (the state whose LLH the
+    next step evaluates, never the final speculative one), with the LLH
+    history in the sidecar meta (`llh_history`, read by both packages);
+    `initial_hist` carries a restored history so the convergence test
+    continues seamlessly on resume.
+
+    CALLBACKS taking a third parameter also receive {"accept_hist": [...]}
+    of the update applied this iteration; 2-parameter callbacks keep the
+    (it, llh) protocol.
+
+    With extract_F=None the loop runs STATE-RESIDENT: it returns
+    (final_state, final_llh, num_iters, llh_history) and never fetches F;
+    otherwise a FitResult with extract_F(final_state).
+
+    NON-FINITE LLH: with cfg.rollback_budget > 0 the loop keeps a device
+    snapshot of the last VERIFIED-finite state (a clone, refreshed in
+    place by copy_ every cfg.rollback_snapshot_every iterations; never a
+    host round trip). A non-finite LLH emits a `rollback` event, restores
+    a copy of the snapshot (truncating the LLH history to the snapshot
+    point, so the replayed iterations compare against the same
+    predecessors), cuts the Armijo ladder by cfg.rollback_shrink through
+    `rebuild_step(scale)` (the trainer's _ScaleRebuilder) and continues.
+    After cfg.rollback_budget rollbacks, or with no rollback allowed, it
+    aborts through _abort_nonfinite: diagnostics to the telemetry, then
+    FloatingPointError. The fault harness is consulted once per iteration
+    at site "fit.step" (kill / delay / nan_inject, the last applied to a
+    clone of F).
+
+    OBSERVABILITY (bigclam_tpu_torch.obs): each iteration beats the stall
+    heartbeat of the installed RunTelemetry, and its phases run under
+    emit=False spans (fit_loop/dispatch, /sync, /callback, plus
+    fit_loop/checkpoint per save and fit_loop/extract_F). On CUDA the
+    dispatch only enqueues the step; the host blocks in /sync, reading the
+    LLH, so /sync is device time plus waits plus the read back. With
+    cfg.health_every > 0 and telemetry on, a HealthMonitor turns the
+    steps' health packs into `health` and `anomaly` events. Telemetry
+    off costs one None check per iteration.
+    """
+    from bigclam_tpu_torch.obs import telemetry as _obs
+    from bigclam_tpu_torch.obs import trace as _trace
+    from bigclam_tpu_torch.resilience import faults as _faults
+
+    tel = _obs.current()
+    monitor = None
+    if tel is not None and dx.health_on(cfg):
+        from bigclam_tpu_torch.obs.health import HealthMonitor
+
+        monitor = HealthMonitor(cfg, tel, sig_fn=health_sig, n_live=health_n)
+    _span = _trace.span
+    cb_arity = _callback_arity(callback)
+    hist: list[float] = list(initial_hist)
+    # --- rollback state (see docstring) ---
+    budget = max(int(cfg.rollback_budget), 0)
+    snap_every = max(int(cfg.rollback_snapshot_every), 1)
+    snapshot = None          # last verified-finite state (device clone)
+    snap_hist_len = len(hist)
+    fallback = state if budget else None    # pre-first-snapshot target
+    rollbacks = 0
+    since_snap = 0
+    scale = float(cfg.step_scale)
     while True:
-        new_state = step_fn(state)
-        llh_t = float(new_state.llh)           # host sync: LLH of state.F
+        fault = _faults.maybe_fire("fit.step", it=int(state.it))
+        if fault is not None and fault.get("kind") == "nan_inject":
+            i0, j0 = fault.get("index", (0, 0))
+            state = state._replace(F=poison_entry(state.F, int(i0), int(j0)))
+        with _span("fit_loop/dispatch", emit=False):
+            new_state = step_fn(state)
+        with _span("fit_loop/sync", emit=False):
+            llh_t = float(new_state.llh)       # host sync: LLH of state.F
         if not math.isfinite(llh_t):
-            raise FloatingPointError(
-                f"non-finite LLH {llh_t} at iteration {state.it}; "
-                f"last finite LLHs {hist[-5:]}"
-            )
+            target = snapshot if snapshot is not None else fallback
+            if rollbacks >= budget or target is None:
+                _abort_nonfinite(state, new_state, llh_t, hist, rollbacks)
+            rollbacks += 1
+            scale *= float(cfg.rollback_shrink or 1.0)
+            if tel is not None:
+                tel.event(
+                    "rollback", iter=int(state.it), llh=llh_t,
+                    rollbacks=rollbacks, resume_iter=int(target.it),
+                    step_scale=scale,
+                )
+            # restore a COPY: the target stays intact for later rollbacks
+            state = clone_state(target)
+            del hist[(snap_hist_len if snapshot is not None
+                      else len(initial_hist)):]
+            since_snap = 0
+            if rebuild_step is not None and scale != 1.0:
+                step_fn = rebuild_step(scale)
+            continue
+        if budget and (snapshot is None or since_snap >= snap_every):
+            # state.F is VERIFIED finite (llh_t is its LLH)
+            snapshot = (refresh_state(snapshot, state) if snapshot is not None
+                        else clone_state(state))
+            snap_hist_len = len(hist)
+            since_snap = 0
+            fallback = None      # the snapshot supersedes the initial state
+        since_snap += 1
+        if tel is not None:
+            tel.step_beat(int(state.it), llh_t)
+        if monitor is not None:
+            monitor.maybe_observe(int(state.it), llh_t, new_state)
         if callback is not None:
-            callback(state.it, llh_t)
+            with _span("fit_loop/callback", emit=False):
+                if cb_arity >= 3:
+                    ah = new_state.accept_hist
+                    extras = ({"accept_hist": ah.cpu().tolist()}
+                              if ah is not None else None)
+                    callback(int(state.it), llh_t, extras)
+                else:
+                    callback(int(state.it), llh_t)
         if hist and _rel_change(llh_t, hist[-1]) < cfg.conv_tol:
             hist.append(llh_t)
             break
         hist.append(llh_t)
-        if state.it >= cfg.max_iters:
+        if int(state.it) >= cfg.max_iters:
             break
         state = new_state
+        if (
+            checkpoints is not None
+            and cfg.checkpoint_every > 0
+            and int(state.it) % cfg.checkpoint_every == 0
+            and int(state.it) <= cfg.max_iters   # never persist the final
+            and state_to_arrays is not None      # speculative (unevaluated) F
+        ):
+            with _span("fit_loop/checkpoint", it=int(state.it)):
+                checkpoints.save(
+                    int(state.it), state_to_arrays(state),
+                    meta={"llh_history": hist, **(ckpt_meta or {})},
+                )
+                if tel is not None:
+                    tel.event("checkpoint", step=int(state.it))
     if extract_F is None:
-        return state, llh_t, state.it, tuple(hist)
-    F = extract_F(state)
+        return state, llh_t, int(state.it), tuple(hist)
+    with _span("fit_loop/extract_F"):
+        F = extract_F(state)
     return FitResult(
-        F=F, sumF=F.sum(axis=0), llh=llh_t, num_iters=state.it,
+        F=F, sumF=F.sum(axis=0), llh=llh_t, num_iters=int(state.it),
         llh_history=tuple(hist),
     )
+
+
+def _state_tensors(F) -> list:
+    return [F] if isinstance(F, torch.Tensor) else list(F)
+
+
+def _abort_nonfinite(state, new_state, llh_t: float, hist, rollbacks: int = 0):
+    """Non-finite-LLH sentinel: diagnose, dump, abort (port of
+    bigclam_tpu/models/bigclam.py `_abort_nonfinite`). A NaN/inf LLH means
+    the state is already poisoned and the convergence test can never fire
+    on NaN. The diagnostics are device reductions over F (all its shards),
+    emitted as a `nonfinite` telemetry event and dumped to
+    <telemetry>/nonfinite_dump.npz before FloatingPointError. With
+    rollback enabled this is the ESCALATION path — `rollbacks` says how
+    many recovery attempts were already burned."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    Fs, sums = _state_tensors(state.F), _state_tensors(state.sumF)
+    diag = {
+        "iter": int(state.it),
+        "llh": llh_t,
+        "rollbacks": rollbacks,
+        "f_nonfinite": int(sum(f.numel() - int(torch.isfinite(f).sum()) for f in Fs)),
+        "f_min": min(float(torch.amin(f)) for f in Fs),
+        "f_max": max(float(torch.amax(f)) for f in Fs),
+        "sumF_min": float(torch.amin(sums[0])),
+        "sumF_max": float(torch.amax(sums[0])),
+        "llh_tail": [float(v) for v in hist[-5:]],
+    }
+    ah = new_state.accept_hist
+    diag["accept_hist"] = ah.cpu().tolist() if ah is not None else None
+    tel = _obs.current()
+    dump = ""
+    if tel is not None:
+        tel.event("nonfinite", **diag)
+        dump = os.path.join(tel.directory, "nonfinite_dump.npz")
+        np.savez(dump, **{k: np.asarray(v) for k, v in diag.items()
+                          if v is not None})
+        tel.finalize()           # the report must exist even on abort
+    raise FloatingPointError(
+        f"non-finite LLH {llh_t} at iteration {diag['iter']}: "
+        f"{diag['f_nonfinite']} non-finite F entries, "
+        f"F range [{diag['f_min']:.3g}, {diag['f_max']:.3g}], "
+        f"accept_hist={diag['accept_hist']}"
+        + (f"; rollback budget exhausted after {rollbacks} rollback(s)"
+           if rollbacks else "")
+        + (f"; diagnostics dumped to {dump}" if dump else "")
+    )
+
+
+class _ScaleRebuilder:
+    """run_fit_loop's step-cut hook (port of the JAX `_ScaleRebuilder`):
+    rebuilds the model's train step with the Armijo ladder scaled by
+    cfg.step_scale. Works for every trainer exposing .cfg /
+    .rebuild_step() / ._step. `restore()` puts the model back on its
+    original config after the fit, so a shrunken ladder never leaks into
+    the caller's next fit."""
+
+    def __init__(self, model):
+        self.model = model
+        self.orig_cfg = model.cfg
+        self.engaged = False
+
+    def __call__(self, scale: float):
+        self.engaged = True
+        m = self.model
+        m.cfg = m.cfg.replace(step_scale=scale)
+        m.rebuild_step()
+        return m._step
+
+    def restore(self) -> None:
+        if not self.engaged:
+            return
+        m = self.model
+        m.cfg = self.orig_cfg
+        m.rebuild_step()
+
+
+class CheckpointMismatchError(ValueError):
+    """A checkpoint that cannot resume this run: another graph, K, seed,
+    representation or row layout. Named, never cropped into place."""
+
+
+def check_ckpt_meta(meta: dict, expected: dict, directory: str,
+                    soft=("n_pad", "k_pad")) -> None:
+    """Refuse a checkpoint whose meta disagrees with this run (the JAX
+    rule: a key missing from an older checkpoint matches a falsy
+    expectation)."""
+    for key, val in expected.items():
+        if key in soft:
+            continue
+        got = meta.get(key)
+        if got is None and not val:
+            continue
+        if got != val:
+            raise CheckpointMismatchError(
+                f"checkpoint incompatible with this run: {key}={got} in "
+                f"checkpoint vs {val} expected (dir: {directory})"
+            )
+
+
+def restore_checkpoint(checkpoints, expected_meta: dict, state_from_arrays):
+    """Restore the newest valid checkpoint, refusing mismatches (port of
+    bigclam_tpu/models/bigclam.py `restore_checkpoint`).
+
+    The live graph, K and seed must match exactly. The PADDED shapes
+    (n_pad, k_pad) are soft: padding rows and columns are inert zeros, so
+    an archive of the other package (K padded to 128 there, to 32 here;
+    rows padded to its CSR blocks) is cropped to the live (num_nodes, k)
+    region and re-padded to this model's layout — where its rows are in
+    the same order. Rows in a relabeled (balanced) order are placed by a
+    permutation that depends on n_pad, so such an archive must have this
+    model's n_pad, or it is refused by name.
+
+    Returns (state, llh_history) or (None, ()) when nothing is stored."""
+    restored = checkpoints.restore()
+    if restored is None:
+        return None, ()
+    ckpt_step, arrays, meta = restored
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is not None:
+        tel.event("restore", step=int(ckpt_step))
+    check_ckpt_meta(meta, expected_meta, checkpoints.directory)
+    n_pad, k_pad = expected_meta["n_pad"], expected_meta["k_pad"]
+    n, k = expected_meta["num_nodes"], expected_meta["k"]
+    F = np.asarray(arrays["F"])
+    if tuple(F.shape) != (n_pad, k_pad):
+        if expected_meta.get("balanced") and F.shape[0] != n_pad:
+            raise CheckpointMismatchError(
+                f"checkpoint F rows {F.shape[0]} vs this run's n_pad {n_pad} "
+                "on a balanced layout: its rows are in the relabeled order "
+                "of another padding, which cannot be mapped back (dir: "
+                f"{checkpoints.directory})"
+            )
+        if F.shape[0] < n or F.shape[1] < k:
+            raise CheckpointMismatchError(
+                f"checkpoint F shape {F.shape} smaller than live region "
+                f"({n}, {k}) (dir: {checkpoints.directory})"
+            )
+        repad = np.zeros((n_pad, k_pad), F.dtype)
+        repad[:n, :k] = F[:n, :k]
+        arrays = dict(arrays)
+        arrays["F"] = repad
+        arrays["sumF"] = repad.sum(axis=0)
+    return state_from_arrays(arrays), tuple(meta.get("llh_history", ()))
+
+
+def fit_with_resume(model, state, callback, extract_F, checkpoints=None,
+                    resume: bool = True):
+    """The trainers' fit: restore from `checkpoints` unless resume=False
+    (then a cold start that still saves), run the loop with the trainer's
+    checkpoint, step-cut and health hooks, and put the trainer's cfg back
+    after. `model` provides _restore, _state_to_arrays, _ckpt_meta,
+    health_sig, rebuild_step, _step, cfg and g."""
+    hist = ()
+    if checkpoints is not None and resume:
+        restored, hist = model._restore(checkpoints)
+        if restored is not None:
+            state = restored
+    rebuilder = _ScaleRebuilder(model)
+    try:
+        return run_fit_loop(
+            model._step, state, model.cfg, callback, extract_F,
+            checkpoints=checkpoints,
+            state_to_arrays=model._state_to_arrays,
+            initial_hist=hist,
+            ckpt_meta=model._ckpt_meta(),
+            rebuild_step=rebuilder,
+            health_sig=model.health_sig,
+            health_n=model.g.num_nodes,
+        )
+    finally:
+        rebuilder.restore()
 
 
 def state_from_jax_arrays(
@@ -453,8 +833,14 @@ class BigClamModel:
         if self.engaged_path == "pallas_vmem":
             # the edge-terms kernel's runs, once per chunk
             self.edges = with_runs(self.edges)
+        self.rebuild_step()
+
+    def rebuild_step(self) -> None:
+        """(Re)build the train step for the CURRENT self.cfg (the
+        rollback's step cut swaps in a scaled Armijo ladder) on the built
+        graph layout."""
         self._step = make_train_step(
-            self.csr, self.edges, cfg, self.engaged_path, self.kc
+            self.csr, self.edges, self.cfg, self.engaged_path, self.kc
         )
 
     def init_state(self, F0: Optional[np.ndarray] = None) -> TrainState:
@@ -481,12 +867,77 @@ class BigClamModel:
         n, k = self.g.num_nodes, self.cfg.num_communities
         return state.F[:n, :k].cpu().numpy()
 
+    def health_sig(self, state: TrainState) -> torch.Tensor:
+        """(N,) int32 top-community signature — the rolling membership
+        snapshot obs.health churns against."""
+        return dx.dense_top_community(state.F)
+
+    # ------------------------------------------------------ checkpoints
+    def _ckpt_meta(self) -> dict:
+        """The sidecar meta of the JAX BigClamModel: a checkpoint of
+        another graph, K or seed is refused on restore."""
+        return {
+            "num_nodes": self.g.num_nodes,
+            "num_directed_edges": self.g.num_directed_edges,
+            "k": self.cfg.num_communities,
+            "n_pad": self.n_pad,
+            "k_pad": self.k_pad,
+            "seed": self.cfg.seed,
+        }
+
+    def _state_to_arrays(self, state: TrainState) -> dict:
+        return {
+            "F": state.F.cpu().numpy(),
+            "sumF": state.sumF.cpu().numpy(),
+            "llh": state.llh.cpu().numpy(),
+            "it": np.asarray(state.it, np.int32),
+        }
+
+    def _state_from_arrays(self, arrays: dict) -> TrainState:
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.dtype).to(
+                self.device)
+
+        return TrainState(
+            F=dev(arrays["F"]),
+            sumF=dev(arrays["sumF"]),
+            llh=dev(np.asarray(arrays["llh"])),
+            it=int(arrays["it"]),
+            accept_hist=torch.zeros(
+                len(self.cfg.step_candidates) + 1, dtype=torch.int32,
+                device=self.device,
+            ),
+        )
+
+    def _restore(self, checkpoints):
+        return restore_checkpoint(
+            checkpoints, self._ckpt_meta(), self._state_from_arrays
+        )
+
+    # -------------------------------------------------------------- fit
     def fit(
         self,
         F0: Optional[np.ndarray] = None,
         callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
     ) -> FitResult:
-        """Train to convergence from F0 (rowkeyed init when None)."""
-        return run_fit_loop(
-            self._step, self.init_state(F0), self.cfg, callback, self.extract_F
-        )
+        """Train to convergence from F0 (rowkeyed init when None). If
+        `checkpoints` (a utils.checkpoint.CheckpointManager) holds a saved
+        state, training resumes from it (resume=False: a cold start that
+        still saves); F0 is only the cold-start init."""
+        return fit_with_resume(self, self.init_state(F0), callback,
+                               self.extract_F, checkpoints, resume)
+
+    def fit_state(
+        self,
+        state: TrainState,
+        callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
+    ):
+        """The convergence loop on a resident state (or the checkpoint's,
+        when one is restored): returns (final_state, final_llh, num_iters,
+        llh_history) without fetching F."""
+        return fit_with_resume(self, state, callback, None, checkpoints,
+                               resume)

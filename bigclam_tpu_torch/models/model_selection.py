@@ -14,10 +14,13 @@ Each K draws its random padding columns from its own generator
 (default_rng([seed, K]), or child seeds drawn once from a caller's rng),
 so a sweep resumed from its journal (state_dir/sweep_state.json, written
 through a .tmp file and os.replace, the JAX format) equals the
-uninterrupted one.
+uninterrupted one. With cfg.checkpoint_every > 0 each K's fit also
+checkpoints WITHIN the K (state_dir/k_<K>/, the JAX layout), so a crash
+inside one K resumes inside it; a K's checkpoints are deleted once its LLH
+is journaled.
 
 Not ported yet, and refused by name (NotPortedError): quality mode and
-device annealing, within-K checkpoints (checkpoint_every > 0) and a mesh.
+device annealing, and a mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -83,12 +87,6 @@ def check_sweep_supported(cfg: BigClamConfig, device_annealing: bool = False) ->
             "the quality-mode sweep (annealing per K, device annealing) is "
             "not ported yet (ROADMAP queue 1 item 13)"
         )
-    if cfg.checkpoint_every > 0:
-        raise NotPortedError(
-            "within-K checkpoints (checkpoint_every > 0) are not ported yet "
-            "(ROADMAP queue 1 item 8); the sweep journals each trained K in "
-            "state_dir/sweep_state.json"
-        )
     if tuple(cfg.mesh_shape) != (1, 1) or cfg.partition != "1d":
         raise NotPortedError(
             "a sweep over a device mesh is not ported yet (ROADMAP queue 1 "
@@ -117,7 +115,9 @@ def sweep_k(
     When state_dir is given, per-K converged LLHs are journaled to
     state_dir/sweep_state.json and already-trained Ks are skipped on
     restart; `resume=False` ignores an existing journal (every K retrains)
-    while still journaling fresh results. callback(k, llh) is called for
+    while still journaling fresh results. With cfg.checkpoint_every > 0 a
+    K's fit also checkpoints into state_dir/k_<K>/ (resumed unless
+    resume=False), deleted once the K is journaled. callback(k, llh) is called for
     every K the sweep reaches, journaled or trained. The seeds come from
     ops.seeding.conductance_seeds at K_max with cfg.seeding_degree_cap and
     the `seed_backend` scorer, its device backends on the model's device.
@@ -160,12 +160,18 @@ def sweep_k(
         if k in llh_by_k:                           # journaled on a prior run
             res_llh = llh_by_k[k]
         else:
+            ckpt_k = ckpt_dir = None
+            if state_dir is not None and cfg.checkpoint_every > 0:
+                from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+                ckpt_dir = os.path.join(state_dir, f"k_{k:06d}")
+                ckpt_k = CheckpointManager(ckpt_dir)
             F0k = seeding.init_F(
                 g, seeds, cfg.replace(num_communities=k), k_rngs[k]
             )
             F0 = np.zeros((g.num_nodes, k_max))
             F0[:, :k] = F0k                         # columns >= k stay zero
-            res = model.fit(F0)
+            res = model.fit(F0, checkpoints=ckpt_k, resume=resume)
             res_llh = res.llh
             llh_by_k[k] = res_llh
             best_fit = res
@@ -173,6 +179,10 @@ def sweep_k(
                 with open(state_path + ".tmp", "w") as f:
                     json.dump({str(kk): v for kk, v in llh_by_k.items()}, f)
                 os.replace(state_path + ".tmp", state_path)
+            if ckpt_dir is not None:
+                # journaled: the K's checkpoints are spent, and must never
+                # leak into a later K, whose model shape they would match
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
         if callback is not None:
             callback(k, res_llh)
         if llh_old is not None and llh_old != 0.0:

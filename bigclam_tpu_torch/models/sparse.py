@@ -34,11 +34,14 @@ import torch
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import (
+    CheckpointMismatchError,
     FitResult,
     _round_up,
+    check_ckpt_meta,
+    fit_with_resume,
     rowkeyed_init_F,
-    run_fit_loop,
 )
+from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops import sparse_members as sm
 from bigclam_tpu_torch.ops.objective import EdgeChunks, edge_chunk_bound
 from bigclam_tpu_torch.ops.sparse_members import SparseTrainState
@@ -58,15 +61,19 @@ def make_sparse_train_step(
     cfg: BigClamConfig,
     k_pad: int,
     m: int,
+    n_live: Optional[int] = None,
 ) -> Callable[[SparseTrainState], SparseTrainState]:
     """One sparse iteration; the same step contract as
-    models.bigclam.make_train_step (the state's LLH is that of its input)."""
+    models.bigclam.make_train_step (the state's LLH is that of its input).
+    `n_live` is the live node count of the support-churn denominator
+    (padding rows never admit; None falls back to the padded count)."""
     sup_every = max(int(cfg.support_every), 1)
 
     def step(state: SparseTrainState) -> SparseTrainState:
-        ids, w = state.ids, state.F
+        ids0, w = state.ids, state.F
+        ids = ids0
         if state.it % sup_every == 0:
-            ids, w = sm.support_update(ids, w, blocks, m, k_pad)
+            ids, w = sm.support_update(ids0, w, blocks, m, k_pad)
         # recomputed, not carried: a support update may drop members
         sumF = sm.sparse_sumF(ids, w, k_pad)
         grad, node_llh = sm.sparse_grad_llh(ids, w, sumF, edges, cfg, k_pad)
@@ -74,13 +81,27 @@ def make_sparse_train_step(
         w_new, hist = sm.sparse_armijo_update(
             ids, w, sumF, grad, node_llh, cand_nbr, cfg, k_pad
         )
+        sumF_new = sm.sparse_sumF(ids, w_new, k_pad)
+        health = None
+        if dx.health_on(cfg):
+            # support churn: the fraction of live member-id slots the
+            # admission pass rewrote, computed every step and LATCHED
+            # (max since the last sample) so an off-cadence admission
+            # burst still shows in the next sample; the pack itself only
+            # on cadence iterations
+            slots = float(max(n_live or ids.shape[0], 1) * m)
+            churn = (ids != ids0).to(torch.float32).sum() / slots
+            extras, carry = dx.latch_extras(state.health, {"support_churn": churn})
+            health = dx.health_pack(cfg, state.it, w, w_new, sumF_new, hist,
+                                    grad=grad, extras=extras, skip_carry=carry)
         return SparseTrainState(
             F=w_new,
             ids=ids,
-            sumF=sm.sparse_sumF(ids, w_new, k_pad),
+            sumF=sumF_new,
             llh=node_llh.sum().to(w.dtype),
             it=state.it + 1,
             accept_hist=hist,
+            health=health,
         )
 
     return step
@@ -184,8 +205,13 @@ class SparseBigClamModel:
         self.blocks = sm.build_support_blocks(
             g, self.n_pad, self.block_b, dtype=self.dtype, device=self.device
         )
+        self.rebuild_step()
+
+    def rebuild_step(self) -> None:
+        """(Re)build the train step for the CURRENT self.cfg."""
         self._step = make_sparse_train_step(
-            self.edges, self.blocks, cfg, self.k_pad, self.m
+            self.edges, self.blocks, self.cfg, self.k_pad, self.m,
+            n_live=self.g.num_nodes,
         )
 
     # ------------------------------------------------------------ state
@@ -231,22 +257,85 @@ class SparseBigClamModel:
             t.numel() * t.element_size() for t in (state.F, state.ids, state.sumF)
         ))
 
+    def health_sig(self, state: SparseTrainState) -> torch.Tensor:
+        """(N_pad,) int32 top-community signature from the member lists
+        (-1 on empty rows)."""
+        return dx.sparse_top_community(state.ids, state.F)
+
+    # ------------------------------------------------------ checkpoints
+    def _ckpt_meta(self) -> dict:
+        """The sidecar meta of the JAX SparseBigClamModel: a dense
+        checkpoint, another M, graph, K, padding or seed is refused."""
+        return {
+            "num_nodes": self.g.num_nodes,
+            "num_directed_edges": self.g.num_directed_edges,
+            "k": self.cfg.num_communities,
+            "n_pad": self.n_pad,
+            "k_pad": self.k_pad,
+            "seed": self.cfg.seed,
+            "representation": "sparse",
+            "sparse_m": self.m,
+        }
+
+    def _state_to_arrays(self, state: SparseTrainState) -> dict:
+        return {
+            "F": state.F.cpu().numpy(),
+            "ids": state.ids.cpu().numpy(),
+            "sumF": state.sumF.cpu().numpy(),
+            "llh": state.llh.cpu().numpy(),
+            "it": np.asarray(state.it, np.int32),
+        }
+
+    def _state_from_arrays(self, arrays: dict) -> SparseTrainState:
+        if "ids" not in arrays:
+            raise CheckpointMismatchError(
+                "checkpoint holds no member-id array: dense-representation "
+                "checkpoints cannot resume a sparse fit"
+            )
+        ids = torch.from_numpy(np.asarray(arrays["ids"], np.int32)).to(self.device)
+        w = torch.from_numpy(np.asarray(arrays["F"])).to(self.dtype).to(self.device)
+        return new_sparse_state(
+            ids, w, self.k_pad, len(self.cfg.step_candidates),
+            llh=float(arrays["llh"]), it=int(arrays["it"]),
+        )
+
+    def _restore(self, checkpoints):
+        """Sparse restore: strict meta equality (representation, M, K,
+        graph, padding, seed) — the dense path's re-pad does not apply to
+        slot arrays. Emits the same `restore` event as the dense one."""
+        restored = checkpoints.restore()
+        if restored is None:
+            return None, ()
+        ckpt_step, arrays, meta = restored
+        from bigclam_tpu_torch.obs import telemetry as _obs
+
+        tel = _obs.current()
+        if tel is not None:
+            tel.event("restore", step=int(ckpt_step))
+        check_ckpt_meta(meta, self._ckpt_meta(), checkpoints.directory, soft=())
+        return self._state_from_arrays(arrays), tuple(meta.get("llh_history", ()))
+
     # -------------------------------------------------------------- fit
     def fit(
         self,
         F0: Optional[np.ndarray] = None,
         callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
     ) -> FitResult:
-        """Train to convergence from F0 (rowkeyed init when None)."""
-        return run_fit_loop(
-            self._step, self.init_state(F0), self.cfg, callback, self.extract_F
-        )
+        """Train to convergence from F0 (rowkeyed init when None),
+        resuming from `checkpoints` when it holds a state (resume=False:
+        a cold start that still saves)."""
+        return fit_with_resume(self, self.init_state(F0), callback,
+                               self.extract_F, checkpoints, resume)
 
     def fit_state(
         self,
         state: SparseTrainState,
         callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
     ):
         """The convergence loop from a state, with no dense F anywhere:
         returns (final_state, final_llh, num_iters, llh_history)."""
-        return run_fit_loop(self._step, state, self.cfg, callback)
+        return fit_with_resume(self, state, callback, None, checkpoints, resume)

@@ -193,13 +193,20 @@ def bind(path: Path, require_all: bool = True) -> ctypes.CDLL:
 
 
 def load_library() -> ctypes.CDLL:
-    """This package's kernel library, built first if needed, and bound."""
+    """This package's kernel library, built first if needed, and bound;
+    the build (or the load of a library already built) is a `compile`
+    event of the run telemetry."""
     global _LIBRARY
     if _LIBRARY is None:
+        from bigclam_tpu_torch.obs.telemetry import note_compile
+
+        t0 = time.perf_counter()
         path = library_path()
-        if not path.exists():
+        cached = path.exists()
+        if not cached:
             build()
         _LIBRARY = bind(path)
+        note_compile("nvcc:kernels", time.perf_counter() - t0, cached=cached)
     return _LIBRARY
 
 

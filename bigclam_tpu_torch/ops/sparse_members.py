@@ -61,6 +61,7 @@ class SparseTrainState(NamedTuple):
     llh: torch.Tensor          # scalar: LLH of the PREVIOUS state
     it: int                    # iteration counter
     accept_hist: torch.Tensor  # (S+1,) int32 accepted-step histogram
+    health: Optional[torch.Tensor] = None  # health pack (ops.diagnostics)
 
 
 class SupportBlocks(NamedTuple):

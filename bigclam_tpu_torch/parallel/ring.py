@@ -279,7 +279,7 @@ def make_ring_train_step(
                 kernel=path != "xla",
             )
             outs.append((F_new, sum_loc, node_llh[i].sum(), hist))
-        return finish_step(state, outs, devices)
+        return finish_step(state, outs, devices, cfg, grad)
 
     return step
 

@@ -46,9 +46,11 @@ from bigclam_tpu_torch.models.bigclam import (
     _round_up,
     csr_fused_want,
     csr_want_reason,
+    fit_with_resume,
+    restore_checkpoint,
     rowkeyed_init_F,
-    run_fit_loop,
 )
+from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops.csr_kernels import (
     MAX_K,
     candidates_csr,
@@ -194,17 +196,26 @@ def mesh_kernels_want(
     return True, ""
 
 
-def finish_step(state: TrainState, outs, devices) -> TrainState:
+def finish_step(state: TrainState, outs, devices, cfg: BigClamConfig,
+                grads=None) -> TrainState:
     """The psums that end a sharded step: `outs` holds, per shard,
     (F_new, column sums of F_new, LLH of the shard's rows, accepted-step
-    histogram)."""
+    histogram); `grads` the shards' gradients, read only for the health
+    pack on cadence iterations."""
     F_new, sums, llhs, hists = zip(*outs)
+    sumF = tuple(psum(sums, devices))
+    hist = psum(hists, devices)[0]
+    health = None
+    if dx.on_cadence(cfg, state.it):
+        health = dx.health_pack(cfg, state.it, state.F, F_new, sumF[0], hist,
+                                grad=grads)
     return TrainState(
         F=tuple(F_new),
-        sumF=tuple(psum(sums, devices)),
+        sumF=sumF,
         llh=psum(llhs, devices)[0].to(F_new[0].dtype),
         it=state.it + 1,
-        accept_hist=psum(hists, devices)[0],
+        accept_hist=hist,
+        health=health,
     )
 
 
@@ -216,33 +227,34 @@ def make_sharded_train_step(
     devices[i]."""
 
     def shard_update(F_loc, sumF, csr, F_full):
+        """((F_new, its column sums, LLH of the rows, histogram), grad)"""
         if path == "csr_fused":
-            F_new, _, node_llh, ok = fused_superstep(F_loc, sumF, csr, cfg, F_full)
-            return F_new, F_new.sum(dim=0), node_llh.sum(), accept_stats(ok)
+            F_new, grad, node_llh, ok = fused_superstep(F_loc, sumF, csr, cfg, F_full)
+            return (F_new, F_new.sum(dim=0), node_llh.sum(), accept_stats(ok)), grad
         if path == "csr":
             grad, node_llh = grad_llh_csr(F_loc, sumF, csr, cfg, F_full)
             cand = candidates_csr(F_loc, grad, sumF, csr, cfg, F_full)
             F_new, sum_loc, hist = armijo_select(
                 F_loc, grad, node_llh, cand, cfg, with_stats=True
             )
-            return F_new, sum_loc, node_llh.sum(), hist
+            return (F_new, sum_loc, node_llh.sum(), hist), grad
         edges = edge_chunks(F_loc, csr, cfg)
         grad, node_llh = grad_llh(F_loc, sumF, edges, cfg, F_full)
         cand_nbr = candidates_pass(F_loc, grad, edges, cfg, F_full)
         F_new, sum_loc, hist = armijo_tail_select_sharded(
             F_loc, grad, node_llh, cand_nbr, sumF, cfg
         )
-        return F_new, sum_loc, node_llh.sum(), hist
+        return (F_new, sum_loc, node_llh.sum(), hist), grad
 
     def step(state: TrainState) -> TrainState:
         F = state.F
         sumF = psum([f.sum(dim=0) for f in F], devices)
         F_full = all_gather(F, devices)
-        outs = [
+        outs, grads = zip(*(
             shard_update(F[i], sumF[i], shards[i], F_full[i])
             for i in range(len(devices))
-        ]
-        return finish_step(state, outs, devices)
+        ))
+        return finish_step(state, outs, devices, cfg, grads)
 
     return step
 
@@ -338,6 +350,11 @@ class ShardedBigClamModel:
         )
         return self.reset_state(F, llh=llh, it=it)
 
+    def health_sig(self, state: TrainState) -> torch.Tensor:
+        """(n_pad,) int32 top-community signature of the shards, in the
+        trainer's row order (padding rows are -1 forever)."""
+        return dx.dense_top_community(state.F)
+
     def reset_state(self, F, llh: Optional[float] = None, it: int = 0) -> TrainState:
         """TrainState around per-shard padded F tensors: sumF through the
         psum, LLH -inf until a step evaluates one, a zero histogram."""
@@ -398,23 +415,65 @@ class ShardedBigClamModel:
         F = torch.cat([f.cpu() for f in state.F]).numpy()
         return self._from_internal_rows(F[:n])[:, :k]
 
+    # --- checkpoints ----------------------------------------------------
+
+    def _ckpt_meta(self) -> dict:
+        """The sidecar meta of the JAX sharded trainers: F is stored in
+        the trainer's internal row order, which depends on the balance
+        setting and, when balanced, on the node-shard count (and n_pad,
+        which restore_checkpoint then holds fixed)."""
+        return {
+            "num_nodes": self.g.num_nodes,
+            "num_directed_edges": self.g.num_directed_edges,
+            "k": self.cfg.num_communities,
+            "n_pad": self.n_pad,
+            "k_pad": self.k_pad,
+            "balanced": self._perm is not None,
+            "node_shards": len(self.devices) if self._perm is not None else 0,
+            "seed": self.cfg.seed,
+        }
+
+    def _state_to_arrays(self, state: TrainState) -> dict:
+        return {
+            "F": torch.cat([f.cpu() for f in state.F]).numpy(),
+            "sumF": state.sumF[0].cpu().numpy(),
+            "llh": state.llh.cpu().numpy(),
+            "it": np.asarray(state.it, np.int32),
+        }
+
+    def _state_from_arrays(self, arrays: dict) -> TrainState:
+        return self._shard_state(
+            np.asarray(arrays["F"]), llh=float(arrays["llh"]),
+            it=int(arrays["it"]),
+        )
+
+    def _restore(self, checkpoints):
+        return restore_checkpoint(
+            checkpoints, self._ckpt_meta(), self._state_from_arrays
+        )
+
     # --- training -------------------------------------------------------
 
     def fit(
         self,
         F0: Optional[np.ndarray] = None,
         callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
     ) -> FitResult:
-        """Train to convergence from F0 (row-keyed init when None)."""
-        return run_fit_loop(
-            self._step, self.init_state(F0), self.cfg, callback, self.extract_F
-        )
+        """Train to convergence from F0 (row-keyed init when None),
+        resuming from `checkpoints` when it holds a state (resume=False: a
+        cold start that still saves)."""
+        return fit_with_resume(self, self.init_state(F0), callback,
+                               self.extract_F, checkpoints, resume)
 
     def fit_state(
         self,
         state: TrainState,
         callback: Optional[Callable[[int, float], None]] = None,
+        checkpoints=None,
+        resume: bool = True,
     ):
         """The convergence loop on a resident state; returns (final_state,
         final_llh, num_iters, llh_history) without fetching F."""
-        return run_fit_loop(self._step, state, self.cfg, callback)
+        return fit_with_resume(self, state, callback, None, checkpoints, resume)

@@ -154,6 +154,34 @@ exits non-zero:
   mesh_parity the parity graph: the ring and the all-gather schedules at
             dp = 4 on the card against the port's CPU float64 `xla` at
             dp = 4 and on one device, 5 steps, LLH within 1e-4
+  resilience_full (after `full`) `cli fit` at full on `csr_fused`, 6
+            iterations, --checkpoint-every 2, --telemetry-dir,
+            --health-every 2, --metrics (a): kernel A launched once a step,
+            checkpoints at 2, 4 and 6 with their save seconds and bytes,
+            health samples at 0, 2, 4, 6, every event valid against the
+            schema, sec_per_iter beside main's; the same fit in a
+            subprocess killed (SIGKILL, BIGCLAM_FAULTS) at fit.step 4 and
+            resumed in-process with --resume auto (b): its LLH history
+            equal to (a)'s bit for bit (band 1e-6), 3 launches, the resume
+            lineage; a NaN injected into F at 3 on the model's fit (c):
+            one `rollback` event (iter 3, resume 0, step_scale 0.1, a
+            non-finite LLH), kernel A launched once for every step run,
+            the replay on the scaled ladder included, a finite history;
+            health every 10 against 0 (d), fits of 11 steps in the order
+            0, 10, 10, 0, the trajectory unchanged, the health pack and
+            the rollback snapshot's refresh timed with CUDA events; peak
+            device memory of a 2-step fit with and without the snapshot
+  resilience_odd (after mesh_parity) the parity graph on csr_fused, csr,
+            csr_fused_kb and csr_grouped_kb (csr_k_block 32), pallas_vmem,
+            sparse_merge_pallas (M=16) and csr_ring_fused (dp = 4): a NaN
+            in F at 2 gives a non-finite LLH, one rollback and a finite
+            history, each path's kernels launched; A, B, C, the K-blocked
+            kernels with the node pass (K=1,100) and the epilogue against
+            their plain versions on the ladder scaled by 0.1 (odd graph);
+            a resume from the checkpoint at 4 against the uninterrupted
+            fit on sparse_merge_pallas (band 1e-5: index_add_'s atomic
+            order differs from run to run, and two uninterrupted fits are
+            set beside it) and csr_ring_fused (band 1e-6)
 
 and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 (bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
@@ -190,6 +218,9 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
   kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
             both K-blocked paths on the card against the CPU float64
             `xla` path
+  resilience_kb (after kb_full) a NaN at 2 on csr_fused_kb from kb_main's
+            F: one rollback, then every launch of the replay on the scaled
+            ladder counted (3 window kernels and the node pass a step)
 
 Then one `side_by_side` line (with --against: each named kernel on the
 inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
@@ -1164,7 +1195,7 @@ def phase_odd() -> dict:
 def fit_args(extra):
     from bigclam_tpu_torch import cli
 
-    return cli.build_parser().parse_args(["fit", *extra])
+    return cli.build_parser().parse_args(["fit", "--quiet", *extra])
 
 
 def planted_file(cfg, path):
@@ -1725,16 +1756,17 @@ def phase_kb_full(g, F_host):
     }
 
 
-def kb_odd_case(k: int, csr_k_block: int = 0, g=None) -> dict:
+def kb_odd_case(k: int, csr_k_block: int = 0, g=None, step_scale: float = 1.0) -> dict:
     """The K-blocked kernels vs plain on odd_case(k, g) (isolated nodes and
-    an all-zero row) padded to the K-blocked layout of k."""
+    an all-zero row) padded to the K-blocked layout of k, on the Armijo
+    ladder scaled by step_scale."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models.bigclam import k_block_plan
 
     F, csr, _ = odd_case(k, g)
     kc, k_pad = k_block_plan(k, csr_k_block)
     F = torch.nn.functional.pad(F, (0, k_pad - k)).contiguous()
-    cfg = BigClamConfig(num_communities=k)
+    cfg = BigClamConfig(num_communities=k, step_scale=step_scale)
     checks = compare_kb_kernels(F, csr, cfg, kc, kb_plain_inputs(F, csr, cfg, kc))
     return {
         "n": int(F.shape[0]), "k": k, "kc": kc, "k_pad": k_pad,
@@ -2944,6 +2976,420 @@ def phase_mesh_parity(tmp) -> dict:
     return out
 
 
+# --- resilience: checkpoints, resume, rollback, telemetry, health ----------
+
+RES_ITERS = 6             # resilience_full's fits: steps 0..6
+RES_KILL_AT = 4           # the kill lands after the checkpoint at 4
+RES_NAN_AT = 3
+RES_HEALTH_ITERS = 10     # resilience_full (d): health samples at 0 and 10
+RES_ODD_ITERS = 5
+RESUME_RTOL = 1e-6        # a resume that is not bit for bit must stay here
+# the sparse step's grad, candidate and sumF scatters are torch index_add_,
+# whose CUDA atomic adds sum in a different order from run to run: two
+# uninterrupted fits differ by ~2e-6 after 6 steps, so its resume is held
+# to this band, and the two-fit spread is reported beside it
+SPARSE_RESUME_RTOL = 1e-5
+RES_ODD_M = 16
+K_BLOCKED_COUNTERS = ("edge_dots_kb", "grad_from_x", "cand_dots_kb",
+                      "cand_select_from_x")
+
+
+def events_of(directory) -> list:
+    from bigclam_tpu_torch.obs.telemetry import EVENTS_NAME
+
+    with open(os.path.join(directory, EVENTS_NAME)) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def validate_telemetry(directory) -> dict:
+    """Every event of a telemetry directory against the schema; the kinds
+    counted."""
+    from bigclam_tpu_torch.obs.schema import summarize_kinds, validate_events_file
+    from bigclam_tpu_torch.obs.telemetry import EVENTS_NAME
+
+    n, errors = validate_events_file(os.path.join(directory, EVENTS_NAME))
+    if errors or not n:
+        raise AssertionError(f"{directory}: {n} events, schema errors {errors[:5]}")
+    return {"events": n, "kinds": summarize_kinds(events_of(directory))}
+
+
+def rollbacks_of(directory) -> list:
+    return [[e["iter"], e["rollbacks"], e["resume_iter"], e["step_scale"], e["llh"]]
+            for e in events_of(directory) if e["kind"] == "rollback"]
+
+
+@contextlib.contextmanager
+def telemetry_and_faults(directory, faults=None):
+    """A RunTelemetry in `directory` and a fault plan installed around the
+    body; both removed after it."""
+    from bigclam_tpu_torch.obs import RunTelemetry, install, uninstall
+    from bigclam_tpu_torch.resilience import FaultPlan, install_plan
+
+    tel = install(RunTelemetry(directory, entry="chip_smoke"))
+    install_plan(FaultPlan(faults) if faults else None)
+    try:
+        yield tel
+    finally:
+        install_plan(None)
+        tel.finalize()
+        uninstall(tel)
+
+
+def res_fit_args(path, ck, tel, extra=()):
+    return ["--graph", path, "--k", str(FULL["k"]), "--init", "conductance",
+            "--conv-tol", "0", "--device", DEVICE, "--max-iters", str(RES_ITERS),
+            "--checkpoint-dir", ck, "--checkpoint-every", "2",
+            "--telemetry-dir", tel, "--health-every", "2", *extra]
+
+
+def history_match(a, b, rtol: float = RESUME_RTOL) -> dict:
+    """Two LLH histories: bit for bit, or their largest relative gap
+    (which must stay within rtol)."""
+    rel = llh_rel(list(a), list(b))
+    if rel > rtol:
+        raise AssertionError(f"resumed history {a} vs uninterrupted {b}")
+    return {"bit_identical": list(a) == list(b), "max_rel": rel, "band": rtol}
+
+
+def phase_resilience_full(g, path, tmp, gi, F0, main_out):
+    """`cli fit` at full on csr_fused with checkpoints, telemetry, health
+    and metrics (a); the same fit killed in a subprocess at fit.step 4
+    and resumed (b); a NaN injected at 3 and rolled back (c); health every
+    10 against 0, the health pack and the snapshot refresh timed (d); peak
+    memory with and without the rollback snapshot."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel, clone_state, refresh_state
+    from bigclam_tpu_torch.ops import diagnostics as dx
+    from bigclam_tpu_torch.ops.fused import fused_superstep
+    from bigclam_tpu_torch.ops.linesearch import accept_stats
+    from bigclam_tpu_torch.resilience import read_lineage
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    d = lambda name: os.path.join(tmp, name)  # noqa: E731
+    # (a) the uninterrupted fit
+    args_a = res_fit_args(path, d("res_ck_a"), d("res_tel_a"),
+                          ["--metrics", d("res_metrics.jsonl")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out_a, res_a, _ = cli.fit(fit_args(args_a))
+    counts_a = launch_counts()
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    hist_a = out_a["llh_history"]
+    if out_a["kernel_path"] != "csr_fused":
+        raise AssertionError(f"resilience_full ran {out_a['kernel_path']}")
+    if counts_a["fused_superstep"] != out_a["steps"] or len(hist_a) != RES_ITERS + 1:
+        raise AssertionError(f"kernel A launches {counts_a} vs {out_a['steps']} steps")
+    if not all(math.isfinite(v) for v in hist_a):
+        raise AssertionError(f"non-finite history {hist_a}")
+    tel_a = validate_telemetry(d("res_tel_a"))
+    rep = json.load(open(os.path.join(d("res_tel_a"), "run_report.json")))
+    save_s = rep["spans"]["seconds"]["fit/fit_loop/checkpoint"]
+    saves = rep["spans"]["counts"]["fit/fit_loop/checkpoint"]
+    cm = CheckpointManager(d("res_ck_a"))
+    if cm.steps() != [2, 4, 6] or saves != 3:
+        raise AssertionError(f"checkpoints {cm.steps()}, {saves} saves")
+    archive_bytes = os.path.getsize(cm._path(6))
+    health_a = [e["iter"] for e in events_of(d("res_tel_a")) if e["kind"] == "health"]
+    if health_a != [0, 2, 4, 6]:
+        raise AssertionError(f"health samples at {health_a}")
+    metrics_lines = len(open(d("res_metrics.jsonl")).read().splitlines())
+    steps_a = out_a["steps"]
+    del res_a
+
+    # (b) killed in a subprocess after the checkpoint at 4, then resumed
+    args_b = res_fit_args(path, d("res_ck_b"), d("res_tel_b"))
+    env = dict(os.environ)
+    env["BIGCLAM_FAULTS"] = json.dumps(
+        {"faults": [{"kind": "kill", "site": "fit.step", "at": RES_KILL_AT}]})
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "bigclam_tpu_torch.cli", "fit", *args_b, "--quiet"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=900,
+    )
+    killed_s = time.perf_counter() - t0
+    if r.returncode != -9 or "FAULT kill" not in r.stderr:
+        raise AssertionError(f"the killed fit ended rc {r.returncode}: {r.stderr[-2000:]}")
+    valid = CheckpointManager(d("res_ck_b")).latest_valid_step()
+    if valid != RES_KILL_AT:
+        raise AssertionError(f"newest valid checkpoint {valid}, want {RES_KILL_AT}")
+    reset_launch_counts()
+    out_b, _, _ = cli.fit(fit_args(args_b))
+    counts_b = launch_counts()
+    if counts_b["fused_superstep"] != RES_ITERS - RES_KILL_AT + 1:
+        raise AssertionError(f"resumed fit launched {counts_b}")
+    resume = history_match(out_b["llh_history"], hist_a)
+    lineage = read_lineage(d("res_tel_b"))
+    if [e["resumed_step"] for e in lineage] != [RES_KILL_AT]:
+        raise AssertionError(f"resume lineage {lineage}")
+    tel_b = validate_telemetry(d("res_tel_b"))
+
+    # (c) a NaN at 3: rolled back, replayed on the scaled ladder
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=RES_ITERS, conv_tol=0.0)
+    model = BigClamModel(gi, cfg, device=DEVICE)
+    state0 = model.init_state(F0)
+    with telemetry_and_faults(d("res_tel_c"), [
+            {"kind": "nan_inject", "site": "fit.step", "at": RES_NAN_AT}]) as tel:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, _, _, hist_c = model.fit_state(state0)
+        counts_c = launch_counts()
+        syncs = tel.report()["spans"]["counts"]["fit_loop/sync"]
+    rb = rollbacks_of(d("res_tel_c"))
+    if [x[:4] for x in rb] != [[RES_NAN_AT, 1, 0, 0.1]] or isinstance(rb[0][4], float):
+        raise AssertionError(f"rollback events {rb}")
+    if counts_c["fused_superstep"] != syncs or syncs != RES_ITERS + 1 + 1 + RES_NAN_AT:
+        raise AssertionError(f"kernel A launches {counts_c} vs {syncs} steps run")
+    if not all(math.isfinite(v) for v in hist_c) or len(hist_c) != RES_ITERS + 1:
+        raise AssertionError(f"rolled-back history {hist_c}")
+    if model.cfg != cfg:
+        raise AssertionError("the step cut leaked out of the fit")
+    tel_c = validate_telemetry(d("res_tel_c"))
+
+    # (d) health every 10 against 0, each fit of 11 steps twice, in the
+    # order 0, 10, 10, 0; then the pack and the snapshot refresh alone
+    def timed_fit(every, tag):
+        m = BigClamModel(gi, cfg.replace(max_iters=RES_HEALTH_ITERS,
+                                         health_every=every), device=DEVICE)
+        with telemetry_and_faults(d(f"res_tel_d{every}_{tag}")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, _, h = m.fit_state(state0)
+            wall = time.perf_counter() - t0
+        health = [e["iter"] for e in events_of(d(f"res_tel_d{every}_{tag}"))
+                  if e["kind"] == "health"]
+        return wall / len(h), health, h
+
+    runs = {0: [], 10: []}
+    hists = {}
+    for every, tag in ((0, "a"), (10, "a"), (10, "b"), (0, "b")):
+        spi, health, h = timed_fit(every, tag)
+        runs[every].append(spi)
+        hists.setdefault(every, h)
+        if health != ([0, 10] if every else []):
+            raise AssertionError(f"health every {every}: samples at {health}")
+    if hists[0] != hists[10]:
+        raise AssertionError("health changed the trajectory")
+    F_new, grad, _, ok = fused_superstep(state0.F, state0.sumF, model.csr, cfg)
+    hist_ok = accept_stats(ok)
+    sumF_new = F_new.sum(dim=0)
+    hcfg = cfg.replace(health_every=10)
+    pack_ms = statistics.median(time_ms(lambda: dx.health_pack(
+        hcfg, 0, state0.F, F_new, sumF_new, hist_ok, grad=grad)))
+    twin = clone_state(state0)
+    refresh_ms = statistics.median(time_ms(lambda: refresh_state(twin, state0)))
+    del F_new, grad, ok, twin
+
+    # peak device memory of a 2-step fit with and without the snapshot
+    peaks = {}
+    for budget in (3, 0, 3, 0):
+        m = BigClamModel(gi, cfg.replace(max_iters=2, rollback_budget=budget),
+                         device=DEVICE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m.fit_state(state0)
+        peaks.setdefault(budget, []).append(
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+        del m
+    step_s = [statistics.mean(runs[0]), statistics.mean(runs[10])]
+    # two samples in an 11-step fit: the cost of one sample, and its share
+    # of a step at cadence 10 in a long fit
+    sample_ms = (step_s[1] - step_s[0]) * (RES_HEALTH_ITERS + 1) / 2 * 1e3
+    return {
+        "a": {
+            "kernel_path": out_a["kernel_path"], "llh_history": hist_a,
+            "steps": steps_a, "launches": counts_a["fused_superstep"],
+            "sec_per_iter": out_a["sec_per_iter"],
+            "sec_per_iter_without_saves": (out_a["sec_per_iter"] * steps_a - save_s) / steps_a,
+            "main_sec_per_iter": main_out["sec_per_iter"],
+            "checkpoint_saves": saves, "checkpoint_save_s": save_s / saves,
+            "checkpoint_bytes": archive_bytes, "peak_gb": peak_a,
+            "health_samples": health_a, "metrics_lines": metrics_lines,
+            "telemetry": tel_a, "stage_seconds": out_a["stage_seconds"],
+        },
+        "b": {
+            "killed_rc": r.returncode, "killed_s": killed_s,
+            "resumed_from": valid, "resumed_launches": counts_b["fused_superstep"],
+            "llh_history": out_b["llh_history"], **resume,
+            "sec_per_iter": out_b["sec_per_iter"], "telemetry": tel_b,
+        },
+        "c": {
+            "rollbacks": rb, "llh_history": list(hist_c),
+            "launches": counts_c["fused_superstep"], "steps_run": syncs,
+            "telemetry": tel_c,
+        },
+        "d": {
+            "sec_per_iter_health0": runs[0], "sec_per_iter_health10": runs[10],
+            "health_overhead": step_s[1] / step_s[0] - 1.0,
+            "health_sample_ms": sample_ms,
+            "health_share_at_cadence_10": sample_ms / 10 / (step_s[0] * 1e3),
+            "health_pack_ms": pack_ms, "snapshot_refresh_ms": refresh_ms,
+            "trajectory_bit_identical": True,
+        },
+        "peak_gb_fit_with_snapshot": peaks[3], "peak_gb_fit_without_snapshot": peaks[0],
+        "snapshot_gb": state0.F.numel() * state0.F.element_size() / 1e9,
+    }
+
+
+def phase_resilience_kb(g, F_host) -> dict:
+    """A NaN on csr_fused_kb at xl_k from kb_main's F: the rollback, then
+    the node pass (cand_select_from_x) and the window kernels on the
+    scaled ladder, every launch of the replay counted."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+
+    cfg = BigClamConfig(num_communities=XLK["k"], max_iters=4, conv_tol=0.0)
+    model = BigClamModel(g, cfg, device=DEVICE)
+    if model.engaged_path != "csr_fused_kb":
+        raise AssertionError(f"resilience_kb ran {model.engaged_path}")
+    state0 = model.init_state(np.asarray(F_host, np.float64))
+    with tempfile.TemporaryDirectory() as tdir:
+        with telemetry_and_faults(tdir, [
+                {"kind": "nan_inject", "site": "fit.step", "at": 2}]) as tel:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, _, _, hist = model.fit_state(state0)
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            syncs = tel.report()["spans"]["counts"]["fit_loop/sync"]
+        rb = rollbacks_of(tdir)
+        tel_kb = validate_telemetry(tdir)
+    n_kb = model.k_pad // model.kc
+    want = {"cand_select_from_x": syncs, "edge_dots_kb": n_kb * syncs,
+            "grad_from_x": n_kb * syncs, "cand_dots_kb": n_kb * syncs}
+    if [x[:4] for x in rb] != [[2, 1, 0, 0.1]] or syncs != 5 + 1 + 2:
+        raise AssertionError(f"rollbacks {rb}, {syncs} steps run")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"K-blocked launches {counts}, want {want}")
+    if not all(math.isfinite(v) for v in hist) or model.cfg != cfg:
+        raise AssertionError(f"history {hist}")
+    return counts, {"rollbacks": rb, "llh_history": list(hist), "steps_run": syncs,
+                    "launches": {k: counts[k] for k in want},
+                    "seconds": wall, "telemetry": tel_kb}
+
+
+def res_odd_models(g, cfg):
+    """One card model per kernel path on the parity graph."""
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.models.sparse import SparseBigClamModel
+    from bigclam_tpu_torch.parallel import RingBigClamModel
+
+    return {
+        "csr_fused": lambda: BigClamModel(g, cfg, device=DEVICE),
+        "csr": lambda: BigClamModel(g, cfg.replace(csr_fused=False), device=DEVICE),
+        "csr_fused_kb": lambda: BigClamModel(
+            g, cfg.replace(csr_k_block=KB_PARITY_KC), device=DEVICE),
+        "csr_grouped_kb": lambda: BigClamModel(
+            g, cfg.replace(csr_k_block=KB_PARITY_KC, csr_fused=False), device=DEVICE),
+        "pallas_vmem": lambda: BigClamModel(g, cfg.replace(use_pallas_csr=False),
+                                            device=DEVICE),
+        "sparse_merge_pallas": lambda: SparseBigClamModel(
+            g, cfg.replace(representation="sparse", sparse_m=RES_ODD_M), device=DEVICE),
+        "csr_ring_fused": lambda: RingBigClamModel(g, cfg, repeated_mesh(RING_DP)),
+    }
+
+
+def phase_resilience_odd(tmp) -> dict:
+    """The parity graph on every card path: a NaN in F reaches the LLH and
+    rolls back (the survival clamp's fmaxf drops a NaN, so the loop's view
+    is checked, not assumed); A, B, C, the node pass and its epilogue
+    against their plain versions on the scaled ladder (step_scale 0.1);
+    a resume on the sparse and the dp = 4 ring paths against the
+    uninterrupted fit."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.ops.csr_kernels import grad_llh_csr_plain
+    from bigclam_tpu_torch.ops.linesearch import candidates_pass
+    from bigclam_tpu_torch.ops.objective import EdgeChunks
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    path = os.path.join(tmp, "res_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    F0 = np.random.default_rng(PARITY["seed"] + 7).uniform(
+        0.0, 1.0, (g.num_nodes, PARITY["k"]))
+    cfg = BigClamConfig(num_communities=PARITY["k"], max_iters=RES_ODD_ITERS,
+                        conv_tol=0.0)
+    kernels_of = {
+        "csr_fused": ("fused_superstep",),
+        "csr": ("grad_llh_csr", "candidates_csr"),
+        "csr_fused_kb": K_BLOCKED_COUNTERS, "csr_grouped_kb": K_BLOCKED_COUNTERS,
+        "pallas_vmem": ("candidate_edge_terms", "armijo_tail_select"),
+        "sparse_merge_pallas": ("member_lookup",),
+        "csr_ring_fused": ("ring_grad_phase", "ring_cand_phase",
+                           "armijo_tail_select"),
+    }
+    paths = {}
+    for name, make in res_odd_models(g, cfg).items():
+        model = make()
+        if model.engaged_path != name:
+            raise AssertionError(f"{name}: ran {model.engaged_path}")
+        tdir = os.path.join(tmp, f"res_odd_{name}")
+        with telemetry_and_faults(tdir, [{"kind": "nan_inject", "site": "fit.step",
+                                          "at": 2, "index": [0, 0]}]) as tel:
+            state0 = model.init_state(F0)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            _, _, _, hist = model.fit_state(state0)
+            counts = launch_counts()
+            syncs = tel.report()["spans"]["counts"]["fit_loop/sync"]
+        rb = rollbacks_of(tdir)
+        if [x[:4] for x in rb] != [[2, 1, 0, 0.1]] or isinstance(rb[0][4], float):
+            raise AssertionError(f"{name}: rollback events {rb}")
+        if not all(math.isfinite(v) for v in hist) or len(hist) != RES_ODD_ITERS + 1:
+            raise AssertionError(f"{name}: history {hist}")
+        launched = {k: counts[k] for k in kernels_of[name]}
+        if not all(launched.values()):
+            raise AssertionError(f"{name}: kernels not launched {launched}")
+        paths[name] = {"nonfinite_llh": rb[0][4], "steps_run": syncs,
+                       "launches": launched, "llh_final": hist[-1]}
+        validate_telemetry(tdir)
+
+    # the kernels against plain on the scaled ladder
+    F, csr, ocfg = odd_case()
+    scaled = ocfg.replace(step_scale=0.1)
+    checks = compare_kernels(F, csr, scaled)
+    sumF = F.sum(dim=0)
+    grad, node_llh = grad_llh_csr_plain(F, sumF, csr, scaled)
+    cand = candidates_pass(F, grad, EdgeChunks(csr.src, csr.dst, 1 << 20), scaled)
+    epi = Check("armijo_tail_select")
+    check_epilogue(epi, "odd_scaled", F, sumF, grad, node_llh, cand, scaled)
+    kb = kb_odd_case(KB_ODD_K, step_scale=0.1)
+
+    # resume on the sparse path and the dp = 4 ring
+    resumes = {}
+    for name, band in (("sparse_merge_pallas", SPARSE_RESUME_RTOL),
+                       ("csr_ring_fused", RESUME_RTOL)):
+        make6 = res_odd_models(g, cfg.replace(max_iters=6))[name]
+        make4 = res_odd_models(g, cfg.replace(max_iters=4, checkpoint_every=2))[name]
+        m = make6()
+        _, _, _, full = m.fit_state(m.init_state(F0))
+        _, _, _, again = m.fit_state(m.init_state(F0))
+        cm = CheckpointManager(os.path.join(tmp, f"res_ck_{name}"))
+        m = make4()
+        m.fit_state(m.init_state(F0), checkpoints=cm)
+        m = make6()
+        _, _, _, resumed = m.fit_state(m.init_state(F0), checkpoints=cm)
+        if cm.steps()[:2] != [2, 4]:
+            raise AssertionError(f"{name}: checkpoints {cm.steps()}")
+        resumes[name] = {"resumed_from": 4, **history_match(resumed, full, band),
+                         "two_fits_bit_identical": list(full) == list(again),
+                         "two_fits_max_rel": llh_rel(list(full), list(again))}
+    return {
+        "n": g.num_nodes, "k": PARITY["k"], "paths": paths,
+        "scaled_ladder": {
+            **{n: c.parts for n, c in checks.items()},
+            "armijo_tail_select": epi.parts,
+            "kb": kb["kernels"],
+        },
+        "resume": resumes,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -2982,7 +3428,7 @@ def main(argv=None) -> int:
         g = planted_file(FULL, path)
         emit({"phase": "graph", "seconds": time.perf_counter() - t0,
               "n": g.num_nodes, "directed_edges": g.num_directed_edges})
-        _, res, main_counts, state, _ = run("main", phase_main, g, path, tmp)
+        main_out, res, main_counts, state, _ = run("main", phase_main, g, path, tmp)
         run("host_full", phase_host_full, g, path, state, res.F)
         del state
         main_hist = list(res.llh_history)
@@ -2993,6 +3439,8 @@ def main(argv=None) -> int:
               "n": gi.num_nodes, "directed_edges": gi.num_directed_edges})
         checks, times, bnd, _ = run("full", phase_full, g, res.F, F0)
         del res
+        res_full = run("resilience_full", phase_resilience_full, g, path, tmp, gi,
+                       F0, main_out)
         state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
         del state
@@ -3014,6 +3462,7 @@ def main(argv=None) -> int:
         run("vmem_parity", phase_vmem_parity, tmp)
         run("sweep_parity", phase_sweep_parity, tmp)
         run("mesh_parity", phase_mesh_parity, tmp)
+        run("resilience_odd", phase_resilience_odd, tmp)
 
         t0 = time.perf_counter()
         path = os.path.join(tmp, "xl_k_graph.txt")
@@ -3030,6 +3479,7 @@ def main(argv=None) -> int:
         kb_split_counts, _ = run("kb_split", phase_kb_split, g, path,
                                  list(res.llh_history))
         kb_checks, kb_times, kb_bnd, _ = run("kb_full", phase_kb_full, g, res.F)
+        kb_res_counts, _ = run("resilience_kb", phase_resilience_kb, g, res.F)
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)
@@ -3064,8 +3514,11 @@ def main(argv=None) -> int:
         {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name],
-            **({"launches_csr_grouped_kb": kb_split_counts[COUNTER.get(name, name)]}
+            **({"launches_csr_grouped_kb": kb_split_counts[COUNTER.get(name, name)],
+                "launches_resilience_kb": kb_res_counts[COUNTER.get(name, name)]}
                if name in K_BLOCKED else {}),
+            **({"launches_resilience_full": res_full["a"]["launches"]}
+               if name == "fused_superstep" else {}),
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name]}
                if name in (*RING, "armijo_tail_select") else {}),

@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
 a fresh interpreter imports every module of bigclam_tpu_torch (the
-non-CSR candidate kernel's ops.edge_kernels and the K sweep's
-models.model_selection among them) and runs `cli fit|sweep|eval --help`,
+non-CSR candidate kernel's ops.edge_kernels, the K sweep's
+models.model_selection, and the observability and resilience modules
+among them) and runs `cli fit|sweep|eval --help`,
 then finds no jax and no bigclam_tpu module loaded; a
 static scan finds no such import in any port file or in chip_smoke.py."""
 
@@ -39,7 +40,12 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                 cli.main([sub, "--help"])
             except SystemExit as e:
                 assert e.code == 0, e.code
-        for name in ("ops.edge_kernels", "models.model_selection"):
+        for name in ("ops.edge_kernels", "models.model_selection",
+                     "obs.telemetry", "obs.trace", "obs.heartbeat",
+                     "obs.health", "obs.schema", "ops.diagnostics",
+                     "resilience.faults", "resilience.retry",
+                     "resilience.supervisor", "utils.checkpoint",
+                     "utils.metrics", "utils.profiling"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules

@@ -191,7 +191,7 @@ def test_resume_mid_grid_equals_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize(
     "kw,annealing",
-    [({"quality_mode": True}, False), ({}, True), ({"checkpoint_every": 2}, False),
+    [({"quality_mode": True}, False), ({}, True), ({"mesh_shape": (1, 2)}, False),
      ({"mesh_shape": (2, 1)}, False), ({"partition": "2d"}, False)],
 )
 def test_unported_options_are_refused_by_name(planted, kw, annealing):
@@ -230,8 +230,7 @@ def test_cli_sweep_json_matches_jax_cli(planted, tmp_path, capsys):
     ]
 
 
-SWEEP_NOT_PORTED = ("--quality", "--device-annealing", "--checkpoint-every",
-                    "--telemetry-dir", "--retry-budget")
+SWEEP_NOT_PORTED = ("--quality", "--device-annealing")
 
 
 def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys):
