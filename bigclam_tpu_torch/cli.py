@@ -1,6 +1,7 @@
-"""Command line of the PyTorch port: `fit`, `sweep` and `eval`.
+"""Command line of the PyTorch port: `fit`, `sweep`, `eval`, `profile`,
+`perf`, `report`, `watch` and `preflight`.
 
-Port of the single-device `fit`, `sweep` and `eval` of bigclam_tpu/cli.py.
+Port of those subcommands of bigclam_tpu/cli.py.
 `fit` loads a text edge list, seeds F by conductance (or a {0,1} random /
 row-keyed init), trains to convergence on the chosen device and kernel
 path, extracts the communities by the delta threshold (`--out`: written
@@ -25,6 +26,15 @@ against a ground truth (`f1`, `nmi`).
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
         --mesh 4,1 --schedule ring                             # csr_ring_fused
     python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 \
+        --telemetry-dir run1/ --perf-ledger perf/ledger.jsonl
+    python -m bigclam_tpu_torch.cli perf diff --ledger perf/ledger.jsonl
+    python -m bigclam_tpu_torch.cli report run1/ [--json]
+    python -m bigclam_tpu_torch.cli watch run1/ --once
+    python -m bigclam_tpu_torch.cli profile --graph g.txt --k 100 \
+        --steps 20 --profile-dir prof/
+    python -m bigclam_tpu_torch.cli preflight --nodes 1134890 \
+        --edges 2987624 --k 8385 --device-kind "NVIDIA H100 80GB HBM3"
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
 to start when no card is present. `fit --mesh DP,1` shards the nodes over
@@ -57,8 +67,19 @@ watermarks, kernel builds, `--health-every` model-health samples, the
 `--heartbeat-s` stall watchdog); `--metrics` appends one JSON record per
 step; `--save-f` writes the final F as .npy. `BIGCLAM_FAULTS` (inline
 JSON or @path) injects faults at the fit.step and checkpoint.save sites.
-`--perf-ledger` and `--profile-dir` are refused by name: they come with
-the rest of the observability layer.
+`--perf-ledger` appends the run's perf record at the end (with
+`--telemetry-dir`), and `--profile-dir` captures the fit (or the sweep)
+with torch.profiler; on a card a capture that records no CUDA kernel
+exits 1 naming that. The fit JSON carries the trainer's modeled device
+bytes (`hbm_modeled_bytes`, obs.memory) and, on a mesh, its modeled
+collective bytes a step (`comms_bytes_per_step`, obs.comms).
+
+`profile` runs N steps under a torch.profiler capture and prints the
+JAX keys plus the top device kernels; `perf record|diff|show` keeps and
+gates the perf ledger; `report` and `watch` render a telemetry
+directory; `preflight` prices a configuration's device memory, host RSS
+and collective bytes without a card (exit 0 fits, 2 does not, 1 bad
+input).
 """
 
 from __future__ import annotations
@@ -72,17 +93,14 @@ from typing import Optional
 import numpy as np
 
 
+# device kernels `profile` prints, by device time
+PROFILE_TOP = 12
+
 SWEEP_EPILOG = (
     "Not ported yet (the parser refuses these JAX `sweep` flags by name): "
     "--quality and --device-annealing (quality mode, ROADMAP queue 1 item "
     "13)."
 )
-
-NOT_PORTED_FIT_FLAGS = {
-    "perf_ledger": "--perf-ledger (the perf ledger, obs/ledger.py)",
-    "profile_dir": "--profile-dir (the torch.profiler capture)",
-}
-
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     """The flags `fit` and `sweep` share."""
@@ -191,6 +209,19 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "(resilience supervisor: each retry RESUMES from the newest "
              "checkpoint; fatal errors never retry; 0 disables)",
     )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="torch.profiler capture of the fit (sweep) into this "
+             "directory: trace.json, key_averages.txt, kernels.json",
+    )
+    p.add_argument(
+        "--perf-ledger", default=None,
+        help="append this run's perf record (step-time percentiles, eps, "
+             "compile count, per-span totals, config/host digest) to a "
+             "perf-ledger JSONL at finalize; compare runs with `cli perf "
+             "diff`. Equivalent to setting BIGCLAM_PERF_LEDGER. Requires "
+             "--telemetry-dir",
+    )
 
 
 def _add_fit_flags(p: argparse.ArgumentParser) -> None:
@@ -236,9 +267,6 @@ def _add_fit_flags(p: argparse.ArgumentParser) -> None:
         help="silence the per-step echo and the heartbeat's stderr "
              "warnings (telemetry JSONL stays complete)",
     )
-    for dest in NOT_PORTED_FIT_FLAGS:
-        p.add_argument("--" + dest.replace("_", "-"), default=None,
-                       help=argparse.SUPPRESS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -283,7 +311,158 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--pred", required=True)
     e.add_argument("--truth", required=True)
     e.add_argument("--no-nmi", action="store_true")
+    _add_obs_parsers(sub)
     return p
+
+
+def _add_obs_parsers(sub) -> None:
+    """The observability subcommands (the JAX CLI's flags and defaults)."""
+    pr = sub.add_parser(
+        "profile",
+        help="run N instrumented steps under a torch.profiler capture: the "
+             "timeline carries the span names (obs.trace), per-step timings "
+             "land in --telemetry-dir / the perf ledger",
+    )
+    _add_train_flags(pr)
+    _add_fit_flags(pr)
+    pr.add_argument("--k", type=int, default=100)
+    pr.add_argument(
+        "--init", default="conductance",
+        choices=["conductance", "random", "rowkeyed"],
+    )
+    pr.add_argument(
+        "--steps", type=int, default=20,
+        help="profiled steps (after --warmup un-captured steps)",
+    )
+    pr.add_argument("--warmup", type=int, default=2)
+
+    pp = sub.add_parser(
+        "perf",
+        help="perf-regression ledger: record a run, diff the latest run "
+             "against its matched baseline (nonzero exit on regression), "
+             "or show recent records",
+    )
+    perf_sub = pp.add_subparsers(dest="action", required=True)
+    rec = perf_sub.add_parser(
+        "record", help="append a record built from a finished --telemetry-dir",
+    )
+    rec.add_argument("--telemetry-dir", required=True)
+    rec.add_argument("--ledger", default="perf/ledger.jsonl")
+    rec.add_argument("--note", default="")
+    diff = perf_sub.add_parser(
+        "diff",
+        help="latest run vs its matched baseline (same entry/config/"
+             "backend/device/host) with noise bands; exit 2 on regression",
+    )
+    diff.add_argument("--ledger", default="perf/ledger.jsonl")
+    diff.add_argument(
+        "--tolerance", type=float, default=0.25,
+        help="minimum relative noise band (the run's own p50->p90 spread "
+             "widens it)",
+    )
+    diff.add_argument(
+        "--run", default=None,
+        help="diff this run id instead of the ledger's last record",
+    )
+    show = perf_sub.add_parser("show", help="print recent records")
+    show.add_argument("--ledger", default="perf/ledger.jsonl")
+    show.add_argument("-n", type=int, default=10)
+
+    rp = sub.add_parser(
+        "report",
+        help="render a --telemetry-dir human-readable (stage seconds, "
+             "memory watermarks and models, compile counts, stalls; "
+             "validates the event schema)",
+    )
+    rp.add_argument("dir", help="telemetry directory of a finished run")
+    rp.add_argument("--json", action="store_true",
+                    help="machine-readable output; exit codes unchanged")
+    rp.add_argument("--fleet", action="store_true",
+                    help="treat DIR as a fleet root whose subdirectories "
+                         "are member telemetry dirs")
+
+    wp = sub.add_parser(
+        "watch",
+        help="live-tail a telemetry dir: LLH/grad-norm/churn sparklines "
+             "from health events, anomalies, stalls (reads events.jsonl "
+             "only; exits when the run finalizes)",
+    )
+    wp.add_argument("dir", help="telemetry directory of a running run")
+    wp.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between refreshes")
+    wp.add_argument("--once", action="store_true",
+                    help="render one frame and exit (CI / piped use)")
+    wp.add_argument("--width", type=int, default=48,
+                    help="sparkline width in samples")
+    wp.add_argument("--fleet", action="store_true",
+                    help="treat DIR as a fleet root (subdirectories = "
+                         "member telemetry dirs)")
+
+    pf = sub.add_parser(
+        "preflight",
+        help="capacity verdict without a card: predicted per-device memory, "
+             "per-host RSS and collective bytes a step for a config + graph "
+             "+ device target, with the binding constraint and the knobs "
+             "that relax it (exit 0 fits / 2 does not fit / 1 bad input)",
+    )
+    pf.add_argument(
+        "--graph", default=None,
+        help="SNAP text path (+ --nodes; edges estimated from its size "
+             "unless --edges); optional when --nodes and --edges are given",
+    )
+    pf.add_argument("--k", type=int, required=True)
+    pf.add_argument("--nodes", type=int, default=None)
+    pf.add_argument("--edges", type=int, default=None,
+                    help="undirected edge count")
+    pf.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64"])
+    pf.add_argument("--mesh", default=None,
+                    help="'DP,TP' target mesh (default: --devices,1)")
+    pf.add_argument("--devices", type=int, default=1,
+                    help="target card count when --mesh is not given")
+    pf.add_argument(
+        "--device-kind", default=None,
+        help="device memory from the port's table, by the name "
+             "torch.cuda.get_device_name gives (--hbm-gb overrides); a "
+             "kind the table lacks is refused",
+    )
+    pf.add_argument("--hbm-gb", type=float, default=None,
+                    help="per-device memory budget in GiB")
+    pf.add_argument("--hbm-bytes", type=float, default=None,
+                    help="exact per-device memory budget in bytes")
+    pf.add_argument("--host-ram-gb", type=float, default=None,
+                    help="per-host RAM budget in GiB")
+    pf.add_argument("--processes", type=int, default=1)
+    pf.add_argument("--representation", default="dense",
+                    choices=["dense", "sparse"])
+    pf.add_argument("--sparse-m", type=int, default=64)
+    pf.add_argument("--support-every", type=int, default=1)
+    pf.add_argument("--schedule", default="allgather",
+                    choices=["allgather", "ring"])
+    pf.add_argument("--store-native", action="store_true",
+                    help="refused: the graph store is ROADMAP item 8c")
+    pf.add_argument("--partition", default="1d", choices=["1d", "2d"],
+                    help="2d is refused (ROADMAP item 17)")
+    pf.add_argument("--replica-cols", type=int, default=1)
+    pf.add_argument("--health-every", type=int, default=10)
+    pf.add_argument("--max-backtracks", type=int, default=15)
+    pf.add_argument("--edge-chunk", type=int, default=None)
+    pf.add_argument("--chunk-bytes", type=int, default=0,
+                    help="include the ingest stage in the host model at "
+                         "this chunk budget (0 = fit-only stages)")
+    pf.add_argument("--csr-block-b", type=int, default=256,
+                    help="TPU tile shape; no port use (the kernels read "
+                         "the CSR)")
+    pf.add_argument("--serve", action="store_true",
+                    help="refused: serving is ROADMAP item 12")
+    pf.add_argument("--serve-shards", type=int, default=1)
+    pf.add_argument("--serve-replicas", type=int, default=1)
+    pf.add_argument("--qps-target", type=float, default=0.0)
+    pf.add_argument("--qps-per-replica", type=float, default=9000.0)
+    pf.add_argument("--serve-cache-slots", type=int, default=64)
+    pf.add_argument("--avg-memberships", type=float, default=2.0)
+    pf.add_argument("--json", action="store_true",
+                    help="machine-readable verdict")
 
 
 def config_from_args(args):
@@ -418,16 +597,6 @@ def init_F(g, cfg, init: str, backend: str = "auto",
     return random_init_F(g, cfg)
 
 
-def refuse_unported(args) -> None:
-    """Exit naming a JAX `fit` flag whose layer is not ported yet."""
-    for dest, what in NOT_PORTED_FIT_FLAGS.items():
-        if getattr(args, dest, None) is not None:
-            raise SystemExit(
-                f"error: {what} is not ported yet (ROADMAP queue 1 item 8b, "
-                "the rest of the observability layer)"
-            )
-
-
 def make_supervisor(args, cfg, tel):
     """The entry-point retry supervisor: --retry-budget extra attempts for
     transient-classified failures (each re-entering the fit WITH its
@@ -448,6 +617,13 @@ def open_telemetry(args, entry: str):
     """Create + install the run telemetry when --telemetry-dir was given
     (None otherwise)."""
     tdir = getattr(args, "telemetry_dir", None)
+    ledger = getattr(args, "perf_ledger", None)
+    if ledger and not tdir:
+        print(
+            "warning: --perf-ledger has no effect without "
+            "--telemetry-dir (no run telemetry, no perf record)",
+            file=sys.stderr,
+        )
     if not tdir:
         return None
     from bigclam_tpu_torch.obs import RunTelemetry, install
@@ -458,6 +634,9 @@ def open_telemetry(args, entry: str):
         heartbeat_s=getattr(args, "heartbeat_s", 0.0),
         quiet=getattr(args, "quiet", False),
         heartbeat_escalate=getattr(args, "heartbeat_escalate", 0),
+        # passed through, not via os.environ: an env mutation would leak
+        # the ledger into later in-process main() calls
+        ledger_path=ledger,
     ))
 
 
@@ -470,10 +649,21 @@ def close_telemetry(tel) -> None:
     uninstall(tel)
 
 
+def stamp_models(out: dict, model) -> None:
+    """The trainer's modeled device bytes (obs.memory) and, on a mesh, its
+    modeled collective bytes a step (obs.comms), as the JAX fit JSON
+    carries them."""
+    cm = getattr(model, "comms", None)
+    if cm is not None:
+        out["comms_bytes_per_step"] = round(cm.bytes_per_step(), 1)
+    mem = getattr(model, "memory", None)
+    if mem is not None:
+        out["hbm_modeled_bytes"] = round(mem.hbm_bytes(), 1)
+
+
 def fit(args):
     """Run `fit` for parsed arguments. Returns (the JSON-ready result dict,
     the FitResult, the final train state)."""
-    refuse_unported(args)
     tel = open_telemetry(args, "fit")
     try:
         return _fit(args, tel)
@@ -490,6 +680,7 @@ def _fit(args, tel):
     from bigclam_tpu_torch.utils.device import device_kind
     from bigclam_tpu_torch.utils.metrics import MetricsLogger
     from bigclam_tpu_torch.utils.profiling import StageProfile
+    from bigclam_tpu_torch.utils.profiling import trace as capture
 
     cfg = config_from_args(args)
     # stage ends forward into the telemetry (event + device-memory
@@ -507,6 +698,10 @@ def _fit(args, tel):
         F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
     with prof.stage("upload"):
         state0 = model.init_state(F0)
+    if tel is not None:
+        # the memory model against the live tensors (a `memory_drift`
+        # anomaly past its band)
+        model.memory_reconcile(state0)
     ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
     resume = args.resume != "never"
     if ckpt is not None and resume:
@@ -531,7 +726,7 @@ def _fit(args, tel):
             step_ends.append(time.perf_counter())
             log_step(it, llh, extras)
 
-        with prof.stage("fit"):
+        with prof.stage("fit"), capture(args.profile_dir):
             t0 = time.perf_counter()
             # the supervisor retries transient-classified failures: each
             # retried attempt re-enters the fit WITH the checkpoints, so a
@@ -565,6 +760,7 @@ def _fit(args, tel):
         out["sparse_m"] = model.m
     if args.mesh:
         out["mesh"] = model.mesh.label()
+    stamp_models(out, model)
     if args.out or args.save_f:
         with prof.stage("extract"):
             if args.out:
@@ -627,7 +823,10 @@ def _sweep(args, callback, tel) -> dict:
             seed_backend=args.seed_backend,
         )
 
-    res = sup.run_fit(attempt, site="sweep")
+    from bigclam_tpu_torch.utils.profiling import trace as capture
+
+    with capture(args.profile_dir):
+        res = sup.run_fit(attempt, site="sweep")
     out = {
         "chosen_k": res.chosen_k,
         "kset": res.kset,
@@ -655,15 +854,310 @@ def evaluate(args) -> dict:
     return out
 
 
+def profile(args) -> dict:
+    """Run `profile`: N steps under a torch.profiler capture, each in a
+    step annotation and a span, their timings into the telemetry and the
+    metrics like a fit's. Returns the JSON-ready result dict (the JAX keys
+    plus `top_kernels`, the captured device kernels by time)."""
+    if args.steps < 1:
+        raise SystemExit("error: profile --steps must be >= 1")
+    tel = open_telemetry(args, "profile")
+    try:
+        return _profile(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _profile(args, tel) -> dict:
+    import os
+    import statistics
+
+    import torch
+
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.obs import trace as obs_trace
+    from bigclam_tpu_torch.utils.metrics import MetricsLogger
+    from bigclam_tpu_torch.utils.profiling import StageProfile, trace
+
+    if tel is None:
+        print(
+            "warning: profile without --telemetry-dir captures step "
+            "annotations only — span names need a telemetry run to "
+            "attach to, and no per-step timings land anywhere",
+            file=sys.stderr,
+        )
+    cfg = config_from_args(args).replace(max_iters=args.steps, conv_tol=0.0)
+    prof = StageProfile()
+    with prof.stage("graph_load"):
+        g = build_graph(args.graph)
+    with prof.stage("model_build"):
+        if args.mesh:
+            model = make_mesh_model(g, cfg, args.device, args.mesh,
+                                    args.schedule, args.balance)
+        else:
+            model = make_model(g, cfg, args.device)
+    with prof.stage("seeding"):
+        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
+    pdir = args.profile_dir or (
+        os.path.join(args.telemetry_dir, "profile")
+        if args.telemetry_dir else "bigclam_profile"
+    )
+    mesh = getattr(model, "mesh", None)
+    state = model.init_state(F0)
+
+    def sync():
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    with prof.stage("warmup"):
+        for _ in range(max(args.warmup, 0)):
+            state = model._step(state)
+        sync()
+    times = []
+    with MetricsLogger(args.metrics, echo=not args.quiet) as ml:
+        cb = ml.step_callback(
+            g.num_directed_edges, chips=mesh.size if mesh is not None else 1,
+            path=model.engaged_path, num_nodes=g.num_nodes,
+        )
+        with prof.stage("profiled_steps"), trace(pdir) as cap:
+            for i in range(args.steps):
+                t0 = time.perf_counter()
+                with obs_trace.step_annotation(i), obs_trace.span(
+                    "step", emit=False
+                ):
+                    state = model._step(state)
+                    sync()
+                times.append(time.perf_counter() - t0)
+                cb(i, float(state.llh))
+    out = {
+        "steps": args.steps,
+        "warmup": args.warmup,
+        "sec_per_step_p50": round(statistics.median(times), 6),
+        "sec_per_step_min": round(min(times), 6),
+        "profile_dir": pdir,
+        "path": model.engaged_path,
+        "kernel_path": model.engaged_path,
+        "n": g.num_nodes,
+        "edges": g.num_edges,
+        "k": cfg.num_communities,
+        "representation": cfg.representation,
+        "partition": cfg.partition,
+    }
+    if mesh is not None:
+        out["mesh"] = mesh.label()
+    stamp_models(out, model)
+    out["top_kernels"] = cap.kernels[:PROFILE_TOP]
+    out["device_kind"] = _device_kind(model)
+    if tel is not None:
+        tel.set_final({k: v for k, v in out.items() if k != "top_kernels"})
+    return out
+
+
+def _device_kind(model) -> str:
+    from bigclam_tpu_torch.utils.device import device_kind
+
+    return device_kind(model.device)
+
+
+def perf(args) -> int:
+    """Perf-ledger tooling (obs.ledger): `record` appends a record built
+    from a finished telemetry dir, `diff` gates the latest run against its
+    matched baseline (exit 2 on regression, 1 on missing data), `show`
+    lists recent records."""
+    from bigclam_tpu_torch.obs import ledger as L
+
+    if args.action == "record":
+        try:
+            rec = L.record_from_dir(args.telemetry_dir, note=args.note)
+        except (OSError, ValueError) as e:
+            print(f"perf record: {e}", file=sys.stderr)
+            return 1
+        errors = L.validate_record(rec)
+        if errors:
+            print(f"invalid record: {errors}", file=sys.stderr)
+            return 1
+        L.PerfLedger(args.ledger).append(rec)
+        print(json.dumps(rec, sort_keys=True))
+        return 0
+
+    led = L.PerfLedger(args.ledger)
+    recs = led.load()
+    if led.load_errors:
+        print(f"note: {led.load_errors} unparsable ledger line(s) skipped",
+              file=sys.stderr)
+    if args.action == "show":
+        for rec in recs[-args.n:]:
+            print(json.dumps(rec, sort_keys=True))
+        if not recs:
+            print(f"{args.ledger}: no records", file=sys.stderr)
+        return 0
+    if not recs:
+        print(f"{args.ledger}: no records to diff", file=sys.stderr)
+        return 1
+    new = led.latest(recs, run=args.run)
+    if new is None:
+        print(f"run {args.run!r} not found in {args.ledger}", file=sys.stderr)
+        return 1
+    base = led.baseline_for(new, recs)
+    if base is None:
+        print(
+            f"no matched baseline for run {new.get('run')} "
+            f"(entry={new.get('entry')}, cfg={new.get('cfg_digest')}, "
+            f"backend={new.get('backend')}, host={new.get('host')})",
+            file=sys.stderr,
+        )
+        return 1
+    d = L.diff_records(base, new, tolerance=args.tolerance)
+    print(L.render_diff(d))
+    return 2 if d["regression"] else 0
+
+
+def report(args) -> int:
+    """Render a telemetry directory (obs.report); --json for the
+    machine-readable merge, --fleet for a fleet root. Exit 1 when
+    artifacts are missing or invalid."""
+    from bigclam_tpu_torch.obs import report as R
+
+    if args.fleet:
+        if args.json:
+            obj, errors = R.render_fleet_json(args.dir)
+            print(json.dumps(obj, sort_keys=True))
+            return 1 if errors else 0
+        text, errors = R.render_fleet(args.dir)
+    elif args.json:
+        obj, errors = R.render_json(args.dir)
+        print(json.dumps(obj, sort_keys=True))
+        return 1 if errors else 0
+    else:
+        text, errors = R.render(args.dir)
+    print(text)
+    if errors:
+        print(f"\n{errors} problem(s) found", file=sys.stderr)
+    return 1 if errors else 0
+
+
+def watch(args) -> int:
+    """Live-tail a telemetry directory (obs.watch), or a fleet root."""
+    from bigclam_tpu_torch.obs import watch as W
+
+    fn = W.watch_fleet if args.fleet else W.watch
+    return fn(args.dir, interval=args.interval, once=args.once,
+              width=args.width)
+
+
+def preflight(args) -> int:
+    """Capacity preflight (obs.memory.preflight) from workload numbers,
+    without a card. Exit 0 fits, 2 does not fit, 1 bad input or a
+    configuration the port does not run (named with its ROADMAP item)."""
+    import os
+
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.obs import memory as M
+
+    refused = []
+    if args.serve:
+        refused.append("--serve: serve preflight comes with serving "
+                       "(ROADMAP queue 1 item 12)")
+    if args.store_native:
+        refused.append("--store-native: needs the graph store (ROADMAP "
+                       "queue 1 items 8c and 14)")
+    if args.partition == "2d":
+        refused.append("--partition 2d: the 2D partition is ROADMAP queue "
+                       "1 item 17")
+    if args.graph and os.path.isdir(args.graph):
+        refused.append(f"--graph {args.graph}: a cache directory needs the "
+                       "graph store (ROADMAP queue 1 item 8c)")
+    if refused:
+        for r in refused:
+            print(f"error: not ported yet: {r}", file=sys.stderr)
+        return 1
+    notes = []
+    if args.graph:
+        if not os.path.isfile(args.graph):
+            print(f"error: --graph {args.graph}: no such file",
+                  file=sys.stderr)
+            return 1
+        if not args.nodes:
+            print("error: a text --graph carries no manifest — pass --nodes "
+                  "(and ideally --edges)", file=sys.stderr)
+            return 1
+        if args.edges:
+            directed = 2 * args.edges
+        else:
+            directed = 2 * max(os.path.getsize(args.graph) // 13, 1)
+            notes.append("edge count estimated from file size (~13 B/line); "
+                         "pass --edges for exact numbers")
+    elif args.nodes and args.edges:
+        directed = 2 * args.edges
+    else:
+        print("error: pass --nodes and --edges (or a text --graph with "
+              "--nodes)", file=sys.stderr)
+        return 1
+    n = args.nodes
+    if args.mesh:
+        dp, tp = parse_mesh(args.mesh)
+    else:
+        dp, tp = max(args.devices, 1), 1
+    hbm = 0.0
+    if args.hbm_bytes:
+        hbm = float(args.hbm_bytes)
+    elif args.hbm_gb:
+        hbm = float(args.hbm_gb) * (1 << 30)
+    elif args.device_kind:
+        try:
+            hbm = float(M.device_hbm_bytes(args.device_kind))
+        except KeyError:
+            print(
+                f"error: --device-kind {args.device_kind!r} is not in the "
+                f"port's table ({sorted(M.DEVICE_HBM_BYTES)}); pass --hbm-gb "
+                "or --hbm-bytes",
+                file=sys.stderr,
+            )
+            return 1
+    host_ram = float(args.host_ram_gb) * (1 << 30) if args.host_ram_gb else 0.0
+    try:
+        p = M.preflight(
+            n, directed, args.k, dp=dp, tp=tp,
+            itemsize=8 if args.dtype == "float64" else 4,
+            num_candidates=args.max_backtracks + 1,
+            representation=args.representation, sparse_m=args.sparse_m,
+            support_every=args.support_every, schedule=args.schedule,
+            health_every=max(args.health_every or 0, 0),
+            edge_chunk=args.edge_chunk or BigClamConfig.edge_chunk,
+            device_hbm_bytes=hbm, host_ram_bytes=host_ram,
+            processes=max(args.processes, 1), chunk_bytes=args.chunk_bytes,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    p["notes"] = notes + p["notes"]
+    if args.json:
+        print(json.dumps(p, sort_keys=True))
+    else:
+        print(M.render_preflight(p))
+    return 0 if p["fits"] else 2
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command == "fit":
-        out, _, _ = fit(args)
-    elif args.command == "sweep":
-        out = sweep(args, callback=lambda k, llh: print(
-            json.dumps({"k": k, "llh": llh}), file=sys.stderr, flush=True))
-    else:
-        out = evaluate(args)
+    if args.command in ("perf", "report", "watch", "preflight"):
+        return {"perf": perf, "report": report, "watch": watch,
+                "preflight": preflight}[args.command](args)
+    from bigclam_tpu_torch.utils.profiling import NoDeviceKernelsError
+
+    try:
+        if args.command == "fit":
+            out, _, _ = fit(args)
+        elif args.command == "sweep":
+            out = sweep(args, callback=lambda k, llh: print(
+                json.dumps({"k": k, "llh": llh}), file=sys.stderr, flush=True))
+        elif args.command == "profile":
+            out = profile(args)
+        else:
+            out = evaluate(args)
+    except NoDeviceKernelsError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     print(json.dumps(out))
     return 0
 

@@ -772,7 +772,127 @@ def new_state(
     )
 
 
-class BigClamModel:
+# Fields that only the HOST-side loops read (never baked into the built
+# step), reset by step_cfg_key (copied from bigclam_tpu/models/bigclam.py
+# `_HOST_ONLY_FIELDS`)
+_HOST_ONLY_FIELDS = dict(
+    conv_tol=0.0, max_iters=0, donate_state=False,
+    min_com=1, max_com=1, div_com=1, ksweep_tol=0.0,
+    seed=0, seed_include_self=True, isolated_phi_sentinel=0.0,
+    seeding_degree_cap=None, seed_exclusion=None,
+    quality_mode=False, init_noise=None, init_noise_mass=0.0,
+    restart_cycles=0, restart_tol=0.0, restart_patience=0,
+    quality_conv_tol=0.0, quality_max_p=None,
+    checkpoint_dir=None, checkpoint_every=0, metrics_path=None,
+    # rollback policy is host-loop-only; step_scale is NOT here (it
+    # rescales the Armijo ladder the step is built with)
+    rollback_budget=0, rollback_shrink=0.0, rollback_snapshot_every=0,
+    csr_store_pad_tiles=0,
+)
+
+
+def step_cfg_key(cfg: BigClamConfig) -> BigClamConfig:
+    """Step identity of a config (the JAX `step_cfg_key`): the config with
+    the host-only fields reset, so two configs with equal keys build the
+    same train step."""
+    return cfg.replace(**_HOST_ONLY_FIELDS)
+
+
+class MemoryAccountedModel:
+    """The accounting surface every trainer shares (port of the JAX
+    `MemoryAccountedModel`, bigclam_tpu/models/bigclam.py): at step build
+    a trainer bakes its memory model (obs.memory) and, on a mesh, its comms
+    model (obs.comms), emits them to the installed telemetry, and records
+    each step config it builds (`note_step_build`). `memory_reconcile`
+    holds the model's state + graph bytes against the storage bytes of the
+    live tensors (exact on any device) and emits a `memory_drift` anomaly
+    past the band.
+
+    Subclasses provide `_graph_device_arrays()` (the long-lived graph
+    tensors by name) and `_build_memory_model()`; mesh trainers also
+    `_build_comms_model()`."""
+
+    memory = None                # the baked obs.memory.MemoryModel
+    comms = None                 # the baked obs.comms.CommsModel (meshes)
+
+    def _note_step_build(self) -> None:
+        """Record the current cfg's step build once per step config."""
+        from bigclam_tpu_torch.obs import telemetry as _obs
+
+        built = self.__dict__.setdefault("_built_step_keys", set())
+        key = step_cfg_key(self.cfg)
+        if key not in built:
+            built.add(key)
+            _obs.note_step_build(self.cfg, type(self).__name__)
+
+    def _bake_models(self) -> None:
+        from bigclam_tpu_torch.obs import comms as _comms
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        self.comms = self._build_comms_model()
+        if self.comms is not None:
+            _comms.emit_model(self.comms)
+            self._emit_balance()
+        self.memory = self._build_memory_model()
+        _mem.emit_model(self.memory, self._host_memory_model())
+
+    def _build_comms_model(self):
+        return None
+
+    def _emit_balance(self) -> None:
+        pass
+
+    def _graph_device_arrays(self) -> dict:
+        raise NotImplementedError
+
+    def _build_memory_model(self):
+        raise NotImplementedError
+
+    @property
+    def itemsize(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def _host_memory_model(self):
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        g, cfg = self.g, self.cfg
+        return _mem.host_rss_model(
+            g.num_nodes, g.num_directed_edges, cfg.num_communities,
+            self.itemsize, n_pad=self.n_pad, k_pad=self.k_pad,
+            num_shards=len(getattr(self, "devices", [None])),
+            representation=cfg.representation,
+            sparse_m=getattr(self, "m", 0),
+        )
+
+    def _memory_state_arrays(self, state) -> list:
+        """The state's long-lived tensors (the cadence-only health pack is
+        priced as scratch, not here)."""
+        return [state.F, state.sumF, state.llh, state.accept_hist]
+
+    def memory_measured(self, state, extra=()) -> float:
+        """Storage bytes of the live state + graph tensors on the busiest
+        device (+ `extra`: retained tensors the model does not know)."""
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        return _mem.measured_device_bytes(
+            self._memory_state_arrays(state)
+            + list(self._graph_device_arrays().values())
+            + list(extra)
+        )
+
+    def memory_reconcile(self, state, extra=(), emit=True) -> dict:
+        """The memory model against the live bytes
+        (obs.memory.MemoryModel.reconcile); emits the `memory_drift`
+        anomaly when the drift exceeds the band."""
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        recon = self.memory.reconcile(self.memory_measured(state, extra))
+        if emit and not recon["ok"]:
+            _mem.emit_drift_anomaly(recon)
+        return recon
+
+
+class BigClamModel(MemoryAccountedModel):
     """Single-device BigCLAM trainer.
 
     Usage:
@@ -834,6 +954,8 @@ class BigClamModel:
             # the edge-terms kernel's runs, once per chunk
             self.edges = with_runs(self.edges)
         self.rebuild_step()
+        # the memory model (obs.memory), baked from the built layout
+        self._bake_models()
 
     def rebuild_step(self) -> None:
         """(Re)build the train step for the CURRENT self.cfg (the
@@ -841,6 +963,38 @@ class BigClamModel:
         graph layout."""
         self._step = make_train_step(
             self.csr, self.edges, self.cfg, self.engaged_path, self.kc
+        )
+        self._note_step_build()
+
+    # ------------------------------------------------- memory accounting
+    def _graph_device_arrays(self) -> dict:
+        """The graph tensors the steps keep: the CSR (the plain sweeps'
+        edge chunks are views of its src/dst), the reverse-edge index of
+        the K-blocked paths, the edge chunks' runs of `pallas_vmem`."""
+        return {
+            "graph/csr_indptr": self.csr.indptr,
+            "graph/csr_indices": self.csr.indices,
+            "graph/csr_src": self.csr.src,
+            "graph/csr_dst": self.csr.dst,
+            "graph/csr_rev": self.csr.rev,
+            "graph/edge_runs": self.edges.runs,
+        }
+
+    def _build_memory_model(self):
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        cfg = self.cfg
+        adt = accum_dtype(cfg, torch.empty((), dtype=self.dtype))
+        return _mem.dense_memory_model(
+            self.n_pad, self.k_pad, self.itemsize,
+            len(cfg.step_candidates),
+            _mem.bytes_by_name(self._graph_device_arrays()),
+            self.engaged_path, self.csr.num_directed_edges,
+            chunk=self.edges.chunk,
+            health_on=int(cfg.health_every or 0) > 0,
+            rollback=int(cfg.rollback_budget or 0) > 0,
+            llh_itemsize=torch.empty((), dtype=adt).element_size(),
+            model=type(self).__name__,
         )
 
     def init_state(self, F0: Optional[np.ndarray] = None) -> TrainState:

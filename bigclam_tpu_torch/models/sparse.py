@@ -36,6 +36,7 @@ from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import (
     CheckpointMismatchError,
     FitResult,
+    MemoryAccountedModel,
     _round_up,
     check_ckpt_meta,
     fit_with_resume,
@@ -156,7 +157,7 @@ def state_from_jax_sparse_arrays(
     )
 
 
-class SparseBigClamModel:
+class SparseBigClamModel(MemoryAccountedModel):
     """Single-device sparse-representation trainer.
 
     Usage:
@@ -206,12 +207,45 @@ class SparseBigClamModel:
             g, self.n_pad, self.block_b, dtype=self.dtype, device=self.device
         )
         self.rebuild_step()
+        # the memory model (obs.memory), baked from the built layout
+        self._bake_models()
 
     def rebuild_step(self) -> None:
         """(Re)build the train step for the CURRENT self.cfg."""
         self._step = make_sparse_train_step(
             self.edges, self.blocks, self.cfg, self.k_pad, self.m,
             n_live=self.g.num_nodes,
+        )
+        self._note_step_build()
+
+    # ------------------------------------------------- memory accounting
+    def _graph_device_arrays(self) -> dict:
+        """The CSR (the edge chunks are views of its src/dst) and the
+        support update's block layout."""
+        return {
+            "graph/csr_indptr": self.csr.indptr,
+            "graph/csr_indices": self.csr.indices,
+            "graph/csr_src": self.csr.src,
+            "graph/csr_dst": self.csr.dst,
+            "graph/support_blocks": (self.blocks.src_local, self.blocks.dst,
+                                     self.blocks.mask),
+        }
+
+    def _memory_state_arrays(self, state) -> list:
+        return [state.F, state.ids, state.sumF, state.llh, state.accept_hist]
+
+    def _build_memory_model(self):
+        from bigclam_tpu_torch.obs import memory as _mem
+
+        cfg = self.cfg
+        return _mem.sparse_memory_model(
+            self.n_pad, self.m, self.k_pad, self.itemsize,
+            len(cfg.step_candidates),
+            _mem.bytes_by_name(self._graph_device_arrays()),
+            self.csr.num_directed_edges, chunk=self.edges.chunk,
+            health_on=int(cfg.health_every or 0) > 0,
+            rollback=int(cfg.rollback_budget or 0) > 0,
+            model=type(self).__name__,
         )
 
     # ------------------------------------------------------------ state

@@ -1,0 +1,517 @@
+"""Collective-traffic accounting of the port's mesh steps, and host-skew
+observability.
+
+The jax-free parts are copied from bigclam_tpu/obs/comms.py (`Site`,
+`CommsModel`, `balance_stats`, `owner_pid`, the emitters and the
+report-time skew detector, bit for bit); the step models and the wire
+conventions are the port's own, because its collectives are not JAX's:
+
+* **psum** (parallel/sharded.py `psum`): every other shard sends its
+  partial to mesh position 0, which sums them in shard order and sends the
+  total back to every other position: 2 * s * (p - 1) bytes for an s-byte
+  partial over p positions.
+* **all_gather** (`all_gather`): every position receives the p - 1 other
+  shards: p * (p - 1) * s bytes. The tensors are made once per DISTINCT
+  device, so on a mesh that repeats a device nothing moves; the model
+  prices mesh positions all the same, so its figure does not depend on
+  whether a device repeats.
+* **ppermute** (parallel/ring.py `RingRotation` hop): every position
+  receives its successor's rotating shard: p * s bytes a hop, and a
+  rotation of p phases makes p - 1 hops (the hop that would only bring
+  each shard home is not made).
+
+`bytes_per_step` is the TOTAL over mesh positions (not per device, as the
+JAX model prices it): the port runs single-controller, and the counter
+below sees every transfer. Axes of size 1 cost nothing.
+
+**Reconciliation.** The three helpers report the payload bytes they pass
+between mesh positions, per site, to the counter `counting()` installs
+(`count(site, nbytes)`; one None check when none is installed, so the
+step pays nothing otherwise). The mesh trainers' `comms_measured(state)`
+runs one step under a counter and re-prices the model from the counted
+bytes (`CommsModel.remeasure_totals`): equal to the model when the model
+describes the step. The health pack's few scalars move by `.to` outside
+the helpers and are neither modeled nor counted.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+_NUM = (int, float)
+
+# bucket/shard skew past this multiple of the mean marks the layout as
+# imbalance-anomalous (parallel.ring's RING_IMBALANCE_FACTOR shares it)
+IMBALANCE_FACTOR = 4.0
+
+# report-time host-skew detector thresholds (detect_host_skew); host-side
+# knobs like obs.health.DEFAULTS — deliberately NOT config fields
+DEFAULTS: Dict[str, float] = {
+    "straggler_factor": 3.0,    # max/min skew of the per-pid signal
+    "straggler_floor_s": 0.05,  # absolute seconds floor (noise guard)
+}
+
+
+def wire_bytes(op: str, payload_bytes: float, participants: int) -> float:
+    """Bytes ONE occurrence of a port collective moves between mesh
+    positions, for a `payload_bytes` array per position over
+    `participants` positions (see the module docstring)."""
+    p = max(int(participants), 1)
+    if p <= 1:
+        return 0.0
+    if op == "all_gather":
+        return float(payload_bytes) * p * (p - 1)
+    if op == "ppermute":
+        return float(payload_bytes) * p
+    if op == "psum":
+        return 2.0 * float(payload_bytes) * (p - 1)
+    raise ValueError(f"unknown collective op {op!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Site:
+    """One collective site of a train step.
+
+    payload_bytes: the array bytes one position contributes to one
+    occurrence; count: occurrences per optimizer step; phase: which part
+    of the step issues it (gather / reduce / rotate)."""
+
+    site: str
+    op: str
+    payload_bytes: float
+    count: float
+    participants: int
+    phase: str
+    axis: str
+
+    @property
+    def bytes_per_step(self) -> float:
+        return wire_bytes(self.op, self.payload_bytes, self.participants) \
+            * self.count
+
+    def to_fields(self) -> Dict[str, Any]:
+        return {
+            "site": self.site,
+            "op": self.op,
+            "bytes_per_step": round(self.bytes_per_step, 1),
+            "payload_bytes": round(float(self.payload_bytes), 1),
+            "count": round(float(self.count), 4),
+            "participants": int(self.participants),
+            "phase": self.phase,
+            "axis": self.axis,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class CommsModel:
+    """The static bytes-per-step model one trainer baked at step build."""
+
+    family: str                  # sharded | ring
+    model: str                   # trainer class name
+    sites: Tuple[Site, ...]
+    params: Dict[str, Any]       # the shape arithmetic inputs
+
+    def bytes_per_step(self) -> float:
+        return sum(s.bytes_per_step for s in self.sites)
+
+    def site_bytes(self) -> Dict[str, float]:
+        return {s.site: round(s.bytes_per_step, 1) for s in self.sites}
+
+    def remeasure(self, payloads: Dict[str, float]) -> "CommsModel":
+        """A copy with the named sites' payloads replaced by measured
+        bytes; unnamed sites keep their modeled payloads."""
+        sites = tuple(
+            dataclasses.replace(
+                s, payload_bytes=float(payloads[s.site])
+            )
+            if s.site in payloads
+            else s
+            for s in self.sites
+        )
+        return dataclasses.replace(self, sites=sites)
+
+    def remeasure_totals(self, per_step: Dict[str, float]) -> "CommsModel":
+        """A copy re-priced from COUNTED bytes a step per site (the
+        counter's totals): each named site's payload becomes the one that
+        moves exactly that many bytes under its op and count; a site the
+        counter never saw moved nothing. Sites the counter saw that the
+        model lacks are added, so unmodeled traffic shows."""
+        payloads = {}
+        for s in self.sites:
+            per = wire_bytes(s.op, 1.0, s.participants) * s.count
+            got = float(per_step.get(s.site, 0.0))
+            payloads[s.site] = got / per if per else 0.0
+        out = self.remeasure(payloads)
+        extra = tuple(
+            Site(name, "psum", b / 2.0, 1, 2, "unmodeled", "nodes")
+            for name, b in sorted(per_step.items())
+            if name not in payloads
+        )
+        return dataclasses.replace(out, sites=out.sites + extra)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "family": self.family,
+            "model": self.model,
+            "bytes_per_step": round(self.bytes_per_step(), 1),
+            "sites": [s.to_fields() for s in self.sites],
+            "params": dict(self.params),
+        }
+
+
+def _scalar_payload(llh_itemsize: int, num_candidates: int) -> float:
+    """The per-step scalar psums every family shares: the shards' LLH
+    partials (accumulation dtype) and the (num_candidates + 1,) int32
+    accepted-step histograms."""
+    return llh_itemsize + (num_candidates + 1) * 4
+
+
+def sharded_step_model(
+    n_pad: int,
+    k_pad: int,
+    dp: int,
+    itemsize: int,
+    num_candidates: int,
+    llh_itemsize: Optional[int] = None,
+    model: str = "ShardedBigClamModel",
+) -> CommsModel:
+    """Collective sites of the port's all-gather step (parallel/sharded.py
+    `make_sharded_train_step` and `finish_step`, tp = 1): the F all-gather
+    at the top of the step, the sumF psum at the top and after the update,
+    and the LLH and histogram psums."""
+    n_loc = n_pad // max(dp, 1)
+    sites = [
+        Site("sharded/all_gather_F", "all_gather",
+             n_loc * k_pad * itemsize, 1, dp, "gather", "nodes"),
+        Site("sharded/psum_sumF", "psum",
+             k_pad * itemsize, 2, dp, "reduce", "nodes"),
+        Site("sharded/psum_scalars", "psum",
+             _scalar_payload(llh_itemsize or itemsize, num_candidates), 1,
+             dp, "reduce", "nodes"),
+    ]
+    return CommsModel(
+        family="sharded", model=model, sites=tuple(sites),
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+                "itemsize": itemsize},
+    )
+
+
+def ring_step_model(
+    n_pad: int,
+    k_pad: int,
+    dp: int,
+    itemsize: int,
+    num_candidates: int,
+    llh_itemsize: Optional[int] = None,
+    model: str = "RingBigClamModel",
+) -> CommsModel:
+    """Collective sites of the port's ring step (parallel/ring.py
+    `make_ring_train_step`, tp = 1): two rotations a step (gradient pass,
+    candidate pass) of dp - 1 hops each, every hop moving one (n_pad/dp,
+    k_pad) shard into each position; the sumF psums at the top of the step
+    and after the update; the LLH and histogram psums. Against the
+    all-gather's dp (dp - 1) shards a step the ring moves 2 dp (dp - 1):
+    twice the bytes, for a peak of two shards a device instead of all of
+    F."""
+    n_loc = n_pad // max(dp, 1)
+    sites = [
+        Site("ring/ppermute_F_rot", "ppermute",
+             n_loc * k_pad * itemsize, 2 * (dp - 1) if dp > 1 else 0, dp,
+             "rotate", "nodes"),
+        Site("ring/psum_sumF", "psum",
+             k_pad * itemsize, 2, dp, "reduce", "nodes"),
+        Site("ring/psum_scalars", "psum",
+             _scalar_payload(llh_itemsize or itemsize, num_candidates), 1,
+             dp, "reduce", "nodes"),
+    ]
+    return CommsModel(
+        family="ring", model=model, sites=tuple(sites),
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+                "itemsize": itemsize},
+    )
+
+
+# --------------------------------------------------------- reconciliation
+class CommsCounter:
+    """Payload bytes the collective helpers passed between mesh
+    positions, per site."""
+
+    def __init__(self) -> None:
+        self.bytes: Dict[str, float] = {}
+
+    def add(self, site: str, nbytes: float) -> None:
+        self.bytes[site] = self.bytes.get(site, 0.0) + float(nbytes)
+
+
+_COUNTER: Dict[str, Optional[CommsCounter]] = {"on": None}
+
+
+def count(site: str, nbytes: float) -> None:
+    """Add `nbytes` at `site` to the installed counter; no-op when none
+    is installed (the helpers call this on every collective)."""
+    ctr = _COUNTER["on"]
+    if ctr is not None:
+        ctr.add(site, nbytes)
+
+
+def counting_on() -> bool:
+    return _COUNTER["on"] is not None
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[CommsCounter]:
+    """Install a fresh counter for the block (nesting restores the outer
+    one)."""
+    prev, ctr = _COUNTER["on"], CommsCounter()
+    _COUNTER["on"] = ctr
+    try:
+        yield ctr
+    finally:
+        _COUNTER["on"] = prev
+
+
+def measured_step(cm: CommsModel, step, state):
+    """Run `step(state)` once under a counter; returns (the model re-priced
+    from the counted bytes, the new state)."""
+    with counting() as ctr:
+        new_state = step(state)
+    return cm.remeasure_totals(ctr.bytes), new_state
+
+
+# ------------------------------------------------------ balance / skew
+def balance_stats(counts: Sequence[float]) -> Dict[str, Any]:
+    """Skew statistics over per-shard work counts (directed edges, tile
+    slots): max, mean (floored at 1 like the ring heuristic), skew =
+    max/mean, cv, and the arg-max shard — what the `balance` events and
+    the imbalance anomaly carry."""
+    vals = [float(v) for v in counts]
+    if not vals:
+        return {"max": 0.0, "mean": 1.0, "skew": 0.0, "cv": 0.0,
+                "argmax": -1}
+    mx = max(vals)
+    mean = max(sum(vals) / len(vals), 1.0)
+    var = sum((v - mean) ** 2 for v in vals) / len(vals)
+    return {
+        "max": mx,
+        "mean": round(mean, 2),
+        "skew": round(mx / mean, 3),
+        "cv": round(math.sqrt(var) / mean, 4),
+        "argmax": max(range(len(vals)), key=lambda i: vals[i]),
+    }
+
+
+def owner_pid(shard: int, num_shards: int, process_count: int) -> int:
+    """Owning process of a store/trainer shard under the process-major
+    contiguous layout (multihost.host_shard_ids): host h of H owns
+    shards [h*S/H, (h+1)*S/H)."""
+    pc = max(int(process_count), 1)
+    s = max(int(num_shards), 1)
+    return min(int(shard) * pc // s, pc - 1)
+
+
+# ----------------------------------------------------------- emission
+def emit_model(cm: CommsModel) -> None:
+    """One `comms` event per collective site of a just-built step (plus
+    the run-report/ledger accumulation RunTelemetry.event folds in).
+    The FIRST event of the batch carries reset_model=True: a re-emitted
+    model (the sparse cap refinement can flip the whole collective MODE)
+    must REPLACE its previous site set in every consumer, or a stale
+    site from the abandoned layout inflates bytes/step forever. No-op
+    with telemetry off."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is None:
+        return
+    for i, s in enumerate(cm.sites):
+        tel.event("comms", model=cm.model, family=cm.family,
+                  reset_model=1 if i == 0 else 0, **s.to_fields())
+
+
+def emit_balance(what: str, stats: Dict[str, Any], **fields) -> None:
+    """One `balance` event (shard edge-count skew, tile-pad waste). The
+    skew itself is a finding for the report/watch; crossing
+    IMBALANCE_FACTOR is the anomaly (emit_imbalance_anomaly)."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is None:
+        return
+    payload = {k: v for k, v in stats.items()}
+    payload.update(fields)
+    tel.event("balance", what=what, **payload)
+
+
+def emit_shard_balance(
+    what: str,
+    counts: Sequence[float],
+    num_shards: int,
+    process_count: int = 1,
+    hint: str = "",
+    **fields,
+) -> Dict[str, Any]:
+    """The one balance-emission path every sharded trainer build goes
+    through: a `balance` event with the skew stats (+ any tile-pad-waste
+    fields), and — past IMBALANCE_FACTOR — the imbalance anomaly naming
+    the worst shard and its owning process. Returns the stats either
+    way (telemetry off included) so callers can reuse them."""
+    stats = balance_stats(counts)
+    emit_balance(what, stats, **fields)
+    if stats["skew"] > IMBALANCE_FACTOR:
+        emit_imbalance_anomaly(
+            what, stats["max"], stats["mean"],
+            worst_shard=stats["argmax"],
+            host=owner_pid(stats["argmax"], num_shards, process_count),
+            hint=hint,
+        )
+    return stats
+
+
+def emit_imbalance_anomaly(
+    what: str,
+    max_count: float,
+    mean: float,
+    worst_shard: Optional[int] = None,
+    host: Optional[int] = None,
+    hint: str = "",
+) -> None:
+    """The `_warn_imbalance_counts` stderr line as a first-class anomaly
+    event (check="imbalance", build-time: iter=-1) naming the worst
+    shard and — when ownership is known — the host that holds it, so the
+    report, `cli watch`, and `cli perf diff`'s anomaly count all see
+    what used to scroll past on stderr."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is None:
+        return
+    fields: Dict[str, Any] = {
+        "what": what,
+        "max": float(max_count),
+        "mean": round(float(mean), 2),
+        "factor": round(float(max_count) / max(float(mean), 1e-9), 2),
+    }
+    if worst_shard is not None:
+        fields["worst_shard"] = int(worst_shard)
+    if host is not None:
+        fields["host_pid"] = int(host)
+    if hint:
+        fields["hint"] = hint
+    tel.event("anomaly", check="imbalance", iter=-1, **fields)
+
+
+# --------------------------------------------- report-time skew detector
+def _pid_of(report: Dict[str, Any]) -> str:
+    return str(report.get("pid", "?"))
+
+
+def _host_of(report: Dict[str, Any]) -> str:
+    return str((report.get("fingerprint", {}) or {}).get("host", "?"))
+
+
+def sync_seconds(report: Dict[str, Any]) -> float:
+    """Total fit-loop sync-span seconds of one per-process report (the
+    host block on the step's scalar LLH — device compute + in-step
+    collective waits + D2H are indistinguishable from the host, so this
+    IS the 'waiting on the gang' phase)."""
+    spans = (report.get("spans", {}) or {}).get("seconds", {}) or {}
+    return sum(
+        float(v) for k, v in spans.items() if k.endswith("fit_loop/sync")
+    )
+
+
+def loop_overhead_seconds(report: Dict[str, Any]) -> float:
+    """Seconds the fit stage spent OUTSIDE the per-iteration phase spans
+    (dispatch/sync/callback/checkpoint/extract_F): host-side work the
+    taxonomy does not attribute — GC, a slow filesystem, a planted
+    per-host delay. The overhead rule of detect_host_skew keys on this
+    because a straggler's slowness lives exactly here (its own sync is
+    SHORT — everyone else waits on it)."""
+    spans = (report.get("spans", {}) or {}).get("seconds", {}) or {}
+    parents = {
+        k.split("/fit_loop/")[0]
+        for k in spans
+        if "/fit_loop/" in k
+    }
+    if not parents and any(k.startswith("fit_loop/") for k in spans):
+        parents = {""}
+    total = 0.0
+    for parent in parents:
+        prefix = f"{parent}/fit_loop/" if parent else "fit_loop/"
+        phase_sum = sum(
+            float(v) for k, v in spans.items() if k.startswith(prefix)
+        )
+        parent_total = float(spans.get(parent, phase_sum)) if parent \
+            else phase_sum
+        total += max(parent_total - phase_sum, 0.0)
+    return total
+
+
+def detect_host_skew(
+    reports: List[Dict[str, Any]],
+    thresholds: Optional[Dict[str, float]] = None,
+) -> List[Dict[str, Any]]:
+    """Straggler findings over the merged per-process run reports (pure;
+    deterministic thresholds — DEFAULTS). Two rules, at most one finding:
+
+    * waiters: one pid's sync total is a straggler_factor below its
+      peers' (they sat in the collective waiting on it) — fire naming
+      the MINIMUM-sync pid.
+    * overhead: one pid's unattributed fit-loop time dwarfs its peers'
+      (host-side slowness: the planted `delay` fault, GC, slow I/O) —
+      fire naming the MAXIMUM-overhead pid.
+
+    Both need >= 2 per-process reports; a single-process run can still
+    exercise them through synthesized fake-host reports (the tier-1
+    path on jax versions whose 2-proc worker modes skip)."""
+    th = {**DEFAULTS, **(thresholds or {})}
+    factor = float(th["straggler_factor"])
+    floor = float(th["straggler_floor_s"])
+    per = [
+        (r, sync_seconds(r), loop_overhead_seconds(r)) for r in reports
+    ]
+    per = [(r, s, o) for r, s, o in per if s > 0.0 or o > 0.0]
+    if len(per) < 2:
+        return []
+    out: List[Dict[str, Any]] = []
+    sync = {(_pid_of(r)): s for r, s, _ in per}
+    # --- waiters rule ---
+    syncs = sorted(per, key=lambda t: t[1])
+    lo_r, lo_s, _ = syncs[0]
+    hi_r, hi_s, _ = syncs[-1]
+    if (
+        lo_s > 0.0
+        and hi_s - lo_s > floor
+        and hi_s > factor * max(lo_s, 1e-9)
+    ):
+        out.append({
+            "check": "straggler",
+            "rule": "waiters",
+            "pid": int(lo_r.get("pid", 0)),
+            "host": _host_of(lo_r),
+            "sync_s": round(lo_s, 4),
+            "peers_sync_s": round(hi_s, 4),
+            "skew": round(hi_s / max(lo_s, 1e-9), 2),
+            "sync_by_pid": {k: round(v, 4) for k, v in sync.items()},
+        })
+        return out
+    # --- overhead rule ---
+    ovh = sorted(per, key=lambda t: t[2])
+    top_r, _, top_o = ovh[-1]
+    second_o = ovh[-2][2]
+    if top_o > floor and top_o > factor * max(second_o, floor):
+        out.append({
+            "check": "straggler",
+            "rule": "overhead",
+            "pid": int(top_r.get("pid", 0)),
+            "host": _host_of(top_r),
+            "overhead_s": round(top_o, 4),
+            "peers_overhead_s": round(second_o, 4),
+            "overhead_by_pid": {
+                _pid_of(r): round(o, 4) for r, _, o in per
+            },
+        })
+    return out

@@ -1,0 +1,1177 @@
+"""Memory accounting of the port: static device-memory models, live
+reconciliation and the capacity preflight.
+
+The jax-free parts are copied from bigclam_tpu/obs/memory.py (`Buffer`,
+`MemoryModel` with `reconcile`, `HostStage`, `HostModel`,
+`host_rss_model` and its helpers, the emitters and `render_preflight`,
+bit for bit); the per-family device models, the live measurement, the
+device table and `preflight` are the port's own, built from the port's
+buffers:
+
+* no tile layout: the CUDA kernels read the CSR (indptr, indices) and the
+  plain sweeps its int64 src/dst views; the K-blocked paths add the
+  reverse-edge index, `pallas_vmem` the edge chunks' runs;
+* no donation (`cfg.donate_state` has no port use): a step allocates its
+  F_new beside the F it reads;
+* K padded to 32 (K blocks above 1,024), rows not padded (dense);
+* the rollback snapshot (cfg.rollback_budget > 0) is a full clone of the
+  state (models/bigclam.py `run_fit_loop`).
+
+Categories as in the JAX model: `state` and `graph` are the long-lived
+tensors the model holds (the exact reconciliation target: on any device
+`measured_device_bytes` of the live tensors equals the modeled bytes),
+`scratch` the initial state the fit's callers hold through the fit, the
+rollback snapshot and the cadence-only health pack,
+`transient` a step's temporaries (F_new, the gradient, the K-blocked
+paths' per-edge x and xc at 68 B an edge in float32, the plain sweeps'
+edge-chunk gathers, a mesh's gathered F and rotating shards).
+
+Mesh models are per DEVICE and count what the device holds: every mesh
+position placed on it, one sumF and one gathered F per distinct device
+(`psum` and `all_gather` make one tensor per device), the scalars on the
+first device. On a mesh of one repeated card that is every shard, which
+is what the card's allocator sees; the model reports the busiest device.
+
+Allocator figures differ from the model: `torch.cuda.memory_allocated`
+rounds each block up (512 B), and small torch temporaries of a step
+(column sums, the histogram, the LLH reduction) are not modeled.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from bigclam_tpu_torch.obs.comms import CommsModel
+
+# (HEALTH_LEN,) float32 health pack (ops.diagnostics.HEALTH_LEN; pinned
+# equal by tests/test_torch_memory.py)
+HEALTH_LEN = 14
+
+# live-vs-model reconciliation band of the addressable bytes: exact on
+# every device (storage bytes of the live tensors), so the band only
+# leaves room for a model that prices a buffer approximately
+DEFAULTS: Dict[str, float] = {
+    "drift_frac": 0.02,
+}
+
+# preflight verdicts keep this fraction of device memory free for the
+# allocator's rounding and caching and the unmodeled torch temporaries
+HBM_HEADROOM_FRAC = 0.08
+
+# device memory of the cards the preflight knows: the card alone, under
+# the name torch.cuda.get_device_name gives, with the bytes
+# torch.cuda.get_device_properties(0).total_memory read on it (when a card
+# is present, `device_hbm_bytes` reads the card instead of this row)
+DEVICE_HBM_BYTES: Dict[str, int] = {
+    "NVIDIA H100 80GB HBM3": 85_017_493_504,
+}
+
+CATEGORIES = ("state", "graph", "scratch", "transient", "collective")
+# categories whose buffers are long-lived tensors — the exact
+# reconciliation target
+ADDRESSABLE = ("state", "graph")
+
+
+def device_hbm_bytes(kind: str) -> int:
+    """Device memory of the card named `kind`: read from the card when
+    this process sees one of that name, else the table's row. Raises
+    KeyError for a kind the table lacks (the preflight refuses it rather
+    than guess)."""
+    import sys
+
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        try:
+            if torch.cuda.is_available():
+                for i in range(torch.cuda.device_count()):
+                    if torch.cuda.get_device_name(i) == kind:
+                        return int(
+                            torch.cuda.get_device_properties(i).total_memory
+                        )
+        except Exception:
+            pass
+    if kind not in DEVICE_HBM_BYTES:
+        raise KeyError(kind)
+    return DEVICE_HBM_BYTES[kind]
+
+
+@dataclasses.dataclass(frozen=True)
+class Buffer:
+    """One live device buffer of a compiled train step (per-DEVICE
+    bytes; `count` for repeated buffers like the ring's rotation pair)."""
+
+    name: str
+    bytes: float
+    category: str = "state"
+    count: float = 1.0
+    note: str = ""
+
+    @property
+    def total_bytes(self) -> float:
+        return float(self.bytes) * float(self.count)
+
+    def to_fields(self) -> Dict[str, Any]:
+        out = {
+            "buffer": self.name,
+            "bytes": round(self.total_bytes, 1),
+            "category": self.category,
+            "count": round(float(self.count), 2),
+        }
+        if self.note:
+            out["note"] = self.note
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryModel:
+    """The static per-device HBM model one trainer baked at step build."""
+
+    family: str                  # dense | sharded | ring | sparse
+    model: str                   # trainer class name
+    buffers: Tuple[Buffer, ...]
+    params: Dict[str, Any]       # the shape arithmetic inputs
+
+    def hbm_bytes(self) -> float:
+        """Modeled per-device HBM peak: every category, scratch and
+        transients included — the capacity/preflight figure."""
+        return sum(b.total_bytes for b in self.buffers)
+
+    def addressable_bytes(self) -> float:
+        """The state + graph categories only — the long-lived buffers
+        `measured_device_bytes` can sum exactly (the reconciliation
+        target; exact on the CPU fake)."""
+        return sum(
+            b.total_bytes for b in self.buffers
+            if b.category in ADDRESSABLE
+        )
+
+    def category_bytes(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for b in self.buffers:
+            out[b.category] = out.get(b.category, 0.0) + b.total_bytes
+        return {k: round(v, 1) for k, v in out.items()}
+
+    def buffer_bytes(self) -> Dict[str, float]:
+        return {b.name: round(b.total_bytes, 1) for b in self.buffers}
+
+    def reconcile(
+        self, measured_bytes: float, band: Optional[float] = None
+    ) -> Dict[str, Any]:
+        """Modeled addressable bytes vs the LIVE per-device sum (see
+        measured_device_bytes). drift > band means a buffer the model
+        does not know is resident (leak / retained snapshot); drift <
+        -band means the model prices a buffer that does not exist
+        (stale arithmetic). Pure — emit_drift_anomaly turns a bad
+        verdict into the anomaly event."""
+        band = DEFAULTS["drift_frac"] if band is None else float(band)
+        modeled = self.addressable_bytes()
+        drift = (float(measured_bytes) - modeled) / max(modeled, 1.0)
+        return {
+            "model": self.model,
+            "family": self.family,
+            "modeled_bytes": round(modeled, 1),
+            "measured_bytes": round(float(measured_bytes), 1),
+            "drift_frac": round(drift, 6),
+            "band": band,
+            "ok": abs(drift) <= band,
+            "hbm_modeled_bytes": round(self.hbm_bytes(), 1),
+        }
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "family": self.family,
+            "model": self.model,
+            "hbm_bytes": round(self.hbm_bytes(), 1),
+            "addressable_bytes": round(self.addressable_bytes(), 1),
+            "by_category": self.category_bytes(),
+            "buffers": [b.to_fields() for b in self.buffers],
+            "params": dict(self.params),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class HostStage:
+    """One stage of the per-host RSS model (stages are sequential, so
+    the host peak is the max stage, not the sum)."""
+
+    stage: str
+    bytes: float
+    note: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class HostModel:
+    stages: Tuple[HostStage, ...]
+
+    def peak_bytes(self) -> float:
+        return max((s.bytes for s in self.stages), default=0.0)
+
+    def dominant(self) -> Optional[HostStage]:
+        if not self.stages:
+            return None
+        return max(self.stages, key=lambda s: s.bytes)
+
+    def stage_bytes(self) -> Dict[str, float]:
+        return {s.stage: round(s.bytes, 1) for s in self.stages}
+
+    def to_dict(self) -> Dict[str, Any]:
+        dom = self.dominant()
+        return {
+            "host_rss_bytes": round(self.peak_bytes(), 1),
+            "dominant_stage": dom.stage if dom else None,
+            "stages": [
+                {"stage": s.stage, "bytes": round(s.bytes, 1),
+                 **({"note": s.note} if s.note else {})}
+                for s in self.stages
+            ],
+        }
+
+
+# ----------------------------------------------------- state arithmetic
+def scalar_state_bytes(llh_itemsize: int, num_candidates: int) -> float:
+    """The scalars a TrainState carries on the first device: the 0-d LLH
+    and the (S+1,) int32 accepted-step histogram (the iteration counter is
+    a host int)."""
+    return llh_itemsize + (num_candidates + 1) * 4
+
+
+def dense_state_buffers(
+    rows: int, k_pad: int, itemsize: int, num_candidates: int,
+    sumf_copies: int = 1, scalars: bool = True,
+) -> List[Buffer]:
+    """Bytes of the dense TrainState on one device: `rows` rows of F (a
+    whole F, or the shards of the mesh positions it holds), one sumF per
+    distinct device, the scalars on the first device."""
+    out = [
+        Buffer("state/F", rows * k_pad * itemsize, "state"),
+        Buffer("state/sumF", k_pad * itemsize, "state", count=sumf_copies),
+    ]
+    if scalars:
+        out.append(Buffer(
+            "state/scalars", scalar_state_bytes(itemsize, num_candidates),
+            "state",
+        ))
+    return out
+
+
+def sparse_state_buffers(
+    n_pad: int, m: int, k_pad: int, itemsize: int, num_candidates: int,
+) -> List[Buffer]:
+    """Bytes of the SparseTrainState: (n_pad, M) weights and int32 member
+    ids, the (K,) sumF, the scalars."""
+    return [
+        Buffer("state/weights", n_pad * m * itemsize, "state"),
+        Buffer("state/member_ids", n_pad * m * 4, "state"),
+        Buffer("state/sumF", k_pad * itemsize, "state"),
+        Buffer("state/scalars", scalar_state_bytes(itemsize, num_candidates),
+               "state"),
+    ]
+
+
+def _graph_buffers(graph_bytes: Dict[str, float]) -> List[Buffer]:
+    return [
+        Buffer(name, float(b), "graph")
+        for name, b in sorted(graph_bytes.items())
+    ]
+
+
+def _total(buffers: Sequence[Buffer]) -> float:
+    return sum(b.total_bytes for b in buffers)
+
+
+def _scratch_buffers(state_bytes: float, rollback: bool,
+                     health_on: bool) -> List[Buffer]:
+    out = [Buffer(
+        "scratch/initial_state", state_bytes, "scratch",
+        note="the state a fit starts from, held by its callers through the "
+             "fit (fit_state's frames; cli fit keeps it for its retries)",
+    )]
+    if rollback:
+        out.append(Buffer(
+            "scratch/rollback_snapshot", state_bytes, "scratch",
+            note="cfg.rollback_budget: a device clone of the state "
+                 "(run_fit_loop)",
+        ))
+    if health_on:
+        out.append(Buffer(
+            "scratch/health_pack", HEALTH_LEN * 4, "scratch",
+            note="rides the state on cfg.health_every cadence steps only",
+        ))
+    return out
+
+
+def collective_buffers(comms: Optional[CommsModel]) -> List[Buffer]:
+    """The largest single-occurrence psum payload the step sums on the
+    first device (priced from the comms Sites; the all-gather's and the
+    ring's receive buffers are the transients named after them)."""
+    if comms is None:
+        return []
+    best = None
+    for s in comms.sites:
+        if s.op == "psum" and s.participants > 1 and (
+            best is None or s.payload_bytes > best.payload_bytes
+        ):
+            best = s
+    if best is None:
+        return []
+    return [Buffer(
+        "collective/psum_total", best.payload_bytes, "collective",
+        note=f"the summed partial on the first device ({best.site})",
+    )]
+
+
+# ------------------------------------------------------- family builders
+DENSE_PATHS = ("csr_fused", "csr", "csr_fused_kb", "csr_grouped_kb",
+               "pallas_vmem", "xla")
+
+
+def step_transients(
+    path: str,
+    rows: int,
+    k_pad: int,
+    itemsize: int,
+    num_candidates: int,
+    directed_edges: int,
+    chunk: int,
+    llh_itemsize: Optional[int] = None,
+    positions: int = 1,
+) -> List[Buffer]:
+    """The temporaries of one dense step on kernel path `path` over `rows`
+    rows of F (per mesh position; `positions` of them on the device, the
+    steps of a mesh keep every position's F_new and gradient until the
+    step ends):
+
+    * every path: F_new and the gradient (n, K_pad), the node LLH;
+    * `csr_fused`: kernel A writes both, and the (S, n) acceptance mask;
+    * `csr`: the (S, n) candidate LLH of kernel C;
+    * `csr_fused_kb` / `csr_grouped_kb`: the per-edge dots x (E,) and the
+      candidate dots xc (S, E), 68 B an edge in float32, and the mask;
+    * `pallas_vmem` / `xla`: the neighbour-gradient accumulator beside
+      the gradient, the (S, n) candidate sums, and the plain sweeps'
+      gathers of one edge chunk: about three (chunk, K_pad) arrays."""
+    if path not in DENSE_PATHS:
+        raise ValueError(f"unknown kernel path {path!r} (one of {DENSE_PATHS})")
+    li = llh_itemsize or itemsize
+    fk = rows * k_pad * itemsize
+    s = num_candidates
+    out = [
+        Buffer("transient/F_new", fk, "transient", count=positions),
+        Buffer("transient/grad", fk, "transient", count=positions),
+        Buffer("transient/node_llh", rows * li, "transient", count=positions),
+    ]
+    if path in ("csr_fused", "csr_fused_kb", "csr_grouped_kb"):
+        out.append(Buffer("transient/accept_mask", s * rows, "transient",
+                          count=positions))
+    if path == "csr":
+        out.append(Buffer("transient/candidates", s * rows * itemsize,
+                          "transient", count=positions,
+                          note="(S, n) candidate LLH of kernel C"))
+    if path in ("csr_fused_kb", "csr_grouped_kb"):
+        out.append(Buffer(
+            "transient/edge_x", directed_edges * itemsize, "transient",
+            note="per-edge dots F_u.F_v over every K block",
+        ))
+        out.append(Buffer(
+            "transient/edge_xc", s * directed_edges * itemsize, "transient",
+            note="(S, E) candidate dots",
+        ))
+    if path in ("pallas_vmem", "xla"):
+        out.append(Buffer("transient/grad_accumulator", fk, "transient",
+                          count=positions,
+                          note="neighbour sums before the -sumF + F fold"))
+        out.append(Buffer("transient/candidates", s * rows * li,
+                          "transient", count=positions))
+        out.append(Buffer(
+            "transient/edge_chunk", 3.0 * min(chunk, directed_edges)
+            * k_pad * itemsize, "transient",
+            note="the plain sweeps' (chunk, K) gathers of one edge chunk",
+        ))
+    return out
+
+
+def dense_memory_model(
+    n: int,
+    k_pad: int,
+    itemsize: int,
+    num_candidates: int,
+    graph_bytes: Dict[str, float],
+    path: str,
+    directed_edges: int,
+    chunk: int = 1 << 20,
+    health_on: bool = False,
+    rollback: bool = False,
+    llh_itemsize: Optional[int] = None,
+    model: str = "BigClamModel",
+) -> MemoryModel:
+    """Single-device dense trainer (models.bigclam.BigClamModel) on kernel
+    path `path`."""
+    state = dense_state_buffers(n, k_pad, itemsize, num_candidates)
+    buffers = (
+        state
+        + _graph_buffers(graph_bytes)
+        + _scratch_buffers(_total(state), rollback, health_on)
+        + step_transients(path, n, k_pad, itemsize, num_candidates,
+                          directed_edges, chunk, llh_itemsize)
+    )
+    return MemoryModel(
+        family="dense", model=model, buffers=tuple(buffers),
+        params={"n_pad": n, "k_pad": k_pad, "itemsize": itemsize,
+                "path": path, "rollback": rollback},
+    )
+
+
+def sparse_memory_model(
+    n_pad: int,
+    m: int,
+    k_pad: int,
+    itemsize: int,
+    num_candidates: int,
+    graph_bytes: Dict[str, float],
+    directed_edges: int,
+    chunk: int = 1 << 20,
+    health_on: bool = False,
+    rollback: bool = False,
+    model: str = "SparseBigClamModel",
+) -> MemoryModel:
+    """Single-device sparse top-M trainer (models.sparse): state, gradient
+    and candidates scale with M, not K. Transients: the new weights and
+    the gradient (n_pad, M), the support update's new ids and weights, the
+    (S, n_pad) candidate sums, and the member lookups of one edge chunk
+    (ids and weights of both ends and the looked-up weights, (chunk, M)
+    each)."""
+    state = sparse_state_buffers(n_pad, m, k_pad, itemsize, num_candidates)
+    nm = n_pad * m
+    ch = min(chunk, directed_edges)
+    buffers = (
+        state
+        + _graph_buffers(graph_bytes)
+        + _scratch_buffers(_total(state), rollback, health_on)
+        + [
+            Buffer("transient/weights_new", nm * itemsize, "transient"),
+            Buffer("transient/grad", nm * itemsize, "transient"),
+            Buffer("transient/support_update", nm * (4 + itemsize),
+                   "transient", note="the admitted ids and weights"),
+            Buffer("transient/candidates", num_candidates * n_pad * itemsize,
+                   "transient"),
+            Buffer("transient/member_chunk", ch * m * (3 * 4 + 2 * itemsize),
+                   "transient",
+                   note="one edge chunk's member-lookup gathers"),
+        ]
+    )
+    return MemoryModel(
+        family="sparse", model=model, buffers=tuple(buffers),
+        params={"n_pad": n_pad, "m": m, "k_pad": k_pad,
+                "itemsize": itemsize, "rollback": rollback},
+    )
+
+
+def sharded_memory_model(
+    n_pad: int,
+    k_pad: int,
+    dp: int,
+    itemsize: int,
+    num_candidates: int,
+    graph_bytes: Dict[str, float],
+    path: str,
+    directed_edges: int,
+    positions: int = 1,
+    first_device: bool = True,
+    gathers: int = 1,
+    chunk: int = 1 << 20,
+    health_on: bool = False,
+    rollback: bool = False,
+    comms: Optional[CommsModel] = None,
+    model: str = "ShardedBigClamModel",
+) -> MemoryModel:
+    """All-gather trainer (parallel.sharded), for one device holding
+    `positions` mesh positions (1 on distinct cards, dp on a repeated
+    one) and, when `first_device`, the scalars: its shards of F, one sumF,
+    one gathered F per distinct device (`gathers`: 0 only when the mesh
+    has one position), and each position's step temporaries. Graph bytes
+    are the device's own shard CSRs (each shard keeps its own length)."""
+    n_loc = n_pad // max(dp, 1)
+    state = dense_state_buffers(positions * n_loc, k_pad, itemsize,
+                                num_candidates, scalars=first_device)
+    buffers = (
+        state
+        + _graph_buffers(graph_bytes)
+        + _scratch_buffers(_total(state), rollback, health_on)
+        + ([Buffer(
+            "transient/F_allgather", n_pad * k_pad * itemsize, "transient",
+            count=gathers,
+            note="the gathered F, one per distinct device",
+        )] if gathers else [])
+        + step_transients(path, n_loc, k_pad, itemsize, num_candidates,
+                          directed_edges, chunk, positions=positions)
+        + (collective_buffers(comms) if first_device else [])
+    )
+    return MemoryModel(
+        family="sharded", model=model, buffers=tuple(buffers),
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+                "itemsize": itemsize, "positions": positions,
+                "path": path, "rollback": rollback},
+    )
+
+
+def ring_memory_model(
+    n_pad: int,
+    k_pad: int,
+    dp: int,
+    itemsize: int,
+    num_candidates: int,
+    graph_bytes: Dict[str, float],
+    positions: int = 1,
+    first_device: bool = True,
+    remote_successors: int = 0,
+    overlap: bool = True,
+    health_on: bool = False,
+    rollback: bool = False,
+    comms: Optional[CommsModel] = None,
+    model: str = "RingBigClamModel",
+) -> MemoryModel:
+    """Ring trainer (parallel.ring), for one device holding `positions`
+    mesh positions: its shards, one sumF, the scalars on the first
+    device, its ring buckets (each of its own length, no padding), and per
+    position the rotation's accumulators (neighbour gradient, gradient,
+    (S, n_loc) candidate sums, F_new). The rotating shard is a copy only
+    where a position's successor sits on another device
+    (`remote_successors`), two with the overlapped hop in flight; on a
+    repeated card it IS the other shard's F, and costs nothing."""
+    n_loc = n_pad // max(dp, 1)
+    fk = n_loc * k_pad * itemsize
+    state = dense_state_buffers(positions * n_loc, k_pad, itemsize,
+                                num_candidates, scalars=first_device)
+    copies = remote_successors * (2.0 if overlap else 1.0)
+    buffers = (
+        state
+        + _graph_buffers(graph_bytes)
+        + _scratch_buffers(_total(state), rollback, health_on)
+        + ([Buffer(
+            "transient/ring_rotation", fk, "transient", count=copies,
+            note="received rotating shards"
+                 + (" + the hop in flight (ring_overlap)" if overlap else ""),
+        )] if copies else [])
+        + [
+            Buffer("transient/grad_accumulator", fk, "transient",
+                   count=positions),
+            Buffer("transient/grad", fk, "transient", count=positions),
+            Buffer("transient/candidates",
+                   num_candidates * n_loc * itemsize, "transient",
+                   count=positions),
+            Buffer("transient/F_new", fk, "transient", count=positions),
+            Buffer("transient/node_llh", n_loc * itemsize, "transient",
+                   count=positions),
+        ]
+        + (collective_buffers(comms) if first_device else [])
+    )
+    return MemoryModel(
+        family="ring", model=model, buffers=tuple(buffers),
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+                "itemsize": itemsize, "positions": positions,
+                "overlap": overlap, "rollback": rollback},
+    )
+
+
+# -------------------------------------------------------- host RSS model
+def ingest_rss_bytes(
+    chunk_bytes: int, n: int, directed_edges: int, num_shards: int
+) -> float:
+    """The ingest pipeline's explicit RSS budget — the SAME formula
+    scripts/ingest_bench.py gates INGEST_r07 against (12 B of tokenizer
+    transients per chunk byte + 6x the largest scatter bucket + 4x the
+    int64 raw-id table + a 96 MiB allocator floor), now also a model
+    stage instead of only a gate constant."""
+    bucket_bytes = 16 * directed_edges // max(num_shards, 1)
+    idtable_bytes = 8 * n
+    return float(
+        12 * chunk_bytes + 6 * bucket_bytes + 4 * idtable_bytes
+        + (96 << 20)
+    )
+
+
+def f0_init_rss_bytes(n: int, k: int, n_pad: int, k_pad: int,
+                      itemsize: int) -> float:
+    """The host-global O(N*K) F0 init: the float64 (N, K) init array
+    (seeding / random_init_F), the padded float64 staging copy
+    (init_state), and the dtype cast handed to the device upload. THE
+    dominant host term on the in-memory trainers — the store-native
+    trainers now default to the PER-HOST row-keyed counter init
+    (ISSUE 15 satellite, ROADMAP 1a closed there:
+    rowkeyed_f0_rss_bytes), and only an explicit host-global F0 upload
+    (conductance seeding) still pays this."""
+    return float(n * k * 8 + n_pad * k_pad * (8 + itemsize))
+
+
+def rowkeyed_f0_rss_bytes(n_pad: int, k_pad: int, itemsize: int,
+                          processes: int) -> float:
+    """The PER-HOST row-keyed counter init (ISSUE 15 satellite /
+    ROADMAP 1a): each host materializes only its own padded row range —
+    the float64 local block (rowkeyed_init_rows + zero staging) plus
+    the dtype cast handed to make_array_from_process_local_data. The
+    uint64 counter lattice is freed before the cast, so it shares the
+    same budget term."""
+    rows_local = n_pad / max(processes, 1)
+    return float(rows_local * k_pad * (8 + itemsize))
+
+
+def host_rss_model(
+    n: int,
+    directed_edges: int,
+    k: int,
+    itemsize: int,
+    n_pad: int = 0,
+    k_pad: int = 0,
+    store_native: bool = False,
+    processes: int = 1,
+    num_shards: int = 1,
+    chunk_bytes: int = 0,
+    representation: str = "dense",
+    sparse_m: int = 0,
+    rowkeyed_f0: Optional[bool] = None,
+) -> HostModel:
+    """Per-stage host-RSS model of a fit entry (per HOST, not per
+    device). Stages are sequential; the peak is the max stage.
+
+    `rowkeyed_f0` (default: follows store_native) prices the `f0_init`
+    stage at the PER-HOST row-keyed counter init the store-backed
+    trainers now default to (ISSUE 15 satellite — O(N_loc*K); the
+    dominant flag then moves to the arg-max remaining stage, typically
+    `extract`, which stays host-global). With it False the stage is the
+    host-global O(N*K) upload (the in-memory trainers, and store-native
+    runs seeded from an explicit host-global F0 — conductance seeding's
+    init_F is still a host-global array, the open remainder of
+    ROADMAP 1a)."""
+    n_pad = n_pad or n
+    k_pad = k_pad or k
+    p = max(processes, 1)
+    stages: List[HostStage] = []
+    if chunk_bytes:
+        stages.append(HostStage(
+            "ingest",
+            ingest_rss_bytes(chunk_bytes, n, directed_edges, num_shards),
+            note="chunk + scatter bucket + id table (the INGEST_r07 "
+                 "budget); O(chunk), never O(file)",
+        ))
+    if store_native:
+        stages.append(HostStage(
+            "shard_load",
+            (directed_edges / p) * 12.0 + 8.0 * (n / p + num_shards),
+            note="this host's shard slice + local edge-block build "
+                 "(O(shard) — no global CSR)",
+        ))
+    else:
+        # full Graph on the host: indices (2E int32) + indptr int64 +
+        # the materialized src/dst directed-edge views the edge
+        # builders read (int32 each)
+        stages.append(HostStage(
+            "graph_load",
+            directed_edges * 12.0 + 8.0 * (n + 1),
+            note="global CSR + src/dst edge views (host-global)",
+        ))
+    stages.append(HostStage(
+        "seeding", 24.0 * n,
+        note="conductance phi/degree/order arrays (O(N))",
+    ))
+    if rowkeyed_f0 is None:
+        rowkeyed_f0 = store_native
+    if representation == "sparse" and sparse_m:
+        f0 = float(n * k * 8 + n_pad * sparse_m * (8 + itemsize + 4))
+        note = (
+            "dense (N, K) float64 F0 sparsified to top-M host-side — "
+            "the dense staging is still O(N*K) (ROADMAP 1a)"
+        )
+    elif rowkeyed_f0:
+        f0 = rowkeyed_f0_rss_bytes(n_pad, k_pad, itemsize, p)
+        note = (
+            "per-host row-keyed counter F0 init (ISSUE 15: O(N_loc*K), "
+            "ROADMAP 1a closed on the store-native path; an explicit "
+            "host-global F0 — conductance seeding — re-opens it)"
+        )
+    else:
+        f0 = f0_init_rss_bytes(n, k, n_pad, k_pad, itemsize)
+        note = (
+            "host-global O(N*K) F0 init + padded staging — the "
+            "dominant host term (ROADMAP 1a: closed for store-native "
+            "random inits via the per-host row-keyed counter init; "
+            "this in-memory/explicit-F0 path still pays it)"
+        )
+    stages.append(HostStage("f0_init", f0, note=note))
+    stages.append(HostStage(
+        "extract", n * k * (8.0 + itemsize),
+        note="fetched (N, K) F + float64 staging at extract_F",
+    ))
+    return HostModel(stages=tuple(stages))
+
+
+# --------------------------------------------------------- reconciliation
+def _tensors(obj) -> list:
+    """The tensors in obj (a tensor, None, or nested tuples/lists/dicts
+    of them)."""
+    if obj is None:
+        return []
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        out = []
+        for x in obj:
+            out.extend(_tensors(x))
+        return out
+    if hasattr(obj, "untyped_storage"):
+        return [obj]
+    return []
+
+
+def _storages(objs, seen: set):
+    """(device, bytes) of each storage of the tensors in objs not yet in
+    `seen` (which it updates): a tensor, its views and a shard read by
+    several positions share one storage."""
+    for t in _tensors(objs):
+        st = t.untyped_storage()
+        key = (str(t.device), st.data_ptr(), st.nbytes())
+        if key not in seen:
+            seen.add(key)
+            yield str(t.device), float(st.nbytes())
+
+
+def measured_device_bytes(objs: Sequence[Any]) -> float:
+    """Exact bytes of the given live tensors on the busiest device: the
+    storage bytes of every distinct storage, grouped by device, MAX over
+    devices (the capacity figure)."""
+    per_dev: Dict[str, float] = {}
+    for dev, b in _storages(list(objs), set()):
+        per_dev[dev] = per_dev.get(dev, 0.0) + b
+    return max(per_dev.values()) if per_dev else 0.0
+
+
+def bytes_by_name(arrays: Dict[str, Any]) -> Dict[str, float]:
+    """{name: storage bytes} of a model's named tensors (a name may hold a
+    tensor, None, or nested tuples/lists of tensors), each storage counted
+    once, under the first name that holds it; names holding none are left
+    out."""
+    seen: set = set()
+    out: Dict[str, float] = {}
+    for name, obj in arrays.items():
+        total = sum(b for _, b in _storages(obj, seen))
+        if total:
+            out[name] = total
+    return out
+
+
+# ------------------------------------------------------------- emission
+def emit_model(
+    mm: MemoryModel, host: Optional[HostModel] = None
+) -> None:
+    """One `memory_model` event per device buffer (+ one per host stage
+    when a host model rides along). The FIRST device event of the batch
+    carries reset_model=True — a re-emitted model (quality mode /
+    rollback rebuilds, the sparse cap refinement) REPLACES its previous
+    buffer set in every consumer, exactly the obs.comms contract. No-op
+    with telemetry off."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is None:
+        return
+    for i, b in enumerate(mm.buffers):
+        tel.event(
+            "memory_model", model=mm.model, family=mm.family,
+            scope="device", reset_model=1 if i == 0 else 0,
+            **b.to_fields(),
+        )
+    if host is not None:
+        dom = host.dominant()
+        for j, st in enumerate(host.stages):
+            fields: Dict[str, Any] = {
+                "model": mm.model,
+                "family": mm.family,
+                "scope": "host",
+                "reset_model": 1 if j == 0 else 0,
+                "buffer": f"host/{st.stage}",
+                "stage": st.stage,
+                "bytes": round(st.bytes, 1),
+                "category": "host",
+            }
+            if st.note:
+                fields["note"] = st.note
+            if dom is not None and st.stage == dom.stage:
+                fields["dominant"] = 1
+            tel.event("memory_model", **fields)
+
+
+def emit_drift_anomaly(recon: Dict[str, Any]) -> None:
+    """A failed reconciliation as a first-class anomaly event
+    (check="memory_drift", build/probe-time: iter=-1): the live
+    addressable bytes disagree with the model past the band — a leaked
+    or retained buffer (positive drift) or stale model arithmetic
+    (negative). No-op with telemetry off."""
+    from bigclam_tpu_torch.obs import telemetry as _obs
+
+    tel = _obs.current()
+    if tel is None:
+        return
+    tel.event(
+        "anomaly", check="memory_drift", iter=-1,
+        model=recon.get("model"),
+        modeled_bytes=recon.get("modeled_bytes"),
+        measured_bytes=recon.get("measured_bytes"),
+        drift_frac=recon.get("drift_frac"),
+        band=recon.get("band"),
+        hint="retained/leaked device buffer (positive drift) or stale "
+             "model arithmetic (negative)",
+    )
+
+
+def _round_up(x: int, m: int) -> int:
+    m = max(int(m), 1)
+    return ((int(x) + m - 1) // m) * m
+
+
+# ------------------------------------------------------------- preflight
+# the port's kernel geometry (ops.csr_kernels.MAX_K, models.bigclam
+# CSR_K_MULTIPLE and k_block_plan; pinned equal by the tests): kept here so
+# the preflight imports no torch
+MAX_K = 1024
+CSR_K_MULTIPLE = 32
+
+
+def k_block_plan(k: int, csr_k_block: int = 0) -> Tuple[int, int]:
+    """(kc, k_pad) of the CSR paths (models.bigclam.k_block_plan)."""
+    k32 = _round_up(k, CSR_K_MULTIPLE)
+    if csr_k_block > 0:
+        return csr_k_block, _round_up(k32, csr_k_block)
+    if k32 <= MAX_K:
+        return 0, k32
+    n_kb = -(-k32 // MAX_K)
+    kc = _round_up(-(-k32 // n_kb), CSR_K_MULTIPLE)
+    return kc, n_kb * kc
+
+
+def edge_chunk_bound(edge_chunk: int, cols: int, itemsize: int) -> int:
+    """The plain sweeps' edge chunk (ops.objective.edge_chunk_bound)."""
+    return min(max(edge_chunk, 1), max((1 << 30) // max(cols * itemsize, 1),
+                                       1024))
+
+
+def csr_graph_bytes(rows: int, edges: int, rev: bool = False) -> Dict[str, float]:
+    """The DeviceCSR of `rows` rows and `edges` directed edges: int64
+    indptr, int32 indices, int64 src and dst (+ the int32 reverse-edge
+    index of the K-blocked paths)."""
+    out = {
+        "graph/csr_indptr": 8.0 * (rows + 1),
+        "graph/csr_indices": 4.0 * edges,
+        "graph/csr_src": 8.0 * edges,
+        "graph/csr_dst": 8.0 * edges,
+    }
+    if rev:
+        out["graph/csr_rev"] = 4.0 * edges
+    return out
+
+
+def preflight(
+    n: int,
+    directed_edges: int,
+    k: int,
+    dp: int = 1,
+    tp: int = 1,
+    itemsize: int = 4,
+    num_candidates: int = 16,
+    representation: str = "dense",
+    sparse_m: int = 64,
+    support_every: int = 1,
+    schedule: str = "allgather",
+    health_every: int = 10,
+    rollback: bool = True,
+    edge_chunk: int = 1 << 20,
+    shard_edge_counts: Optional[Sequence[int]] = None,
+    device_hbm_bytes: float = 0.0,
+    host_ram_bytes: float = 0.0,
+    processes: int = 1,
+    chunk_bytes: int = 0,
+    csr_k_block: int = 0,
+) -> Dict[str, Any]:
+    """The capacity verdict of `cli preflight` for the port's paths: the
+    memory and comms models the trainer would bake, from workload numbers
+    alone, for a target of dp distinct cards (one mesh position each) on
+    the path the card takes by default: `csr_fused` (`csr_fused_kb`
+    above K = 1,024) on one card and on the all-gather mesh, the ring's
+    `csr_ring_fused`, `sparse_merge_pallas`. Returns the JAX preflight's
+    keys: the component breakdown, a fits-or-doesn't verdict naming the
+    binding constraint, and the knobs that relax it. Raises ValueError
+    naming the ROADMAP item for what the port does not run (tp > 1,
+    K-blocked meshes, sparse meshes)."""
+    from bigclam_tpu_torch.obs import comms as _comms
+
+    dp, tp = max(int(dp), 1), max(int(tp), 1)
+    sparse = representation == "sparse"
+    if tp > 1:
+        raise ValueError(
+            f"tp={tp}: a K-sharded mesh is not ported yet (ROADMAP queue 1 "
+            "item 14, the TP kernel split)"
+        )
+    if sparse and dp > 1:
+        raise ValueError(
+            "--representation sparse on a mesh is not ported yet (ROADMAP "
+            "queue 1 item 16, sparse sharded)"
+        )
+    if schedule not in ("allgather", "ring"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    notes: List[str] = []
+    m = max(1, min(int(sparse_m), int(k))) if sparse else 0
+    if sparse:
+        kc, k_pad, path = 0, int(k), "sparse_merge_pallas"
+    else:
+        kc, k_pad = k_block_plan(int(k), csr_k_block)
+        if kc and dp > 1:
+            raise ValueError(
+                f"K={k} needs the K-blocked kernels, which do not run on a "
+                "mesh yet (ROADMAP queue 1 items 14-15, K-blocked meshes)"
+            )
+        if dp > 1 and schedule == "ring":
+            path = "csr_ring_fused"
+        else:
+            path = "csr_fused_kb" if kc else "csr_fused"
+    n_pad = _round_up(max(n, dp), dp) if dp > 1 else int(n)
+    if shard_edge_counts:
+        max_shard = max(int(c) for c in shard_edge_counts)
+        counts_known = True
+    else:
+        max_shard = int(math.ceil(directed_edges / dp * (1.15 if dp > 1
+                                                         else 1.0)))
+        counts_known = False
+        if dp > 1:
+            notes.append(
+                "per-shard edge counts estimated (uniform split +15%)"
+            )
+    health_on = int(health_every or 0) > 0
+    comms = None
+    if sparse:
+        block_rows = 1024
+        n_pad = _round_up(max(n, 1), 8)
+        graph = csr_graph_bytes(n, directed_edges)
+        graph["graph/support_blocks"] = (
+            directed_edges * 1.1 * (8.0 + itemsize)
+        )
+        notes.append(
+            f"support blocks priced at +10% block padding (block_b <= "
+            f"{block_rows})"
+        )
+        mm = sparse_memory_model(
+            n_pad, m, k_pad, itemsize, num_candidates, graph, directed_edges,
+            chunk=edge_chunk_bound(edge_chunk, m, itemsize),
+            health_on=health_on, rollback=rollback,
+        )
+    elif dp == 1:
+        graph = csr_graph_bytes(n, directed_edges, rev=bool(kc))
+        mm = dense_memory_model(
+            n, k_pad, itemsize, num_candidates, graph, path, directed_edges,
+            chunk=edge_chunk_bound(edge_chunk, k_pad, itemsize),
+            health_on=health_on, rollback=rollback,
+        )
+    else:
+        n_loc = n_pad // dp
+        if schedule == "ring":
+            max_bucket = int(math.ceil(max_shard / dp))
+            graph = {
+                "graph/ring_buckets": dp * (8.0 * (n_loc + 1)
+                                            + 4.0 * n_loc)
+                + 20.0 * max_bucket * dp,
+            }
+            comms = _comms.ring_step_model(n_pad, k_pad, dp, itemsize,
+                                           num_candidates)
+            mm = ring_memory_model(
+                n_pad, k_pad, dp, itemsize, num_candidates, graph,
+                remote_successors=1, health_on=health_on, rollback=rollback,
+                comms=comms,
+            )
+            notes.append(
+                "ring buckets priced at the balanced distribution"
+            )
+        else:
+            graph = csr_graph_bytes(n_loc, max_shard)
+            comms = _comms.sharded_step_model(n_pad, k_pad, dp, itemsize,
+                                              num_candidates)
+            mm = sharded_memory_model(
+                n_pad, k_pad, dp, itemsize, num_candidates, graph, path,
+                max_shard, health_on=health_on, rollback=rollback,
+                comms=comms,
+            )
+
+    host = host_rss_model(
+        n, directed_edges, k, itemsize, n_pad=n_pad, k_pad=k_pad,
+        processes=processes, num_shards=max(dp, 1),
+        chunk_bytes=chunk_bytes, representation=representation,
+        sparse_m=m,
+    )
+
+    # --- verdict: which constraint binds? ---
+    hbm = mm.hbm_bytes()
+    host_peak = host.peak_bytes()
+    hbm_budget = float(device_hbm_bytes) * (1.0 - HBM_HEADROOM_FRAC) \
+        if device_hbm_bytes else 0.0
+    fits_hbm = not hbm_budget or hbm <= hbm_budget
+    fits_host = not host_ram_bytes or host_peak <= float(host_ram_bytes)
+    fits = fits_hbm and fits_host
+    binding = None
+    if not fits_hbm and not fits_host:
+        binding = (
+            "hbm"
+            if hbm / max(hbm_budget, 1.0)
+            >= host_peak / max(float(host_ram_bytes), 1.0)
+            else "host_rss"
+        )
+    elif not fits_hbm:
+        binding = "hbm"
+    elif not fits_host:
+        binding = "host_rss"
+
+    # --- the knobs that relax the binding constraint ---
+    knobs: List[str] = []
+    cat = mm.category_bytes()
+    if not fits_hbm:
+        if not sparse and (k_pad * itemsize) > 256:
+            m_hint = max(min(64, k // 4), 1)
+            knobs.append(
+                f"--representation sparse --sparse-m {m_hint}: state, "
+                "gradient and candidates scale with M, not K "
+                f"(state {_fmt_bytes(cat.get('state', 0))} -> "
+                f"~{_fmt_bytes(n * m_hint * (4 + itemsize))} ids+weights)"
+            )
+        if not sparse and not kc and dp < 64:
+            knobs.append(
+                f"--mesh {dp * 2},1: per-device state, graph and step "
+                "temporaries shrink ~1/dp (the gathered F does not)"
+            )
+        if not sparse and dp > 1 and schedule != "ring":
+            knobs.append(
+                "--schedule ring: two rotating shards replace the full "
+                "per-device F gather "
+                f"({_fmt_bytes(mm.buffer_bytes().get('transient/F_allgather', 0))})"
+            )
+        if kc:
+            notes.append(
+                f"K={k} runs the K-blocked kernels (kc {kc}, k_pad "
+                f"{k_pad}), which run on one card only (ROADMAP queue 1 "
+                "items 14-15)"
+            )
+    if not fits_host:
+        dom = host.dominant()
+        knobs.append(
+            "the binding host stage is "
+            + (dom.stage if dom is not None else "?")
+            + ": no port knob relaxes it yet (--store-native waits for the "
+              "graph store, ROADMAP queue 1 item 8c)"
+        )
+
+    return {
+        "workload": {
+            "n": int(n),
+            "directed_edges": int(directed_edges),
+            "k": int(k),
+            "representation": representation,
+            **({"sparse_m": m} if sparse else {}),
+            "mesh": f"{dp}x{tp}",
+            "partition": "1d",
+            "kernel_path": path,
+            "k_pad": int(k_pad),
+            "schedule": schedule,
+            "store_native": False,
+            "itemsize": itemsize,
+            "shard_counts_known": counts_known,
+        },
+        "device": mm.to_dict(),
+        "host": host.to_dict(),
+        "comms_bytes_per_step": (
+            round(comms.bytes_per_step(), 1) if comms is not None else 0.0
+        ),
+        "hbm_bytes_per_device": round(hbm, 1),
+        "hbm_budget_bytes": round(hbm_budget, 1),
+        "host_rss_bytes": round(host_peak, 1),
+        "host_ram_bytes": round(float(host_ram_bytes), 1),
+        "fits": fits,
+        "fits_hbm": fits_hbm,
+        "fits_host": fits_host,
+        "binding": binding,
+        "knobs": knobs,
+        "notes": notes,
+    }
+
+
+def _fmt_bytes(v: float) -> str:
+    # the shared obs byte formatter (obs.report)
+    from bigclam_tpu_torch.obs.report import _fmt_bytes as fmt
+
+    return fmt(v)
+
+
+def render_preflight(p: Dict[str, Any]) -> str:
+    """Human rendering of a preflight() verdict (`cli preflight`)."""
+    w = p["workload"]
+    lines = [
+        f"preflight: N={w['n']}  2E={w['directed_edges']}  K={w['k']}"
+        f"  {w['representation']}"
+        + (f" M={w['sparse_m']}" if w.get("sparse_m") else "")
+        + f"  mesh {w['mesh']}  schedule {w['schedule']}"
+        + ("  store-native" if w["store_native"] else "")
+        + (
+            f"  partition 2d(cols={w.get('replica_cols', 1)})"
+            f" {w.get('kernel_path', '')}"
+            f" grad_exchange={w.get('grad_exchange', '')}"
+            if w.get("partition") == "2d"
+            else ""
+        ),
+        "",
+        f"per-device HBM (modeled): {_fmt_bytes(p['hbm_bytes_per_device'])}"
+        + (
+            f"  vs budget {_fmt_bytes(p['hbm_budget_bytes'])}"
+            f" ({'fits' if p['fits_hbm'] else 'DOES NOT FIT'})"
+            if p["hbm_budget_bytes"]
+            else "  (no device budget given: --device-kind or --hbm-gb)"
+        ),
+    ]
+    for cat, b in sorted(
+        p["device"]["by_category"].items(), key=lambda kv: -kv[1]
+    ):
+        lines.append(f"  {cat:<12} {_fmt_bytes(b):>12}")
+    top = sorted(
+        p["device"]["buffers"], key=lambda b: -b["bytes"]
+    )[:6]
+    for b in top:
+        lines.append(
+            f"    {b['buffer']:<28} {_fmt_bytes(b['bytes']):>12}"
+        )
+    lines.append("")
+    lines.append(
+        f"per-host RSS (modeled peak): {_fmt_bytes(p['host_rss_bytes'])}"
+        + (
+            f"  vs {_fmt_bytes(p['host_ram_bytes'])}"
+            f" ({'fits' if p['fits_host'] else 'DOES NOT FIT'})"
+            if p["host_ram_bytes"]
+            else ""
+        )
+    )
+    dom = p["host"].get("dominant_stage")
+    for s in p["host"]["stages"]:
+        mark = "  <- dominant" if s["stage"] == dom else ""
+        lines.append(
+            f"  {s['stage']:<12} {_fmt_bytes(s['bytes']):>12}{mark}"
+        )
+    if p["comms_bytes_per_step"]:
+        lines.append("")
+        lines.append(
+            "collective traffic (modeled): "
+            f"{_fmt_bytes(p['comms_bytes_per_step'])}/step"
+        )
+    lines.append("")
+    verdict = "FITS" if p["fits"] else (
+        f"DOES NOT FIT (binding: {p['binding']})"
+    )
+    lines.append(f"verdict: {verdict}")
+    for knob in p["knobs"]:
+        lines.append(f"  knob: {knob}")
+    for note in p["notes"]:
+        lines.append(f"  note: {note}")
+    return "\n".join(lines)
+
+

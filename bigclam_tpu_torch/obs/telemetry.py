@@ -18,13 +18,21 @@ differs on the card:
 * **Compile counters count builds.** The port compiles its CUDA kernels
   with nvcc (ops/build.py) and its host library with g++
   (graph/native); each build or load is a `compile` event with its
-  seconds (`note_compile`), counted in the report under the JAX keys
-  (`backend_compiles`: builds; `by_key`: per library). There is no
-  jax.monitoring listener, and a train step compiles nothing
-  (`step_builds` 0).
+  seconds (`note_compile`), counted in the report as `backend_compiles`
+  (builds), `loads`, and per library under `by_library`. A train step
+  compiles nothing, but every trainer records each step it BUILDS
+  (`note_step_build`, keyed by models.bigclam.step_cfg_key) under the
+  JAX keys `step_builds` and `by_key`: the perf ledger's config digest
+  is the digest of `by_key`, so it tells fits of different step configs
+  apart and does not see whether a fit built or loaded its libraries.
 
-* **No modeled memory.** `hbm_modeled_bytes` waits for obs/memory.py;
-  the report leaves it out rather than guess.
+* **Models.** The trainers' comms and memory models (obs.comms,
+  obs.memory) arrive as `comms` and `memory_model` events and land in the
+  report's `comms` and `memory.modeled` sections in the JAX layout.
+
+* **Perf ledger.** With `ledger_path` (cli --perf-ledger) or
+  BIGCLAM_PERF_LEDGER set, `finalize` appends the run's record
+  (obs.ledger).
 
 * **Thread safety.** The heartbeat emits from its own thread; event writes
   and counter updates take one lock.
@@ -32,6 +40,7 @@ differs on the card:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -65,6 +74,24 @@ def uninstall(tel: Optional["RunTelemetry"] = None) -> None:
     global _CURRENT
     if tel is None or _CURRENT is tel:
         _CURRENT = None
+
+
+def note_step_build(cfg, model: str = "") -> None:
+    """Record a trainer step build keyed by step_cfg_key (a trainer calls
+    it for each step config it builds); no-op with telemetry off."""
+    tel = _CURRENT
+    if tel is None:
+        return
+    from bigclam_tpu_torch.models.bigclam import step_cfg_key
+
+    key = repr(step_cfg_key(cfg))
+    # deterministic short digest (repr of the frozen dataclass is stable;
+    # hash() is not across processes). The `torch:` prefix keeps a port
+    # label from ever equalling a JAX one: the configs' reprs agree, the
+    # steps do not, and on the CPU both fingerprints say `cpu`
+    digest = hashlib.sha1(key.encode()).hexdigest()[:10]
+    label = f"torch:{model}:{digest}" if model else f"torch:{digest}"
+    tel.record_step_build(label)
 
 
 def note_compile(name: str, seconds: float, cached: bool = False) -> None:
@@ -200,10 +227,14 @@ class RunTelemetry:
         heartbeat_s: float = 0.0,
         quiet: bool = False,
         heartbeat_escalate: int = 0,
+        ledger_path: Optional[str] = None,
     ):
         os.makedirs(directory, exist_ok=True)
         self.directory = directory
         self.entry = entry
+        # explicit perf-ledger target (cli --perf-ledger); falls back to
+        # the BIGCLAM_PERF_LEDGER env at finalize (obs.ledger)
+        self.ledger_path = ledger_path
         self.run_id = _resolve_run_id(directory)
         self.quiet = quiet
         self.started_unix = time.time()
@@ -224,6 +255,7 @@ class RunTelemetry:
         # per-step wall-clock samples (sec_per_iter forwarded by the
         # MetricsLogger sink)
         self._step_secs: List[float] = []
+        self._step_eps: List[float] = []
         # model health: last `health` event payload + per-check anomaly
         # counts, folded in by event() — the heartbeat embeds last_health
         # into stall reports (a stall then says "diverging", not just
@@ -233,6 +265,14 @@ class RunTelemetry:
         self.anomaly_counts: Dict[str, int] = {}
         # the last fit-loop sync-span duration, for stall context
         self.last_sync_s: Optional[float] = None
+        # modeled bytes a step per collective site, and modeled device
+        # buffers ((bytes, category)) and host stages, keyed per MODEL: a
+        # re-emitted model (reset_model on its first event) replaces its
+        # whole set
+        self._comms_by_model: Dict[str, Dict[str, float]] = {}
+        self._mem_by_model: Dict[str, Dict[str, tuple]] = {}
+        self._mem_host_by_model: Dict[str, Dict[str, float]] = {}
+        self._mem_host_dominant: Optional[str] = None
         # tag -> number of watermark samples; dev -> running max stats;
         # the last snapshot, which the heartbeat thread embeds in stall
         # events without reading the device itself
@@ -245,6 +285,7 @@ class RunTelemetry:
             "loads": 0,
             "step_builds": 0,
             "by_key": {},
+            "by_library": {},
         }
         self.final: Dict[str, Any] = {}
         self.heartbeat = None
@@ -289,9 +330,43 @@ class RunTelemetry:
                 self.anomaly_counts[check] = (
                     self.anomaly_counts.get(check, 0) + 1
                 )
+            elif kind == "comms":
+                model = str(fields.get("model", "?"))
+                if fields.get("reset_model"):
+                    self._comms_by_model[model] = {}
+                sites = self._comms_by_model.setdefault(model, {})
+                try:
+                    sites[str(fields.get("site", "?"))] = float(
+                        fields.get("bytes_per_step", 0.0) or 0.0
+                    )
+                except (TypeError, ValueError):
+                    pass
+            elif kind == "memory_model":
+                self._fold_memory_model(fields)
             if self._fh is not None:
                 self._fh.write(line + "\n")
                 self._fh.flush()
+
+    def _fold_memory_model(self, fields: Dict[str, Any]) -> None:
+        """One `memory_model` event into the per-model buffer tables
+        (caller holds the lock)."""
+        model = str(fields.get("model", "?"))
+        host_scope = fields.get("scope") == "host"
+        target = self._mem_host_by_model if host_scope else self._mem_by_model
+        if fields.get("reset_model"):
+            target[model] = {}
+        bufs = target.setdefault(model, {})
+        try:
+            b = float(fields.get("bytes", 0.0) or 0.0)
+            name = str(fields.get("buffer", "?"))
+            if host_scope:
+                bufs[name] = b
+                if fields.get("dominant"):
+                    self._mem_host_dominant = str(fields.get("stage", name))
+            else:
+                bufs[name] = (b, str(fields.get("category", "")))
+        except (TypeError, ValueError):
+            pass
 
     # -------------------------------------------------------------- sinks
     def stage_complete(self, name: str, seconds: float) -> None:
@@ -315,9 +390,12 @@ class RunTelemetry:
         kind = "step" if "iter" in fields else "metric"
         if kind == "step":
             sec = fields.get("sec_per_iter")
-            if isinstance(sec, (int, float)):
-                with self._lock:
+            eps = fields.get("edges_per_sec_per_chip")
+            with self._lock:
+                if isinstance(sec, (int, float)):
                     self._step_secs.append(float(sec))
+                if isinstance(eps, (int, float)):
+                    self._step_eps.append(float(eps))
         self.event(kind, **fields)
 
     def span_complete(
@@ -412,12 +490,20 @@ class RunTelemetry:
         return devices
 
     # ------------------------------------------------------------ compile
+    def record_step_build(self, key: str) -> None:
+        with self._lock:
+            self.compiles["step_builds"] += 1
+            entry = self.compiles["by_key"].setdefault(
+                key, {"builds": 0, "compiles": 0}
+            )
+            entry["builds"] += 1
+
     def compile_complete(self, name: str, seconds: float,
                          cached: bool = False) -> None:
         """One build (cached=False) or load of an already-built library
         (cached=True), as a `compile` event."""
         with self._lock:
-            entry = self.compiles["by_key"].setdefault(
+            entry = self.compiles["by_library"].setdefault(
                 name, {"builds": 0, "compiles": 0, "loads": 0, "seconds": 0.0}
             )
             if cached:
@@ -479,6 +565,21 @@ class RunTelemetry:
                     ),
                     "anomalies": dict(self.anomaly_counts),
                 },
+                "comms": {
+                    "bytes_per_step": round(
+                        sum(
+                            v
+                            for sites in self._comms_by_model.values()
+                            for v in sites.values()
+                        ),
+                        1,
+                    ),
+                    "sites": {
+                        k: round(v, 1)
+                        for sites in self._comms_by_model.values()
+                        for k, v in sites.items()
+                    },
+                },
                 "fingerprint": _fingerprint(),
                 "memory": {
                     "host_rss_bytes": current_rss_bytes(),
@@ -487,13 +588,20 @@ class RunTelemetry:
                         k: dict(v) for k, v in self.device_peak.items()
                     },
                     "watermark_tags": dict(self.watermark_tags),
+                    # the trainers' memory models (obs.memory): the perf
+                    # ledger's hbm_modeled_bytes source
+                    "modeled": self._memory_modeled_locked(),
                 },
                 "compiles": {
                     **{k: v for k, v in self.compiles.items()
-                       if k != "by_key"},
+                       if k not in ("by_key", "by_library")},
                     "by_key": {
                         k: dict(v)
                         for k, v in self.compiles["by_key"].items()
+                    },
+                    "by_library": {
+                        k: dict(v)
+                        for k, v in self.compiles["by_library"].items()
                     },
                     "count": self.compile_count(),
                 },
@@ -517,6 +625,43 @@ class RunTelemetry:
                 "events": dict(self.event_counts),
                 "final": dict(self.final),
             }
+
+    def _memory_modeled_locked(self) -> Optional[Dict[str, Any]]:
+        """The memory-model summary of the run report (the JAX layout;
+        caller holds the lock): per-buffer and per-category device totals
+        over the emitted models, and the host-stage table. None when no
+        model was emitted."""
+        if not self._mem_by_model and not self._mem_host_by_model:
+            return None
+        buffers: Dict[str, float] = {}
+        by_cat: Dict[str, float] = {}
+        addressable = 0.0
+        for bufs in self._mem_by_model.values():
+            for name, (b, cat) in bufs.items():
+                buffers[name] = round(buffers.get(name, 0.0) + b, 1)
+                by_cat[cat] = by_cat.get(cat, 0.0) + b
+                if cat in ("state", "graph"):
+                    addressable += b
+        host_stages: Dict[str, float] = {}
+        for stages in self._mem_host_by_model.values():
+            for name, b in stages.items():
+                stage = name.split("/", 1)[-1]
+                host_stages[stage] = round(
+                    max(host_stages.get(stage, 0.0), b), 1
+                )
+        return {
+            "hbm_bytes_per_device": round(sum(by_cat.values()), 1),
+            "addressable_bytes": round(addressable, 1),
+            "by_category": {k: round(v, 1) for k, v in by_cat.items()},
+            "buffers": buffers,
+            "host_stages": host_stages,
+            "host_rss_bytes": (
+                round(max(host_stages.values()), 1)
+                if host_stages
+                else None
+            ),
+            "host_dominant_stage": self._mem_host_dominant,
+        }
 
     def report_path(self) -> str:
         return os.path.join(self.directory, REPORT_NAME)
@@ -544,6 +689,26 @@ class RunTelemetry:
             if self._fh is not None:
                 self._fh.close()
                 self._fh = None
+        # perf ledger (obs.ledger): with --perf-ledger or
+        # BIGCLAM_PERF_LEDGER, append this run's record; never allowed to
+        # break finalize
+        try:
+            from bigclam_tpu_torch.obs import ledger as _ledger
+
+            with self._lock:
+                step_secs = list(self._step_secs)
+                step_eps = list(self._step_eps)
+            _ledger.maybe_append_env(
+                rep, step_secs, step_eps, path=self.ledger_path
+            )
+        except Exception as e:
+            if not self.quiet:
+                print(
+                    f"[telemetry] warning: perf-ledger append failed "
+                    f"({type(e).__name__}: {e}) — run report is intact, "
+                    f"but `cli perf diff` will not see this run",
+                    file=sys.stderr,
+                )
         return rep
 
     # ------------------------------------------------------- context mgmt

@@ -1,8 +1,7 @@
 """Hierarchical span tracing: WHERE the time went.
 
-Port of bigclam_tpu/obs/trace.py without its profiler annotations (a
-torch.profiler capture comes with `--profile-dir`, not ported yet). A
-`span` is a named, nested wall-clock interval:
+Port of bigclam_tpu/obs/trace.py. A `span` is a named, nested wall-clock
+interval:
 
     with span("fit_loop"):
         with span("dispatch", emit=False):
@@ -28,6 +27,12 @@ COST CONTRACT: with telemetry off, `span()` returns one shared no-op
 object — no event, no dict, no stack touch (the off path is a
 current()-is-None check).
 
+PROFILER ALIGNMENT: while a capture is live (utils.profiling.trace flags
+it: `--profile-dir`, `cli profile`), every span also opens a
+torch.profiler.record_function with its path, so the captured timeline
+carries the span names; without a capture no span touches the profiler.
+`step_annotation` marks one profiled step the same way.
+
 THREAD MODEL: the span stack is per-thread (plain dict keyed by thread id;
 list push/pop are GIL-atomic). `open_spans()` snapshots every thread's
 open stack — the stall heartbeat embeds it so a stall report answers
@@ -41,6 +46,8 @@ dropped and counted in the telemetry's span_orphans counter.
 
 from __future__ import annotations
 
+import os
+import sys
 import threading
 import time
 from typing import Dict, List
@@ -49,6 +56,37 @@ from bigclam_tpu_torch.obs import telemetry as _telemetry
 
 # thread id -> stack of open span PATHS (innermost last)
 _STACKS: Dict[int, List[str]] = {}
+
+# profiler-capture refcount, flipped by utils.profiling.trace (every
+# capture of the port goes through it): spans open record_function
+# annotations only while it is positive
+_CAPTURE = {"active": 0}
+
+
+def capture_started() -> None:
+    _CAPTURE["active"] += 1
+
+
+def capture_stopped() -> None:
+    _CAPTURE["active"] = max(_CAPTURE["active"] - 1, 0)
+
+
+def capture_active() -> bool:
+    return _CAPTURE["active"] > 0
+
+
+def _record_function(name: str):
+    """torch.profiler.record_function(name), entered; None when torch is
+    not loaded or the API refuses."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    try:
+        ann = torch.profiler.record_function(name)
+        ann.__enter__()
+        return ann
+    except Exception:
+        return None
 
 
 class _NullSpan:
@@ -69,11 +107,46 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _Annotation:
+    """A record_function scope as a context manager that never raises."""
+
+    __slots__ = ("name", "_ann")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._ann = None
+
+    def __enter__(self):
+        self._ann = _record_function(self.name)
+        return self
+
+    def __exit__(self, et, ev, tb):
+        if self._ann is not None:
+            try:
+                self._ann.__exit__(et, ev, tb)
+            except Exception:
+                pass
+        return False
+
+    def set(self, **fields) -> None:
+        pass
+
+
+def step_annotation(step_num: int, name: str = "train"):
+    """A torch.profiler.record_function scope named "<name>#<step_num>"
+    for one profiled step (`cli profile` wraps each timed step in one, so
+    the captured timeline groups a step's kernels under it); the no-op
+    span when torch is not loaded."""
+    if "torch" not in sys.modules:
+        return NULL_SPAN
+    return _Annotation(f"{name}#{int(step_num)}")
+
+
 class Span:
     """One open span (use via `span(...)`, not directly). Context-manager
     only; `set(**fields)` attaches extra fields to the close event."""
 
-    __slots__ = ("_tel", "name", "emit", "fields", "path", "_t0")
+    __slots__ = ("_tel", "name", "emit", "fields", "path", "_t0", "_ann")
 
     def __init__(self, tel, name: str, emit: bool, fields: dict):
         self._tel = tel
@@ -82,6 +155,7 @@ class Span:
         self.fields = fields
         self.path = name
         self._t0 = 0.0
+        self._ann = None
 
     def set(self, **fields) -> None:
         self.fields.update(fields)
@@ -93,11 +167,18 @@ class Span:
             stack = _STACKS.setdefault(tid, [])
         self.path = f"{stack[-1]}/{self.name}" if stack else self.name
         stack.append(self.path)
+        if _CAPTURE["active"]:
+            self._ann = _record_function(self.path)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, et, ev, tb):
         dt = time.perf_counter() - self._t0
+        if self._ann is not None:
+            try:
+                self._ann.__exit__(et, ev, tb)
+            except Exception:
+                pass
         orphans = 0
         stack = _STACKS.get(threading.get_ident())
         if stack and stack[-1] == self.path:
@@ -128,6 +209,31 @@ def span(name: str, emit: bool = True, **fields):
     return Span(tel, name, emit, fields)
 
 
+def add_span(name: str, seconds: float, emit: bool = True, **fields) -> None:
+    """Record an already-measured interval as a span completion at the
+    current stack position (loops that time themselves still land in the
+    span taxonomy). No-op when off."""
+    tel = _telemetry.current()
+    if tel is None:
+        return
+    stack = _STACKS.get(threading.get_ident())
+    path = f"{stack[-1]}/{name}" if stack else name
+    tel.span_complete(path, seconds, ok=True, emit=emit, fields=fields)
+
+
+_TRACE_ID = {"n": 0}
+_TRACE_ID_LOCK = threading.Lock()
+
+
+def new_trace_id() -> str:
+    """Process-unique compact trace id ("<pid hex>-<seq hex>"):
+    counter-based, short, orderable within a process."""
+    with _TRACE_ID_LOCK:
+        _TRACE_ID["n"] += 1
+        n = _TRACE_ID["n"]
+    return f"{os.getpid():x}-{n:x}"
+
+
 def open_spans() -> List[str]:
     """Snapshot of every thread's open span paths, innermost last per
     thread — what the stall heartbeat embeds in `stall` events."""
@@ -135,3 +241,9 @@ def open_spans() -> List[str]:
     for stack in list(_STACKS.values()):
         out.extend(list(stack))
     return out
+
+
+def current_path() -> str:
+    """The calling thread's innermost open span path ('' when none)."""
+    stack = _STACKS.get(threading.get_ident())
+    return stack[-1] if stack else ""

@@ -42,6 +42,8 @@ import torch
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph
 from bigclam_tpu_torch.models.bigclam import TrainState, _round_up, csr_fused_want
+from bigclam_tpu_torch.obs import comms as _comms
+from bigclam_tpu_torch.obs import memory as _mem
 from bigclam_tpu_torch.ops.objective import accum_dtype, node_tail
 from bigclam_tpu_torch.ops.ring_kernels import (
     ring_cand_phase,
@@ -187,6 +189,11 @@ class RingRotation:
         """Issue one hop; returns (next rot, join) — join() makes each
         device's current stream wait for the copies it receives."""
         dp = len(rot)
+        if _comms.counting_on():
+            # every mesh position receives its successor's shard, whether
+            # the two positions share a device or not
+            _comms.count("ring/ppermute_F_rot",
+                         sum(t.numel() * t.element_size() for t in rot))
         out, joins = [], []
         for i, dst in enumerate(self.devices):
             src_dev, t = self.devices[(i + 1) % dp], rot[(i + 1) % dp]
@@ -246,7 +253,7 @@ def make_ring_train_step(
     def step(state: TrainState) -> TrainState:
         F = state.F
         adt = accum_dtype(cfg, F[0])
-        sumF = psum([f.sum(dim=0) for f in F], devices)
+        sumF = psum([f.sum(dim=0) for f in F], devices, "ring/psum_sumF")
 
         # rotation 1: per phase, every shard's bucket into its accumulators
         # (fresh tensors: a rotating shard may be another shard's F_loc)
@@ -279,7 +286,7 @@ def make_ring_train_step(
                 kernel=path != "xla",
             )
             outs.append((F_new, sum_loc, node_llh[i].sum(), hist))
-        return finish_step(state, outs, devices, cfg, grad)
+        return finish_step(state, outs, devices, cfg, grad, family="ring")
 
     return step
 
@@ -351,4 +358,44 @@ class RingBigClamModel(ShardedBigClamModel):
     def rebuild_step(self) -> None:
         self._step = make_ring_train_step(
             self.devices, self.buckets, self.cfg, self.engaged_path
+        )
+        self._note_step_build()
+
+    # ------------------------------------------- comms and memory models
+    def _llh_itemsize(self) -> int:
+        """The ring's node LLH is in the accumulation dtype on every path."""
+        adt = accum_dtype(self.cfg, torch.empty((), dtype=self.dtype))
+        return torch.empty((), dtype=adt).element_size()
+
+    def _build_comms_model(self):
+        return _comms.ring_step_model(
+            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
+            len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
+            model=type(self).__name__,
+        )
+
+    def _position_graph(self, positions) -> dict:
+        """The ring buckets of the given mesh positions, by name."""
+        bs = [b for i in positions for b in self.buckets[i]]
+        return {
+            "graph/ring_bucket_indptr": [b.indptr for b in bs],
+            "graph/ring_bucket_indices": [b.indices for b in bs],
+            "graph/ring_bucket_src": [b.src for b in bs],
+            "graph/ring_bucket_dst": [b.dst for b in bs],
+            "graph/ring_bucket_order": [b.order for b in bs],
+        }
+
+    def _build_memory_model(self):
+        cfg = self.cfg
+        d, pos, gb = self._busiest_device()
+        dp = len(self.devices)
+        remote = sum(self.devices[(i + 1) % dp] != d for i in pos) if dp > 1 else 0
+        return _mem.ring_memory_model(
+            self.n_pad, self.k_pad, dp, self.itemsize,
+            len(cfg.step_candidates), gb, positions=len(pos),
+            first_device=d == self.devices[0], remote_successors=remote,
+            overlap=bool(cfg.ring_overlap),
+            health_on=int(cfg.health_every or 0) > 0,
+            rollback=int(cfg.rollback_budget or 0) > 0,
+            comms=self.comms, model=type(self).__name__,
         )

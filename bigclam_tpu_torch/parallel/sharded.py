@@ -42,6 +42,7 @@ from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph
 from bigclam_tpu_torch.models.bigclam import (
     CSR_K_MULTIPLE,
     FitResult,
+    MemoryAccountedModel,
     TrainState,
     _round_up,
     csr_fused_want,
@@ -50,6 +51,8 @@ from bigclam_tpu_torch.models.bigclam import (
     restore_checkpoint,
     rowkeyed_init_F,
 )
+from bigclam_tpu_torch.obs import comms as _comms
+from bigclam_tpu_torch.obs import memory as _mem
 from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops.csr_kernels import (
     MAX_K,
@@ -66,7 +69,7 @@ from bigclam_tpu_torch.ops.linesearch import (
     armijo_update_kernel,
     candidates_pass,
 )
-from bigclam_tpu_torch.ops.objective import grad_llh
+from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, grad_llh
 from bigclam_tpu_torch.parallel.balance import balance_graph
 from bigclam_tpu_torch.parallel.mesh import K_AXIS, NODES_AXIS, Mesh
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
@@ -120,25 +123,38 @@ def device_csr(indptr: np.ndarray, indices: np.ndarray, device) -> DeviceCSR:
     )
 
 
-def psum(parts, devices) -> list:
+def psum(parts, devices, site: str = "") -> list:
     """The sum of the shards' partials, taken in shard order on the first
     device and copied to every shard's device, so every shard holds the
-    same bits, as after a JAX psum."""
+    same bits, as after a JAX psum. `site` names it to the comms counter
+    (obs.comms: each other position's partial in, the total back out)."""
     total = parts[0].to(devices[0])
     for p in parts[1:]:
         total = total + p.to(devices[0])
+    if _comms.counting_on() and len(parts) > 1:
+        _comms.count(site, sum(_nbytes(p) for p in parts[1:])
+                     + (len(parts) - 1) * _nbytes(total))
     return [total.to(d) for d in devices]
 
 
-def all_gather(parts, devices) -> list:
+def all_gather(parts, devices, site: str = "") -> list:
     """The shards concatenated in shard order on each shard's device (one
     tensor per distinct device: on a mesh of one repeated device every
-    shard reads the same copy)."""
+    shard reads the same copy). The comms counter is told what every mesh
+    position receives (the other shards), whether its device repeats or
+    not."""
     full = {}
     for d in devices:
         if d not in full:
             full[d] = torch.cat([p.to(d) for p in parts])
+    if _comms.counting_on() and len(parts) > 1:
+        total = sum(_nbytes(p) for p in parts)
+        _comms.count(site, sum(total - _nbytes(p) for p in parts))
     return [full[d] for d in devices]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def armijo_tail_select_sharded(
@@ -197,14 +213,16 @@ def mesh_kernels_want(
 
 
 def finish_step(state: TrainState, outs, devices, cfg: BigClamConfig,
-                grads=None) -> TrainState:
+                grads=None, family: str = "sharded") -> TrainState:
     """The psums that end a sharded step: `outs` holds, per shard,
     (F_new, column sums of F_new, LLH of the shard's rows, accepted-step
     histogram); `grads` the shards' gradients, read only for the health
-    pack on cadence iterations."""
+    pack on cadence iterations; `family` names the comms sites (sharded or
+    ring)."""
     F_new, sums, llhs, hists = zip(*outs)
-    sumF = tuple(psum(sums, devices))
-    hist = psum(hists, devices)[0]
+    site = "ring" if family == "ring" else "sharded"
+    sumF = tuple(psum(sums, devices, f"{site}/psum_sumF"))
+    hist = psum(hists, devices, f"{site}/psum_scalars")[0]
     health = None
     if dx.on_cadence(cfg, state.it):
         health = dx.health_pack(cfg, state.it, state.F, F_new, sumF[0], hist,
@@ -212,7 +230,7 @@ def finish_step(state: TrainState, outs, devices, cfg: BigClamConfig,
     return TrainState(
         F=tuple(F_new),
         sumF=sumF,
-        llh=psum(llhs, devices)[0].to(F_new[0].dtype),
+        llh=psum(llhs, devices, f"{site}/psum_scalars")[0].to(F_new[0].dtype),
         it=state.it + 1,
         accept_hist=hist,
         health=health,
@@ -248,8 +266,8 @@ def make_sharded_train_step(
 
     def step(state: TrainState) -> TrainState:
         F = state.F
-        sumF = psum([f.sum(dim=0) for f in F], devices)
-        F_full = all_gather(F, devices)
+        sumF = psum([f.sum(dim=0) for f in F], devices, "sharded/psum_sumF")
+        F_full = all_gather(F, devices, "sharded/all_gather_F")
         outs, grads = zip(*(
             shard_update(F[i], sumF[i], shards[i], F_full[i])
             for i in range(len(devices))
@@ -259,7 +277,7 @@ def make_sharded_train_step(
     return step
 
 
-class ShardedBigClamModel:
+class ShardedBigClamModel(MemoryAccountedModel):
     """BigCLAM trainer over a (nodes, k) mesh with tp = 1, all-gather
     schedule. Mirrors models.bigclam.BigClamModel's API; the same
     trajectories (the sharding changes the schedule, not the math).
@@ -300,6 +318,9 @@ class ShardedBigClamModel:
         if balance and dp > 1:
             self.g, self._perm = balance_graph(g, dp, self.n_pad)
         self._build_edges_and_step()
+        # the comms and memory models (obs.comms, obs.memory), baked from
+        # the built layout
+        self._bake_models()
 
     @property
     def engaged_path(self) -> str:
@@ -323,6 +344,86 @@ class ShardedBigClamModel:
         edge layout."""
         self._step = make_sharded_train_step(
             self.devices, self.shard_csr, self.cfg, self.engaged_path
+        )
+        self._note_step_build()
+
+    # ------------------------------------------- comms and memory models
+    def _llh_itemsize(self) -> int:
+        """Bytes of a shard's LLH partial: the kernels' node LLH is in F's
+        dtype, the plain sweeps' in the accumulation dtype."""
+        if self.engaged_path in ("csr_fused", "csr"):
+            return self.itemsize
+        adt = accum_dtype(self.cfg, torch.empty((), dtype=self.dtype))
+        return torch.empty((), dtype=adt).element_size()
+
+    def _build_comms_model(self):
+        return _comms.sharded_step_model(
+            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
+            len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
+            model=type(self).__name__,
+        )
+
+    def comms_measured(self, state: TrainState):
+        """The comms model re-priced from the bytes the collective helpers
+        pass in one step from `state` (obs.comms.measured_step; the new
+        state is dropped)."""
+        return _comms.measured_step(self.comms, self._step, state)[0]
+
+    def _emit_balance(self) -> None:
+        from bigclam_tpu_torch.obs import telemetry as _obs
+
+        if _obs.current() is None:
+            return
+        dp = len(self.devices)
+        _comms.emit_shard_balance(
+            "shard_edges", shard_edge_counts(self.g.src, self.n_pad, dp), dp,
+            hint="relabel (--balance)", model=type(self).__name__, dp=dp,
+        )
+
+    def _position_graph(self, positions) -> dict:
+        """The graph tensors of the given mesh positions, by name."""
+        csrs = [self.shard_csr[i] for i in positions]
+        return {
+            "graph/shard_csr_indptr": [c.indptr for c in csrs],
+            "graph/shard_csr_indices": [c.indices for c in csrs],
+            "graph/shard_csr_src": [c.src for c in csrs],
+            "graph/shard_csr_dst": [c.dst for c in csrs],
+        }
+
+    def _graph_device_arrays(self) -> dict:
+        return self._position_graph(range(len(self.devices)))
+
+    def _busiest_device(self) -> tuple:
+        """(device, its mesh positions, its graph bytes by name) of the
+        device holding the most state + graph bytes: the one the memory
+        model describes (every device, on distinct cards, holds about the
+        same)."""
+        n_loc = self.n_pad // len(self.devices)
+        best = None
+        for d in dict.fromkeys(self.devices):
+            pos = [i for i, x in enumerate(self.devices) if x == d]
+            gb = _mem.bytes_by_name(self._position_graph(pos))
+            state = (len(pos) * n_loc + 1) * self.k_pad * self.itemsize
+            if d == self.devices[0]:
+                state += self.itemsize + len(self.cfg.step_candidates) * 4 + 4
+            total = state + sum(gb.values())
+            if best is None or total > best[0]:
+                best = (total, d, pos, gb)
+        return best[1:]
+
+    def _build_memory_model(self):
+        cfg = self.cfg
+        d, pos, gb = self._busiest_device()
+        return _mem.sharded_memory_model(
+            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
+            len(cfg.step_candidates), gb, self.engaged_path,
+            max(self.shard_csr[i].num_directed_edges for i in pos),
+            positions=len(pos), first_device=d == self.devices[0],
+            gathers=1 if len(self.devices) > 1 else 0,
+            chunk=edge_chunk_bound(cfg, self.k_pad, self.itemsize),
+            health_on=int(cfg.health_every or 0) > 0,
+            rollback=int(cfg.rollback_budget or 0) > 0,
+            comms=self.comms, model=type(self).__name__,
         )
 
     # --- state ----------------------------------------------------------

@@ -1,15 +1,135 @@
-"""Stage timing and host memory of the port's entry points.
+"""Profiler capture, stage timing and host memory of the port's entry
+points.
 
-The parts of bigclam_tpu/utils/profiling.py the port needs so far:
+Port of bigclam_tpu/utils/profiling.py: `trace` (a torch.profiler capture
+where the JAX package takes a jax.profiler one), `annotate`,
 `StageProfile` (wall-clock stage buckets that forward to the run
-telemetry) and the host RSS probes. The profiler capture (`trace`),
-`step_time` and `overlap_report` come with `--profile-dir`.
+telemetry), the host RSS probes, `step_time` (synchronizing the card),
+`comm_hidden_fraction` and `overlap_report` (the ring's overlapped
+against serial rotation).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+import json
+import os
+from typing import Iterator, List, Optional
+
+# files a capture writes into its directory
+TRACE_NAME = "trace.json"
+TABLE_NAME = "key_averages.txt"
+KERNELS_NAME = "kernels.json"
+
+
+class NoDeviceKernelsError(RuntimeError):
+    """A capture on a card recorded no CUDA kernel: the profiler did not
+    see the device, and an empty trace must not pass for one."""
+
+
+def _device_time_us(evt, self_only: bool = True) -> float:
+    """An event's device time in microseconds, under either attribute name
+    torch has used (device_* since 2.4, cuda_* before)."""
+    names = (("self_device_time_total", "self_cuda_time_total") if self_only
+             else ("device_time_total", "cuda_time_total"))
+    for name in names:
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_kernels(prof, top: int = 0) -> List[dict]:
+    """The captured device activity (CUDA kernels and copies with device
+    time of their own; ops and the annotations' device ranges are not
+    kernels) by device time, largest first: [{"name", "device_ms",
+    "calls"}]."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if (getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        us = _device_time_us(evt)
+        if us > 0:
+            rows.append({"name": evt.key, "device_ms": round(us / 1e3, 6),
+                         "calls": int(evt.count)})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows[:top] if top else rows
+
+
+class Capture:
+    """What `trace` yields: after the block, `prof` is the
+    torch.profiler.profile object and `kernels` device_kernels(prof)."""
+
+    def __init__(self):
+        self.prof = None
+        self.kernels: List[dict] = []
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], require_device: Optional[bool] = None
+          ) -> Iterator[Optional[Capture]]:
+    """Capture a torch.profiler trace of the block into log_dir: the
+    chrome trace (trace.json), the key_averages table (key_averages.txt)
+    and the device kernels by time (kernels.json). No-op (yields None)
+    when log_dir is None. CUDA activity is captured when a card is
+    present; with `require_device` (default: when a card is present) a
+    capture that recorded no CUDA kernel raises NoDeviceKernelsError
+    after the files are written. Flags the capture to the span tracer
+    (obs.trace), so spans open record_function annotations meanwhile."""
+    if log_dir is None:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigclam_tpu_torch.obs import trace as _trace
+
+    cuda = torch.cuda.is_available()
+    if require_device is None:
+        require_device = cuda
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    cap = Capture()
+    with profile(activities=activities) as prof:
+        _trace.capture_started()
+        try:
+            yield cap
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+            _trace.capture_stopped()
+    cap.prof = prof
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))
+    sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
+    try:
+        table = prof.key_averages().table(sort_by=sort, row_limit=50)
+    except Exception:
+        table = prof.key_averages().table(row_limit=50)
+    with open(os.path.join(log_dir, TABLE_NAME), "w") as f:
+        f.write(table)
+    cap.kernels = device_kernels(prof)
+    with open(os.path.join(log_dir, KERNELS_NAME), "w") as f:
+        json.dump(cap.kernels, f, indent=1)
+    if require_device and not cap.kernels:
+        raise NoDeviceKernelsError(
+            f"the torch.profiler capture in {log_dir} recorded no CUDA "
+            "kernel (CUDA activity requested: "
+            f"{cuda}); the profiler did not see the device"
+        )
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named sub-scope inside a trace (torch.profiler.record_function)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
 
 
 class StageProfile:
@@ -73,3 +193,76 @@ def peak_rss_bytes() -> int:
 
     scale = 1024 if sys.platform != "darwin" else 1
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * scale
+
+
+def _sync(state) -> None:
+    """Wait for the card(s) holding the state's F (a tensor or shards)."""
+    import torch
+
+    F = state.F
+    for t in (F if isinstance(F, tuple) else (F,)):
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+
+
+def step_time(step_fn, state, steps: int = 5, warmup: int = 1) -> float:
+    """Wall-clock seconds per training step: `warmup` un-timed steps, then
+    `steps` chained steps (the state threads through, so the measurement
+    covers the real dependency chain), synchronizing the card before and
+    after."""
+    import time
+
+    for _ in range(max(warmup, 0)):
+        state = step_fn(state)
+    _sync(state)
+    t0 = time.perf_counter()
+    for _ in range(max(steps, 1)):
+        state = step_fn(state)
+    _sync(state)
+    return (time.perf_counter() - t0) / max(steps, 1)
+
+
+def comm_hidden_fraction(overlap_s: float, serial_s: float) -> float:
+    """Fraction of the serial step time the overlapped schedule
+    eliminated: (serial - overlap) / serial, clamped at 0."""
+    if serial_s <= 0:
+        return 0.0
+    return round(max(1.0 - overlap_s / serial_s, 0.0), 4)
+
+
+def overlap_report(model, state, steps: int = 5, warmup: int = 1) -> dict:
+    """Time a ring trainer's step under both rotation schedules
+    (cfg.ring_overlap on and off, parallel.ring.RingRotation) and report
+    the communication-hiding win. Rebuilds the model's step with the flag
+    toggled and restores the original cfg and step afterwards.
+
+    `distinct_devices` rides beside the fraction: on a mesh that repeats
+    one card every hop is a no-op, so there is nothing to hide and the
+    fraction is noise around 0.
+
+    Returns {"sec_per_step": {"overlap": s, "serial": s},
+             "comm_hidden_fraction": f, "distinct_devices": d}."""
+    from bigclam_tpu_torch.obs import trace as _trace
+
+    cfg0 = model.cfg
+    times = {}
+    with _trace.span("ring_overlap_probe") as probe:
+        try:
+            for name, flag in (("overlap", True), ("serial", False)):
+                with _trace.span(name):
+                    model.cfg = cfg0.replace(ring_overlap=flag)
+                    model.rebuild_step()
+                    times[name] = step_time(model._step, state, steps,
+                                            warmup)
+        finally:
+            model.cfg = cfg0
+            model.rebuild_step()
+        rep = {
+            "sec_per_step": {k: round(v, 6) for k, v in times.items()},
+            "comm_hidden_fraction": comm_hidden_fraction(
+                times["overlap"], times["serial"]
+            ),
+            "distinct_devices": len(set(str(d) for d in model.devices)),
+        }
+        probe.set(**rep)
+    return rep

@@ -182,6 +182,29 @@ exits non-zero:
             fit on sparse_merge_pallas (band 1e-5: index_add_'s atomic
             order differs from run to run, and two uninterrupted fits are
             set beside it) and csr_ring_fused (band 1e-6)
+  obs_memory (after resilience_full) each path's memory model
+            (obs.memory) against the card: csr_fused with and without the
+            rollback snapshot, sparse_merge_pallas (M=64), pallas_vmem, the
+            ring at --mesh 1,1 and at dp = 4 on the one card, each built,
+            uploaded and fitted 3 steps from the conductance F0 with the
+            bytes allocated before the model subtracted from torch.cuda's
+            peak; the addressable reconcile (state + graph storage bytes)
+            exact on the uploaded and the final state; modeled device bytes
+            beside the measured peak (csr_fused within 10%); the column
+            sum's temporary the model leaves out; `cli preflight` of the
+            graph beside the csr_fused peak; the card's total memory equal
+            to the preflight table's row
+  obs_profile `cli profile --steps 3` on the file: the captured device
+            kernels by time name kernel A (`fused_superstep_kernel`) with
+            device time > 0 and no GEMM, gather or scatter kernel; the
+            unprofiled step (10 steps, the observability layer off)
+            beside PR 13's 0.0370 s
+  obs_ledger (after resilience_odd) `cli fit --telemetry-dir
+            --perf-ledger` twice on the parity graph (20 iterations) into
+            a temporary ledger: `perf diff` names the first as the
+            second's baseline and exits 0; a third fit with --alpha 0.1
+            has no baseline (exit 1); the port's `cli report --json` of
+            the first run
 
 and the large-K (K-blocked) paths, on the repo's `xl_k` configuration
 (bench.py: AGM planted N=60,000, K=3,000, p_in=0.5, numpy rng seed 3;
@@ -221,6 +244,11 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
   resilience_kb (after kb_full) a NaN at 2 on csr_fused_kb from kb_main's
             F: one rollback, then every launch of the replay on the scaled
             ladder counted (3 window kernels and the node pass a step)
+  obs_memory, obs_profile (after resilience_kb) as at full, on
+            csr_fused_kb from kb_main's F (gate within 10%); the profile
+            names `cand_dots_kernel`, `edge_dots_kernel`,
+            `grad_from_x_kernel` and the node pass (`node_pass_kernel`),
+            the unprofiled step beside PR 13's 7.84 ms
 
 Then one `side_by_side` line (with --against: each named kernel on the
 inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
@@ -3390,6 +3418,248 @@ def phase_resilience_odd(tmp) -> dict:
     }
 
 
+# --- observability: memory and comms models, perf ledger, profiler ---------
+
+OBS_STEPS = 2             # obs_memory's fits: steps 0..2 (3 steps run)
+OBS_LEDGER_ITERS = 20     # obs_ledger's fits at the parity graph
+OBS_PROFILE_STEPS = 3
+# PR 13's step times on the H100 80GB HBM3 at 700 W (PERF.md section 5)
+STEP_BEFORE_S = {"full": 0.0370, "xl_k": 0.00784}
+# the hand kernels each profiled path must show, by the device function
+# the profiler names (a substring of its demangled name)
+PROFILE_KERNELS = {
+    "full": {"fused_superstep": "fused_superstep_kernel"},
+    "xl_k": {"cand_dots_kb": "cand_dots_kernel", "edge_dots_kb": "edge_dots_kernel",
+             "grad_from_x": "grad_from_x_kernel", "cand_from_x": "node_pass_kernel"},
+}
+# kernels that would mean a library or a plain version computed the work
+NOT_HAND = re.compile(r"gemm|cublas|cutlass|index_add|indexSelect|index_select|"
+                      r"scatter|gather", re.IGNORECASE)
+
+
+def obs_models(g, cell):
+    """The models of each path the memory phase measures: those that
+    `main`, `sparse_main`, `vmem_main`, `ring_main` and `ring_dp4` build at
+    full, `kb_main`'s at xl_k (rollback on, as `cli fit` runs them)."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.models.sparse import SparseBigClamModel
+    from bigclam_tpu_torch.parallel import RingBigClamModel
+
+    k = FULL["k"] if cell == "full" else XLK["k"]
+    cfg = BigClamConfig(num_communities=k, max_iters=OBS_STEPS, conv_tol=0.0)
+    if cell == "xl_k":
+        return {"csr_fused_kb": lambda: BigClamModel(g, cfg, device=DEVICE)}
+    return {
+        "csr_fused": lambda: BigClamModel(g, cfg, device=DEVICE),
+        "csr_fused_no_snapshot": lambda: BigClamModel(
+            g, cfg.replace(rollback_budget=0), device=DEVICE),
+        "sparse_merge_pallas": lambda: SparseBigClamModel(
+            g, cfg.replace(representation="sparse", sparse_m=SPARSE_M),
+            device=DEVICE),
+        "pallas_vmem": lambda: BigClamModel(
+            g, cfg.replace(use_pallas_csr=False), device=DEVICE),
+        "csr_ring_fused_1x1": lambda: RingBigClamModel(g, cfg, repeated_mesh(1)),
+        "csr_ring_fused_dp4": lambda: RingBigClamModel(g, cfg, repeated_mesh(RING_DP)),
+    }
+
+
+def model_k_pad(cell) -> int:
+    """K_pad of the gated path's F at `cell`."""
+    from bigclam_tpu_torch.models.bigclam import k_block_plan
+
+    return k_block_plan(FULL["k"] if cell == "full" else XLK["k"])[1]
+
+
+def phase_obs_memory(g, F0, cell) -> dict:
+    """Each path's memory model against the card: the model built, F0
+    uploaded and a fit of OBS_STEPS + 1 steps run with the allocated bytes
+    before the model subtracted (torch.cuda's peak since a reset); the
+    addressable reconcile (state + graph storage bytes, drift 0) on the
+    uploaded and the final state; the modeled device bytes beside the
+    measured peak. At full, `cli preflight` for the graph beside the
+    csr_fused peak; the card's total memory against the preflight's table
+    row."""
+    import gc
+
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.obs import memory as M
+
+    out = {}
+    for name, make in obs_models(g, cell).items():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = make()
+        state = model.init_state(F0)
+        r0 = model.memory_reconcile(state, emit=False)
+        state, _, _, hist = model.fit_state(state)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        r1 = model.memory_reconcile(state, emit=False)
+        for r in (r0, r1):
+            if r["drift_frac"] != 0.0:
+                raise AssertionError(f"{name}: addressable drift {r}")
+        modeled = model.memory.hbm_bytes()
+        out[name] = {
+            "kernel_path": model.engaged_path,
+            "addressable_bytes": r1["modeled_bytes"],
+            "addressable_drift": [r0["drift_frac"], r1["drift_frac"]],
+            "modeled_hbm_bytes": modeled,
+            "measured_peak_bytes": peak,
+            "modeled_over_measured": modeled / peak,
+            "by_category": model.memory.category_bytes(),
+            "steps_run": len(hist),
+        }
+        del model, state
+    body = {"cell": cell, "n": g.num_nodes, "directed_edges": g.num_directed_edges,
+            "paths": out}
+    gate = "csr_fused" if cell == "full" else "csr_fused_kb"
+    # the step's torch column sum of F_new, the largest temporary the model
+    # leaves out: its bytes beyond its (K_pad,) output
+    Fx = torch.ones((g.num_nodes, model_k_pad(cell)), device=DEVICE)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    col = Fx.sum(dim=0)
+    torch.cuda.synchronize()
+    body["unmodeled_colsum_bytes"] = (torch.cuda.max_memory_allocated() - before
+                                      - col.numel() * col.element_size())
+    del Fx, col
+    ratio = out[gate]["modeled_over_measured"]
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"{gate}: modeled/measured {ratio} outside 10%")
+    if cell == "full":
+        kind = torch.cuda.get_device_name(0)
+        total = torch.cuda.get_device_properties(0).total_memory
+        if M.DEVICE_HBM_BYTES.get(kind) != total:
+            raise AssertionError(f"{kind}: total_memory {total}, table "
+                                 f"{M.DEVICE_HBM_BYTES.get(kind)}")
+        args = cli.build_parser().parse_args([
+            "preflight", "--nodes", str(g.num_nodes), "--edges", str(g.num_edges),
+            "--k", str(FULL["k"]), "--device-kind", kind, "--json"])
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.preflight(args)
+        p = json.loads(buf.getvalue())
+        body["preflight"] = {
+            "rc": rc, "fits": p["fits"], "kernel_path": p["workload"]["kernel_path"],
+            "hbm_bytes_per_device": p["hbm_bytes_per_device"],
+            "hbm_budget_bytes": p["hbm_budget_bytes"],
+            "measured_peak_bytes": out["csr_fused"]["measured_peak_bytes"],
+            "over_measured": p["hbm_bytes_per_device"]
+            / out["csr_fused"]["measured_peak_bytes"],
+        }
+        body["card_total_memory"] = total
+        if rc != 0 or p["workload"]["kernel_path"] != "csr_fused":
+            raise AssertionError(f"preflight of full: rc {rc}, {p['workload']}")
+    return body
+
+
+def phase_obs_ledger(tmp) -> dict:
+    """`cli fit --telemetry-dir --perf-ledger` twice at the parity graph
+    into one temporary ledger: `perf diff` finds the first as the second's
+    baseline and exits 0; a third fit with another --alpha finds none
+    (exit 1). The records' digests, step medians and modeled bytes, and
+    the port's `cli report --json` of the first run."""
+    import io
+
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.obs import ledger as L
+
+    path = os.path.join(tmp, "obs_parity_graph.txt")
+    planted_file(PARITY, path)
+    led = os.path.join(tmp, "obs_ledger.jsonl")
+
+    def fit(tag, *extra):
+        args = fit_args(["--graph", path, "--k", str(PARITY["k"]), "--device", DEVICE,
+                         "--max-iters", str(OBS_LEDGER_ITERS), "--conv-tol", "0",
+                         "--telemetry-dir", os.path.join(tmp, f"obs_tel_{tag}"),
+                         "--perf-ledger", led, *extra])
+        return cli.fit(args)[0]
+
+    def run_cli(*argv):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main(list(argv))
+        return rc, buf.getvalue(), err.getvalue()
+
+    fit("a")
+    fit("b")
+    rc_same, diff_same, _ = run_cli("perf", "diff", "--ledger", led)
+    fit("c", "--alpha", "0.1")
+    rc_other, _, err_other = run_cli("perf", "diff", "--ledger", led)
+    recs = L.PerfLedger(led).load()
+    if rc_same != 0 or "vs baseline" not in diff_same:
+        raise AssertionError(f"identical fits: perf diff rc {rc_same}\n{diff_same}")
+    if rc_other != 1 or "no matched baseline" not in err_other:
+        raise AssertionError(f"another --alpha: perf diff rc {rc_other} {err_other}")
+    rc_rep, rep, _ = run_cli("report", os.path.join(tmp, "obs_tel_a"), "--json")
+    rep = json.loads(rep)
+    if rc_rep != 0 or not rep["memory_model"]:
+        raise AssertionError(f"cli report rc {rc_rep}")
+    return {
+        "records": [{k: r.get(k) for k in ("run", "cfg_digest", "backend",
+                                            "device_kind", "kernel_path", "step_p50",
+                                            "hbm_modeled_bytes")} for r in recs],
+        "diff_identical": {"rc": rc_same, "text": diff_same.splitlines()},
+        "diff_other_alpha_rc": rc_other,
+        "report_memory_model_hbm": rep["memory_model"]["hbm_bytes_per_device"],
+    }
+
+
+def phase_obs_profile(g, path, cell, F_host) -> dict:
+    """`cli profile --steps 3` on `cell`'s graph file (g as read from it):
+    the captured kernel table names each hand kernel of the path with
+    device time > 0 and no library or plain-version kernel; the
+    unprofiled step from F_host (utils.profiling.step_time, 10 steps, the
+    observability layer off) beside PR 13's."""
+    import io
+
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.utils.profiling import step_time
+
+    k = FULL["k"] if cell == "full" else XLK["k"]
+    with tempfile.TemporaryDirectory() as pdir:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["profile", "--graph", path, "--k", str(k), "--device",
+                           DEVICE, "--steps", str(OBS_PROFILE_STEPS), "--warmup", "1",
+                           "--quiet", "--profile-dir", pdir])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        files = sorted(os.listdir(pdir))
+    if rc != 0:
+        raise AssertionError(f"cli profile rc {rc}")
+    kernels = out["top_kernels"]
+    found = {}
+    for name, fn in PROFILE_KERNELS[cell].items():
+        rows = [r for r in kernels if fn in r["name"]]
+        if not rows or not all(r["device_ms"] > 0 for r in rows):
+            raise AssertionError(f"{cell}: no {fn} with device time in {kernels}")
+        found[name] = {"device_ms": sum(r["device_ms"] for r in rows),
+                       "calls": sum(r["calls"] for r in rows)}
+    bad = [r["name"] for r in kernels if NOT_HAND.search(r["name"])]
+    if bad:
+        raise AssertionError(f"{cell}: library or plain kernels {bad}")
+    model = BigClamModel(g, BigClamConfig(num_communities=k), device=DEVICE)
+    step_s = step_time(model._step, model.init_state(F_host), steps=10, warmup=2)
+    del model
+    return {
+        "cell": cell, "kernel_path": out["kernel_path"],
+        "sec_per_step_p50_profiled": out["sec_per_step_p50"],
+        "files": files, "hand_kernels": found,
+        "top_kernels": [[r["name"][:90], r["device_ms"], r["calls"]] for r in kernels],
+        "unprofiled_step_s": step_s, "step_s_pr13": STEP_BEFORE_S[cell],
+        "step_over_pr13": step_s / STEP_BEFORE_S[cell],
+        "hbm_modeled_bytes": out.get("hbm_modeled_bytes"),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -3441,6 +3711,8 @@ def main(argv=None) -> int:
         del res
         res_full = run("resilience_full", phase_resilience_full, g, path, tmp, gi,
                        F0, main_out)
+        run("obs_memory", phase_obs_memory, gi, F0, "full")
+        run("obs_profile", phase_obs_profile, gi, path, "full", F0)
         state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
         del state
@@ -3463,6 +3735,7 @@ def main(argv=None) -> int:
         run("sweep_parity", phase_sweep_parity, tmp)
         run("mesh_parity", phase_mesh_parity, tmp)
         run("resilience_odd", phase_resilience_odd, tmp)
+        run("obs_ledger", phase_obs_ledger, tmp)
 
         t0 = time.perf_counter()
         path = os.path.join(tmp, "xl_k_graph.txt")
@@ -3480,6 +3753,10 @@ def main(argv=None) -> int:
                                  list(res.llh_history))
         kb_checks, kb_times, kb_bnd, _ = run("kb_full", phase_kb_full, g, res.F)
         kb_res_counts, _ = run("resilience_kb", phase_resilience_kb, g, res.F)
+        F_kb = np.asarray(res.F, np.float64)
+        run("obs_memory", phase_obs_memory, g, F_kb, "xl_k")
+        run("obs_profile", phase_obs_profile, g, path, "xl_k", F_kb)
+        del F_kb
         del g, res
         run("kb_odd", phase_kb_odd)
         run("kb_parity", phase_kb_parity, tmp)

@@ -2,7 +2,7 @@
 a fresh interpreter imports every module of bigclam_tpu_torch (the
 non-CSR candidate kernel's ops.edge_kernels, the K sweep's
 models.model_selection, and the observability and resilience modules
-among them) and runs `cli fit|sweep|eval --help`,
+among them) and runs every subcommand's `--help`,
 then finds no jax and no bigclam_tpu module loaded; a
 static scan finds no such import in any port file or in chip_smoke.py."""
 
@@ -35,7 +35,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
             bigclam_tpu_torch.__path__, "bigclam_tpu_torch."
         ):
             __import__(m.name)
-        for sub in ("fit", "sweep", "eval"):
+        for sub in ("fit", "sweep", "eval", "profile", "perf", "report",
+                    "watch", "preflight"):
             try:
                 cli.main([sub, "--help"])
             except SystemExit as e:
@@ -45,7 +46,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "obs.health", "obs.schema", "ops.diagnostics",
                      "resilience.faults", "resilience.retry",
                      "resilience.supervisor", "utils.checkpoint",
-                     "utils.metrics", "utils.profiling"):
+                     "utils.metrics", "utils.profiling", "obs.comms",
+                     "obs.memory", "obs.ledger", "obs.report", "obs.watch"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules

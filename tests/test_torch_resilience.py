@@ -477,11 +477,22 @@ def test_cli_checkpoint_dir_defaults_the_cadence(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--perf-ledger", "--profile-dir"])
-def test_cli_refuses_unported_observability_flags(tmp_path, flag):
+def test_cli_refuses_unported_observability_flags(tmp_path, flag, capsys):
+    """The two flags are ported now: --perf-ledger without
+    --telemetry-dir warns as the JAX CLI does (and writes nothing), and
+    --profile-dir writes its capture."""
     graph = _write_cli_graph(tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["fit", "--graph", str(graph), "--device", "cpu", flag,
-                  str(tmp_path / "x")])
+    target = tmp_path / "x"
+    assert cli.main(["fit", "--graph", str(graph), "--device", "cpu", "--k",
+                     "2", "--max-iters", "2", "--quiet", flag,
+                     str(target)]) == 0
+    err = capsys.readouterr().err
+    if flag == "--perf-ledger":
+        assert "--perf-ledger has no effect without --telemetry-dir" in err
+        assert not target.exists()
+    else:
+        assert (target / "trace.json").is_file()
+        assert (target / "key_averages.txt").is_file()
 
 
 def test_cli_fit_flags_match_the_jax_cli(tmp_path, capsys):

@@ -219,7 +219,10 @@ def test_build_events_are_compile_events(telem):
     comp = telem.report()["compiles"]
     assert comp["count"] == comp["backend_compiles"] == 1
     assert comp["loads"] == 1 and comp["backend_compile_s"] == 12.5
-    assert comp["by_key"]["nvcc:kernels"]["builds"] == 1
+    # library builds and loads are counted per library, never under the
+    # step-config keys the perf ledger digests
+    assert comp["by_library"]["nvcc:kernels"]["builds"] == 1
+    assert comp["by_key"] == {}
     ev = [e for e in _events(telem.directory) if e["kind"] == "compile"]
     assert [(e["name"], e["cached"]) for e in ev] == [
         ("nvcc:kernels", False), ("g++:native", True)]
