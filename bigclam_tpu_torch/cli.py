@@ -1,5 +1,5 @@
-"""Command line of the PyTorch port: `fit`, `sweep`, `eval`, `profile`,
-`perf`, `report`, `watch` and `preflight`.
+"""Command line of the PyTorch port: `fit`, `sweep`, `eval`, `ingest`,
+`profile`, `perf`, `report`, `watch` and `preflight`.
 
 Port of those subcommands of bigclam_tpu/cli.py.
 `fit` loads a text edge list, seeds F by conductance (or a {0,1} random /
@@ -26,6 +26,12 @@ against a ground truth (`f1`, `nmi`).
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
         --mesh 4,1 --schedule ring                             # csr_ring_fused
     python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
+    python -m bigclam_tpu_torch.cli ingest --graph g.txt --cache-dir g.cache \
+        --shards 4                                             # graph store
+    python -m bigclam_tpu_torch.cli fit --graph g.cache --k 100
+    python -m bigclam_tpu_torch.cli fit --graph g.cache --k 100 \
+        --mesh 4,1 --store-native                              # a shard a position
+    python -m bigclam_tpu_torch.cli ingest --cache-dir g.cache --delta d.txt
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 \
         --telemetry-dir run1/ --perf-ledger perf/ledger.jsonl
     python -m bigclam_tpu_torch.cli perf diff --ledger perf/ledger.jsonl
@@ -38,7 +44,8 @@ against a ground truth (`f1`, `nmi`).
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
 to start when no card is present. `fit --mesh DP,1` shards the nodes over
-the first DP cards (`--device cpu`: DP shards on the CPU) on the
+the first DP cards (fewer cards: the positions share them round-robin;
+`--device cpu`: DP shards on the CPU) on the
 all-gather schedule (`csr_fused`, `csr` with `--csr-fused off`) or, with
 `--schedule ring`, the ring (`csr_ring_fused`, `csr_ring`); `xla` on the
 CPU. Its JSON adds `mesh` ("4x1"). A K-sharded mesh (TP > 1), K above
@@ -51,9 +58,19 @@ sparse` trains the top-M member lists of models.sparse instead of a dense
 F, with the member-lookup CUDA kernel on the card (`sparse_xla`, the plain
 lookup, on the CPU); its JSON adds `sparse_m`. `--seeding-degree-cap`
 and `--seed-backend` choose the conductance scorer as in the JAX CLI
-(ops.seeding.conductance; its device backends run on `--device`); the
-port reads no graph cache, so `--seed-backend baked` exits with the JAX
-CLI's message for a text graph.
+(ops.seeding.conductance; its device backends run on `--device`).
+
+`--graph` takes a SNAP edge list or a graph-cache directory compiled by
+`ingest` (graph/store.py, the JAX package's format byte for byte);
+`--cache-dir` compiles a text `--graph` into a cache on first use and
+reloads from it after. A cache shard that fails its crc32 is quarantined
+and rebuilt from the source edge list unless `--no-self-heal`. On a cache,
+`--seed-backend auto` reads the ingest-baked conductance scores when their
+cap and seed match the run (else it notes why and scores the graph), and
+`baked` requires them. `--store-native` with `--mesh DP,1` feeds each mesh
+position from its own shard file (a cache of DP shards; balance comes from
+`ingest --balance`). `ingest` compiles a cache, or with `--delta` appends
+an edge file to one, touching no device.
 
 A fit survives and reports itself as in the JAX CLI: `--checkpoint-dir`
 saves the state every `--checkpoint-every` iterations (50 when only the
@@ -104,7 +121,21 @@ SWEEP_EPILOG = (
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     """The flags `fit` and `sweep` share."""
-    p.add_argument("--graph", required=True, help="SNAP edge-list path")
+    p.add_argument(
+        "--graph", required=True,
+        help="SNAP edge-list path, or a graph-cache dir from `ingest`",
+    )
+    p.add_argument(
+        "--cache-dir", default=None,
+        help="graph-cache directory: compile the text --graph into it on "
+             "first use (see `ingest`), then reload from the binary shards",
+    )
+    p.add_argument(
+        "--no-self-heal", action="store_true",
+        help="disable shard quarantine + re-ingest: a crc-failed cache "
+             "shard rejects the run (default: quarantine the blob, rebuild "
+             "it from the source edge list, continue)",
+    )
     p.add_argument("--max-iters", type=int, default=1000)
     p.add_argument("--conv-tol", type=float, default=1e-4)
     p.add_argument("--alpha", type=float, default=0.05)
@@ -161,8 +192,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "degree-capped estimator on the host), sampled_device (the "
              "same estimator on --device); auto: sampled when "
              "--seeding-degree-cap binds, dense where it fits, else numpy. "
-             "baked needs a graph cache with ingest-baked scores, which "
-             "the port cannot read yet",
+             "On a graph-cache --graph, auto reads the INGEST-BAKED scores "
+             "when present and matching; baked requires them (error with a "
+             "re-ingest hint otherwise)",
     )
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64"],
@@ -184,6 +216,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
         help="degree-balanced node relabeling before sharding (evens "
              "per-shard edge counts on power-law graphs; results are mapped "
              "back to original ids)",
+    )
+    p.add_argument(
+        "--store-native", action="store_true",
+        help="with --mesh DP,1 and a graph-cache --graph of DP shards: feed "
+             "each mesh position from its own shard file (StoreSharded/"
+             "StoreRing; no global CSR on the training path). Balance comes "
+             "from the cache (`ingest --balance`); trajectories are bit-"
+             "identical to the in-memory trainers on the same layout",
     )
     p.add_argument(
         "--schedule", default="allgather", choices=["allgather", "ring"],
@@ -311,8 +351,89 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--pred", required=True)
     e.add_argument("--truth", required=True)
     e.add_argument("--no-nmi", action="store_true")
+    _add_ingest_parser(sub)
     _add_obs_parsers(sub)
     return p
+
+
+def _add_ingest_parser(sub) -> None:
+    """`ingest`: the JAX CLI's flags and defaults."""
+    p = sub.add_parser(
+        "ingest",
+        help="compile a SNAP edge list into a binary graph-shard cache "
+             "(streaming, memory-bounded; reports edges/sec + peak RSS)",
+    )
+    p.add_argument(
+        "--graph", default=None,
+        help="SNAP edge-list path (required for a full compile; "
+             "ignored with --delta, which appends to an existing cache)",
+    )
+    p.add_argument("--cache-dir", required=True)
+    p.add_argument(
+        "--delta", default=None, metavar="EDGE_FILE",
+        help="append this edge file to the EXISTING --cache-dir by "
+             "rebuilding only the touched node ranges (untouched shard "
+             "blobs stay byte-identical, seed scores re-bake for touched "
+             "shards only, manifest bumps delta_seq; new node ids refuse — "
+             "re-run a full ingest)",
+    )
+    p.add_argument(
+        "--shards", type=int, default=8,
+        help="node-range shards (match the target mesh's node-shard count "
+             "for --store-native)",
+    )
+    p.add_argument(
+        "--chunk-bytes", type=int, default=64 << 20,
+        help="streaming parse chunk size — the host-RSS budget knob",
+    )
+    p.add_argument(
+        "--workers", type=int, default=0,
+        help="parallel parse workers (spawn pool; 0 = in-process)",
+    )
+    p.add_argument(
+        "--balance", action="store_true",
+        help="bake the degree-balance permutation (parallel/balance.py) "
+             "into the shards, so store-native meshes load balanced rows",
+    )
+    p.add_argument(
+        "--no-seed-bake", action="store_true",
+        help="skip baking per-node conductance seed scores into the cache "
+             "(default: bake — fit-time seeding on the cache then reads "
+             "scores instead of re-scoring the graph)",
+    )
+    p.add_argument(
+        "--seed-cap", type=int, default=None,
+        help="degree cap for the baked conductance scorer (the exact "
+             "triangle pass is edge-quadratic on hubs; same splitmix64 "
+             "estimator as --seeding-degree-cap, exact when cap >= max "
+             "degree)",
+    )
+    p.add_argument(
+        "--seed", type=int, default=0,
+        help="PRNG seed the capped scorer's sample stream derives from "
+             "(match the fit's --seed for identical rankings)",
+    )
+    p.add_argument(
+        "--no-closure-bake", action="store_true",
+        help="skip baking the per-shard-pair closure gather lists "
+             "(manifest v3; default: bake)",
+    )
+    p.add_argument(
+        "--closure-cap", type=int, default=0,
+        help="rows per (requester, contributor) closure list before the "
+             "pair degrades to the full dst block (0 = uncapped)",
+    )
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument(
+        "--telemetry-dir", default=None,
+        help="run-telemetry directory (events.jsonl + run_report.json; "
+             "no device sampling on this entry)",
+    )
+    p.add_argument(
+        "--heartbeat-s", type=float, default=300.0,
+        help="stall-heartbeat deadline with --telemetry-dir (0 disables)",
+    )
+    p.add_argument("--quiet", action="store_true")
 
 
 def _add_obs_parsers(sub) -> None:
@@ -407,8 +528,10 @@ def _add_obs_parsers(sub) -> None:
     )
     pf.add_argument(
         "--graph", default=None,
-        help="SNAP text path (+ --nodes; edges estimated from its size "
-             "unless --edges); optional when --nodes and --edges are given",
+        help="a compiled cache dir (exact manifest numbers, per-shard edge "
+             "counts included) or a SNAP text path (+ --nodes; edges "
+             "estimated from its size unless --edges); optional when "
+             "--nodes and --edges are given",
     )
     pf.add_argument("--k", type=int, required=True)
     pf.add_argument("--nodes", type=int, default=None)
@@ -440,7 +563,8 @@ def _add_obs_parsers(sub) -> None:
     pf.add_argument("--schedule", default="allgather",
                     choices=["allgather", "ring"])
     pf.add_argument("--store-native", action="store_true",
-                    help="refused: the graph store is ROADMAP item 8c")
+                    help="price the store-native mesh (a shard file per "
+                         "mesh position, no host-global CSR)")
     pf.add_argument("--partition", default="1d", choices=["1d", "2d"],
                     help="2d is refused (ROADMAP item 17)")
     pf.add_argument("--replica-cols", type=int, default=1)
@@ -516,14 +640,19 @@ def parse_mesh(text: str) -> tuple:
     return dp, tp
 
 
-def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False):
+def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
+                    store=None):
     """The sharded trainer of `schedule` on a `mesh` ('DP,TP') of the first
-    DP*TP cards, or of DP*TP shards on the CPU for device `cpu`."""
+    DP*TP cards, or of DP*TP shards on the CPU for device `cpu`; with
+    `store` (a GraphStore, --store-native) the store-backed trainer, one
+    cache shard per mesh position."""
     import torch
 
     from bigclam_tpu_torch.parallel import (
         RingBigClamModel,
         ShardedBigClamModel,
+        StoreRingBigClamModel,
+        StoreShardedBigClamModel,
         make_mesh,
     )
     from bigclam_tpu_torch.utils.device import resolve_device
@@ -536,12 +665,99 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False):
     dp, tp = parse_mesh(mesh)
     dev = resolve_device(device)
     if dev.type == "cuda":
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        devices = devices[: dp * tp]
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if len(cards) < dp * tp:
+            # a mesh of more positions than cards shares them round-robin
+            # (a device may repeat, parallel/mesh.py): the trajectory is
+            # the mesh's, the hops between shared positions are no-ops
+            print(f"note: --mesh {mesh} on {len(cards)} card(s): mesh "
+                  "positions share cards round-robin", file=sys.stderr)
+        devices = [cards[i % len(cards)] for i in range(dp * tp)]
     else:
         devices = [dev] * (dp * tp)
+    if store is not None:
+        if balance:
+            raise SystemExit(
+                "error: --store-native takes balance from the cache; "
+                "re-ingest with `cli ingest --balance` instead of --balance"
+            )
+        cls = StoreRingBigClamModel if schedule == "ring" else StoreShardedBigClamModel
+        return cls(store, cfg, make_mesh((dp, tp), devices))
     cls = RingBigClamModel if schedule == "ring" else ShardedBigClamModel
     return cls(g, cfg, make_mesh((dp, tp), devices), balance=balance)
+
+
+def store_for_model(args, cfg):
+    """The GraphStore a --store-native run trains from (None without the
+    flag), after the JAX CLI's refusals."""
+    if not getattr(args, "store_native", False):
+        return None
+    if not args.mesh:
+        raise SystemExit(
+            "error: --store-native needs a sharded run (--mesh) — the store "
+            "trainers load one shard file per mesh position"
+        )
+    if cfg.representation == "sparse":
+        raise SystemExit(
+            "error: --store-native is not supported with --representation "
+            "sparse yet (the sparse trainers build member-list state from "
+            "the in-memory graph)"
+        )
+    store = getattr(args, "_store", None)
+    if store is None:
+        raise SystemExit(
+            "error: --store-native needs --graph (or --cache-dir) to be a "
+            "compiled graph cache (run `cli ingest` first)"
+        )
+    return store
+
+
+def build_model(g, cfg, args):
+    """The trainer `fit` and `profile` run: the mesh's (store-backed with
+    --store-native) or the single device's."""
+    store = store_for_model(args, cfg)
+    if args.mesh:
+        return make_mesh_model(g, cfg, args.device, args.mesh, args.schedule,
+                               args.balance, store=store)
+    return make_model(g, cfg, args.device)
+
+
+def load_graph(args):
+    """The graph of fit, sweep and profile (JAX `_load_graph`): a text
+    --graph with --cache-dir compiles the cache once and reloads from it
+    after; a cache dir as --graph opens the store; any other text parses.
+    Cache loads self-heal crc-failed shards unless --no-self-heal. The
+    opened GraphStore (None for text) is kept on args._store for seeding
+    and --store-native."""
+    from bigclam_tpu_torch.graph import build_graph
+    from bigclam_tpu_torch.graph.store import (
+        GraphStore,
+        compile_graph_cache,
+        is_cache_dir,
+    )
+
+    heal = not getattr(args, "no_self_heal", False)
+    path = args.graph
+    cache = getattr(args, "cache_dir", None)
+    args._store = None
+    if cache and not is_cache_dir(path):
+        if not is_cache_dir(cache):
+            print(f"note: compiling graph cache {cache} from {path}",
+                  file=sys.stderr)
+            args._store = compile_graph_cache(
+                path, cache,
+                seed=getattr(args, "seed", 0),
+                # the fit's cap, so the bake runs the estimator the run
+                # will trust (ShardSeedScores.matches)
+                seed_cap=getattr(args, "seeding_degree_cap", None),
+            )
+            return args._store.load_graph()
+        args._store = GraphStore.open(cache, self_heal=heal)
+        return args._store.load_graph()
+    if is_cache_dir(path):
+        args._store = GraphStore.open(path, self_heal=heal)
+        return args._store.load_graph()
+    return build_graph(path, self_heal=heal)
 
 
 def make_model(g, cfg, device):
@@ -572,27 +788,64 @@ BAKED_REFUSAL = (
 )
 
 
-def check_seed_backend(backend: str) -> None:
-    """`baked` reads ingest-baked scores from a graph cache; the port reads
-    text edge lists only, so it exits as the JAX CLI does for a text
-    --graph."""
+def baked_phi(store, cfg, backend: str, quiet: bool = False):
+    """The ingest-baked conductance scores a conductance init reads (JAX
+    `_init_F`): on a cache under `auto` or `baked`, when the bake's cap
+    and seed match the run; None where the graph is to be scored. `baked`
+    exits where `auto` falls back with a note: on a text graph, on a cache
+    without scores, or on scores of another cap or seed."""
+    if backend not in ("auto", "baked"):
+        return None
+    if store is None:
+        if backend == "baked":
+            raise SystemExit(BAKED_REFUSAL)
+        return None
+    try:
+        scores = store.load_seed_scores()
+    except ValueError as e:
+        if backend == "baked":
+            raise SystemExit(f"error: {e}")
+        if not quiet:
+            print(f"note: {e}; falling back to the streaming conductance "
+                  "pass", file=sys.stderr)
+        return None
+    if scores.matches(cfg.seeding_degree_cap, cfg.seed):
+        if not quiet:
+            print("[bigclam] seeding: using ingest-baked seed scores from "
+                  "the graph cache", file=sys.stderr)
+        return scores.phi
+    # the bake's estimator disagrees with this run's seeding config:
+    # using it would change the ranking against the same fit on the text
+    msg = (
+        f"baked seed scores (cap={scores.cap}, seed={scores.seed}) do not "
+        f"match this run (--seeding-degree-cap {cfg.seeding_degree_cap}, "
+        f"--seed {cfg.seed}); re-ingest with matching --seed-cap/--seed"
+    )
     if backend == "baked":
-        raise SystemExit(BAKED_REFUSAL)
+        raise SystemExit(f"error: {msg}")
+    if not quiet:
+        print(f"note: {msg} — falling back to the streaming conductance "
+              "pass", file=sys.stderr)
+    return None
 
 
-def init_F(g, cfg, init: str, backend: str = "auto",
-           device=None) -> Optional[np.ndarray]:
+def init_F(g, cfg, init: str, backend: str = "auto", device=None,
+           store=None, quiet: bool = False) -> Optional[np.ndarray]:
     """Host F0 for `--init`; None for rowkeyed (the model generates it).
-    Conductance seeding scores with `backend`, its device backends on
-    `device`."""
+    Conductance seeding reads the store's baked scores where baked_phi
+    gives them, else scores with `backend` (`auto` for `baked`), its
+    device backends on `device`."""
     from bigclam_tpu_torch.models.bigclam import random_init_F
     from bigclam_tpu_torch.ops import seeding
 
     if init == "rowkeyed":
         return None
     if init == "conductance":
-        check_seed_backend(backend)
-        seeds = seeding.conductance_seeds(g, cfg, backend=backend, device=device)
+        phi = baked_phi(store, cfg, backend, quiet)
+        seeds = seeding.conductance_seeds(
+            g, cfg, backend="auto" if backend == "baked" else backend,
+            phi=phi, device=device,
+        )
         return seeding.init_F(g, seeds, cfg)
     return random_init_F(g, cfg)
 
@@ -672,7 +925,6 @@ def fit(args):
 
 
 def _fit(args, tel):
-    from bigclam_tpu_torch.graph.ingest import build_graph
     from bigclam_tpu_torch.models.bigclam import FitResult
     from bigclam_tpu_torch.obs import trace
     from bigclam_tpu_torch.ops import extraction
@@ -687,15 +939,12 @@ def _fit(args, tel):
     # watermark + heartbeat beat) when --telemetry-dir is active
     prof = StageProfile()
     with prof.stage("graph"):
-        g = build_graph(args.graph)
+        g = load_graph(args)
     with prof.stage("model_build"):
-        if args.mesh:
-            model = make_mesh_model(g, cfg, args.device, args.mesh,
-                                    args.schedule, args.balance)
-        else:
-            model = make_model(g, cfg, args.device)
+        model = build_model(g, cfg, args)
     with prof.stage("seeding"):
-        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
+        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device,
+                    store=args._store, quiet=args.quiet)
     with prof.stage("upload"):
         state0 = model.init_state(F0)
     if tel is not None:
@@ -793,12 +1042,14 @@ def sweep(args, callback=None) -> dict:
 
 
 def _sweep(args, callback, tel) -> dict:
-    from bigclam_tpu_torch.graph.ingest import build_graph
     from bigclam_tpu_torch.models.model_selection import sweep_k
 
     cfg = config_from_args(args)
-    check_seed_backend(args.seed_backend)
-    g = build_graph(args.graph)
+    store_for_model(args, cfg)          # refuses --store-native (no --mesh)
+    g = load_graph(args)
+    # the sweep seeds once, at K_max, with the same seeding config
+    phi = baked_phi(args._store, cfg, args.seed_backend,
+                    getattr(args, "quiet", False))
 
     def per_k(k, llh):
         if tel is not None:
@@ -820,7 +1071,8 @@ def _sweep(args, callback, tel) -> dict:
             callback=per_k,
             state_dir=args.checkpoint_dir,
             resume=args.resume != "never" or not first,
-            seed_backend=args.seed_backend,
+            seed_backend="auto" if args.seed_backend == "baked" else args.seed_backend,
+            phi=phi,
         )
 
     from bigclam_tpu_torch.utils.profiling import trace as capture
@@ -854,6 +1106,100 @@ def evaluate(args) -> dict:
     return out
 
 
+def ingest(args) -> int:
+    """Run `ingest` (JAX `cmd_ingest`): compile a SNAP edge list into a
+    binary shard cache out of core, or with --delta append an edge file to
+    an existing cache by rebuilding only the touched shards. A host stage:
+    it touches no device. Prints one JSON line with the JAX entry's keys
+    (the IngestProfile's stages, counts and RSS included)."""
+    tel = open_telemetry(args, "ingest")
+    try:
+        return _ingest(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _ingest(args, tel) -> int:
+    from bigclam_tpu_torch.graph.store import (
+        GraphStore,
+        compile_graph_cache,
+        is_cache_dir,
+    )
+    from bigclam_tpu_torch.utils.profiling import IngestProfile
+
+    if args.delta:
+        if not is_cache_dir(args.cache_dir):
+            print(f"error: --delta needs an existing compiled cache at "
+                  f"{args.cache_dir} (run a full ingest first)",
+                  file=sys.stderr)
+            return 1
+        store = GraphStore.open(args.cache_dir)
+        prof = IngestProfile()
+        try:
+            info = store.apply_delta(args.delta,
+                                     seed_rebake=not args.no_seed_bake,
+                                     profile=prof)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        out = {
+            "cache_dir": args.cache_dir,
+            "delta": info["delta_path"],
+            "delta_seq": info["delta_seq"],
+            "edges_added": info["edges_added"],
+            "edges": info["num_directed_edges"] // 2,
+            "touched_shards": info["touched_shards"],
+            "touched_rows": int(info["touched_rows"].size),
+            "touched_frac": info["touched_frac"],
+            "phi_rebaked_shards": info["phi_rebaked_shards"],
+            "files_read": list(info["files_read"]),
+            "seconds": info["seconds"],
+            **prof.report(),
+        }
+    else:
+        if not args.graph:
+            print("error: a full ingest needs --graph (pass --delta to "
+                  "append to an existing cache instead)", file=sys.stderr)
+            return 1
+        if is_cache_dir(args.cache_dir) and not args.overwrite:
+            print(f"{args.cache_dir}: already compiled (use --overwrite to "
+                  "rebuild, or --delta to append an edge file)",
+                  file=sys.stderr)
+            return 1
+        if args.balance:
+            # imported before the profile's RSS baseline, so the reported
+            # delta measures the streaming build, not the import
+            import bigclam_tpu_torch.parallel.balance  # noqa: F401
+        prof = IngestProfile()
+        store = compile_graph_cache(
+            args.graph, args.cache_dir, num_shards=args.shards,
+            chunk_bytes=args.chunk_bytes, workers=args.workers,
+            balance=args.balance, overwrite=args.overwrite, profile=prof,
+            seed_bake=not args.no_seed_bake, seed_cap=args.seed_cap,
+            seed=args.seed, closure_bake=not args.no_closure_bake,
+            closure_cap=max(args.closure_cap or 0, 0),
+        )
+        out = {
+            "cache_dir": args.cache_dir,
+            "n": store.num_nodes,
+            "edges": store.num_directed_edges // 2,
+            "shards": store.num_shards,
+            "balanced": store.balanced,
+            # from the manifest, not the flag: the work guard can skip an
+            # uncapped bake on hub-heavy graphs
+            "seed_baked": store.manifest.get("seed_scores", {}).get(
+                "baked", False),
+            "closure_baked": store.manifest.get("closure", {}).get(
+                "baked", False),
+            "chunk_bytes": args.chunk_bytes,
+            **prof.report(),
+        }
+    if tel is not None:
+        tel.set_final(out)
+    print(json.dumps(out))
+    return 0
+
+
 def profile(args) -> dict:
     """Run `profile`: N steps under a torch.profiler capture, each in a
     step annotation and a span, their timings into the telemetry and the
@@ -874,7 +1220,6 @@ def _profile(args, tel) -> dict:
 
     import torch
 
-    from bigclam_tpu_torch.graph.ingest import build_graph
     from bigclam_tpu_torch.obs import trace as obs_trace
     from bigclam_tpu_torch.utils.metrics import MetricsLogger
     from bigclam_tpu_torch.utils.profiling import StageProfile, trace
@@ -889,15 +1234,12 @@ def _profile(args, tel) -> dict:
     cfg = config_from_args(args).replace(max_iters=args.steps, conv_tol=0.0)
     prof = StageProfile()
     with prof.stage("graph_load"):
-        g = build_graph(args.graph)
+        g = load_graph(args)
     with prof.stage("model_build"):
-        if args.mesh:
-            model = make_mesh_model(g, cfg, args.device, args.mesh,
-                                    args.schedule, args.balance)
-        else:
-            model = make_model(g, cfg, args.device)
+        model = build_model(g, cfg, args)
     with prof.stage("seeding"):
-        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device)
+        F0 = init_F(g, cfg, args.init, args.seed_backend, args.device,
+                    store=args._store, quiet=args.quiet)
     pdir = args.profile_dir or (
         os.path.join(args.telemetry_dir, "profile")
         if args.telemetry_dir else "bigclam_profile"
@@ -1054,50 +1396,77 @@ def preflight(args) -> int:
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.obs import memory as M
 
+    from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
+
     refused = []
     if args.serve:
         refused.append("--serve: serve preflight comes with serving "
                        "(ROADMAP queue 1 item 12)")
-    if args.store_native:
-        refused.append("--store-native: needs the graph store (ROADMAP "
-                       "queue 1 items 8c and 14)")
     if args.partition == "2d":
         refused.append("--partition 2d: the 2D partition is ROADMAP queue "
                        "1 item 17")
-    if args.graph and os.path.isdir(args.graph):
-        refused.append(f"--graph {args.graph}: a cache directory needs the "
-                       "graph store (ROADMAP queue 1 item 8c)")
+    if args.store_native and not args.mesh:
+        refused.append("--store-native: the store trainers run on a mesh "
+                       "(pass --mesh DP,1)")
     if refused:
         for r in refused:
             print(f"error: not ported yet: {r}", file=sys.stderr)
         return 1
     notes = []
-    if args.graph:
+    shard_counts = None
+    cache_shards = 0
+    if args.graph and is_cache_dir(args.graph):
+        # the exact numbers of the cache's manifest, no blob read
+        w = GraphStore.open(args.graph).workload()
+        n = args.nodes or w["n"]
+        directed = 2 * args.edges if args.edges else w["directed_edges"]
+        shard_counts = w["shard_edge_counts"]
+        cache_shards = w["num_shards"]
+    elif args.graph:
         if not os.path.isfile(args.graph):
-            print(f"error: --graph {args.graph}: no such file",
+            print(f"error: --graph {args.graph}: no such file or cache dir",
                   file=sys.stderr)
             return 1
         if not args.nodes:
             print("error: a text --graph carries no manifest — pass --nodes "
-                  "(and ideally --edges)", file=sys.stderr)
+                  "(and ideally --edges), or `cli ingest` it first and "
+                  "preflight the cache", file=sys.stderr)
             return 1
+        n = args.nodes
         if args.edges:
             directed = 2 * args.edges
         else:
             directed = 2 * max(os.path.getsize(args.graph) // 13, 1)
             notes.append("edge count estimated from file size (~13 B/line); "
-                         "pass --edges for exact numbers")
+                         "pass --edges or preflight a compiled cache for "
+                         "exact numbers")
     elif args.nodes and args.edges:
+        n = args.nodes
         directed = 2 * args.edges
     else:
         print("error: pass --nodes and --edges (or a text --graph with "
-              "--nodes)", file=sys.stderr)
+              "--nodes, or a cache dir)", file=sys.stderr)
         return 1
-    n = args.nodes
     if args.mesh:
         dp, tp = parse_mesh(args.mesh)
     else:
         dp, tp = max(args.devices, 1), 1
+    if shard_counts:
+        # the cache's per-shard counts summed into the trainer's dp groups
+        # of contiguous shards (dp = 1: one device holds every shard)
+        if len(shard_counts) % dp == 0:
+            per = len(shard_counts) // dp
+            shard_counts = [sum(shard_counts[i * per:(i + 1) * per])
+                            for i in range(dp)]
+        else:
+            notes.append(
+                f"cache has {len(shard_counts)} shards, not divisible by "
+                f"dp={dp}: per-shard counts estimated (recompile with "
+                f"--shards {dp} for exact geometry)")
+            shard_counts = None
+    if args.store_native and cache_shards != dp:
+        notes.append(f"--store-native trains from a cache of exactly dp={dp} "
+                     f"shards (`cli ingest --shards {dp}`)")
     hbm = 0.0
     if args.hbm_bytes:
         hbm = float(args.hbm_bytes)
@@ -1126,6 +1495,7 @@ def preflight(args) -> int:
             edge_chunk=args.edge_chunk or BigClamConfig.edge_chunk,
             device_hbm_bytes=hbm, host_ram_bytes=host_ram,
             processes=max(args.processes, 1), chunk_bytes=args.chunk_bytes,
+            shard_edge_counts=shard_counts, store_native=args.store_native,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -1140,9 +1510,9 @@ def preflight(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command in ("perf", "report", "watch", "preflight"):
+    if args.command in ("perf", "report", "watch", "preflight", "ingest"):
         return {"perf": perf, "report": report, "watch": watch,
-                "preflight": preflight}[args.command](args)
+                "preflight": preflight, "ingest": ingest}[args.command](args)
     from bigclam_tpu_torch.utils.profiling import NoDeviceKernelsError
 
     try:

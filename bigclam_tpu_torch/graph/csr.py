@@ -16,6 +16,17 @@ import numpy as np
 import torch
 
 
+def host_tensor(a, dtype, device=None) -> torch.Tensor:
+    """`a` as a torch tensor of numpy `dtype` on `device`, uploaded from a
+    contiguous, writable host array: a graph-cache load hands back
+    read-only memmaps (GraphStore.load_graph(mmap=True)), which
+    torch.as_tensor would warn about and, on the CPU, share."""
+    a = np.asarray(a, dtype)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C", copy=True)
+    return torch.from_numpy(a).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Undirected simple graph in CSR form.
@@ -84,10 +95,10 @@ class Graph:
 
     def to_device(self, device: Optional[torch.device]) -> "DeviceCSR":
         return DeviceCSR(
-            indptr=torch.as_tensor(np.asarray(self.indptr, np.int64), device=device),
-            indices=torch.as_tensor(np.asarray(self.indices, np.int32), device=device),
-            src=torch.as_tensor(self.src.astype(np.int64), device=device),
-            dst=torch.as_tensor(self.indices.astype(np.int64), device=device),
+            indptr=host_tensor(self.indptr, np.int64, device),
+            indices=host_tensor(self.indices, np.int32, device),
+            src=host_tensor(self.src, np.int64, device),
+            dst=host_tensor(self.indices, np.int64, device),
         )
 
 

@@ -1,11 +1,11 @@
 """SNAP edge-list ingest: parse -> remap -> symmetrize -> dedup -> CSR.
 
 Copied from bigclam_tpu/graph/ingest.py (`load_edge_list`,
-`dedup_directed`, `graph_from_edges`) and the parse grammar of
-bigclam_tpu/graph/stream.py (`parse_bytes`). The file is parsed by the
-native library's `bc_parse_edge_list` (graph/native), or, where that
-library is unavailable, by one numpy parse of the whole file
-(`parse_bytes`); the graph cache/store is a later slice.
+`dedup_directed`, `graph_from_edges`, `build_graph`). The file is parsed
+by the native library's `bc_parse_edge_list` (graph/native), or, where
+that library is unavailable, by the streaming scanner of graph/stream.py.
+`build_graph` also opens a graph-cache directory compiled by `cli ingest`
+(graph/store.py): binary shards, no parse, remap or dedup.
 
 Format: SNAP edge lists — ``#``-prefixed comment lines, then one
 whitespace-separated integer pair per line. Self-loops are dropped;
@@ -19,35 +19,20 @@ import numpy as np
 
 from bigclam_tpu_torch.graph import native
 from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.graph.stream import load_edge_list_streaming, parse_bytes
 
-
-def parse_bytes(data: bytes, where: str = "") -> np.ndarray:
-    """Parse whole lines of a SNAP edge list into an (M, 2) int64 array
-    (``#``-prefixed comment lines and blank lines dropped)."""
-    lines = data.split(b"\n")
-    body = b" ".join(
-        ln for ln in lines if ln.strip() and not ln.lstrip().startswith(b"#")
-    )
-    if not body:
-        return np.empty((0, 2), dtype=np.int64)
-    flat = np.array(body.split(), dtype=np.int64)
-    if flat.size % 2 != 0:
-        raise ValueError(
-            f"{where or 'edge list'}: expected an even number of integers, "
-            f"got {flat.size}"
-        )
-    return flat.reshape(-1, 2)
+__all__ = ["build_graph", "dedup_directed", "graph_from_edges",
+           "load_edge_list", "parse_bytes"]
 
 
 def load_edge_list(path: str) -> np.ndarray:
     """Parse a SNAP edge-list file into an (M, 2) int64 array of raw id
-    pairs: natively, else with parse_bytes."""
+    pairs: natively, else with the streaming scanner."""
     try:
         return native.parse_edge_list(path)
     except native.NativeUnavailableError:
         pass
-    with open(path, "rb") as f:
-        return parse_bytes(f.read(), where=path)
+    return load_edge_list_streaming(path)
 
 
 def dedup_directed(both: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -100,6 +85,14 @@ def graph_from_edges(pairs: np.ndarray, num_nodes: int | None = None) -> Graph:
     return Graph(indptr=indptr, indices=dst.astype(np.int32), raw_ids=raw_ids)
 
 
-def build_graph(path: str) -> Graph:
-    """Load a graph from a SNAP edge-list text file."""
+def build_graph(path: str, self_heal: bool = False) -> Graph:
+    """Load a graph: a SNAP edge-list file (parse + remap + dedup) or a
+    graph-cache directory compiled by `cli ingest` (binary reload).
+    `self_heal` lets a cache quarantine and rebuild a crc-failed shard
+    from its source edge list (graph.store.GraphStore) instead of
+    rejecting the whole cache."""
+    from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
+
+    if is_cache_dir(path):
+        return GraphStore.open(path, self_heal=self_heal).load_graph()
     return graph_from_edges(load_edge_list(path))

@@ -105,6 +105,7 @@ def sweep_k(
     resume: bool = True,
     device=None,
     seed_backend: str = "auto",
+    phi: Optional[np.ndarray] = None,
 ) -> SweepResult:
     """Train across the K grid and pick KforC (bigclam4-7.scala:244-266).
 
@@ -120,7 +121,8 @@ def sweep_k(
     resume=False), deleted once the K is journaled. callback(k, llh) is called for
     every K the sweep reaches, journaled or trained. The seeds come from
     ops.seeding.conductance_seeds at K_max with cfg.seeding_degree_cap and
-    the `seed_backend` scorer, its device backends on the model's device.
+    the `seed_backend` scorer, its device backends on the model's device,
+    or from `phi` (a graph cache's ingest-baked scores) where given.
     """
     check_sweep_supported(cfg, device_annealing)
     kset = build_kset(cfg.min_com, cfg.max_com, cfg.div_com)
@@ -141,7 +143,7 @@ def sweep_k(
             k: np.random.default_rng(int(s)) for k, s in zip(kset, child)
         }
     seeds = seeding.conductance_seeds(                # once, at K_max
-        g, cfg_max, backend=seed_backend, device=model.device
+        g, cfg_max, backend=seed_backend, phi=phi, device=model.device
     )
 
     llh_by_k: Dict[int, float] = {}

@@ -890,6 +890,7 @@ def preflight(
     processes: int = 1,
     chunk_bytes: int = 0,
     csr_k_block: int = 0,
+    store_native: bool = False,
 ) -> Dict[str, Any]:
     """The capacity verdict of `cli preflight` for the port's paths: the
     memory and comms models the trainer would bake, from workload numbers
@@ -1000,9 +1001,9 @@ def preflight(
 
     host = host_rss_model(
         n, directed_edges, k, itemsize, n_pad=n_pad, k_pad=k_pad,
-        processes=processes, num_shards=max(dp, 1),
-        chunk_bytes=chunk_bytes, representation=representation,
-        sparse_m=m,
+        store_native=store_native, processes=processes,
+        num_shards=max(dp, 1), chunk_bytes=chunk_bytes,
+        representation=representation, sparse_m=m,
     )
 
     # --- verdict: which constraint binds? ---
@@ -1060,8 +1061,9 @@ def preflight(
         knobs.append(
             "the binding host stage is "
             + (dom.stage if dom is not None else "?")
-            + ": no port knob relaxes it yet (--store-native waits for the "
-              "graph store, ROADMAP queue 1 item 8c)"
+            + (": --store-native (a shard file per mesh position) drops the "
+               "host-global graph" if not store_native and dp > 1 else
+               ": no port knob relaxes it")
         )
 
     return {
@@ -1076,7 +1078,7 @@ def preflight(
             "kernel_path": path,
             "k_pad": int(k_pad),
             "schedule": schedule,
-            "store_native": False,
+            "store_native": bool(store_native),
             "itemsize": itemsize,
             "shard_counts_known": counts_known,
         },

@@ -42,7 +42,7 @@ import torch
 
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph import native
-from bigclam_tpu_torch.graph.csr import Graph
+from bigclam_tpu_torch.graph.csr import Graph, host_tensor
 from bigclam_tpu_torch.utils.device import disable_tf32, resolve_device
 
 # the dense (N, N) device adjacency's node bound
@@ -97,8 +97,7 @@ def triangle_counts_dense_device(g: Graph, device=None) -> np.ndarray:
     disable_tf32()
     n = g.num_nodes
     A = torch.zeros((n, n), dtype=torch.float32, device=dev)
-    A[torch.as_tensor(g.src, device=dev).long(),
-      torch.as_tensor(g.dst, device=dev).long()] = 1.0
+    A[host_tensor(g.src, np.int64, dev), host_tensor(g.dst, np.int64, dev)] = 1.0
     tri = ((A @ A) * A).sum(dim=1) / 2.0
     return torch.round(tri).to(torch.int64).cpu().numpy()
 

@@ -1,11 +1,16 @@
 """Sharded training on a device mesh (tp = 1, single host): the all-gather
-schedule (parallel.sharded) and the ring schedule (parallel.ring)."""
+schedule (parallel.sharded) and the ring schedule (parallel.ring), each
+also fed from a compiled graph cache, one shard file per mesh position."""
 
 from bigclam_tpu_torch.parallel.mesh import Mesh, make_mesh
-from bigclam_tpu_torch.parallel.ring import RingBigClamModel
-from bigclam_tpu_torch.parallel.sharded import MeshNotPortedError, ShardedBigClamModel
+from bigclam_tpu_torch.parallel.ring import RingBigClamModel, StoreRingBigClamModel
+from bigclam_tpu_torch.parallel.sharded import (
+    MeshNotPortedError,
+    ShardedBigClamModel,
+    StoreShardedBigClamModel,
+)
 
 __all__ = [
     "Mesh", "MeshNotPortedError", "RingBigClamModel", "ShardedBigClamModel",
-    "make_mesh",
+    "StoreRingBigClamModel", "StoreShardedBigClamModel", "make_mesh",
 ]

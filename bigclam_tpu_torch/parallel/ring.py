@@ -32,6 +32,7 @@ them in torch.
 
 from __future__ import annotations
 
+import os
 import sys
 import warnings
 from typing import Callable, List
@@ -54,10 +55,13 @@ from bigclam_tpu_torch.ops.ring_kernels import (
 from bigclam_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
 from bigclam_tpu_torch.parallel.sharded import (
     ShardedBigClamModel,
+    StoreBacked,
+    _StoreGraphView,
     armijo_tail_select_sharded,
     device_csr,
     finish_step,
     psum,
+    shard_edges,
 )
 
 # a bucket holding more than this multiple of the mean marks the id space
@@ -80,22 +84,44 @@ def ring_bucket_imbalance(g: Graph, dp: int, n_pad: int) -> tuple:
     )
 
 
-def _warn_bucket_imbalance(g: Graph, dp: int, max_count: int) -> None:
+def _warn_bucket_imbalance(num_directed_edges: int, dp: int, max_count: int,
+                           hint: str) -> None:
     """Warn when one bucket holds more than RING_IMBALANCE_FACTOR x the
     mean: a locality-ordered id space (contiguous communities, BFS orders)
     puts ~all of a shard's edges in its diagonal bucket, and then the
     shards' edge counts are as uneven as their id ranges' degree sums.
     Reached only with balance=False: the default build relabels on the
     same rule."""
-    mean_count = max(float(g.src.size) / (dp * dp), 1.0)
+    mean_count = max(float(num_directed_edges) / (dp * dp), 1.0)
     if max_count > RING_IMBALANCE_FACTOR * mean_count:
         warnings.warn(
             f"ring phase buckets are imbalanced: max {max_count} vs mean "
             f"{mean_count:.0f} edges/bucket. Node ids look locality-ordered; "
-            "relabel (balance=True or the default balance=None auto rule) "
-            "or shuffle ids before the ring schedule.",
-            stacklevel=5,                 # the caller of RingBigClamModel()
+            f"{hint} before the ring schedule.",
+            # the caller of the model's class, the first frame outside
+            # this package
+            skip_file_prefixes=(os.path.dirname(__file__),),
         )
+
+
+def shard_ring_buckets(indptr: np.ndarray, indices: np.ndarray, i: int,
+                       dp: int, rows: int) -> list:
+    """Bucket shard i's CSR (rows local, destinations GLOBAL) by
+    destination shard: bucket r = (indptr (rows+1,) int64, indices int32)
+    holding the edges whose destinations live in shard (i + r) % dp, with
+    the destination as its row in that shard. Each bucket keeps CSR
+    (src-sorted) order."""
+    indptr = np.asarray(indptr, np.int64)
+    dst = np.asarray(indices).astype(np.int64)
+    src = np.repeat(np.arange(rows, dtype=np.int64), np.diff(indptr))
+    phase = (dst // rows - i) % dp
+    out = []
+    for r in range(dp):
+        sel = phase == r
+        b_indptr = np.zeros(rows + 1, dtype=np.int64)
+        np.cumsum(np.bincount(src[sel], minlength=rows), out=b_indptr[1:])
+        out.append((b_indptr, (dst[sel] - ((i + r) % dp) * rows).astype(np.int32)))
+    return out
 
 
 def ring_shard_edges(g: Graph, dp: int, n_pad: int) -> list:
@@ -107,23 +133,10 @@ def ring_shard_edges(g: Graph, dp: int, n_pad: int) -> list:
     mod dp) and each bucket keeps CSR (src-sorted) order; no bucket is
     padded."""
     rows = n_pad // dp
-    src_shard = g.src.astype(np.int64) // rows
-    dst_shard = g.dst.astype(np.int64) // rows
-    key = src_shard * dp + (dst_shard - src_shard) % dp
-    order = np.argsort(key, kind="stable")         # CSR order within a bucket
-    bounds = np.searchsorted(key[order], np.arange(dp * dp + 1))
-    buckets = []
-    for i in range(dp):
-        row = []
-        for r in range(dp):
-            sel = order[bounds[i * dp + r] : bounds[i * dp + r + 1]]
-            src = g.src[sel].astype(np.int64) - i * rows
-            indptr = np.zeros(rows + 1, dtype=np.int64)
-            np.cumsum(np.bincount(src, minlength=rows), out=indptr[1:])
-            dst = g.dst[sel].astype(np.int64) - ((i + r) % dp) * rows
-            row.append((indptr, dst.astype(np.int32)))
-        buckets.append(row)
-    return buckets
+    return [
+        shard_ring_buckets(indptr, indices, i, dp, rows)
+        for i, (indptr, indices) in enumerate(shard_edges(g, dp, n_pad))
+    ]
 
 
 # kernel #8's visit orders of a bucket's rows (visit_order) and the one the
@@ -317,6 +330,10 @@ class RingBigClamModel(ShardedBigClamModel):
                 )
         super().__init__(g, cfg, mesh, balance=balance)
 
+    # what evens the phase buckets, named by the imbalance warning
+    _ring_balance_hint = ("relabel (balance=True or the default balance=None "
+                          "auto rule) or shuffle ids")
+
     @property
     def engaged_path(self) -> str:
         """`csr_ring_fused` / `csr_ring` where the kernels engage (the JAX
@@ -326,26 +343,37 @@ class RingBigClamModel(ShardedBigClamModel):
         return "csr_ring_fused" if csr_fused_want(self.cfg) else "csr_ring"
 
     def _build_edges_and_step(self) -> None:
+        """Each position's phase buckets (shard_ring_buckets) from its CSR
+        (_position_shards), uploaded a position at a time."""
         dp = len(self.devices)
-        _warn_bucket_imbalance(
-            self.g, dp, ring_bucket_imbalance(self.g, dp, self.n_pad)[0]
-        )
-        host = ring_shard_edges(self.g, dp, self.n_pad)
-        self.buckets = [
-            [device_csr(indptr, indices, d) for indptr, indices in host[i]]
-            for i, d in enumerate(self.devices)
-        ]
+        rows = self.n_pad // dp
+        self.buckets = []
+        max_count = 0
+        for i, (indptr, indices) in self._position_shards():
+            host = shard_ring_buckets(indptr, indices, i, dp, rows)
+            max_count = max([max_count] + [ix.shape[0] for _, ix in host])
+            self.buckets.append(
+                [device_csr(ip, ix, self.devices[i]) for ip, ix in host]
+            )
+        _warn_bucket_imbalance(self.g.num_directed_edges, dp, max_count,
+                               self._ring_balance_hint)
         self.set_visit_order(VISIT_ORDER)
         self.rebuild_step()
+
+    def _balance_perm(self):
+        """The balance relabeling (original id -> trainer row), or None
+        when rows were never relabeled."""
+        return self._perm
 
     def set_visit_order(self, how: str) -> None:
         """Give every bucket kernel #8's visit order `how` (visit_order; the
         pre-balance rank of a row is its node's original id), in place, so a
         built step takes it too."""
+        perm = self._balance_perm()
         rank = None
-        if self._perm is not None:
+        if perm is not None:
             rank = np.arange(self.n_pad)
-            rank[self._perm] = np.arange(self._perm.shape[0])
+            rank[perm] = np.arange(perm.shape[0])
         rows = self.n_pad // len(self.devices)
         for i, row in enumerate(self.buckets):
             shard_rank = None if rank is None else rank[i * rows : (i + 1) * rows]
@@ -399,3 +427,27 @@ class RingBigClamModel(ShardedBigClamModel):
             rollback=int(cfg.rollback_budget or 0) > 0,
             comms=self.comms, model=type(self).__name__,
         )
+
+
+class StoreRingBigClamModel(StoreBacked, RingBigClamModel):
+    """The ring trainer fed from a compiled graph cache, one shard file
+    per mesh position (JAX `StoreRingBigClamModel`): position s buckets
+    its phases from its own shard's CSR, so no global CSR is assembled.
+    On a balanced cache (`cli ingest --balance`) the cache's balance
+    permutation (store.load_perm) gives the pre-balance ranks of kernel
+    #8's visit order, which is then the in-memory balanced build's.
+    Trajectories are bit for bit RingBigClamModel's on the same layout:
+    balance=False on the cache's graph, or balance=True on the text graph
+    for a balanced cache."""
+
+    _ring_balance_hint = StoreBacked._balance_hint
+
+    def __init__(self, store, cfg: BigClamConfig, mesh: Mesh,
+                 verify: bool = True):
+        self._store_init(store, mesh, verify)
+        # balance=False skips the in-memory auto-probe (it needs g.src);
+        # the build warns from its own buckets instead
+        super().__init__(_StoreGraphView(store), cfg, mesh, balance=False)
+
+    def _balance_perm(self):
+        return self.store.load_perm(verify=self._shard_verify)

@@ -27,6 +27,15 @@ on one of three kernel paths, named as in the JAX package:
   CPU path and the float64 oracle.
 
 tp > 1 and K-blocked meshes are refused by name (MeshNotPortedError).
+
+`StoreShardedBigClamModel` (JAX `StoreShardedBigClamModel`) trains the
+same step from a compiled graph cache (graph/store.py) with one cache
+shard per mesh position: position s builds its CSR from
+`store.load_shard(s, dp)` alone, so no global CSR is assembled for the
+trainer. The cache's rows_per_shard, ceil(max(N, S) / S), is the trainer's
+n_pad / dp when S = dp, so a shard file is exactly one position's rows.
+The JAX tile layout has no counterpart (the kernels read the CSR), so its
+block-alignment rule and cross-host tile pad do not apply.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from bigclam_tpu_torch.config import BigClamConfig
-from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph
+from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph, host_tensor
 from bigclam_tpu_torch.models.bigclam import (
     CSR_K_MULTIPLE,
     FitResult,
@@ -50,6 +59,7 @@ from bigclam_tpu_torch.models.bigclam import (
     fit_with_resume,
     restore_checkpoint,
     rowkeyed_init_F,
+    rowkeyed_init_rows,
 )
 from bigclam_tpu_torch.obs import comms as _comms
 from bigclam_tpu_torch.obs import memory as _mem
@@ -113,13 +123,12 @@ def shard_edges(g: Graph, dp: int, n_pad: int) -> list:
 def device_csr(indptr: np.ndarray, indices: np.ndarray, device) -> DeviceCSR:
     """A DeviceCSR on `device` from host (indptr, indices) arrays."""
     indptr = np.asarray(indptr, np.int64)
-    indices = np.asarray(indices)
     src = np.repeat(np.arange(len(indptr) - 1, dtype=np.int64), np.diff(indptr))
     return DeviceCSR(
-        indptr=torch.as_tensor(indptr, device=device),
-        indices=torch.as_tensor(indices.astype(np.int32), device=device),
-        src=torch.as_tensor(src, device=device),
-        dst=torch.as_tensor(indices.astype(np.int64), device=device),
+        indptr=host_tensor(indptr, np.int64, device),
+        indices=host_tensor(indices, np.int32, device),
+        src=host_tensor(src, np.int64, device),
+        dst=host_tensor(indices, np.int64, device),
     )
 
 
@@ -329,13 +338,15 @@ class ShardedBigClamModel(MemoryAccountedModel):
             return "xla"
         return "csr_fused" if csr_fused_want(self.cfg) else "csr"
 
+    def _position_shards(self):
+        """(position, (indptr, indices)): each mesh position's CSR over its
+        rows, destinations global (shard_edges)."""
+        return enumerate(shard_edges(self.g, len(self.devices), self.n_pad))
+
     def _build_edges_and_step(self) -> None:
-        dp = len(self.devices)
         self.shard_csr = [
-            device_csr(indptr, indices, d)
-            for (indptr, indices), d in zip(
-                shard_edges(self.g, dp, self.n_pad), self.devices
-            )
+            device_csr(indptr, indices, self.devices[i])
+            for i, (indptr, indices) in self._position_shards()
         ]
         self.rebuild_step()
 
@@ -369,6 +380,12 @@ class ShardedBigClamModel(MemoryAccountedModel):
         state is dropped)."""
         return _comms.measured_step(self.comms, self._step, state)[0]
 
+    # what evens the shards' edge counts, named by the balance telemetry
+    _balance_hint = "relabel (--balance)"
+
+    def _shard_edge_counts(self) -> np.ndarray:
+        return shard_edge_counts(self.g.src, self.n_pad, len(self.devices))
+
     def _emit_balance(self) -> None:
         from bigclam_tpu_torch.obs import telemetry as _obs
 
@@ -376,8 +393,8 @@ class ShardedBigClamModel(MemoryAccountedModel):
             return
         dp = len(self.devices)
         _comms.emit_shard_balance(
-            "shard_edges", shard_edge_counts(self.g.src, self.n_pad, dp), dp,
-            hint="relabel (--balance)", model=type(self).__name__, dp=dp,
+            "shard_edges", self._shard_edge_counts(), dp,
+            hint=self._balance_hint, model=type(self).__name__, dp=dp,
         )
 
     def _position_graph(self, positions) -> dict:
@@ -578,3 +595,127 @@ class ShardedBigClamModel(MemoryAccountedModel):
         """The convergence loop on a resident state; returns (final_state,
         final_llh, num_iters, llh_history) without fetching F."""
         return fit_with_resume(self, state, callback, None, checkpoints, resume)
+
+
+# --------------------------------------------------------------------------
+# store-backed trainers: one cache shard per mesh position
+# --------------------------------------------------------------------------
+
+
+class _StoreGraphView:
+    """Graph-shaped scalar metadata for the store-backed trainers (JAX
+    `_StoreGraphView`): the sizes the training loop needs. Global CSR
+    arrays deliberately do not exist — touching .src/.dst/.indptr here is
+    the bug this class turns into a loud error."""
+
+    def __init__(self, store):
+        self.num_nodes = store.num_nodes
+        self.num_directed_edges = store.num_directed_edges
+        self.num_edges = store.num_directed_edges // 2
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            f"store-backed trainer has no global CSR (asked for {name!r}); "
+            "load the full graph with GraphStore.load_graph() if you "
+            "really need it on this host"
+        )
+
+
+class StoreBacked:
+    """The plumbing the store-backed trainers share (JAX
+    `_StoreBackedMixin`, single-controller): the shard-count check, the
+    per-position shard loads with their `files_read`, the manifest's edge
+    counts for the balance telemetry, and the per-position row-keyed
+    init. Balance is baked at ingest (`cli ingest --balance`): the cache's
+    node order is the trainer's row order, and results come back in cache
+    order (map to original ids through the cache's raw_ids)."""
+
+    def _store_init(self, store, mesh: Mesh, verify: bool) -> None:
+        dp = mesh.shape[NODES_AXIS]
+        if store.num_shards != dp:
+            raise ValueError(
+                f"cache has {store.num_shards} shards but the mesh has "
+                f"dp={dp} node shards; recompile with --shards {dp}"
+            )
+        self.store = store
+        self._shard_verify = verify
+        # per mesh position: the cache blobs its load opened
+        self.files_read: List[tuple] = []
+
+    def _check_rows(self) -> None:
+        dp = len(self.devices)
+        if self.n_pad != dp * self.store.rows_per_shard:
+            raise ValueError(
+                f"cache rows_per_shard={self.store.rows_per_shard} x dp={dp} "
+                f"!= the trainer's n_pad={self.n_pad}"
+            )
+
+    def _position_shards(self):
+        """(position, (indptr, indices)) for each mesh position from its own
+        shard file, one load at a time, recording each position's
+        files_read."""
+        self._check_rows()
+        dp = len(self.devices)
+        rows = self.n_pad // dp
+        self.files_read = []
+        for i in range(dp):
+            hs = self.store.load_shard(i, dp, verify=self._shard_verify)
+            self.files_read.append(hs.files_read)
+            # the local indptr (rebased at hs.lo) extended with empty rows
+            # past hs.hi: the form shard_edges gives
+            indptr = np.full(rows + 1, hs.indptr[-1], dtype=np.int64)
+            indptr[: hs.indptr.shape[0]] = hs.indptr
+            yield i, (indptr, hs.indices)
+
+    _balance_hint = "re-ingest the cache with --balance"
+
+    def _shard_edge_counts(self) -> np.ndarray:
+        """Per-shard directed-edge counts from the store MANIFEST."""
+        return np.asarray(
+            [int(e["edges"]) for e in self.store.manifest["shards"]],
+            dtype=np.int64,
+        )
+
+    def _host_memory_model(self):
+        cfg = self.cfg
+        return _mem.host_rss_model(
+            self.g.num_nodes, self.g.num_directed_edges, cfg.num_communities,
+            self.itemsize, n_pad=self.n_pad, k_pad=self.k_pad,
+            store_native=True, num_shards=len(self.devices),
+        )
+
+    def init_state(self, F0: Optional[np.ndarray] = None) -> TrainState:
+        """With F0=None each position seeds ONLY its own rows from the
+        row-keyed counter init (models.bigclam.rowkeyed_init_rows: entry
+        (r, c) is a pure function of (seed, r, c)), so no (N, K) F0 array
+        exists; bit for bit the in-memory trainers' init_state(None). An
+        explicit F0 (cache order) takes the host-global upload."""
+        if F0 is not None:
+            return super().init_state(F0)
+        n, k = self.g.num_nodes, self.cfg.num_communities
+        rows = self.n_pad // len(self.devices)
+        F = []
+        for i, d in enumerate(self.devices):
+            lo, hi = i * rows, min((i + 1) * rows, n)
+            local = np.zeros((rows, self.k_pad), dtype=np.float64)
+            if hi > lo:
+                local[: hi - lo, :k] = rowkeyed_init_rows(lo, hi, k, self.cfg.seed)
+            F.append(torch.from_numpy(local).to(self.dtype).to(d))
+        return self.reset_state(F)
+
+
+class StoreShardedBigClamModel(StoreBacked, ShardedBigClamModel):
+    """The all-gather trainer fed from a compiled graph cache, one shard
+    file per mesh position (JAX `StoreShardedBigClamModel`). The step is
+    ShardedBigClamModel's on the same CSRs, so the trajectory is bit for
+    bit ShardedBigClamModel(balance=False) on the cache's graph.
+
+    Usage:
+        store = GraphStore.open("g.cache")      # compiled with --shards 4
+        model = StoreShardedBigClamModel(store, cfg, make_mesh((4, 1), devs))
+    """
+
+    def __init__(self, store, cfg: BigClamConfig, mesh: Mesh,
+                 verify: bool = True):
+        self._store_init(store, mesh, verify)
+        super().__init__(_StoreGraphView(store), cfg, mesh, balance=False)

@@ -4,7 +4,8 @@ points.
 Port of bigclam_tpu/utils/profiling.py: `trace` (a torch.profiler capture
 where the JAX package takes a jax.profiler one), `annotate`,
 `StageProfile` (wall-clock stage buckets that forward to the run
-telemetry), the host RSS probes, `step_time` (synchronizing the card),
+telemetry), `IngestProfile` (the graph store's stages with host RSS
+samples), the host RSS probes, `step_time` (synchronizing the card),
 `comm_hidden_fraction` and `overlap_report` (the ring's overlapped
 against serial rotation).
 """
@@ -148,6 +149,7 @@ class StageProfile:
 
     def __init__(self) -> None:
         self.seconds: dict = {}
+        self.counts: dict = {}
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -163,6 +165,61 @@ class StageProfile:
                 dt = time.perf_counter() - t0
                 self.seconds[name] = self.seconds.get(name, 0.0) + dt
                 _telemetry_stage(name, dt)
+
+    def count(self, name: str, inc: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + inc
+
+    def report(self) -> dict:
+        return {
+            "seconds": {k: round(v, 3) for k, v in self.seconds.items()},
+            "counts": dict(self.counts),
+        }
+
+
+class IngestProfile(StageProfile):
+    """StageProfile + host-RSS tracking for the streaming ingest pipeline
+    (graph/store.compile_graph_cache and apply_delta; surfaced by `cli
+    ingest`). Copied from bigclam_tpu/utils/profiling.py.
+
+    `sample_rss()` is called at chunk/bucket granularity inside the
+    compile stages, so the reported peak is the footprint of the
+    out-of-core build where its transients live. The report records the
+    baseline taken at construction, the sampled peak, their delta (the
+    ingest's own footprint), and the process-lifetime ru_maxrss.
+    `count("raw_edges", m)` at the parse sites feeds the edges/sec
+    figures. Scope: THIS process only (spawned parse workers are not
+    counted)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.rss_baseline = current_rss_bytes()
+        self.rss_peak = self.rss_baseline
+
+    def sample_rss(self) -> int:
+        rss = current_rss_bytes()
+        if rss > self.rss_peak:
+            self.rss_peak = rss
+        return rss
+
+    def report(self) -> dict:
+        rep = super().report()
+        rep["rss"] = {
+            "baseline_bytes": self.rss_baseline,
+            "peak_sampled_bytes": self.rss_peak,
+            "delta_bytes": self.rss_peak - self.rss_baseline,
+            "process_peak_bytes": peak_rss_bytes(),
+        }
+        # "scan" is the parse stage; the all-stage sum is the end-to-end
+        # pipeline rate (edges_per_sec, its alias)
+        total_s = sum(self.seconds.values())
+        parse_s = self.seconds.get("scan", 0.0)
+        edges = self.counts.get("raw_edges", 0)
+        if edges and total_s > 0:
+            rep["edges_per_sec"] = round(edges / total_s, 1)
+            rep["edges_per_sec_end_to_end"] = rep["edges_per_sec"]
+        if edges and parse_s > 0:
+            rep["edges_per_sec_parse"] = round(edges / parse_s, 1)
+        return rep
 
 
 def _telemetry_stage(name: str, seconds: float) -> None:

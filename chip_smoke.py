@@ -147,6 +147,38 @@ exits non-zero:
   ring_multi ring_dp4 on min(4, count) real cards, where the hops are
             copies, with the serial rotation equal to the overlapped one
             bit for bit; with one card it prints why it was skipped
+  store_full `cli ingest --shards 4` of the full edge list (seed scores
+            and closure lists baked): seconds, raw edges/s, the stage
+            split (scan, scatter, dedup, shards, seed_bake, closure_bake),
+            the peak RSS delta and the cache bytes; the cache's graph equal
+            to build_graph's and its baked-score F0 equal to main's; then
+            `cli fit --graph <cache>` at K=1,000, 5 iterations: the baked
+            scores used, `csr_fused` with main's launches, the LLH history
+            bit for bit main's, its graph and seeding stages beside main's;
+            then `--cache-dir` on the text twice (1 iteration each): the
+            first compiles, the second reloads, both on main's history
+  store_native_dp4 `cli ingest --balance --shards 4 --no-seed-bake
+            --no-closure-bake`, then `cli fit --mesh
+            4,1 --store-native` on one card repeated four times: the
+            unbalanced cache under allgather (`csr_fused`, 4 launches a
+            step) and ring (`csr_ring_fused`), the balanced one under ring;
+            each held against the in-memory trainer on the same layout and
+            F0, run twice (bit for bit where those two agree, else within
+            1e-6), each position's files_read its own shard's blobs,
+            sec_per_iter beside allgather_main's and ring_dp4's dp = 4
+            steps, the host memory of the store-native build beside the
+            in-memory one (RSS growth and tracemalloc's allocation peak)
+  store_heal corrupt_shard on shard 1 through the fault plan: the
+            cache-fed fit quarantines it (one `quarantine` event),
+            rebuilds it from the text and trains to main's history bit for
+            bit; with --no-self-heal `cli.main` raises ShardCorruption
+  store_delta a delta of 1% new edges among the first half of the nodes
+            (default_rng(15)) by `cli ingest --delta` on the 8-shard
+            --cache-dir cache: touched shards and share, seconds, the
+            re-baked phi; the cache's graph equal to a fresh in-memory
+            ingest of text + delta (build_graph), the re-baked phi equal to
+            its exact conductance, the untouched shards' blobs unchanged to
+            the byte; one cache-fed fit step on the card
   sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
             on the card against `--device cpu --dtype float64`: the same
             grid and chosen K (unless a stop ratio lies within 1e-4 of
@@ -258,7 +290,7 @@ under this tree's library and the other one, outputs compared bit for bit
 and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
 version, kernel / plain time, the card's lower bound for the same work)
-and, last, {"ok": true, "device": {...}}. The ring and mesh
+and, last, {"ok": true, "device": {...}}. The ring, mesh and store
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
 
@@ -3660,6 +3692,420 @@ def phase_obs_profile(g, path, cell, F_host) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the graph store: `cli ingest`, cache-fed fits, store-native meshes,
+# self-heal and edge deltas at full width
+# --------------------------------------------------------------------------
+
+STORE_SHARDS = 4
+STORE_ITERS = 4               # store_native_dp4's fits: steps 0..4
+STORE_RING_RTOL = 1e-6        # the ring's band where two in-memory runs differ
+DELTA_FRAC = 0.01             # store_delta: new edges, a share of the graph's
+DELTA_SEED = 15
+
+
+def cli_json(argv) -> dict:
+    """The port's `cli.main(argv)` in-process: exit 0 and the JSON line it
+    prints last."""
+    import io
+
+    from bigclam_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def ingest_body(out: dict, seconds: float) -> dict:
+    """The ingest JSON's numbers a phase prints."""
+    return {
+        "seconds": seconds, "stage_seconds": out["seconds"],
+        "raw_edges": out["counts"]["raw_edges"],
+        "directed_edges": out["counts"]["directed_edges"],
+        "edges_per_s": out["edges_per_sec"],
+        "edges_per_s_parse": out.get("edges_per_sec_parse"),
+        "rss_delta_bytes": out["rss"]["delta_bytes"],
+        "rss_peak_bytes": out["rss"]["peak_sampled_bytes"],
+        "cache_bytes": dir_bytes(out["cache_dir"]),
+        "n": out["n"], "edges": out["edges"], "shards": out["shards"],
+        "balanced": out["balanced"], "seed_baked": out["seed_baked"],
+        "closure_baked": out["closure_baked"],
+    }
+
+
+def ingest(path, cache, *flags) -> dict:
+    t0 = time.perf_counter()
+    out = cli_json(["ingest", "--graph", path, "--cache-dir", cache, *flags])
+    return ingest_body(out, time.perf_counter() - t0)
+
+
+def store_fit(extra, quiet: bool = True):
+    """`cli fit` at full width with the launch counters zeroed just before
+    and read just after; (out, res, counts, stderr text)."""
+    import io
+
+    from bigclam_tpu_torch import cli
+
+    args = cli.build_parser().parse_args([
+        "fit", "--k", str(FULL["k"]), "--init", "conductance",
+        "--conv-tol", "0", "--device", DEVICE,
+        *(["--quiet"] if quiet else []), *extra,
+    ])
+    err = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stderr(err):
+        out, res, _ = cli.fit(args)
+    counts = launch_counts()
+    hist = out["llh_history"]
+    if not all(math.isfinite(v) for v in hist) or not np.isfinite(res.F).all():
+        raise AssertionError(f"non-finite fit: {hist}")
+    return out, res, counts, err.getvalue()
+
+
+def same_graph(a, b) -> bool:
+    return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in (
+        (a.indptr, b.indptr), (a.indices, b.indices), (a.raw_ids, b.raw_ids)))
+
+
+BAKED_NOTE = "using ingest-baked seed scores"
+
+
+def phase_store_full(gi, path, tmp, F0, main_out, main_counts):
+    """`cli ingest --shards 4` of main's edge list (seed scores and closure
+    lists baked), then `cli fit --graph <cache>` at full: the baked scores
+    used, F0 and the LLH history bit for bit main's, kernel A's launches
+    main's; then `--cache-dir` on the text, compiled once and reloaded."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.store import GraphStore
+
+    cache = os.path.join(tmp, "full_s4.cache")
+    ing = ingest(path, cache, "--shards", str(STORE_SHARDS))
+    if not (ing["seed_baked"] and ing["closure_baked"]):
+        raise AssertionError(f"ingest baked nothing: {ing}")
+    store = GraphStore.open(cache)
+    t0 = time.perf_counter()
+    gc = store.load_graph()
+    load_s = time.perf_counter() - t0
+    if not same_graph(gc, gi):
+        raise AssertionError("the cache's graph is not build_graph's")
+    F0c = cli.init_F(gc, BigClamConfig(num_communities=FULL["k"]),
+                     "conductance", store=store, quiet=True)
+    if not np.array_equal(F0c, F0):
+        raise AssertionError("the baked-score F0 is not main's")
+    del gc, F0c
+    out, _, counts, err = store_fit(["--graph", cache, "--max-iters", "5"],
+                                    quiet=False)
+    if BAKED_NOTE not in err:
+        raise AssertionError("the cache-fed fit did not use the baked scores")
+    if out["kernel_path"] != "csr_fused" or counts != main_counts:
+        raise AssertionError(f"{out['kernel_path']} launches {counts}, main "
+                             f"{main_counts}")
+    if out["llh_history"] != main_out["llh_history"]:
+        raise AssertionError(f"cache-fed history {out['llh_history']} vs main "
+                             f"{main_out['llh_history']}")
+    # --cache-dir on the text: the first fit compiles, the second reloads
+    cdir = os.path.join(tmp, "full_s8.cache")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        o, _, c, e = store_fit(["--graph", path, "--cache-dir", cdir,
+                                "--max-iters", "1"], quiet=False)
+        if o["llh_history"] != main_out["llh_history"][:2] or BAKED_NOTE not in e:
+            raise AssertionError(f"--cache-dir history {o['llh_history']}")
+        runs.append({"compiled": "compiling graph cache" in e,
+                     "wall_s": time.perf_counter() - t0,
+                     "stage_seconds": o["stage_seconds"], "launches": c})
+    if [r["compiled"] for r in runs] != [True, False]:
+        raise AssertionError(f"--cache-dir compiled {runs}")
+    main_stages = main_out["stage_seconds"]
+    return cache, cdir, {
+        "ingest": ing, "load_graph_s": load_s,
+        "fit": {"kernel_path": out["kernel_path"],
+                "llh_history": out["llh_history"],
+                "bit_identical_to_main": True, "f0_equal_to_main": True,
+                "baked_scores_used": True, "launches": counts,
+                "sec_per_iter": out["sec_per_iter"],
+                "stage_seconds": out["stage_seconds"]},
+        "stages_vs_main_s": {name: [out["stage_seconds"][name], main_stages[name]]
+                             for name in ("graph", "seeding")},
+        "cache_dir_runs": runs, "cache_dir_bytes": dir_bytes(cdir),
+    }
+
+
+@contextlib.contextmanager
+def host_peaks(period_s: float = 0.005):
+    """The host memory a body takes: this process's RSS sampled on a thread
+    (its peak over the baseline; in a long-lived process that reads how
+    much the allocator had to grow, not what the body allocated) and
+    tracemalloc's peak of the numpy and Python allocations made inside
+    the body. Yields a dict that holds both after the body."""
+    import threading
+    import tracemalloc
+
+    from bigclam_tpu_torch.utils.profiling import current_rss_bytes
+
+    base = current_rss_bytes()
+    peak = [base]
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            peak[0] = max(peak[0], current_rss_bytes())
+            stop.wait(period_s)
+
+    rec = {}
+    th = threading.Thread(target=run, daemon=True)
+    tracemalloc.start()
+    th.start()
+    try:
+        yield rec
+    finally:
+        stop.set()
+        th.join()
+        rec["alloc_peak_bytes"] = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        rec["rss_peak_delta_bytes"] = max(peak[0], current_rss_bytes()) - base
+
+
+def mesh_fit(model, F0, steps: int = STORE_ITERS) -> tuple:
+    """(LLH history, final F on the host in the trainer's row order's
+    original ids) of `steps` steps of a mesh model from F0."""
+    model.cfg = model.cfg.replace(max_iters=steps, conv_tol=0.0)
+    model.rebuild_step()
+    state, _, _, hist = model.fit_state(model.init_state(F0))
+    return list(hist), model.extract_F(state)
+
+
+def phase_store_native_dp4(gi, path, tmp, cache, F0, ag_s, ring_s):
+    """`cli fit --mesh 4,1 --store-native` on one card repeated four times:
+    the unbalanced 4-shard cache under allgather and ring, and a balanced
+    one (`ingest --balance --shards 4`) under ring, each held against the
+    in-memory trainer on the same layout and F0 (bit for bit where two
+    in-memory runs agree bit for bit, else within the path's band), each
+    position's files_read its own shard's blobs, the host RSS of the
+    store-native build beside the in-memory one."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.parallel import (
+        RingBigClamModel,
+        ShardedBigClamModel,
+        StoreRingBigClamModel,
+        StoreShardedBigClamModel,
+    )
+
+    # no bakes: the balanced fit seeds by scoring the relabeled graph (the
+    # `auto` fallback), which keeps the phase's second ingest short
+    bal_cache = os.path.join(tmp, "full_s4_balanced.cache")
+    ing = ingest(path, bal_cache, "--shards", str(STORE_SHARDS), "--balance",
+                 "--no-seed-bake", "--no-closure-bake")
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=STORE_ITERS,
+                        conv_tol=0.0)
+    mesh = repeated_mesh(STORE_SHARDS)
+    cases = {}
+    for name, cdir, schedule in (("allgather", cache, "allgather"),
+                                 ("ring", cache, "ring"),
+                                 ("ring_balanced", bal_cache, "ring")):
+        store = GraphStore.open(cdir)
+        ring = schedule == "ring"
+        out, res, counts, _ = store_fit([
+            "--graph", cdir, "--max-iters", str(STORE_ITERS),
+            "--mesh", f"{STORE_SHARDS},1", "--store-native",
+            "--schedule", schedule])
+        want_path = "csr_ring_fused" if ring else "csr_fused"
+        want = (ring_launches_want(counts, STORE_SHARDS, out["steps"]) if ring
+                else {**dict.fromkeys(counts, 0),
+                      "fused_superstep": STORE_SHARDS * out["steps"]})
+        if out["kernel_path"] != want_path or counts != want:
+            raise AssertionError(f"{name}: {out['kernel_path']} launches "
+                                 f"{counts}, want {want}")
+        # the F0 the CLI seeded (cache order; store_full found the
+        # unbalanced cache's equal to main's) and the in-memory layout
+        perm = store.load_perm()
+        if perm is None:
+            F0c = F0
+        else:
+            F0c = cli.init_F(store.load_graph(), cfg, "conductance",
+                             store=store, quiet=True)
+        store_cls = StoreRingBigClamModel if ring else StoreShardedBigClamModel
+        mem_cls = RingBigClamModel if ring else ShardedBigClamModel
+        with host_peaks() as host_store:
+            sm = store_cls(store, cfg, mesh)
+        want_files = [(f"shard_{s:05d}.indptr.npy", f"shard_{s:05d}.indices.npy")
+                      for s in range(STORE_SHARDS)]
+        if sm.files_read != want_files:
+            raise AssertionError(f"{name}: files_read {sm.files_read}")
+        del sm
+        with host_peaks() as host_mem:
+            mm = mem_cls(gi, cfg, mesh, balance=perm is not None)
+        F0m = F0c if perm is None else F0c[perm]
+        if ring and perm is not None and mm.visit_order != "pre_balance":
+            raise AssertionError(f"visit order {mm.visit_order}")
+        h1, F1 = mesh_fit(mm, F0m)
+        h2, F2 = mesh_fit(mm, F0m)
+        deterministic = h1 == h2 and np.array_equal(F1, F2)
+        del mm
+        F_store = res.F if perm is None else res.F[perm]
+        hist = out["llh_history"]
+        if deterministic:
+            if hist != h1 or not np.array_equal(F_store, F1):
+                raise AssertionError(f"{name}: store-native {hist} vs "
+                                     f"in-memory {h1}")
+            rel = 0.0
+        else:
+            rel = llh_rel(hist, h1)
+            if rel > (STORE_RING_RTOL if ring else 0.0):
+                raise AssertionError(f"{name}: store-native {hist} vs "
+                                     f"in-memory {h1} ({rel})")
+        cases[name] = {
+            "kernel_path": out["kernel_path"], "mesh": out["mesh"],
+            "balanced": perm is not None, "llh_history": hist,
+            "in_memory_llh_history": h1,
+            "in_memory_runs_bit_identical": deterministic,
+            "bit_identical": deterministic, "max_rel": rel,
+            "launches": counts, "sec_per_iter": out["sec_per_iter"],
+            "sec_per_iter_in_memory_phase": ring_s if ring else ag_s,
+            "stage_seconds": out["stage_seconds"],
+            "files_read": want_files,
+            "host_build": {"store_native": host_store, "in_memory": host_mem,
+                           "global_graph_bytes_in_memory": int(
+                               gi.indptr.nbytes + gi.indices.nbytes
+                               + gi.src.nbytes)},
+        }
+    return bal_cache, {"ingest_balanced": ing, "dp": STORE_SHARDS,
+                       "devices": [str(d) for d in mesh.node_devices()],
+                       **cases}
+
+
+def phase_store_heal(path, tmp, cache, main_out):
+    """corrupt_shard on shard 1 through the fault plan: the cache-fed fit
+    quarantines the shard, rebuilds it from the source edge list and
+    trains to main's history; with --no-self-heal `cli.main` raises
+    ShardCorruption."""
+    import shutil
+
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.graph.store import QUARANTINE_DIR, ShardCorruption
+
+    heal = os.path.join(tmp, "heal.cache")
+    shutil.copytree(cache, heal)
+    plan = [{"kind": "corrupt_shard", "site": "store.load_shard", "shard": 1}]
+    tdir = os.path.join(tmp, "heal_tel")
+    with telemetry_and_faults(tdir, plan):
+        out, _, counts, _ = store_fit(["--graph", heal, "--max-iters", "5"])
+    if out["llh_history"] != main_out["llh_history"]:
+        raise AssertionError(f"healed history {out['llh_history']}")
+    quarantines = [e for e in events_of(tdir) if e["kind"] == "quarantine"]
+    if [e["shard"] for e in quarantines] != [1]:
+        raise AssertionError(f"quarantine events {quarantines}")
+    moved = sorted(os.listdir(os.path.join(heal, QUARANTINE_DIR)))
+    # the same corruption refused without healing: `cli.main` raises (a
+    # process running it exits non-zero with the traceback)
+    t0 = time.perf_counter()
+    with telemetry_and_faults(os.path.join(tmp, "noheal_tel"), plan):
+        try:
+            cli.main(["fit", "--graph", heal, "--k", str(FULL["k"]),
+                      "--device", DEVICE, "--max-iters", "1",
+                      "--no-self-heal", "--quiet"])
+        except ShardCorruption as e:
+            refused = e
+        else:
+            raise AssertionError("--no-self-heal trained on a corrupt shard")
+    if refused.shard != 1:
+        raise AssertionError(f"ShardCorruption of shard {refused.shard}")
+    return {"llh_history": out["llh_history"], "bit_identical_to_main": True,
+            "launches": counts, "quarantine": quarantines[0],
+            "quarantined_files": moved,
+            "graph_stage_s": out["stage_seconds"]["graph"],
+            "main_graph_stage_s": main_out["stage_seconds"]["graph"],
+            "no_self_heal": {"raised": type(refused).__name__,
+                             "seconds": time.perf_counter() - t0,
+                             "error": str(refused)[:300]}}
+
+
+def phase_store_delta(gi, path, tmp, cdir):
+    """A delta of 1% new edges among existing nodes (default_rng(15)),
+    both ends in the first half of the node range, applied with `cli
+    ingest --delta` to the 8-shard --cache-dir cache: the touched shards,
+    their share and the re-baked phi; the cache's graph equal to a fresh
+    in-memory ingest of text + delta (build_graph) and the touched shards'
+    phi to its exact conductance, the untouched shards' blobs byte for
+    byte as before; then one cache-fed fit step on the card."""
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.ops.seeding import conductance
+
+    store = GraphStore.open(cdir)
+    rng = np.random.default_rng(DELTA_SEED)
+    m = int(DELTA_FRAC * gi.num_edges)
+    half = gi.raw_ids[: gi.num_nodes // 2]
+    pairs = rng.choice(half, size=(m, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    dpath = os.path.join(tmp, "delta.txt")
+    np.savetxt(dpath, pairs, fmt="%d")
+
+    def blobs(s):
+        e = store.manifest["shards"][s]
+        return [e["indptr"], e["indices"], e["phi"], e["closure"]["ids"]]
+
+    before = {s: [file_sha256(os.path.join(cdir, b)) for b in blobs(s)]
+              for s in range(store.num_shards)}
+    t0 = time.perf_counter()
+    # (the JSON's `seconds` holds the profile's stage buckets, as the JAX
+    # entry's does: the wall clock is taken here)
+    info = cli_json(["ingest", "--cache-dir", cdir, "--delta", dpath])
+    wall = time.perf_counter() - t0
+    touched = info["touched_shards"]
+    untouched = [s for s in range(store.num_shards) if s not in touched]
+    if not touched or not untouched or info["phi_rebaked_shards"] != touched:
+        raise AssertionError(f"delta touched {touched}, re-baked "
+                             f"{info['phi_rebaked_shards']}")
+    after = GraphStore.open(cdir)
+    for s in untouched:
+        now = [file_sha256(os.path.join(cdir, b)) for b in blobs(s)]
+        if now != before[s]:
+            raise AssertionError(f"untouched shard {s} changed")
+    combined = os.path.join(tmp, "full_plus_delta.txt")
+    with open(combined, "wb") as f:
+        for p in (path, dpath):
+            with open(p, "rb") as src:
+                f.write(src.read())
+    # a fresh ingest of text + delta: build_graph's (an unbalanced cache's
+    # graph is build_graph's on the same text, tests/test_torch_store.py)
+    # and its exact conductance (the exact bake's, bit for bit)
+    fresh = build_graph(combined)
+    if not same_graph(after.load_graph(), fresh):
+        raise AssertionError("the delta cache's graph is not a fresh ingest's")
+    phi, phi_fresh = after.load_seed_scores(), conductance(fresh, backend="numpy")
+    for s in touched:
+        lo, hi = after.node_range(s)
+        if not np.array_equal(phi.phi[lo:hi], phi_fresh[lo:hi]):
+            raise AssertionError(f"re-baked phi of shard {s} is not fresh's")
+    out, _, counts, _ = store_fit(["--graph", cdir, "--max-iters", "1"])
+    if out["kernel_path"] != "csr_fused" or counts["fused_superstep"] != out["steps"]:
+        raise AssertionError(f"delta fit {out['kernel_path']} {counts}")
+    return {
+        "delta_pairs": int(pairs.shape[0]), "edges_added": info["edges_added"],
+        "touched_shards": touched, "touched_frac": info["touched_frac"],
+        "touched_rows": info["touched_rows"],
+        "phi_rebaked_shards": info["phi_rebaked_shards"],
+        "ingest_delta_s": wall, "rss_delta_bytes": info["rss"]["delta_bytes"],
+        "files_read": len(info["files_read"]),
+        "equal_to_fresh_ingest": True, "untouched_blobs_identical": untouched,
+        "fit": {"llh_history": out["llh_history"], "launches": counts,
+                "kernel_path": out["kernel_path"]},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -3721,13 +4167,21 @@ def main(argv=None) -> int:
         del res
         run("sweep_main", phase_sweep_main, g, path)
         ring_main_counts, _ = run("ring_main", phase_ring_main, g, path, main_hist)
-        model, state, ring_counts, _ = run("ring_dp4", phase_ring_dp4, gi, F0,
-                                           main_hist)
+        model, state, ring_counts, ring_dp4_body = run("ring_dp4", phase_ring_dp4,
+                                                       gi, F0, main_hist)
         ring_checks, ring_times, ring_bnd, _ = run("ring_full", phase_ring_full,
                                                    model, state)
         del model, state
-        run("allgather_main", phase_allgather_main, g, path, gi, F0, main_hist)
+        ag_body = run("allgather_main", phase_allgather_main, g, path, gi, F0,
+                      main_hist)
         run("ring_multi", phase_ring_multi, gi, F0, main_hist)
+        cache, cdir, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
+                             main_out, main_counts)
+        run("store_native_dp4", phase_store_native_dp4, gi, path, tmp, cache,
+            F0, ag_body["csr_fused"]["sec_per_iter"],
+            ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
+        run("store_heal", phase_store_heal, path, tmp, cache, main_out)
+        run("store_delta", phase_store_delta, gi, path, tmp, cdir)
         del g, gi, F0
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)

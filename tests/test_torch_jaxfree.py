@@ -1,10 +1,12 @@
 """The PyTorch port imports neither jax nor anything of the JAX package:
 a fresh interpreter imports every module of bigclam_tpu_torch (the
 non-CSR candidate kernel's ops.edge_kernels, the K sweep's
-models.model_selection, and the observability and resilience modules
-among them) and runs every subcommand's `--help`,
-then finds no jax and no bigclam_tpu module loaded; a
-static scan finds no such import in any port file or in chip_smoke.py."""
+models.model_selection, the graph store's graph.stream and graph.store,
+and the observability and resilience modules among them) and runs every
+subcommand's `--help`, then finds no jax and no bigclam_tpu module
+loaded; a static scan finds no such import in any port file or in
+chip_smoke.py; and the graph stream's spawned parse workers load neither
+either."""
 
 import ast
 import os
@@ -35,8 +37,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
             bigclam_tpu_torch.__path__, "bigclam_tpu_torch."
         ):
             __import__(m.name)
-        for sub in ("fit", "sweep", "eval", "profile", "perf", "report",
-                    "watch", "preflight"):
+        for sub in ("fit", "sweep", "eval", "ingest", "profile", "perf",
+                    "report", "watch", "preflight"):
             try:
                 cli.main([sub, "--help"])
             except SystemExit as e:
@@ -47,7 +49,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "resilience.faults", "resilience.retry",
                      "resilience.supervisor", "utils.checkpoint",
                      "utils.metrics", "utils.profiling", "obs.comms",
-                     "obs.memory", "obs.ledger", "obs.report", "obs.watch"):
+                     "obs.memory", "obs.ledger", "obs.report", "obs.watch",
+                     "graph.stream", "graph.store"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -71,6 +74,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
 
 def test_static_scan_finds_no_jax_or_reference_import():
     assert len(PORT_FILES) > 10
+    for name in ("stream.py", "store.py"):
+        assert REPO / "bigclam_tpu_torch" / "graph" / name in PORT_FILES
     dynamic = re.compile(r"""(import_module|__import__)\(\s*["'](jax|bigclam_tpu)\b(?!_torch)""")
     for path in PORT_FILES:
         src = path.read_text()
@@ -92,3 +97,59 @@ def test_scan_rule_tells_the_port_from_the_reference():
     assert _forbidden("jax.numpy")
     assert not _forbidden("bigclam_tpu_torch.ops.objective")
     assert not _forbidden("torch")
+
+
+def test_spawned_parse_workers_load_no_jax(tmp_path):
+    """stream_edge_list(..., workers=2) in a fresh interpreter: neither the
+    parent nor a spawned worker (which unpickles the port's parse_span and
+    so imports its module) loads jax or the JAX package."""
+    text = tmp_path / "g.txt"
+    text.write_text("# edges\n" + "".join(f"{i} {(i * 7 + 3) % 97}\n"
+                                           for i in range(400)))
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    script = tmp_path / "run_stream.py"
+    script.write_text(textwrap.dedent(f"""
+        import os, sys
+
+        FORBIDDEN = ("jax", "jaxlib", "bigclam_tpu")
+        PROBE = {str(probe)!r}
+
+        def _mark(kind, name):
+            with open(os.path.join(PROBE, f"{{kind}}.{{os.getpid()}}"), "a") as f:
+                f.write(name + "\\n")
+
+        class Probe:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in FORBIDDEN:
+                    _mark("forbidden", name)
+                if name == "bigclam_tpu_torch.graph.stream":
+                    _mark("seen", name)
+                return None
+
+        if __name__ == "__mp_main__":
+            # a spawned worker: watch every import from here on
+            for m in list(sys.modules):
+                if m.split(".")[0] in FORBIDDEN:
+                    _mark("forbidden", m)
+            sys.meta_path.insert(0, Probe())
+
+        if __name__ == "__main__":
+            from bigclam_tpu_torch.graph.stream import load_edge_list_streaming
+            pairs = load_edge_list_streaming({str(text)!r}, chunk_bytes=300,
+                                             workers=2)
+            bad = sorted(m for m in sys.modules
+                         if m.split(".")[0] in FORBIDDEN)
+            assert not bad, bad
+            print("clean", pairs.shape[0])
+    """))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, str(script)], env=env, cwd=str(REPO),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, (r.stdout, r.stderr)
+    assert r.stdout.split()[0] == "clean"
+    names = os.listdir(probe)
+    assert [n for n in names if n.startswith("seen.")], names
+    assert not [n for n in names if n.startswith("forbidden.")], [
+        open(probe / n).read() for n in names]
