@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: `fit`, `sweep`, `eval`, `ingest`,
-`profile`, `perf`, `report`, `watch` and `preflight`.
+`serve`, `refit`, `profile`, `perf`, `report`, `watch` and `preflight`.
 
 Port of those subcommands of bigclam_tpu/cli.py.
 `fit` loads a text edge list, seeds F by conductance (or a {0,1} random /
@@ -41,6 +41,15 @@ against a ground truth (`f1`, `nmi`).
         --steps 20 --profile-dir prof/
     python -m bigclam_tpu_torch.cli preflight --nodes 1134890 \
         --edges 2987624 --k 8385 --device-kind "NVIDIA H100 80GB HBM3"
+    python -m bigclam_tpu_torch.cli fit --graph g.cache --k 100 \
+        --publish-dir snaps/                                   # a snapshot
+    python -m bigclam_tpu_torch.cli serve --snapshots snaps/ --graph g.cache \
+        --query members_of:3 --query suggest_for:12
+    python -m bigclam_tpu_torch.cli ingest --cache-dir g.cache --delta d.txt
+    python -m bigclam_tpu_torch.cli refit --graph g.cache --snapshots snaps/ \
+        --delta d.txt
+    python -m bigclam_tpu_torch.cli fit --graph g.cache --k 100 \
+        --publish-dir snaps/ --follow deltas/                  # continuous
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
 to start when no card is present. `fit --mesh DP,1` shards the nodes over
@@ -90,6 +99,17 @@ with torch.profiler; on a card a capture that records no CUDA kernel
 exits 1 naming that. The fit JSON carries the trainer's modeled device
 bytes (`hbm_modeled_bytes`, obs.memory) and, on a mesh, its modeled
 collective bytes a step (`comms_bytes_per_step`, obs.comms).
+
+Serving (JAX `serve`/`refit` keys and defaults): `fit --publish-dir`
+publishes the final F as the next snapshot generation (`--publish-shards
+S`: S row-range archives of a fleet generation, which the JAX package's
+router serves); `serve` answers communities_of / members_of from the
+snapshot and suggest_for by fold-in on `--device` (no card raises, as
+`fit` does), with `--watch-snapshots` hot swaps; `refit` folds the rows a
+delta touched (plus a halo) into the latest snapshot and publishes the
+next generation; `fit --follow DIR` runs delta ingest -> refit -> publish
+per new edge file. `serve --fleet/--fleet-shard/--listen` are refused by
+name (ROADMAP item 18); `preflight --serve` prices a serving fleet.
 
 `profile` runs N steps under a torch.profiler capture and prints the
 JAX keys plus the top device kernels; `perf record|diff|show` keeps and
@@ -328,6 +348,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     f.add_argument("--out", default=None, help="write communities (SNAP cmty)")
     _add_fit_flags(f)
+    _add_publish_flags(f)
 
     w = sub.add_parser("sweep", help="automatic K selection over a log grid",
                        epilog=SWEEP_EPILOG)
@@ -353,7 +374,219 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--no-nmi", action="store_true")
     _add_ingest_parser(sub)
     _add_obs_parsers(sub)
+    _add_serve_parsers(sub)
     return p
+
+
+def _add_publish_flags(p: argparse.ArgumentParser) -> None:
+    """`fit`'s serving flags (the JAX CLI's): snapshot publication and the
+    continuous delta -> refit -> publish loop."""
+    p.add_argument(
+        "--publish-dir", default=None,
+        help="publish the final F as a serving snapshot (atomic "
+             "fsync-rename + crc sidecar + latest.json pointer, "
+             "utils.checkpoint.publish): `cli serve --snapshots <dir>` "
+             "loads it, and a running server hot-swaps to it",
+    )
+    p.add_argument(
+        "--publish-shards", type=int, default=0, metavar="S",
+        help="with --publish-dir: publish the generation as S per-shard "
+             "row-range archives + a fleet manifest instead of one whole-F "
+             "archive (the JAX package's fleet replicas and router serve "
+             "them); store-backed fits slice on the cache's host ranges "
+             "when S divides the shard count (0/1 = single archive)",
+    )
+    p.add_argument(
+        "--follow", default=None, metavar="DELTA_DIR",
+        help="after the fit + publish, watch this directory for new "
+             "edge-delta files and run the continuous loop per file: "
+             "delta re-ingest (touched shard ranges only) -> warm-start "
+             "refit -> publish the next snapshot generation (needs a cache "
+             "--graph and --publish-dir; a running `cli serve "
+             "--watch-snapshots` hot-swaps each generation)",
+    )
+    p.add_argument(
+        "--follow-max", type=int, default=0,
+        help="stop after this many deltas (0 = keep watching)",
+    )
+    p.add_argument(
+        "--follow-interval", type=float, default=0.5,
+        help="seconds between delta-directory polls",
+    )
+    p.add_argument(
+        "--follow-timeout", type=float, default=None,
+        help="exit when no new delta arrives for this many seconds "
+             "(default: watch forever)",
+    )
+    p.add_argument(
+        "--refit-halo", type=int, default=1,
+        help="--follow refits touched rows plus this many hops of "
+             "neighbours (0 = strictly touched rows)",
+    )
+    p.add_argument(
+        "--refit-rounds", type=int, default=12,
+        help="--follow block-coordinate sweep cap per delta (health "
+             "detectors may escalate to a full fit earlier)",
+    )
+
+
+def _add_serve_parsers(sub) -> None:
+    """`serve` and `refit`: the JAX CLI's flags and defaults, with the
+    port's --device."""
+    sv = sub.add_parser(
+        "serve",
+        help="answer membership queries from a published F snapshot: "
+             "communities_of / members_of / suggest_for (fold-in on "
+             "--device) through a latency-budgeted request batcher, with "
+             "hot-swap to newly published snapshots",
+    )
+    sv.add_argument(
+        "--snapshots", default=None,
+        help="snapshot directory (`cli fit --publish-dir` / "
+             "utils.checkpoint.publish): the latest published snapshot "
+             "is served, falling back past corrupt ones",
+    )
+    sv.add_argument("--fleet", default=None, metavar="DIR",
+                    help="refused: fleet replicas are ROADMAP item 18")
+    sv.add_argument("--fleet-shard", type=int, default=None, metavar="S",
+                    help="refused: fleet replicas are ROADMAP item 18")
+    sv.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="refused: fleet replicas are ROADMAP item 18")
+    sv.add_argument(
+        "--max-queue-depth", type=int, default=0,
+        help="admission control: reject new queries with a fast "
+             "'overloaded' error once the batcher queue holds this many "
+             "requests (0 = unbounded; sheds are counted, not errors)",
+    )
+    sv.add_argument(
+        "--shed-wait-ms", type=float, default=0.0,
+        help="admission control: shed queued queries that waited longer "
+             "than this before their batch flushed (0 = never)",
+    )
+    sv.add_argument(
+        "--graph", default=None,
+        help="graph-cache dir (preferred: manifest-verified against the "
+             "snapshot) or SNAP text path — the adjacency suggest_for "
+             "needs for graph nodes; read-only queries work without it",
+    )
+    sv.add_argument(
+        "--query", action="append", default=None, metavar="FAMILY:ARG",
+        help="one query: communities_of:<u>, members_of:<c>, "
+             "suggest_for:<u>, or a JSON object (repeatable)",
+    )
+    sv.add_argument("--queries", default=None,
+                    help="JSONL file of query objects (one per line)")
+    sv.add_argument(
+        "--results", default=None,
+        help="write one JSON answer per query line here (default: "
+             "answers echo to stdout only for <= 16 queries)",
+    )
+    sv.add_argument(
+        "--repeat", type=int, default=1,
+        help="run the query set this many times (load testing; stats "
+             "accumulate, results keep the last pass)",
+    )
+    sv.add_argument(
+        "--latency-budget-ms", type=float, default=5.0,
+        help="request-batcher window: a lone query waits at most this "
+             "long for batch-mates (the p99 knob)",
+    )
+    sv.add_argument(
+        "--max-batch", type=int, default=64,
+        help="flush a batch at this many requests even inside the window",
+    )
+    sv.add_argument(
+        "--cache-slots", type=int, default=64,
+        help="hot-community cache capacity (members_of), admission keyed "
+             "by community mass share (0 disables)",
+    )
+    sv.add_argument("--foldin-max-iters", type=int, default=200,
+                    help="fold-in row-ascent iteration cap per suggest query")
+    sv.add_argument(
+        "--foldin-conv-tol", type=float, default=None,
+        help="per-node fold-in convergence tolerance (default: the "
+             "trainer's conv_tol from the snapshot config)",
+    )
+    sv.add_argument(
+        "--foldin-max-deg", type=int, default=4096,
+        help="neighbour cap per suggest query (hub truncation; counted in "
+             "the stats when it engages)",
+    )
+    sv.add_argument(
+        "--watch-snapshots", type=float, default=0.0,
+        help="poll the snapshot dir every this many seconds and hot-swap "
+             "when a newer snapshot is published (0 = off; swaps drain "
+             "in-flight batches and drop no queries)",
+    )
+    sv.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="device of the suggest family's fold-in (default cuda; no "
+             "card raises, there is no CPU fallback)",
+    )
+    sv.add_argument(
+        "--telemetry-dir", default=None,
+        help="run-telemetry directory: per-batch `serve` events, "
+             "snapshot_swap events and the final serving stats",
+    )
+    sv.add_argument(
+        "--heartbeat-s", type=float, default=300.0,
+        help="stall-heartbeat deadline with --telemetry-dir (0 disables)",
+    )
+    sv.add_argument(
+        "--perf-ledger", default=None,
+        help="append this serve run's record (serve p99/QPS/cache hit "
+             "rate) to a perf-ledger JSONL",
+    )
+    # a serving replica opens the cache READ-ONLY: there is no self-heal
+    # knob (a heal racing the delta pipeline would rebuild pre-delta
+    # blobs over the writer's work)
+    sv.add_argument("--quiet", action="store_true")
+
+    rf = sub.add_parser(
+        "refit",
+        help="warm-start incremental refit: start from the latest "
+             "published snapshot, re-optimize only the rows a delta "
+             "touched (+ halo) by batched fold-in, publish the next "
+             "generation; health detectors escalate drift to a full fit",
+    )
+    _add_train_flags(rf)
+    _add_fit_flags(rf)
+    rf.add_argument(
+        "--snapshots", required=True,
+        help="snapshot directory (`cli fit --publish-dir`): the latest "
+             "published F is the warm start, and the refit publishes the "
+             "next generation here",
+    )
+    rf.add_argument(
+        "--delta", required=True, metavar="EDGE_FILE",
+        help="the delta edge file that was applied to the cache (`cli "
+             "ingest --delta`): its endpoints are the touched rows",
+    )
+    rf.add_argument(
+        "--k", type=int, default=None,
+        help="community count (default: the snapshot's k; a mismatch "
+             "refuses — a refit continues the same model)",
+    )
+    rf.add_argument("--halo", type=int, default=1,
+                    help="refit touched rows plus this many hops of "
+                         "neighbours")
+    rf.add_argument("--refit-rounds", type=int, default=12,
+                    help="block-coordinate sweep cap (detectors may stop "
+                         "earlier)")
+    rf.add_argument("--refit-batch", type=int, default=512,
+                    help="fold-in rows per device batch (padded to a power "
+                         "of two)")
+    rf.add_argument("--foldin-max-iters", type=int, default=100,
+                    help="per-node fold-in iteration cap inside each batch")
+    rf.add_argument(
+        "--escalate", default="full", choices=["full", "never"],
+        help="on a divergence/plateau detector firing against the "
+             "restricted objective: run a full fit warm-started from the "
+             "refit F (full, default), or publish the refit F anyway with "
+             "the escalated flag recorded (never)",
+    )
+    rf.add_argument("--no-publish", action="store_true",
+                    help="skip publishing the result (measurement runs)")
 
 
 def _add_ingest_parser(sub) -> None:
@@ -577,8 +810,12 @@ def _add_obs_parsers(sub) -> None:
     pf.add_argument("--csr-block-b", type=int, default=256,
                     help="TPU tile shape; no port use (the kernels read "
                          "the CSR)")
-    pf.add_argument("--serve", action="store_true",
-                    help="refused: serving is ROADMAP item 12")
+    pf.add_argument(
+        "--serve", action="store_true",
+        help="price a serving fleet instead of training: per-replica RSS "
+             "(snapshot, inverted index, hot cache, adjacency slice) and "
+             "QPS capacity against --host-ram-gb / --qps-target",
+    )
     pf.add_argument("--serve-shards", type=int, default=1)
     pf.add_argument("--serve-replicas", type=int, default=1)
     pf.add_argument("--qps-target", type=float, default=0.0)
@@ -914,6 +1151,94 @@ def stamp_models(out: dict, model) -> None:
         out["hbm_modeled_bytes"] = round(mem.hbm_bytes(), 1)
 
 
+def check_follow(args, cfg) -> None:
+    """`fit --follow`'s preconditions (the JAX CLI's), checked BEFORE the
+    fit: a misconfigured loop refuses up front, not after the fit it would
+    have discarded."""
+    if getattr(args, "_store", None) is None:
+        raise SystemExit(
+            "error: --follow needs a compiled graph cache (--graph "
+            "<cache-dir> or --cache-dir): deltas re-ingest shard ranges, "
+            "not text files"
+        )
+    if not args.publish_dir:
+        raise SystemExit(
+            "error: --follow needs --publish-dir (each refit publishes a "
+            "snapshot generation the server swaps to)"
+        )
+    if args.publish_shards > 1:
+        raise SystemExit(
+            "error: --follow publishes single archives — it cannot feed a "
+            "fleet yet (drop --publish-shards; re-run `cli fit "
+            "--publish-shards` per generation instead)"
+        )
+    if args.mesh or cfg.representation == "sparse":
+        raise SystemExit(
+            "error: --follow supports single-device dense fits for now "
+            "(drop --mesh / --representation sparse)"
+        )
+
+
+def publish_fit(args, cfg, g, res, out: dict, fit_wall_s: float, tel) -> None:
+    """Publish the fit's F as a serving snapshot (JAX `cmd_fit`): one
+    archive of the next generation, or with --publish-shards S > 1 a fleet
+    generation of S row-range archives (sparse fits publish their top-M
+    member lists). A running `cli serve --watch-snapshots` swaps to it."""
+    from bigclam_tpu_torch.serve.snapshot import (
+        publish_fleet_snapshot,
+        publish_snapshot,
+    )
+    from bigclam_tpu_torch.utils.checkpoint import published_step_of
+
+    # fit_wall_s/iters: the full-fit cost baseline `cli refit` prices its
+    # refit_cost_ratio against
+    pub_meta = {"llh": res.llh, "seed": cfg.seed, "fit_wall_s": fit_wall_s,
+                "fit_iters": res.num_iters}
+    shards = int(args.publish_shards or 0)
+    if shards <= 1:
+        # step=None: the NEXT generation under the publish lock
+        path = publish_snapshot(
+            args.publish_dir, step=None, F=res.F, raw_ids=g.raw_ids,
+            num_edges=g.num_edges, cfg=cfg, meta=pub_meta,
+        )
+        out["published"] = path
+        out["generation"] = published_step_of(path)
+        return
+    # a store-backed fit slices on the store's host ranges (each serving
+    # shard then covers whole cache shards); others take equal slices
+    store = getattr(args, "_store", None)
+    ranges = None
+    if store is not None:
+        try:
+            ranges = store.host_ranges(shards)
+        except ValueError:
+            pass        # shards does not divide the cache
+    if ranges is None:
+        n = g.num_nodes
+        ranges = [(s * n // shards, (s + 1) * n // shards)
+                  for s in range(shards)]
+    if cfg.representation == "sparse":
+        # M-sized member lists, never a densified N*K block (lossless
+        # whenever M held the live support, which the fit's cap guarantees)
+        from bigclam_tpu_torch.ops.sparse_members import from_dense
+
+        m_pub = int(out.get("sparse_m", cfg.sparse_m))
+        ids_pub, w_pub, _ = from_dense(res.F, m_pub, cfg.num_communities,
+                                       g.num_nodes)
+        kw = {"ids": ids_pub, "w": w_pub}
+    else:
+        kw = {"F": res.F}
+    step, path = publish_fleet_snapshot(
+        args.publish_dir, ranges, raw_ids=g.raw_ids, num_edges=g.num_edges,
+        cfg=cfg, meta=pub_meta, **kw,
+    )
+    out["published"] = path
+    out["generation"] = step
+    out["publish_shards"] = shards
+    if tel is not None:
+        tel.event("fleet_publish", step=step, shards=shards)
+
+
 def fit(args):
     """Run `fit` for parsed arguments. Returns (the JSON-ready result dict,
     the FitResult, the final train state)."""
@@ -940,6 +1265,8 @@ def _fit(args, tel):
     prof = StageProfile()
     with prof.stage("graph"):
         g = load_graph(args)
+    if getattr(args, "follow", None):
+        check_follow(args, cfg)
     with prof.stage("model_build"):
         model = build_model(g, cfg, args)
     with prof.stage("seeding"):
@@ -986,6 +1313,8 @@ def _fit(args, tel):
             )
             with trace.span("fit_loop/extract_F"):
                 F = model.extract_F(state)
+            # the full-fit cost baseline `cli refit` prices against
+            fit_wall_s = round(time.perf_counter() - t0, 4)
     res = FitResult(F=F, sumF=F.sum(axis=0), llh=llh, num_iters=iters,
                     llh_history=hist)
     out = {
@@ -1010,16 +1339,35 @@ def _fit(args, tel):
     if args.mesh:
         out["mesh"] = model.mesh.label()
     stamp_models(out, model)
-    if args.out or args.save_f:
+    if args.out or args.save_f or args.publish_dir:
         with prof.stage("extract"):
             if args.out:
                 com = extraction.extract_community_arrays(res.F, g)
                 extraction.write_communities(args.out, com)
                 out["communities"] = len(com)
                 out["out"] = args.out
+            if args.publish_dir:
+                publish_fit(args, cfg, g, res, out, fit_wall_s, tel)
             if args.save_f:
                 np.save(args.save_f, res.F)
                 out["save_f"] = args.save_f
+    if args.follow:
+        # the continuous fit -> publish -> serve loop: per new edge file in
+        # the delta directory, delta re-ingest -> warm-start refit ->
+        # publish the next generation (preconditions checked before the fit)
+        from bigclam_tpu_torch.models.refit import follow_deltas
+
+        with prof.stage("follow"):
+            out["follow"] = follow_deltas(
+                args._store, cfg, res.F, args.publish_dir, args.follow,
+                halo=args.refit_halo,
+                max_rounds=args.refit_rounds,
+                interval_s=args.follow_interval,
+                max_deltas=args.follow_max,
+                timeout_s=args.follow_timeout,
+                quiet=args.quiet,
+                device=args.device,
+            )
     out["stage_seconds"] = dict(prof.seconds)
     if tel is not None:
         tel.set_final({k: v for k, v in out.items() if k != "llh_history"})
@@ -1399,9 +1747,6 @@ def preflight(args) -> int:
     from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
 
     refused = []
-    if args.serve:
-        refused.append("--serve: serve preflight comes with serving "
-                       "(ROADMAP queue 1 item 12)")
     if args.partition == "2d":
         refused.append("--partition 2d: the 2D partition is ROADMAP queue "
                        "1 item 17")
@@ -1447,6 +1792,8 @@ def preflight(args) -> int:
         print("error: pass --nodes and --edges (or a text --graph with "
               "--nodes, or a cache dir)", file=sys.stderr)
         return 1
+    if args.serve:
+        return serve_preflight(args, n, directed, notes)
     if args.mesh:
         dp, tp = parse_mesh(args.mesh)
     else:
@@ -1508,11 +1855,336 @@ def preflight(args) -> int:
     return 0 if p["fits"] else 2
 
 
+def parse_query_spec(spec: str) -> dict:
+    """--query shorthand: 'communities_of:12', 'members_of:3',
+    'suggest_for:12' — or a raw JSON object for anything richer
+    (explicit-neighbour suggests). The JAX CLI's `_parse_query_spec`."""
+    spec = spec.strip()
+    if spec.startswith("{"):
+        try:
+            return json.loads(spec)
+        except ValueError as e:
+            raise SystemExit(f"error: --query {spec!r}: not JSON ({e})")
+    fam, _, arg = spec.partition(":")
+    keys = {"communities_of": "u", "members_of": "c", "suggest_for": "u"}
+    if fam not in keys:
+        raise SystemExit(
+            f"error: --query {spec!r}: family must be one of "
+            "communities_of/members_of/suggest_for (or pass a JSON object)"
+        )
+    try:
+        return {"family": fam, keys[fam]: int(arg)}
+    except ValueError:
+        raise SystemExit(
+            f"error: --query {spec!r}: {keys[fam]!r} must be an integer "
+            f"(got {arg!r})"
+        )
+
+
+def serve(args) -> int:
+    """Run `serve` for parsed arguments (exit 1 when any query errored)."""
+    tel = open_telemetry(args, "serve")
+    try:
+        return _serve(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _serve(args, tel=None) -> int:
+    """Membership serving (JAX `cmd_serve`): answer the three query
+    families from a published snapshot through the request batcher, the
+    suggest family's fold-in on --device, and print the serving stats
+    JSON (p50/p99 latency, QPS, cache hit rate), stamped into the
+    telemetry final so `cli perf diff` verdicts serve p99."""
+    from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
+    from bigclam_tpu_torch.serve.server import MembershipServer
+    from bigclam_tpu_torch.serve.snapshot import SnapshotError
+    from bigclam_tpu_torch.utils.device import resolve_device
+    from bigclam_tpu_torch.utils.profiling import StageProfile
+
+    fleet = [flag for flag, v in (("--fleet", args.fleet),
+                                  ("--fleet-shard", args.fleet_shard),
+                                  ("--listen", args.listen)) if v is not None]
+    if fleet:
+        print(f"error: not ported yet: {', '.join(fleet)}: fleet replicas "
+              "are ROADMAP queue 1 item 18 (the JAX package's `cli serve "
+              "--fleet` serves the port's `fit --publish-shards` archives)",
+              file=sys.stderr)
+        return 1
+    if not args.snapshots:
+        print("error: serve needs --snapshots", file=sys.stderr)
+        return 1
+    # no card raises DeviceUnavailableError here, before anything loads
+    device = resolve_device(args.device)
+    prof = StageProfile()
+    store = graph = None
+    if args.graph:
+        with prof.stage("graph_load"):
+            if is_cache_dir(args.graph):
+                # ALWAYS read-only: with the delta pipeline mutating the
+                # cache live, a crc mismatch here is usually a half-applied
+                # delta seen through a stale manifest, and a "heal" would
+                # rebuild the PRE-delta blobs over the writer's work
+                store = GraphStore.open(args.graph, self_heal=False)
+            else:
+                from bigclam_tpu_torch.graph import build_graph
+
+                graph = build_graph(args.graph)
+    queries = [parse_query_spec(q) for q in (args.query or [])]
+    if args.queries:
+        with open(args.queries) as f:
+            for lineno, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    queries.append(json.loads(line))
+                except ValueError as e:
+                    print(f"error: {args.queries}:{lineno}: not JSON ({e})",
+                          file=sys.stderr)
+                    return 1
+    if not queries:
+        print("error: nothing to serve — pass --query and/or --queries",
+              file=sys.stderr)
+        return 1
+    try:
+        with prof.stage("snapshot_load"):
+            server = MembershipServer(
+                args.snapshots,
+                store=store,
+                graph=graph,
+                max_batch=args.max_batch,
+                budget_s=args.latency_budget_ms / 1e3,
+                cache_slots=args.cache_slots,
+                foldin_max_iters=args.foldin_max_iters,
+                foldin_conv_tol=args.foldin_conv_tol,
+                foldin_max_deg=args.foldin_max_deg,
+                watch_interval_s=args.watch_snapshots,
+                max_queue_depth=args.max_queue_depth,
+                shed_wait_s=args.shed_wait_ms / 1e3,
+                device=device,
+            )
+    except SnapshotError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    try:
+        with prof.stage("serve"):
+            results = []
+            for _ in range(max(args.repeat, 1)):
+                results = server.run_queries(queries)
+        out = server.stats()
+        out["snapshots"] = args.snapshots
+        if args.results:
+            with open(args.results, "w") as f:
+                for r in results:
+                    f.write(json.dumps(r) + "\n")
+            out["results"] = args.results
+        elif not args.quiet and len(queries) <= 16:
+            # one-shot interactive use: the answers ARE the output
+            for r in results:
+                print(json.dumps(r))
+    finally:
+        server.close()
+    if tel is not None:
+        tel.set_final(out)
+    print(json.dumps(out))
+    return 1 if out.get("serve_errors") else 0
+
+
+def refit(args) -> int:
+    """Run `refit` for parsed arguments."""
+    tel = open_telemetry(args, "refit")
+    try:
+        return _refit(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _refit(args, tel=None) -> int:
+    """Warm-start incremental refit (JAX `cmd_refit`): start from the
+    previous PUBLISHED F, re-optimize only the rows a delta touched (plus a
+    halo of their neighbours) by batched fold-in on --device, and publish
+    the result as the next snapshot generation. The health detectors watch
+    the restricted objective; divergence or plateau escalates to a full
+    fit (`--escalate never` publishes the refit F regardless)."""
+    from bigclam_tpu_torch.models.refit import (
+        touched_rows_from_delta,
+        warm_start_refit,
+    )
+    from bigclam_tpu_torch.serve.snapshot import publish_snapshot
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+    from bigclam_tpu_torch.utils.profiling import StageProfile
+
+    if args.mesh or args.store_native:
+        raise SystemExit(
+            "error: refit is single-device for now — drop --mesh/"
+            "--store-native"
+        )
+    prof = StageProfile()
+    with prof.stage("snapshot_load"):
+        # the archive alone: the refit needs F, not the serving index that
+        # ServingSnapshot.load builds (the same fallback past corrupt ones)
+        got = CheckpointManager(args.snapshots).load_published()
+    if got is None:
+        print(f"error: {args.snapshots}: no published snapshot (fit with "
+              "--publish-dir, or publish_snapshot())", file=sys.stderr)
+        return 1
+    step, arrays, meta = got
+    sparse_snap = meta.get("representation", "dense") == "sparse"
+    snap_k = int(meta.get("k") or (0 if sparse_snap else arrays["F"].shape[1]))
+    snap_n = int(meta.get("n") or (arrays["ids"] if sparse_snap
+                                   else arrays["F"]).shape[0])
+    k = args.k or snap_k
+    if k != snap_k:
+        raise SystemExit(
+            f"error: --k {k} does not match the published snapshot's "
+            f"k={snap_k} (a refit continues the same model)"
+        )
+    args.k = k
+    cfg = config_from_args(args)
+    with prof.stage("graph_load"):
+        g = load_graph(args)
+    if g.num_nodes != snap_n:
+        raise SystemExit(
+            f"error: graph has {g.num_nodes} nodes but the snapshot was "
+            f"published for {snap_n} — wrong graph/snapshot pair (deltas "
+            "never grow N; re-ingest + full fit for new nodes)"
+        )
+    with prof.stage("model_build"):
+        model = make_model(g, cfg, args.device)
+    if sparse_snap:
+        from bigclam_tpu_torch.ops.sparse_members import to_dense
+
+        F_prev = to_dense(arrays["ids"], arrays["w"], snap_n, snap_k)
+    else:
+        F_prev = np.asarray(arrays["F"][:snap_n, :snap_k], np.float64)
+    del arrays
+    with prof.stage("touched"):
+        touched = touched_rows_from_delta(g.raw_ids, args.delta)
+    with prof.stage("refit"):
+        res = warm_start_refit(
+            model, F_prev, touched,
+            halo=args.halo,
+            max_rounds=args.refit_rounds,
+            batch=args.refit_batch,
+            foldin_max_iters=args.foldin_max_iters,
+            conv_tol=cfg.conv_tol,
+        )
+    F_final = res.F
+    total_wall = res.wall_s
+    full_llh = None
+    escalated_full = False
+    if res.escalated and args.escalate == "full":
+        print(
+            f"[bigclam] refit escalated "
+            f"({[a['check'] for a in res.anomalies]}): running a full fit "
+            "warm-started from the refit F",
+            file=sys.stderr,
+        )
+        t0 = time.perf_counter()
+        with prof.stage("full_fit"):
+            full = model.fit(res.F)
+        total_wall = round(total_wall + time.perf_counter() - t0, 4)
+        F_final = full.F
+        full_llh = full.llh
+        escalated_full = True
+    base_wall = meta.get("fit_wall_s")
+    ratio = (
+        round(total_wall / float(base_wall), 6)
+        if isinstance(base_wall, (int, float)) and base_wall
+        and not isinstance(base_wall, bool)
+        else None
+    )
+    out = {
+        "n": g.num_nodes,
+        "edges": g.num_edges,
+        "k": k,
+        "representation": cfg.representation,
+        "from_generation": int(step),
+        "touched": res.touched,
+        "refit_nodes": res.refit_nodes,
+        "touched_frac": res.touched_frac,
+        "halo": res.halo,
+        "rounds": res.rounds,
+        "foldin_iters": res.foldin_iters,
+        "converged": res.converged,
+        "escalated": res.escalated,
+        "escalated_full_fit": escalated_full,
+        "refit_wall_s": total_wall,
+        "baseline_fit_wall_s": base_wall,
+        "refit_cost_ratio": ratio,
+        "restricted_llh": res.llh,
+        "kernel_path": model.engaged_path,
+        "kernel_path_reason": model.path_reason,
+    }
+    if full_llh is not None:
+        out["llh"] = full_llh
+    if not args.no_publish:
+        from bigclam_tpu_torch.utils.checkpoint import published_step_of
+
+        with prof.stage("publish"):
+            path = publish_snapshot(
+                args.snapshots, step=None, F=F_final,
+                raw_ids=g.raw_ids, num_edges=g.num_edges, cfg=cfg,
+                meta={
+                    "refit": True,
+                    "seed": cfg.seed,
+                    # the from-scratch cost baseline propagates through
+                    # refit generations, so cost ratios keep meaning "vs a
+                    # full fit", not "vs the last refit"
+                    "fit_wall_s": base_wall,
+                    "touched_frac": res.touched_frac,
+                    "refit_rounds": res.rounds,
+                    **({"llh": full_llh} if full_llh is not None else {}),
+                },
+            )
+        out["published"] = path
+        out["generation"] = published_step_of(path) if path else None
+    if tel is not None:
+        tel.set_final(out)
+    print(json.dumps(out))
+    return 0
+
+
+def serve_preflight(args, n: int, directed: int, notes: list) -> int:
+    """`preflight --serve` (the JAX CLI's branch): per-replica RSS
+    (sparse-aware snapshot, inverted index, hot cache, adjacency slice) and
+    fleet QPS capacity against --qps-target, priced on the host."""
+    from bigclam_tpu_torch.obs import memory as M
+
+    host_ram = float(args.host_ram_gb) * (1 << 30) if args.host_ram_gb else 0.0
+    try:
+        p = M.serve_preflight(
+            n, directed, args.k,
+            shards=args.serve_shards,
+            replicas=args.serve_replicas,
+            representation=args.representation,
+            sparse_m=args.sparse_m,
+            itemsize=8 if args.dtype == "float64" else 4,
+            cache_slots=args.serve_cache_slots,
+            avg_memberships=args.avg_memberships,
+            qps_target=args.qps_target,
+            qps_per_replica=args.qps_per_replica,
+            host_ram_bytes=host_ram,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    p["notes"] = notes + p["notes"]
+    if args.json:
+        print(json.dumps(p, sort_keys=True))
+    else:
+        print(M.render_serve_preflight(p))
+    return 0 if p["fits"] else 2
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command in ("perf", "report", "watch", "preflight", "ingest"):
+    if args.command in ("perf", "report", "watch", "preflight", "ingest",
+                        "serve", "refit"):
         return {"perf": perf, "report": report, "watch": watch,
-                "preflight": preflight, "ingest": ingest}[args.command](args)
+                "preflight": preflight, "ingest": ingest, "serve": serve,
+                "refit": refit}[args.command](args)
     from bigclam_tpu_torch.utils.profiling import NoDeviceKernelsError
 
     try:

@@ -1021,6 +1021,73 @@ class BigClamModel(MemoryAccountedModel):
         n, k = self.g.num_nodes, self.cfg.num_communities
         return state.F[:n, :k].cpu().numpy()
 
+    # ------------------------------------------------ fold-in and refit
+    def foldin_rows(
+        self,
+        state: TrainState,
+        nodes,
+        max_deg: Optional[int] = None,
+        max_iters: Optional[int] = None,
+        conv_tol: Optional[float] = None,
+        init: str = "own",
+    ):
+        """Batched FOLD-IN: re-optimize the rows of `nodes` against this
+        state's FROZEN F (ops.foldin — the per-node half of the train step
+        as a batch primitive, which `cli serve`'s suggest family and the
+        warm-start refit are built on), holding every other row fixed.
+
+        init="own" (default) warm-starts each node from its CURRENT row: a
+        trained node's row is a fixed point of its own fold-in objective,
+        so fold-in recovers it within the convergence band and refines it
+        when the frozen F has drifted. init="mean" cold-starts from the
+        neighbour mean (the brand-new-node path), which may land on
+        another local optimum of the row.
+
+        Returns (rows (B, K) np.ndarray, llh (B,), iters (B,))."""
+        from bigclam_tpu_torch.ops import foldin as fi
+        from bigclam_tpu_torch.serve.snapshot import pad_neighbor_batch
+
+        nodes = np.asarray(nodes, np.int64)
+        nbr_ids, nbr_mask, _ = pad_neighbor_batch(
+            self.g.indptr, self.g.indices, nodes, max_deg=max_deg
+        )
+        F = state.F
+        nbr_rows = fi.gather_neighbor_rows(
+            F, torch.from_numpy(nbr_ids).to(self.device))
+        mask = torch.from_numpy(nbr_mask).to(device=self.device, dtype=F.dtype)
+        own = F[torch.from_numpy(nodes).to(self.device)]
+        sumF_others = state.sumF[None, :] - own
+        rows0 = own if init == "own" else fi.neighbor_mean_rows(nbr_rows, mask)
+        fit = fi.make_foldin_fit(self.cfg, max_iters=max_iters,
+                                 conv_tol=conv_tol)
+        rows, llh, iters = fit(rows0, nbr_rows, mask, sumF_others)
+        k = self.cfg.num_communities
+        return (rows[:, :k].cpu().numpy(), llh.cpu().numpy(),
+                iters.cpu().numpy())
+
+    def refit_commit(self, state: TrainState, nodes, rows: np.ndarray) -> TrainState:
+        """Scatter freshly folded rows into the state (the warm-start
+        refit's commit half): F rows replaced IN PLACE, sumF updated by
+        the row delta; llh/it/health are the refit loop's bookkeeping."""
+        from bigclam_tpu_torch.ops.foldin import apply_rows
+
+        k = self.cfg.num_communities
+        rows_p = np.zeros((len(nodes), self.k_pad), dtype=np.float64)
+        rows_p[:, :k] = rows
+        F, sumF = apply_rows(
+            state.F, state.sumF,
+            torch.from_numpy(np.asarray(nodes, np.int64)).to(self.device),
+            torch.from_numpy(rows_p).to(device=self.device, dtype=self.dtype),
+        )
+        return state._replace(F=F, sumF=sumF)
+
+    def warm_start_refit(self, F_prev: np.ndarray, touched, **kw):
+        """Incremental warm-start refit from a previous F restricted to the
+        touched rows + halo (models.refit.warm_start_refit)."""
+        from bigclam_tpu_torch.models.refit import warm_start_refit
+
+        return warm_start_refit(self, F_prev, touched, **kw)
+
     def health_sig(self, state: TrainState) -> torch.Tensor:
         """(N,) int32 top-community signature — the rolling membership
         snapshot obs.health churns against."""

@@ -291,6 +291,75 @@ class SparseBigClamModel(MemoryAccountedModel):
             t.numel() * t.element_size() for t in (state.F, state.ids, state.sumF)
         ))
 
+    # ------------------------------------------------ fold-in and refit
+    def foldin_rows(
+        self,
+        state: SparseTrainState,
+        nodes,
+        max_deg: Optional[int] = None,
+        max_iters: Optional[int] = None,
+        conv_tol: Optional[float] = None,
+        init: str = "own",
+    ):
+        """Batched fold-in against the frozen sparse state (the twin of
+        BigClamModel.foldin_rows): the neighbour member lists are
+        densified per query batch (ops.foldin.densify_member_rows — only
+        the B*D window pays K columns), then the same row ascent runs.
+        Returns dense (rows (B, K), llh (B,), iters (B,))."""
+        from bigclam_tpu_torch.ops import foldin as fi
+        from bigclam_tpu_torch.serve.snapshot import pad_neighbor_batch
+
+        nodes = np.asarray(nodes, np.int64)
+        nbr_ids, nbr_mask, _ = pad_neighbor_batch(
+            self.g.indptr, self.g.indices, nodes, max_deg=max_deg
+        )
+        dt = state.F.dtype
+        nbr_rows = fi.densify_member_rows(
+            state.ids, state.F, torch.from_numpy(nbr_ids).to(self.device),
+            self.k_pad,
+        )
+        mask = torch.from_numpy(nbr_mask).to(device=self.device, dtype=dt)
+        own = fi.densify_rows(state.ids, state.F,
+                              torch.from_numpy(nodes).to(self.device),
+                              self.k_pad)
+        sumF_others = state.sumF[None, :] - own
+        rows0 = own if init == "own" else fi.neighbor_mean_rows(nbr_rows, mask)
+        fit = fi.make_foldin_fit(self.cfg, max_iters=max_iters,
+                                 conv_tol=conv_tol)
+        rows, llh, iters = fit(rows0, nbr_rows, mask, sumF_others)
+        k = self.cfg.num_communities
+        return (rows[:, :k].cpu().numpy(), llh.cpu().numpy(),
+                iters.cpu().numpy())
+
+    def refit_commit(
+        self, state: SparseTrainState, nodes, rows: np.ndarray
+    ) -> SparseTrainState:
+        """The sparse twin of BigClamModel.refit_commit: freshly folded
+        DENSE rows are re-sparsified to top-M member lists (ops.
+        sparse_members.from_dense, the init-time truncation rule) and
+        scattered into the slot arrays; sumF re-reduces from the member
+        lists so it never drifts from the truncation."""
+        nodes_t = torch.from_numpy(np.asarray(nodes, np.int64)).to(self.device)
+        ids_b, w_b, _ = sm.from_dense(
+            np.asarray(rows, np.float64), self.m, self.k_pad, len(nodes)
+        )
+        ids = state.ids.index_copy(
+            0, nodes_t, torch.from_numpy(ids_b).to(self.device))
+        w = state.F.index_copy(
+            0, nodes_t,
+            torch.from_numpy(w_b).to(device=self.device, dtype=self.dtype))
+        return state._replace(
+            ids=ids, F=w, sumF=sm.sparse_sumF(ids, w, self.k_pad)
+        )
+
+    def warm_start_refit(self, F_prev: np.ndarray, touched, **kw):
+        """Incremental warm-start refit restricted to touched rows + halo
+        (models.refit.warm_start_refit): the state stays M-sized, only
+        each fold-in query window densifies."""
+        from bigclam_tpu_torch.models.refit import warm_start_refit
+
+        return warm_start_refit(self, F_prev, touched, **kw)
+
     def health_sig(self, state: SparseTrainState) -> torch.Tensor:
         """(N_pad,) int32 top-community signature from the member lists
         (-1 on empty rows)."""

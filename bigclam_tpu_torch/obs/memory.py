@@ -1177,3 +1177,184 @@ def render_preflight(p: Dict[str, Any]) -> str:
     return "\n".join(lines)
 
 
+def serve_preflight(
+    n: int,
+    directed_edges: int,
+    k: int,
+    shards: int = 1,
+    replicas: int = 1,
+    representation: str = "dense",
+    sparse_m: int = 64,
+    itemsize: int = 4,
+    cache_slots: int = 64,
+    avg_memberships: float = 2.0,
+    qps_target: float = 0.0,
+    qps_per_replica: float = 9000.0,
+    host_ram_bytes: float = 0.0,
+) -> Dict[str, Any]:
+    """The serving-fleet capacity verdict (`cli preflight --serve`, a
+    copy of the JAX package's host pricing): price one replica of one
+    shard —
+    snapshot rows (sparse-aware: M member slots per row, never a
+    densified N*K block), the load-time inverted index, the hot-community
+    cache, and the suggest adjacency slice — then the fleet total
+    (shards × replicas), against a per-replica RAM budget and a
+    `--qps-target`. The QPS capacity baseline (`qps_per_replica`)
+    defaults to the JAX package's figure (kept so both verdicts agree;
+    it is not a measurement of the port); pass a replica measurement
+    for a calibrated verdict."""
+    shards = max(int(shards), 1)
+    replicas = max(int(replicas), 1)
+    sparse = representation == "sparse"
+    m = max(1, min(int(sparse_m), int(k))) if sparse else 0
+    rows = -(-int(n) // shards)                      # ceil rows/shard
+    # --- one shard's snapshot archive, loaded ---
+    if sparse:
+        row_bytes = m * (4.0 + itemsize)             # ids(i32) + w
+    else:
+        row_bytes = float(k) * itemsize              # dense F row
+    snapshot = rows * (row_bytes + 8.0) + float(k) * itemsize
+    # rows + raw_ids(i64) + the global sumF vector every shard carries
+    # --- the load-time inverted index (community -> member raw ids) ---
+    pairs = rows * max(float(avg_memberships), 0.0)
+    index = pairs * 8.0 + (k + 1) * 8.0 + rows * 8.0
+    # comm_members(i64) + comm_indptr + the sorted raw-id row map
+    # --- the Zipf-aware hot-community cache (resident member lists) ---
+    avg_members = (n * max(float(avg_memberships), 0.0)) / max(k, 1)
+    cache = min(int(cache_slots), int(k)) * avg_members * 8.0
+    # --- the suggest adjacency slice (CSR over the shard's rows) ---
+    adjacency = (rows + 1) * 8.0 + (directed_edges / shards) * 4.0
+    per_replica = snapshot + index + cache + adjacency
+    fleet_total = per_replica * shards * replicas
+    # --- throughput: node-routed families hit ONE shard, so shards
+    # multiply capacity; members_of fans out to every shard, so its
+    # capacity is replicas × the per-replica figure alone ---
+    qps_capacity = shards * replicas * float(qps_per_replica)
+    qps_members = replicas * float(qps_per_replica)
+    fits_ram = (
+        per_replica <= float(host_ram_bytes) if host_ram_bytes else True
+    )
+    fits_qps = (
+        qps_capacity >= float(qps_target) if qps_target else True
+    )
+    fits = fits_ram and fits_qps
+    binding = None if fits else ("host_ram" if not fits_ram else "qps")
+    knobs: List[str] = []
+    if not fits_ram:
+        if not sparse:
+            knobs.append(
+                f"--representation sparse --sparse-m {min(64, k)}: "
+                f"snapshot rows shrink ~K/M "
+                f"({_fmt_bytes(rows * row_bytes)} -> "
+                f"{_fmt_bytes(rows * min(64, k) * (4.0 + itemsize))} "
+                "per replica)"
+            )
+        knobs.append(
+            f"--serve-shards {shards * 2}: per-replica snapshot bytes "
+            "halve (rows/shard halve)"
+        )
+        if cache_slots > 8:
+            knobs.append(
+                f"--cache-slots {max(cache_slots // 4, 8)}: resident "
+                f"member lists drop {_fmt_bytes(cache)} -> "
+                f"{_fmt_bytes(max(cache_slots // 4, 8) * avg_members * 8.0)}"
+            )
+    if not fits_qps:
+        need = -(-int(qps_target) // max(int(shards * qps_per_replica), 1))
+        knobs.append(
+            f"--serve-replicas {max(need, replicas + 1)}: QPS capacity "
+            "scales linearly with replicas"
+        )
+    notes = [
+        "avg memberships/node estimated at "
+        f"{avg_memberships:g} (index + cache sizing); pass "
+        "--avg-memberships from a fitted health pack for exact figures",
+        "interpreter + numpy baseline RSS excluded (model covers the "
+        "snapshot-dependent bytes only)",
+        f"members_of scatter-gathers every shard: its capacity is "
+        f"{qps_members:,.0f} qps (replicas x per-replica), not the "
+        "node-routed figure",
+    ]
+    return {
+        "workload": {
+            "n": int(n),
+            "directed_edges": int(directed_edges),
+            "k": int(k),
+            "representation": representation,
+            **({"sparse_m": m} if sparse else {}),
+            "serve_shards": shards,
+            "serve_replicas": replicas,
+            "cache_slots": int(cache_slots),
+            "itemsize": itemsize,
+        },
+        "per_replica": {
+            "snapshot_bytes": round(snapshot, 1),
+            "index_bytes": round(index, 1),
+            "cache_bytes": round(cache, 1),
+            "adjacency_bytes": round(adjacency, 1),
+            "total_bytes": round(per_replica, 1),
+        },
+        "fleet_total_bytes": round(fleet_total, 1),
+        "qps_capacity": round(qps_capacity, 1),
+        "qps_capacity_members": round(qps_members, 1),
+        "qps_target": float(qps_target),
+        "host_ram_bytes": round(float(host_ram_bytes), 1),
+        "fits": fits,
+        "fits_ram": fits_ram,
+        "fits_qps": fits_qps,
+        "binding": binding,
+        "knobs": knobs,
+        "notes": notes,
+    }
+
+
+def render_serve_preflight(p: Dict[str, Any]) -> str:
+    """Human rendering of a serve_preflight() verdict."""
+    w = p["workload"]
+    r = p["per_replica"]
+    lines = [
+        f"serve preflight: N={w['n']}  2E={w['directed_edges']}"
+        f"  K={w['k']}  {w['representation']}"
+        + (f" M={w['sparse_m']}" if w.get("sparse_m") else "")
+        + f"  fleet {w['serve_shards']} shard(s) x "
+        f"{w['serve_replicas']} replica(s)",
+        "",
+        f"per-replica RSS (modeled): {_fmt_bytes(r['total_bytes'])}"
+        + (
+            f"  vs {_fmt_bytes(p['host_ram_bytes'])}"
+            f" ({'fits' if p['fits_ram'] else 'DOES NOT FIT'})"
+            if p["host_ram_bytes"]
+            else ""
+        ),
+    ]
+    for key, label in (
+        ("snapshot_bytes", "snapshot"),
+        ("index_bytes", "inverted index"),
+        ("adjacency_bytes", "adjacency"),
+        ("cache_bytes", "hot cache"),
+    ):
+        lines.append(f"  {label:<16} {_fmt_bytes(r[key]):>12}")
+    lines.append(
+        f"fleet total ({w['serve_shards']}x{w['serve_replicas']}): "
+        f"{_fmt_bytes(p['fleet_total_bytes'])}"
+    )
+    lines.append("")
+    lines.append(
+        f"QPS capacity (node-routed): {p['qps_capacity']:,.0f}"
+        + (
+            f"  vs target {p['qps_target']:,.0f}"
+            f" ({'fits' if p['fits_qps'] else 'DOES NOT FIT'})"
+            if p["qps_target"]
+            else "  (no --qps-target given)"
+        )
+    )
+    lines.append("")
+    verdict = "FITS" if p["fits"] else (
+        f"DOES NOT FIT (binding: {p['binding']})"
+    )
+    lines.append(f"verdict: {verdict}")
+    for knob in p["knobs"]:
+        lines.append(f"  knob: {knob}")
+    for note in p["notes"]:
+        lines.append(f"  note: {note}")
+    return "\n".join(lines)

@@ -179,6 +179,42 @@ exits non-zero:
             ingest of text + delta (build_graph), the re-baked phi equal to
             its exact conductance, the untouched shards' blobs unchanged to
             the byte; one cache-fed fit step on the card
+  serve_publish `cli fit --graph <store_full's 4-shard cache> --k 1000
+            --max-iters 5 --publish-dir snaps` on the card: the published
+            F equal to --save-f's bit for bit, fused_superstep once a
+            step; then `--representation sparse --sparse-m 64
+            --publish-dir snaps_sparse` and its final member lists
+            published as a sparse generation: seconds, archive bytes,
+            generations
+  serve_full `cli serve --snapshots snaps --graph <cache>` on the card, a
+            seeded mix (default_rng(16)) of 4,096 queries x 3: 45%
+            communities_of, 45% members_of (Zipf 1.1 over communities by
+            mass), 10% suggest_for (half existing nodes, half new ones
+            with 20-60 neighbour ids); dense, then sparse: p50/p99/QPS,
+            cache hit rate, fold-in batches and iterations, no error, 64
+            suggest answers of an in-process server against the CPU
+            float64 FoldInEngine (LLH at 1e-4, sets equal but at
+            near-ties), fold-in ms per batch at B=8 and 64, the dense
+            snapshot's zero rows and index pairs; on the sparse snapshot
+            a hot swap mid-stream (a second publish while the in-process
+            server watches every 0.1 s: one swap, nothing dropped) after
+            which an existing node's suggest recovers its row (its
+            converged fold-in row, published as its member list) within
+            1e-3
+  refit_full 1,000 new edges among the first shard's nodes
+            (default_rng(17)) through `cli ingest --delta` on a copy of
+            the cache, then `cli refit --refit-rounds 3` on the card:
+            touched, refit nodes, rounds, fold-in iterations, seconds,
+            refit_cost_ratio; rows outside touched + halo bit for bit the
+            previous generation, the restricted objective never falling
+            unless escalated, the next generation, and the first batch
+            against the CPU float64 fold-in
+  follow_parity at parity size `cli fit --follow --follow-max 2` on the
+            card in a thread while an in-process MembershipServer (watch
+            0.1 s) serves a stream; two deltas dropped in turn: 2
+            generations, 2 swaps, no serve error; the LLH history and
+            each generation's LLH within 1e-4 of the same loop on the
+            CPU in float64
   sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
             on the card against `--device cpu --dtype float64`: the same
             grid and chosen K (unless a stop ratio lies within 1e-4 of
@@ -4106,6 +4142,752 @@ def phase_store_delta(gi, path, tmp, cdir):
     }
 
 
+# ------------------------------------------------------ serving and refit
+SERVE_FIT_ITERS = 1000        # the served dense fit runs to convergence
+SERVE_SPARSE_ITERS = 60       # the sparse fit's cap (its steps are ~6x dearer)
+SERVE_QUERIES = 4096          # serve_full's mix, run SERVE_REPEAT times
+SERVE_REPEAT = 3
+SERVE_SEED = 16
+SERVE_ZIPF = 1.1              # members_of: Zipf rank over communities by mass
+SERVE_NEW_DEG = (20, 60)      # a new node's neighbour ids
+SERVE_CHECK = 64              # suggest answers held against CPU float64
+SERVE_LLH_RTOL = 1e-4
+SERVE_TIE = 1e-4              # |w - delta| <= SERVE_TIE * max(1, delta)
+SERVE_BATCHES = (8, 64)       # fold-in ms per batch at these B
+SERVE_SWAP_TOL = 1e-6         # the swap server's fold-in stop (float32)
+SERVE_SWAP_ITERS = 500
+SERVE_RECOVER_ATOL = 1e-3     # the JAX band (tests/test_serve.py)
+SERVE_RECOVER = 16            # existing nodes whose trained rows are recovered
+SERVE_CHUNK = 512             # queries per submission of a live stream
+REFIT_EDGES = 1000
+REFIT_SEED = 17
+REFIT_ROUNDS = 3
+REFIT_BATCH_RTOL = 1e-4       # one refit batch vs CPU float64, summed LLH
+REFIT_ROW_ATOL = 1e-3         # ... and its rows (the JAX recovery band)
+REFIT_SUMF_RTOL = 1e-4        # the refit's sumF vs its F's column sums
+FOLLOW_SEED = 18
+FOLLOW_EDGES = 40             # new edges a delta at parity
+FOLLOW_ITERS = 200
+FOLLOW_RTOL = 1e-4
+
+
+def serve_fit(extra):
+    """`cli fit` at full width (the default conv_tol: a snapshot carries the
+    fit's tolerance as the fold-in's stop), the launch counters zeroed just
+    before and read just after, and the publication timed; (out, res,
+    final state, counts, publish seconds)."""
+    from bigclam_tpu_torch import cli
+
+    args = cli.build_parser().parse_args([
+        "fit", "--k", str(FULL["k"]), "--init", "conductance", "--device",
+        DEVICE, "--quiet", *extra,
+    ])
+    timed = {}
+    publish = cli.publish_fit
+
+    def timed_publish(*a, **kw):
+        t0 = time.perf_counter()
+        publish(*a, **kw)
+        timed["publish_s"] = time.perf_counter() - t0
+
+    cli.publish_fit = timed_publish
+    reset_launch_counts()
+    try:
+        out, res, state = cli.fit(args)
+    finally:
+        cli.publish_fit = publish
+    counts = launch_counts()
+    if not all(math.isfinite(v) for v in out["llh_history"]):
+        raise AssertionError(f"non-finite fit: {out['llh_history']}")
+    return out, res, state, counts, timed["publish_s"]
+
+
+def snapshot_cfg(meta: dict):
+    """The fit's objective constants as a snapshot stamps them."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.serve.snapshot import FOLDIN_CFG_FIELDS
+
+    return BigClamConfig(num_communities=int(meta["k"]),
+                         **{f: meta[f] for f in FOLDIN_CFG_FIELDS})
+
+
+def phase_serve_publish(gi, tmp, cache):
+    """`cli fit --graph <full's 4-shard cache> --k 1000 --publish-dir
+    snaps` on the card, run to convergence (SERVE_FIT_ITERS caps it): a
+    snapshot as a user serves it, whose zero rows are few; the published F
+    equal to the fit's --save-f F bit for bit, fused_superstep launched
+    once a step; then the sparse fit at M=64 (SERVE_SPARSE_ITERS steps)
+    publishing to snaps_sparse (its F as a dense archive, as the JAX CLI
+    publishes it) and its final member lists as a sparse generation
+    (publish_snapshot(ids, w)), equal to that F."""
+    from bigclam_tpu_torch.serve.snapshot import publish_snapshot
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    card = DEVICE == "cuda"
+    n, k = gi.num_nodes, FULL["k"]
+    snaps = os.path.join(tmp, "snaps")
+    f_npy = os.path.join(tmp, "serve_F.npy")
+    out, res, state, counts, pub_s = serve_fit([
+        "--graph", cache, "--max-iters", str(SERVE_FIT_ITERS),
+        "--publish-dir", snaps, "--save-f", f_npy])
+    del state
+    if card and (out["kernel_path"] != "csr_fused"
+                 or counts["fused_superstep"] != out["steps"]):
+        raise AssertionError(f"publish fit {out['kernel_path']} {counts}")
+    step, arrays, meta = CheckpointManager(snaps).load_published()
+    saved = np.load(f_npy)
+    if not (np.array_equal(arrays["F"], saved) and np.array_equal(saved, res.F)):
+        raise AssertionError("the published F is not the fit's --save-f F")
+    del arrays, saved
+    os.remove(f_npy)
+    dense = {"generation": out["generation"], "publish_s": pub_s,
+             "archive_bytes": os.path.getsize(out["published"]),
+             "kernel_path": out["kernel_path"], "launches": counts,
+             "steps": out["steps"], "iters": out["iters"],
+             "converged": out["iters"] < SERVE_FIT_ITERS,
+             "sec_per_iter": out["sec_per_iter"],
+             "stage_seconds": out["stage_seconds"],
+             "zero_rows": int((res.F.max(axis=1) <= 0).sum()),
+             "published_equals_save_f": True}
+    snaps_sparse = os.path.join(tmp, "snaps_sparse")
+    f_npy = os.path.join(tmp, "serve_F_sparse.npy")
+    sout, sres, sstate, scounts, spub_s = serve_fit([
+        "--graph", cache, "--max-iters", str(SERVE_SPARSE_ITERS),
+        "--representation", "sparse",
+        "--sparse-m", str(SPARSE_M), "--publish-dir", snaps_sparse,
+        "--save-f", f_npy])
+    if card and (sout["kernel_path"] != "sparse_merge_pallas"
+                 or not scounts["member_lookup"]):
+        raise AssertionError(f"sparse publish fit {sout['kernel_path']} "
+                             f"{scounts}")
+    _, sarr, smeta = CheckpointManager(snaps_sparse).load_published()
+    if not np.array_equal(sarr["F"], np.load(f_npy)):
+        raise AssertionError("the sparse fit's published F is not its F")
+    del sarr
+    os.remove(f_npy)
+    ids = sstate.ids[:n].cpu().numpy()
+    w = sstate.F[:n].cpu().numpy()
+    del sstate
+    valid = ids < k
+    rows = np.nonzero(valid)[0]
+    if not (np.array_equal(sres.F[rows, ids[valid]], w[valid])
+            and int(np.count_nonzero(sres.F)) == int(np.count_nonzero(w[valid]))):
+        raise AssertionError("the sparse state's member lists are not its F")
+    del sres
+    t0 = time.perf_counter()
+    spath = publish_snapshot(
+        snaps_sparse, step=None, ids=ids, w=w, raw_ids=gi.raw_ids,
+        num_edges=gi.num_edges, cfg=snapshot_cfg(smeta),
+        meta={"llh": sout["llh"], "fit_wall_s": smeta.get("fit_wall_s")})
+    member_pub_s = time.perf_counter() - t0
+    sparse = {"generation": sout["generation"], "publish_s": spub_s,
+              "archive_bytes": os.path.getsize(sout["published"]),
+              "member_lists_publish_s": member_pub_s,
+              "member_lists_archive_bytes": os.path.getsize(spath),
+              "kernel_path": sout["kernel_path"], "launches": scounts,
+              "steps": sout["steps"], "iters": sout["iters"],
+              "converged": sout["iters"] < SERVE_SPARSE_ITERS,
+              "sec_per_iter": sout["sec_per_iter"]}
+    return snaps, snaps_sparse, {"dense": dense, "sparse": sparse}
+
+
+def serve_queries(snap, rng, count: int) -> list:
+    """The serve mix: 45% communities_of (uniform u), 45% members_of (Zipf
+    rank over communities by mass share), 10% suggest_for, half existing
+    nodes and half new nodes given SERVE_NEW_DEG neighbour ids."""
+    by_mass = snap.top_mass_communities(snap.k)
+    out = []
+    kinds = rng.choice(3, size=count, p=[0.45, 0.45, 0.10])
+    for kind in kinds:
+        if kind == 0:
+            out.append({"family": "communities_of",
+                        "u": int(rng.choice(snap.raw_ids))})
+        elif kind == 1:
+            r = int(rng.zipf(SERVE_ZIPF)) - 1
+            while r >= snap.k:
+                r = int(rng.zipf(SERVE_ZIPF)) - 1
+            out.append({"family": "members_of", "c": int(by_mass[r])})
+        elif rng.random() < 0.5:
+            out.append({"family": "suggest_for",
+                        "u": int(rng.choice(snap.raw_ids))})
+        else:
+            d = int(rng.integers(SERVE_NEW_DEG[0], SERVE_NEW_DEG[1] + 1))
+            out.append({"family": "suggest_for", "neighbors": [
+                int(v) for v in rng.choice(snap.raw_ids, d, replace=False)]})
+    return out
+
+
+def suggest_items(snap, g, queries) -> list:
+    """The fold-in items the server builds for suggest queries."""
+    items = []
+    for q in queries:
+        if "neighbors" in q:
+            items.append((np.asarray([snap.row_of(v) for v in q["neighbors"]],
+                                     np.int64), None))
+        else:
+            row = snap.row_of(q["u"])
+            lo, hi = int(g.indptr[row]), int(g.indptr[row + 1])
+            items.append((g.indices[lo:min(hi, lo + 4096)].astype(np.int64),
+                          row))
+    return items
+
+
+def hold_suggests(snap, g, queries, answers) -> dict:
+    """Card suggest answers against the port's CPU float64 FoldInEngine on
+    the same snapshot: LLH at SERVE_LLH_RTOL, suggested sets equal except
+    at near-ties of delta (or of the top-20 cut)."""
+    from bigclam_tpu_torch.serve.server import FoldInEngine
+
+    ref = FoldInEngine(snap, device="cpu", dtype=torch.float64).suggest_batch(
+        suggest_items(snap, g, queries))
+    delta = snap.delta
+    band = SERVE_TIE * max(1.0, delta)
+    worst, ties, iters_differ = 0.0, 0, 0
+    for q, a, b in zip(queries, answers, ref):
+        rel = abs(a["llh"] - b["llh"]) / max(abs(b["llh"]), 1e-30)
+        worst = max(worst, rel)
+        if rel > SERVE_LLH_RTOL:
+            raise AssertionError(f"suggest {q}: card llh {a['llh']} vs CPU "
+                                 f"float64 {b['llh']}")
+        iters_differ += a["iters"] != b["iters"]
+        wa, wb = dict(map(tuple, a["suggested"])), dict(map(tuple, b["suggested"]))
+        cut = min(min(wa.values(), default=delta), min(wb.values(), default=delta))
+        for c in set(wa) ^ set(wb):
+            w = wa.get(c, wb.get(c))
+            if abs(w - delta) <= band or abs(w - cut) <= band * max(1.0, cut):
+                ties += 1
+            else:
+                raise AssertionError(f"suggest {q}: community {c} (weight {w}) "
+                                     f"differs away from a near-tie")
+    return {"held": len(queries), "max_llh_rel_err": worst,
+            "near_tie_flips": ties, "iters_differ": iters_differ}
+
+
+def foldin_ms(engine, items) -> dict:
+    """Wall ms of one suggest batch (upload, fold-in, answers) at B in
+    SERVE_BATCHES: the median of 5 after a warm-up."""
+    out = {}
+    for b in SERVE_BATCHES:
+        batch = items[:b]
+        if len(batch) < b:
+            raise AssertionError(f"only {len(batch)} suggest items for B={b}")
+        engine.suggest_batch(batch)
+        times, iters = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ans = engine.suggest_batch(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+            iters = [x["iters"] for x in ans]
+        out[f"B{b}"] = {"ms": statistics.median(times), "ms_runs": times,
+                        "mean_iters": float(np.mean(iters))}
+    return out
+
+
+def run_cli_serve(snapdir, cache, qfile, tmp, tag) -> dict:
+    """`cli serve` of the query file SERVE_REPEAT times on the card, with
+    telemetry and no --results (a load test: the answers of members_of
+    run to every member); its stats JSON, the fold-in batches and the
+    wall seconds. Exit 0 means no query errored."""
+    tel = os.path.join(tmp, f"serve_tel_{tag}")
+    t0 = time.perf_counter()
+    out = cli_json(["serve", "--snapshots", snapdir, "--graph", cache,
+                    "--queries", qfile, "--repeat", str(SERVE_REPEAT),
+                    "--device", DEVICE, "--telemetry-dir", tel, "--quiet"])
+    wall = time.perf_counter() - t0
+    if out["serve_errors"] or out["serve_queries"] != SERVE_REPEAT * SERVE_QUERIES:
+        raise AssertionError(f"serve {tag}: {out}")
+    serve = [e for e in events_of(tel) if e["kind"] == "serve"]
+    out["foldin_batches"] = sum(1 for e in serve if e.get("n_suggest_for"))
+    out["wall_s"] = wall
+    return out
+
+
+class Stream:
+    """A live query stream on a MembershipServer: chunks of the mix
+    submitted from a thread until stopped; every answer kept."""
+
+    def __init__(self, server, queries):
+        import threading
+
+        self.server, self.queries = server, queries
+        self.answers, self.chunks, self.error = [], 0, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            i = 0
+            while not self._stop.is_set():
+                chunk = [self.queries[(i + j) % len(self.queries)]
+                         for j in range(SERVE_CHUNK)]
+                i += SERVE_CHUNK
+                self.answers.extend(self.server.run_queries(chunk))
+                self.chunks += 1
+        except Exception as e:   # noqa: BLE001 — re-raised by stop()
+            self.error = e
+
+    def wait_chunks(self, n: int, timeout: float = 300.0) -> None:
+        t0 = time.monotonic()
+        while self.chunks < n:
+            if self.error is not None or time.monotonic() - t0 > timeout:
+                raise AssertionError(f"stream stalled at {self.chunks} chunks: "
+                                     f"{self.error!r}")
+            time.sleep(0.01)
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self._thread.is_alive() or self.error is not None:
+            raise AssertionError(f"stream did not end: {self.error!r}")
+        bad = [a for a in self.answers if "error" in a]
+        if bad:
+            raise AssertionError(f"stream answers with errors: {bad[:3]}")
+        return self.answers
+
+
+def wait_generation(server, step: int, timeout: float = 300.0) -> float:
+    t0 = time.monotonic()
+    while server.generation != step:
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"no swap to generation {step} in {timeout} s "
+                                 f"(serving {server.generation})")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def phase_serve_full(gi, tmp, cache, snaps, snaps_sparse):
+    """`cli serve` on the card of SERVE_QUERIES queries (default_rng(16))
+    SERVE_REPEAT times, dense and then sparse: p50/p99/QPS, cache hit rate,
+    fold-in batches, no error; fold-in ms per batch at B=8 and 64; and an
+    in-process server on the same snapshot answering SERVE_CHECK suggests,
+    held against the CPU float64 engine; the dense snapshot's zero rows
+    and index pairs, and existing nodes' fold-ins recovering their trained
+    rows within the JAX band. Sparse also: a hot swap mid-stream (a second
+    publish while that server watches every 0.1 s: one swap, nothing
+    dropped)."""
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.serve.server import FoldInEngine, MembershipServer
+
+    store = GraphStore.open(cache, self_heal=False)
+    rng = np.random.default_rng(SERVE_SEED)
+    qfile = os.path.join(tmp, "serve_queries.jsonl")
+    body = {}
+    for tag, snapdir in (("dense", snaps), ("sparse", snaps_sparse)):
+        t0 = time.perf_counter()
+        server = MembershipServer(snapdir, store=store, device=DEVICE,
+                                  watch_interval_s=0.1)
+        load_s = time.perf_counter() - t0
+        try:
+            snap = server._snapshot
+            if snap.representation != tag:
+                raise AssertionError(f"{snapdir} serves {snap.representation}")
+            if tag == "dense":
+                queries = serve_queries(snap, rng, SERVE_QUERIES)
+                with open(qfile, "w") as f:
+                    f.writelines(json.dumps(q) + "\n" for q in queries)
+                suggests = [q for q in queries if q["family"] == "suggest_for"]
+            stats = run_cli_serve(snapdir, cache, qfile, tmp, tag)
+            held = suggests[:SERVE_CHECK]
+            answers = server.run_queries(held)
+            engine = FoldInEngine(snap, device=DEVICE)
+            iters = [a["iters"] for a in answers]
+            body[tag] = {
+                "server_load_s": load_s, "generation": snap.step,
+                "index_pairs": int(snap.comm_members.size),
+                **{key: stats[key] for key in (
+                    "serve_p50_s", "serve_p99_s", "serve_qps",
+                    "cache_hit_rate", "serve_queries", "serve_errors",
+                    "serve_by_family", "batches", "foldin_batches", "wall_s")},
+                "held_vs_cpu_float64": hold_suggests(snap, gi, held, answers),
+                "iters_per_held_suggest": {"mean": float(np.mean(iters)),
+                                           "max": int(np.max(iters))},
+                "foldin_ms": foldin_ms(engine, suggest_items(snap, gi,
+                                                             suggests)),
+            }
+            del engine
+            if tag == "dense":
+                body[tag]["zero_rows"] = int((snap.F.max(axis=1) <= 0).sum())
+                body[tag]["recover"] = recover_trained_rows(snap, gi, suggests)
+            else:
+                body["swap"] = serve_swap(server, snaps_sparse, snap, queries)
+        finally:
+            server.close()
+        del snap
+    return body
+
+
+def recover_trained_rows(snap, gi, suggests) -> dict:
+    """An existing node's fold-in recovers its trained row: the first
+    SERVE_RECOVER existing nodes of the mix, folded in on the card from
+    their own rows against the frozen converged F (stop SERVE_SWAP_TOL,
+    at most SERVE_SWAP_ITERS steps), each row within SERVE_RECOVER_ATOL of
+    the snapshot's (the JAX band, tests/test_serve.py)."""
+    from bigclam_tpu_torch.serve.server import FoldInEngine
+
+    cands = [q for q in suggests if "u" in q][:SERVE_RECOVER]
+    eng = FoldInEngine(snap, max_iters=SERVE_SWAP_ITERS,
+                       conv_tol=SERVE_SWAP_TOL, device=DEVICE)
+    rows, _, iters = eng.fold(suggest_items(snap, gi, cands))
+    rows = rows[: len(cands), : snap.k].cpu().double().numpy()
+    iters = iters[: len(cands)].cpu().numpy()
+    del eng
+    trained = np.stack([snap.F[snap.row_of(q["u"])] for q in cands])
+    err = np.abs(rows - trained).max(axis=1)
+    if err.max() > SERVE_RECOVER_ATOL:
+        raise AssertionError(f"fold-in of trained rows: max abs err {err} "
+                             f"(nodes {[q['u'] for q in cands]})")
+    return {"nodes": len(cands), "max_abs_err": float(err.max()),
+            "members": [int(np.count_nonzero(r)) for r in trained],
+            "iters": [int(i) for i in iters]}
+
+
+def serve_swap(server, snapdir, snap, queries) -> dict:
+    """serve_full's hot swap on its in-process sparse server: the member
+    lists republished as the next generation while a stream runs; one
+    swap, no error, nothing dropped."""
+    from bigclam_tpu_torch.serve.snapshot import publish_snapshot
+
+    server.reset_stats()
+    stream = Stream(server, queries)
+    stream.wait_chunks(1)
+    before = server.generation
+    t0 = time.perf_counter()
+    path = publish_snapshot(snapdir, step=None, ids=snap.ids, w=snap.w,
+                            raw_ids=snap.raw_ids, num_edges=snap.num_edges,
+                            cfg=snapshot_cfg(snap.meta),
+                            meta={"llh": snap.meta.get("llh"),
+                                  "fit_wall_s": snap.meta.get("fit_wall_s")})
+    publish_s = time.perf_counter() - t0
+    swap_s = wait_generation(server, before + 1)
+    at_swap = stream.chunks
+    stream.wait_chunks(at_swap + 1)
+    answers = stream.stop()
+    submitted = stream.chunks * SERVE_CHUNK
+    stats = server.stats()
+    if stats["snapshot_swaps"] != 1 or stats["serve_errors"]:
+        raise AssertionError(f"swap: {stats['snapshot_swaps']} swaps, "
+                             f"{stats['serve_errors']} errors")
+    if len(answers) != submitted:
+        raise AssertionError(f"swap dropped {submitted - len(answers)} queries")
+    iters = [a["iters"] for a in answers if "suggested" in a]
+    return {"generation": before + 1, "published": os.path.basename(path),
+            "publish_s": publish_s, "swap_after_publish_s": swap_s,
+            "snapshot_swaps": stats["snapshot_swaps"],
+            "queries_answered": len(answers),
+            "chunks_after_swap": stream.chunks - at_swap,
+            "serve_errors": stats["serve_errors"],
+            "serve_p50_s": stats["serve_p50_s"],
+            "serve_p99_s": stats["serve_p99_s"],
+            "iters_per_suggest": {"suggests": len(iters),
+                                  "mean": float(np.mean(iters)),
+                                  "median": float(np.median(iters)),
+                                  "max": int(np.max(iters))}}
+
+
+class RefitSpy:
+    """Inside the timed `cli refit`: the first fold-in batch's inputs and
+    outputs (the fit that ops.foldin.make_foldin_fit returns, wrapped), the
+    rows each commit of that batch's nodes scatters, and the state's sumF
+    after the last commit (the model's refit_commit, wrapped)."""
+
+    def __init__(self):
+        self.first = None
+        self.nodes = self.rows = self.sumF = None
+
+    def __enter__(self):
+        from bigclam_tpu_torch.models.bigclam import BigClamModel
+        from bigclam_tpu_torch.ops import foldin as fi
+
+        self._make, self._commit = fi.make_foldin_fit, BigClamModel.refit_commit
+        spy = self
+
+        def make(cfg, *a, **kw):
+            fit = spy._make(cfg, *a, **kw)
+
+            def wrapped(*args):
+                out = fit(*args)
+                if spy.first is None:      # the refit never writes these
+                    spy.first = (cfg, a, kw, args, out)
+                return out
+            return wrapped
+
+        def commit(model, state, nodes, rows):
+            new = spy._commit(model, state, nodes, rows)
+            nodes = np.asarray(nodes, np.int64)
+            if spy.nodes is None:
+                spy.nodes = nodes.copy()
+            if np.array_equal(nodes, spy.nodes):
+                spy.rows = np.array(rows, copy=True)
+            spy.sumF = new.sumF
+            return new
+
+        fi.make_foldin_fit, BigClamModel.refit_commit = make, commit
+        return self
+
+    def __exit__(self, *exc):
+        from bigclam_tpu_torch.models.bigclam import BigClamModel
+        from bigclam_tpu_torch.ops import foldin as fi
+
+        fi.make_foldin_fit, BigClamModel.refit_commit = self._make, self._commit
+
+
+def refit_batch_check(spy, F_new) -> dict:
+    """What the timed refit computed, held: its first fold-in batch (the
+    model's own float32 state: frozen rows, sumF, masks) against the CPU
+    float64 fold-in of the same inputs (LLH summed at REFIT_BATCH_RTOL,
+    rows at REFIT_ROW_ATOL); that batch's last committed rows, in the
+    published F bit for bit; the state's sumF after the last commit
+    against the published F's float64 column sums (REFIT_SUMF_RTOL)."""
+    cfg, a, kw, args, out = spy.first
+    rc, lc, ic = (t.cpu() for t in out)
+    rr, lr, ir = spy._make(cfg, *a, **kw)(*(t.cpu().double() for t in args))
+    real = int(spy.nodes.size)
+    rc, rr = rc[:real].double().numpy(), rr[:real].numpy()
+    lc, lr = lc[:real].double().numpy(), lr[:real].numpy()
+    total = abs(lc.sum() - lr.sum()) / abs(lr.sum())
+    row_err = float(np.abs(rc - rr).max())
+    if total > REFIT_BATCH_RTOL or row_err > REFIT_ROW_ATOL:
+        raise AssertionError(f"refit batch LLH {lc.sum()} vs CPU float64 "
+                             f"{lr.sum()}, rows max abs err {row_err}")
+    k = F_new.shape[1]
+    want = np.asarray(spy.rows[:, :k], F_new.dtype)
+    if not np.array_equal(F_new[spy.nodes], want):
+        raise AssertionError("the published F lacks the refit's committed rows")
+    col = F_new.sum(axis=0, dtype=np.float64)
+    got = spy.sumF.cpu().double().numpy()[:k]
+    drift = float(np.abs(got - col).max() / max(np.abs(col).max(), 1.0))
+    if drift > REFIT_SUMF_RTOL:
+        raise AssertionError(f"refit sumF drifted {drift} from the F it holds")
+    return {"nodes": real, "llh_sum_rel_err": float(total),
+            "max_node_llh_rel_err": float(np.max(np.abs(lc - lr)
+                                                 / np.abs(lr))),
+            "max_row_abs_err": row_err,
+            "iters_differ": int((ic[:real].numpy() != ir[:real].numpy()).sum()),
+            "committed_rows_published": True, "sumF_rel_drift": drift}
+
+
+def phase_refit_full(gi, tmp, cache, snaps):
+    """A delta of REFIT_EDGES new edges (default_rng(17)) among the first
+    cache shard's nodes, applied with `cli ingest --delta` to a copy of the
+    cache; `cli refit --graph <copy> --snapshots snaps --delta <file>
+    --refit-rounds 3` on the card: rows outside touched + halo equal the
+    previous generation bit for bit, the restricted objective never falls
+    (unless a detector fired and the JSON says so), the next generation,
+    and what the refit itself computed held (refit_batch_check)."""
+    import shutil
+
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.models import refit as rf
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    store = GraphStore.open(cache)
+    lo, hi = store.node_range(0)
+    rng = np.random.default_rng(REFIT_SEED)
+    pairs = rng.choice(gi.raw_ids[lo:hi], size=(REFIT_EDGES, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    dpath = os.path.join(tmp, "refit_delta.txt")
+    np.savetxt(dpath, pairs, fmt="%d")
+    copy = os.path.join(tmp, "refit.cache")
+    shutil.copytree(cache, copy)
+    t0 = time.perf_counter()
+    info = cli_json(["ingest", "--cache-dir", copy, "--delta", dpath])
+    ingest_s = time.perf_counter() - t0
+    cm = CheckpointManager(snaps)
+    prev, arrays, _ = cm.load_published()
+    F_prev = arrays["F"]
+    del arrays
+    got = {}
+    orig = rf.warm_start_refit
+
+    def spy(*a, **kw):
+        got["res"] = orig(*a, **kw)
+        return got["res"]
+
+    rf.warm_start_refit = spy
+    reset_launch_counts()
+    try:
+        with RefitSpy() as inside:
+            t0 = time.perf_counter()
+            out = cli_json(["refit", "--graph", copy, "--snapshots", snaps,
+                            "--delta", dpath, "--refit-rounds",
+                            str(REFIT_ROUNDS), "--device", DEVICE, "--quiet"])
+            wall = time.perf_counter() - t0
+    finally:
+        rf.warm_start_refit = orig
+    counts = launch_counts()
+    res = got["res"]
+    if out["from_generation"] != prev or out["generation"] != prev + 1:
+        raise AssertionError(f"refit published {out['generation']} from "
+                             f"{out['from_generation']}, latest was {prev}")
+    hist = list(res.history)
+    falls = [i for i in range(1, len(hist)) if hist[i] < hist[i - 1]]
+    if falls and not out["escalated"]:
+        raise AssertionError(f"restricted objective fell: {hist}")
+    g1 = GraphStore.open(copy).load_graph()
+    touched = rf.touched_rows_from_delta(g1.raw_ids, dpath)
+    if touched.size != out["touched"]:
+        raise AssertionError(f"refit touched {out['touched']} rows, the delta "
+                             f"{touched.size}")
+    nodes = rf.expand_halo(g1.indptr, g1.indices, touched, 1)
+    _, new, _ = cm.load_published(out["generation"])
+    outside = np.ones(g1.num_nodes, bool)
+    outside[nodes] = False
+    if out["escalated_full_fit"]:
+        kept = None        # a full fit moved every row
+    elif not np.array_equal(new["F"][outside], F_prev[outside]):
+        raise AssertionError("refit changed rows outside touched + halo")
+    else:
+        kept = int(outside.sum())
+    batch = (None if out["escalated_full_fit"]
+             else refit_batch_check(inside, new["F"]))
+    del new
+    return {
+        "delta_pairs": int(pairs.shape[0]),
+        "delta_edges_added": info["edges_added"],
+        "touched_shards": info["touched_shards"], "ingest_delta_s": ingest_s,
+        **{key: out[key] for key in (
+            "touched", "refit_nodes", "touched_frac", "rounds", "foldin_iters",
+            "converged", "escalated", "escalated_full_fit", "refit_wall_s",
+            "baseline_fit_wall_s", "refit_cost_ratio", "restricted_llh",
+            "from_generation", "generation", "kernel_path")},
+        "history": hist, "cli_wall_s": wall, "launches": counts,
+        "rows_outside_identical": kept, "batch_vs_cpu_float64": batch,
+    }
+
+
+def follow_fit(cache, snaps, ddir, device, dtype) -> list:
+    return ["fit", "--graph", cache, "--k", str(PARITY["k"]), "--max-iters",
+            str(FOLLOW_ITERS), "--device", device, "--dtype", dtype,
+            "--publish-dir", snaps, "--follow", ddir, "--follow-max", "2",
+            "--follow-interval", "0.05", "--refit-rounds", "4", "--quiet"]
+
+
+def full_llh(F, g) -> float:
+    """The float64 LLH of F on graph g (the port's CPU edge sweep)."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.ops.objective import EdgeChunks, loglikelihood
+
+    Ft = torch.from_numpy(np.asarray(F, np.float64))
+    csr = g.to_device("cpu")
+    return float(loglikelihood(Ft, Ft.sum(0), EdgeChunks(csr.src, csr.dst, 1 << 16),
+                               BigClamConfig(num_communities=F.shape[1])))
+
+
+def phase_follow_parity(tmp):
+    """At parity size, `cli fit --follow --follow-max 2` on the card in a
+    thread while an in-process MembershipServer(watch_interval_s=0.1)
+    serves a stream; two delta files dropped in turn: 2 generations, 2
+    swaps, no serve error; then the same loop on the CPU in float64 and the
+    fit's LLH history and each generation's LLH within FOLLOW_RTOL."""
+    import shutil
+    import threading
+
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.serve.server import MembershipServer
+    from bigclam_tpu_torch.serve.snapshot import ServingSnapshot
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    path = os.path.join(tmp, "follow_graph.txt")
+    planted_file(PARITY, path)
+    cache = os.path.join(tmp, "follow.cache")
+    ingest(path, cache, "--shards", "2")
+    raw = GraphStore.open(cache).load_graph().raw_ids
+    rng = np.random.default_rng(FOLLOW_SEED)
+    deltas = []
+    for i in range(2):
+        p = rng.choice(raw, size=(FOLLOW_EDGES, 2))
+        deltas.append(p[p[:, 0] != p[:, 1]])
+    runs = {}
+    for tag, device, dtype in (("card", DEVICE, "float32"),
+                               ("cpu", "cpu", "float64")):
+        c = os.path.join(tmp, f"follow_{tag}.cache")
+        shutil.copytree(cache, c)
+        ddir = os.path.join(tmp, f"follow_{tag}_deltas")
+        os.makedirs(ddir)
+        snaps = os.path.join(tmp, f"follow_{tag}_snaps")
+        runs[tag] = (c, ddir, snaps, follow_fit(c, snaps, ddir, device, dtype))
+
+    def drop(ddir, i):
+        tmp_name = os.path.join(ddir, f".d{i}.txt")
+        np.savetxt(tmp_name, deltas[i], fmt="%d")
+        os.replace(tmp_name, os.path.join(ddir, f"d{i}.txt"))
+
+    c, ddir, snaps, argv = runs["card"]
+    result = {}
+
+    def fit_thread():
+        try:
+            result["out"] = cli_json(argv)
+        except Exception as e:   # noqa: BLE001 — re-raised below
+            result["error"] = e
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=fit_thread, daemon=True)
+    th.start()
+    while CheckpointManager(snaps).latest() is None:
+        if not th.is_alive() or time.perf_counter() - t0 > 600:
+            raise AssertionError(f"follow fit published nothing: "
+                                 f"{result.get('error')!r}")
+        time.sleep(0.02)
+    server = MembershipServer(snaps, store=GraphStore.open(c, self_heal=False),
+                              watch_interval_s=0.1, budget_s=0.002,
+                              device=DEVICE)
+    swaps = []
+    try:
+        stream = Stream(server, serve_queries(
+            ServingSnapshot.load(snaps), np.random.default_rng(FOLLOW_SEED),
+            1024))
+        stream.wait_chunks(1)
+        for i in range(2):
+            drop(ddir, i)
+            swaps.append(wait_generation(server, i + 2))
+            stream.wait_chunks(stream.chunks + 1)
+        answers = stream.stop()
+        stats = server.stats()
+    finally:
+        server.close()
+    th.join(timeout=600)
+    if th.is_alive() or "error" in result:
+        raise AssertionError(f"follow fit: {result.get('error')!r}")
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    out = result["out"]
+    if (out["follow"]["generations"] != 2 or stats["snapshot_swaps"] != 2
+            or stats["serve_errors"]):
+        raise AssertionError(f"follow: {out['follow']}, swaps "
+                             f"{stats['snapshot_swaps']}, errors "
+                             f"{stats['serve_errors']}")
+    if DEVICE == "cuda" and not counts["fused_superstep"]:
+        raise AssertionError(f"follow fit launched no fused_superstep: {counts}")
+    c_cpu, ddir_cpu, snaps_cpu, argv_cpu = runs["cpu"]
+    for i in range(2):
+        drop(ddir_cpu, i)
+    ref = cli_json(argv_cpu)
+    hist_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["llh_history"], ref["llh_history"]))
+    if (len(out["llh_history"]) != len(ref["llh_history"])
+            or hist_err > FOLLOW_RTOL or ref["follow"]["generations"] != 2):
+        raise AssertionError(f"follow fit history vs CPU float64: {hist_err}")
+    g = GraphStore.open(c).load_graph()
+    gens = {}
+    for step in (2, 3):
+        a = full_llh(ServingSnapshot.load(snaps, step=step).F, g)
+        b = full_llh(ServingSnapshot.load(snaps_cpu, step=step).F, g)
+        gens[step] = {"card": a, "cpu_float64": b, "rel": abs(a - b) / abs(b)}
+        if gens[step]["rel"] > FOLLOW_RTOL:
+            raise AssertionError(f"generation {step} LLH {a} vs CPU float64 {b}")
+    return {"generations": out["follow"]["generations"],
+            "escalations": out["follow"]["escalations"],
+            "snapshot_swaps": stats["snapshot_swaps"],
+            "serve_errors": stats["serve_errors"],
+            "queries_answered": len(answers), "swap_wait_s": swaps,
+            "card_seconds": card_s, "fit_iters": out["iters"],
+            "llh_history_max_rel_err": hist_err, "generation_llh": gens,
+            "launches": counts, "kernel_path": out["kernel_path"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -4182,7 +4964,13 @@ def main(argv=None) -> int:
             ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
         run("store_heal", phase_store_heal, path, tmp, cache, main_out)
         run("store_delta", phase_store_delta, gi, path, tmp, cdir)
-        del g, gi, F0
+        del g, F0
+        snaps, snaps_sparse, _ = run("serve_publish", phase_serve_publish,
+                                     gi, tmp, cache)
+        run("serve_full", phase_serve_full, gi, tmp, cache, snaps, snaps_sparse)
+        run("refit_full", phase_refit_full, gi, tmp, cache, snaps)
+        del gi
+        run("follow_parity", phase_follow_parity, tmp)
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
         run("vmem_parity", phase_vmem_parity, tmp)

@@ -2,7 +2,8 @@
 a fresh interpreter imports every module of bigclam_tpu_torch (the
 non-CSR candidate kernel's ops.edge_kernels, the K sweep's
 models.model_selection, the graph store's graph.stream and graph.store,
-and the observability and resilience modules among them) and runs every
+the serving stack's ops.foldin, serve.* and models.refit, and the
+observability and resilience modules among them) and runs every
 subcommand's `--help`, then finds no jax and no bigclam_tpu module
 loaded; a static scan finds no such import in any port file or in
 chip_smoke.py; and the graph stream's spawned parse workers load neither
@@ -38,7 +39,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
         ):
             __import__(m.name)
         for sub in ("fit", "sweep", "eval", "ingest", "profile", "perf",
-                    "report", "watch", "preflight"):
+                    "report", "watch", "preflight", "serve", "refit"):
             try:
                 cli.main([sub, "--help"])
             except SystemExit as e:
@@ -50,7 +51,9 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "resilience.supervisor", "utils.checkpoint",
                      "utils.metrics", "utils.profiling", "obs.comms",
                      "obs.memory", "obs.ledger", "obs.report", "obs.watch",
-                     "graph.stream", "graph.store"):
+                     "graph.stream", "graph.store", "ops.foldin",
+                     "serve.snapshot", "serve.batcher", "serve.server",
+                     "models.refit"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -70,12 +73,17 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     assert r.stdout.strip().splitlines()[-1] == "clean"
     assert "--csr-fused" in r.stdout        # the fit help was printed
     assert "--ksweep-tol" in r.stdout and "--no-nmi" in r.stdout
+    assert "--watch-snapshots" in r.stdout and "--refit-batch" in r.stdout
+    assert "--publish-shards" in r.stdout and "--follow-timeout" in r.stdout
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
     assert len(PORT_FILES) > 10
     for name in ("stream.py", "store.py"):
         assert REPO / "bigclam_tpu_torch" / "graph" / name in PORT_FILES
+    for rel in ("serve/__init__.py", "serve/snapshot.py", "serve/batcher.py",
+                "serve/server.py", "ops/foldin.py", "models/refit.py"):
+        assert REPO / "bigclam_tpu_torch" / rel in PORT_FILES
     dynamic = re.compile(r"""(import_module|__import__)\(\s*["'](jax|bigclam_tpu)\b(?!_torch)""")
     for path in PORT_FILES:
         src = path.read_text()

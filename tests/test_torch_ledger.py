@@ -171,10 +171,13 @@ def test_perf_record_show_and_exit_codes(tmp_path, graph_file, capsys):
     assert cli.main(["perf", "diff", "--ledger", str(tmp_path / "none")]) == 1
     assert cli.main(["perf", "record", "--telemetry-dir",
                      str(tmp_path / "missing"), "--ledger", str(led)]) == 1
-    # a regression exits 2
-    slow = dict(shown[0], run="slow", step_p50=10 * (shown[0]["step_p50"] or 1),
-                step_p90=10 * (shown[0]["step_p50"] or 1), steps=3)
-    base = dict(shown[0], steps=3)
+    # a regression exits 2: both records' spread (p90 - p50) is set to 0,
+    # so the noise band diff_records widens by it cannot swallow the 10x
+    # slowdown whatever this 4-step fit's measured step times were
+    p50 = shown[0]["step_p50"] or 1
+    slow = dict(shown[0], run="slow", step_p50=10 * p50, step_p90=10 * p50,
+                steps=3)
+    base = dict(shown[0], step_p50=p50, step_p90=p50, steps=3)
     pled.PerfLedger(str(tmp_path / "r.jsonl")).append(base)
     pled.PerfLedger(str(tmp_path / "r.jsonl")).append(slow)
     assert cli.main(["perf", "diff", "--ledger", str(tmp_path / "r.jsonl")]) == 2

@@ -173,7 +173,7 @@ def test_preflight_com_youtube_dense_names_sparse(capsys):
     ["--device-kind", "v5e"],
     ["--partition", "2d", "--devices", "4"],
     ["--store-native"],
-    ["--serve"],
+    ["--device-kind", "NVIDIA A100-SXM4-80GB"],
     ["--mesh", "2,2"],
     ["--mesh", "2,1", "--representation", "sparse"],
     ["--mesh", "4,1", "--k", "3000"],
@@ -183,6 +183,35 @@ def test_preflight_refuses_what_the_port_does_not_run(capsys, flags):
                          "--k", "64", *flags)
     assert rc == 1 and out.out == ""
     assert "error:" in out.err
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"representation": "sparse", "sparse_m": 32, "shards": 4, "replicas": 2,
+     "qps_target": 50000.0, "host_ram_bytes": 2e8},
+    {"itemsize": 8, "cache_slots": 256, "avg_memberships": 3.5,
+     "host_ram_bytes": 1e6},
+])
+def test_serve_preflight_is_the_jax_pricing(kw):
+    """`preflight --serve`'s host pricing (obs.memory.serve_preflight) and
+    its rendering are the JAX package's on the same inputs."""
+    args = (300_000, 8_512_796, 1000)
+    ours = pmem.serve_preflight(*args, **kw)
+    assert ours == jmem.serve_preflight(*args, **kw)
+    assert pmem.render_serve_preflight(ours) == jmem.render_serve_preflight(
+        ours)
+
+
+def test_preflight_serve_prices_a_fleet(capsys):
+    rc, out = _preflight(capsys, "--nodes", "300000", "--edges", "4256398",
+                         "--k", "1000", "--serve", "--serve-shards", "2",
+                         "--json")
+    p = json.loads(out.out)
+    assert rc == 0 and p["fits"] and p["workload"]["serve_shards"] == 2
+    assert p == jmem.serve_preflight(300_000, 8_512_796, 1000, shards=2)
+    rc, out = _preflight(capsys, "--nodes", "300000", "--edges", "4256398",
+                         "--k", "1000", "--serve", "--qps-target", "1e6")
+    assert rc == 2 and "DOES NOT FIT (binding: qps)" in out.out
 
 
 def test_preflight_mesh_schedules(capsys):

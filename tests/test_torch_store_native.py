@@ -205,10 +205,15 @@ def test_preflight_on_a_cache(caches):
     rcj, ref, _ = _run(jax_main, base)
     assert ref["workload"]["n"] == one["workload"]["n"]
     assert ref["workload"]["directed_edges"] == one["workload"]["directed_edges"]
-    for flags in (["--serve"], ["--partition", "2d", "--mesh", "4,1"],
+    for flags in (["--partition", "2d", "--mesh", "4,1"],
                   ["--store-native"]):
         rc, _, err = _run(cli.main, base + flags)
         assert rc == 1 and "error:" in err
+    # --serve prices a serving fleet on the manifest's numbers, as JAX's
+    rc, sv, _ = _run(cli.main, base + ["--serve"])
+    rcj, ref, _ = _run(jax_main, base + ["--serve"])
+    assert rc == rcj == 0 and sv == ref
+    assert sv["workload"]["directed_edges"] == store.num_directed_edges
 
 
 # ------------------------------------------------------- store trainers
