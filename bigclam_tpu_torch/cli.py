@@ -50,6 +50,11 @@ against a ground truth (`f1`, `nmi`).
         --delta d.txt
     python -m bigclam_tpu_torch.cli fit --graph g.cache --k 100 \
         --publish-dir snaps/ --follow deltas/                  # continuous
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 --quality
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 100 --quality \
+        --device-annealing                                     # F stays on the card
+    python -m bigclam_tpu_torch.cli sweep --graph g.txt --min-com 50 \
+        --max-com 200 --div-com 15 --quality [--device-annealing]
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
 to start when no card is present. `fit --mesh DP,1` shards the nodes over
@@ -111,6 +116,19 @@ next generation; `fit --follow DIR` runs delta ingest -> refit -> publish
 per new edge file. `serve --fleet/--fleet-shard/--listen` are refused by
 name (ROADMAP item 18); `preflight --serve` prices a serving fleet.
 
+Quality mode (models/quality.py; NOT reference semantics): `fit
+--quality` runs the noise-floor init, restart annealing under the relaxed
+MAX_P_ clip and the discrete repair/atomize stage on the host loop (one F
+round trip a cycle), `--device-annealing` keeps the whole schedule on the
+device (one upload, at most one F fetch a repair round);
+`--init-noise`, `--restart-cycles`, `--restart-tol`, `--quality-max-p` and
+`--seed-exclusion` tune it (without `--quality` they warn and do nothing,
+apart from `--seed-exclusion`). Its JSON adds `quality_cycles`,
+`quality_total_iters` and `cycles_llh`. `sweep --quality
+[--device-annealing]` runs the schedule at each K. Quality mode refuses
+`--init rowkeyed`, `--representation sparse` and `--follow`, with the JAX
+CLI's messages.
+
 `profile` runs N steps under a torch.profiler capture and prints the
 JAX keys plus the top device kernels; `perf record|diff|show` keeps and
 gates the perf ledger; `report` and `watch` render a telemetry
@@ -133,11 +151,11 @@ import numpy as np
 # device kernels `profile` prints, by device time
 PROFILE_TOP = 12
 
-SWEEP_EPILOG = (
-    "Not ported yet (the parser refuses these JAX `sweep` flags by name): "
-    "--quality and --device-annealing (quality mode, ROADMAP queue 1 item "
-    "13)."
+QUALITY_SPARSE_REFUSAL = (
+    "error: --quality is not supported with --representation sparse yet "
+    "(the annealing schedule is dense-state-resident)"
 )
+
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     """The flags `fit` and `sweep` share."""
@@ -346,12 +364,43 @@ def build_parser() -> argparse.ArgumentParser:
              "default), a {0,1} Bernoulli(0.5) random init, or the "
              "row-keyed counter init",
     )
+    f.add_argument(
+        "--quality", action="store_true",
+        help="quality mode (NOT reference semantics): noise-floor init + "
+             "restart annealing — recovers community structure at large K "
+             "where the faithful dynamics freeze all-zero rows "
+             "(models/quality.py)",
+    )
+    f.add_argument(
+        "--init-noise", type=float, default=None,
+        help="noise-kick scale (default: auto, "
+             "min(0.02, 4*(avg_degree+1)/N) — see config.init_noise)",
+    )
+    # None = keep the config.py default (single source of truth)
+    f.add_argument("--restart-cycles", type=int, default=None)
+    f.add_argument("--restart-tol", type=float, default=None)
+    f.add_argument(
+        "--quality-max-p", type=float, default=None,
+        help="pin the annealing-cycle MAX_P_ clip (default: auto, "
+             "1 - avg_deg/(16 N) — see config.quality_max_p)",
+    )
+    f.add_argument(
+        "--seed-exclusion", type=int, choices=(0, 1), default=None,
+        help="coverage-aware seed selection (default: auto, on iff "
+             "--quality; see config.seed_exclusion)",
+    )
+    f.add_argument(
+        "--device-annealing", action="store_true",
+        help="with --quality: keep the annealing schedule device-resident "
+             "(models.quality.fit_quality_device — no per-cycle host F "
+             "round trip; the discrete repair stage fetches F at most once "
+             "a repair round)",
+    )
     f.add_argument("--out", default=None, help="write communities (SNAP cmty)")
     _add_fit_flags(f)
     _add_publish_flags(f)
 
-    w = sub.add_parser("sweep", help="automatic K selection over a log grid",
-                       epilog=SWEEP_EPILOG)
+    w = sub.add_parser("sweep", help="automatic K selection over a log grid")
     _add_train_flags(w)
     w.add_argument("--min-com", type=int, default=1000)
     w.add_argument("--max-com", type=int, default=9000)
@@ -366,6 +415,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--resume", default="auto", choices=["auto", "never"],
         help="auto: resume from the --checkpoint-dir journal; never: "
              "retrain every K (still journaling)",
+    )
+    w.add_argument(
+        "--quality", action="store_true",
+        help="train each K with the quality-mode annealing schedule "
+             "(models/quality.py; NOT reference semantics)",
+    )
+    w.add_argument(
+        "--device-annealing", action="store_true",
+        help="with --quality: device-resident annealing per K "
+             "(fit_quality_device; no per-cycle host F round trips)",
     )
 
     e = sub.add_parser("eval", help="score predicted vs ground-truth communities")
@@ -868,6 +927,51 @@ def config_from_args(args):
     )
 
 
+def quality_config(args, cfg):
+    """`fit`'s quality-mode config (the JAX `cmd_fit` rules): an explicit
+    --seed-exclusion applies to any fit; --quality engages quality mode
+    with the given --init-noise/--restart-cycles/--restart-tol/
+    --quality-max-p, which without it warn and do nothing (as does
+    --device-annealing). Refuses --init rowkeyed and --representation
+    sparse in quality mode (the JAX CLI's messages), and --store-native,
+    whose trainers hold no global CSR for the discrete stage (the JAX
+    CLI fails there, after the annealing)."""
+    if args.seed_exclusion is not None:
+        cfg = cfg.replace(seed_exclusion=bool(args.seed_exclusion))
+    quality_kw = {
+        key: val
+        for key, val in (
+            ("init_noise", args.init_noise),
+            ("restart_cycles", args.restart_cycles),
+            ("restart_tol", args.restart_tol),
+            ("quality_max_p", args.quality_max_p),
+        )
+        if val is not None
+    }
+    if args.quality:
+        cfg = cfg.replace(quality_mode=True, **quality_kw)
+    elif quality_kw or args.device_annealing:
+        noop = sorted(quality_kw) + (
+            ["device_annealing"] if args.device_annealing else []
+        )
+        print(f"warning: {noop} have no effect without --quality",
+              file=sys.stderr)
+    if args.init == "rowkeyed" and cfg.quality_mode:
+        raise SystemExit(
+            "error: --init rowkeyed is not supported with --quality "
+            "(the annealing schedule owns its noise-floor init)"
+        )
+    if cfg.quality_mode and cfg.representation == "sparse":
+        raise SystemExit(QUALITY_SPARSE_REFUSAL)
+    if cfg.quality_mode and args.store_native:
+        raise SystemExit(
+            "error: --quality is not supported with --store-native yet (the "
+            "discrete repair stage reads the global CSR, which a "
+            "store-native trainer never loads); drop --store-native"
+        )
+    return cfg
+
+
 def parse_mesh(text: str) -> tuple:
     """'DP,TP' -> (dp, tp)."""
     try:
@@ -1172,6 +1276,11 @@ def check_follow(args, cfg) -> None:
             "fleet yet (drop --publish-shards; re-run `cli fit "
             "--publish-shards` per generation instead)"
         )
+    if cfg.quality_mode:
+        raise SystemExit(
+            "error: --follow supports single-chip dense fits for now (the "
+            "sharded/sparse refit loop rides the ROADMAP item 1 pod drill)"
+        )
     if args.mesh or cfg.representation == "sparse":
         raise SystemExit(
             "error: --follow supports single-device dense fits for now "
@@ -1241,7 +1350,8 @@ def publish_fit(args, cfg, g, res, out: dict, fit_wall_s: float, tel) -> None:
 
 def fit(args):
     """Run `fit` for parsed arguments. Returns (the JSON-ready result dict,
-    the FitResult, the final train state)."""
+    the FitResult, the final train state, or in quality mode the
+    models.quality.QualityResult)."""
     tel = open_telemetry(args, "fit")
     try:
         return _fit(args, tel)
@@ -1259,7 +1369,7 @@ def _fit(args, tel):
     from bigclam_tpu_torch.utils.profiling import StageProfile
     from bigclam_tpu_torch.utils.profiling import trace as capture
 
-    cfg = config_from_args(args)
+    cfg = quality_config(args, config_from_args(args))
     # stage ends forward into the telemetry (event + device-memory
     # watermark + heartbeat beat) when --telemetry-dir is active
     prof = StageProfile()
@@ -1272,12 +1382,14 @@ def _fit(args, tel):
     with prof.stage("seeding"):
         F0 = init_F(g, cfg, args.init, args.seed_backend, args.device,
                     store=args._store, quiet=args.quiet)
-    with prof.stage("upload"):
-        state0 = model.init_state(F0)
-    if tel is not None:
-        # the memory model against the live tensors (a `memory_drift`
-        # anomaly past its band)
-        model.memory_reconcile(state0)
+    if not cfg.quality_mode:
+        # (quality mode uploads F0 inside its schedule)
+        with prof.stage("upload"):
+            state0 = model.init_state(F0)
+        if tel is not None:
+            # the memory model against the live tensors (a `memory_drift`
+            # anomaly past its band)
+            model.memory_reconcile(state0)
     ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
     resume = args.resume != "never"
     if ckpt is not None and resume:
@@ -1302,21 +1414,38 @@ def _fit(args, tel):
             step_ends.append(time.perf_counter())
             log_step(it, llh, extras)
 
+        def run_quality():
+            from bigclam_tpu_torch.models import quality
+
+            if args.device_annealing:
+                # --checkpoint-dir wires REPAIR-ROUND checkpoints here;
+                # cycle checkpoints are a host-loop feature
+                return quality.fit_quality_device(
+                    model, F0, callback=callback, checkpoints=ckpt,
+                    resume=resume)
+            return quality.fit_quality(
+                model, F0, callback=callback, checkpoints=ckpt,
+                resume=resume)
+
         with prof.stage("fit"), capture(args.profile_dir):
             t0 = time.perf_counter()
             # the supervisor retries transient-classified failures: each
             # retried attempt re-enters the fit WITH the checkpoints, so a
             # retry resumes instead of restarting
-            state, llh, iters, hist = sup.run_fit(
-                lambda: model.fit_state(state0, callback, checkpoints=ckpt,
-                                        resume=resume)
-            )
-            with trace.span("fit_loop/extract_F"):
-                F = model.extract_F(state)
+            if cfg.quality_mode:
+                state = sup.run_fit(run_quality)
+                res = state.fit
+            else:
+                state, llh, iters, hist = sup.run_fit(
+                    lambda: model.fit_state(state0, callback,
+                                            checkpoints=ckpt, resume=resume)
+                )
+                with trace.span("fit_loop/extract_F"):
+                    F = model.extract_F(state)
+                res = FitResult(F=F, sumF=F.sum(axis=0), llh=llh,
+                                num_iters=iters, llh_history=hist)
             # the full-fit cost baseline `cli refit` prices against
             fit_wall_s = round(time.perf_counter() - t0, 4)
-    res = FitResult(F=F, sumF=F.sum(axis=0), llh=llh, num_iters=iters,
-                    llh_history=hist)
     out = {
         "llh": res.llh,
         "iters": res.num_iters,
@@ -1339,6 +1468,10 @@ def _fit(args, tel):
     if args.mesh:
         out["mesh"] = model.mesh.label()
     stamp_models(out, model)
+    if cfg.quality_mode:
+        out["quality_cycles"] = state.num_cycles
+        out["quality_total_iters"] = state.total_iters
+        out["cycles_llh"] = [round(v, 2) for v in state.cycles_llh]
     if args.out or args.save_f or args.publish_dir:
         with prof.stage("extract"):
             if args.out:
@@ -1393,6 +1526,10 @@ def _sweep(args, callback, tel) -> dict:
     from bigclam_tpu_torch.models.model_selection import sweep_k
 
     cfg = config_from_args(args)
+    if args.quality:
+        cfg = cfg.replace(quality_mode=True)
+        if cfg.representation == "sparse":
+            raise SystemExit(QUALITY_SPARSE_REFUSAL)
     store_for_model(args, cfg)          # refuses --store-native (no --mesh)
     g = load_graph(args)
     # the sweep seeds once, at K_max, with the same seeding config
@@ -1418,6 +1555,7 @@ def _sweep(args, callback, tel) -> dict:
             model_factory=lambda c: make_model(g, c, args.device),
             callback=per_k,
             state_dir=args.checkpoint_dir,
+            device_annealing=args.device_annealing,
             resume=args.resume != "never" or not first,
             seed_backend="auto" if args.seed_backend == "baked" else args.seed_backend,
             phi=phi,

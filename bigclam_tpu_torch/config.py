@@ -3,11 +3,11 @@
 Copied from bigclam_tpu/config.py (`BigClamConfig`): the same field names,
 defaults and order, so a JAX config carries over unchanged with
 `BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port reads the
-model, clipping, line-search, loop, K-sweep, seeding, numerics,
-kernel-path and single-device sparse-representation fields; the rest
-(quality mode, resilience, the sharded sparse exchange, sharding,
-telemetry) are carried for that round trip, and the K sweep refuses the
-ones it cannot honour yet.
+model, clipping, line-search, loop, K-sweep, seeding, quality-mode
+(models/quality.py), resilience, numerics, kernel-path, 1D-mesh and
+single-device sparse-representation fields; the rest (the sharded sparse
+exchange, K sharding, the 2D partition) are carried for that round trip,
+and the entry points refuse the ones they cannot honour yet.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class BigClamConfig:
     seeding_degree_cap: Optional[int] = None  # sample at most this many
                                         # neighbors per node in seeding
 
-    # --- quality mode (not in this slice) ---
+    # --- quality mode (models/quality.py, `fit`/`sweep --quality`) ---
     quality_mode: bool = False
     init_noise: Optional[float] = None
     init_noise_mass: float = 4.0
@@ -65,7 +65,7 @@ class BigClamConfig:
     repair_rounds: int = 3
     quality_reassign: bool = True
 
-    # --- resilience (not in this slice) ---
+    # --- resilience (models/bigclam.py run_fit_loop rollback) ---
     rollback_budget: int = 3
     rollback_shrink: float = 0.1
     rollback_snapshot_every: int = 8
@@ -118,10 +118,10 @@ class BigClamConfig:
                                         # False = the plain `sparse_xla` path
     pallas_interpret: bool = False      # (Pallas interpret mode; no port use)
 
-    # --- model-health diagnostics (not in this slice) ---
+    # --- model-health diagnostics (ops/diagnostics.py, obs/health.py) ---
     health_every: int = 0
 
-    # --- checkpointing / logging (not in this slice) ---
+    # --- checkpointing / logging (utils/checkpoint.py, utils/metrics.py) ---
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     metrics_path: Optional[str] = None

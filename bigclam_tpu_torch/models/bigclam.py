@@ -1005,7 +1005,15 @@ class BigClamModel(MemoryAccountedModel):
             raise ValueError(f"F0 has shape {F0.shape}, want {(n, k)}")
         F = torch.zeros((self.n_pad, self.k_pad), dtype=self.dtype, device=self.device)
         F[:n, :k] = torch.from_numpy(np.ascontiguousarray(F0)).to(self.dtype).to(self.device)
-        return new_state(F, len(self.cfg.step_candidates))
+        return self.reset_state(F)
+
+    def reset_state(self, F: torch.Tensor, llh: Optional[float] = None,
+                    it: int = 0) -> TrainState:
+        """TrainState around an already device-resident PADDED F: init_state
+        without the upload (the device annealing loop's state a cycle).
+        sumF reduced, LLH -inf, `it` 0, a zero histogram, no health pack
+        until a cadence step computes one."""
+        return new_state(F, len(self.cfg.step_candidates), llh=llh, it=it)
 
     def state_from_jax(self, F: np.ndarray, llh: Optional[float] = None,
                        it: int = 0) -> TrainState:

@@ -19,8 +19,13 @@ checkpoints WITHIN the K (state_dir/k_<K>/, the JAX layout), so a crash
 inside one K resumes inside it; a K's checkpoints are deleted once its LLH
 is journaled.
 
-Not ported yet, and refused by name (NotPortedError): quality mode and
-device annealing, and a mesh.
+With cfg.quality_mode each K trains with the annealing schedule
+(models/quality.py `fit_quality`, the kick restricted to the K active
+columns so the padding columns stay zero); with device annealing as well,
+`fit_quality_device` salted with K, whose repair rounds checkpoint into
+state_dir/k_<K>/repair whatever cfg.checkpoint_every says.
+
+Not ported yet, and refused by name (NotPortedError): a mesh.
 """
 
 from __future__ import annotations
@@ -80,13 +85,8 @@ class SweepResult:
     best_fit: Optional[FitResult]  # fit at the last trained K
 
 
-def check_sweep_supported(cfg: BigClamConfig, device_annealing: bool = False) -> None:
+def check_sweep_supported(cfg: BigClamConfig) -> None:
     """Raise NotPortedError for the sweep options the port lacks."""
-    if cfg.quality_mode or device_annealing:
-        raise NotPortedError(
-            "the quality-mode sweep (annealing per K, device annealing) is "
-            "not ported yet (ROADMAP queue 1 item 13)"
-        )
     if tuple(cfg.mesh_shape) != (1, 1) or cfg.partition != "1d":
         raise NotPortedError(
             "a sweep over a device mesh is not ported yet (ROADMAP queue 1 "
@@ -118,13 +118,15 @@ def sweep_k(
     restart; `resume=False` ignores an existing journal (every K retrains)
     while still journaling fresh results. With cfg.checkpoint_every > 0 a
     K's fit also checkpoints into state_dir/k_<K>/ (resumed unless
-    resume=False), deleted once the K is journaled. callback(k, llh) is called for
-    every K the sweep reaches, journaled or trained. The seeds come from
+    resume=False), deleted once the K is journaled. With cfg.quality_mode
+    each K runs the quality schedule (fit_quality, or fit_quality_device
+    with `device_annealing`; see the module docstring). callback(k, llh)
+    is called for every K the sweep reaches, journaled or trained. The seeds come from
     ops.seeding.conductance_seeds at K_max with cfg.seeding_degree_cap and
     the `seed_backend` scorer, its device backends on the model's device,
     or from `phi` (a graph cache's ingest-baked scores) where given.
     """
-    check_sweep_supported(cfg, device_annealing)
+    check_sweep_supported(cfg)
     kset = build_kset(cfg.min_com, cfg.max_com, cfg.div_com)
     k_max = kset[-1]
     cfg_max = cfg.replace(num_communities=k_max)
@@ -163,7 +165,12 @@ def sweep_k(
             res_llh = llh_by_k[k]
         else:
             ckpt_k = ckpt_dir = None
-            if state_dir is not None and cfg.checkpoint_every > 0:
+            if state_dir is not None and (
+                cfg.checkpoint_every > 0
+                # device annealing checkpoints at REPAIR-ROUND granularity
+                # whatever checkpoint_every (the within-fit cadence) says
+                or (cfg.quality_mode and device_annealing)
+            ):
                 from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
 
                 ckpt_dir = os.path.join(state_dir, f"k_{k:06d}")
@@ -173,7 +180,26 @@ def sweep_k(
             )
             F0 = np.zeros((g.num_nodes, k_max))
             F0[:, :k] = F0k                         # columns >= k stay zero
-            res = model.fit(F0, checkpoints=ckpt_k, resume=resume)
+            if cfg.quality_mode and device_annealing:
+                # per-K device-resident annealing: one upload per K, the
+                # repair rounds checkpointed under k_<K>/repair
+                from bigclam_tpu_torch.models.quality import fit_quality_device
+
+                res = fit_quality_device(
+                    model, F0, kick_cols=k, key_salt=k, checkpoints=ckpt_k,
+                    resume=resume,
+                ).fit
+            elif cfg.quality_mode:
+                # the kick stays on the K active columns, so the >= k
+                # padding keeps its inert zeros
+                from bigclam_tpu_torch.models.quality import fit_quality
+
+                res = fit_quality(
+                    model, F0, checkpoints=ckpt_k, kick_cols=k,
+                    resume=resume,
+                ).fit
+            else:
+                res = model.fit(F0, checkpoints=ckpt_k, resume=resume)
             res_llh = res.llh
             llh_by_k[k] = res_llh
             best_fit = res

@@ -166,6 +166,16 @@ class StageProfile:
                 self.seconds[name] = self.seconds.get(name, 0.0) + dt
                 _telemetry_stage(name, dt)
 
+    def add_seconds(self, name: str, s: float) -> None:
+        """Accumulate into a stage bucket without the context manager (for
+        loops whose body already lives inside another `with`); the seconds
+        also land in the span breakdown and the telemetry."""
+        from bigclam_tpu_torch.obs import trace as _trace
+
+        self.seconds[name] = self.seconds.get(name, 0.0) + s
+        _trace.add_span(name, s)
+        _telemetry_stage(name, s)
+
     def count(self, name: str, inc: int = 1) -> None:
         self.counts[name] = self.counts.get(name, 0) + inc
 

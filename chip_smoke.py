@@ -49,6 +49,17 @@ exits non-zero:
   host_odd  the dense conductance backend (A@A in float32 on the card)
             against the native exact triangle counts on the hub graph and
             the parity graph
+  quality_odd the quality pipeline's component pass (ops.components) on
+            the card against the port's CPU pass (labels, sizes, internal
+            edges bit for bit) and the scipy oracle (labels = its
+            components' min ids) on the odd and hub graphs with 24 random
+            thresholded columns (an empty one, a singleton, every node,
+            the isolated nodes alone), and again at two columns a batch
+            (a patched EDGE_ELEM_BUDGET), bit for bit; the device kick
+            (DeviceNoise, twice the same draw), the scatter edits and
+            clear_col on the dense layout (K=37, k_pad 64) and on a dp = 3
+            repeated-device mesh of the hub graph (n_pad 807): every
+            padding row and column stays exactly zero
   graph     AGM planted N=300,000, K=1,000, p_in=0.1, numpy rng seed 1,
             written as a SNAP edge list to a temporary directory
   main      the port's `cli fit` entry on the CUDA device at full width on
@@ -179,6 +190,18 @@ exits non-zero:
             ingest of text + delta (build_graph), the re-baked phi equal to
             its exact conductance, the untouched shards' blobs unchanged to
             the byte; one cache-fed fit step on the card
+  quality_full (after store_delta) fit_quality_device at full from
+            mesh_init's F0 on csr_fused, QUALITY_FULL's schedule (6
+            cycles, 2 repair rounds, 100 steps a fit): the stage seconds and
+            transfer counts (one upload, at most rounds + 1 fetches),
+            fused_superstep launched once for every step run, omp_lo
+            float32(1 - max_p_q) on every launch and the parity cfg back
+            after, every component pass on the card (none through scipy),
+            steps and seconds a step beside main's, peak device memory,
+            the zero rows and the LLH before (main's 5-step fit) and after
+            (also under the parity clip); then the component pass on the
+            card beside scipy over the final F's 1,000 columns, labels
+            equal
   serve_publish `cli fit --graph <store_full's 4-shard cache> --k 1000
             --max-iters 5 --publish-dir snaps` on the card: the published
             F equal to --save-f's bit for bit, fused_superstep once a
@@ -215,6 +238,17 @@ exits non-zero:
             generations, 2 swaps, no serve error; the LLH history and
             each generation's LLH within 1e-4 of the same loop on the
             CPU in float64
+  quality_parity (after follow_parity) tests/test_quality.py's graph
+            (planted N=2,400, 12 blocks, p_in=0.15, rng 7): the faithful
+            `cli fit`, `cli fit --quality --restart-cycles 8` and the same
+            with --device-annealing on the card, csr_fused with one launch
+            a step (`--metrics` records); both quality fits at F1 >= 0.8
+            and 0.2 above the faithful one against the planted truth, the
+            kept LLH never falling; cycle 0 (restart_cycles 1, no repair)
+            at the auto clip and at a pinned 1 - 1e-6 against the port's
+            CPU float64 run from the same kicked F (LLH within 1e-5), the
+            kernels' omp_lo float32(1 - max_p_q) during and the parity
+            value after; the device schedule run twice, bit for bit or not
   sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
             on the card against `--device cpu --dtype float64`: the same
             grid and chosen K (unless a stop ratio lies within 1e-4 of
@@ -325,7 +359,9 @@ and the dots and the gradient also on the shuffled ids)
 under this tree's library and the other one, outputs compared bit for bit
 and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
-version, kernel / plain time, the card's lower bound for the same work)
+version, kernel / plain time, the card's lower bound for the same work;
+fused_superstep's row adds its launches in quality_full and in
+quality_parity's three fits)
 and, last, {"ok": true, "device": {...}}. The ring, mesh and store
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
@@ -4888,6 +4924,377 @@ def phase_follow_parity(tmp):
             "launches": counts, "kernel_path": out["kernel_path"]}
 
 
+QUALITY_ODD_COLS = 24         # random thresholded columns a graph
+QUALITY_ODD_DP = 3            # the kick on a repeated-device mesh (hub: n_pad 807)
+QUALITY_ODD_SEED = 19
+QUALITY = dict(n=2400, k=12, p_in=0.15, seed=7)   # tests/test_quality.py's graph
+QUALITY_CYCLES = 8            # the JAX recovery test's restart_cycles
+QUALITY_F1 = 0.8              # ... and its gate: F1 >= 0.8, 0.2 above faithful
+QUALITY_F1_MARGIN = 0.2
+QUALITY_RELAXED = 1.0 - 1e-6  # a pinned cycle clip near full's auto 1 - 5.9e-6
+# cycle 0 on the card vs CPU float64, at both clips (PERF.md §6 has the
+# measured gaps)
+QUALITY_LLH_RTOL = 1e-5
+# quality_full's schedule, sized to stay within about three minutes on the
+# card (PERF.md §6 has its stage seconds)
+QUALITY_FULL = dict(restart_cycles=6, repair_rounds=2, max_iters=100)
+
+
+def random_columns(g, rng, cols: int) -> np.ndarray:
+    """(cols, n) random thresholded columns with the edge cases: an empty
+    column, a singleton, every node (isolated ones are singletons), the
+    isolated tail alone, and random densities (disconnected pieces)."""
+    n = g.num_nodes
+    member = rng.random((cols, n)) < rng.uniform(0.0, 0.4, (cols, 1))
+    member[0] = False
+    member[1] = False
+    member[1, int(rng.integers(n))] = True
+    member[2] = True
+    member[3] = g.degrees == 0
+    return member
+
+
+def min_labels(comps, n: int) -> np.ndarray:
+    """The label vector a partition gives: each member its component's
+    min id, n for a non-member."""
+    lab = np.full(n, n, np.int32)
+    for c in comps:
+        lab[np.asarray(c)] = min(c)
+    return lab
+
+
+def hold_components(g, member) -> dict:
+    """The component pass on the card against the port's CPU pass (labels,
+    sizes, internal edges bit for bit), against the scipy oracle (labels
+    equal to its partitions' min ids, sizes), and under a patched edge
+    budget of 2 columns a batch (bit for bit the one-batch result)."""
+    from bigclam_tpu_torch.models.quality import _graph_components
+    from bigclam_tpu_torch.ops import components as comp
+
+    n = g.num_nodes
+    card_edges = comp.device_edges(g, torch.device(DEVICE))
+    card, card_s = wall(comp.column_component_stats, member, *card_edges, n)
+    cpu = comp.column_component_stats(member, *comp.device_edges(g, "cpu"), n)
+    for what, a, b in zip(("labels", "sizes", "edges"), card, cpu):
+        if a.dtype != np.int32 or not np.array_equal(a, b):
+            raise AssertionError(f"component {what} on the card differ from the CPU pass")
+    for c in range(member.shape[0]):
+        comps = _graph_components(np.flatnonzero(member[c]), g.indptr, g.indices)
+        if not np.array_equal(card[0][c], min_labels(comps, n)):
+            raise AssertionError(f"column {c}: labels differ from scipy's partition")
+        for cc in comps:
+            if not np.all(card[1][c][cc] == len(cc)):
+                raise AssertionError(f"column {c}: component sizes differ")
+    saved = comp.EDGE_ELEM_BUDGET
+    comp.EDGE_ELEM_BUDGET = 2 * g.num_directed_edges
+    try:
+        batched = comp.column_component_stats(member, *card_edges, n)
+    finally:
+        comp.EDGE_ELEM_BUDGET = saved
+    if not all(np.array_equal(a, b) for a, b in zip(card, batched)):
+        raise AssertionError("two columns a batch differ from one batch")
+    return {"columns": int(member.shape[0]), "n": n,
+            "components": int(sum(len(np.unique(l[l < n])) for l in card[0])),
+            "card_s": card_s, "batches_patched": -(-member.shape[0] // 2)}
+
+
+def hold_kick(model, n: int, k: int) -> dict:
+    """The device kick (DeviceNoise + kick_F), scatter edits and clear_col
+    on the model's layout leave every padding row and column exactly zero,
+    and the columns past kick_cols as they were."""
+    from bigclam_tpu_torch.models import quality as q
+
+    kc = k - 3
+    noise = q.DeviceNoise(QUALITY_ODD_SEED, 3)
+    dev = torch.device(DEVICE)
+    u = noise(0, (n, kc), 0.01, torch.float32, dev)
+    if not torch.equal(u, noise(0, (n, kc), 0.01, torch.float32, dev)):
+        raise AssertionError("the device noise is not deterministic")
+    st = model.init_state(np.ones((n, k)))
+    F = q.kick_F(st.F, u, n, kc, 0.0, 1000.0)
+    full = torch.cat([f.cpu() for f in q._parts(F)]).numpy()
+    parts = [f.clone() for f in q._parts(F)]
+    q.scatter_set_(parts, np.array([0, n - 1, model.n_pad + 5]),
+                   np.array([1, 2, 0]), 9.0)
+    q.clear_col_(parts, 4)
+    edited = torch.cat([p.cpu() for p in parts]).numpy()
+    ok = (full.shape == (model.n_pad, model.k_pad)
+          and not full[n:].any() and not full[:, k:].any()
+          and np.all(full[:n, kc:k] == 1.0)
+          and np.all((full[:n, :kc] >= 1.0) & (full[:n, :kc] < 1.01))
+          and not edited[n:].any() and not edited[:, k:].any()
+          and not edited[:, 4].any() and np.count_nonzero(edited == 9.0) == 2)
+    if not ok:
+        raise AssertionError(f"{type(model).__name__}: the kick or the edits "
+                             "touched padding")
+    return {"n": n, "n_pad": model.n_pad, "k": k, "k_pad": model.k_pad,
+            "kick_cols": kc, "shards": len(q._parts(F)), "padding_zero": True}
+
+
+def phase_quality_odd() -> dict:
+    """The device component pass and the device kick on small graphs."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.parallel import ShardedBigClamModel
+
+    rng = np.random.default_rng(QUALITY_ODD_SEED)
+    out = {}
+    hub = hub_graph()
+    for name, g in (("odd", odd_graph()), ("hub", hub)):
+        out[name] = hold_components(g, random_columns(g, rng, QUALITY_ODD_COLS))
+    k = ODD["k"]
+    cfg = BigClamConfig(num_communities=k)
+    out["kick_dense"] = hold_kick(BigClamModel(hub, cfg, device=DEVICE),
+                                  hub.num_nodes, k)
+    mesh = ShardedBigClamModel(hub, cfg, repeated_mesh(QUALITY_ODD_DP),
+                               balance=True)
+    out["kick_mesh"] = hold_kick(mesh, hub.num_nodes, k)
+    return out
+
+
+def cli_steps(metrics_path) -> int:
+    """Steps a fit (or schedule) evaluated: the --metrics records."""
+    with open(metrics_path) as f:
+        return sum(1 for line in f if line.strip())
+
+
+@contextlib.contextmanager
+def omp_lo_spy():
+    """The omp_lo every fused_superstep launch takes (the card only)."""
+    from bigclam_tpu_torch.ops import fused
+
+    seen = []
+    orig = fused.kernel_constants
+
+    def spy(cfg):
+        c = orig(cfg)
+        seen.append(c["omp_lo"])
+        return c
+
+    fused.kernel_constants = spy
+    try:
+        yield seen
+    finally:
+        fused.kernel_constants = orig
+
+
+def quality_f1(F, g, truth) -> float:
+    from bigclam_tpu_torch.evaluation import avg_f1
+    from bigclam_tpu_torch.ops.extraction import extract_communities
+
+    return avg_f1(list(extract_communities(np.asarray(F), g).values()), truth)
+
+
+def phase_quality_parity(tmp) -> dict:
+    """tests/test_quality.py's graph on the card: the faithful fit, `cli fit
+    --quality` and `--quality --device-annealing` on csr_fused (F1 gate,
+    launches = steps, kept LLH never falls); cycle 0 at the auto and at a
+    pinned relaxed clip against the port's CPU float64 run from the same
+    kicked F, with the kernels' omp_lo; the device schedule run twice."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models import quality as q
+    from bigclam_tpu_torch.models.agm import sample_planted_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+
+    p = QUALITY
+    g, truth = sample_planted_graph(p["n"], p["k"], p_in=p["p_in"],
+                                    rng=np.random.default_rng(p["seed"]))
+    path = os.path.join(tmp, "quality_graph.txt")
+    np.savetxt(path, np.stack([g.src, g.dst], axis=1)[g.src < g.dst], fmt="%d")
+    base = ["--graph", path, "--k", str(p["k"]), "--device", DEVICE]
+    runs = {}
+    for name, extra in (
+        ("faithful", []),
+        ("quality", ["--quality", "--restart-cycles", str(QUALITY_CYCLES)]),
+        ("device_annealing", ["--quality", "--device-annealing",
+                              "--restart-cycles", str(QUALITY_CYCLES)]),
+    ):
+        metrics = os.path.join(tmp, f"quality_{name}.jsonl")
+        reset_launch_counts()
+        out, res, qres = cli.fit(fit_args(base + extra + ["--metrics", metrics]))
+        counts = launch_counts()
+        steps = cli_steps(metrics)
+        if out["n"] != g.num_nodes or not np.isfinite(res.F).all():
+            raise AssertionError(f"{name}: a malformed fit")
+        if DEVICE == "cuda" and (out["kernel_path"] != "csr_fused"
+                                 or counts["fused_superstep"] != steps):
+            raise AssertionError(f"{name}: path {out['kernel_path']}, "
+                                 f"{counts['fused_superstep']} launches for {steps} steps")
+        run = {"f1": quality_f1(res.F, g, truth), "llh": res.llh,
+               "steps": steps, "launches": counts["fused_superstep"],
+               "seconds": out["stage_seconds"]["fit"],
+               "kernel_path": out["kernel_path"]}
+        if "quality_cycles" in out:          # qres: the QualityResult
+            kept = np.maximum.accumulate(qres.cycles_llh)
+            if res.llh < kept[-1] - abs(kept[-1]) * 1e-6:
+                raise AssertionError(f"{name}: the kept LLH fell: {res.llh} < {kept[-1]}")
+            run.update(cycles=qres.num_cycles, total_iters=qres.total_iters,
+                       repairs=qres.num_repairs, cycles_llh=list(qres.cycles_llh),
+                       stages=qres.stages)
+        runs[name] = run
+    for name in ("quality", "device_annealing"):
+        f1, f1_faithful = runs[name]["f1"], runs["faithful"]["f1"]
+        if f1 < QUALITY_F1 or f1 <= f1_faithful + QUALITY_F1_MARGIN:
+            raise AssertionError(f"{name}: F1 {f1} vs faithful {f1_faithful}")
+    # cycle 0 on the card against CPU float64, at the auto clip and pinned
+    cfg = BigClamConfig(num_communities=p["k"], quality_mode=True,
+                        restart_cycles=1, quality_repair=False)
+    F0 = cli.init_F(g, cfg, "conductance")
+    cycle0 = {}
+    for tag, max_p in (("auto", None), ("relaxed", QUALITY_RELAXED)):
+        c = cfg.replace(quality_max_p=max_p)
+        model = BigClamModel(g, c, device=DEVICE)
+        max_p_q = q._relax_params(model, g.num_nodes)[0]
+        with omp_lo_spy() as seen:
+            card = q.fit_quality(model, F0)
+            during = sorted(set(seen))
+            seen.clear()
+            model.fit_state(model.init_state(F0))
+            after = sorted(set(seen))
+        cpu = q.fit_quality(BigClamModel(g, c.replace(dtype="float64"),
+                                         device="cpu"), F0)
+        a, b = card.fit.llh_history, cpu.fit.llh_history
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        if rel > QUALITY_LLH_RTOL or not all(map(math.isfinite, a)):
+            raise AssertionError(f"cycle 0 ({tag}): card {a} vs cpu float64 {b}")
+        want = [float(np.float32(1.0 - max_p_q))]
+        parity = [float(np.float32(1.0 - c.max_p))]
+        if DEVICE == "cuda" and (during != want or after != parity):
+            raise AssertionError(f"omp_lo {during} during, {after} after; "
+                                 f"want {want}, {parity}")
+        cycle0[tag] = {"max_p": max_p_q, "steps_card": len(a),
+                       "steps_cpu": len(b), "max_rel": rel,
+                       "omp_lo_during": during, "omp_lo_after": after}
+    # the device schedule twice: bit for bit for a seed
+    cfg2 = cfg.replace(restart_cycles=2, quality_repair=True)
+    r1 = q.fit_quality_device(BigClamModel(g, cfg2, device=DEVICE), F0)
+    r2 = q.fit_quality_device(BigClamModel(g, cfg2, device=DEVICE), F0)
+    repeat = bool(np.array_equal(r1.fit.F, r2.fit.F)
+                  and r1.cycles_llh == r2.cycles_llh)
+    return {"n": g.num_nodes, "k": p["k"], "runs": runs, "cycle0": cycle0,
+            "device_schedule_repeats_bit_for_bit": repeat}
+
+
+def phase_quality_full(gi, F0, main_out, main_zero_rows) -> dict:
+    """`full` through fit_quality_device from main's conductance F0 on
+    csr_fused (QUALITY_FULL's schedule): stage seconds, the transfer
+    counts, steps and seconds a step beside main's, peak device memory,
+    the zero rows and the LLH before and after; the component pass on the
+    card beside scipy on the final F's columns, labels equal."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models import quality as q
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.ops import components as comp
+    from bigclam_tpu_torch.ops.extraction import delta_threshold
+
+    n, k = gi.num_nodes, FULL["k"]
+    cfg = BigClamConfig(num_communities=k, quality_mode=True, **QUALITY_FULL)
+    model = BigClamModel(gi, cfg, device=DEVICE)
+    max_p_q, eps = q._relax_params(model, n)
+    fits = []                           # (steps, seconds) of each fit_state
+    orig_fit_state = model.fit_state
+
+    def timed_fit_state(state, callback=None, **kw):
+        steps = [0]
+
+        def cb(it, llh):
+            steps[0] += 1
+
+        t0 = time.perf_counter()
+        res = orig_fit_state(state, callback=cb, **kw)
+        fits.append((steps[0], time.perf_counter() - t0))
+        return res
+
+    model.fit_state = timed_fit_state
+    passes = []                         # the component passes' devices
+    orig_stats, orig_host = comp.column_component_stats, q._column_atoms_host
+
+    def stats_spy(member_cols, src_dev, *a, **kw):
+        passes.append(src_dev.device.type)
+        return orig_stats(member_cols, src_dev, *a, **kw)
+
+    def host_spy(*a, **kw):
+        passes.append("scipy")
+        return orig_host(*a, **kw)
+
+    comp.column_component_stats, q._column_atoms_host = stats_spy, host_spy
+    try:
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        reset_launch_counts()
+        with omp_lo_spy() as seen:
+            qres, wall_s = wall(q.fit_quality_device, model, F0)
+        counts = launch_counts()
+        omp = sorted(set(seen))
+        peak = (torch.cuda.max_memory_allocated() - before
+                if DEVICE == "cuda" else 0)
+    finally:
+        comp.column_component_stats, q._column_atoms_host = orig_stats, orig_host
+        model.fit_state = orig_fit_state
+    F = qres.fit.F
+    st = qres.stages
+    steps = sum(s for s, _ in fits)
+    rounds = st["counts"].get("repair_rounds", 0)
+    if F.shape != (n, k) or not np.isfinite(F).all():
+        raise AssertionError("quality_full: a malformed F")
+    if (st["counts"]["f_host_uploads"] != 1
+            or st["counts"]["f_device_fetches"] > rounds + 1):
+        raise AssertionError(f"quality_full transfers: {st['counts']}")
+    if model.cfg != cfg:
+        raise AssertionError("quality_full: the parity cfg did not come back")
+    if DEVICE == "cuda":
+        if counts["fused_superstep"] != steps or not steps:
+            raise AssertionError(f"{counts['fused_superstep']} launches for {steps} steps")
+        if omp != [float(np.float32(1.0 - max_p_q))]:
+            raise AssertionError(f"omp_lo during the schedule: {omp}")
+        if "scipy" in passes or any(d != "cuda" for d in passes):
+            raise AssertionError(f"a component pass left the card: {passes}")
+    zero_after = int((~F.any(axis=1)).sum())
+    # the final F's LLH under the parity clip, as main's LLH is
+    model.cfg = cfg.replace(max_iters=0)
+    model.rebuild_step()
+    _, llh_parity, _, _ = model.fit_state(model.init_state(F))
+    model.cfg = cfg
+    model.rebuild_step()
+    del model
+    # the component pass on the card beside scipy, on the final columns
+    member = (F >= delta_threshold(gi.num_nodes, gi.num_edges)).T
+    edges = comp.device_edges(gi, torch.device(DEVICE))
+    (labels, _, _), card_s = wall(comp.column_component_stats, member, *edges, n)
+    t0 = time.perf_counter()
+    comps = [q._graph_components(np.flatnonzero(m), gi.indptr, gi.indices)
+             for m in member]
+    scipy_s = time.perf_counter() - t0
+    for c, cc in enumerate(comps):
+        if not np.array_equal(labels[c], min_labels(cc, n)):
+            raise AssertionError(f"quality_full column {c}: labels differ from scipy")
+    anneal = fits[:qres.num_cycles]
+    return {
+        "schedule": QUALITY_FULL, "max_p": max_p_q, "eps": eps,
+        "schedule_seconds": wall_s, "stages": st, "cycles": qres.num_cycles,
+        "cycles_llh": list(qres.cycles_llh), "total_iters": qres.total_iters,
+        "repairs": qres.num_repairs, "steps": steps,
+        "launches": counts["fused_superstep"],
+        "fits": [{"steps": s, "seconds": t} for s, t in fits],
+        "sec_per_step": sum(t for _, t in fits) / max(steps, 1),
+        "sec_per_step_anneal": (sum(t for _, t in anneal)
+                                / max(sum(s for s, _ in anneal), 1)),
+        "main_sec_per_iter": main_out["sec_per_iter"],
+        "omp_lo": omp, "peak_device_gb": peak / 1e9,
+        "component_passes": passes,
+        "zero_rows_before": main_zero_rows, "zero_rows_after": zero_after,
+        "llh_before": main_out["llh"], "llh_after": qres.fit.llh,
+        "llh_after_parity_clip": llh_parity,
+        "components": {"columns": int(member.shape[0]),
+                       "nonempty": int(member.any(axis=1).sum()),
+                       "card_s": card_s, "scipy_s": scipy_s,
+                       "labels_equal": True},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -4920,6 +5327,7 @@ def main(argv=None) -> int:
     run("sparse_odd", phase_sparse_odd)
     run("vmem_odd", phase_vmem_odd)
     run("host_odd", phase_host_odd)
+    run("quality_odd", phase_quality_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
@@ -4930,6 +5338,7 @@ def main(argv=None) -> int:
         run("host_full", phase_host_full, g, path, state, res.F)
         del state
         main_hist = list(res.llh_history)
+        main_zero_rows = int((~res.F.any(axis=1)).sum())
         split_counts, _ = run("split", phase_split, g, path, tmp, main_hist)
         t0 = time.perf_counter()
         gi, F0 = mesh_init(path)
@@ -4964,6 +5373,8 @@ def main(argv=None) -> int:
             ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
         run("store_heal", phase_store_heal, path, tmp, cache, main_out)
         run("store_delta", phase_store_delta, gi, path, tmp, cdir)
+        q_full = run("quality_full", phase_quality_full, gi, F0, main_out,
+                     main_zero_rows)
         del g, F0
         snaps, snaps_sparse, _ = run("serve_publish", phase_serve_publish,
                                      gi, tmp, cache)
@@ -4971,6 +5382,7 @@ def main(argv=None) -> int:
         run("refit_full", phase_refit_full, gi, tmp, cache, snaps)
         del gi
         run("follow_parity", phase_follow_parity, tmp)
+        q_parity = run("quality_parity", phase_quality_parity, tmp)
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
         run("vmem_parity", phase_vmem_parity, tmp)
@@ -5036,7 +5448,10 @@ def main(argv=None) -> int:
             **({"launches_csr_grouped_kb": kb_split_counts[COUNTER.get(name, name)],
                 "launches_resilience_kb": kb_res_counts[COUNTER.get(name, name)]}
                if name in K_BLOCKED else {}),
-            **({"launches_resilience_full": res_full["a"]["launches"]}
+            **({"launches_resilience_full": res_full["a"]["launches"],
+                "launches_quality_full": q_full["launches"],
+                "launches_quality_parity": {
+                    k: v["launches"] for k, v in q_parity["runs"].items()}}
                if name == "fused_superstep" else {}),
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name]}

@@ -37,6 +37,13 @@ torch.set_num_threads(2)
 SHARDS = 4
 K = 6
 RTOL = 1e-10
+# F after hundreds of float64 fold-in iterations is compared row by row:
+# max|dF_u| <= ROW_TOL * ||F_ref,u|| + 1e-12. Summation order alone moves
+# a row by up to 1.04e-10 of its norm over this file's six comparisons
+# (the follow loop's 873 iterations), the same as a one-ulp change of the
+# port's own F0 (5.5e-12 over the plateau refit); every integer outcome
+# and the LLH history stay exact at RTOL.
+ROW_TOL = 1e-9
 
 
 def _write_edges(path, edges):
@@ -106,13 +113,22 @@ def test_halo_and_touched_rows_match_jax(world):
     np.testing.assert_array_equal(rows, world["info"]["touched_rows"])
 
 
+def assert_rows_close(F, F_ref):
+    F, F_ref = np.asarray(F), np.asarray(F_ref)
+    assert F.shape == F_ref.shape
+    bound = ROW_TOL * np.linalg.norm(F_ref, axis=1) + 1e-12
+    worst = np.abs(F - F_ref).max(axis=1) - bound
+    assert (worst <= 0).all(), (
+        f"rows {np.flatnonzero(worst > 0).tolist()} beyond the row band")
+
+
 def _assert_refit_equal(ours, ref):
     for field in ("rounds", "touched", "refit_nodes", "touched_frac", "halo",
                   "converged", "escalated", "foldin_iters"):
         assert getattr(ours, field) == getattr(ref, field), field
     np.testing.assert_allclose(ours.history, ref.history, rtol=RTOL)
     np.testing.assert_allclose(ours.llh, ref.llh, rtol=RTOL)
-    np.testing.assert_allclose(ours.F, ref.F, rtol=RTOL, atol=1e-12)
+    assert_rows_close(ours.F, ref.F)
     assert [a["check"] for a in ours.anomalies] == [
         a["check"] for a in ref.anomalies]
 
@@ -222,7 +238,7 @@ def test_follow_deltas_publishes_the_jax_generations(world, tmp_path):
         a = JaxSnapshot.load(snaps, step=step)
         b = JaxSnapshot.load(jsnaps, step=step)
         assert a.meta["refit"] and a.meta["delta_seq"] == b.meta["delta_seq"]
-        np.testing.assert_allclose(a.F, b.F, rtol=RTOL, atol=1e-12)
+        assert_rows_close(a.F, b.F)
 
 
 def test_refit_events_are_schema_valid(world, tmp_path):

@@ -191,10 +191,14 @@ def test_resume_mid_grid_equals_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize(
     "kw,annealing",
-    [({"quality_mode": True}, False), ({}, True), ({"mesh_shape": (1, 2)}, False),
+    [({"quality_mode": True, "mesh_shape": (2, 1)}, False),
+     ({"quality_mode": True, "partition": "2d"}, True),
+     ({"mesh_shape": (1, 2)}, False),
      ({"mesh_shape": (2, 1)}, False), ({"partition": "2d"}, False)],
 )
 def test_unported_options_are_refused_by_name(planted, kw, annealing):
+    """A mesh (ROADMAP item 14) is refused by name, with or without quality
+    mode and device annealing (both of which the sweep runs)."""
     cfg = BigClamConfig(**_sweep_cfg(**kw))
     with pytest.raises(NotPortedError, match="not ported yet"):
         sweep_k(_port_graph(planted), cfg, device_annealing=annealing, device="cpu")
@@ -230,21 +234,22 @@ def test_cli_sweep_json_matches_jax_cli(planted, tmp_path, capsys):
     ]
 
 
-SWEEP_NOT_PORTED = ("--quality", "--device-annealing")
-
-
 def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys):
+    """`sweep --mesh` is refused by name (ROADMAP item 14); --quality and
+    --device-annealing are parser flags, and the help lists nothing as not
+    ported."""
     path = _edge_file(tmp_path, planted)
-    for flag in SWEEP_NOT_PORTED:
-        with pytest.raises(SystemExit) as exc:
-            cli.main(["sweep", "--graph", path, "--device", "cpu", flag])
-        assert exc.value.code == 2
-        assert f"unrecognized arguments: {flag}" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["sweep", "--graph", path, "--device", "cpu", "--mesh", "2,1"])
+    assert "item 14" in str(exc.value.code)
+    args = cli.build_parser().parse_args(
+        ["sweep", "--graph", path, "--quality", "--device-annealing"])
+    assert args.quality and args.device_annealing
     with pytest.raises(SystemExit):
         cli.main(["sweep", "--help"])
     help_text = "".join(capsys.readouterr().out.split())   # argparse wraps at "-"
-    assert "Notportedyet" in help_text
-    for flag in SWEEP_NOT_PORTED:
+    assert "Notportedyet" not in help_text
+    for flag in ("--quality", "--device-annealing"):
         assert flag in help_text
 
 
