@@ -25,6 +25,8 @@ against a ground truth (`f1`, `nmi`).
         --max-com 200 --div-com 15 --checkpoint-dir sweep/
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
         --mesh 4,1 --schedule ring                             # csr_ring_fused
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 3000 \
+        --mesh 2,2                                             # csr_fused_kb, K sharded
     python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
     python -m bigclam_tpu_torch.cli ingest --graph g.txt --cache-dir g.cache \
         --shards 4                                             # graph store
@@ -57,15 +59,18 @@ against a ground truth (`f1`, `nmi`).
         --max-com 200 --div-com 15 --quality [--device-annealing]
 
 `fit` and `sweep` run on `cuda` unless `--device cpu` is given, and refuse
-to start when no card is present. `fit --mesh DP,1` shards the nodes over
-the first DP cards (fewer cards: the positions share them round-robin;
-`--device cpu`: DP shards on the CPU) on the
-all-gather schedule (`csr_fused`, `csr` with `--csr-fused off`) or, with
-`--schedule ring`, the ring (`csr_ring_fused`, `csr_ring`); `xla` on the
-CPU. Its JSON adds `mesh` ("4x1"). A K-sharded mesh (TP > 1), K above
-1024 on a mesh, `--mesh` with `--representation sparse` and `sweep
---mesh` are refused by name. Above K = 1024 the single-device model takes
-the K-blocked path by itself (`kernel_path` in the JSON says which).
+to start when no card is present. `fit --mesh DP,TP` shards the nodes
+over DP shards and each shard's K columns over TP blocks, one mesh
+position a card (fewer cards: the positions share them round-robin;
+`--device cpu`: DP*TP positions on the CPU), on the all-gather schedule
+(`csr_fused`, `csr` with `--csr-fused off`) or, with `--schedule ring`,
+the ring (`csr_ring_fused`, `csr_ring`); `xla` on the CPU. Above K_loc =
+1024 columns a block, or with `--csr-k-block W`, a mesh takes the
+K-blocked paths (`csr_fused_kb`, `csr_grouped_kb`, `csr_ring_fused_kb`,
+`csr_ring_kb`), as the single-device model does above K = 1024. Its JSON
+adds `mesh` ("4x1"). `sweep --mesh` trains each K on fit's mesh model.
+`--distributed` (multi-process meshes) and `--mesh` with
+`--representation sparse` are refused by name.
 `--csr-kernels off` takes the non-CSR step: `pallas_vmem` (the candidate
 edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
@@ -81,7 +86,7 @@ reloads from it after. A cache shard that fails its crc32 is quarantined
 and rebuilt from the source edge list unless `--no-self-heal`. On a cache,
 `--seed-backend auto` reads the ingest-baked conductance scores when their
 cap and seed match the run (else it notes why and scores the graph), and
-`baked` requires them. `--store-native` with `--mesh DP,1` feeds each mesh
+`baked` requires them. `--store-native` with `--mesh DP,TP` feeds each mesh
 position from its own shard file (a cache of DP shards; balance comes from
 `ingest --balance`). `ingest` compiles a cache, or with `--delta` appends
 an edge file to one, touching no device.
@@ -198,6 +203,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "schedule — `csr`, or `csr_grouped_kb` above K=1024)",
     )
     p.add_argument(
+        "--csr-k-block", type=int, default=0,
+        help="columns a K block of the K-blocked paths (0: the model picks, "
+             "blocks of at most 1,024 above K = 1,024; a width forces the "
+             "K-blocked path at any K, one card or a mesh's K_loc)",
+    )
+    p.add_argument(
         "--representation", default="dense", choices=["dense", "sparse"],
         help="affiliation-state representation: dense (N, K) F (default) "
              "or sparse per-node top-M member lists (models/sparse.py) — "
@@ -245,9 +256,15 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--mesh", default=None,
-        help="'DP,TP' device mesh, e.g. 4,1: the nodes sharded over the "
-             "first DP cards (with --device cpu, DP shards on the CPU); "
-             "TP > 1 is not ported (default: single device)",
+        help="'DP,TP' device mesh, e.g. 4,1 or 2,2: the nodes sharded over "
+             "DP shards and each shard's K columns over TP blocks, one mesh "
+             "position a card (with --device cpu, DP*TP positions on the "
+             "CPU; default: single device)",
+    )
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="refused: a multi-process mesh (torch.distributed, one process "
+             "a card) is ROADMAP queue 1 item 14; --mesh runs one controller",
     )
     p.add_argument(
         "--balance", action="store_true",
@@ -257,7 +274,7 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--store-native", action="store_true",
-        help="with --mesh DP,1 and a graph-cache --graph of DP shards: feed "
+        help="with --mesh DP,TP and a graph-cache --graph of DP shards: feed "
              "each mesh position from its own shard file (StoreSharded/"
              "StoreRing; no global CSR on the training path). Balance comes "
              "from the cache (`ingest --balance`); trajectories are bit-"
@@ -888,6 +905,12 @@ def _add_obs_parsers(sub) -> None:
 def config_from_args(args):
     from bigclam_tpu_torch.config import BigClamConfig
 
+    if getattr(args, "distributed", False):
+        raise SystemExit(
+            "error: --distributed is not ported yet (ROADMAP queue 1 item 14: "
+            "multi-process meshes over torch.distributed); --mesh DP,TP runs "
+            "the mesh from one process"
+        )
     sweep = args.command == "sweep"
     checkpoint_every = args.checkpoint_every
     if not sweep and args.checkpoint_dir and checkpoint_every <= 0:
@@ -918,6 +941,7 @@ def config_from_args(args):
         seeding_degree_cap=args.seeding_degree_cap,
         use_pallas_csr={"auto": None, "on": True, "off": False}[args.csr_kernels],
         csr_fused={"auto": None, "off": False}[args.csr_fused],
+        csr_k_block=max(int(getattr(args, "csr_k_block", 0) or 0), 0),
         representation=args.representation,
         sparse_m=args.sparse_m,
         support_every=args.support_every,
@@ -969,7 +993,20 @@ def quality_config(args, cfg):
             "discrete repair stage reads the global CSR, which a "
             "store-native trainer never loads); drop --store-native"
         )
+    refuse_device_annealing_tp(args, cfg)
     return cfg
+
+
+def refuse_device_annealing_tp(args, cfg) -> None:
+    """--quality --device-annealing on a K-sharded mesh is refused by name
+    (models/quality.py fit_quality_device); the host schedule runs there."""
+    if (cfg.quality_mode and getattr(args, "device_annealing", False)
+            and args.mesh and parse_mesh(args.mesh)[1] > 1):
+        raise SystemExit(
+            "error: --device-annealing on a K-sharded mesh (TP > 1) is not "
+            "ported yet (ROADMAP queue 1 item 20); drop --device-annealing "
+            "for the host schedule, or use --mesh DP,1"
+        )
 
 
 def parse_mesh(text: str) -> tuple:
@@ -1510,11 +1547,6 @@ def _fit(args, tel):
 def sweep(args, callback=None) -> dict:
     """Run `sweep` for parsed arguments; callback(k, llh) after each K.
     Returns the JSON-ready result dict."""
-    if args.mesh:
-        raise SystemExit(
-            "error: `sweep --mesh` is not ported yet (ROADMAP queue 1 item 14: "
-            "a sweep over a device mesh); the port sweeps on one device"
-        )
     tel = open_telemetry(args, "sweep")
     try:
         return _sweep(args, callback, tel)
@@ -1530,8 +1562,9 @@ def _sweep(args, callback, tel) -> dict:
         cfg = cfg.replace(quality_mode=True)
         if cfg.representation == "sparse":
             raise SystemExit(QUALITY_SPARSE_REFUSAL)
-    store_for_model(args, cfg)          # refuses --store-native (no --mesh)
+        refuse_device_annealing_tp(args, cfg)
     g = load_graph(args)
+    store = store_for_model(args, cfg)  # refuses --store-native without --mesh
     # the sweep seeds once, at K_max, with the same seeding config
     phi = baked_phi(args._store, cfg, args.seed_backend,
                     getattr(args, "quiet", False))
@@ -1552,7 +1585,13 @@ def _sweep(args, callback, tel) -> dict:
         first, first_attempt[0] = first_attempt[0], False
         return sweep_k(
             g, cfg,
-            model_factory=lambda c: make_model(g, c, args.device),
+            # each K's model through fit's factory: the mesh's with --mesh
+            # (JAX `_make_model`), else the single device's
+            model_factory=(
+                (lambda c: make_mesh_model(g, c, args.device, args.mesh,
+                                           args.schedule, args.balance, store=store))
+                if args.mesh else (lambda c: make_model(g, c, args.device))
+            ),
             callback=per_k,
             state_dir=args.checkpoint_dir,
             device_annealing=args.device_annealing,

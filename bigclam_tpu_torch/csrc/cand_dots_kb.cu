@@ -35,6 +35,10 @@
 // Trial builds with the copies, the fmas or the nf build taken out took
 // 25%, 38% and 23% less time: a stage's parts run one after another, and
 // at 7 rows a tile none of them is long enough to hide the others.
+//
+// On a mesh the destination ids index `Fd`, a tensor of its own rows with
+// F's columns (the all-gathered F, or the rotating shard of a ring phase);
+// F_u and grad_kb stay the source rows'. Fd = F on one card.
 #include "edge_common.cuh"
 
 namespace {
@@ -73,7 +77,7 @@ struct LadderStoreAdd {
 };
 
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-cand_dots_kernel(const float* __restrict__ F,
+cand_dots_kernel(const float* __restrict__ F, const float* __restrict__ Fd,
                  const float* __restrict__ grad_kb, int ld_grad,
                  const int64_t* __restrict__ indptr,
                  const int* __restrict__ indices, int n, int64_t e_total,
@@ -95,7 +99,7 @@ cand_dots_kernel(const float* __restrict__ F,
   };
   LadderStoreAdd st{xc, e_total, e0, lane >> 3};
   bigclam::ladder_range<true>(
-      F + col0, indices, e0, e1, kc, k_pad, lane, vec, p,
+      Fd + col0, indices, e0, e1, kc, k_pad, lane, vec, p,
       reinterpret_cast<float*>(smem4) + warp * bigclam::kLadderFloats, col, st);
 }
 
@@ -107,8 +111,10 @@ cand_dots_kernel(const float* __restrict__ F,
 // (cudaErrorInvalidValue for a window outside the rows or wider than 1024
 // columns, ld_grad < kc, more than 16 steps, or a smem_bytes other than the
 // block's shared memory, which ops/csr_kernels.py `ladder_launch_plan`
-// computes). `etas` is a host array of num_s floats.
-extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
+// computes). The neighbour rows come from Fd (F when null). `etas` is a
+// host array of num_s floats.
+extern "C" int bigclam_cand_dots_kb(const float* F, const float* Fd,
+                                    const float* grad_kb,
                                     int ld_grad, const int64_t* indptr,
                                     const int* indices,
                                     int n, int64_t e_total, int k_pad,
@@ -121,15 +127,16 @@ extern "C" int bigclam_cand_dots_kb(const float* F, const float* grad_kb,
   if (ld_grad < kc) return cudaErrorInvalidValue;
   if (smem_bytes != bigclam::cand_dots_smem_bytes()) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
+  if (Fd == nullptr) Fd = F;
   // the ladder without acceptance coefficients (selection runs in torch)
   const StepParams p = bigclam::make_params(etas, nullptr, num_s, omp_lo,
                                             omp_hi, min_f, max_f);
   const bool vec = kc % 4 == 0 && k_pad % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(F + col0) % 16 == 0;
+                   reinterpret_cast<uintptr_t>(Fd + col0) % 16 == 0;
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cand_dots_kernel<<<blocks, kWarpsPerBlock * kWarp, smem_bytes,
                      static_cast<cudaStream_t>(stream)>>>(
-      F, grad_kb, ld_grad, indptr, indices, n, e_total, k_pad, col0, kc, p, vec,
-      xc);
+      F, Fd, grad_kb, ld_grad, indptr, indices, n, e_total, k_pad, col0, kc, p,
+      vec, xc);
   return cudaGetLastError();
 }

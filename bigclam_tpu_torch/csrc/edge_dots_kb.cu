@@ -37,6 +37,17 @@
 //    Lane j keeps the dot of the batch's edge j, so a batch of 32 goes out
 //    as one coalesced read-modify-write of x and one of x[rev].
 //
+// Two more inputs serve a mesh, where neither holds:
+//
+//  * F_dst. The CSR's destination ids index `Fd`, a tensor of its own
+//    rows with F's columns: the all-gathered F on the all-gather schedule,
+//    the rotating shard in a ring phase. Fd = F on one card.
+//  * the directed mode. With a null `rev` warp u walks all its edges and
+//    writes x[e] only. A shard's CSR (local rows, global ids) and a ring
+//    bucket are not symmetric, so a mesh takes this mode. It runs the same
+//    fmaf chain and butterfly per edge, so on a whole symmetric graph it
+//    gives the pair mode's bits.
+//
 // On an H100 (chip_smoke.py) a step of the 3 windows at xl_k takes 0.64 ms
 // (one pass over every directed edge: 1.47; sampled_addmm: 1.52), and 1.07
 // ms on the same graph with shuffled ids (3.78). A trial that also staged
@@ -72,6 +83,7 @@ __device__ __forceinline__ int64_t first_above(const int* __restrict__ indices,
 template <int KPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 edge_dots_kernel(const float* __restrict__ F,
+                 const float* __restrict__ Fd,
                  const int64_t* __restrict__ indptr,
                  const int* __restrict__ indices, const int* __restrict__ rev,
                  int n, int k_pad, int col0, int kc, bool vec,
@@ -84,10 +96,12 @@ edge_dots_kernel(const float* __restrict__ F,
   float fu[KPL];
   bigclam::load_window<KPL>(F, u, k_pad, col0, kc, lane, fu);
   const int64_t e1 = indptr[u + 1];
-  const int64_t eu = first_above(indices, indptr[u], e1, u, lane);
+  // pair mode: the edges to neighbours above u; directed: all of them
+  const int64_t eu = rev != nullptr ? first_above(indices, indptr[u], e1, u, lane)
+                                    : indptr[u];
   float mine = 0.f;  // lane j: the dot of the batch's edge j
   bigclam::window_walk<KPL>(
-      F + col0, indices, eu, e1, kc, k_pad, lane, vec,
+      Fd + col0, indices, eu, e1, kc, k_pad, lane, vec,
       reinterpret_cast<float*>(smem4) + warp * kGradStages * kWarp * KPL,
       [&](int64_t e, int j, const float (&fv)[KPL]) {
         float part = 0.f;
@@ -99,40 +113,45 @@ edge_dots_kernel(const float* __restrict__ F,
           const int64_t b = e - j;
           if (lane <= j) {
             x[b + lane] += mine;
-            x[__ldg(rev + b + lane)] += mine;
+            if (rev != nullptr) x[__ldg(rev + b + lane)] += mine;
           }
         }
       });
 }
 
 template <int KPL>
-void launch(const float* F, const int64_t* indptr, const int* indices,
+void launch(const float* F, const float* Fd, const int64_t* indptr,
+            const int* indices,
             const int* rev, int n, int k_pad, int col0, int kc, bool vec,
             float* x, cudaStream_t stream) {
   constexpr int smem = bigclam::grad_smem_bytes(KPL);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   edge_dots_kernel<KPL><<<blocks, kWarpsPerBlock * kWarp, smem, stream>>>(
-      F, indptr, indices, rev, n, k_pad, col0, kc, vec, x);
+      F, Fd, indptr, indices, rev, n, k_pad, col0, kc, vec, x);
 }
 
 }  // namespace
 
-// Adds window [col0, col0 + kc) of every edge dot into x (E,) on `stream`,
-// over the symmetric CSR without self-loops whose reverse-edge index is
-// `rev` (E,) int32; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a window outside the rows or wider than 1024
-// columns).
-extern "C" int bigclam_edge_dots_kb(const float* F, const int64_t* indptr,
-                                    const int* indices, const int* rev, int n,
-                                    int k_pad, int col0, int kc, float* x,
-                                    void* stream) {
+// Adds window [col0, col0 + kc) of every edge dot into x (E,) on `stream`:
+// source rows from F (n rows), destination rows from Fd (F when null; any
+// row count, k_pad columns). With `rev` (E,) int32, the reverse-edge index
+// of a symmetric CSR without self-loops, each pair is computed once; with a
+// null rev every directed edge is. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a window outside the rows or wider than
+// 1024 columns).
+extern "C" int bigclam_edge_dots_kb(const float* F, const float* Fd,
+                                    const int64_t* indptr, const int* indices,
+                                    const int* rev, int n, int k_pad, int col0,
+                                    int kc, float* x, void* stream) {
   if (!bigclam::window_ok(k_pad, col0, kc)) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
+  if (Fd == nullptr) Fd = F;
   const bool vec = kc % 4 == 0 && k_pad % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(F + col0) % 16 == 0;
+                   reinterpret_cast<uintptr_t>(F + col0) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(Fd + col0) % 16 == 0;
   int rc = cudaSuccess;
-  BIGCLAM_DISPATCH_KPL(kc, launch, rc, F, indptr, indices, rev, n, k_pad, col0,
-                       kc, vec, x, static_cast<cudaStream_t>(stream));
+  BIGCLAM_DISPATCH_KPL(kc, launch, rc, F, Fd, indptr, indices, rev, n, k_pad,
+                       col0, kc, vec, x, static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return rc;
   return cudaGetLastError();
 }

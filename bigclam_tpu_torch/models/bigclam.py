@@ -186,6 +186,21 @@ def k_block_plan(num_communities: int, csr_k_block: int = 0) -> tuple[int, int]:
     return kc, n_kb * kc
 
 
+def mesh_k_plan(num_communities: int, tp: int, kernels: bool,
+                csr_k_block: int = 0) -> tuple:
+    """(kc, k_pad) of a (dp, tp) mesh: with the kernels K pads to a multiple
+    of 32 tp, so each block's K_loc is a whole number of warp steps, and
+    k_block_plan then cuts K_loc into windows (kc > 0: the
+    K-blocked paths; 0: one window of K_loc, a warp's row at most where
+    tp = 1 takes the single-pass kernels). The JAX package pads to 128 tp
+    for the TPU's lanes. Without the kernels K pads to a multiple of tp."""
+    if not kernels:
+        return 0, _round_up(num_communities, tp)
+    k_loc = _round_up(num_communities, CSR_K_MULTIPLE * tp) // tp
+    kc, k_loc = k_block_plan(k_loc, csr_k_block)
+    return kc, k_loc * tp
+
+
 def check_k_block(kc: int, device: torch.device) -> None:
     """The CUDA kernels take windows of at most MAX_K columns; only an
     explicit csr_k_block can ask for more (the CPU plain versions take any
@@ -368,6 +383,15 @@ def poison_entry(F, i: int, j: int):
         out[i, j] = float("nan")
         return out
     shards = list(F)
+    if isinstance(shards[0], tuple):        # rows of column blocks (tp > 1)
+        rows, cols = shards[0][0].shape
+        s, r = divmod(int(i), rows)
+        c, jj = divmod(int(j), cols)
+        blocks = list(shards[s])
+        blocks[c] = blocks[c].clone()
+        blocks[c][r, jj] = float("nan")
+        shards[s] = tuple(blocks)
+        return tuple(shards)
     rows = shards[0].shape[0]
     s, r = divmod(int(i), rows)
     shards[s] = shards[s].clone()
@@ -559,7 +583,9 @@ def run_fit_loop(
 
 
 def _state_tensors(F) -> list:
-    return [F] if isinstance(F, torch.Tensor) else list(F)
+    from bigclam_tpu_torch.parallel.mesh import row_shards
+
+    return row_shards(F)
 
 
 def _abort_nonfinite(state, new_state, llh_t: float, hist, rollbacks: int = 0):

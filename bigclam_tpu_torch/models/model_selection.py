@@ -25,7 +25,10 @@ columns so the padding columns stay zero); with device annealing as well,
 `fit_quality_device` salted with K, whose repair rounds checkpoint into
 state_dir/k_<K>/repair whatever cfg.checkpoint_every says.
 
-Not ported yet, and refused by name (NotPortedError): a mesh.
+A mesh sweeps through `model_factory` (`cli sweep --mesh` passes fit's
+mesh factory, as the JAX CLI passes `_make_model`). Not ported yet, and
+refused by name (NotPortedError): the 2D partition (ROADMAP queue 1
+item 17).
 """
 
 from __future__ import annotations
@@ -87,10 +90,11 @@ class SweepResult:
 
 def check_sweep_supported(cfg: BigClamConfig) -> None:
     """Raise NotPortedError for the sweep options the port lacks."""
-    if tuple(cfg.mesh_shape) != (1, 1) or cfg.partition != "1d":
+    if cfg.partition != "1d":
         raise NotPortedError(
-            "a sweep over a device mesh is not ported yet (ROADMAP queue 1 "
-            "item 14); the port sweeps on one device"
+            f"partition={cfg.partition!r}: a sweep over the 2D partition is "
+            "not ported yet (ROADMAP queue 1 item 17); the port sweeps on a "
+            "1D mesh or one device"
         )
 
 
@@ -109,9 +113,9 @@ def sweep_k(
 ) -> SweepResult:
     """Train across the K grid and pick KforC (bigclam4-7.scala:244-266).
 
-    model_factory(cfg_at_kmax) may supply another trainer (the sparse one);
-    the default is BigClamModel(g, cfg_at_kmax, device), with F at the grid
-    max so one model serves every K.
+    model_factory(cfg_at_kmax) may supply another trainer (the sparse one, a
+    mesh's); the default is BigClamModel(g, cfg_at_kmax, device), with F at
+    the grid max so one model serves every K.
 
     When state_dir is given, per-K converged LLHs are journaled to
     state_dir/sweep_state.json and already-trained Ks are skipped on

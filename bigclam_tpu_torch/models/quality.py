@@ -1424,6 +1424,15 @@ def fit_quality_device(
     from bigclam_tpu_torch.obs import trace as _trace
     from bigclam_tpu_torch.utils.profiling import StageProfile
 
+    if getattr(model, "tp", 1) > 1:
+        from bigclam_tpu_torch.parallel.sharded import MeshNotPortedError
+
+        raise MeshNotPortedError(
+            f"the device-resident quality schedule on a K-sharded mesh "
+            f"(tp={model.tp}) is not ported yet (ROADMAP queue 1 item 20: "
+            "its kicks and edits walk whole-row shards); the host schedule "
+            "(fit_quality, no --device-annealing) runs there"
+        )
     profile = profile if profile is not None else StageProfile()
     cfg = model.cfg
     n, k = F0.shape

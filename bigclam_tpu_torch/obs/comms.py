@@ -169,6 +169,28 @@ def _scalar_payload(llh_itemsize: int, num_candidates: int) -> float:
     return llh_itemsize + (num_candidates + 1) * 4
 
 
+def _k_sites(family: str, n_loc: int, dp: int, tp: int, itemsize: int,
+             num_candidates: int, edges: int, phases: int) -> List[Site]:
+    """The psums over the k axis of a tp > 1 step (parallel/sharded.py
+    `kpsum`): per node row and phase the per-edge partial dots x and the
+    (S, E) candidate dots of the edges it sweeps, and per row once the
+    (3 + 2S, n_loc) row dots of the node and Armijo tails. Edge counts
+    differ per shard, so x and xc are priced at the mean over the dp
+    phases x rows; the totals are exact. None at tp = 1."""
+    if tp <= 1:
+        return []
+    per = float(edges) / max(dp * phases, 1) * itemsize
+    occ = dp * phases
+    return [
+        Site(f"{family}/psum_k_x", "psum", per, occ, tp, "reduce", "k"),
+        Site(f"{family}/psum_k_xc", "psum", per * num_candidates, occ, tp,
+             "reduce", "k"),
+        Site(f"{family}/psum_k_rows", "psum",
+             (3 + 2 * num_candidates) * n_loc * itemsize, dp, tp, "reduce",
+             "k"),
+    ]
+
+
 def sharded_step_model(
     n_pad: int,
     k_pad: int,
@@ -177,24 +199,29 @@ def sharded_step_model(
     num_candidates: int,
     llh_itemsize: Optional[int] = None,
     model: str = "ShardedBigClamModel",
+    tp: int = 1,
+    edges: int = 0,
 ) -> CommsModel:
     """Collective sites of the port's all-gather step (parallel/sharded.py
-    `make_sharded_train_step` and `finish_step`, tp = 1): the F all-gather
-    at the top of the step, the sumF psum at the top and after the update,
-    and the LLH and histogram psums."""
+    `make_sharded_train_step`, `make_tp_train_step` and `finish_step`):
+    the F all-gather at the top of the step (one per column block), the
+    sumF psums at the top and after the update (per column block), the LLH
+    and histogram psums, and at tp > 1 the psums over k (_k_sites; `edges`
+    the graph's directed edges)."""
     n_loc = n_pad // max(dp, 1)
+    k_loc = k_pad // max(tp, 1)
     sites = [
         Site("sharded/all_gather_F", "all_gather",
-             n_loc * k_pad * itemsize, 1, dp, "gather", "nodes"),
+             n_loc * k_loc * itemsize, tp, dp, "gather", "nodes"),
         Site("sharded/psum_sumF", "psum",
-             k_pad * itemsize, 2, dp, "reduce", "nodes"),
+             k_loc * itemsize, 2 * tp, dp, "reduce", "nodes"),
         Site("sharded/psum_scalars", "psum",
              _scalar_payload(llh_itemsize or itemsize, num_candidates), 1,
              dp, "reduce", "nodes"),
-    ]
+    ] + _k_sites("sharded", n_loc, dp, tp, itemsize, num_candidates, edges, 1)
     return CommsModel(
         family="sharded", model=model, sites=tuple(sites),
-        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": tp,
                 "itemsize": itemsize},
     )
 
@@ -207,29 +234,33 @@ def ring_step_model(
     num_candidates: int,
     llh_itemsize: Optional[int] = None,
     model: str = "RingBigClamModel",
+    tp: int = 1,
+    edges: int = 0,
 ) -> CommsModel:
     """Collective sites of the port's ring step (parallel/ring.py
-    `make_ring_train_step`, tp = 1): two rotations a step (gradient pass,
-    candidate pass) of dp - 1 hops each, every hop moving one (n_pad/dp,
-    k_pad) shard into each position; the sumF psums at the top of the step
-    and after the update; the LLH and histogram psums. Against the
-    all-gather's dp (dp - 1) shards a step the ring moves 2 dp (dp - 1):
-    twice the bytes, for a peak of two shards a device instead of all of
-    F."""
+    `make_ring_train_step`, `make_ring_tp_step`): two rotations a step
+    (gradient pass, candidate pass) of dp - 1 hops each, every hop moving
+    one (n_pad/dp, k_pad/tp) block into each position; the sumF psums at
+    the top of the step and after the update; the LLH and histogram psums;
+    at tp > 1 the psums over k of each (row, phase) bucket (_k_sites).
+    Against the all-gather's dp (dp - 1) shards a step the ring moves
+    2 dp (dp - 1): twice the bytes, for a peak of two shards a device
+    instead of all of F."""
     n_loc = n_pad // max(dp, 1)
+    k_loc = k_pad // max(tp, 1)
     sites = [
         Site("ring/ppermute_F_rot", "ppermute",
-             n_loc * k_pad * itemsize, 2 * (dp - 1) if dp > 1 else 0, dp,
+             n_loc * k_loc * itemsize, 2 * (dp - 1) * tp if dp > 1 else 0, dp,
              "rotate", "nodes"),
         Site("ring/psum_sumF", "psum",
-             k_pad * itemsize, 2, dp, "reduce", "nodes"),
+             k_loc * itemsize, 2 * tp, dp, "reduce", "nodes"),
         Site("ring/psum_scalars", "psum",
              _scalar_payload(llh_itemsize or itemsize, num_candidates), 1,
              dp, "reduce", "nodes"),
-    ]
+    ] + _k_sites("ring", n_loc, dp, tp, itemsize, num_candidates, edges, dp)
     return CommsModel(
         family="ring", model=model, sites=tuple(sites),
-        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": tp,
                 "itemsize": itemsize},
     )
 

@@ -467,6 +467,18 @@ def sparse_memory_model(
     )
 
 
+def tp_tails_buffers(tp: int, n_loc: int, k_loc: int,
+                     itemsize: int) -> List[Buffer]:
+    """At tp > 1 the tails run in torch (parallel.sharded
+    armijo_tail_select_tp), one column block after another: two
+    (n_loc, K_loc) temporaries at a time (a candidate step's clamped row
+    and its product with sumF - F + it), whatever the positions."""
+    if tp <= 1:
+        return []
+    return [Buffer("transient/tp_tails", n_loc * k_loc * itemsize, "transient",
+                   count=2, note="the torch tails' two block temporaries")]
+
+
 def sharded_memory_model(
     n_pad: int,
     k_pad: int,
@@ -484,13 +496,18 @@ def sharded_memory_model(
     rollback: bool = False,
     comms: Optional[CommsModel] = None,
     model: str = "ShardedBigClamModel",
+    tp: int = 1,
 ) -> MemoryModel:
     """All-gather trainer (parallel.sharded), for one device holding
-    `positions` mesh positions (1 on distinct cards, dp on a repeated
-    one) and, when `first_device`, the scalars: its shards of F, one sumF,
-    one gathered F per distinct device (`gathers`: 0 only when the mesh
-    has one position), and each position's step temporaries. Graph bytes
-    are the device's own shard CSRs (each shard keeps its own length)."""
+    `positions` mesh positions (1 on distinct cards, dp tp on a repeated
+    one) and, when `first_device`, the scalars: its blocks of F, one sumF,
+    one gathered (n_pad, k_pad) column block per column block it holds
+    (`gathers`: 0 only when the mesh has one node shard), and each
+    position's step temporaries. `k_pad` is a position's columns (K_loc
+    at tp > 1, whose steps run the TP split: the callers price them as
+    `csr_grouped_kb`'s per-edge dots, and tp_tails_buffers adds the torch
+    tails'). Graph bytes are the device's own shard CSRs (each shard keeps
+    its own length)."""
     n_loc = n_pad // max(dp, 1)
     state = dense_state_buffers(positions * n_loc, k_pad, itemsize,
                                 num_candidates, scalars=first_device)
@@ -505,11 +522,12 @@ def sharded_memory_model(
         )] if gathers else [])
         + step_transients(path, n_loc, k_pad, itemsize, num_candidates,
                           directed_edges, chunk, positions=positions)
+        + tp_tails_buffers(tp, n_loc, k_pad, itemsize)
         + (collective_buffers(comms) if first_device else [])
     )
     return MemoryModel(
         family="sharded", model=model, buffers=tuple(buffers),
-        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": tp,
                 "itemsize": itemsize, "positions": positions,
                 "path": path, "rollback": rollback},
     )
@@ -530,6 +548,9 @@ def ring_memory_model(
     rollback: bool = False,
     comms: Optional[CommsModel] = None,
     model: str = "RingBigClamModel",
+    tp: int = 1,
+    tp_split: bool = False,
+    bucket_edges: int = 0,
 ) -> MemoryModel:
     """Ring trainer (parallel.ring), for one device holding `positions`
     mesh positions: its shards, one sumF, the scalars on the first
@@ -538,7 +559,11 @@ def ring_memory_model(
     (S, n_loc) candidate sums, F_new). The rotating shard is a copy only
     where a position's successor sits on another device
     (`remote_successors`), two with the overlapped hop in flight; on a
-    repeated card it IS the other shard's F, and costs nothing."""
+    repeated card it IS the other shard's F, and costs nothing. `k_pad`
+    is a position's columns (K_loc at tp > 1). The TP split's phases
+    (`tp_split`: the K-blocked paths, every path at tp > 1) add the
+    largest bucket's per-edge dots x and candidate dots xc
+    (`bucket_edges`)."""
     n_loc = n_pad // max(dp, 1)
     fk = n_loc * k_pad * itemsize
     state = dense_state_buffers(positions * n_loc, k_pad, itemsize,
@@ -564,11 +589,19 @@ def ring_memory_model(
             Buffer("transient/node_llh", n_loc * itemsize, "transient",
                    count=positions),
         ]
+        + ([
+            Buffer("transient/edge_x", bucket_edges * itemsize, "transient",
+                   note="a phase bucket's per-edge dots"),
+            Buffer("transient/edge_xc", num_candidates * bucket_edges
+                   * itemsize, "transient",
+                   note="a phase bucket's (S, E) candidate dots"),
+        ] if tp_split else [])
+        + tp_tails_buffers(tp, n_loc, k_pad, itemsize)
         + (collective_buffers(comms) if first_device else [])
     )
     return MemoryModel(
         family="ring", model=model, buffers=tuple(buffers),
-        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": 1,
+        params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": tp,
                 "itemsize": itemsize, "positions": positions,
                 "overlap": overlap, "rollback": rollback},
     )
@@ -830,8 +863,8 @@ def _round_up(x: int, m: int) -> int:
 
 # ------------------------------------------------------------- preflight
 # the port's kernel geometry (ops.csr_kernels.MAX_K, models.bigclam
-# CSR_K_MULTIPLE and k_block_plan; pinned equal by the tests): kept here so
-# the preflight imports no torch
+# CSR_K_MULTIPLE, k_block_plan and mesh_k_plan; pinned equal by the tests):
+# kept here so the preflight imports no torch
 MAX_K = 1024
 CSR_K_MULTIPLE = 32
 
@@ -846,6 +879,15 @@ def k_block_plan(k: int, csr_k_block: int = 0) -> Tuple[int, int]:
     n_kb = -(-k32 // MAX_K)
     kc = _round_up(-(-k32 // n_kb), CSR_K_MULTIPLE)
     return kc, n_kb * kc
+
+
+def mesh_k_plan(k: int, tp: int, csr_k_block: int = 0) -> Tuple[int, int]:
+    """(kc, k_pad) of a mesh with the kernels (models.bigclam.mesh_k_plan):
+    K pads to a multiple of 32 tp, and each block's K_loc takes
+    k_block_plan's windows."""
+    k_loc = _round_up(k, CSR_K_MULTIPLE * tp) // tp
+    kc, k_loc = k_block_plan(k_loc, csr_k_block)
+    return kc, k_loc * tp
 
 
 def edge_chunk_bound(edge_chunk: int, cols: int, itemsize: int) -> int:
@@ -900,18 +942,16 @@ def preflight(
     `csr_ring_fused`, `sparse_merge_pallas`. Returns the JAX preflight's
     keys: the component breakdown, a fits-or-doesn't verdict naming the
     binding constraint, and the knobs that relax it. Raises ValueError
-    naming the ROADMAP item for what the port does not run (tp > 1,
-    K-blocked meshes, sparse meshes)."""
+    naming the ROADMAP item for what the port does not run (sparse
+    meshes). On a mesh K pads to a multiple of 32 tp and each block's K_loc
+    takes its own K blocks (`mesh_k_plan`): the
+    K-blocked paths where K_loc exceeds a warp's row, the TP split at
+    tp > 1."""
     from bigclam_tpu_torch.obs import comms as _comms
 
     dp, tp = max(int(dp), 1), max(int(tp), 1)
     sparse = representation == "sparse"
-    if tp > 1:
-        raise ValueError(
-            f"tp={tp}: a K-sharded mesh is not ported yet (ROADMAP queue 1 "
-            "item 14, the TP kernel split)"
-        )
-    if sparse and dp > 1:
+    if sparse and (dp > 1 or tp > 1):
         raise ValueError(
             "--representation sparse on a mesh is not ported yet (ROADMAP "
             "queue 1 item 16, sparse sharded)"
@@ -923,17 +963,16 @@ def preflight(
     if sparse:
         kc, k_pad, path = 0, int(k), "sparse_merge_pallas"
     else:
-        kc, k_pad = k_block_plan(int(k), csr_k_block)
-        if kc and dp > 1:
-            raise ValueError(
-                f"K={k} needs the K-blocked kernels, which do not run on a "
-                "mesh yet (ROADMAP queue 1 items 14-15, K-blocked meshes)"
-            )
-        if dp > 1 and schedule == "ring":
-            path = "csr_ring_fused"
+        mesh = dp > 1 or tp > 1
+        if mesh:
+            kc, k_pad = mesh_k_plan(int(k), tp, csr_k_block)
         else:
-            path = "csr_fused_kb" if kc else "csr_fused"
-    n_pad = _round_up(max(n, dp), dp) if dp > 1 else int(n)
+            kc, k_pad = k_block_plan(int(k), csr_k_block)
+        path = "csr_fused_kb" if kc else "csr_fused"
+        if mesh and schedule == "ring":
+            path = "csr_ring_fused_kb" if kc else "csr_ring_fused"
+    mesh = dp > 1 or tp > 1
+    n_pad = _round_up(max(n, dp), dp) if mesh else int(n)
     if shard_edge_counts:
         max_shard = max(int(c) for c in shard_edge_counts)
         counts_known = True
@@ -963,7 +1002,7 @@ def preflight(
             chunk=edge_chunk_bound(edge_chunk, m, itemsize),
             health_on=health_on, rollback=rollback,
         )
-    elif dp == 1:
+    elif not mesh:
         graph = csr_graph_bytes(n, directed_edges, rev=bool(kc))
         mm = dense_memory_model(
             n, k_pad, itemsize, num_candidates, graph, path, directed_edges,
@@ -972,6 +1011,8 @@ def preflight(
         )
     else:
         n_loc = n_pad // dp
+        k_loc = k_pad // tp
+        split = tp > 1 or bool(kc)
         if schedule == "ring":
             max_bucket = int(math.ceil(max_shard / dp))
             graph = {
@@ -980,11 +1021,13 @@ def preflight(
                 + 20.0 * max_bucket * dp,
             }
             comms = _comms.ring_step_model(n_pad, k_pad, dp, itemsize,
-                                           num_candidates)
+                                           num_candidates, tp=tp,
+                                           edges=directed_edges)
             mm = ring_memory_model(
-                n_pad, k_pad, dp, itemsize, num_candidates, graph,
-                remote_successors=1, health_on=health_on, rollback=rollback,
-                comms=comms,
+                n_pad, k_loc, dp, itemsize, num_candidates, graph,
+                remote_successors=1 if dp > 1 else 0, health_on=health_on,
+                rollback=rollback, comms=comms, tp=tp, tp_split=split,
+                bucket_edges=max_bucket,
             )
             notes.append(
                 "ring buckets priced at the balanced distribution"
@@ -992,11 +1035,12 @@ def preflight(
         else:
             graph = csr_graph_bytes(n_loc, max_shard)
             comms = _comms.sharded_step_model(n_pad, k_pad, dp, itemsize,
-                                              num_candidates)
+                                              num_candidates, tp=tp,
+                                              edges=directed_edges)
             mm = sharded_memory_model(
-                n_pad, k_pad, dp, itemsize, num_candidates, graph, path,
-                max_shard, health_on=health_on, rollback=rollback,
-                comms=comms,
+                n_pad, k_loc, dp, itemsize, num_candidates, graph,
+                "csr_grouped_kb" if tp > 1 else path, max_shard, health_on=health_on, rollback=rollback,
+                comms=comms, gathers=1 if dp > 1 else 0, tp=tp,
             )
 
     host = host_rss_model(
@@ -1039,10 +1083,16 @@ def preflight(
                 f"(state {_fmt_bytes(cat.get('state', 0))} -> "
                 f"~{_fmt_bytes(n * m_hint * (4 + itemsize))} ids+weights)"
             )
-        if not sparse and not kc and dp < 64:
+        if not sparse and dp < 64:
             knobs.append(
-                f"--mesh {dp * 2},1: per-device state, graph and step "
+                f"--mesh {dp * 2},{tp}: per-device state, graph and step "
                 "temporaries shrink ~1/dp (the gathered F does not)"
+            )
+        if not sparse and tp < 64:
+            knobs.append(
+                f"--mesh {dp},{tp * 2}: every per-device F-sized buffer, the "
+                "gathered F included, shrinks ~1/tp (psums of the per-edge "
+                "dots over k added)"
             )
         if not sparse and dp > 1 and schedule != "ring":
             knobs.append(
@@ -1053,8 +1103,7 @@ def preflight(
         if kc:
             notes.append(
                 f"K={k} runs the K-blocked kernels (kc {kc}, k_pad "
-                f"{k_pad}), which run on one card only (ROADMAP queue 1 "
-                "items 14-15)"
+                f"{k_pad}, K_loc {k_pad // tp})"
             )
     if not fits_host:
         dom = host.dominant()

@@ -60,14 +60,18 @@ ENTRIES = {
     # F_loc, grad, F_rot, indptr, indices, n, K, etas, num_s, omp_lo, omp_hi,
     # min_f, max_f, cb, smem_bytes, stream
     "bigclam_ring_cand_phase": [P, P, P, P, P, I, I, P, I, R, R, R, R, P, I, P],
-    # F, indptr, indices, rev, n, k_pad, col0, kc, x, stream
-    "bigclam_edge_dots_kb": [P, P, P, P, I, I, I, I, P, P],
-    # x, F, sumF, indptr, indices, n, k_pad, col0, kc, omp_lo, omp_hi, fold,
-    # grad_kb, ld_grad, llh_nbr (null: not written), stream
-    "bigclam_grad_from_x": [P, P, P, P, P, I, I, I, I, R, R, I, P, I, P, P],
-    # F, grad_kb, ld_grad, indptr, indices, n, E, k_pad, col0, kc, etas,
-    # num_s, omp_lo, omp_hi, min_f, max_f, xc, smem_bytes, stream
-    "bigclam_cand_dots_kb": [P, P, I, P, P, I, L, I, I, I, P, I, R, R, R, R, P, I, P],
+    # F, F_dst (null: F), indptr, indices, rev (null: directed), n, k_pad,
+    # col0, kc, x, stream
+    "bigclam_edge_dots_kb": [P, P, P, P, P, I, I, I, I, P, P],
+    # x, F, F_dst (null: F), sumF, indptr, indices, n, k_pad, col0, kc,
+    # omp_lo, omp_hi, fold, accumulate, grad_kb, ld_grad, llh_nbr (null: not
+    # written), stream
+    "bigclam_grad_from_x": [P, P, P, P, P, P, I, I, I, I, R, R, I, I, P, I, P, P],
+    # F, F_dst (null: F), grad_kb, ld_grad, indptr, indices, n, E, k_pad,
+    # col0, kc, etas, num_s, omp_lo, omp_hi, min_f, max_f, xc, smem_bytes,
+    # stream
+    "bigclam_cand_dots_kb": [P, P, P, I, P, P, I, L, I, I, I, P, I, R, R, R, R, P, I,
+                             P],
     # xc, indptr, n, E, num_s, omp_lo, omp_hi, out, stream
     "bigclam_cand_from_x": [P, P, I, L, I, R, R, P, P],
     # xc, E, indptr, F, sumF, grad, llh_nbr, n, K, etas, coefs, num_s,

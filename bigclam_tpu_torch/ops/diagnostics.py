@@ -83,7 +83,10 @@ def on_cadence(cfg, it: int) -> bool:
 
 
 def _shards(x: Tensors) -> list:
-    return [x] if isinstance(x, torch.Tensor) else list(x)
+    # a mesh state's row shards, column blocks joined (parallel/mesh.py)
+    from bigclam_tpu_torch.parallel.mesh import row_shards
+
+    return row_shards(x)
 
 
 def grad_stats(grad: Tensors) -> torch.Tensor:

@@ -190,7 +190,10 @@ def extract_community_arrays_device(
     node row_to_node[r] of g (None: node r), as ShardedBigClamModel's
     internal_row_to_node() gives it for a relabelled trainer."""
     if isinstance(F_dev, (list, tuple)):
-        F_dev = torch.cat([f.to(F_dev[0].device) for f in F_dev])
+        from bigclam_tpu_torch.parallel.mesh import row_shards
+
+        parts = row_shards(F_dev)
+        F_dev = torch.cat([f.to(parts[0].device) for f in parts])
     k = num_communities or int(F_dev.shape[1])
     chunk_rows = max(1, min(chunk_rows, (1 << 27) // max(k, 1)))
     return _community_arrays(F_dev, g, delta, k, chunk_rows, row_to_node)

@@ -1,6 +1,7 @@
-"""Sharded training on a device mesh (tp = 1, single host): the all-gather
-schedule (parallel.sharded) and the ring schedule (parallel.ring), each
-also fed from a compiled graph cache, one shard file per mesh position."""
+"""Sharded training on a (dp, tp) device mesh driven by one process: the
+all-gather schedule (parallel.sharded) and the ring schedule
+(parallel.ring), at any K and tp, each also fed from a compiled graph
+cache, one shard file per node shard."""
 
 from bigclam_tpu_torch.parallel.mesh import Mesh, make_mesh
 from bigclam_tpu_torch.parallel.ring import RingBigClamModel, StoreRingBigClamModel

@@ -44,6 +44,30 @@ class Mesh:
         return f"{self.shape[NODES_AXIS]}x{self.shape[K_AXIS]}"
 
 
+def row_shards(F) -> list:
+    """The node-row shards of a state tensor, whatever its layout: [F] for
+    one tensor, F itself for a tuple of row shards (tp = 1), and for a
+    tuple of rows of column blocks (tp > 1: block (i, j) on mesh device
+    (i, j)) each row's blocks joined along the last axis on its first
+    block's device. The one view of a mesh state that its consumers
+    (checkpoints, extraction, health, rollback) read."""
+    if isinstance(F, torch.Tensor):
+        return [F]
+    return [
+        torch.cat([b.to(row[0].device) for b in row], dim=-1)
+        if isinstance(row, tuple) else row
+        for row in F
+    ]
+
+
+def state_blocks(F) -> list:
+    """Every tensor of a state tensor's layout (one tensor, row shards, or
+    rows of column blocks), flattened in row-major order."""
+    if isinstance(F, torch.Tensor):
+        return [F]
+    return [b for row in F for b in (row if isinstance(row, tuple) else (row,))]
+
+
 def make_mesh(
     shape: Tuple[int, int] = (1, 1),
     devices: Optional[Sequence] = None,

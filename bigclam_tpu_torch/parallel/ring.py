@@ -1,16 +1,18 @@
 """Ring-pass sharded training: rotate F node-shards around the mesh instead
 of all-gathering F.
 
-Port of the tp = 1, single-host part of bigclam_tpu/parallel/ring.py
+Port of the single-host part of bigclam_tpu/parallel/ring.py
 (`ring_bucket_imbalance`, `ring_shard_edges`, `rotate_scan`,
-`make_ring_train_step`, the tp = 1 `step_shard` of
-`make_ring_csr_train_step`, `RingBigClamModel`). Each shard holds its own
-F_loc and one rotating shard; in phase r shard i holds shard (i + r) % dp
-and sweeps the bucket of its edges whose destinations live there. Two
-rotations make a step: the gradient pass, then the 16-candidate pass (it
-needs the finished gradient). The fold, the node tail and the Armijo tails
-are added once, after each rotation, so the trajectory is the all-gather
-trainer's.
+`make_ring_train_step`, the `step_shard`, `step_shard_kb` and
+`step_shard_tp` of `make_ring_csr_train_step`, `RingBigClamModel`). Each
+shard holds its own F_loc and one rotating shard; in phase r shard i holds
+shard (i + r) % dp and sweeps the bucket of its edges whose destinations
+live there. Two rotations make a step: the gradient pass, then the
+16-candidate pass (it needs the finished gradient). The fold, the node tail
+and the Armijo tails are added once, after each rotation, so the
+trajectory is the all-gather trainer's. At tp > 1 every block (i, j) of
+the mesh grid rotates along its column: block (i, j) holds block
+((i + r) % dp, j) in phase r.
 
 Buckets are per-(shard, phase) CSRs over the shard's rows with destination
 rows local to the rotating shard, each of its own length: unlike the JAX
@@ -19,15 +21,26 @@ of a locality-ordered id space (the JAX `RingBigClamModel` docstring) does
 not apply to the kernel path here; what stays is the per-shard edge
 imbalance, which the balance relabeling evens out.
 
-The phase sweep is kernel #8 (gradient) and #9 (candidates) on the paths
-`csr_ring_fused` and `csr_ring` (ops.ring_kernels; the TPU difference
-between the two, an fd gather, has no counterpart here, so both run the
-same kernels), or their plain versions on `xla`. Each bucket carries
-kernel #8's visit order of its rows (`visit_order`), computed once from
-the graph when the model builds its buckets. Where the kernels engage, the
-Armijo tails and the selection of each shard run in one more kernel, the
-node pass's epilogue (ops.linesearch.armijo_update_kernel); `xla` keeps
-them in torch.
+The phase sweep at tp = 1 with whole rows is kernel #8 (gradient) and #9
+(candidates) on the paths `csr_ring_fused` and `csr_ring`
+(ops.ring_kernels; the TPU difference between the two, an fd gather, has
+no counterpart here, so both run the same kernels), or their plain versions
+on `xla`. Each bucket carries kernel #8's visit order of its rows
+(`visit_order`), computed once from the graph when the model builds its
+buckets. Where the kernels engage, the Armijo tails and the selection of
+each shard run in one more kernel, the node pass's epilogue
+(ops.linesearch.armijo_update_kernel); `xla` keeps them in torch.
+
+The K-blocked paths (`csr_ring_fused_kb`, `csr_ring_kb`) and every path at
+tp > 1 sweep a phase on the TP split (`make_ring_tp_step`): the bucket's
+edge dots over each column block's windows against the rotating block
+(`edge_dots_kb`, directed), a psum over k, the neighbour gradient added
+into the rotation's accumulators (`grad_from_x_kb`'s accumulate mode); in
+the candidate rotation the candidate dots, a psum over k and the
+neighbour candidate sums (`cand_nbr_from_x`). At tp = 1 the epilogue
+kernel ends the step; at tp > 1 the tails run in torch with their row dots
+psummed over k (parallel/sharded.py `armijo_tail_select_tp`). `xla` at
+tp > 1 runs the same split on the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -45,6 +58,16 @@ from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph
 from bigclam_tpu_torch.models.bigclam import TrainState, _round_up, csr_fused_want
 from bigclam_tpu_torch.obs import comms as _comms
 from bigclam_tpu_torch.obs import memory as _mem
+from bigclam_tpu_torch.ops.kblocked import (
+    cand_dots_kb,
+    cand_dots_kb_plain,
+    cand_nbr_from_x,
+    cand_nbr_from_x_plain,
+    edge_dots_windows,
+    grad_from_x_kb,
+    grad_from_x_kb_plain,
+)
+from bigclam_tpu_torch.ops.linesearch import accept_stats
 from bigclam_tpu_torch.ops.objective import accum_dtype, node_tail
 from bigclam_tpu_torch.ops.ring_kernels import (
     ring_cand_phase,
@@ -58,11 +81,17 @@ from bigclam_tpu_torch.parallel.sharded import (
     StoreBacked,
     _StoreGraphView,
     armijo_tail_select_sharded,
+    armijo_tail_select_tp,
+    as_layout,
+    block_grid,
+    column_psum,
     device_csr,
     finish_step,
+    kpsum,
     psum,
     shard_edges,
 )
+from bigclam_tpu_torch.utils.profiling import part
 
 # a bucket holding more than this multiple of the mean marks the id space
 # as locality-ordered (bigclam_tpu/obs/comms.py IMBALANCE_FACTOR): the
@@ -177,7 +206,9 @@ class RingRotation:
     r = 0..dp-1, where rot[i] is shard (i + r) % dp resident on device i;
     between phases every device takes its ring successor's rotating shard
     (JAX perm (j, (j - 1) % dp)). The rotation after the last phase, which
-    would only bring each shard home, is not made.
+    would only bring each shard home, is not made. With `stride` tp the
+    positions are the blocks of a (dp, tp) grid in row-major order, and
+    position p's successor is p + tp: each block rotates along its column.
 
     overlap=True (cfg.ring_overlap, the default): the hop for phase r + 1
     is issued before phase r's sweep, as a non_blocking copy on side
@@ -188,9 +219,10 @@ class RingRotation:
     mesh) the hop is a no-op: the rotating shard IS the other shard's
     F_loc, which is never written."""
 
-    def __init__(self, devices: list, overlap: bool):
+    def __init__(self, devices: list, overlap: bool, stride: int = 1):
         self.devices = devices
         self.overlap = overlap
+        self.stride = stride
         self._side = {}
 
     def _stream(self, device: torch.device) -> "torch.cuda.Stream":
@@ -201,7 +233,7 @@ class RingRotation:
     def _hop(self, rot: list):
         """Issue one hop; returns (next rot, join) — join() makes each
         device's current stream wait for the copies it receives."""
-        dp = len(rot)
+        p, st = len(rot), self.stride
         if _comms.counting_on():
             # every mesh position receives its successor's shard, whether
             # the two positions share a device or not
@@ -209,7 +241,7 @@ class RingRotation:
                          sum(t.numel() * t.element_size() for t in rot))
         out, joins = [], []
         for i, dst in enumerate(self.devices):
-            src_dev, t = self.devices[(i + 1) % dp], rot[(i + 1) % dp]
+            src_dev, t = self.devices[(i + st) % p], rot[(i + st) % p]
             if src_dev == dst:
                 out.append(t)
             elif not self.overlap:
@@ -234,19 +266,26 @@ class RingRotation:
         return out, join
 
     def run(self, shards, sweep: Callable[[int, list], None]) -> None:
+        """The hops alone (their issue, and the wait for an overlapped one)
+        are the step split's `rotation` part, on the first device's stream;
+        the sweeps time their own parts."""
         rot = list(shards)
-        dp = len(rot)
+        dp = len(rot) // self.stride
+        d0 = self.devices[0]
         for r in range(dp):
             if r == dp - 1:
                 sweep(r, rot)
             elif self.overlap:
-                nxt, join = self._hop(rot)
+                with part("rotation", d0):
+                    nxt, join = self._hop(rot)
                 sweep(r, rot)
-                join()
+                with part("rotation", d0):
+                    join()
                 rot = nxt
             else:
                 sweep(r, rot)
-                rot, _ = self._hop(rot)
+                with part("rotation", d0):
+                    rot, _ = self._hop(rot)
 
 
 def make_ring_train_step(
@@ -299,7 +338,112 @@ def make_ring_train_step(
                 kernel=path != "xla",
             )
             outs.append((F_new, sum_loc, node_llh[i].sum(), hist))
-        return finish_step(state, outs, devices, cfg, grad, family="ring")
+        return finish_step(state, outs, [[d] for d in devices], cfg, grad,
+                           family="ring")
+
+    return step
+
+
+def make_ring_tp_step(
+    grid: list, buckets: list, cfg: BigClamConfig, path: str, kc: int
+) -> Callable[[TrainState], TrainState]:
+    """One ring iteration on the TP split (the K-blocked paths at any tp,
+    every path at tp > 1): grid[i][j] is the device of block (i, j),
+    buckets[i][j][r] shard i's phase-r bucket on it, kc the window (the
+    block's K_loc where one window takes it). `xla` runs the kernels'
+    plain versions. Its parts are timed under utils.profiling.step_split
+    on the current stream of the first block's device, grid[0][0], and do
+    not overlap: on a mesh of one repeated card they add up to the step's
+    busy time; on distinct cards the other devices' work shows only where
+    the first device waits for it."""
+    dp, tp = len(grid), len(grid[0])
+    plain = path == "xla"
+    grad_fn = grad_from_x_kb_plain if plain else grad_from_x_kb
+    cand_fn = cand_dots_kb_plain if plain else cand_dots_kb
+    nbr = cand_nbr_from_x_plain if plain else cand_nbr_from_x
+    flat_dev = [d for row in grid for d in row]
+    rotation = RingRotation(flat_dev, cfg.ring_overlap, stride=tp)
+    num_s = len(cfg.step_candidates)
+
+    def step(state: TrainState) -> TrainState:
+        F = block_grid(state.F)
+        d0 = grid[0][0]
+        adt = accum_dtype(cfg, F[0][0])
+        w = kc or F[0][0].shape[1]
+        wins = range(0, F[0][0].shape[1], w)
+        with part("gather", d0):
+            sumF = column_psum([[f.sum(dim=0) for f in r] for r in F], grid,
+                               "ring/psum_sumF")
+        flat = [f for r in F for f in r]
+
+        # rotation 1: per phase and node row, the bucket's dots over every
+        # window, their psum over k, then the neighbour gradient and LLH of
+        # each block added into its accumulators (the fold comes after)
+        gn = [[torch.zeros_like(f) for f in r] for r in F]
+        ln = [[f.new_zeros(f.shape[0], dtype=adt if plain else f.dtype) for f in r]
+              for r in F]
+
+        def grad_sweep(r, rot):
+            for i in range(dp):
+                b = [buckets[i][j][r] for j in range(tp)]
+                with part("dots", d0):
+                    xs = [edge_dots_windows(F[i][j], b[j], w, rot[i * tp + j], plain)
+                          for j in range(tp)]
+                with part("k_psum", d0):
+                    x = kpsum(xs, grid[i], "ring/psum_k_x")
+                with part("consume", d0):
+                    for j in range(tp):
+                        for col0 in wins:
+                            grad_fn(x[j], F[i][j], sumF[i][j], b[j], col0, w, cfg,
+                                    False, gn[i][j][:, col0 : col0 + w],
+                                    rot[i * tp + j], True, ln[i][j])
+
+        rotation.run(flat, grad_sweep)
+        with part("consume", d0):
+            grad = [[g - s[None, :] + f for g, s, f in zip(gr, sr, fr)]
+                    for gr, sr, fr in zip(gn, sumF, F)]
+
+        # rotation 2: per phase, the candidate dots over every window, their
+        # psum over k, the bucket's neighbour candidate sums
+        cb = [[f.new_zeros((num_s, f.shape[0])) for f in r] for r in F]
+
+        def cand_sweep(r, rot):
+            for i in range(dp):
+                b = [buckets[i][j][r] for j in range(tp)]
+                xcs = []
+                with part("dots", d0):
+                    for j in range(tp):
+                        xc = F[i][j].new_zeros((num_s, b[j].num_directed_edges))
+                        for col0 in wins:
+                            cand_fn(F[i][j], grad[i][j][:, col0 : col0 + w], b[j],
+                                    col0, w, cfg, xc, rot[i * tp + j])
+                        xcs.append(xc)
+                with part("k_psum", d0):
+                    xc = kpsum(xcs, grid[i], "ring/psum_k_xc")
+                with part("consume", d0):
+                    for j in range(tp):
+                        cb[i][j] += nbr(xc[j], b[j], cfg)
+
+        rotation.run(flat, cand_sweep)
+        outs = []
+        with part("tails", d0):
+            for i in range(dp):
+                if tp == 1:
+                    f, s = F[i][0], sumF[i][0]
+                    node_llh = ln[i][0].to(adt) + node_tail(f, s).to(adt)
+                    F_new, sum_loc, hist = armijo_tail_select_sharded(
+                        f, grad[i][0], node_llh, cb[i][0].to(adt), s, cfg,
+                        kernel=not plain,
+                    )
+                    outs.append((F_new, sum_loc, node_llh.sum(), hist))
+                    continue
+                F_new, sums, node_llh, ok = armijo_tail_select_tp(
+                    F[i], grad[i], ln[i], cb[i], sumF[i], cfg, grid[i],
+                    "ring/psum_k_rows")
+                outs.append((tuple(F_new), tuple(sums), node_llh.sum(),
+                             accept_stats(ok)))
+        with part("finish", d0):
+            return finish_step(state, outs, grid, cfg, as_layout(grad), family="ring")
 
     return step
 
@@ -340,6 +484,8 @@ class RingBigClamModel(ShardedBigClamModel):
         labels: the ring's profile is not the all-gather's), else `xla`."""
         if not self.kernels:
             return "xla"
+        if self.kc:
+            return "csr_ring_fused_kb" if csr_fused_want(self.cfg) else "csr_ring_kb"
         return "csr_ring_fused" if csr_fused_want(self.cfg) else "csr_ring"
 
     def _build_edges_and_step(self) -> None:
@@ -358,6 +504,7 @@ class RingBigClamModel(ShardedBigClamModel):
         _warn_bucket_imbalance(self.g.num_directed_edges, dp, max_count,
                                self._ring_balance_hint)
         self.set_visit_order(VISIT_ORDER)
+        self.block_buckets = [self._on_row(i, row) for i, row in enumerate(self.buckets)]
         self.rebuild_step()
 
     def _balance_perm(self):
@@ -384,9 +531,13 @@ class RingBigClamModel(ShardedBigClamModel):
         self.visit_order = how
 
     def rebuild_step(self) -> None:
-        self._step = make_ring_train_step(
-            self.devices, self.buckets, self.cfg, self.engaged_path
-        )
+        if self.tp_split:
+            self._step = make_ring_tp_step(
+                self.grid, self.block_buckets, self.cfg, self.engaged_path, self.kc)
+        else:
+            self._step = make_ring_train_step(
+                self.devices, self.buckets, self.cfg, self.engaged_path
+            )
         self._note_step_build()
 
     # ------------------------------------------- comms and memory models
@@ -399,7 +550,8 @@ class RingBigClamModel(ShardedBigClamModel):
         return _comms.ring_step_model(
             self.n_pad, self.k_pad, len(self.devices), self.itemsize,
             len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
-            model=type(self).__name__,
+            model=type(self).__name__, tp=self.tp,
+            edges=self.g.num_directed_edges,
         )
 
     def _position_graph(self, positions) -> dict:
@@ -417,10 +569,14 @@ class RingBigClamModel(ShardedBigClamModel):
         cfg = self.cfg
         d, pos, gb = self._busiest_device()
         dp = len(self.devices)
-        remote = sum(self.devices[(i + 1) % dp] != d for i in pos) if dp > 1 else 0
+        remote = (sum(self.grid[(i + 1) % dp][j] != d for i, j in pos)
+                  if dp > 1 else 0)
         return _mem.ring_memory_model(
-            self.n_pad, self.k_pad, dp, self.itemsize,
+            self.n_pad, self.k_pad // self.tp, dp, self.itemsize,
             len(cfg.step_candidates), gb, positions=len(pos),
+            tp=self.tp, tp_split=self.tp_split,
+            bucket_edges=max(b.num_directed_edges for i, _ in pos
+                             for b in self.buckets[i]),
             first_device=d == self.devices[0], remote_successors=remote,
             overlap=bool(cfg.ring_overlap),
             health_on=int(cfg.health_every or 0) > 0,

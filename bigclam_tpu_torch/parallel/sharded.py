@@ -1,32 +1,53 @@
 """Node-sharded BigCLAM training on a device mesh: the all-gather schedule.
 
-Port of the tp = 1, single-host part of bigclam_tpu/parallel/sharded.py
-(`make_sharded_train_step`, the flat and fused steps of
+Port of the single-host part of bigclam_tpu/parallel/sharded.py
+(`make_sharded_train_step`, the flat, fused, K-blocked and tp > 1 steps of
 `make_sharded_csr_train_step`, `ShardedBigClamModel`). The mesh runs
 single-controller (parallel/mesh.py): this process launches each shard's
 work on that shard's device.
 
 Layout: F is cut into dp contiguous row shards of n_pad/dp rows (padding
-rows at the tail, all zero), shard i on mesh device i; `TrainState.F` and
-`.sumF` hold one tensor per shard, the rest of the state lives on the first
-device. Each shard owns the directed edges whose source it owns, as a CSR
-over its rows with GLOBAL destination ids. One step:
+rows at the tail, all zero). At tp = 1 shard i lives on mesh device i and
+`TrainState.F` and `.sumF` hold one tensor per shard. At tp > 1 (the k
+axis) each shard's K_pad columns are cut into tp blocks of K_loc columns,
+block (i, j) on mesh device (i, j): `TrainState.F` holds a tuple of tp
+blocks per shard and `.sumF` the column blocks of sumF, one per block;
+parallel/mesh.py `row_shards` is the row view its consumers read. The rest
+of the state lives on the first device. Each shard owns the directed edges
+whose source it owns, as a CSR over its rows with GLOBAL destination ids.
+One step:
 
-    sumF   = psum of the shards' column sums
+    sumF   = psum of the shards' column sums (per column block)
     F_full = all-gather of the shards onto each shard's device
     per shard: the edge pass of its rows against F_full, Armijo selection
     LLH, sumF and the accepted-step histogram through psum
 
-on one of three kernel paths, named as in the JAX package:
+on the kernel paths named as in the JAX package:
 
-* `csr_fused` — kernel A per shard with its destination rows from F_full
-  (JAX `step_shard_fused`);
-* `csr`       — kernels B and C with F_dst = F_full, selection in torch
-  (JAX `step_shard_flat`);
-* `xla`       — the plain torch sweeps (JAX `make_sharded_train_step`), the
-  CPU path and the float64 oracle.
+* `csr_fused`      — tp = 1: kernel A per shard with its destination rows
+  from F_full (JAX `step_shard_fused`); tp > 1: the TP split below on
+  K_loc-column windows, the fold in the gradient kernel
+  (`step_shard_fused_tp`);
+* `csr`            — tp = 1: kernels B and C with F_dst = F_full, selection
+  in torch (`step_shard_flat`); tp > 1: the TP split, fold in torch
+  (`step_shard_tp`);
+* `csr_fused_kb` / `csr_grouped_kb` — K_loc wider than a warp's row, or
+  csr_k_block set: the K-blocked kernels (ops.kblocked) over windows of the
+  shard's columns, F_dst = the gathered column block, the fold in the
+  kernel or in torch (`step_shard_fused_kb`, `step_shard_grouped_kb`);
+* `xla`            — the plain torch sweeps (`make_sharded_train_step`), the
+  CPU path and the float64 oracle; at tp > 1 the TP split on the kernels'
+  plain versions.
 
-tp > 1 and K-blocked meshes are refused by name (MeshNotPortedError).
+The TP split (every path but tp = 1 `csr_fused`/`csr`/`xla`): per shard the
+edge dots of each column block (`edge_dots_kb` in its directed mode), a
+psum of the per-edge partials over the k axis, the gradient columns and
+the candidate dots of each block, a psum of those over k. At tp = 1 the
+psums are the identity and the node pass `cand_select_from_x` ends the
+step; at tp > 1 `cand_nbr_from_x` gives the neighbour candidate sums and
+the node tail, the Armijo tails and the selection run in torch with their
+row dots psummed over k (`armijo_tail_select_tp`; JAX
+`armijo_tail_select_sharded`).
 
 `StoreShardedBigClamModel` (JAX `StoreShardedBigClamModel`) trains the
 same step from a compiled graph cache (graph/store.py) with one cache
@@ -49,14 +70,15 @@ import torch
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import DeviceCSR, Graph, host_tensor
 from bigclam_tpu_torch.models.bigclam import (
-    CSR_K_MULTIPLE,
     FitResult,
     MemoryAccountedModel,
     TrainState,
     _round_up,
+    check_k_block,
     csr_fused_want,
     csr_want_reason,
     fit_with_resume,
+    mesh_k_plan,
     restore_checkpoint,
     rowkeyed_init_F,
     rowkeyed_init_rows,
@@ -65,24 +87,38 @@ from bigclam_tpu_torch.obs import comms as _comms
 from bigclam_tpu_torch.obs import memory as _mem
 from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops.csr_kernels import (
-    MAX_K,
     candidates_csr,
     edge_chunks,
     grad_llh_csr,
     kernel_supports,
 )
 from bigclam_tpu_torch.ops.fused import fused_superstep
+from bigclam_tpu_torch.ops.kblocked import (
+    cand_nbr_from_x,
+    cand_nbr_from_x_plain,
+    cand_select_from_x,
+    edge_dots_windows,
+    grad_cand_windows,
+)
 from bigclam_tpu_torch.ops.linesearch import (
     accept_stats,
     armijo_select,
     armijo_update,
     armijo_update_kernel,
     candidates_pass,
+    step_etas,
 )
 from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, grad_llh
 from bigclam_tpu_torch.parallel.balance import balance_graph
-from bigclam_tpu_torch.parallel.mesh import K_AXIS, NODES_AXIS, Mesh
+from bigclam_tpu_torch.parallel.mesh import (
+    K_AXIS,
+    NODES_AXIS,
+    Mesh,
+    row_shards,
+    state_blocks,
+)
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
+from bigclam_tpu_torch.utils.profiling import part
 
 
 class MeshNotPortedError(NotImplementedError):
@@ -130,6 +166,11 @@ def device_csr(indptr: np.ndarray, indices: np.ndarray, device) -> DeviceCSR:
         src=host_tensor(src, np.int64, device),
         dst=host_tensor(indices, np.int64, device),
     )
+
+
+def csr_to(csr: DeviceCSR, device) -> DeviceCSR:
+    """A copy of a DeviceCSR on `device`."""
+    return DeviceCSR(*(None if t is None else t.to(device) for t in csr))
 
 
 def psum(parts, devices, site: str = "") -> list:
@@ -194,10 +235,9 @@ def mesh_kernels_want(
     """(engage the CSR kernels?, reason when not) for a mesh on `device`.
 
     The rule of models.bigclam.csr_want_reason (auto: on for cuda). Where
-    the kernels would engage but cannot run, it raises rather than run a
-    plain step on the card unasked: ValueError for a configuration the
-    kernels refuse (kernel_supports), MeshNotPortedError for rows wider
-    than one warp holds (the K-blocked mesh paths)."""
+    the kernels would engage but cannot run, it raises ValueError (a
+    configuration the kernels refuse, kernel_supports) rather than run a
+    plain step on the card unasked."""
     want, reason = csr_want_reason(cfg, device)
     if not want:
         return False, reason
@@ -208,42 +248,187 @@ def mesh_kernels_want(
             f"CSR kernels cannot run: {why}; use_pallas_csr=False selects the "
             "plain `xla` step"
         )
-    k32 = _round_up(cfg.num_communities, CSR_K_MULTIPLE)
-    if k32 > MAX_K or cfg.csr_k_block:
-        raise MeshNotPortedError(
-            f"K={cfg.num_communities} (k_pad {k32}, csr_k_block "
-            f"{cfg.csr_k_block}) needs the K-blocked kernels on a mesh "
-            "(csr_ring_kb, csr_ring_fused_kb, csr_fused_kb, csr_grouped*), "
-            "which are not ported yet (ROADMAP queue 1 items 14-15: K-blocked "
-            f"meshes); the mesh kernels take k_pad <= {MAX_K}. "
-            "use_pallas_csr=False selects the plain `xla` step"
-        )
     return True, ""
 
 
-def finish_step(state: TrainState, outs, devices, cfg: BigClamConfig,
+def finish_step(state: TrainState, outs, grid: list, cfg: BigClamConfig,
                 grads=None, family: str = "sharded") -> TrainState:
     """The psums that end a sharded step: `outs` holds, per shard,
     (F_new, column sums of F_new, LLH of the shard's rows, accepted-step
-    histogram); `grads` the shards' gradients, read only for the health
-    pack on cadence iterations; `family` names the comms sites (sharded or
+    histogram), F_new and the sums in the state's layout (a tensor, or at
+    tp > 1 a tuple of column blocks); grid[i][j] is block (i, j)'s device;
+    `grads` the shards' gradients, read only for the health pack on
+    cadence iterations; `family` names the comms sites (sharded or
     ring)."""
     F_new, sums, llhs, hists = zip(*outs)
     site = "ring" if family == "ring" else "sharded"
-    sumF = tuple(psum(sums, devices, f"{site}/psum_sumF"))
-    hist = psum(hists, devices, f"{site}/psum_scalars")[0]
+    first = [r[0] for r in grid]
+    sumF = as_layout(column_psum(block_grid(sums), grid, f"{site}/psum_sumF"))
+    hist = psum(hists, first, f"{site}/psum_scalars")[0]
     health = None
     if dx.on_cadence(cfg, state.it):
-        health = dx.health_pack(cfg, state.it, state.F, F_new, sumF[0], hist,
-                                grad=grads)
+        health = dx.health_pack(cfg, state.it, state.F, F_new,
+                                row_shards((sumF[0],))[0], hist, grad=grads)
     return TrainState(
         F=tuple(F_new),
         sumF=sumF,
-        llh=psum(llhs, devices, f"{site}/psum_scalars")[0].to(F_new[0].dtype),
+        llh=psum(llhs, first, f"{site}/psum_scalars")[0].to(
+            state_blocks(F_new)[0].dtype),
         it=state.it + 1,
         accept_hist=hist,
         health=health,
     )
+
+
+def block_grid(F) -> list:
+    """A mesh state tensor as a grid of blocks, [i][j] the block of shard i
+    and column block j: [[f] for each shard] at tp = 1."""
+    return [list(row) if isinstance(row, tuple) else [row] for row in F]
+
+
+def as_layout(blocks: list) -> tuple:
+    """A grid of blocks [i][j] as a state tensor (block_grid's inverse): a
+    tuple of shards at tp = 1, of shards' tuples of column blocks at
+    tp > 1."""
+    return tuple(row[0] if len(row) == 1 else tuple(row) for row in blocks)
+
+
+def column_psum(blocks: list, grid: list, site: str) -> list:
+    """psum over the dp shards of each column block: blocks[i][j] in,
+    [i][j] out (every shard of a column holds the same bits)."""
+    dp, tp = len(grid), len(grid[0])
+    cols = [psum([blocks[i][j] for i in range(dp)], [r[j] for r in grid], site)
+            for j in range(tp)]
+    return [[cols[j][i] for j in range(tp)] for i in range(dp)]
+
+
+def kpsum(parts: list, row: list, site: str) -> list:
+    """The psum over the k axis of one node row: the tp blocks' partials
+    summed in block order and copied to every block's device; the identity
+    at tp = 1."""
+    return list(parts) if len(parts) == 1 else psum(parts, row, site)
+
+
+def armijo_tail_select_tp(
+    F: list,
+    grad: list,
+    llh_nbr: list,
+    cand_nbr: list,
+    sumF: list,
+    cfg: BigClamConfig,
+    row: list,
+    site: str,
+):
+    """The node tail, the Armijo tails, the acceptance test and the
+    largest accepted step of one node row split into tp column blocks
+    (JAX `armijo_tail_select_sharded` with the node tail of the tp steps):
+    every row dot is the blocks' partials psummed over k, in one psum of
+    (3 + 2S, n) rows (F.sumF, F.F, g.g, and per step nf.(sumF - F + nf) and
+    nf.nf), so every block takes the same decisions. llh_nbr and cand_nbr
+    are the same bits on every block's device. The per-step terms are made
+    in place in two (n, K_loc) temporaries (obs/memory.py prices them as
+    transient/tp_tails), the same bits as the expressions above. Returns
+    (per block F_new, per block column sums of F_new, node LLH (n,) and
+    acceptance mask (S, n) on the first block's device)."""
+    adt = accum_dtype(cfg, F[0])
+    parts = []
+    for f, g, s in zip(F, grad, sumF):
+        rows = [f @ s, (f * f).sum(dim=1), (g * g).sum(dim=1)]
+        for eta in step_etas(cfg, f):
+            nf = g * eta
+            nf += f
+            nf.clamp_(cfg.min_f, cfg.max_f)
+            t = s[None, :] - f
+            t += nf
+            t *= nf
+            rows.append(t.sum(dim=1))
+            torch.mul(nf, nf, out=t)
+            rows.append(t.sum(dim=1))
+            del nf, t
+        parts.append(torch.stack(rows))
+    F_new, sums, node_llhs, oks = [], [], [], []
+    for f, g, t, ln, cn in zip(F, grad, kpsum(parts, row, site), llh_nbr, cand_nbr):
+        etas = step_etas(cfg, f)
+        node_llh = ln.to(adt) + (-t[0] + t[1]).to(adt)
+        gg = t[2].to(adt)
+        cand_llh = cn.to(adt) + (-t[3::2] + t[4::2]).to(adt)
+        ok = cand_llh >= node_llh[None, :] + cfg.alpha * etas[:, None] * gg[None, :]
+        best = torch.where(ok, etas[:, None], torch.zeros_like(etas)[:, None])
+        best = best.max(dim=0).values
+        fn = g * best[:, None]
+        fn += f
+        fn = torch.where(ok.any(dim=0)[:, None], fn.clamp_(cfg.min_f, cfg.max_f), f)
+        F_new.append(fn)
+        sums.append(fn.sum(dim=0))
+        node_llhs.append(node_llh)
+        oks.append(ok)
+    return F_new, sums, node_llhs[0], oks[0]
+
+
+def make_tp_train_step(
+    grid: list, csrs: list, cfg: BigClamConfig, path: str, kc: int
+) -> Callable[[TrainState], TrainState]:
+    """One all-gather iteration on the TP split (the K-blocked paths at any
+    tp, every path at tp > 1): grid[i][j] is the device of block (i, j),
+    csrs[i][j] shard i's CSR on it, kc the window (the block's K_loc where
+    one window takes it). `xla` runs the kernels' plain versions. Its parts
+    are timed under utils.profiling.step_split on the current stream of
+    the first block's device, grid[0][0] (parallel.ring make_ring_tp_step
+    says what that reads on one card and on distinct cards)."""
+    dp, tp = len(grid), len(grid[0])
+    plain = path == "xla"
+    fold = path in ("csr_fused", "csr_fused_kb")
+    nbr = cand_nbr_from_x_plain if plain else cand_nbr_from_x
+
+    def step(state: TrainState) -> TrainState:
+        F = block_grid(state.F)
+        d0 = grid[0][0]
+        with part("gather", d0):
+            sumF = column_psum([[f.sum(dim=0) for f in r] for r in F], grid,
+                               "sharded/psum_sumF")
+            F_full = [[None] * tp for _ in range(dp)]
+            for j in range(tp):
+                cols = all_gather([F[i][j] for i in range(dp)],
+                                  [r[j] for r in grid], "sharded/all_gather_F")
+                for i in range(dp):
+                    F_full[i][j] = cols[i]
+        outs, grads = [], []
+        for i in range(dp):
+            row, Fi, c = grid[i], F[i], csrs[i]
+            w = kc or Fi[0].shape[1]
+            with part("dots", d0):
+                xs = [edge_dots_windows(Fi[j], c[j], w, F_full[i][j], plain)
+                      for j in range(tp)]
+            with part("k_psum", d0):
+                x = kpsum(xs, row, "sharded/psum_k_x")
+            with part("consume", d0):
+                g, ln, xc = zip(*(
+                    grad_cand_windows(x[j], Fi[j], sumF[i][j], c[j], cfg, w, fold,
+                                      F_full[i][j], plain)
+                    for j in range(tp)
+                ))
+            if tp == 1:
+                with part("tails", d0):
+                    F_new, node_llh, ok = cand_select_from_x(
+                        xc[0], Fi[0], sumF[i][0], g[0], ln[0], c[0], cfg)
+                    outs.append((F_new, F_new.sum(dim=0), node_llh.sum(),
+                                 accept_stats(ok)))
+                grads.append(g[0])
+                continue
+            with part("k_psum", d0):
+                xc = kpsum(list(xc), row, "sharded/psum_k_xc")
+            with part("tails", d0):
+                cn = [nbr(xc[j], c[j], cfg) for j in range(tp)]
+                F_new, sums, node_llh, ok = armijo_tail_select_tp(
+                    list(Fi), list(g), list(ln), cn, sumF[i], cfg, row,
+                    "sharded/psum_k_rows")
+                outs.append((tuple(F_new), tuple(sums), node_llh.sum(),
+                             accept_stats(ok)))
+            grads.append(tuple(g))
+        with part("finish", d0):
+            return finish_step(state, outs, grid, cfg, tuple(grads))
+
+    return step
 
 
 def make_sharded_train_step(
@@ -281,15 +466,15 @@ def make_sharded_train_step(
             shard_update(F[i], sumF[i], shards[i], F_full[i])
             for i in range(len(devices))
         ))
-        return finish_step(state, outs, devices, cfg, grads)
+        return finish_step(state, outs, [[d] for d in devices], cfg, grads)
 
     return step
 
 
 class ShardedBigClamModel(MemoryAccountedModel):
-    """BigCLAM trainer over a (nodes, k) mesh with tp = 1, all-gather
-    schedule. Mirrors models.bigclam.BigClamModel's API; the same
-    trajectories (the sharding changes the schedule, not the math).
+    """BigCLAM trainer over a (nodes, k) mesh, all-gather schedule. Mirrors
+    models.bigclam.BigClamModel's API; the same trajectories (the sharding
+    changes the schedule, not the math).
 
     Usage:
         mesh = make_mesh((4, 1), [torch.device("cuda:0")] * 4)
@@ -300,26 +485,23 @@ class ShardedBigClamModel(MemoryAccountedModel):
     def __init__(self, g: Graph, cfg: BigClamConfig, mesh: Mesh,
                  balance: bool = False):
         dp, tp = mesh.shape[NODES_AXIS], mesh.shape[K_AXIS]
-        if tp > 1:
-            raise MeshNotPortedError(
-                f"a K-sharded mesh (tp={tp}) is not ported yet (ROADMAP queue "
-                "1 item 14: the TP kernel split #4-#7 with a psum over the k "
-                "axis); use a mesh of shape (dp, 1)"
-            )
         self.g = g
         self.cfg = cfg
         self.mesh = mesh
-        self.devices = [resolve_device(d) for d in mesh.node_devices()]
+        self.tp = tp
+        # grid[i][j]: the device of block (i, j); devices: each shard's first
+        self.grid = [[resolve_device(d) for d in row] for row in mesh.devices]
+        self.devices = [row[0] for row in self.grid]
         self.device = self.devices[0]
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         if cfg.min_f != 0.0:
             raise ValueError("sharded padding requires min_f == 0.0")
         self.n_pad = _round_up(max(g.num_nodes, dp), dp)
         self.kernels, self.path_reason = mesh_kernels_want(cfg, self.device, self.dtype)
-        self.k_pad = (
-            _round_up(cfg.num_communities, CSR_K_MULTIPLE)
-            if self.kernels else cfg.num_communities
-        )
+        self.kc, self.k_pad = mesh_k_plan(
+            cfg.num_communities, tp, self.kernels, cfg.csr_k_block)
+        if self.kernels:
+            check_k_block(self.kc or self.k_pad // tp, self.device)
         # degree-balanced relabeling (parallel/balance.py): the trainer runs
         # on the relabeled graph; F0 in and results out stay in original ids
         self._perm = None
@@ -336,33 +518,60 @@ class ShardedBigClamModel(MemoryAccountedModel):
         """The kernel path of this trainer's step."""
         if not self.kernels:
             return "xla"
+        if self.kc:
+            return "csr_fused_kb" if csr_fused_want(self.cfg) else "csr_grouped_kb"
         return "csr_fused" if csr_fused_want(self.cfg) else "csr"
+
+    @property
+    def tp_split(self) -> bool:
+        """Does the step run the TP split (make_tp_train_step): the
+        K-blocked paths, and every path at tp > 1."""
+        return self.tp > 1 or (self.kernels and bool(self.kc))
 
     def _position_shards(self):
         """(position, (indptr, indices)): each mesh position's CSR over its
         rows, destinations global (shard_edges)."""
         return enumerate(shard_edges(self.g, len(self.devices), self.n_pad))
 
+    def _on_row(self, i: int, csr) -> list:
+        """Shard i's CSR (or its list of ring buckets) on each block device
+        of its row: the same tensors where a device repeats."""
+        def to(d):
+            if isinstance(csr, DeviceCSR):
+                return csr_to(csr, d)
+            return [csr_to(c, d) for c in csr]
+
+        copies = {self.devices[i]: csr}
+        for d in self.grid[i]:
+            if d not in copies:
+                copies[d] = to(d)
+        return [copies[d] for d in self.grid[i]]
+
     def _build_edges_and_step(self) -> None:
         self.shard_csr = [
             device_csr(indptr, indices, self.devices[i])
             for i, (indptr, indices) in self._position_shards()
         ]
+        self.block_csr = [self._on_row(i, c) for i, c in enumerate(self.shard_csr)]
         self.rebuild_step()
 
     def rebuild_step(self) -> None:
         """(Re)build the train step for the CURRENT self.cfg on the built
         edge layout."""
-        self._step = make_sharded_train_step(
-            self.devices, self.shard_csr, self.cfg, self.engaged_path
-        )
+        if self.tp_split:
+            self._step = make_tp_train_step(
+                self.grid, self.block_csr, self.cfg, self.engaged_path, self.kc)
+        else:
+            self._step = make_sharded_train_step(
+                self.devices, self.shard_csr, self.cfg, self.engaged_path
+            )
         self._note_step_build()
 
     # ------------------------------------------- comms and memory models
     def _llh_itemsize(self) -> int:
         """Bytes of a shard's LLH partial: the kernels' node LLH is in F's
         dtype, the plain sweeps' in the accumulation dtype."""
-        if self.engaged_path in ("csr_fused", "csr"):
+        if self.kernels:
             return self.itemsize
         adt = accum_dtype(self.cfg, torch.empty((), dtype=self.dtype))
         return torch.empty((), dtype=adt).element_size()
@@ -371,7 +580,8 @@ class ShardedBigClamModel(MemoryAccountedModel):
         return _comms.sharded_step_model(
             self.n_pad, self.k_pad, len(self.devices), self.itemsize,
             len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
-            model=type(self).__name__,
+            model=type(self).__name__, tp=self.tp,
+            edges=self.g.num_directed_edges,
         )
 
     def comms_measured(self, state: TrainState):
@@ -414,13 +624,17 @@ class ShardedBigClamModel(MemoryAccountedModel):
         """(device, its mesh positions, its graph bytes by name) of the
         device holding the most state + graph bytes: the one the memory
         model describes (every device, on distinct cards, holds about the
-        same)."""
+        same). A position is a block (i, j) of the grid; the graph bytes
+        are those of the shards whose blocks it holds."""
         n_loc = self.n_pad // len(self.devices)
+        k_loc = self.k_pad // self.tp
         best = None
-        for d in dict.fromkeys(self.devices):
-            pos = [i for i, x in enumerate(self.devices) if x == d]
-            gb = _mem.bytes_by_name(self._position_graph(pos))
-            state = (len(pos) * n_loc + 1) * self.k_pad * self.itemsize
+        cells = [(i, j, d) for i, row in enumerate(self.grid) for j, d in enumerate(row)]
+        for d in dict.fromkeys(c[2] for c in cells):
+            pos = [(i, j) for i, j, x in cells if x == d]
+            gb = _mem.bytes_by_name(self._position_graph(
+                sorted({i for i, _ in pos})))
+            state = (len(pos) * n_loc + 1) * k_loc * self.itemsize
             if d == self.devices[0]:
                 state += self.itemsize + len(self.cfg.step_candidates) * 4 + 4
             total = state + sum(gb.values())
@@ -431,16 +645,18 @@ class ShardedBigClamModel(MemoryAccountedModel):
     def _build_memory_model(self):
         cfg = self.cfg
         d, pos, gb = self._busiest_device()
+        k_loc = self.k_pad // self.tp
         return _mem.sharded_memory_model(
-            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
-            len(cfg.step_candidates), gb, self.engaged_path,
-            max(self.shard_csr[i].num_directed_edges for i in pos),
+            self.n_pad, k_loc, len(self.devices), self.itemsize,
+            len(cfg.step_candidates), gb,
+            "csr_grouped_kb" if self.tp > 1 else self.engaged_path,
+            max(self.shard_csr[i].num_directed_edges for i, _ in pos),
             positions=len(pos), first_device=d == self.devices[0],
-            gathers=1 if len(self.devices) > 1 else 0,
-            chunk=edge_chunk_bound(cfg, self.k_pad, self.itemsize),
+            gathers=len({j for _, j in pos}) if len(self.devices) > 1 else 0,
+            chunk=edge_chunk_bound(cfg, k_loc, self.itemsize),
             health_on=int(cfg.health_every or 0) > 0,
             rollback=int(cfg.rollback_budget or 0) > 0,
-            comms=self.comms, model=type(self).__name__,
+            comms=self.comms, model=type(self).__name__, tp=self.tp,
         )
 
     # --- state ----------------------------------------------------------
@@ -459,14 +675,17 @@ class ShardedBigClamModel(MemoryAccountedModel):
 
     def _shard_state(self, F_host: np.ndarray, llh: Optional[float] = None,
                      it: int = 0) -> TrainState:
-        """TrainState from a host (n_pad, k_pad) F in internal row order."""
+        """TrainState from a host (n_pad, k_pad) F in internal row order:
+        one block per mesh device (whole rows of a shard at tp = 1)."""
         rows = self.n_pad // len(self.devices)
+        cols = self.k_pad // self.tp
         Ft = torch.from_numpy(np.ascontiguousarray(F_host)).to(self.dtype)
-        F = tuple(
-            Ft[i * rows : (i + 1) * rows].to(d, copy=True)
-            for i, d in enumerate(self.devices)
-        )
-        return self.reset_state(F, llh=llh, it=it)
+        blocks = [
+            [Ft[i * rows : (i + 1) * rows, j * cols : (j + 1) * cols].to(d, copy=True)
+             .contiguous() for j, d in enumerate(row)]
+            for i, row in enumerate(self.grid)
+        ]
+        return self.reset_state(as_layout(blocks), llh=llh, it=it)
 
     def health_sig(self, state: TrainState) -> torch.Tensor:
         """(n_pad,) int32 top-community signature of the shards, in the
@@ -476,9 +695,11 @@ class ShardedBigClamModel(MemoryAccountedModel):
     def reset_state(self, F, llh: Optional[float] = None, it: int = 0) -> TrainState:
         """TrainState around per-shard padded F tensors: sumF through the
         psum, LLH -inf until a step evaluates one, a zero histogram."""
+        sums = column_psum([[f.sum(dim=0) for f in r] for r in block_grid(F)],
+                           self.grid, "")
         return TrainState(
             F=tuple(F),
-            sumF=tuple(psum([f.sum(dim=0) for f in F], self.devices)),
+            sumF=as_layout(sums),
             llh=torch.tensor(
                 -math.inf if llh is None else llh, dtype=self.dtype,
                 device=self.device,
@@ -530,7 +751,7 @@ class ShardedBigClamModel(MemoryAccountedModel):
     def extract_F(self, state: TrainState) -> np.ndarray:
         """Fetch the live (N, K) F block to the host in ORIGINAL node ids."""
         n, k = self.g.num_nodes, self.cfg.num_communities
-        F = torch.cat([f.cpu() for f in state.F]).numpy()
+        F = torch.cat([f.cpu() for f in row_shards(state.F)]).numpy()
         return self._from_internal_rows(F[:n])[:, :k]
 
     # --- checkpoints ----------------------------------------------------
@@ -553,8 +774,8 @@ class ShardedBigClamModel(MemoryAccountedModel):
 
     def _state_to_arrays(self, state: TrainState) -> dict:
         return {
-            "F": torch.cat([f.cpu() for f in state.F]).numpy(),
-            "sumF": state.sumF[0].cpu().numpy(),
+            "F": torch.cat([f.cpu() for f in row_shards(state.F)]).numpy(),
+            "sumF": row_shards(state.sumF)[0].cpu().numpy(),
             "llh": state.llh.cpu().numpy(),
             "it": np.asarray(state.it, np.int32),
         }
@@ -694,14 +915,17 @@ class StoreBacked:
             return super().init_state(F0)
         n, k = self.g.num_nodes, self.cfg.num_communities
         rows = self.n_pad // len(self.devices)
+        cols = self.k_pad // self.tp
         F = []
-        for i, d in enumerate(self.devices):
+        for i, row in enumerate(self.grid):
             lo, hi = i * rows, min((i + 1) * rows, n)
             local = np.zeros((rows, self.k_pad), dtype=np.float64)
             if hi > lo:
                 local[: hi - lo, :k] = rowkeyed_init_rows(lo, hi, k, self.cfg.seed)
-            F.append(torch.from_numpy(local).to(self.dtype).to(d))
-        return self.reset_state(F)
+            Ft = torch.from_numpy(local).to(self.dtype)
+            F.append([Ft[:, j * cols : (j + 1) * cols].to(d).contiguous()
+                      for j, d in enumerate(row)])
+        return self.reset_state(as_layout(F))
 
 
 class StoreShardedBigClamModel(StoreBacked, ShardedBigClamModel):

@@ -7,7 +7,8 @@ where the JAX package takes a jax.profiler one), `annotate`,
 telemetry), `IngestProfile` (the graph store's stages with host RSS
 samples), the host RSS probes, `step_time` (synchronizing the card),
 `comm_hidden_fraction` and `overlap_report` (the ring's overlapped
-against serial rotation).
+against serial rotation); and the port's own `step_split`, which times
+the named parts of the TP-split mesh steps on the card.
 """
 
 from __future__ import annotations
@@ -266,8 +267,9 @@ def _sync(state) -> None:
     """Wait for the card(s) holding the state's F (a tensor or shards)."""
     import torch
 
-    F = state.F
-    for t in (F if isinstance(F, tuple) else (F,)):
+    from bigclam_tpu_torch.parallel.mesh import state_blocks
+
+    for t in state_blocks(state.F):
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
 
@@ -333,3 +335,74 @@ def overlap_report(model, state, steps: int = 5, warmup: int = 1) -> dict:
         }
         probe.set(**rep)
     return rep
+
+
+# --- the parts of a mesh step, timed on the card ------------------------------
+
+_SPLIT: dict = {"on": None}
+
+
+class _Part:
+    """Times one named part of a step with a pair of CUDA events on the
+    current stream of `device` (wall time on the CPU)."""
+
+    def __init__(self, rec: list, name: str, device):
+        self.rec, self.name, self.device = rec, name, device
+
+    def __enter__(self):
+        import time
+
+        import torch
+
+        if self.device.type == "cuda":
+            self.t0 = torch.cuda.Event(enable_timing=True)
+            self.t0.record(torch.cuda.current_stream(self.device))
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import time
+
+        import torch
+
+        if self.device.type == "cuda":
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record(torch.cuda.current_stream(self.device))
+            self.rec.append((self.name, self.t0, t1))
+        else:
+            self.rec.append((self.name, self.t0, time.perf_counter()))
+
+
+def part(name: str, device):
+    """The context of one named part of a mesh step (parallel/sharded.py
+    and parallel/ring.py mark dots, k_psum, consume, tails, gather,
+    rotation (the ring's hops alone) and finish, none inside another): a
+    shared no-op unless `step_split` is recording, so an unrecorded step
+    pays one dict lookup a part."""
+    rec = _SPLIT["on"]
+    return contextlib.nullcontext() if rec is None else _Part(rec, name, device)
+
+
+@contextlib.contextmanager
+def step_split() -> Iterator[dict]:
+    """Record the parts of the steps run inside the block; on exit the
+    yielded dict holds milliseconds per part name, summed (the card is
+    synchronized first). Parts on one card's one stream add up to its
+    busy time; a ring hop on side streams is timed where it is issued and
+    where the first device's stream waits for it."""
+    import torch
+
+    rec: list = []
+    out: dict = {}
+    prev, _SPLIT["on"] = _SPLIT["on"], rec
+    try:
+        yield out
+    finally:
+        _SPLIT["on"] = prev
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        for name, t0, t1 in rec:
+            ms = (t0.elapsed_time(t1) if hasattr(t0, "elapsed_time")
+                  else (t1 - t0) * 1e3)
+            out[name] = out.get(name, 0.0) + ms

@@ -49,6 +49,16 @@ exits non-zero:
   host_odd  the dense conductance backend (A@A in float32 on the card)
             against the native exact triangle counts on the hub graph and
             the parity graph
+  kbmesh_odd the K-blocked window kernels with a destination tensor
+            (F_dst) against their plain versions: on the odd graph at K=37
+            and the hub graph at K=37, 1,000 and 1,100 (2 windows of 576),
+            over every shard of a dp = 3 all-gather mesh (F_dst the
+            gathered F) and every (shard, phase) bucket of the dp = 3 ring
+            (F_dst the rotating shard, the empty bucket included): the dots
+            (directed), the gradient with and without the fold and added
+            into random accumulators (the ring's accumulate mode, its LLH
+            too), the candidate dots; edge_dots_kb's directed mode equal to
+            its pair mode bit for bit on each whole graph
   quality_odd the quality pipeline's component pass (ops.components) on
             the card against the port's CPU pass (labels, sizes, internal
             edges bit for bit) and the scipy oracle (labels = its
@@ -158,6 +168,12 @@ exits non-zero:
   ring_multi ring_dp4 on min(4, count) real cards, where the hops are
             copies, with the serial rotation equal to the overlapped one
             bit for bit; with one card it prints why it was skipped
+  tp_full   the all-gather and ring trainers at full on a (2, 2) mesh of
+            the one card from mesh_init's F0 (k_pad 1,024, K_loc 512: the
+            TP split with its psums over k and the tails in torch), 5
+            steps: launches, the LLH within 1e-4 of main's, seconds a step
+            beside main's, peak device memory measured and modeled (the
+            model within 25% and not below the peak), the step split
   store_full `cli ingest --shards 4` of the full edge list (seed scores
             and closure lists baked): seconds, raw edges/s, the stage
             split (scan, scatter, dedup, shards, seed_bake, closure_bake),
@@ -255,7 +271,11 @@ exits non-zero:
             ksweep_tol), each K's LLH within 1e-4
   mesh_parity the parity graph: the ring and the all-gather schedules at
             dp = 4 on the card against the port's CPU float64 `xla` at
-            dp = 4 and on one device, 5 steps, LLH within 1e-4
+            dp = 4 and on one device, 5 steps, LLH within 1e-4; then at
+            csr_k_block=32 the meshes (4, 1) and (2, 2) on both schedules
+            against CPU float64 `xla` on the same mesh, a (2, 2) fit
+            checkpointed at 2 and resumed bit for bit, and `sweep --mesh
+            2,2 --csr-k-block 32` over (50, 100, 3) picking CPU float64's K
   resilience_full (after `full`) `cli fit` at full on `csr_fused`, 6
             iterations, --checkpoint-every 2, --telemetry-dir,
             --health-every 2, --metrics (a): kernel A launched once a step,
@@ -343,6 +363,25 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
   kb_parity planted N=2,400, K=100 with csr_k_block=32 (4 blocks) on
             both K-blocked paths on the card against the CPU float64
             `xla` path
+  kbmesh_xlk (after resilience_kb) `cli fit` at K=3,000 on the meshes of
+            one card: --mesh 4,1 (`csr_fused_kb`, 3 windows of 1,024),
+            --mesh 4,1 --schedule ring (`csr_ring_fused_kb`), --mesh 2,2 on
+            both schedules (K_loc 1,536 in 2 windows of 768), 5 iterations
+            each, and the split twins `csr_grouped_kb` and `csr_ring_kb`
+            (--csr-fused off) 2 steps: each run's launches equal to what its
+            schedule implies, its LLH within 1e-4 of kb_main's one-card
+            history from the same F0, sec_per_iter, peak device memory
+            measured beside the fit's modeled bytes (within 25%, and not
+            below the peak at tp > 1); each fused run's step from kb_main's
+            F timed whole and split (gather, dots, k_psum, consume, tails,
+            the ring's hops, finish: parts that do not overlap);
+            edge_dots_kb's directed mode
+            against its pair mode on the whole graph, bit for bit, both
+            timed per step of 3 windows
+  store_kb  `cli ingest --shards 4` of the xl_k file, then `cli fit
+            --store-native --mesh 4,1` at K=3,000 (1 iteration): the fitted
+            F and the LLH history bit for bit the in-memory --mesh 4,1
+            fit's on the same cache
   resilience_kb (after kb_full) a NaN at 2 on csr_fused_kb from kb_main's
             F: one rollback, then every launch of the replay on the scaled
             ladder counted (3 window kernels and the node pass a step)
@@ -389,6 +428,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -415,6 +455,8 @@ XLK = dict(n=60_000, k=3000, p_in=0.5, seed=3)
 KB_ODD_K = 1100
 KB_ODD_KC = 3             # csr_k_block windows that start off 16 bytes
 KB_PARITY_KC = 32
+KBMESH_DP = 3
+KBMESH_HUB_K = (37, 1000, 1100)
 SPARSE_M = 64
 SPARSE_ODD_M = (5, 37)
 SPARSE_SEARCH_K = 1100    # k_pad above the member lookup's table (1,024)
@@ -1918,6 +1960,139 @@ def phase_kb_odd() -> dict:
     }
 
 
+def compare_kb_dst(checks, tag, F, csr, F_dst, sumF, cfg, kc):
+    """The K-blocked window kernels with a destination tensor F_dst (a
+    shard's CSR against the gathered F, or a ring bucket against its
+    rotating shard: the directed mode), and the mesh's global column sums
+    sumF, against their plain versions over
+    every window of F's columns: x; the gradient with the fold into its
+    window of an (n, K_pad) matrix, without it, and added into random
+    accumulators (the ring's accumulate mode, LLH too); xc. Each kernel
+    takes float32 inputs and its plain version their float64 copies, as
+    compare_kernels holds A/B/C (the fold's -sumF + F cancels at a hub,
+    where a float32 plain version's own rounding nears the band)."""
+    from bigclam_tpu_torch.ops import kblocked as kb
+
+    n, k_pad = F.shape
+    e = csr.num_directed_edges
+    F64, Fd64, sumF64 = F.double(), F_dst.double(), sumF.double()
+    x_p = torch.zeros(e, device=F.device, dtype=torch.float64)
+    x_k = torch.zeros(e, device=F.device)
+    for col0 in range(0, k_pad, kc):
+        kb.edge_dots_kb_plain(F64, csr, col0, kc, x_p, Fd64)
+        kb.edge_dots_kb(F, csr, col0, kc, x_k, F_dst)
+    torch.cuda.synchronize()
+    checks["edge_dots_kb"].close(f"{tag}_x", x_k, x_p)
+    x32 = x_p.float()
+    x64 = x32.double()
+    c = checks["grad_from_x"]
+    gen = torch.Generator(device=F.device).manual_seed(n + k_pad)
+    acc0 = torch.rand((n, k_pad), device=F.device, generator=gen)
+    l0 = torch.rand(n, device=F.device, generator=gen)
+    acc_k, l_k = acc0.clone(), l0.clone()
+    acc_p, l_p = acc0.double(), l0.double()
+    grad = torch.empty_like(F)
+    xc_p = torch.zeros((len(cfg.step_candidates), e), device=F.device,
+                       dtype=torch.float64)
+    xc_k = torch.zeros(xc_p.shape, device=F.device)
+    for col0 in range(0, k_pad, kc):
+        win = slice(col0, col0 + kc)
+        g_p, ln_p = kb.grad_from_x_kb_plain(x64, F64, sumF64, csr, col0, kc, cfg,
+                                            True, F_dst=Fd64)
+        g_k, ln_k = kb.grad_from_x_kb(x32, F, sumF, csr, col0, kc, cfg, True,
+                                      out=grad[:, win], F_dst=F_dst)
+        g_n, _ = kb.grad_from_x_kb(x32, F, sumF, csr, col0, kc, cfg, False,
+                                   F_dst=F_dst)
+        g_np, _ = kb.grad_from_x_kb_plain(x64, F64, sumF64, csr, col0, kc, cfg,
+                                          False, F_dst=Fd64)
+        kb.grad_from_x_kb(x32, F, sumF, csr, col0, kc, cfg, False, acc_k[:, win],
+                          F_dst, True, l_k)
+        kb.grad_from_x_kb_plain(x64, F64, sumF64, csr, col0, kc, cfg, False,
+                                acc_p[:, win], Fd64, True, l_p)
+        torch.cuda.synchronize()
+        c.close(f"{tag}_grad_fold", g_k, g_p)
+        c.close(f"{tag}_grad_no_fold", g_n, g_np)
+        if col0 == 0:
+            c.close(f"{tag}_llh_nbr", ln_k, ln_p)
+        g32 = g_p.float().contiguous()
+        kb.cand_dots_kb_plain(F64, g32.double(), csr, col0, kc, cfg, xc_p, Fd64)
+        kb.cand_dots_kb(F, g32, csr, col0, kc, cfg, xc_k, F_dst)
+    torch.cuda.synchronize()
+    c.close(f"{tag}_grad_accumulate", acc_k, acc_p)
+    c.close(f"{tag}_llh_accumulate", l_k, l_p)
+    checks["cand_dots_kb"].close(f"{tag}_xc", xc_k, xc_p)
+
+
+def kbmesh_odd_case(checks, g, k: int, tag: str) -> dict:
+    """Random F (row 7 zero) at K on g, padded to the mesh's K blocks at
+    tp = 1 (K = 37 and 1,000 in one window of K columns, so 37 takes the
+    4-byte copies; 1,100 in two of 576): the dots' directed mode against
+    the pair mode on the whole graph bit for bit, then compare_kb_dst over
+    every shard of a dp = 3 all-gather mesh (F_dst the gathered F) and
+    every (shard, phase) bucket of the dp = 3 ring (F_dst the rotating
+    shard), the empty bucket included."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import mesh_k_plan
+    from bigclam_tpu_torch.ops import kblocked as kb
+    from bigclam_tpu_torch.parallel.ring import shard_ring_buckets
+    from bigclam_tpu_torch.parallel.sharded import device_csr, shard_edges
+
+    dp = KBMESH_DP
+    kc, k_pad = mesh_k_plan(k, 1, True)
+    if not kc:
+        kc = k_pad = k
+    n_pad = -(-g.num_nodes // dp) * dp
+    rows = n_pad // dp
+    rng = np.random.default_rng(k)
+    F = np.zeros((n_pad, k_pad), np.float32)
+    F[: g.num_nodes, :k] = rng.uniform(0.0, 1.0, (g.num_nodes, k))
+    F[7] = 0.0
+    Ft = torch.as_tensor(F, device=DEVICE)
+    cfg = BigClamConfig(num_communities=k)
+    dev = torch.device(DEVICE)
+
+    csr = g.to_device(dev)
+    whole = Ft[: g.num_nodes].contiguous()
+    x_pair = torch.zeros(csr.num_directed_edges, device=dev)
+    x_dir = torch.zeros_like(x_pair)
+    for col0 in range(0, k_pad, kc):
+        kb.edge_dots_kb(whole, csr, col0, kc, x_pair, directed=False)
+        kb.edge_dots_kb(whole, csr, col0, kc, x_dir, directed=True)
+    torch.cuda.synchronize()
+    checks["edge_dots_kb"].equal(f"{tag}_directed_vs_pair", x_dir, x_pair)
+
+    shards = shard_edges(g, dp, n_pad)
+    sumF = Ft.sum(dim=0)
+    sizes = []
+    for i, (indptr, indices) in enumerate(shards):
+        F_loc = Ft[i * rows : (i + 1) * rows]
+        compare_kb_dst(checks, f"{tag}_allgather", F_loc,
+                       device_csr(indptr, indices, dev), Ft, sumF, cfg, kc)
+        row = []
+        for r, (b_ip, b_ix) in enumerate(shard_ring_buckets(indptr, indices, i, dp, rows)):
+            j = (i + r) % dp
+            compare_kb_dst(checks, f"{tag}_ring", F_loc, device_csr(b_ip, b_ix, dev),
+                           Ft[j * rows : (j + 1) * rows], sumF, cfg, kc)
+            row.append(int(b_ix.shape[0]))
+        sizes.append(row)
+    return {"k": k, "kc": kc, "k_pad": k_pad, "n_pad": n_pad, "bucket_edges": sizes}
+
+
+def phase_kbmesh_odd() -> dict:
+    """kbmesh_odd_case on the odd graph at K = 37 and the hub graph at
+    K = 37, 1,000 and 1,100."""
+    checks = {n: Check(n) for n in ("edge_dots_kb", "grad_from_x", "cand_dots_kb")}
+    out = {"dp": KBMESH_DP, "odd": kbmesh_odd_case(checks, odd_graph(), ODD["k"], "odd")}
+    empty = min(map(min, out["odd"]["bucket_edges"]))
+    if empty != 0:
+        raise AssertionError(f"want an empty bucket: {out['odd']['bucket_edges']}")
+    g = hub_graph()
+    for k in KBMESH_HUB_K:
+        out[f"hub_k{k}"] = kbmesh_odd_case(checks, g, k, f"hub_k{k}")
+    out["kernels"] = {n: c.parts for n, c in checks.items()}
+    return checks, out
+
+
 def phase_kb_parity(tmp) -> dict:
     """csr_k_block=32 (4 blocks) on both K-blocked paths on the card
     against the CPU float64 `xla` path, from one conductance init."""
@@ -3105,7 +3280,331 @@ def phase_mesh_parity(tmp) -> dict:
             raise AssertionError(f"{want} card LLH {a} vs cpu float64 {b} / {one}")
         out[want] = {"gpu_llh": a, "cpu_f64_dp4_llh": b, "max_rel": rel,
                      "launches": counts}
+    out["k_blocked"] = mesh_parity_kb(g, cfg.replace(csr_k_block=KB_PARITY_KC), F0,
+                                      tmp, path)
     return out
+
+
+def mesh_parity_kb(g, cfg, F0, tmp, path) -> dict:
+    """The K-blocked meshes at csr_k_block = 32 on the parity graph: (4, 1)
+    and (2, 2) on both schedules on the card against the CPU float64 `xla`
+    on the same mesh (5 steps, LLH within LLH_RTOL); a (2, 2) fit
+    checkpointed at step 2 and resumed, bit for bit the uninterrupted fit;
+    `sweep --mesh 2,2 --csr-k-block 32` over (50, 100, 3) on the card
+    against the CPU float64 sweep: the same grid and chosen K (unless a
+    stop ratio lies within 1e-4 of ksweep_tol)."""
+    from bigclam_tpu_torch.parallel import RingBigClamModel, ShardedBigClamModel, make_mesh
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    out = {}
+    f64 = cfg.replace(dtype="float64", csr_k_block=0)
+    for mesh in MESH_PARITY_KB:
+        for cls, schedule in ((ShardedBigClamModel, "allgather"),
+                              (RingBigClamModel, "ring")):
+            kw = {"balance": False} if schedule == "ring" else {}
+            card = cls(g, cfg, grid_mesh(*mesh), **kw)
+            cpu = cls(g, f64, make_mesh(mesh, ["cpu"] * (mesh[0] * mesh[1])), **kw)
+            if cpu.engaged_path != "xla" or card.kc != KB_PARITY_KC:
+                raise AssertionError((card.engaged_path, card.kc, cpu.engaged_path))
+            reset_launch_counts()
+            a = card.fit(F0).llh_history
+            counts = {n: c for n, c in launch_counts().items() if c}
+            b = cpu.fit(F0).llh_history
+            rel = llh_rel(a, b)
+            if rel > LLH_RTOL or len(a) != len(b):
+                raise AssertionError(f"{card.engaged_path} {mesh} LLH {a} vs cpu {b}")
+            out[f"{card.engaged_path}_{mesh[0]}x{mesh[1]}"] = {
+                "gpu_llh": a, "cpu_f64_llh": b, "max_rel": rel, "launches": counts}
+    # checkpoint and resume on the (2, 2) mesh
+    ck = cfg.replace(checkpoint_every=1)
+    full = ShardedBigClamModel(g, ck, grid_mesh(2, 2)).fit(F0)
+    cm = CheckpointManager(os.path.join(tmp, "mesh_parity_ckpt"))
+    ShardedBigClamModel(g, ck.replace(max_iters=MESH_PARITY_CKPT_AT), grid_mesh(2, 2)).fit(
+        F0, checkpoints=cm)
+    res = ShardedBigClamModel(g, ck, grid_mesh(2, 2)).fit(F0, checkpoints=cm)
+    if not np.array_equal(res.F, full.F) or (list(res.llh_history[-2:])
+                                             != list(full.llh_history[-2:])):
+        raise AssertionError("the resumed (2, 2) fit differs from the uninterrupted one")
+    out["resume_2x2"] = {"checkpoint_at": MESH_PARITY_CKPT_AT, "bit_equal": True,
+                         "llh_history": list(res.llh_history)}
+    # sweep --mesh
+    gpu, counts, _ = run_sweep(path, SWEEP_PARITY, [
+        "--device", DEVICE, "--mesh", "2,2", "--csr-k-block", str(KB_PARITY_KC)])
+    cpu, _, _ = run_sweep(path, SWEEP_PARITY, ["--device", "cpu", "--dtype", "float64"])
+    llh = [cpu["llh_by_k"][str(k)] for k in cpu["kset"] if str(k) in cpu["llh_by_k"]]
+    ratios = [1.0 - b / a for a, b in zip(llh, llh[1:])]
+    near_tie = any(abs(r - 1e-3) <= 1e-4 for r in ratios)
+    if gpu["kset"] != cpu["kset"] or (gpu["chosen_k"] != cpu["chosen_k"] and not near_tie):
+        raise AssertionError(f"sweep --mesh 2,2 chose {gpu['chosen_k']} on "
+                             f"{gpu['kset']}, cpu float64 {cpu['chosen_k']} on {cpu['kset']}")
+    common = [k for k in gpu["llh_by_k"] if k in cpu["llh_by_k"]]
+    rel = max(abs(gpu["llh_by_k"][k] - cpu["llh_by_k"][k]) / abs(cpu["llh_by_k"][k])
+              for k in common)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"sweep --mesh LLH {gpu['llh_by_k']} vs {cpu['llh_by_k']}")
+    out["sweep_mesh_2x2"] = {"kset": gpu["kset"], "chosen_k": [gpu["chosen_k"],
+                                                               cpu["chosen_k"]],
+                             "max_rel": rel, "stop_ratios": ratios,
+                             "launches": {n: c for n, c in counts.items() if c}}
+    return out
+
+
+# --- the K-blocked and K-sharded meshes --------------------------------------
+
+# kbmesh_xlk's `cli fit` runs: (schedule, mesh, --csr-fused, iterations,
+# the path it must take)
+KBMESH_RUNS = (
+    ("allgather", (4, 1), "auto", 5, "csr_fused_kb"),
+    ("ring", (4, 1), "auto", 5, "csr_ring_fused_kb"),
+    ("allgather", (2, 2), "auto", 5, "csr_fused_kb"),
+    ("ring", (2, 2), "auto", 5, "csr_ring_fused_kb"),
+    ("allgather", (4, 1), "off", 1, "csr_grouped_kb"),
+    ("ring", (4, 1), "off", 1, "csr_ring_kb"),
+)
+TP_FULL_RUNS = (("allgather", "csr_fused"), ("ring", "csr_ring_fused"))
+STORE_KB_ITERS = 1
+MESH_PARITY_KB = ((4, 1), (2, 2))
+MESH_PARITY_CKPT_AT = 2
+
+
+# the memory model against a mesh run's measured peak: modeled / measured
+# within 1 +- PEAK_BAND, and not below 1 at tp > 1, where obs/memory.py
+# prices the torch tails' block temporaries (tp_tails_buffers)
+PEAK_BAND = 0.25
+
+
+def check_peak(tag: str, measured: float, modeled: float, tp: int) -> float:
+    """modeled / measured of one mesh run, checked against PEAK_BAND."""
+    ratio = modeled / measured
+    if not 1 - PEAK_BAND <= ratio <= 1 + PEAK_BAND or (tp > 1 and ratio < 1):
+        raise AssertionError(f"{tag}: modeled {modeled / 1e9:.3f} GB against a "
+                             f"measured peak of {measured / 1e9:.3f} GB")
+    return ratio
+
+
+def mesh_launches(counts: dict, name: str) -> int:
+    """A K-blocked kernel's launches in a mesh run: cand_from_x.cu's two
+    entries (the node pass, the neighbour sums) together."""
+    if name == "cand_from_x":
+        return counts["cand_from_x"] + counts["cand_select_from_x"]
+    return counts[name]
+
+
+def tp_launches_want(counts, schedule: str, dp: int, tp: int, n_kb: int,
+                     steps: int) -> dict:
+    """The launches `steps` TP-split steps imply. All-gather, per step and
+    block (dp tp of them): each window kernel once a window (n_kb), and
+    either the node pass once a shard (tp = 1) or cand_nbr_from_x once a
+    block (tp > 1). The ring does the same per (block, phase) bucket (dp
+    phases), with cand_nbr_from_x once a bucket and, at tp = 1, the
+    epilogue once a shard."""
+    want = dict.fromkeys(counts, 0)
+    per = dp * tp * (dp if schedule == "ring" else 1)
+    want.update(edge_dots_kb=per * n_kb * steps, grad_from_x=per * n_kb * steps,
+                cand_dots_kb=per * n_kb * steps)
+    if schedule == "ring":
+        want["cand_from_x"] = per * steps
+        if tp == 1:
+            want["armijo_tail_select"] = dp * steps
+    elif tp == 1:
+        want["cand_select_from_x"] = dp * steps
+    else:
+        want["cand_from_x"] = per * steps
+    return want
+
+
+def grid_mesh(dp: int, tp: int):
+    """A (dp, tp) mesh on one card (the device repeated)."""
+    from bigclam_tpu_torch.parallel import make_mesh
+
+    return make_mesh((dp, tp), [torch.device(DEVICE)] * (dp * tp))
+
+
+def mesh_run(g, path, k, schedule, mesh, fused, iters, want_path, ref_hist):
+    """`cli fit --mesh DP,TP` on the card with the launch counters zeroed
+    around it: the path, the launches the schedule implies, the LLH within
+    LLH_RTOL of the one-card reference, the peak device memory beside the
+    fit's modeled bytes (check_peak)."""
+    from bigclam_tpu_torch.models.bigclam import mesh_k_plan
+
+    dp, tp = mesh
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, _, counts, _ = run_path(g, path, k, [
+        "--max-iters", str(iters), "--mesh", f"{dp},{tp}", "--schedule", schedule,
+        "--csr-fused", fused])
+    peak = torch.cuda.max_memory_allocated() - base
+    if (out["kernel_path"], out.get("mesh")) != (want_path, f"{dp}x{tp}"):
+        raise AssertionError(f"ran {out['kernel_path']} on {out.get('mesh')}, "
+                             f"want {want_path} on {dp}x{tp}")
+    modeled = out.get("hbm_modeled_bytes", 0.0)
+    ratio = check_peak(f"{want_path} {dp}x{tp}", peak, modeled, tp)
+    kc, k_pad = mesh_k_plan(k, tp, True)
+    n_kb = (k_pad // tp) // (kc or k_pad // tp)
+    want = tp_launches_want(counts, schedule, dp, tp, n_kb, out["steps"])
+    if counts != want:
+        raise AssertionError(f"{want_path} {dp}x{tp} launches {counts}, want {want}")
+    hist = out["llh_history"]
+    rel = llh_rel(hist, ref_hist[: len(hist)])
+    if rel > LLH_RTOL:
+        raise AssertionError(f"{want_path} {dp}x{tp} LLH {hist} vs one card {ref_hist}")
+    return {
+        "kernel_path": want_path, "mesh": out["mesh"], "kc": kc, "k_pad": k_pad,
+        "windows_per_block": n_kb, "llh_history": hist, "max_rel_vs_one_card": rel,
+        "steps": out["steps"], "sec_per_iter": out["sec_per_iter"],
+        "launches": counts, "peak_gb_measured": peak / 1e9,
+        "peak_gb_modeled": modeled / 1e9, "peak_modeled_over_measured": ratio,
+        "comms_bytes_per_step": out.get("comms_bytes_per_step"),
+        "stage_seconds": out["stage_seconds"],
+    }
+
+
+def mesh_step_split(g, k, schedule, mesh, F_host) -> dict:
+    """One fused mesh step from F_host on a repeated-card mesh, warm, then
+    timed whole and split into its parts (utils.profiling.step_split: the
+    all-gather or the sumF psums, the edge dots, the k psums, the consume
+    (the gradient windows and the candidate dots, and the ring's neighbour
+    candidate sums), the tails (node pass, epilogue or torch tails), the
+    ring's hops alone (on one card a hop moves nothing), the closing
+    psums)."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import RingBigClamModel, ShardedBigClamModel
+    from bigclam_tpu_torch.utils.profiling import step_split
+
+    cfg = BigClamConfig(num_communities=k)
+    cls = RingBigClamModel if schedule == "ring" else ShardedBigClamModel
+    kw = {"balance": False} if schedule == "ring" else {}
+    model = cls(g, cfg, grid_mesh(*mesh), **kw)
+    state = model.init_state(F_host)
+    state = model._step(state)
+    whole = statistics.median(time_ms(lambda: model._step(state), 3))
+    with step_split() as parts:
+        model._step(state)
+    del model, state
+    return {"step_ms": whole, "split_ms": parts}
+
+
+def phase_kbmesh_xlk(g, path, kb_hist, F_kb) -> tuple:
+    """xl_k through the port's `cli fit` on mesh_run's KBMESH_RUNS, each
+    against kb_main's one-card csr_fused_kb history (the same conductance
+    F0); a step split of the fused runs from kb_main's F; and the dots'
+    directed mode against the pair mode on the whole graph at xl_k (bit
+    for bit, both timed per step of 3 windows)."""
+    from bigclam_tpu_torch.models.bigclam import k_block_plan
+    from bigclam_tpu_torch.ops import kblocked as kb
+
+    out, counts_by = {}, {}
+    for schedule, mesh, fused, iters, want in KBMESH_RUNS:
+        tag = f"{want}_{mesh[0]}x{mesh[1]}"
+        body = mesh_run(g, path, XLK["k"], schedule, mesh, fused, iters, want, kb_hist)
+        if fused == "auto":
+            body.update(mesh_step_split(g, XLK["k"], schedule, mesh, F_kb))
+        out[tag] = body
+        counts_by[tag] = body["launches"]
+
+    kc, k_pad = k_block_plan(XLK["k"])
+    dev = torch.device(DEVICE)
+    csr = kb.with_rev(g.to_device(dev))
+    F = torch.nn.functional.pad(torch.as_tensor(F_kb, dtype=torch.float32, device=dev),
+                                (0, k_pad - XLK["k"])).contiguous()
+    x_pair = torch.zeros(csr.num_directed_edges, device=dev)
+    x_dir = torch.zeros_like(x_pair)
+
+    def dots(x, directed):
+        x.zero_()
+        for col0 in range(0, k_pad, kc):
+            kb.edge_dots_kb(F, csr, col0, kc, x, directed=directed)
+
+    dots(x_pair, False)
+    dots(x_dir, True)
+    torch.cuda.synchronize()
+    if not torch.equal(x_dir, x_pair):
+        raise AssertionError("edge_dots_kb's directed mode differs from the pair mode")
+    runs = {"pair": [], "directed": []}
+    for seq in (("pair", "directed"), ("directed", "pair")):
+        for mode in seq:
+            runs[mode] += time_ms(lambda: dots(x_pair if mode == "pair" else x_dir,
+                                               mode == "directed"))
+    out["edge_dots_kb_modes"] = {
+        "bit_equal": True, "windows": k_pad // kc,
+        "pair_ms": statistics.median(runs["pair"]),
+        "directed_ms": statistics.median(runs["directed"]),
+    }
+    return counts_by, out
+
+
+def phase_tp_full(gi, F0, main_hist, main_sec) -> tuple:
+    """`full` on a (2, 2) mesh of one card on both schedules from mesh_init's
+    F0 (K = 1,000: k_pad 1,024, K_loc 512 in one window, the TP split with
+    its k psums and the tails in torch), 5 steps: the launches the
+    schedule implies, the LLH within LLH_RTOL of main's csr_fused history,
+    seconds a step beside main's, peak device memory beside the model's
+    (check_peak), and a step split as kbmesh_xlk's."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import RingBigClamModel, ShardedBigClamModel
+
+    cfg = BigClamConfig(num_communities=FULL["k"], max_iters=4, conv_tol=0.0)
+    out, counts_by = {"main_sec_per_iter": main_sec}, {}
+    for (schedule, want), cls in zip(TP_FULL_RUNS, (ShardedBigClamModel,
+                                                    RingBigClamModel)):
+        kw = {"balance": False} if schedule == "ring" else {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = cls(gi, cfg, grid_mesh(2, 2), **kw)
+        want_fn = lambda c, steps, s=schedule: tp_launches_want(  # noqa: E731
+            c, s, 2, 2, 1, steps)
+        state, body = fit_mesh(model, F0, want, main_hist, want_fn)
+        peak, modeled = torch.cuda.max_memory_allocated() - base, model.memory.hbm_bytes()
+        body.update(peak_gb_measured=peak / 1e9, peak_gb_modeled=modeled / 1e9,
+                    peak_modeled_over_measured=check_peak(f"{want} 2x2", peak,
+                                                          modeled, 2),
+                    k_pad=model.k_pad, kc=model.kc)
+        whole = statistics.median(time_ms(lambda: model._step(state), 3))
+        from bigclam_tpu_torch.utils.profiling import step_split
+
+        with step_split() as parts:
+            model._step(state)
+        body.update(step_ms=whole, split_ms=parts)
+        del model, state
+        out[f"{want}_2x2"] = body
+        counts_by[f"{want}_2x2"] = body["launches"]
+    return counts_by, out
+
+
+def phase_store_kb(path, tmp) -> dict:
+    """`cli ingest --shards 4` of xl_k, then `cli fit --store-native
+    --mesh 4,1` at K = 3,000 (csr_fused_kb) from the cache against the
+    in-memory `--mesh 4,1` fit of the same cache: the fitted F bit for bit
+    and the LLH histories equal."""
+    from bigclam_tpu_torch import cli
+
+    cache = os.path.join(tmp, "xl_k_cache")
+    ing = ingest(path, cache, "--shards", "4")
+    F, runs = {}, {}
+    for tag, extra in (("store_native", ["--store-native"]), ("in_memory", [])):
+        args = cli.build_parser().parse_args([
+            "fit", "--graph", cache, "--k", str(XLK["k"]), "--init", "conductance",
+            "--conv-tol", "0", "--device", DEVICE, "--quiet", "--mesh", "4,1",
+            "--max-iters", str(STORE_KB_ITERS), *extra])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res_out, res, _ = cli.fit(args)
+        F[tag] = res.F
+        runs[tag] = {"kernel_path": res_out["kernel_path"],
+                     "llh_history": res_out["llh_history"],
+                     "sec_per_iter": res_out["sec_per_iter"],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in launch_counts().items() if v}}
+    if runs["store_native"]["kernel_path"] != "csr_fused_kb":
+        raise AssertionError(f"store-native ran {runs['store_native']['kernel_path']}")
+    if not np.array_equal(F["store_native"], F["in_memory"]) or (
+            runs["store_native"]["llh_history"] != runs["in_memory"]["llh_history"]):
+        raise AssertionError("store-native K-blocked F differs from the in-memory fit's")
+    shutil.rmtree(cache, ignore_errors=True)
+    return {"ingest": ing, **runs, "F_bit_equal": True,
+            "F_shape": list(F["store_native"].shape)}
 
 
 # --- resilience: checkpoints, resume, rollback, telemetry, health ----------
@@ -5328,6 +5827,7 @@ def main(argv=None) -> int:
     run("vmem_odd", phase_vmem_odd)
     run("host_odd", phase_host_odd)
     run("quality_odd", phase_quality_odd)
+    kbmesh_odd_checks, _ = run("kbmesh_odd", phase_kbmesh_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
@@ -5366,6 +5866,8 @@ def main(argv=None) -> int:
         ag_body = run("allgather_main", phase_allgather_main, g, path, gi, F0,
                       main_hist)
         run("ring_multi", phase_ring_multi, gi, F0, main_hist)
+        tp_full_counts, _ = run("tp_full", phase_tp_full, gi, F0, main_hist,
+                                main_out["sec_per_iter"])
         cache, cdir, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
                              main_out, main_counts)
         run("store_native_dp4", phase_store_native_dp4, gi, path, tmp, cache,
@@ -5408,6 +5910,9 @@ def main(argv=None) -> int:
         kb_checks, kb_times, kb_bnd, _ = run("kb_full", phase_kb_full, g, res.F)
         kb_res_counts, _ = run("resilience_kb", phase_resilience_kb, g, res.F)
         F_kb = np.asarray(res.F, np.float64)
+        kbmesh_counts, _ = run("kbmesh_xlk", phase_kbmesh_xlk, g, path,
+                               list(res.llh_history), F_kb)
+        run("store_kb", phase_store_kb, path, tmp)
         run("obs_memory", phase_obs_memory, g, F_kb, "xl_k")
         run("obs_profile", phase_obs_profile, g, path, "xl_k", F_kb)
         del F_kb
@@ -5424,6 +5929,10 @@ def main(argv=None) -> int:
     sel = vm_checks["armijo_tail_select"]
     sel.max_abs = max(sel.max_abs, ring_checks["armijo_tail_select"].max_abs)
     sel.max_rel = max(sel.max_rel, ring_checks["armijo_tail_select"].max_rel)
+    for name, c in kbmesh_odd_checks.items():
+        # the window kernels' F_dst, directed and accumulate comparisons
+        kb_checks[name].max_abs = max(kb_checks[name].max_abs, c.max_abs)
+        kb_checks[name].max_rel = max(kb_checks[name].max_rel, c.max_rel)
     checks.update(kb_checks, member_lookup=sp_check, **vm_checks,
                   **{name: ring_checks[name] for name in RING})
     times.update(kb_times, **sp_times, **vm_times, **ring_times)
@@ -5446,7 +5955,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name],
             **({"launches_csr_grouped_kb": kb_split_counts[COUNTER.get(name, name)],
-                "launches_resilience_kb": kb_res_counts[COUNTER.get(name, name)]}
+                "launches_resilience_kb": kb_res_counts[COUNTER.get(name, name)],
+                "launches_kbmesh_xlk": {tag: mesh_launches(c, name)
+                                        for tag, c in kbmesh_counts.items()},
+                "launches_tp_full": {tag: mesh_launches(c, name)
+                                     for tag, c in tp_full_counts.items()}}
                if name in K_BLOCKED else {}),
             **({"launches_resilience_full": res_full["a"]["launches"],
                 "launches_quality_full": q_full["launches"],

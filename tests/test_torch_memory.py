@@ -19,6 +19,7 @@ from bigclam_tpu_torch.models import bigclam as pbig
 from bigclam_tpu_torch.models.agm import sample_planted_graph
 from bigclam_tpu_torch.models.sparse import SparseBigClamModel
 from bigclam_tpu_torch.obs import RunTelemetry
+from bigclam_tpu_torch.obs import comms as pcomms
 from bigclam_tpu_torch.obs import memory as pmem
 from bigclam_tpu_torch.ops import csr_kernels, diagnostics
 from bigclam_tpu_torch.parallel import (
@@ -174,15 +175,47 @@ def test_preflight_com_youtube_dense_names_sparse(capsys):
     ["--partition", "2d", "--devices", "4"],
     ["--store-native"],
     ["--device-kind", "NVIDIA A100-SXM4-80GB"],
-    ["--mesh", "2,2"],
+    ["--mesh", "1,2", "--representation", "sparse"],
     ["--mesh", "2,1", "--representation", "sparse"],
-    ["--mesh", "4,1", "--k", "3000"],
+    ["--mesh", "2,2", "--partition", "2d"],
 ])
 def test_preflight_refuses_what_the_port_does_not_run(capsys, flags):
     rc, out = _preflight(capsys, "--nodes", "1000", "--edges", "5000",
                          "--k", "64", *flags)
     assert rc == 1 and out.out == ""
     assert "error:" in out.err
+
+
+@pytest.mark.parametrize("flags,path,k_pad", [
+    (["--mesh", "2,2"], "csr_fused", 64),
+    (["--mesh", "2,2", "--schedule", "ring"], "csr_ring_fused", 64),
+    (["--mesh", "4,1", "--k", "3000"], "csr_fused_kb", 3072),
+    (["--mesh", "2,2", "--k", "3000"], "csr_fused_kb", 3072),
+    (["--mesh", "4,1", "--k", "3000", "--schedule", "ring"],
+     "csr_ring_fused_kb", 3072),
+])
+def test_preflight_prices_k_blocked_and_tp_meshes(capsys, flags, path, k_pad):
+    """K-blocked meshes and tp > 1 are priced, not refused: K pads to a
+    multiple of 32 tp and K_loc takes its own K blocks (3 of 1,024 at
+    tp = 1, 2 of 768 at tp = 2 for K = 3,000); the state is a K_loc block
+    of a shard's rows, and at tp > 1 the psums over k are comms sites and
+    the torch tails' two block temporaries are priced."""
+    rc, out = _preflight(capsys, "--nodes", "1000", "--edges", "5000",
+                         "--k", "64", *flags, "--json")
+    assert rc == 0
+    p = json.loads(out.out)
+    dp, tp = (int(x) for x in flags[1].split(","))
+    assert p["workload"]["kernel_path"] == path
+    assert p["workload"]["k_pad"] == k_pad and p["workload"]["mesh"] == f"{dp}x{tp}"
+    buffers = {b["buffer"]: b["bytes"] for b in p["device"]["buffers"]}
+    assert buffers["state/F"] == (1000 // dp) * (k_pad // tp) * 4
+    assert buffers.get("transient/tp_tails", 0) == (
+        2 * buffers["state/F"] if tp > 1 else 0)
+    ring = "--schedule" in flags
+    cm = (pcomms.ring_step_model if ring else pcomms.sharded_step_model)(
+        1000, k_pad, dp, 4, 16, tp=tp, edges=10000)
+    assert p["comms_bytes_per_step"] == round(cm.bytes_per_step(), 1)
+    assert any(s.site.endswith("psum_k_x") for s in cm.sites) == (tp > 1)
 
 
 @pytest.mark.parametrize("kw", [

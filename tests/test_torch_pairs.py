@@ -310,6 +310,9 @@ def test_cuda_edge_dots_refuses_a_ring_bucket(cuda_device):
     g = _planted()
     bucket = device_csr(*ring_shard_edges(g, 2, 410)[0][1], cuda_device)
     F = torch.zeros((205, 64), device=cuda_device)
+    # the pair mode refuses it; asked for no mode, the dots walk its
+    # directed edges (tests/test_torch_kbmesh.py holds that mode)
     with pytest.raises(kb.AsymmetricCSRError):
         kb.edge_dots_kb(F, bucket, 0, 64, torch.zeros(bucket.num_directed_edges,
-                                                      device=cuda_device))
+                                                      device=cuda_device),
+                        directed=False)

@@ -170,11 +170,17 @@ def test_quality_refuses_store_native_up_front(edge_file, tmp_path):
 
 
 def test_sweep_quality_refuses_sparse_and_mesh(edge_file):
+    """Sparse quality sweeps stay refused; a quality sweep over a mesh now
+    runs through fit's mesh factory (it was refused as ROADMAP item 14),
+    and only the device-resident schedule on a K-sharded mesh (item 20) and
+    --distributed (item 14's multi-process half) are refused by name."""
     base = ["sweep", "--graph", edge_file, "--min-com", "6", "--max-com",
             "12", "--div-com", "2", "--quality", "--device", "cpu"]
     assert "--representation sparse" in _refusal(
         cli.main, base + ["--representation", "sparse"])
-    assert "item 14" in _refusal(cli.main, base + ["--mesh", "2,1"])
+    assert "item 14" in _refusal(cli.main, base + ["--distributed"])
+    assert "item 20" in _refusal(
+        cli.main, base + ["--mesh", "1,2", "--device-annealing"])
 
 
 def test_old_refusal_texts_are_gone(capsys):

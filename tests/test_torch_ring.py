@@ -406,19 +406,44 @@ def test_cli_fit_ring_mesh_matches_jax_cli(edge_file):
 @pytest.mark.parametrize(
     "extra, error, words",
     [
-        (["--mesh", "2,2"], MeshNotPortedError, "item 14"),
+        (["--mesh", "2,2", "--distributed"], SystemExit, "item 14"),
         (["--mesh", "2,1", "--representation", "sparse"], SystemExit, "item 16"),
-        (["--mesh", "2,1", "--k", "1100", "--csr-kernels", "on"],
-         MeshNotPortedError, "use_pallas_csr=False"),
+        (["--mesh", "1,2", "--representation", "sparse"], SystemExit, "item 16"),
     ],
 )
 def test_cli_mesh_refusals(edge_file, extra, error, words):
+    """What a mesh still refuses by name: --distributed (multi-process
+    meshes, the rest of item 14) and a sparse mesh (item 16). A K-sharded
+    mesh and K above 1,024 on a mesh, refused here before the TP split,
+    run: test_cli_fit_k_sharded_and_k_blocked_meshes."""
     argv = ["fit", "--graph", edge_file, "--max-iters", "2", "--device", "cpu",
             "--schedule", "ring"]
     if "--k" not in extra:
         argv += ["--k", "6"]
     with pytest.raises(error, match=words):
         cli.main(argv + extra)
+
+
+@pytest.mark.parametrize("schedule", ["allgather", "ring"])
+def test_cli_fit_k_sharded_and_k_blocked_meshes(edge_file, schedule):
+    """`fit --mesh 2,2` (float64 `xla`, the TP split on the plain versions)
+    equals the single-device fit at 1e-10; `--mesh 2,1 --k 1100` with the
+    kernels asked for on the CPU takes the K-blocked mesh path (K_loc 1,152
+    in 2 windows of 576)."""
+    base = ["fit", "--graph", edge_file, "--max-iters", "3", "--device", "cpu",
+            "--schedule", schedule]
+    single = _cli_json(cli.main, ["fit", "--graph", edge_file, "--k", "6",
+                                  "--max-iters", "3", "--dtype", "float64",
+                                  "--device", "cpu"])
+    out = _cli_json(cli.main, base + ["--k", "6", "--dtype", "float64",
+                                      "--mesh", "2,2"])
+    assert out["kernel_path"] == "xla" and out["mesh"] == "2x2"
+    np.testing.assert_allclose(out["llh_history"], single["llh_history"], rtol=1e-10)
+    kb = _cli_json(cli.main, base + ["--k", "1100", "--mesh", "2,1",
+                                     "--csr-kernels", "on"])
+    want = "csr_ring_fused_kb" if schedule == "ring" else "csr_fused_kb"
+    assert kb["kernel_path"] == want and kb["mesh"] == "2x1"
+    assert all(np.isfinite(kb["llh_history"]))
 
 
 # --- on the card ---------------------------------------------------------------

@@ -174,13 +174,18 @@ def test_mesh_shapes_and_refusals():
     mesh = make_mesh((2, 2), [CPU] * 4)
     assert mesh.shape == {"nodes": 2, "k": 2} and mesh.size == 4
     assert mesh.label() == "2x2"
-    with pytest.raises(MeshNotPortedError, match="item 14"):
-        ShardedBigClamModel(g, BigClamConfig(num_communities=4), mesh)
-    with pytest.raises(MeshNotPortedError, match="K-blocked"):
-        ShardedBigClamModel(
-            g, BigClamConfig(num_communities=4, use_pallas_csr=True, csr_k_block=32),
-            _cpu_mesh(2),
-        )
+    # a K-sharded mesh and a K-blocked mesh build and engage (they were
+    # refused by name with MeshNotPortedError before the TP split landed)
+    m = ShardedBigClamModel(g, BigClamConfig(num_communities=5), mesh)
+    assert (m.engaged_path, m.tp, m.k_pad, m.kc, m.tp_split) == ("xla", 2, 6, 0, True)
+    st = m.init_state()
+    assert [tuple(b.shape) for b in st.F[1]] == [(37, 3), (37, 3)]
+    m = ShardedBigClamModel(
+        g, BigClamConfig(num_communities=4, use_pallas_csr=True, csr_k_block=32),
+        _cpu_mesh(2),
+    )
+    assert (m.engaged_path, m.kc, m.k_pad) == ("csr_fused_kb", 32, 32)
+    assert not issubclass(MeshNotPortedError, ValueError)
     with pytest.raises(ValueError, match="use_pallas_csr=False selects"):
         ShardedBigClamModel(
             g, BigClamConfig(num_communities=4, use_pallas_csr=True, dtype="float64"),

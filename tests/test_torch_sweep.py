@@ -33,6 +33,7 @@ from bigclam_tpu_torch.models.model_selection import (
 )
 from bigclam_tpu_torch.models.sparse import SparseBigClamModel
 from bigclam_tpu_torch.ops import seeding
+from bigclam_tpu_torch.parallel import ShardedBigClamModel, make_mesh
 
 torch.set_num_threads(2)
 
@@ -197,11 +198,25 @@ def test_resume_mid_grid_equals_uninterrupted_run(tmp_path):
      ({"mesh_shape": (2, 1)}, False), ({"partition": "2d"}, False)],
 )
 def test_unported_options_are_refused_by_name(planted, kw, annealing):
-    """A mesh (ROADMAP item 14) is refused by name, with or without quality
-    mode and device annealing (both of which the sweep runs)."""
+    """The 2D partition (ROADMAP item 17) is refused by name, with or
+    without quality mode and device annealing (both of which the sweep
+    runs). A mesh, refused as item 14 before the mesh sweep landed, now
+    sweeps through a factory of the all-gather trainer over that mesh (as
+    `cli sweep --mesh` passes one): the same grid, chosen K and LLH per K
+    (1e-10) as the single device's sweep."""
     cfg = BigClamConfig(**_sweep_cfg(**kw))
-    with pytest.raises(NotPortedError, match="not ported yet"):
-        sweep_k(_port_graph(planted), cfg, device_annealing=annealing, device="cpu")
+    g = _port_graph(planted)
+    if cfg.partition != "1d":
+        with pytest.raises(NotPortedError, match="not ported yet"):
+            sweep_k(g, cfg, device_annealing=annealing, device="cpu")
+        return
+    dp, tp = cfg.mesh_shape
+    mesh = make_mesh((dp, tp), [torch.device("cpu")] * (dp * tp))
+    got = sweep_k(g, cfg, device_annealing=annealing, device="cpu",
+                  model_factory=lambda c: ShardedBigClamModel(g, c, mesh))
+    want = sweep_k(g, cfg.replace(mesh_shape=(1, 1)), device_annealing=annealing,
+                   device="cpu")
+    _same_sweep(got, want)
 
 
 def _edge_file(tmp_path, g):
@@ -235,12 +250,15 @@ def test_cli_sweep_json_matches_jax_cli(planted, tmp_path, capsys):
 
 
 def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys):
-    """`sweep --mesh` is refused by name (ROADMAP item 14); --quality and
+    """`sweep --distributed` is refused by name (the multi-process half of
+    ROADMAP item 14; `sweep --mesh`, refused here before, runs:
+    test_cli_sweep_mesh_matches_jax_mesh_factory); --quality and
     --device-annealing are parser flags, and the help lists nothing as not
     ported."""
     path = _edge_file(tmp_path, planted)
     with pytest.raises(SystemExit) as exc:
-        cli.main(["sweep", "--graph", path, "--device", "cpu", "--mesh", "2,1"])
+        cli.main(["sweep", "--graph", path, "--device", "cpu", "--mesh", "2,1",
+                  "--distributed"])
     assert "item 14" in str(exc.value.code)
     args = cli.build_parser().parse_args(
         ["sweep", "--graph", path, "--quality", "--device-annealing"])
@@ -251,6 +269,39 @@ def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys):
     assert "Notportedyet" not in help_text
     for flag in ("--quality", "--device-annealing"):
         assert flag in help_text
+
+
+@pytest.mark.parametrize("mesh,schedule", [((2, 2), "allgather"), ((2, 1), "ring"),
+                                           ((4, 2), "ring")])
+def test_cli_sweep_mesh_matches_jax_mesh_factory(planted, tmp_path, capsys, mesh,
+                                                  schedule):
+    """`sweep --mesh DP,TP` (float64 `xla` on the CPU) builds each K's model
+    through fit's mesh factory; against the JAX sweep_k given the JAX
+    trainer of the same mesh as its factory (`bigclam_tpu/cli.py`
+    `_make_model`): the same grid and chosen K, LLH per K at 1e-10."""
+    import jax
+
+    from bigclam_tpu.parallel import RingBigClamModel as JaxRing
+    from bigclam_tpu.parallel import ShardedBigClamModel as JaxSharded
+    from bigclam_tpu.parallel import make_mesh as jax_make_mesh
+
+    path = _edge_file(tmp_path, planted)
+    dp, tp = mesh
+    assert cli.main(["sweep", "--graph", path, "--min-com", "2", "--max-com", "8",
+                     "--div-com", "4", "--max-iters", "40", "--dtype", "float64",
+                     "--device", "cpu", "--mesh", f"{dp},{tp}", "--schedule",
+                     schedule]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cls = JaxRing if schedule == "ring" else JaxSharded
+    jmesh = jax_make_mesh((dp, tp), jax.devices()[: dp * tp])
+    jg = jax_graph_from_edges(np.loadtxt(path, dtype=np.int64))
+    jcfg = JaxConfig(num_communities=8, dtype="float64", max_iters=40, min_com=2,
+                     max_com=8, div_com=4)
+    ref = jax_sweep_k(jg, jcfg, model_factory=lambda c: cls(jg, c, jmesh))
+    assert out["kset"] == ref.kset and out["chosen_k"] == ref.chosen_k
+    assert sorted(int(k) for k in out["llh_by_k"]) == sorted(ref.llh_by_k)
+    for k, v in ref.llh_by_k.items():
+        np.testing.assert_allclose(out["llh_by_k"][str(k)], v, rtol=1e-10)
 
 
 def test_cli_eval_matches_jax_cli(tmp_path, capsys):
