@@ -69,8 +69,14 @@ the ring (`csr_ring_fused`, `csr_ring`); `xla` on the CPU. Above K_loc =
 K-blocked paths (`csr_fused_kb`, `csr_grouped_kb`, `csr_ring_fused_kb`,
 `csr_ring_kb`), as the single-device model does above K = 1024. Its JSON
 adds `mesh` ("4x1"). `sweep --mesh` trains each K on fit's mesh model.
-`--distributed` (multi-process meshes) and `--mesh` with
-`--representation sparse` are refused by name.
+`--mesh DP,1 --representation sparse` trains the top-M member lists on
+DP node shards with the capped sparse allreduce of sumF
+(parallel/sparse_sharded.py; path `sparse_merge_pallas_spall` or
+`_psum`, `sparse_xla_*` on the CPU; its JSON adds `sparse_comm` and
+`sparse_comm_cap`); with sparse, `--schedule ring`, TP > 1, `--balance`,
+`--store-native`, `--quality` and `--partition 2d` are refused with the
+JAX CLI's words. `--distributed` (multi-process meshes, ROADMAP item 14)
+and `--partition 2d` (item 17) are refused by name.
 `--csr-kernels off` takes the non-CSR step: `pallas_vmem` (the candidate
 edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
@@ -285,6 +291,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
         help="F-row exchange schedule for --mesh runs: allgather gives each "
              "shard a full F; ring rotates the shards around the mesh "
              "(O(N/DP) F rows per device)",
+    )
+    p.add_argument(
+        "--partition", default="1d", choices=["1d", "2d"],
+        help="node partition of a --mesh run: 1d (node shards); 2d (the "
+             "edge-block closure schedule) is refused (ROADMAP queue 1 "
+             "item 17)",
     )
     p.add_argument(
         "--checkpoint-every", type=int, default=0,
@@ -911,6 +923,7 @@ def config_from_args(args):
             "multi-process meshes over torch.distributed); --mesh DP,TP runs "
             "the mesh from one process"
         )
+    refuse_partition_2d(args)
     sweep = args.command == "sweep"
     checkpoint_every = args.checkpoint_every
     if not sweep and args.checkpoint_dir and checkpoint_every <= 0:
@@ -948,6 +961,40 @@ def config_from_args(args):
         **(dict(min_com=args.min_com, max_com=args.max_com,
                 div_com=args.div_com, ksweep_tol=args.ksweep_tol)
            if sweep else {}),
+    )
+
+
+SPARSE_2D_REFUSAL = (
+    "error: --partition 2d runs the dense-F closure-gather schedule, and "
+    "the sparse top-M member exchange shards members over the 1d node "
+    "axis — the two layouts have no common F placement to train on. "
+    "Alternatives: keep --representation sparse on the 1d mesh (its capped "
+    "member exchange already avoids the dense all-gather), or go dense to "
+    "take the 2d closure schedule (`cli preflight --partition 2d` prices "
+    "both)"
+)
+
+SPARSE_RING_REFUSAL = (
+    "error: --schedule ring is not supported with --representation sparse "
+    "yet (the sparse exchange is an M-column all_gather + sparse allreduce)"
+)
+
+
+def refuse_partition_2d(args) -> None:
+    """--partition 2d is refused: with the JAX CLI's words where it has
+    them (no --mesh, a sparse mesh), else naming ROADMAP item 17."""
+    if getattr(args, "partition", "1d") != "2d":
+        return
+    if not args.mesh:
+        raise SystemExit(
+            "error: --partition 2d needs --mesh p,1 (the 2D edge-block "
+            "layout is a sharded schedule)"
+        )
+    if args.representation == "sparse":
+        raise SystemExit(SPARSE_2D_REFUSAL)
+    raise SystemExit(
+        "error: --partition 2d is not ported yet (ROADMAP queue 1 item 17: "
+        "the 2D edge-block partition); --mesh DP,TP runs the 1d partition"
     )
 
 
@@ -1023,12 +1070,15 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
     """The sharded trainer of `schedule` on a `mesh` ('DP,TP') of the first
     DP*TP cards, or of DP*TP shards on the CPU for device `cpu`; with
     `store` (a GraphStore, --store-native) the store-backed trainer, one
-    cache shard per mesh position."""
+    cache shard per mesh position; with --representation sparse the sparse
+    sharded trainer on a (DP, 1) mesh (the ring schedule, TP > 1 and
+    --balance refused with the JAX CLI's words)."""
     import torch
 
     from bigclam_tpu_torch.parallel import (
         RingBigClamModel,
         ShardedBigClamModel,
+        SparseShardedBigClamModel,
         StoreRingBigClamModel,
         StoreShardedBigClamModel,
         make_mesh,
@@ -1036,10 +1086,9 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
     from bigclam_tpu_torch.utils.device import resolve_device
 
     if cfg.representation == "sparse":
-        raise SystemExit(
-            "error: --mesh is not supported with --representation sparse yet "
-            "(the sparse sharded trainer is ROADMAP queue 1 item 16)"
-        )
+        if schedule == "ring":
+            raise SystemExit(SPARSE_RING_REFUSAL)
+        refuse_sparse_csr_kernels(cfg)
     dp, tp = parse_mesh(mesh)
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -1061,6 +1110,14 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
             )
         cls = StoreRingBigClamModel if schedule == "ring" else StoreShardedBigClamModel
         return cls(store, cfg, make_mesh((dp, tp), devices))
+    if cfg.representation == "sparse":
+        try:
+            return SparseShardedBigClamModel(
+                g, cfg, make_mesh((dp, tp), devices), balance=balance)
+        except ValueError as e:
+            if tp > 1 or balance:
+                raise SystemExit(f"error: {e}") from None
+            raise
     cls = RingBigClamModel if schedule == "ring" else ShardedBigClamModel
     return cls(g, cfg, make_mesh((dp, tp), devices), balance=balance)
 
@@ -1138,19 +1195,23 @@ def load_graph(args):
     return build_graph(path, self_heal=heal)
 
 
+def refuse_sparse_csr_kernels(cfg) -> None:
+    """--csr-kernels on means require: the CSR edge kernels take a dense
+    F, so honouring it with sparse member lists means refusing."""
+    if cfg.representation == "sparse" and cfg.use_pallas_csr:
+        raise SystemExit(
+            "error: --csr-kernels on is not supported with "
+            "--representation sparse (the CSR edge kernels take a dense "
+            "F; the sparse path has its own CUDA member-lookup kernel, "
+            "csrc/member_lookup.cu, engaged by itself on cuda — use "
+            "--csr-kernels auto)"
+        )
+
+
 def make_model(g, cfg, device):
     """The single-device trainer of cfg.representation on `device`."""
     if cfg.representation == "sparse":
-        if cfg.use_pallas_csr:
-            # "on" means require: the CSR edge kernels take a dense F, so
-            # honouring it with sparse member lists means refusing
-            raise SystemExit(
-                "error: --csr-kernels on is not supported with "
-                "--representation sparse (the CSR edge kernels take a dense "
-                "F; the sparse path has its own CUDA member-lookup kernel, "
-                "csrc/member_lookup.cu, engaged by itself on cuda — use "
-                "--csr-kernels auto)"
-            )
+        refuse_sparse_csr_kernels(cfg)
         from bigclam_tpu_torch.models.sparse import SparseBigClamModel
 
         return SparseBigClamModel(g, cfg, device=device)
@@ -1502,6 +1563,9 @@ def _fit(args, tel):
     }
     if cfg.representation == "sparse":
         out["sparse_m"] = model.m
+        if hasattr(model, "comm_mode"):
+            out["sparse_comm"] = model.comm_mode
+            out["sparse_comm_cap"] = model.comm_cap
     if args.mesh:
         out["mesh"] = model.mesh.label()
     stamp_models(out, model)

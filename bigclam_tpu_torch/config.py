@@ -4,10 +4,11 @@ Copied from bigclam_tpu/config.py (`BigClamConfig`): the same field names,
 defaults and order, so a JAX config carries over unchanged with
 `BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port reads the
 model, clipping, line-search, loop, K-sweep, seeding, quality-mode
-(models/quality.py), resilience, numerics, kernel-path, 1D-mesh and
-single-device sparse-representation fields; the rest (the sharded sparse
-exchange, K sharding, the 2D partition) are carried for that round trip,
-and the entry points refuse the ones they cannot honour yet.
+(models/quality.py), resilience, numerics, kernel-path, 1D-mesh (K
+sharding included) and sparse-representation fields (the sharded
+exchange's cap among them); the rest (the 2D partition) are carried for
+that round trip, and the entry points refuse the ones they cannot honour
+yet.
 """
 
 from __future__ import annotations
@@ -76,9 +77,10 @@ class BigClamConfig:
     sparse_m: int = 64                  # member slots per node (clamped to K)
     support_every: int = 1              # iterations between support updates
     sparse_score_block: int = 1 << 22   # support-update block size budget
-    sparse_comm_cap: int = 0            # (sharded sparse exchange; not ported)
-    sparse_cap_slack: float = 2.0
-    sparse_dense_fallback: float = 0.5
+    sparse_comm_cap: int = 0            # sharded sparse exchange buffer ids
+                                        # (0: auto from the touched counts)
+    sparse_cap_slack: float = 2.0       # auto cap headroom
+    sparse_dense_fallback: float = 0.5  # cap/K at which the step psums
 
     # --- numerics ---
     dtype: str = "float32"              # F / gradient dtype

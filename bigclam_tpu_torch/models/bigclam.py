@@ -666,8 +666,8 @@ class CheckpointMismatchError(ValueError):
 
 
 def check_ckpt_meta(meta: dict, expected: dict, directory: str,
-                    soft=("n_pad", "k_pad")) -> None:
-    """Refuse a checkpoint whose meta disagrees with this run (the JAX
+                    soft=("n_pad", "k_pad"), run: str = "run") -> None:
+    """Refuse a checkpoint whose meta disagrees with this `run` (the JAX
     rule: a key missing from an older checkpoint matches a falsy
     expectation)."""
     for key, val in expected.items():
@@ -678,7 +678,7 @@ def check_ckpt_meta(meta: dict, expected: dict, directory: str,
             continue
         if got != val:
             raise CheckpointMismatchError(
-                f"checkpoint incompatible with this run: {key}={got} in "
+                f"checkpoint incompatible with this {run}: {key}={got} in "
                 f"checkpoint vs {val} expected (dir: {directory})"
             )
 
@@ -841,12 +841,18 @@ class MemoryAccountedModel:
     memory = None                # the baked obs.memory.MemoryModel
     comms = None                 # the baked obs.comms.CommsModel (meshes)
 
+    def _step_key(self):
+        """The identity of the step rebuild_step builds: its config with
+        the host-only fields reset (a trainer that bakes more than the
+        config into its step adds that)."""
+        return step_cfg_key(self.cfg)
+
     def _note_step_build(self) -> None:
-        """Record the current cfg's step build once per step config."""
+        """Record a step build once per step key (_step_key)."""
         from bigclam_tpu_torch.obs import telemetry as _obs
 
         built = self.__dict__.setdefault("_built_step_keys", set())
-        key = step_cfg_key(self.cfg)
+        key = self._step_key()
         if key not in built:
             built.add(key)
             _obs.note_step_build(self.cfg, type(self).__name__)

@@ -102,6 +102,8 @@ def make_sparse_train_step(
             llh=node_llh.sum().to(w.dtype),
             it=state.it + 1,
             accept_hist=hist,
+            comm_ids=state.comm_ids,
+            comm_dense=state.comm_dense,
             health=health,
         )
 
@@ -114,7 +116,8 @@ def new_sparse_state(
 ) -> SparseTrainState:
     """SparseTrainState around device-resident (ids, w): sumF by the
     sparse scatter, LLH -inf until a step evaluates one, a zero
-    accepted-step histogram."""
+    accepted-step histogram and zero exchange counters."""
+    zero = torch.zeros((), dtype=torch.int32, device=w.device)
     return SparseTrainState(
         F=w,
         ids=ids,
@@ -124,6 +127,8 @@ def new_sparse_state(
         ),
         it=int(it),
         accept_hist=torch.zeros(num_s + 1, dtype=torch.int32, device=w.device),
+        comm_ids=zero,
+        comm_dense=zero.clone(),
     )
 
 
@@ -185,37 +190,48 @@ class SparseBigClamModel(MemoryAccountedModel):
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         self.m = effective_m(cfg)
         self.k_pad = cfg.num_communities
+        if sm.merge_kernel_want(cfg, self.device) and self.device.type == "cuda":
+            sm.check_member_limit(self.m)
+        self._setup()
+        self.path_reason = self._path_reason()
+        # the memory model (obs.memory), baked from the built layout
+        self._bake_models()
+
+    def _setup(self) -> None:
+        """Padding, the device edge and block layout, and the train step
+        (the hook the sharded trainer replaces with its schedule)."""
+        g, cfg = self.g, self.cfg
         self.block_b = sm.pick_block_b(
             cfg.sparse_score_block, g.num_nodes, self.m,
             g.num_directed_edges / max(g.num_nodes, 1),
         )
         self.n_pad = _round_up(max(g.num_nodes, 1), self.block_b)
-        if sm.merge_kernel_want(cfg, self.device):
-            if self.device.type == "cuda":
-                sm.check_member_limit(self.m)
-            self.engaged_path = "sparse_merge_pallas"
-        else:
-            self.engaged_path = "sparse_xla"
-        self.path_reason = f"representation=sparse M={self.m}"
         self.csr = g.to_device(self.device)
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
         # edge chunks bounded by the (chunk, M) gather width: M, not K
         self.edges = EdgeChunks(
-            self.csr.src, self.csr.dst, edge_chunk_bound(cfg, self.m, itemsize)
+            self.csr.src, self.csr.dst,
+            edge_chunk_bound(cfg, self.m, self.itemsize),
         )
         self.blocks = sm.build_support_blocks(
             g, self.n_pad, self.block_b, dtype=self.dtype, device=self.device
         )
         self.rebuild_step()
-        # the memory model (obs.memory), baked from the built layout
-        self._bake_models()
 
-    def rebuild_step(self) -> None:
-        """(Re)build the train step for the CURRENT self.cfg."""
-        self._step = make_sparse_train_step(
+    def _path_reason(self) -> str:
+        return f"representation=sparse M={self.m}"
+
+    def _make_step(self):
+        """(the train step for the CURRENT self.cfg, its path name)."""
+        step = make_sparse_train_step(
             self.edges, self.blocks, self.cfg, self.k_pad, self.m,
             n_live=self.g.num_nodes,
         )
+        merge = "merge_pallas" if sm.merge_kernel_want(self.cfg, self.device) else "xla"
+        return step, f"sparse_{merge}"
+
+    def rebuild_step(self) -> None:
+        """(Re)build the train step for the CURRENT self.cfg."""
+        self._step, self.engaged_path = self._make_step()
         self._note_step_build()
 
     # ------------------------------------------------- memory accounting
@@ -250,18 +266,32 @@ class SparseBigClamModel(MemoryAccountedModel):
 
     # ------------------------------------------------------------ state
     def init_state(self, F0: Optional[np.ndarray] = None) -> SparseTrainState:
-        """Sparsify a dense (N, K) init (rowkeyed when None) to top-M rows."""
+        """Sparsify a dense (N, K) init (rowkeyed when None) to top-M rows,
+        through the hooks _on_init_sparsified, _place and reset_state."""
         n, k = self.g.num_nodes, self.cfg.num_communities
         if F0 is None:
             F0 = rowkeyed_init_F(self.g, self.cfg)
         if F0.shape != (n, k):
             raise ValueError(f"F0 has shape {F0.shape}, want {(n, k)}")
         ids, w, _ = sm.from_dense(np.asarray(F0), self.m, self.k_pad, self.n_pad)
-        return new_sparse_state(
-            torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(w).to(self.dtype).to(self.device),
-            self.k_pad, len(self.cfg.step_candidates),
-        )
+        self._on_init_sparsified(ids)
+        return self.reset_state(*self._place(ids, w))
+
+    def _place(self, ids: np.ndarray, w: np.ndarray):
+        """Host (n_pad, M) ids and weights -> the device (the sharded
+        trainer's hook places one row shard a mesh position)."""
+        return (torch.from_numpy(np.asarray(ids, np.int32)).to(self.device),
+                torch.from_numpy(np.asarray(w)).to(self.dtype).to(self.device))
+
+    def _on_init_sparsified(self, ids: np.ndarray) -> None:
+        """Hook: the sharded trainer sizes its sparse-allreduce buffers
+        from the initial per-shard touched counts here."""
+
+    def reset_state(self, ids, w, llh: Optional[float] = None,
+                    it: int = 0) -> SparseTrainState:
+        """A SparseTrainState around placed (ids, w)."""
+        return new_sparse_state(ids, w, self.k_pad,
+                                len(self.cfg.step_candidates), llh=llh, it=it)
 
     def state_from_jax(
         self, ids: np.ndarray, w: np.ndarray, llh: Optional[float] = None,
@@ -395,12 +425,8 @@ class SparseBigClamModel(MemoryAccountedModel):
                 "checkpoint holds no member-id array: dense-representation "
                 "checkpoints cannot resume a sparse fit"
             )
-        ids = torch.from_numpy(np.asarray(arrays["ids"], np.int32)).to(self.device)
-        w = torch.from_numpy(np.asarray(arrays["F"])).to(self.dtype).to(self.device)
-        return new_sparse_state(
-            ids, w, self.k_pad, len(self.cfg.step_candidates),
-            llh=float(arrays["llh"]), it=int(arrays["it"]),
-        )
+        return self.reset_state(*self._place(arrays["ids"], arrays["F"]),
+                                llh=float(arrays["llh"]), it=int(arrays["it"]))
 
     def _restore(self, checkpoints):
         """Sparse restore: strict meta equality (representation, M, K,
@@ -415,7 +441,8 @@ class SparseBigClamModel(MemoryAccountedModel):
         tel = _obs.current()
         if tel is not None:
             tel.event("restore", step=int(ckpt_step))
-        check_ckpt_meta(meta, self._ckpt_meta(), checkpoints.directory, soft=())
+        check_ckpt_meta(meta, self._ckpt_meta(), checkpoints.directory,
+                        soft=(), run="sparse run")
         return self._state_from_arrays(arrays), tuple(meta.get("llh_history", ()))
 
     # -------------------------------------------------------------- fit

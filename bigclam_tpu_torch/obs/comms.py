@@ -9,7 +9,8 @@ conventions are the port's own, because its collectives are not JAX's:
 * **psum** (parallel/sharded.py `psum`): every other shard sends its
   partial to mesh position 0, which sums them in shard order and sends the
   total back to every other position: 2 * s * (p - 1) bytes for an s-byte
-  partial over p positions.
+  partial over p positions. **pmax** (parallel/sparse_collectives.py
+  `pmax`) moves the same bytes.
 * **all_gather** (`all_gather`): every position receives the p - 1 other
   shards: p * (p - 1) * s bytes. The tensors are made once per DISTINCT
   device, so on a mesh that repeats a device nothing moves; the model
@@ -66,7 +67,7 @@ def wire_bytes(op: str, payload_bytes: float, participants: int) -> float:
         return float(payload_bytes) * p * (p - 1)
     if op == "ppermute":
         return float(payload_bytes) * p
-    if op == "psum":
+    if op in ("psum", "pmax"):
         return 2.0 * float(payload_bytes) * (p - 1)
     raise ValueError(f"unknown collective op {op!r}")
 
@@ -109,7 +110,7 @@ class Site:
 class CommsModel:
     """The static bytes-per-step model one trainer baked at step build."""
 
-    family: str                  # sharded | ring
+    family: str                  # sharded | ring | sparse
     model: str                   # trainer class name
     sites: Tuple[Site, ...]
     params: Dict[str, Any]       # the shape arithmetic inputs
@@ -263,6 +264,102 @@ def ring_step_model(
         params={"n_pad": n_pad, "k_pad": k_pad, "dp": dp, "tp": tp,
                 "itemsize": itemsize},
     )
+
+
+def sparse_step_model(
+    n_pad: int,
+    m: int,
+    k_pad: int,
+    dp: int,
+    itemsize: int,
+    num_candidates: int,
+    cap: int,
+    mode: str,
+    support_every: int = 1,
+    llh_itemsize: Optional[int] = None,
+    model: str = "SparseShardedBigClamModel",
+) -> CommsModel:
+    """Collective sites of the sparse sharded step (parallel/
+    sparse_sharded.py, parallel/sparse_collectives.py), JAX's site names
+    and payloads: the member exchange scales with M, not K (the
+    post-support id/weight gather every step, the support pass's
+    pre-update gather every support_every steps); the sumF allreduce
+    moves the fixed (cap,) id/value buffers in 'sparse' mode (the cap,
+    not the touched count, is the wire cost) and the (k_pad,) psum in
+    'dense' mode; the touched-count pmax and the LLH/histogram psum run
+    in both."""
+    from bigclam_tpu_torch.parallel.sparse_collectives import (
+        exchange_payload_bytes,
+    )
+
+    n_loc = n_pad // max(dp, 1)
+    row_bytes = m * (4 + itemsize)          # int32 id + weight per slot
+    sup = max(int(support_every), 1)
+    sites = [
+        Site("sparse/all_gather_members", "all_gather",
+             n_loc * row_bytes, 1.0 + 1.0 / sup, dp, "gather", "nodes"),
+        Site("sparse/psum_scalars", "psum",
+             _scalar_payload(llh_itemsize or itemsize, num_candidates), 1,
+             dp, "reduce", "nodes"),
+    ]
+    if mode == "sparse":
+        sites.append(Site(
+            "sparse/allreduce_touched", "all_gather",
+            exchange_payload_bytes(cap, itemsize), 2, dp,
+            "exchange", "nodes",
+        ))
+    else:
+        sites.append(Site(
+            "sparse/psum_sumF", "psum", k_pad * itemsize, 2, dp,
+            "reduce", "nodes",
+        ))
+    sites.append(Site(
+        "sparse/pmax_touched_count", "pmax", 4, 2, dp, "exchange", "nodes",
+    ))
+    return CommsModel(
+        family="sparse", model=model, sites=tuple(sites),
+        params={"n_pad": n_pad, "m": m, "k_pad": k_pad, "dp": dp,
+                "itemsize": itemsize, "cap": cap, "mode": mode,
+                "support_every": sup},
+    )
+
+
+def sparse_measured(model: CommsModel, state) -> Dict[str, Any]:
+    """Reconcile the sparse model against the RUNTIME exchange counters
+    riding the state (comm_ids = max touched ids over shards, comm_dense =
+    the step summed sumF by the dense psum), JAX's keys: the member-gather
+    payload from the live shards, the occupancy (exchanged <= cap), and
+    the allreduce's wire bytes a step, the dense psum's when it fell
+    back (here under the port's wire conventions)."""
+    from bigclam_tpu_torch.parallel.sparse_collectives import (
+        exchange_payload_bytes,
+    )
+
+    cap = int(model.params.get("cap", 0))
+    itemsize = int(model.params.get("itemsize", 4))
+    k_pad = int(model.params.get("k_pad", 0))
+    dp = int(model.params.get("dp", 1))
+    exchanged = int(state.comm_ids)
+    fell_back = bool(int(state.comm_dense))
+    ids, w = state.ids, state.F
+    ids0 = ids[0] if isinstance(ids, tuple) else ids
+    w0 = w[0] if isinstance(w, tuple) else w
+    payloads = {"sparse/all_gather_members": float(
+        ids0.numel() * ids0.element_size() + w0.numel() * w0.element_size())}
+    if fell_back:
+        measured_exchange = 2 * wire_bytes("psum", k_pad * itemsize, dp)
+    else:
+        measured_exchange = 2 * wire_bytes(
+            "all_gather", exchange_payload_bytes(cap, itemsize), dp
+        )
+    return {
+        "payloads": payloads,
+        "exchanged_ids": exchanged,
+        "dense_fallback": fell_back,
+        "cap": cap,
+        "occupancy": exchanged / max(cap, 1),
+        "exchange_bytes_per_step": round(measured_exchange, 1),
+    }
 
 
 # --------------------------------------------------------- reconciliation

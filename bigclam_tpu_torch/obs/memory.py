@@ -257,17 +257,26 @@ def dense_state_buffers(
 
 
 def sparse_state_buffers(
-    n_pad: int, m: int, k_pad: int, itemsize: int, num_candidates: int,
+    rows: int, m: int, k_pad: int, itemsize: int, num_candidates: int,
+    scalars: bool = True, counters: bool = False,
 ) -> List[Buffer]:
-    """Bytes of the SparseTrainState: (n_pad, M) weights and int32 member
-    ids, the (K,) sumF, the scalars."""
-    return [
-        Buffer("state/weights", n_pad * m * itemsize, "state"),
-        Buffer("state/member_ids", n_pad * m * 4, "state"),
+    """Bytes of the SparseTrainState on one device: `rows` rows of (M)
+    weights and int32 member ids (the whole state, or the row shards of
+    the mesh positions it holds), the (K,) sumF, the scalars on the first
+    device (+ the sharded step's two int32 exchange counters)."""
+    out = [
+        Buffer("state/weights", rows * m * itemsize, "state"),
+        Buffer("state/member_ids", rows * m * 4, "state"),
         Buffer("state/sumF", k_pad * itemsize, "state"),
-        Buffer("state/scalars", scalar_state_bytes(itemsize, num_candidates),
-               "state"),
     ]
+    if scalars:
+        out.append(Buffer(
+            "state/scalars", scalar_state_bytes(itemsize, num_candidates),
+            "state"))
+    if scalars and counters:
+        out.append(Buffer("state/comm_counters", 8, "state",
+                          note="comm_ids, comm_dense"))
+    return out
 
 
 def _graph_buffers(graph_bytes: Dict[str, float]) -> List[Buffer]:
@@ -434,36 +443,63 @@ def sparse_memory_model(
     health_on: bool = False,
     rollback: bool = False,
     model: str = "SparseBigClamModel",
+    dp: int = 1,
+    positions: int = 1,
+    first_device: bool = True,
+    gathers: int = 0,
+    comms: Optional[CommsModel] = None,
 ) -> MemoryModel:
-    """Single-device sparse top-M trainer (models.sparse): state, gradient
-    and candidates scale with M, not K. Transients: the new weights and
-    the gradient (n_pad, M), the support update's new ids and weights, the
-    (S, n_pad) candidate sums, and the member lookups of one edge chunk
-    (ids and weights of both ends and the looked-up weights, (chunk, M)
-    each)."""
-    state = sparse_state_buffers(n_pad, m, k_pad, itemsize, num_candidates)
-    nm = n_pad * m
+    """Sparse top-M trainers (models.sparse, parallel.sparse_sharded), for
+    one device holding `positions` of the dp mesh positions (1 on one
+    device): state, gradient and candidates scale with M, not K.
+    Transients per position: the new weights and the gradient (n_loc, M),
+    the support update's new ids and weights, the (S, n_loc) candidate
+    sums; and the member lookups of one edge chunk (ids and weights of
+    both ends and the looked-up weights, (chunk, M) each). On a mesh the
+    gathered (n_pad, M) id/weight pair, one per distinct device
+    (`gathers`), is the dominant transient, the scalars and the exchange
+    counters sit on the first device, and a psum total there is priced
+    from the comms model. The exchange's (dp, K) combine buffers are not
+    priced (under 1 MB at K = 8,385 and dp = 8)."""
+    dp = max(int(dp), 1)
+    n_loc = n_pad // dp
+    state = sparse_state_buffers(positions * n_loc, m, k_pad, itemsize,
+                                 num_candidates, scalars=first_device,
+                                 counters=dp > 1)
+    nm = n_loc * m
     ch = min(chunk, directed_edges)
     buffers = (
         state
         + _graph_buffers(graph_bytes)
         + _scratch_buffers(_total(state), rollback, health_on)
+        + ([Buffer(
+            "transient/members_allgather", n_pad * m * (4 + itemsize),
+            "transient", count=gathers,
+            note="the gathered member ids and weights, one per distinct "
+                 "device",
+        )] if gathers else [])
         + [
-            Buffer("transient/weights_new", nm * itemsize, "transient"),
-            Buffer("transient/grad", nm * itemsize, "transient"),
+            Buffer("transient/weights_new", nm * itemsize, "transient",
+                   count=positions),
+            Buffer("transient/grad", nm * itemsize, "transient",
+                   count=positions),
             Buffer("transient/support_update", nm * (4 + itemsize),
-                   "transient", note="the admitted ids and weights"),
-            Buffer("transient/candidates", num_candidates * n_pad * itemsize,
-                   "transient"),
+                   "transient", count=positions,
+                   note="the admitted ids and weights"),
+            Buffer("transient/candidates", num_candidates * n_loc * itemsize,
+                   "transient", count=positions),
             Buffer("transient/member_chunk", ch * m * (3 * 4 + 2 * itemsize),
                    "transient",
                    note="one edge chunk's member-lookup gathers"),
         ]
+        + (collective_buffers(comms) if first_device else [])
     )
+    params = {"n_pad": n_pad, "m": m, "k_pad": k_pad,
+              "itemsize": itemsize, "rollback": rollback}
+    if dp > 1:
+        params.update(dp=dp, positions=positions)
     return MemoryModel(
-        family="sparse", model=model, buffers=tuple(buffers),
-        params={"n_pad": n_pad, "m": m, "k_pad": k_pad,
-                "itemsize": itemsize, "rollback": rollback},
+        family="sparse", model=model, buffers=tuple(buffers), params=params,
     )
 
 
@@ -942,19 +978,28 @@ def preflight(
     `csr_ring_fused`, `sparse_merge_pallas`. Returns the JAX preflight's
     keys: the component breakdown, a fits-or-doesn't verdict naming the
     binding constraint, and the knobs that relax it. Raises ValueError
-    naming the ROADMAP item for what the port does not run (sparse
-    meshes). On a mesh K pads to a multiple of 32 tp and each block's K_loc
-    takes its own K blocks (`mesh_k_plan`): the
-    K-blocked paths where K_loc exceeds a warp's row, the TP split at
-    tp > 1."""
+    naming why for what no trainer runs (a sparse mesh with tp > 1 or
+    the ring schedule). On a mesh K pads to a multiple of 32 tp and each
+    block's K_loc takes its own K blocks (`mesh_k_plan`): the K-blocked
+    paths where K_loc exceeds a warp's row, the TP split at tp > 1. A
+    sparse (dp, 1) mesh is priced as the JAX preflight prices it: a cap of
+    8 M member rows, the sparse exchange below half of K
+    (`sparse_merge_pallas_spall`), else the psum (`_psum`)."""
     from bigclam_tpu_torch.obs import comms as _comms
 
     dp, tp = max(int(dp), 1), max(int(tp), 1)
     sparse = representation == "sparse"
-    if sparse and (dp > 1 or tp > 1):
+    if sparse and tp > 1:
         raise ValueError(
-            "--representation sparse on a mesh is not ported yet (ROADMAP "
-            "queue 1 item 16, sparse sharded)"
+            "the sparse representation does not shard the K axis "
+            f"(mesh has tp={tp}): member rows are M-wide regardless of K "
+            "— use a (dp, 1) mesh"
+        )
+    if sparse and dp > 1 and schedule == "ring":
+        raise ValueError(
+            "--schedule ring is not supported with --representation sparse "
+            "(the sparse exchange is an M-column all_gather + sparse "
+            "allreduce)"
         )
     if schedule not in ("allgather", "ring"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -988,19 +1033,32 @@ def preflight(
     comms = None
     if sparse:
         block_rows = 1024
-        n_pad = _round_up(max(n, 1), 8)
-        graph = csr_graph_bytes(n, directed_edges)
+        n_pad = _round_up(max(n, dp), 8 * dp)
+        n_loc = n_pad // dp
+        graph = csr_graph_bytes(n_loc if dp > 1 else n, max_shard)
         graph["graph/support_blocks"] = (
-            directed_edges * 1.1 * (8.0 + itemsize)
+            max_shard * 1.1 * (8.0 + itemsize)
         )
         notes.append(
             f"support blocks priced at +10% block padding (block_b <= "
             f"{block_rows})"
         )
+        if dp > 1:
+            # the JAX preflight's cap guess: 8 member rows' worth of ids
+            cap = min(_round_up(max(8 * m, 8), 8), k_pad)
+            mode = "sparse" if cap < 0.5 * k_pad else "dense"
+            path += "_spall" if mode == "sparse" else "_psum"
+            comms = _comms.sparse_step_model(
+                n_pad, m, k_pad, dp, itemsize, num_candidates, cap, mode,
+                support_every=support_every,
+            )
         mm = sparse_memory_model(
-            n_pad, m, k_pad, itemsize, num_candidates, graph, directed_edges,
+            n_pad, m, k_pad, itemsize, num_candidates, graph, max_shard,
             chunk=edge_chunk_bound(edge_chunk, m, itemsize),
             health_on=health_on, rollback=rollback,
+            model="SparseShardedBigClamModel" if dp > 1
+            else "SparseBigClamModel",
+            dp=dp, gathers=1 if dp > 1 else 0, comms=comms,
         )
     elif not mesh:
         graph = csr_graph_bytes(n, directed_edges, rev=bool(kc))

@@ -16,9 +16,10 @@ into one (HEALTH_LEN,) float32 vector riding the train state
   a trainer without health.
 * `health_every > 0`: the iteration counter is a host int in the port's
   states, so the step computes the pack only when `it % health_every ==
-  0` (a host `if`); other iterations return None (the sparse step returns
-  its latched support churn instead, see latch_extras) and cost nothing
-  on the dense paths.
+  0` (a host `if`); other iterations return None (the sparse steps return
+  their latched support churn, and the sharded sparse step in its sparse
+  exchange mode its cap occupancy, fallback flag and exchanged-id count,
+  instead, see latch_extras) and cost nothing on the dense paths.
 
 The field order, names and NA sentinel are the JAX package's, so the two
 packs compare slot by slot, in float32 as there. Each reduction reads its
@@ -54,9 +55,9 @@ HEALTH_FIELDS = (
     "f_max",           # max F entry (box-ceiling proximity)
     "support_churn",   # sparse: fraction of member-id slots changed by the
                        # support update (NA on dense)
-    "cap_occupancy",   # sparse sharded exchange (not ported: NA)
-    "dense_fallback",  # sparse sharded exchange (not ported: NA)
-    "exchanged_ids",   # sparse sharded exchange (not ported: NA)
+    "cap_occupancy",   # sparse sharded: touched ids / comm cap (NA else)
+    "dense_fallback",  # sparse sharded: the step fell back to the psum
+    "exchanged_ids",   # sparse sharded: touched ids exchanged (NA else)
 )
 HEALTH_LEN = len(HEALTH_FIELDS)
 HEALTH_INDEX = {name: i for i, name in enumerate(HEALTH_FIELDS)}
@@ -106,7 +107,7 @@ def grad_stats(grad: Tensors) -> torch.Tensor:
 
 def latch_extras(prev_health: Optional[torch.Tensor], extras: Dict[str, torch.Tensor]):
     """Max-since-last-sample latch for the cheap per-step slots (the
-    sparse support churn): a burst on an OFF-cadence step must still show
+    sparse support churn, the sharded exchange's counters): a burst on an OFF-cadence step must still show
     in the next health sample, so the scalar is computed every step and
     folded into a running max that resets after each computed sample. NA
     (-1) is the max identity, so never-produced slots stay NA.

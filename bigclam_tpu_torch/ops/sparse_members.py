@@ -23,13 +23,16 @@ ops.objective / ops.linesearch restricted to the support:
     neighbour mass.
 
 With M >= K and support_every = 1 the dynamics equal the dense ones (the
-JAX module's PARITY note). The sharded trainer's `presence` and the
-sparse collectives are not ported yet.
+JAX module's PARITY note). On the sharded trainer (parallel/
+sparse_sharded.py) the sweeps take a shard's local rows as sources and
+the gathered rows of every shard as destinations (`ids_dst`/`w_dst`), and
+`presence` marks the communities a shard's member lists touch, the set
+the sparse allreduce (parallel/sparse_collectives.py) exchanges.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +64,11 @@ class SparseTrainState(NamedTuple):
     llh: torch.Tensor          # scalar: LLH of the PREVIOUS state
     it: int                    # iteration counter
     accept_hist: torch.Tensor  # (S+1,) int32 accepted-step histogram
+    # exchange counters of the sharded step (parallel/sparse_sharded.py):
+    # the most touched ids a shard exchanged, and 1 where a step summed
+    # sumF by the dense psum; int32 zeros on one device
+    comm_ids: Optional[torch.Tensor] = None
+    comm_dense: Optional[torch.Tensor] = None
     health: Optional[torch.Tensor] = None  # health pack (ops.diagnostics)
 
 
@@ -285,6 +293,17 @@ def member_lookup_impl(
     return member_lookup_rows_plain(ids, w, s, d, k_pad)
 
 
+def _lookup(ids, w, ids_dst, w_dst, row0, s, d, k_pad, cfg):
+    """The sweeps' member lookup of edges s -> d: on one device from the
+    state itself; on a shard from the gathered rows, which hold the
+    shard's own rows at offset row0, so the kernel reads both ends from
+    one (ids, w) pair as it does on one device."""
+    if ids_dst is None:
+        return member_lookup_impl(ids, w, s, d, k_pad, cfg)
+    return member_lookup_impl(ids_dst, w_dst, s + row0 if row0 else s, d,
+                              k_pad, cfg)
+
+
 def sparse_sumF(ids: torch.Tensor, w: torch.Tensor, k_pad: int) -> torch.Tensor:
     """Dense (K_pad,) column sums from the sparse state — a scatter-add of
     the member slots' weights in row-major order. Sentinel slots are left
@@ -294,6 +313,14 @@ def sparse_sumF(ids: torch.Tensor, w: torch.Tensor, k_pad: int) -> torch.Tensor:
     valid = ids < k_pad
     acc = torch.zeros(k_pad, dtype=w.dtype, device=w.device)
     return acc.index_add_(0, ids[valid].long(), w[valid])
+
+
+def presence(ids: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """(K_pad,) bool: the communities present in ANY member list (the
+    touched set the sparse allreduce exchanges). Sentinel slots fill one
+    extra entry that is cut off."""
+    out = torch.zeros(k_pad + 1, dtype=torch.bool, device=ids.device)
+    return out.index_fill_(0, ids.reshape(-1).long(), True)[:k_pad]
 
 
 def masked_sumF_at(
@@ -318,16 +345,22 @@ def sparse_grad_llh(
     edges: EdgeChunks,
     cfg: BigClamConfig,
     k_pad: int,
+    ids_dst: Optional[torch.Tensor] = None,
+    w_dst: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-node slot-space gradient + per-node LLH in one edge sweep, the
     sparse twin of ops.objective.grad_llh. Returns (grad (N, M) — 0 in
-    sentinel slots, node_llh (N,))."""
+    sentinel slots, node_llh (N,)). On the sharded path `ids`/`w` are a
+    shard's local rows (edge sources, local ids) and `ids_dst`/`w_dst`
+    the gathered rows of every shard (destinations, global ids); the
+    shard's rows start at global row `row0` of them."""
     n = ids.shape[0]
     adt = accum_dtype(cfg, w)
     nbr_llh = torch.zeros(n, dtype=adt, device=w.device)
     nbr_grad = torch.zeros_like(w)
     for s, d in edges.slices():
-        vals = member_lookup_impl(ids, w, s, d, k_pad, cfg)       # (chunk, M)
+        vals = _lookup(ids, w, ids_dst, w_dst, row0, s, d, k_pad, cfg)
         x = (w.index_select(0, s) * vals).sum(dim=1)
         omp, ell = edge_terms(x, cfg)
         nbr_llh.index_add_(0, s, ell.to(adt))
@@ -345,17 +378,20 @@ def sparse_candidates(
     edges: EdgeChunks,
     cfg: BigClamConfig,
     k_pad: int,
+    ids_dst: Optional[torch.Tensor] = None,
+    w_dst: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Neighbour-sum candidate terms for every Armijo step, (S, N) — the
     sparse twin of ops.linesearch.candidates_pass. The member lookup runs
     once per chunk and serves all candidates (the support does not move
-    within a step)."""
+    within a step). ids_dst/w_dst/row0 as in sparse_grad_llh."""
     n = ids.shape[0]
     adt = accum_dtype(cfg, w)
     etas = step_etas(cfg, w)
     out = torch.zeros((etas.shape[0], n), dtype=adt, device=w.device)
     for s, d in edges.slices():
-        vals = member_lookup_impl(ids, w, s, d, k_pad, cfg)
+        vals = _lookup(ids, w, ids_dst, w_dst, row0, s, d, k_pad, cfg)
         wu, gu = w.index_select(0, s), grad.index_select(0, s)
         for i in range(etas.shape[0]):
             nw = torch.clamp(wu + etas[i] * gu, cfg.min_f, cfg.max_f)
@@ -410,15 +446,18 @@ def _support_rows(
     dst: torch.Tensor,
     m: int,
     k_pad: int,
+    ids_nbr: torch.Tensor,
+    w_nbr: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """New (ids, w) of rows [r0, r1) from their own slots and the member
-    lists of their neighbours over edges src -> dst (src in [r0, r1))."""
+    lists of their neighbours over edges src -> dst (src in [r0, r1); dst
+    rows of ids_nbr/w_nbr)."""
     rows, dev = r1 - r0, ids.device
     own_node = torch.arange(r0, r1, device=dev).repeat_interleave(m)
     own_cid, own_w = ids[r0:r1].reshape(-1), w[r0:r1].reshape(-1)
     nb_node = src.repeat_interleave(m)
-    nb_cid = ids.index_select(0, dst).reshape(-1)
-    nb_w = w.index_select(0, dst).reshape(-1)
+    nb_cid = ids_nbr.index_select(0, dst).reshape(-1)
+    nb_w = w_nbr.index_select(0, dst).reshape(-1)
     # sentinel entries are never kept, and a neighbour entry of weight 0
     # adds nothing to its run's rank: both are left out
     own = own_cid < k_pad
@@ -461,6 +500,8 @@ def support_update(
     blocks: SupportBlocks,
     m: int,
     k_pad: int,
+    ids_nbr: Optional[torch.Tensor] = None,
+    w_nbr: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One support-update pass: per node, admit candidate communities from
     neighbour member lists and keep the top-M by weight + neighbour mass.
@@ -474,7 +515,12 @@ def support_update(
     by descending rank (ties to the lower id) and cut to M per node. A
     node's result depends only on its own entries, so whole node blocks are
     batched together, up to SUPPORT_BATCH_ENTRIES entries a batch (the JAX
-    pass loops over one block at a time)."""
+    pass loops over one block at a time). `ids_nbr`/`w_nbr` are the rows
+    `blocks.dst` indexes: on the sharded path the gathered PRE-update rows
+    of every shard, where `ids`/`w` are the shard's own rows and `blocks`
+    its blocks; ids/w themselves on one device."""
+    if ids_nbr is None:
+        ids_nbr, w_nbr = ids, w
     block_b = blocks.block_b
     n_rows = ids.shape[0]
     n_blocks = n_rows // block_b
@@ -489,5 +535,6 @@ def support_update(
         src = (blocks.src_local[b0:b1].long() + base).reshape(-1)[live]
         dst = blocks.dst[b0:b1].reshape(-1)[live].long()
         r0, r1 = b0 * block_b, b1 * block_b
-        new_ids[r0:r1], new_w[r0:r1] = _support_rows(ids, w, r0, r1, src, dst, m, k_pad)
+        new_ids[r0:r1], new_w[r0:r1] = _support_rows(
+            ids, w, r0, r1, src, dst, m, k_pad, ids_nbr, w_nbr)
     return new_ids, new_w

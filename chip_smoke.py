@@ -40,6 +40,14 @@ exits non-zero:
             update, plus a random edge batch at M=1, and random member
             rows of 1,100 ids (above the table's k_pad of 1,024: the
             staged search) at M=37 and 64 on the graph's edges
+  sparse_mesh_odd every member lookup of two steps of a sparse mesh on an
+            uneven dp = 3 mesh of the card (the sweeps read the gathered
+            rows, the shard's source ids offset by its first row), bit
+            for bit its plain version, on the odd and hub graphs at
+            (K, M) = (1000, 37), (1000, 64) and (1100, 1024); then the
+            sparse allreduce of the stepped shards' sumF in its sparse
+            form, its static-psum form and its overflow fallback, each
+            bit for bit the psum helper's sum
   vmem_odd  the candidate edge-terms kernel against its plain version on
             the odd graph at K=37 and K=1,100, in edge chunks of 1,000
             (not a multiple of 32, the last one ragged); then on the hub
@@ -115,6 +123,24 @@ exits non-zero:
             Armijo update, the support update and the two sumF scatters,
             and traced once with torch.profiler (device busy time, top
             ops and kernels)
+  sparse_mesh_full `cli fit --mesh 4,1 --representation sparse
+            --sparse-m 64` on the same file (the four positions share the
+            card), 5 iterations: the path and its exchange mode, the
+            member-lookup launches against the schedule, the LLH within
+            1e-4 of sparse_main's, sec_per_iter beside it, peak device
+            memory against the fit's model (check_peak), the comms bytes
+            counted in one step against the model; one step timed whole
+            and split (gathers, support, allreduces, grad_sweep,
+            cand_sweep, armijo)
+  sparse_mesh_local com-youtube's shape: planted blocks of 135 nodes at
+            N=1,134,890, K=8,385, p_in=0.04, default_rng(19), on
+            --mesh 8,1 of the card at M=64, the community-local init
+            (weight SPARSE_LOCAL_W in the node's block) through the
+            hooks init_state calls after from_dense; 6 steps: the path
+            ends in `_spall`, fewer than K/2 ids exchanged a step, no
+            fallback, member launches against the schedule, the LLH
+            rises; the cap, counted against modeled comms bytes,
+            sec_per_iter, peak device memory beside the dense F's
   vmem_main `cli fit --csr-kernels off` on the same file, conductance
             init, 5 iterations, no --out; path `pallas_vmem`, the
             candidate edge-terms launches counted from 0 around the fit
@@ -139,6 +165,12 @@ exits non-zero:
   sparse_parity the same graph on the sparse path at M=16 and M=100: 5
             steps on the card against the port's CPU float64 sparse path,
             and at M=100 = K against the card's dense `csr_fused` path
+  sparse_mesh_parity the same graph on a (4, 1) sparse mesh at M=16
+            against the CPU float64 sharded fit (LLH within 1e-4); a cap
+            of 8 that overflows every step (comm_dense 1, each allreduce
+            bit for bit the psum of its inputs) beside the psum build;
+            a checkpoint at 2 restored bit for bit and resumed, beside
+            two uninterrupted fits
   vmem_parity the same graph on `pallas_vmem`: 5 steps on the card against
             the port's CPU `xla` path in float64
   ring_main `cli fit --mesh 1,1 --schedule ring` on the same file,
@@ -400,7 +432,8 @@ and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
 version, kernel / plain time, the card's lower bound for the same work;
 fused_superstep's row adds its launches in quality_full and in
-quality_parity's three fits)
+quality_parity's three fits, member_lookup's in sparse_mesh_full and
+sparse_mesh_local)
 and, last, {"ok": true, "device": {...}}. The ring, mesh and store
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
@@ -446,6 +479,7 @@ TIE = 1e-5
 LLH_RTOL = 1e-4
 
 DEVICE = "cuda"
+CARD = {}                 # the card line of phase_card, stamped on later phases
 FULL = dict(n=300_000, k=1000, p_in=0.1, seed=1)
 ODD = dict(n=400, k=37, blocks=20, p_in=0.3, isolated=5, seed=3)
 HUB = dict(n=800, blocks=40, p_in=0.3, degrees=(100, 700), isolated=5, seed=5)
@@ -1244,6 +1278,7 @@ def phase_card() -> dict:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    CARD["nvidia_smi"] = smi
     return {
         "nvidia_smi": smi,
         "torch": torch.__version__,
@@ -2365,6 +2400,390 @@ def phase_sparse_parity(tmp) -> dict:
             if r > LLH_RTOL:
                 raise AssertionError(f"M=K sparse LLH {a} vs dense csr_fused {d}")
             out[f"m{m}"].update(dense_llh=d, max_rel_vs_dense=r)
+    return out
+
+
+# --- the sparse sharded trainer (parallel/sparse_sharded.py) ----------------
+
+SPARSE_MESH_ODD_DP = 3        # uneven: the odd graph pads to 3 x 136 rows
+SPARSE_MESH_ODD_CASES = ((1000, 37), (1000, 64), (1100, 1024))   # (K, M)
+SPARSE_MESH_DP = 4            # sparse_mesh_full: --mesh 4,1 on one card
+# com-youtube's shape (SNAP: 1,134,890 nodes, K = 8,385 in the reference's
+# v3 regime): planted blocks of 135 nodes, 2,915 nodes in none
+SPARSE_LOCAL = dict(n=1_134_890, k=8_385, p_in=0.04, seed=19)
+SPARSE_LOCAL_DP = 8
+SPARSE_LOCAL_STEPS = 5        # steps 0..5 (6 steps run)
+# the community-local init's weight: at weight 1 a block's sumF (135) puts
+# 8,384 x 135^2 into the off-support part of ||grad||^2, and under the
+# dense Armijo rule the sparse step keeps no row takes a step that moves a
+# float32 weight (sparse_mesh_local shows it); at 0.05 the ascent moves
+SPARSE_LOCAL_W = 0.05
+SPARSE_MESH_PARITY_M = 16
+SPARSE_MESH_PARITY_CAP = 8    # overflows every step (K = 100, M = 16)
+
+
+@contextlib.contextmanager
+def member_spy(check, tag):
+    """Every member-lookup launch the block makes, held against the plain
+    version on the same arguments (the gathered rows, the offset source
+    ids), bit for bit. Yields the count of checked launches."""
+    from bigclam_tpu_torch.ops import sparse_members as sm
+
+    orig = sm.member_lookup_rows
+    seen = [0]
+
+    def spy(ids, w, s, d, k_pad):
+        got = orig(ids, w, s, d, k_pad)
+        check.equal(tag, got, sm.member_lookup_rows_plain(ids, w, s, d, k_pad))
+        seen[0] += 1
+        return got
+
+    # the wrapper counts its launches on the module's name
+    spy.launches = orig.launches
+    sm.member_lookup_rows = spy
+    try:
+        yield seen
+    finally:
+        sm.member_lookup_rows = orig
+        orig.launches = spy.launches
+
+
+def mesh_member_launches(model, steps: int) -> int:
+    """Member-lookup launches of `steps` steps of a sparse mesh: one per
+    edge chunk of each shard in each of the two edge sweeps."""
+    return steps * sum(2 * -(-int(e.src.shape[0]) // e.chunk) for e in model.edges)
+
+
+def check_allreduce(vals, pres, devices, k_pad) -> dict:
+    """The sparse allreduce in its sparse mode (a cap at the worst shard's
+    count), its static-psum form and its overflow fallback (cap 8), each
+    bit for bit the psum helper's sum, with their counters."""
+    from bigclam_tpu_torch.parallel import sparse_collectives as sc
+    from bigclam_tpu_torch.parallel.sharded import psum
+
+    ref = psum(vals, devices)[0]
+    worst = max(int(p.sum()) for p in pres)
+    if worst <= 8:
+        raise AssertionError(f"{worst} touched ids: a cap of 8 cannot overflow")
+    runs = {
+        "sparse": sc.sparse_allreduce_sum(
+            vals, pres, min(-(-worst // 8) * 8, k_pad), k_pad, devices),
+        "psum": sc.psum_allreduce_sum(vals, pres, devices),
+        "overflow": sc.sparse_allreduce_sum(vals, pres, 8, k_pad, devices),
+    }
+    out = {"touched_max": worst}
+    for name, (sums, cnt, fb) in runs.items():
+        want_fb = int(name != "sparse")
+        if not torch.equal(sums[0], ref) or (int(cnt), int(fb)) != (worst, want_fb):
+            raise AssertionError(f"sparse allreduce {name}: count {int(cnt)}, "
+                                 f"fallback {int(fb)}, bits equal "
+                                 f"{torch.equal(sums[0], ref)}")
+        out[name] = {"bit_equal_psum": True, "count": int(cnt), "fallback": int(fb)}
+    return out
+
+
+def random_members(g, k: int, m: int, seed: int) -> np.ndarray:
+    """A dense (N, k) init with about m + 5 positive entries a row (the
+    top-M cut truncates), weights from uniform(0.001, 0.01): small enough
+    that the two steps keep the member lists (from uniform(0.05, 0.5) the
+    K = 1,100, M = 1,024 case lost every member)."""
+    rng = np.random.default_rng(seed)
+    F0 = np.zeros((g.num_nodes, k))
+    width = min(m + 5, k)
+    cols = np.argsort(rng.random((g.num_nodes, k)), axis=1)[:, :width]
+    np.put_along_axis(F0, cols, rng.uniform(0.001, 0.01, cols.shape), axis=1)
+    return F0
+
+
+def phase_sparse_mesh_odd() -> dict:
+    """The member kernel through the sweeps of an uneven dp = 3 sparse
+    mesh (the lookups read the gathered rows with the shard's source ids
+    offset), bit for bit its plain version on every launch of two steps
+    (support updates included), on the odd and hub graphs at (K, M) =
+    (1000, 37), (1000, 64) and (1100, 1024); then the sparse allreduce of
+    the stepped shards' sumF in its three forms against the psum."""
+    from bigclam_tpu_torch.ops import sparse_members as sm
+    from bigclam_tpu_torch.parallel import SparseShardedBigClamModel
+
+    graphs = {"odd": odd_graph(), "hub": hub_graph()}
+    check = Check("member_lookup")
+    out = {"card": CARD.get("nvidia_smi"), "dp": SPARSE_MESH_ODD_DP}
+    for gname, g in graphs.items():
+        for k, m in SPARSE_MESH_ODD_CASES:
+            tag = f"{gname}_k{k}_m{m}"
+            model = SparseShardedBigClamModel(
+                g, sparse_cfg(k, m), repeated_mesh(SPARSE_MESH_ODD_DP))
+            if not model.engaged_path.startswith("sparse_merge_pallas_"):
+                raise AssertionError(f"{tag}: ran {model.engaged_path}")
+            state = model.init_state(random_members(g, k, m, k + m))
+            with member_spy(check, tag) as seen:
+                for _ in range(2):
+                    state = model._step(state)
+            torch.cuda.synchronize()
+            if seen[0] != mesh_member_launches(model, 2):
+                raise AssertionError(f"{tag}: {seen[0]} lookups checked")
+            vals = [sm.sparse_sumF(i, w, k) for i, w in zip(state.ids, state.F)]
+            pres = [sm.presence(i, k) for i in state.ids]
+            out[tag] = {
+                "n_pad": model.n_pad, "block_b": model.block_b, "m": model.m,
+                "path": model.engaged_path, "lookups_checked": seen[0],
+                "shard_edges": [int(e.src.shape[0]) for e in model.edges],
+                "allreduce": check_allreduce(vals, pres, model.devices, k),
+            }
+    out["kernels"] = {"member_lookup": check.parts}
+    return check, out
+
+
+def phase_sparse_mesh_full(g, gi, path, F0, sp_main) -> tuple:
+    """`cli fit --mesh 4,1 --representation sparse --sparse-m 64` at full,
+    the four positions on one card: the path and its exchange mode,
+    member-lookup launches against the schedule, the LLH against
+    sparse_main's one-card history, sec_per_iter beside it, peak device
+    memory against the fit's model (check_peak), the counted comms bytes
+    against the model; one step timed whole and split."""
+    from bigclam_tpu_torch.parallel import SparseShardedBigClamModel
+    from bigclam_tpu_torch.utils.profiling import step_split
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, _, counts, state = run_path(g, path, FULL["k"], [
+        "--max-iters", "5", "--representation", "sparse",
+        "--sparse-m", str(SPARSE_M), "--mesh", f"{SPARSE_MESH_DP},1"])
+    peak = torch.cuda.max_memory_allocated() - base
+    want_path = "sparse_merge_pallas_" + (
+        "spall" if out["sparse_comm"] == "sparse" else "psum")
+    if (out["kernel_path"], out.get("mesh")) != (want_path, f"{SPARSE_MESH_DP}x1"):
+        raise AssertionError(f"ran {out['kernel_path']} on {out.get('mesh')}")
+    modeled = out["hbm_modeled_bytes"]
+    ratio = check_peak("sparse mesh", peak, modeled, 1)
+    model = SparseShardedBigClamModel(gi, sparse_cfg(FULL["k"], SPARSE_M),
+                                      repeated_mesh(SPARSE_MESH_DP))
+    want = dict.fromkeys(counts, 0)
+    want["member_lookup"] = mesh_member_launches(model, out["steps"])
+    if counts != want:
+        raise AssertionError(f"sparse mesh launches {counts}, want {want}")
+    hist = out["llh_history"]
+    rel = llh_rel(hist, sp_main["llh_history"])
+    if rel > LLH_RTOL:
+        raise AssertionError(f"sparse mesh LLH {hist} vs one card "
+                             f"{sp_main['llh_history']}")
+    if not hist[-1] > hist[0]:
+        raise AssertionError(f"LLH did not increase: {hist}")
+    model.init_state(F0)                  # the fit's cap refinement
+    comms = model.comms_measured(state)
+    if comms["counted_sites"] != model.comms.site_bytes():
+        raise AssertionError(f"counted {comms['counted_sites']} vs modeled "
+                             f"{model.comms.site_bytes()}")
+    state = model._step(state)
+    whole = statistics.median(time_ms(lambda: model._step(state), 3))
+    with step_split() as parts:
+        model._step(state)
+    return counts, {
+        "card": CARD.get("nvidia_smi"), "kernel_path": out["kernel_path"],
+        "mesh": out["mesh"], "sparse_comm": out["sparse_comm"],
+        "sparse_comm_cap": out["sparse_comm_cap"],
+        "path_reason": out["kernel_path_reason"],
+        "llh_history": hist, "max_rel_vs_sparse_main": rel,
+        "steps": out["steps"], "sec_per_iter": out["sec_per_iter"],
+        "sparse_main_sec_per_iter": sp_main["sec_per_iter"],
+        "launches": counts, "peak_gb_measured": peak / 1e9,
+        "peak_gb_modeled": modeled / 1e9, "peak_modeled_over_measured": ratio,
+        "comms_bytes_per_step": out.get("comms_bytes_per_step"),
+        "comms_counted": comms, "n_pad": model.n_pad, "block_b": model.block_b,
+        "shard_edges": [int(e.src.shape[0]) for e in model.edges],
+        "step_ms": whole, "split_ms": parts, "stage_seconds": out["stage_seconds"],
+    }
+
+
+def local_state(model, in_blocks: int, size: int, weight: float):
+    """The community-local state of sparse_mesh_local: node u < in_blocks
+    a member of block u // size only, at `weight`; entered through the
+    hooks init_state calls after from_dense."""
+    k = model.k_pad
+    ids = np.full((model.n_pad, model.m), k, np.int32)
+    w = np.zeros((model.n_pad, model.m), np.float32)
+    ids[:in_blocks, 0] = np.arange(in_blocks) // size
+    w[:in_blocks, 0] = weight
+    model._on_init_sparsified(ids)
+    return model.reset_state(*model._place(ids, w))
+
+
+def phase_sparse_mesh_local() -> tuple:
+    """The sparse exchange at com-youtube's shape: planted blocks of 135
+    nodes at K = 8,385 on --mesh 8,1 of one card, M = 64, a
+    community-local init through the hooks init_state calls after
+    from_dense (no dense 1,134,890 x 8,385 F0 on the host). The path must
+    end in `_spall`, every step exchange fewer than K/2 ids with no
+    fallback, and the LLH rise; the cap, the counted comms bytes against
+    the model, sec_per_iter, peak device memory beside the dense F's."""
+    from bigclam_tpu_torch.models.agm import sample_planted_graph
+    from bigclam_tpu_torch.parallel import SparseShardedBigClamModel
+
+    c = SPARSE_LOCAL
+    t0 = time.perf_counter()
+    g, truth = sample_planted_graph(c["n"], c["k"], p_in=c["p_in"],
+                                    rng=np.random.default_rng(c["seed"]))
+    sample_s = time.perf_counter() - t0
+    size = len(truth[0])
+    in_blocks = sum(len(t) for t in truth)
+    t0 = time.perf_counter()
+    cfg = sparse_cfg(c["k"], SPARSE_M, max_iters=SPARSE_LOCAL_STEPS, conv_tol=0.0)
+    model = SparseShardedBigClamModel(g, cfg, repeated_mesh(SPARSE_LOCAL_DP))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = local_state(model, in_blocks, size, SPARSE_LOCAL_W)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not model.engaged_path.endswith("_spall"):
+        raise AssertionError(f"ran {model.engaged_path} (cap {model.comm_cap})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    hist, comm = [], []
+    t0 = time.perf_counter()
+    for _ in range(SPARSE_LOCAL_STEPS + 1):
+        state = model._step(state)
+        hist.append(float(state.llh))
+        comm.append(model.last_comm(state))
+    loop_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(fb or ex >= c["k"] / 2 for ex, fb in comm):
+        raise AssertionError(f"exchanges {comm} (K = {c['k']})")
+    want = dict.fromkeys(counts, 0)
+    want["member_lookup"] = mesh_member_launches(model, len(hist))
+    if counts != want:
+        raise AssertionError(f"sparse mesh launches {counts}, want {want}")
+    if not (all(math.isfinite(v) for v in hist) and hist[-1] > hist[0]):
+        raise AssertionError(f"LLH history {hist}")
+    comms = model.comms_measured(state)
+    if comms["counted_sites"] != model.comms.site_bytes():
+        raise AssertionError(f"counted {comms['counted_sites']} vs modeled "
+                             f"{model.comms.site_bytes()}")
+    # the same blocks at weight 1: the LLH does not move (the histogram of
+    # accepted steps shows the largest step each row takes)
+    del state
+    state = local_state(model, in_blocks, size, 1.0)
+    at_one = []
+    for _ in range(2):
+        state = model._step(state)
+        at_one.append({"llh": float(state.llh),
+                       "accept_hist": state.accept_hist.tolist()})
+    del state
+    return counts, {
+        "card": CARD.get("nvidia_smi"), "n": g.num_nodes,
+        "undirected_edges": g.num_edges, "blocks": len(truth),
+        "block_size": size, "nodes_in_no_block": g.num_nodes - in_blocks,
+        "k": c["k"], "m": model.m, "dp": SPARSE_LOCAL_DP, "init_weight": SPARSE_LOCAL_W,
+        "kernel_path": model.engaged_path, "comm_cap": model.comm_cap,
+        "comm_mode": model.comm_mode, "path_reason": model.path_reason,
+        "exchanged_ids_by_step": [ex for ex, _ in comm],
+        "llh_history": hist, "sec_per_iter": loop_s / len(hist),
+        "at_weight_1": at_one,
+        "launches": counts, "comms_bytes_per_step_modeled": model.comms.bytes_per_step(),
+        "comms_counted": comms, "peak_gb_measured": peak / 1e9,
+        "peak_gb_modeled": model.memory.hbm_bytes() / 1e9,
+        "dense_F_gb": 4 * g.num_nodes * c["k"] / 1e9,
+        "sample_s": sample_s, "model_build_s": build_s, "upload_s": upload_s,
+        "n_pad": model.n_pad, "block_b": model.block_b,
+    }
+
+
+def phase_sparse_mesh_parity(tmp) -> dict:
+    """The parity graph on a (4, 1) sparse mesh of the card against the
+    CPU float64 sharded fit (LLH within 1e-4); a cap of 8 that overflows
+    every step (comm_dense 1, every allreduce bit for bit the psum of its
+    inputs) beside the psum build; a checkpoint's restored state bit for
+    bit the saved one, and the resumed history against the uninterrupted
+    fit (the card's index_add_ order varies between runs: two
+    uninterrupted fits are set beside it)."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.parallel import SparseShardedBigClamModel, make_mesh
+    from bigclam_tpu_torch.parallel import sparse_sharded as ss
+    from bigclam_tpu_torch.parallel.sharded import psum
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    path = os.path.join(tmp, "sparse_mesh_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    k, m = PARITY["k"], SPARSE_MESH_PARITY_M
+    cfg = sparse_cfg(k, m, max_iters=4, conv_tol=0.0)
+    F0 = cli.init_F(g, sparse_cfg(k, k), "conductance")
+    mesh = repeated_mesh(SPARSE_MESH_DP)
+    card = SparseShardedBigClamModel(g, cfg, mesh)
+    cpu = SparseShardedBigClamModel(
+        g, cfg.replace(dtype="float64"),
+        make_mesh((SPARSE_MESH_DP, 1), [torch.device("cpu")] * SPARSE_MESH_DP))
+    reset_launch_counts()
+    a = card.fit(F0).llh_history
+    launches = launch_counts()["member_lookup"]
+    if launches != mesh_member_launches(card, len(a)):
+        raise AssertionError(f"{launches} member launches for {len(a)} steps")
+    b = cpu.fit(F0).llh_history
+    if (card.engaged_path[:20], cpu.engaged_path[:11]) != (
+            "sparse_merge_pallas_", "sparse_xla_"):
+        raise AssertionError((card.engaged_path, cpu.engaged_path))
+    rel = llh_rel(a, b)
+    if rel > LLH_RTOL:
+        raise AssertionError(f"card LLH {a} vs cpu float64 {b}")
+    out = {"card": CARD.get("nvidia_smi"), "n": g.num_nodes, "k": k, "m": m,
+           "path": card.engaged_path, "comm_cap": card.comm_cap,
+           "gpu_llh": a, "cpu_f64_llh": b, "max_rel": rel, "launches": launches}
+
+    # the overflow build: every allreduce falls back, bit for bit the psum
+    over = SparseShardedBigClamModel(
+        g, cfg.replace(sparse_comm_cap=SPARSE_MESH_PARITY_CAP), mesh)
+    orig = ss.sparse_allreduce_sum
+    calls = []
+
+    def spy(vals, pres, cap, k_pad, devices):
+        sums, cnt, fb = orig(vals, pres, cap, k_pad, devices)
+        calls.append((int(fb), torch.equal(sums[0], psum(vals, devices)[0])))
+        return sums, cnt, fb
+
+    ss.sparse_allreduce_sum = spy
+    try:
+        state = over.init_state(F0)
+        hist_over, flags = [], []
+        for _ in range(5):
+            state = over._step(state)
+            hist_over.append(float(state.llh))
+            flags.append(over.last_comm(state))
+    finally:
+        ss.sparse_allreduce_sum = orig
+    if (over.comm_cap, over.comm_mode) != (SPARSE_MESH_PARITY_CAP, "sparse") or \
+            not all(fb for _, fb in flags) or calls != [(1, True)] * 10:
+        raise AssertionError(f"overflow build: cap {over.comm_cap} "
+                             f"{over.comm_mode}, counters {flags}, calls {calls}")
+    ps = SparseShardedBigClamModel(g, cfg.replace(sparse_dense_fallback=0.0), mesh)
+    hist_psum = [ps.fit(F0).llh_history for _ in range(2)]
+    out["overflow"] = {
+        "comm_cap": over.comm_cap, "counters": flags, "allreduces_checked": len(calls),
+        "llh": hist_over, "psum_llh": hist_psum[0],
+        "vs_psum": history_match(hist_over, hist_psum[0], SPARSE_RESUME_RTOL),
+        "two_psum_fits_bit_identical": list(hist_psum[0]) == list(hist_psum[1]),
+    }
+
+    # resume: the restored state is the saved one, bit for bit
+    cm = CheckpointManager(os.path.join(tmp, "sparse_mesh_ck"))
+    SparseShardedBigClamModel(g, cfg.replace(max_iters=2, checkpoint_every=2),
+                              mesh).fit(F0, checkpoints=cm)
+    step, saved, _ = cm.restore()
+    restored, _ = card._restore(cm)
+    back = card._state_to_arrays(restored)
+    same = {key: bool(np.array_equal(back[key], saved[key]))
+            for key in ("F", "ids", "llh", "it")}
+    if not all(same.values()) or step != 2:
+        raise AssertionError(f"restored state vs saved: {same} (step {step})")
+    resumed = card.fit(F0, checkpoints=cm).llh_history
+    again = card.fit(F0).llh_history
+    out["resume"] = {"resumed_from": step, "restored_bit_for_bit": same,
+                     **history_match(resumed, a, SPARSE_RESUME_RTOL),
+                     "two_fits_bit_identical": list(a) == list(again),
+                     "two_fits_max_rel": llh_rel(list(a), list(again))}
     return out
 
 
@@ -5824,6 +6243,7 @@ def main(argv=None) -> int:
     run("odd", phase_odd)
     ring_odd_checks, _ = run("ring_odd", phase_ring_odd)
     run("sparse_odd", phase_sparse_odd)
+    sm_odd_check, _ = run("sparse_mesh_odd", phase_sparse_mesh_odd)
     run("vmem_odd", phase_vmem_odd)
     run("host_odd", phase_host_odd)
     run("quality_odd", phase_quality_odd)
@@ -5850,9 +6270,12 @@ def main(argv=None) -> int:
                        F0, main_out)
         run("obs_memory", phase_obs_memory, gi, F0, "full")
         run("obs_profile", phase_obs_profile, gi, path, "full", F0)
-        state, sparse_counts, _ = run("sparse_main", phase_sparse_main, g, path)
+        state, sparse_counts, sp_main = run("sparse_main", phase_sparse_main, g, path)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
         del state
+        sm_full_counts, _ = run("sparse_mesh_full", phase_sparse_mesh_full, g, gi,
+                                path, F0, sp_main)
+        sm_local_counts, _ = run("sparse_mesh_local", phase_sparse_mesh_local)
         res, vmem_counts, _ = run("vmem_main", phase_vmem_main, g, path, main_hist)
         vm_checks, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
         del res
@@ -5887,6 +6310,7 @@ def main(argv=None) -> int:
         q_parity = run("quality_parity", phase_quality_parity, tmp)
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
+        run("sparse_mesh_parity", phase_sparse_mesh_parity, tmp)
         run("vmem_parity", phase_vmem_parity, tmp)
         run("sweep_parity", phase_sweep_parity, tmp)
         run("mesh_parity", phase_mesh_parity, tmp)
@@ -5929,6 +6353,8 @@ def main(argv=None) -> int:
     sel = vm_checks["armijo_tail_select"]
     sel.max_abs = max(sel.max_abs, ring_checks["armijo_tail_select"].max_abs)
     sel.max_rel = max(sel.max_rel, ring_checks["armijo_tail_select"].max_rel)
+    # the member lookups of the dp = 3 sparse mesh count toward its error
+    sp_check.max_abs = max(sp_check.max_abs, sm_odd_check.max_abs)
     for name, c in kbmesh_odd_checks.items():
         # the window kernels' F_dst, directed and accumulate comparisons
         kb_checks[name].max_abs = max(kb_checks[name].max_abs, c.max_abs)
@@ -5966,6 +6392,9 @@ def main(argv=None) -> int:
                 "launches_quality_parity": {
                     k: v["launches"] for k, v in q_parity["runs"].items()}}
                if name == "fused_superstep" else {}),
+            **({"launches_sparse_mesh_full": sm_full_counts[name],
+                "launches_sparse_mesh_local": sm_local_counts[name]}
+               if name == "member_lookup" else {}),
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name]}
                if name in (*RING, "armijo_tail_select") else {}),

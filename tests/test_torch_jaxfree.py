@@ -3,8 +3,9 @@ a fresh interpreter imports every module of bigclam_tpu_torch (the
 non-CSR candidate kernel's ops.edge_kernels, the K sweep's
 models.model_selection, the graph store's graph.stream and graph.store,
 the serving stack's ops.foldin, serve.* and models.refit, quality mode's
-ops.components and models.quality, and the observability and resilience
-modules among them) and runs every
+ops.components and models.quality, the sparse sharded trainer's
+parallel.sparse_collectives and parallel.sparse_sharded, and the
+observability and resilience modules among them) and runs every
 subcommand's `--help`, then finds no jax and no bigclam_tpu module
 loaded; a static scan finds no such import in any port file or in
 chip_smoke.py; and the graph stream's spawned parse workers load neither
@@ -54,7 +55,9 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "obs.memory", "obs.ledger", "obs.report", "obs.watch",
                      "graph.stream", "graph.store", "ops.foldin",
                      "serve.snapshot", "serve.batcher", "serve.server",
-                     "models.refit", "ops.components", "models.quality"):
+                     "models.refit", "ops.components", "models.quality",
+                     "parallel.sparse_collectives",
+                     "parallel.sparse_sharded"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules

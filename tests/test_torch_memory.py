@@ -176,7 +176,7 @@ def test_preflight_com_youtube_dense_names_sparse(capsys):
     ["--store-native"],
     ["--device-kind", "NVIDIA A100-SXM4-80GB"],
     ["--mesh", "1,2", "--representation", "sparse"],
-    ["--mesh", "2,1", "--representation", "sparse"],
+    ["--mesh", "2,1", "--representation", "sparse", "--schedule", "ring"],
     ["--mesh", "2,2", "--partition", "2d"],
 ])
 def test_preflight_refuses_what_the_port_does_not_run(capsys, flags):

@@ -407,15 +407,19 @@ def test_cli_fit_ring_mesh_matches_jax_cli(edge_file):
     "extra, error, words",
     [
         (["--mesh", "2,2", "--distributed"], SystemExit, "item 14"),
-        (["--mesh", "2,1", "--representation", "sparse"], SystemExit, "item 16"),
-        (["--mesh", "1,2", "--representation", "sparse"], SystemExit, "item 16"),
+        (["--mesh", "2,1", "--representation", "sparse"], SystemExit,
+         "--schedule ring is not supported with --representation sparse"),
+        (["--mesh", "1,2", "--representation", "sparse"], SystemExit,
+         "--schedule ring is not supported with --representation sparse"),
     ],
 )
 def test_cli_mesh_refusals(edge_file, extra, error, words):
     """What a mesh still refuses by name: --distributed (multi-process
-    meshes, the rest of item 14) and a sparse mesh (item 16). A K-sharded
-    mesh and K above 1,024 on a mesh, refused here before the TP split,
-    run: test_cli_fit_k_sharded_and_k_blocked_meshes."""
+    meshes, the rest of item 14), and on a sparse mesh the ring schedule,
+    with the JAX CLI's words (the sparse exchange is an all-gather of the
+    member rows). A K-sharded mesh and K above 1,024 on a mesh, refused
+    here before the TP split, run: test_cli_fit_k_sharded_and_k_blocked_meshes;
+    the sparse mesh itself: tests/test_torch_sparse_sharded.py."""
     argv = ["fit", "--graph", edge_file, "--max-iters", "2", "--device", "cpu",
             "--schedule", "ring"]
     if "--k" not in extra:
