@@ -27,6 +27,8 @@ against a ground truth (`f1`, `nmi`).
         --mesh 4,1 --schedule ring                             # csr_ring_fused
     python -m bigclam_tpu_torch.cli fit --graph g.txt --k 3000 \
         --mesh 2,2                                             # csr_fused_kb, K sharded
+    python -m bigclam_tpu_torch.cli fit --graph g.txt --k 1000 \
+        --mesh 4,1 --partition 2d --replica-cols 2             # csr_fused_2d, 2x2 grid
     python -m bigclam_tpu_torch.cli eval --pred cmty.txt --truth truth.txt
     python -m bigclam_tpu_torch.cli ingest --graph g.txt --cache-dir g.cache \
         --shards 4                                             # graph store
@@ -76,7 +78,13 @@ DP node shards with the capped sparse allreduce of sumF
 `sparse_comm_cap`); with sparse, `--schedule ring`, TP > 1, `--balance`,
 `--store-native`, `--quality` and `--partition 2d` are refused with the
 JAX CLI's words. `--distributed` (multi-process meshes, ROADMAP item 14)
-and `--partition 2d` (item 17) are refused by name.
+is refused by name. `--mesh P,1 --partition 2d [--replica-cols C]` trains
+the 2D edge-block partition on a (P / C, C) grid (parallel/twod.py: path
+`csr_fused_2d`, `csr_fused_2d_kb` above K = 1,024, `xla_2d` on the CPU;
+`--store-native` from a cache of P shards); its JSON adds `replica_cols`
+and `grad_exchange`, and `mesh` is "rowsxcols". Without `--mesh`, with
+`--distributed`, sparse, `--schedule ring` or TP > 1 it is refused with
+the JAX CLI's words; `sweep` and `preflight` take the same flags.
 `--csr-kernels off` takes the non-CSR step: `pallas_vmem` (the candidate
 edge-terms CUDA kernel) on cuda, `xla` on the CPU. `--representation
 sparse` trains the top-M member lists of models.sparse instead of a dense
@@ -294,9 +302,17 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--partition", default="1d", choices=["1d", "2d"],
-        help="node partition of a --mesh run: 1d (node shards); 2d (the "
-             "edge-block closure schedule) is refused (ROADMAP queue 1 "
-             "item 17)",
+        help="node-axis partition for --mesh runs: 1d (default) shards "
+             "nodes dp ways and all-gathers F; 2d tiles the edge set over a "
+             "(rows, cols) grid — each position gathers only its row "
+             "group's src blocks plus the capped closure rows its edges "
+             "touch",
+    )
+    p.add_argument(
+        "--replica-cols", type=int, default=1,
+        help="columns of the --partition 2d grid (rows = p / cols; must "
+             "divide the position count; 1 reproduces the 1d trajectory "
+             "bit-for-bit on the 2d schedule)",
     )
     p.add_argument(
         "--checkpoint-every", type=int, default=0,
@@ -886,9 +902,14 @@ def _add_obs_parsers(sub) -> None:
     pf.add_argument("--store-native", action="store_true",
                     help="price the store-native mesh (a shard file per "
                          "mesh position, no host-global CSR)")
-    pf.add_argument("--partition", default="1d", choices=["1d", "2d"],
-                    help="2d is refused (ROADMAP item 17)")
-    pf.add_argument("--replica-cols", type=int, default=1)
+    pf.add_argument(
+        "--partition", default="1d", choices=["1d", "2d"],
+        help="price the 1d all-gather layout or the 2d closure-gather "
+             "layout (a 1d does-not-fit verdict names --partition 2d when "
+             "it would relax the binding gather)",
+    )
+    pf.add_argument("--replica-cols", type=int, default=1,
+                    help="columns of the --partition 2d grid (rows = p / cols)")
     pf.add_argument("--health-every", type=int, default=10)
     pf.add_argument("--max-backtracks", type=int, default=15)
     pf.add_argument("--edge-chunk", type=int, default=None)
@@ -917,13 +938,13 @@ def _add_obs_parsers(sub) -> None:
 def config_from_args(args):
     from bigclam_tpu_torch.config import BigClamConfig
 
+    refuse_partition_2d(args)
     if getattr(args, "distributed", False):
         raise SystemExit(
             "error: --distributed is not ported yet (ROADMAP queue 1 item 14: "
             "multi-process meshes over torch.distributed); --mesh DP,TP runs "
             "the mesh from one process"
         )
-    refuse_partition_2d(args)
     sweep = args.command == "sweep"
     checkpoint_every = args.checkpoint_every
     if not sweep and args.checkpoint_dir and checkpoint_every <= 0:
@@ -958,6 +979,8 @@ def config_from_args(args):
         representation=args.representation,
         sparse_m=args.sparse_m,
         support_every=args.support_every,
+        partition=getattr(args, "partition", "1d"),
+        replica_cols=max(getattr(args, "replica_cols", 1) or 1, 1),
         **(dict(min_com=args.min_com, max_com=args.max_com,
                 div_com=args.div_com, ksweep_tol=args.ksweep_tol)
            if sweep else {}),
@@ -980,9 +1003,19 @@ SPARSE_RING_REFUSAL = (
 )
 
 
+RING_2D_REFUSAL = (
+    "error: --partition 2d is its own closure-gather schedule — each chip "
+    "gathers only the closure rows its edge block touches, so there is no "
+    "resident F ring to rotate (ring shards dst-F around the 1d node axis). "
+    "Alternatives: drop --schedule ring (2d replaces what ring saves), or "
+    "keep --schedule ring on the 1d mesh"
+)
+
+
 def refuse_partition_2d(args) -> None:
-    """--partition 2d is refused: with the JAX CLI's words where it has
-    them (no --mesh, a sparse mesh), else naming ROADMAP item 17."""
+    """The JAX CLI's refusals of --partition 2d, in its words and order:
+    no --mesh, --distributed (the 2D mesh is single-controller), a sparse
+    representation, the ring schedule, a K-sharded mesh (TP > 1)."""
     if getattr(args, "partition", "1d") != "2d":
         return
     if not args.mesh:
@@ -990,12 +1023,21 @@ def refuse_partition_2d(args) -> None:
             "error: --partition 2d needs --mesh p,1 (the 2D edge-block "
             "layout is a sharded schedule)"
         )
+    if getattr(args, "distributed", False):
+        raise SystemExit(
+            "error: --partition 2d is single-controller for now (the "
+            "multi-host 2D mesh rides the ROADMAP item 1 pod drill)"
+        )
     if args.representation == "sparse":
         raise SystemExit(SPARSE_2D_REFUSAL)
-    raise SystemExit(
-        "error: --partition 2d is not ported yet (ROADMAP queue 1 item 17: "
-        "the 2D edge-block partition); --mesh DP,TP runs the 1d partition"
-    )
+    if args.schedule == "ring":
+        raise SystemExit(RING_2D_REFUSAL)
+    if parse_mesh(args.mesh)[1] != 1:
+        raise SystemExit(
+            "error: --partition 2d needs --mesh p,1 — the k axis rides the "
+            "2D mesh unsharded (use --replica-cols to shape the (rows, "
+            "cols) grid)"
+        )
 
 
 def quality_config(args, cfg):
@@ -1072,7 +1114,8 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
     `store` (a GraphStore, --store-native) the store-backed trainer, one
     cache shard per mesh position; with --representation sparse the sparse
     sharded trainer on a (DP, 1) mesh (the ring schedule, TP > 1 and
-    --balance refused with the JAX CLI's words)."""
+    --balance refused with the JAX CLI's words); with cfg.partition "2d"
+    the 2D edge-block trainer on a (DP / C, C) grid, C = replica_cols."""
     import torch
 
     from bigclam_tpu_torch.parallel import (
@@ -1081,7 +1124,11 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
         SparseShardedBigClamModel,
         StoreRingBigClamModel,
         StoreShardedBigClamModel,
+        StoreTwoDShardedBigClamModel,
+        TwoDShardedBigClamModel,
         make_mesh,
+        make_mesh_2d,
+        twod_mesh_shape,
     )
     from bigclam_tpu_torch.utils.device import resolve_device
 
@@ -1102,12 +1149,20 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
         devices = [cards[i % len(cards)] for i in range(dp * tp)]
     else:
         devices = [dev] * (dp * tp)
+    if store is not None and balance:
+        raise SystemExit(
+            "error: --store-native takes balance from the cache; "
+            "re-ingest with `cli ingest --balance` instead of --balance"
+        )
+    if cfg.partition == "2d":
+        try:
+            grid = make_mesh_2d(twod_mesh_shape(cfg, dp), devices)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from None
+        if store is not None:
+            return StoreTwoDShardedBigClamModel(store, cfg, grid)
+        return TwoDShardedBigClamModel(g, cfg, grid, balance=balance)
     if store is not None:
-        if balance:
-            raise SystemExit(
-                "error: --store-native takes balance from the cache; "
-                "re-ingest with `cli ingest --balance` instead of --balance"
-            )
         cls = StoreRingBigClamModel if schedule == "ring" else StoreShardedBigClamModel
         return cls(store, cfg, make_mesh((dp, tp), devices))
     if cfg.representation == "sparse":
@@ -1341,6 +1396,17 @@ def close_telemetry(tel) -> None:
     uninstall(tel)
 
 
+def stamp_partition(out: dict, cfg, model) -> None:
+    """The 2D run's identity beside `partition`: its grid's cols and the
+    EFFECTIVE grad exchange the trainer resolved (the perf ledger's match
+    key reads it; absent on 1d models, as in the JAX JSON)."""
+    if cfg.partition == "2d":
+        out["replica_cols"] = cfg.replica_cols
+    gx = getattr(model, "grad_exchange", None)
+    if gx is not None:
+        out["grad_exchange"] = gx
+
+
 def stamp_models(out: dict, model) -> None:
     """The trainer's modeled device bytes (obs.memory) and, on a mesh, its
     modeled collective bytes a step (obs.comms), as the JAX fit JSON
@@ -1568,6 +1634,7 @@ def _fit(args, tel):
             out["sparse_comm_cap"] = model.comm_cap
     if args.mesh:
         out["mesh"] = model.mesh.label()
+    stamp_partition(out, cfg, model)
     stamp_models(out, model)
     if cfg.quality_mode:
         out["quality_cycles"] = state.num_cycles
@@ -1676,6 +1743,9 @@ def _sweep(args, callback, tel) -> dict:
         "edges": g.num_edges,
         "representation": cfg.representation,
     }
+    if args.mesh:
+        # the ledger's execution-shape key; each K builds its own model
+        out["mesh"] = args.mesh.replace(",", "x")
     if tel is not None:
         tel.set_final(out)
     return out
@@ -1876,6 +1946,7 @@ def _profile(args, tel) -> dict:
     }
     if mesh is not None:
         out["mesh"] = mesh.label()
+    stamp_partition(out, cfg, model)
     stamp_models(out, model)
     out["top_kernels"] = cap.kernels[:PROFILE_TOP]
     out["device_kind"] = _device_kind(model)
@@ -1979,7 +2050,8 @@ def watch(args) -> int:
 def preflight(args) -> int:
     """Capacity preflight (obs.memory.preflight) from workload numbers,
     without a card. Exit 0 fits, 2 does not fit, 1 bad input or a
-    configuration the port does not run (named with its ROADMAP item)."""
+    configuration the port does not run (named as the JAX preflight names
+    it)."""
     import os
 
     from bigclam_tpu_torch.config import BigClamConfig
@@ -1987,19 +2059,13 @@ def preflight(args) -> int:
 
     from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
 
-    refused = []
-    if args.partition == "2d":
-        refused.append("--partition 2d: the 2D partition is ROADMAP queue "
-                       "1 item 17")
     if args.store_native and not args.mesh:
-        refused.append("--store-native: the store trainers run on a mesh "
-                       "(pass --mesh DP,1)")
-    if refused:
-        for r in refused:
-            print(f"error: not ported yet: {r}", file=sys.stderr)
+        print("error: not ported yet: --store-native: the store trainers run "
+              "on a mesh (pass --mesh DP,1)", file=sys.stderr)
         return 1
     notes = []
     shard_counts = None
+    closure_pairs = None
     cache_shards = 0
     if args.graph and is_cache_dir(args.graph):
         # the exact numbers of the cache's manifest, no blob read
@@ -2008,6 +2074,10 @@ def preflight(args) -> int:
         directed = 2 * args.edges if args.edges else w["directed_edges"]
         shard_counts = w["shard_edge_counts"]
         cache_shards = w["num_shards"]
+        # baked closure pair counts: exact 2D closure pricing
+        cl = w.get("closure") or {}
+        if cl.get("baked"):
+            closure_pairs = cl.get("pair_counts")
     elif args.graph:
         if not os.path.isfile(args.graph):
             print(f"error: --graph {args.graph}: no such file or cache dir",
@@ -2039,6 +2109,10 @@ def preflight(args) -> int:
         dp, tp = parse_mesh(args.mesh)
     else:
         dp, tp = max(args.devices, 1), 1
+    if closure_pairs is not None and len(closure_pairs) != dp:
+        # pair counts are per cache shard: exact only when the shard grid
+        # is the trainer's (the 2D trainers require that)
+        closure_pairs = None
     if shard_counts:
         # the cache's per-shard counts summed into the trainer's dp groups
         # of contiguous shards (dp = 1: one device holds every shard)
@@ -2084,6 +2158,9 @@ def preflight(args) -> int:
             device_hbm_bytes=hbm, host_ram_bytes=host_ram,
             processes=max(args.processes, 1), chunk_bytes=args.chunk_bytes,
             shard_edge_counts=shard_counts, store_native=args.store_native,
+            partition=args.partition,
+            replica_cols=max(args.replica_cols or 1, 1),
+            closure_pair_counts=closure_pairs,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

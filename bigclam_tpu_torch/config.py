@@ -5,10 +5,10 @@ defaults and order, so a JAX config carries over unchanged with
 `BigClamConfig(**dataclasses.asdict(jax_cfg))`. The port reads the
 model, clipping, line-search, loop, K-sweep, seeding, quality-mode
 (models/quality.py), resilience, numerics, kernel-path, 1D-mesh (K
-sharding included) and sparse-representation fields (the sharded
-exchange's cap among them); the rest (the 2D partition) are carried for
-that round trip, and the entry points refuse the ones they cannot honour
-yet.
+sharding included), 2D-partition (`partition`, `replica_cols`,
+`grad_exchange`, `closure_grad_cap`: parallel/twod.py) and
+sparse-representation fields (the sharded exchange's cap among them);
+the TPU tile fields are carried for that round trip only.
 """
 
 from __future__ import annotations

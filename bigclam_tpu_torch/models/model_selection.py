@@ -25,10 +25,9 @@ columns so the padding columns stay zero); with device annealing as well,
 `fit_quality_device` salted with K, whose repair rounds checkpoint into
 state_dir/k_<K>/repair whatever cfg.checkpoint_every says.
 
-A mesh sweeps through `model_factory` (`cli sweep --mesh` passes fit's
-mesh factory, as the JAX CLI passes `_make_model`). Not ported yet, and
-refused by name (NotPortedError): the 2D partition (ROADMAP queue 1
-item 17).
+A mesh, and the 2D partition, sweep through `model_factory` (`cli sweep
+--mesh [--partition 2d]` passes fit's mesh factory, as the JAX CLI passes
+`_make_model`).
 """
 
 from __future__ import annotations
@@ -46,10 +45,6 @@ from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import BigClamModel, FitResult
 from bigclam_tpu_torch.ops import seeding
-
-
-class NotPortedError(NotImplementedError):
-    """A sweep option of the JAX package that the port does not have yet."""
 
 
 def build_kset(min_com: int, max_com: int, div_com: int) -> List[int]:
@@ -88,16 +83,6 @@ class SweepResult:
     best_fit: Optional[FitResult]  # fit at the last trained K
 
 
-def check_sweep_supported(cfg: BigClamConfig) -> None:
-    """Raise NotPortedError for the sweep options the port lacks."""
-    if cfg.partition != "1d":
-        raise NotPortedError(
-            f"partition={cfg.partition!r}: a sweep over the 2D partition is "
-            "not ported yet (ROADMAP queue 1 item 17); the port sweeps on a "
-            "1D mesh or one device"
-        )
-
-
 def sweep_k(
     g: Graph,
     cfg: BigClamConfig,
@@ -130,7 +115,6 @@ def sweep_k(
     the `seed_backend` scorer, its device backends on the model's device,
     or from `phi` (a graph cache's ingest-baked scores) where given.
     """
-    check_sweep_supported(cfg)
     kset = build_kset(cfg.min_com, cfg.max_com, cfg.div_com)
     k_max = kset[-1]
     cfg_max = cfg.replace(num_communities=k_max)

@@ -20,6 +20,14 @@ conventions are the port's own, because its collectives are not JAX's:
   receives its successor's rotating shard: p * s bytes a hop, and a
   rotation of p phases makes p - 1 hops (the hop that would only bring
   each shard home is not made).
+* **all_to_all** and **psum_scatter** (parallel/twod.py: the closure
+  exchange, the touched-rows grad exchange, the candidate and LLH
+  scatters): an s-byte buffer a position, split in p slices, of which
+  every position receives the p - 1 slices meant for it from the others:
+  (p - 1) * s bytes. A 2D site runs once per group of its axis (C groups
+  of R positions over rows, R of C over cols), so its count is the JAX
+  count times the groups, and the port's total is p times the JAX
+  model's per-device figure.
 
 `bytes_per_step` is the TOTAL over mesh positions (not per device, as the
 JAX model prices it): the port runs single-controller, and the counter
@@ -69,6 +77,8 @@ def wire_bytes(op: str, payload_bytes: float, participants: int) -> float:
         return float(payload_bytes) * p
     if op in ("psum", "pmax"):
         return 2.0 * float(payload_bytes) * (p - 1)
+    if op in ("all_to_all", "psum_scatter"):
+        return float(payload_bytes) * (p - 1)
     raise ValueError(f"unknown collective op {op!r}")
 
 
@@ -110,7 +120,7 @@ class Site:
 class CommsModel:
     """The static bytes-per-step model one trainer baked at step build."""
 
-    family: str                  # sharded | ring | sparse
+    family: str                  # sharded | ring | sparse | twod
     model: str                   # trainer class name
     sites: Tuple[Site, ...]
     params: Dict[str, Any]       # the shape arithmetic inputs
@@ -322,6 +332,92 @@ def sparse_step_model(
                 "itemsize": itemsize, "cap": cap, "mode": mode,
                 "support_every": sup},
     )
+
+
+def twod_step_model(
+    n_pad: int,
+    k_pad: int,
+    rows: int,
+    cols: int,
+    itemsize: int,
+    num_candidates: int,
+    closure_cap: int = 1,
+    llh_itemsize: Optional[int] = None,
+    model: str = "TwoDShardedBigClamModel",
+    row_bytes: Optional[float] = None,
+    grad_exchange: str = "dense",
+    grad_cap: int = 0,
+    fused: bool = False,
+) -> CommsModel:
+    """Collective sites of the port's 2D step (parallel/twod.py), JAX's
+    site names and payloads: the row group's source-row all-gather over
+    cols, the capped closure all-to-all over rows, the grad reduction over
+    cols (the dense psum of the (n_row, K) band, or the touched-rows
+    exchange: two all-to-alls of (cols, grad_cap, K) buffers, the pmax of
+    the counts over cols and the counters' pmax over rows; nothing at
+    grad_cap 0), the psum_scatters of the candidate and LLH sums, the
+    sumF psums and the scalars. `row_bytes` overrides the per-row width of
+    the gather and the closure exchange (the preflight's sparse pricing).
+    A site over one axis runs once per group of the other (count x
+    groups); the health pack's scalars are not modeled (they move outside
+    the helpers). `fused` changes compute, not collectives."""
+    p = max(rows * cols, 1)
+    n_blk = n_pad // p
+    n_row = cols * n_blk
+    rb = float(row_bytes) if row_bytes else float(k_pad * itemsize)
+    li = llh_itemsize or itemsize
+    sites = [
+        Site("twod/allgather_srcF", "all_gather", n_blk * rb, rows, cols,
+             "gather", "cols"),
+        Site("twod/alltoall_closure", "all_to_all", rows * closure_cap * rb,
+             cols, rows, "exchange", "rows"),
+    ]
+    if grad_exchange == "closure":
+        if grad_cap > 0:
+            sites += [
+                Site("twod/alltoall_grad_closure", "all_to_all",
+                     cols * grad_cap * k_pad * itemsize, 2 * rows, cols,
+                     "exchange", "cols"),
+                Site("twod/pmax_grad_count", "pmax", 4, rows, cols,
+                     "exchange", "cols"),
+                Site("twod/pmax_grad_count_rows", "pmax", 4, 2 * cols, rows,
+                     "exchange", "rows"),
+            ]
+    else:
+        sites.append(Site("twod/psum_grad", "psum", n_row * k_pad * itemsize,
+                          rows, cols, "reduce", "cols"))
+    sites += [
+        Site("twod/psum_scatter_cand", "psum_scatter",
+             num_candidates * n_row * itemsize, rows, cols, "reduce", "cols"),
+        Site("twod/psum_scatter_nbr_llh", "psum_scatter", n_row * li, rows,
+             cols, "reduce", "cols"),
+        Site("twod/psum_sumF", "psum", k_pad * itemsize, 2, p, "reduce",
+             "mesh"),
+        Site("twod/psum_scalars", "psum", _scalar_payload(li, num_candidates),
+             1, p, "reduce", "mesh"),
+    ]
+    return CommsModel(
+        family="twod", model=model, sites=tuple(sites),
+        params={"n_pad": n_pad, "k_pad": k_pad, "rows": rows, "cols": cols,
+                "itemsize": itemsize, "closure_cap": closure_cap,
+                "grad_exchange": grad_exchange, "grad_cap": grad_cap,
+                "fused": bool(fused)},
+    )
+
+
+def twod_fallback_model(model: CommsModel) -> CommsModel:
+    """The 2D model of a step whose row groups fell back to the dense psum
+    (JAX `twod_measured`): the touched-rows exchange site priced as the
+    psum of the row band it became, under the same name."""
+    rows = int(model.params.get("rows", 1))
+    cols = int(model.params.get("cols", 1))
+    n_row = cols * (int(model.params.get("n_pad", 0)) // max(rows * cols, 1))
+    dense = Site("twod/alltoall_grad_closure", "psum",
+                 n_row * int(model.params.get("k_pad", 0))
+                 * int(model.params.get("itemsize", 4)), rows, cols,
+                 "exchange", "cols")
+    return dataclasses.replace(model, sites=tuple(
+        dense if s.site == dense.site else s for s in model.sites))
 
 
 def sparse_measured(model: CommsModel, state) -> Dict[str, Any]:

@@ -643,6 +643,144 @@ def ring_memory_model(
     )
 
 
+def twod_memory_model(
+    n_pad: int,
+    k_pad: int,
+    rows: int,
+    cols: int,
+    itemsize: int,
+    num_candidates: int,
+    graph_bytes: Dict[str, float],
+    closure_cap: int = 1,
+    health_on: bool = False,
+    rollback: bool = False,
+    comms: Optional[CommsModel] = None,
+    model: str = "TwoDShardedBigClamModel",
+    path: str = "xla_2d",
+    grad_exchange: str = "dense",
+    grad_cap: int = 0,
+    positions: int = 1,
+    first_device: bool = True,
+    row_groups: int = 1,
+    edges: int = 0,
+    chunk: int = 1 << 20,
+    llh_itemsize: Optional[int] = None,
+) -> MemoryModel:
+    """2D edge-block trainer (parallel.twod), for one device holding
+    `positions` mesh positions of `row_groups` processor rows (1 and 1 on
+    distinct cards): the O(N * K) gathered F of the 1D schedule is
+    replaced by the row group's source rows (`transient/F_rowgather`, one
+    a row group, C > 1) and each position's CAPPED closure table
+    (`transient/closure_recv`, rows * cap rows), JAX's buffers.
+
+    The step's transients, per position, in three phases that do not
+    overlap (the model takes the largest; `transient/later_phase_excess`
+    holds what a later phase adds over the first):
+
+    * sweep and exchange: the closure table, the (C * n_blk, K) neighbour
+      gradient (`transient/grad_row`) and the (S, C * n_blk) candidate
+      sums; the K-blocked dots x (E,) of one edge block; the plain sweeps'
+      chunk gathers; with the touched-rows exchange the routing buffers
+      (JAX's formula) and the exchanged (n_row, K) result
+      (`transient/grad_closure_exchange`) of the positions of one row
+      group; a dense psum's total is the collective buffer;
+    * the candidate sweep: the closure tables, the folded gradients (one
+      a row group after a dense psum on one device, else one a position)
+      and the K-blocked candidate dots xc (S, E);
+    * the tails: the folded gradients and F_new.
+
+    At C = 1 on the kernel paths a position runs kernel A (or the
+    K-blocked windows and the node pass) as the 1D all-gather step does:
+    its transients are step_transients' on `csr_fused` (`csr_fused_kb`),
+    beside the closure tables."""
+    p = max(rows * cols, 1)
+    n_blk = n_pad // p
+    n_row = cols * n_blk
+    rb = float(k_pad * itemsize)
+    s = num_candidates
+    li = llh_itemsize or itemsize
+    closure_grad = grad_exchange == "closure" and cols > 1
+    state = dense_state_buffers(positions * n_blk, k_pad, itemsize, s,
+                                scalars=first_device)
+    if first_device and closure_grad:
+        state.append(Buffer("state/comm_counters", 8, "state",
+                            note="comm_ids, comm_dense"))
+    closures = Buffer(
+        "transient/closure_recv", rows * closure_cap * rb, "transient",
+        count=positions,
+        note="capped closure table (rows * cap dst rows) of each position",
+    )
+    gather = ([Buffer(
+        "transient/F_rowgather", cols * n_blk * rb, "transient",
+        count=row_groups,
+        note="processor row's src rows — 1/rows of the 1D F_allgather",
+    )] if cols > 1 else [])
+    if cols == 1 and path != "xla_2d":
+        steps = step_transients(
+            "csr_fused_kb" if path == "csr_fused_2d_kb" else "csr_fused",
+            n_blk, k_pad, itemsize, s, edges, chunk, positions=positions)
+        transients = [closures] + steps
+    else:
+        per_group = max(positions // max(row_groups, 1), 1)
+        first = [
+            closures,
+            Buffer("transient/grad_row", n_row * rb, "transient",
+                   count=positions,
+                   note="row-group gradient before the cols reduction"),
+            Buffer("transient/nbr_llh", n_row * li, "transient",
+                   count=positions),
+        ]
+        if closure_grad and grad_cap > 0:
+            first.append(Buffer(
+                "transient/grad_closure_exchange",
+                cols * grad_cap * rb + n_blk * rb + n_row * rb,
+                "transient", count=per_group,
+                note="touched-rows grad exchange of one row group, per "
+                     "position: the (cols, cap, K) staging of one phase "
+                     "(JAX prices send and receive apart), the (n_blk, K) "
+                     "phase-A accumulator and the (n_row, K) result",
+            ))
+        if path == "csr_fused_2d_kb":
+            first.append(Buffer("transient/edge_x", edges * itemsize,
+                                "transient",
+                                note="one edge block's per-edge dots"))
+        if path == "xla_2d":
+            first.append(Buffer(
+                "transient/edge_chunk", 3.0 * min(chunk, max(edges, 1)) * rb,
+                "transient",
+                note="the plain sweeps' (chunk, K) gathers of one edge chunk",
+            ))
+        phase_a = _total(first)
+        folded = (positions if closure_grad or cols == 1 else row_groups) * n_row * rb
+        cands = positions * s * n_row * li
+        phase_b = closures.total_bytes + folded + cands + (
+            s * edges * itemsize if path == "csr_fused_2d_kb" else 0.0)
+        phase_c = folded + positions * (n_blk * rb + s * n_blk * li
+                                        + 2 * n_blk * li)
+        transients = first + [Buffer(
+            "transient/later_phase_excess",
+            max(0.0, phase_b - phase_a, phase_c - phase_a), "transient",
+            note="what the candidate sweep (folded gradients, candidate "
+                 "sums, xc) or the tails (F_new) hold beyond the first phase",
+        )]
+    buffers = (
+        state
+        + _graph_buffers(graph_bytes)
+        + _scratch_buffers(_total(state), rollback, health_on)
+        + gather
+        + transients
+        + (collective_buffers(comms) if first_device else [])
+    )
+    return MemoryModel(
+        family="twod", model=model, buffers=tuple(buffers),
+        params={"n_pad": n_pad, "k_pad": k_pad, "rows": rows, "cols": cols,
+                "itemsize": itemsize, "closure_cap": closure_cap,
+                "path": path, "grad_exchange": grad_exchange,
+                "grad_cap": grad_cap, "positions": positions,
+                "rollback": rollback},
+    )
+
+
 # -------------------------------------------------------- host RSS model
 def ingest_rss_bytes(
     chunk_bytes: int, n: int, directed_edges: int, num_shards: int
@@ -969,6 +1107,9 @@ def preflight(
     chunk_bytes: int = 0,
     csr_k_block: int = 0,
     store_native: bool = False,
+    partition: str = "1d",
+    replica_cols: int = 1,
+    closure_pair_counts: Optional[Sequence[Sequence[int]]] = None,
 ) -> Dict[str, Any]:
     """The capacity verdict of `cli preflight` for the port's paths: the
     memory and comms models the trainer would bake, from workload numbers
@@ -984,11 +1125,48 @@ def preflight(
     paths where K_loc exceeds a warp's row, the TP split at tp > 1. A
     sparse (dp, 1) mesh is priced as the JAX preflight prices it: a cap of
     8 M member rows, the sparse exchange below half of K
-    (`sparse_merge_pallas_spall`), else the psum (`_psum`)."""
+    (`sparse_merge_pallas_spall`), else the psum (`_psum`).
+
+    partition="2d" prices the 2D edge-block trainer on a (dp / C, C) grid
+    of distinct cards (C = replica_cols) on the path a card takes,
+    `csr_fused_2d` (`csr_fused_2d_kb` above K = 1,024) with the
+    touched-rows grad exchange at C > 1, as the JAX preflight prices its
+    combined config: the closure cap and the grad cap from the cache's
+    baked closure pair counts when given (exact upper bounds), else the
+    coupon-collector estimate on a uniform random graph. A 1d verdict that
+    does not fit on four or more cards names `--partition 2d
+    --replica-cols C`, C the cheapest grid by the baked pair counts when
+    given, else the square-root heuristic."""
     from bigclam_tpu_torch.obs import comms as _comms
 
     dp, tp = max(int(dp), 1), max(int(tp), 1)
     sparse = representation == "sparse"
+    partition = str(partition or "1d")
+    cols2 = max(int(replica_cols), 1)
+    if partition not in ("1d", "2d"):
+        raise ValueError(f"unknown partition {partition!r} (1d or 2d)")
+    if partition == "2d":
+        if sparse:
+            raise ValueError(
+                "partition=2d runs the dense-F closure-gather schedule; the "
+                "sparse representation shards members over the 1d node axis "
+                "— price --representation sparse on the 1d mesh"
+            )
+        if schedule == "ring":
+            raise ValueError(
+                "partition=2d is its own closure-gather schedule — "
+                "drop --schedule ring"
+            )
+        if tp != 1:
+            raise ValueError(
+                "partition=2d requires tp == 1 (the k axis rides the "
+                "2d mesh unsharded)"
+            )
+        if dp % cols2:
+            raise ValueError(
+                f"replica_cols={cols2} does not divide the {dp}-chip "
+                "mesh"
+            )
     if sparse and tp > 1:
         raise ValueError(
             "the sparse representation does not shard the K axis "
@@ -1031,7 +1209,59 @@ def preflight(
             )
     health_on = int(health_every or 0) > 0
     comms = None
-    if sparse:
+    if partition == "2d":
+        rows2 = dp // cols2
+        kc, k_pad = mesh_k_plan(int(k), 1, csr_k_block)
+        path = "csr_fused_2d_kb" if kc else "csr_fused_2d"
+        n_pad = _round_up(max(n, dp), dp)
+        n_blk = n_pad // dp
+        pairs = (closure_pair_counts if closure_pair_counts
+                 and len(closure_pair_counts) == dp else None)
+        cap2 = _closure_cap(pairs, rows2, cols2, n_blk, directed_edges)
+        gx2 = "closure" if cols2 > 1 else "dense"
+        gcap2 = 0
+        if cols2 > 1:
+            if pairs:
+                gcap2 = max(n_blk if int(c) < 0 else min(int(c), n_blk)
+                            for row in pairs for c in row)
+            else:
+                gcap2 = _touched_estimate(directed_edges / max(dp * cols2, 1),
+                                          n_blk)
+            gcap2 = max(min(gcap2, n_blk), 1)
+        if not pairs:
+            notes.append(
+                "closure rows estimated (coupon-collector, uniform random "
+                "graph) — bake closures (`cli ingest`) and pass the cache "
+                "for exact pair counts"
+            )
+        n_row = cols2 * n_blk
+        graph = {
+            "graph/edge_block_indptr": 8.0 * (n_row + 1),
+            "graph/edge_block_indices": 4.0 * max_shard,
+            "graph/edge_block_src": 8.0 * max_shard,
+            "graph/edge_block_dst": 8.0 * max_shard,
+            "graph/closure_send_idx": 8.0 * rows2 * cap2,
+        }
+        if cols2 > 1:
+            graph["graph/grad_tables"] = 16.0 * cols2 * gcap2 + 4.0
+        comms = _comms.twod_step_model(
+            n_pad, k_pad, rows2, cols2, itemsize, num_candidates,
+            closure_cap=cap2, grad_exchange=gx2, grad_cap=gcap2, fused=True,
+        ) if dp > 1 else None
+        mm = twod_memory_model(
+            n_pad, k_pad, rows2, cols2, itemsize, num_candidates, graph,
+            closure_cap=cap2, health_on=health_on, rollback=rollback,
+            comms=comms, path=path, grad_exchange=gx2, grad_cap=gcap2,
+            edges=max_shard,
+            chunk=edge_chunk_bound(edge_chunk, k_pad, itemsize),
+        )
+        notes.append(
+            f"2d priced at the combined config: kernel_path {path} (the "
+            "closure table feeds the kernels' destination rows) + "
+            f"grad_exchange={gx2}"
+            + (f" (cap {gcap2} touched rows/peer)" if cols2 > 1 else "")
+        )
+    elif sparse:
         block_rows = 1024
         n_pad = _round_up(max(n, dp), 8 * dp)
         n_loc = n_pad // dp
@@ -1158,6 +1388,10 @@ def preflight(
                 "per-device F gather "
                 f"({_fmt_bytes(mm.buffer_bytes().get('transient/F_allgather', 0))})"
             )
+        if partition == "1d" and dp * tp >= 4:
+            knobs.append(_replica_cols_knob(
+                n, k_pad, dp * tp, itemsize, num_candidates, sparse, m,
+                closure_pair_counts, mm))
         if kc:
             notes.append(
                 f"K={k} runs the K-blocked kernels (kc {kc}, k_pad "
@@ -1181,7 +1415,9 @@ def preflight(
             "representation": representation,
             **({"sparse_m": m} if sparse else {}),
             "mesh": f"{dp}x{tp}",
-            "partition": "1d",
+            "partition": partition,
+            **({"replica_cols": cols2, "grad_exchange": gx2}
+               if partition == "2d" else {}),
             "kernel_path": path,
             "k_pad": int(k_pad),
             "schedule": schedule,
@@ -1205,6 +1441,80 @@ def preflight(
         "knobs": knobs,
         "notes": notes,
     }
+
+
+def _touched_estimate(edges_per_pair: float, n_blk: int) -> int:
+    """Rows of an n_blk block that edges_per_pair uniform random edges
+    touch (the coupon-collector estimate of the JAX preflight)."""
+    return int(math.ceil(n_blk * (1.0 - math.exp(-edges_per_pair
+                                                 / max(n_blk, 1)))))
+
+
+def _closure_cap(pairs, rows: int, cols: int, n_blk: int,
+                 directed_edges: int) -> int:
+    """The closure cap of a (rows, cols) grid: from the baked pair counts
+    (store shard s -> block b; the row group's summed counts, -1 an
+    overflowed pair, clamped to n_blk), else the coupon-collector
+    estimate."""
+    if not pairs:
+        cap = _touched_estimate(directed_edges / max(rows * rows * cols, 1),
+                                n_blk)
+        return max(min(cap, n_blk), 1)
+    cap = 0
+    for i in range(rows):
+        for b in range(rows * cols):
+            tot, over = 0, False
+            for s in range(i * cols, (i + 1) * cols):
+                c = int(pairs[s][b])
+                if c < 0:
+                    over = True
+                    break
+                tot += c
+            cap = max(cap, n_blk if over else min(tot, n_blk))
+    return max(min(cap, n_blk), 1)
+
+
+def _replica_cols_knob(n: int, k_pad: int, p: int, itemsize: int,
+                       num_candidates: int, sparse: bool, m: int, pairs,
+                       mm: "MemoryModel") -> str:
+    """The `--partition 2d --replica-cols C` knob of a 1d verdict that
+    does not fit (JAX preflight's): C the cheapest grid by the closure
+    exchange priced from the baked pair counts when given, else the
+    largest divisor of p up to its square root."""
+    from bigclam_tpu_torch.obs import comms as _comms
+
+    c_hint = int(math.isqrt(p))
+    while c_hint > 1 and p % c_hint:
+        c_hint -= 1
+    c_src = "sqrt heuristic"
+    if pairs and len(pairs) == p:
+        n_blk = _round_up(max(n, p), p) // p
+        row_b = m * (4.0 + itemsize) if sparse else float(k_pad * itemsize)
+        best = None
+        for c_try in range(1, p):
+            if p % c_try:
+                continue
+            r_try = p // c_try
+            cap_t = _closure_cap(pairs, r_try, c_try, n_blk, 0)
+            closure = c_try > 1 and not sparse
+            bps = _comms.twod_step_model(
+                n_blk * p, m if sparse else k_pad, r_try, c_try, itemsize,
+                num_candidates, closure_cap=cap_t, row_bytes=row_b,
+                grad_exchange="closure" if closure else "dense",
+                grad_cap=cap_t if closure else 0, fused=not sparse,
+            ).bytes_per_step()
+            if best is None or bps < best[1]:
+                best = (c_try, bps)
+        if best is not None:
+            c_hint = best[0]
+            c_src = "cheapest grid by baked closure pair counts"
+    gname = "transient/members_allgather" if sparse else "transient/F_allgather"
+    gb = mm.buffer_bytes().get(gname, 0)
+    return (
+        f"--partition 2d --replica-cols {c_hint} (mesh {p},1; {c_src}): the "
+        f"O(N) {'member' if sparse else 'F'} gather ({_fmt_bytes(gb)}) shrinks "
+        "to the processor row's 1/rows slice plus the capped closure exchange"
+    )
 
 
 def _fmt_bytes(v: float) -> str:

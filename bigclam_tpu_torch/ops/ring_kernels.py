@@ -9,7 +9,9 @@ sources are csrc/ring_grad_phase.cu and csrc/ring_cand_phase.cu (one warp
 per node over the bucket's CSR, #8 taking the nodes in the bucket's visit
 order; their headers say what bounds each on an H100). A bucket is a
 DeviceCSR over the shard's n rows whose indices are rows of the rotating
-shard F_rot. Each wrapper:
+shard F_rot, or on the 2D partition (parallel/twod.py) an edge block over
+a row group's rows whose indices are rows of the closure table: F_rot may
+have any number of rows. Each wrapper:
 
 * on CPU tensors runs its plain PyTorch version (the same partials,
   edge-chunked, with index_select/index_add_ in the input dtype, added to
@@ -75,7 +77,7 @@ def ring_grad_phase(
     if F_loc.device.type == "cpu":
         return ring_grad_phase_plain(F_loc, F_rot, bucket, gn, ln, cfg)
     n, k = F_loc.shape
-    check_cuda_inputs(F_loc, bucket, rows=(F_rot, gn))
+    check_cuda_inputs(F_loc, bucket, rows=(gn,), dst=F_rot)
     check_float32(F_loc.device, [("ln", ln, (n,))])
     order = bucket.order
     if order is not None and (
@@ -131,7 +133,7 @@ def ring_cand_phase(
         return ring_cand_phase_plain(F_loc, grad, F_rot, bucket, cb, cfg)
     n, k = F_loc.shape
     c = kernel_constants(cfg)
-    check_cuda_inputs(F_loc, bucket, rows=(grad, F_rot))
+    check_cuda_inputs(F_loc, bucket, rows=(grad,), dst=F_rot)
     plan = ladder_launch_plan("ring_cand_phase", k)
     check_float32(F_loc.device, [("cb", cb, (c["num_s"], n))])
     build.launch(

@@ -1,11 +1,13 @@
-"""Sharded training on a (dp, tp) device mesh driven by one process: the
+"""Sharded training on a device mesh driven by one process: the
 all-gather schedule (parallel.sharded) and the ring schedule
-(parallel.ring), at any K and tp, each also fed from a compiled graph
-cache, one shard file per node shard; and the sparse top-M member lists
-on a (dp, 1) mesh with the capped sparse allreduce of sumF
-(parallel.sparse_sharded, parallel.sparse_collectives)."""
+(parallel.ring) on a (dp, tp) mesh, at any K and tp, each also fed from a
+compiled graph cache, one shard file per node shard; the sparse top-M
+member lists on a (dp, 1) mesh with the capped sparse allreduce of sumF
+(parallel.sparse_sharded, parallel.sparse_collectives); and the 2D
+edge-block partition on a (rows, cols) mesh with the closure exchange
+(parallel.twod), in memory or from a cache of rows * cols shards."""
 
-from bigclam_tpu_torch.parallel.mesh import Mesh, make_mesh
+from bigclam_tpu_torch.parallel.mesh import Mesh, Mesh2D, make_mesh, make_mesh_2d
 from bigclam_tpu_torch.parallel.ring import RingBigClamModel, StoreRingBigClamModel
 from bigclam_tpu_torch.parallel.sharded import (
     MeshNotPortedError,
@@ -13,9 +15,16 @@ from bigclam_tpu_torch.parallel.sharded import (
     StoreShardedBigClamModel,
 )
 from bigclam_tpu_torch.parallel.sparse_sharded import SparseShardedBigClamModel
+from bigclam_tpu_torch.parallel.twod import (
+    StoreTwoDShardedBigClamModel,
+    TwoDShardedBigClamModel,
+    twod_mesh_shape,
+)
 
 __all__ = [
-    "Mesh", "MeshNotPortedError", "RingBigClamModel", "ShardedBigClamModel",
-    "SparseShardedBigClamModel", "StoreRingBigClamModel",
-    "StoreShardedBigClamModel", "make_mesh",
+    "Mesh", "Mesh2D", "MeshNotPortedError", "RingBigClamModel",
+    "ShardedBigClamModel", "SparseShardedBigClamModel",
+    "StoreRingBigClamModel", "StoreShardedBigClamModel",
+    "StoreTwoDShardedBigClamModel", "TwoDShardedBigClamModel", "make_mesh",
+    "make_mesh_2d", "twod_mesh_shape",
 ]

@@ -252,23 +252,30 @@ def mesh_kernels_want(
 
 
 def finish_step(state: TrainState, outs, grid: list, cfg: BigClamConfig,
-                grads=None, family: str = "sharded") -> TrainState:
+                grads=None, family: str = "sharded", extras=None) -> TrainState:
     """The psums that end a sharded step: `outs` holds, per shard,
     (F_new, column sums of F_new, LLH of the shard's rows, accepted-step
     histogram), F_new and the sums in the state's layout (a tensor, or at
     tp > 1 a tuple of column blocks); grid[i][j] is block (i, j)'s device;
     `grads` the shards' gradients, read only for the health pack on
-    cadence iterations; `family` names the comms sites (sharded or
-    ring)."""
+    cadence iterations; `family` names the comms sites (sharded, ring or
+    twod); `extras`, where given, the exchange counters the health pack
+    latches every step (ops.diagnostics.latch_extras)."""
     F_new, sums, llhs, hists = zip(*outs)
-    site = "ring" if family == "ring" else "sharded"
+    site = family
     first = [r[0] for r in grid]
     sumF = as_layout(column_psum(block_grid(sums), grid, f"{site}/psum_sumF"))
     hist = psum(hists, first, f"{site}/psum_scalars")[0]
     health = None
+    carry = None
+    if extras is not None and dx.health_on(cfg):
+        extras, carry = dx.latch_extras(state.health, extras)
     if dx.on_cadence(cfg, state.it):
         health = dx.health_pack(cfg, state.it, state.F, F_new,
-                                row_shards((sumF[0],))[0], hist, grad=grads)
+                                row_shards((sumF[0],))[0], hist, grad=grads,
+                                extras=extras)
+    elif carry is not None:
+        health = carry
     return TrainState(
         F=tuple(F_new),
         sumF=sumF,

@@ -130,14 +130,15 @@ def capped_exchange(
     counts: List[torch.Tensor],
     cap: int,
     devices: list,
+    count_site: str = SITE_COUNT,
 ) -> Tuple[list, torch.Tensor, torch.Tensor]:
     """The touched-ids exchange skeleton: pmax the shards' touched
-    `counts`, read the maximum on the host, run `sparse_fn` when every
-    shard fits the build-time `cap` and `dense_fn` otherwise, FOR THIS
-    STEP. Returns (the result on each shard's device, the max count, the
-    dense-fallback flag, both 0-d int32 on the first device) — the counter
-    pair the gates read."""
-    max_count = pmax(counts, devices, SITE_COUNT)[0]
+    `counts` (comms site `count_site`), read the maximum on the host, run
+    `sparse_fn` when every shard fits the build-time `cap` and `dense_fn`
+    otherwise, FOR THIS STEP. Returns (the result on each shard's device,
+    the max count, the dense-fallback flag, both 0-d int32 on the first
+    device) — the counter pair the gates read."""
+    max_count = pmax(counts, devices, count_site)[0]
     overflow = int(max_count) > cap
     out = dense_fn() if overflow else sparse_fn()
     flag = torch.tensor(int(overflow), dtype=torch.int32, device=devices[0])
@@ -199,3 +200,87 @@ def psum_allreduce_sum(
     counts = [p.sum().to(torch.int32) for p in pres]
     max_count = pmax(counts, devices, SITE_COUNT)[0]
     return sums, max_count, torch.ones((), dtype=torch.int32, device=devices[0])
+
+
+# --- the 2D partition's gradient exchange ------------------------------------
+
+
+def closure_grad_allreduce(
+    partials: List[torch.Tensor],
+    out_tabs: List[torch.Tensor],
+    in_tabs: List[torch.Tensor],
+    counts: List[torch.Tensor],
+    cap: int,
+    devices: list,
+    site: str,
+    count_site: str,
+) -> Tuple[list, torch.Tensor, torch.Tensor]:
+    """Touched-rows-only replacement for the 2D trainer's dense
+    neighbour-gradient psum over one processor row's C positions (JAX
+    `closure_grad_allreduce`, single-controller). partials[j] is position
+    j's dense (n_row, K) partial on devices[j]; out_tabs[j] (C, cap) the
+    group-local rows of block c its edges touched (sentinel n_row);
+    in_tabs[j] (C, cap) the rows of its own block that position c touched
+    (block-local, sentinel n_blk); counts[j] its true worst pair size.
+
+      phase A: position j sends peer c the partial rows of block c it
+               touched; each position adds what it receives into a zero
+               (n_blk, K) accumulator, in position order — the
+               cols-complete sums of its own rows;
+      phase B: the reverse route: position c sends every toucher j the
+               summed rows j touched; j scatters them into a zero
+               (n_row, K) and overwrites its own block's slot with its
+               accumulator.
+
+    Every real row of one table is distinct, so each add writes one value
+    and the accumulator takes the partials in position order, as `psum`
+    adds them: the result is the psum's bits in every row a position
+    touched and in its own block (an untouched partial is an exact 0).
+    Rows a position neither touched nor owns stay 0 (nothing reads them).
+    When a position's count exceeds `cap` the whole row group takes the
+    dense psum FOR THIS STEP (capped_exchange), counted at `site` as the
+    exchange is. Returns (the result on each position's device, the max
+    count, the dense-fallback flag)."""
+    C = len(partials)
+    n_row, k = partials[0].shape
+    n_blk = n_row // C
+
+    def dense_fn():
+        return psum(partials, devices, site)
+
+    def routed(src, tabs, limit, dst_of):
+        """send[j][c]: the rows tabs[j][c] names of src[j] (sentinel rows
+        0), moved to position c; counted as one all_to_all."""
+        out = [[None] * C for _ in range(C)]
+        for j in range(C):
+            t = tabs[j].reshape(-1)
+            rows = src[j].index_select(0, t.clamp_max(limit - 1))
+            buf = rows.masked_fill_((t >= limit)[:, None], 0).reshape(C, cap, k)
+            for c in range(C):
+                out[c][j] = buf[c].to(dst_of(c))
+        if _comms.counting_on():
+            _comms.count(site, C * (C - 1) * cap * k * partials[0].element_size())
+        return out
+
+    def sparse_fn():
+        recv = routed(partials, out_tabs, n_row, lambda c: devices[c])
+        blk = []
+        for c in range(C):
+            acc = torch.zeros((n_blk + 1, k), dtype=partials[c].dtype,
+                              device=devices[c])
+            for j in range(C):
+                acc.index_add_(0, in_tabs[c][j], recv[c][j])
+            blk.append(acc[:n_blk])
+        del recv
+        back = routed(blk, in_tabs, n_blk, lambda j: devices[j])
+        out = []
+        for j in range(C):
+            full = torch.zeros((n_row + 1, k), dtype=partials[j].dtype,
+                               device=devices[j])
+            for c in range(C):
+                full.index_add_(0, out_tabs[j][c], back[j][c])
+            full[j * n_blk : (j + 1) * n_blk] = blk[j]
+            out.append(full[:n_row])
+        return out
+
+    return capped_exchange(dense_fn, sparse_fn, counts, cap, devices, count_site)

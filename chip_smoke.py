@@ -423,6 +423,44 @@ k_pad 3,072 in 3 blocks of 1,024 columns):
             `grad_from_x_kernel` and the node pass (`node_pass_kernel`),
             the unprofiled step beside PR 13's 7.84 ms
 
+The 2D edge-block partition (parallel/twod.py), every position of a grid
+on the one card:
+
+  twod_odd  (after kbmesh_odd) the odd graph at K=37 on (2, 2) and (3, 1)
+            grids, the hub graph at K=1,000 on (2, 2) and K=1,100 on both:
+            each kernel the 2D step launches against its plain version on
+            the closure-table inputs (kernel A with the closure table as
+            its destination rows at C = 1; #8 and #9 over the row group's
+            rows from random accumulators, F_rot the closure table, and the
+            epilogue on the own block's inputs of a plain step at C > 1;
+            the K-blocked windows through compare_kb_dst, then the node
+            pass (C = 1) or the neighbour sums (C > 1)); at C > 1
+            closure_grad_allreduce on #8's partials bit for bit the dense
+            psum in every row a position touched or owns; a
+            closure_grad_cap = 1 build on (2, 2) falling back on each of 4
+            steps, bit for bit the dense build
+  twod_full (after tp_full) `cli fit --mesh 4,1` (the 1D all-gather) and
+            `--partition 2d` at --replica-cols 1 and 2 on the full file, 5
+            steps each: C = 1 takes csr_fused_2d on kernel A with the
+            all-gather's history bit for bit, C = 2 csr_fused_2d on #8/#9
+            with the closure exchange, within 1e-4 of main's; per run the
+            launches the schedule implies, sec_per_iter beside the
+            all-gather's, the collective bytes counted a step equal to
+            twod_step_model's, the peak beside twod_memory_model
+            (check_peak), the exchanged ids and fallback flag
+  twod_store (after store_native_dp4) store_full's 4-shard cache through
+            StoreTwoDShardedBigClamModel on (4, 1) and (2, 2): the baked
+            closure lists, and 2 steps from main's F0 bit for bit the
+            in-memory 2D trainer's
+  twod_parity (after mesh_parity) the parity graph on a (2, 2) grid:
+            csr_fused_2d on the card against the CPU float64 xla_2d on
+            (2, 2) and one device (LLH within 1e-4), a checkpoint at 2
+            resumed bit for bit, `sweep --mesh 4,1 --partition 2d
+            --replica-cols 2` against the CPU float64 sweep (the same K)
+  twod_xlk  (after kbmesh_xlk) `cli fit --mesh 4,1 --partition 2d` at
+            K=3,000 with --replica-cols 1 and 2 (csr_fused_2d_kb, 3 windows
+            of 1,024), twod_full's numbers against kb_main's history
+
 Then one `side_by_side` line (with --against: each named kernel on the
 inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
 `ring_full`, `kb_full`; in `kb_full` the gradient also without the fold,
@@ -433,7 +471,8 @@ and both timed as `full` times a kernel and its plain version), one
 version, kernel / plain time, the card's lower bound for the same work;
 fused_superstep's row adds its launches in quality_full and in
 quality_parity's three fits, member_lookup's in sparse_mesh_full and
-sparse_mesh_local)
+sparse_mesh_local, the rows a 2D step launches theirs in twod_full and
+twod_xlk; twod_odd's comparisons count toward their errors)
 and, last, {"ok": true, "device": {...}}. The ring, mesh and store
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
@@ -6213,6 +6252,477 @@ def phase_quality_full(gi, F0, main_out, main_zero_rows) -> dict:
     }
 
 
+# --- the 2D edge-block partition ----------------------------------------------
+
+# twod_odd's cases: (graph, (rows, cols), K); on one card the positions
+# share it. C = 1 flat runs kernel A, C > 1 flat #8/#9 and the epilogue,
+# K = 1,100 the K-blocked windows (the node pass at C = 1, the neighbour
+# sums and the epilogue at C > 1)
+TWOD_ODD_CASES = (("odd", (2, 2), ODD["k"]), ("odd", (3, 1), ODD["k"]),
+                  ("hub", (2, 2), 1000), ("hub", (3, 1), 1100),
+                  ("hub", (2, 2), 1100))
+TWOD_ODD_CAP_STEPS = 4        # the closure_grad_cap = 1 build's steps
+TWOD_ITERS = 4                # twod_full / twod_xlk fits: steps 0..4
+TWOD_MESH = 4                 # `--mesh 4,1`: four positions on one card
+TWOD_STORE_ITERS = 2
+TWOD_CHECKS = ("fused_superstep", "ring_grad_phase", "ring_cand_phase",
+               "armijo_tail_select", *K_BLOCKED)
+
+
+def twod_grid(rows: int, cols: int):
+    """A (rows, cols) 2D mesh on one card (the device repeated)."""
+    from bigclam_tpu_torch.parallel import make_mesh_2d
+
+    return make_mesh_2d((rows, cols), [torch.device(DEVICE)] * (rows * cols))
+
+
+def twod_plain_step_inputs(model, F, closure, F_row, sumF):
+    """A 2D step's intermediates from the plain versions in float64 (F,
+    closure tables and source rows given in float32): per position the row
+    group's folded gradient (#8 plain from zero, summed over the group),
+    and the own block's gradient, node LLH and candidate sums (#9 plain,
+    scattered) — the epilogue's inputs."""
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.ops.objective import node_tail
+
+    C, p = model.C, model.p
+    n_blk = F[0].shape[0]
+    s = len(model.cfg.step_candidates)
+    sumF64 = sumF.double()
+    gn, ln = [], []
+    for b in range(p):
+        fr = F_row[b].double()
+        g_, l_ = torch.zeros_like(fr), fr.new_zeros(fr.shape[0])
+        rk.ring_grad_phase_plain(fr, closure[b].double(), model.block_csr[b], g_, l_,
+                                 model.cfg)
+        gn.append(g_)
+        ln.append(l_)
+    grads, own = [], []
+    for b in range(p):
+        i, j = divmod(b, C)
+        group = range(i * C, (i + 1) * C)
+        total = sum(gn[c] for c in group)
+        grads.append(total - sumF64[None, :] + F_row[b].double())
+    cbs = []
+    for b in range(p):
+        cb = torch.zeros((s, F_row[b].shape[0]), dtype=torch.float64, device=F[b].device)
+        rk.ring_cand_phase_plain(F_row[b].double(), grads[b].float().double(),
+                                 closure[b].double(), model.block_csr[b], cb, model.cfg)
+        cbs.append(cb)
+    for b in range(p):
+        i, j = divmod(b, C)
+        group = range(i * C, (i + 1) * C)
+        sl = slice(j * n_blk, (j + 1) * n_blk)
+        ln_own = sum(ln[c][sl] for c in group)
+        cand_own = sum(cbs[c][:, sl] for c in group)
+        node_llh = ln_own + node_tail(F[b].double(), sumF64)
+        own.append((grads[b][sl], node_llh, cand_own))
+    return grads, own
+
+
+def twod_odd_case(checks, g, shape, k: int, tag: str) -> dict:
+    """One 2D layout on the card at K, random F (row 7 zero): each kernel
+    the path runs against its plain version on the closure-table inputs
+    (kernel A with the closure table as its destination rows; #8 and #9
+    from random accumulators, F_rot the closure table; the K-blocked
+    windows through compare_kb_dst, the node pass or the neighbour sums;
+    the epilogue on the own block's inputs of a plain step), and at C > 1
+    closure_grad_allreduce on the kernels' partials bit for bit the dense
+    psum in every row a position touched or owns."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.ops import fused
+    from bigclam_tpu_torch.ops import kblocked as kb
+    from bigclam_tpu_torch.ops import ring_kernels as rk
+    from bigclam_tpu_torch.parallel import TwoDShardedBigClamModel
+    from bigclam_tpu_torch.parallel import twod
+    from bigclam_tpu_torch.parallel.sharded import psum
+    from bigclam_tpu_torch.parallel.sparse_collectives import closure_grad_allreduce
+
+    R, C = shape
+    cfg = BigClamConfig(num_communities=k, partition="2d", replica_cols=C)
+    model = TwoDShardedBigClamModel(g, cfg, twod_grid(R, C))
+    kc, p, n_blk = model.kc, model.p, model.n_pad // model.p
+    rng = np.random.default_rng(k + 10 * C)
+    F_host = np.zeros((model.n_pad, model.k_pad))
+    F_host[: g.num_nodes, :k] = rng.uniform(0.0, 1.0, (g.num_nodes, k))
+    F_host[7] = 0.0
+    F = list(model._shard_state(F_host).F)
+    sumF = F[0].new_zeros(model.k_pad)
+    for f in F:
+        sumF = sumF + f.sum(dim=0)
+    F_row = twod.row_gather(F, model.rows_grid)
+    closure = twod.closure_exchange(F, model._send_idx, model.rows_grid)
+    body = {"mesh": f"{R}x{C}", "k": k, "kc": kc, "k_pad": model.k_pad,
+            "path": model.engaged_path, "closure_cap": model._twod_cap,
+            "block_edges": [c.num_directed_edges for c in model.block_csr]}
+    sumF64 = sumF.double()
+    if C > 1:
+        grads, own = twod_plain_step_inputs(model, F, closure, F_row, sumF)
+    if kc:
+        for b, csr in enumerate(model.block_csr):
+            compare_kb_dst(checks, f"{tag}_b{b}", F_row[b], csr, closure[b], sumF, cfg, kc)
+            fr64, cl64 = F_row[b].double(), closure[b].double()
+            x = kb.edge_dots_windows(fr64, csr, kc, cl64, plain=True)
+            if C == 1:
+                g_, ln_, xc = kb.grad_cand_windows(x, fr64, sumF64, csr, cfg, kc, True,
+                                                   cl64, plain=True)
+                check_node_pass(checks["cand_from_x"], f"{tag}_b{b}", xc.float(), F[b],
+                                sumF, g_.float(), ln_.float(), csr, cfg)
+                continue
+            xc = torch.zeros((len(cfg.step_candidates), csr.num_directed_edges),
+                             dtype=torch.float64, device=x.device)
+            gw = torch.empty_like(fr64)
+            for col0 in range(0, model.k_pad, kc):
+                kb.grad_from_x_kb_plain(x, fr64, sumF64, csr, col0, kc, cfg, True,
+                                        gw[:, col0 : col0 + kc], cl64)
+                kb.cand_dots_kb_plain(fr64, gw[:, col0 : col0 + kc], csr, col0, kc,
+                                      cfg, xc, cl64)
+            out_k = kb.cand_nbr_from_x(xc.float(), csr, cfg)
+            torch.cuda.synchronize()
+            checks["cand_from_x"].close(f"{tag}_b{b}_cand_nbr", out_k,
+                                        kb.cand_nbr_from_x_plain(xc, csr, cfg))
+    elif C == 1:
+        c = checks["fused_superstep"]
+        for b, csr in enumerate(model.block_csr):
+            grad_p, llh_p, cand_p, thr_p = fused.acceptance_inputs_plain(
+                F[b].double(), sumF64, csr, cfg, closure[b].double())
+            Fn_k, g_k, l_k, ok_k = fused.fused_superstep(F[b], sumF, csr, cfg, closure[b])
+            torch.cuda.synchronize()
+            c.close(f"{tag}_grad", g_k, grad_p)
+            c.close(f"{tag}_node_llh", l_k, llh_p)
+            c.ok_mask(ok_k, cand_p >= thr_p, cand_p, thr_p, f"{tag}_ok")
+            c.close(f"{tag}_F_new", Fn_k, fused.project_accepted(F[b].double(), grad_p,
+                                                                  ok_k, cfg))
+    else:
+        s = len(cfg.step_candidates)
+        gn_k = []
+        torch.manual_seed(k)
+        for b, csr in enumerate(model.block_csr):
+            n = F_row[b].shape[0]
+            acc0 = (torch.rand((n, model.k_pad), device=DEVICE),
+                    torch.rand(n, device=DEVICE), torch.rand((s, n), device=DEVICE))
+            kern = [a.clone() for a in acc0]
+            plain = [a.double() for a in acc0]
+            g32 = grads[b].float()
+            rk.ring_grad_phase(F_row[b], closure[b], csr, kern[0], kern[1], cfg)
+            rk.ring_grad_phase_plain(F_row[b].double(), closure[b].double(), csr,
+                                     plain[0], plain[1], cfg)
+            rk.ring_cand_phase(F_row[b], g32, closure[b], csr, kern[2], cfg)
+            rk.ring_cand_phase_plain(F_row[b].double(), g32.double(), closure[b].double(),
+                                     csr, plain[2], cfg)
+            torch.cuda.synchronize()
+            checks["ring_grad_phase"].close(f"{tag}_gn", kern[0], plain[0])
+            checks["ring_grad_phase"].close(f"{tag}_ln", kern[1], plain[1])
+            checks["ring_cand_phase"].close(f"{tag}_cb", kern[2], plain[2])
+            gz, lz = torch.zeros_like(F_row[b]), F_row[b].new_zeros(n)
+            gn_k.append(rk.ring_grad_phase(F_row[b], closure[b], csr, gz, lz, cfg)[0])
+    if C > 1:
+        for b in range(p):
+            g_own, node_llh, cand_own = own[b]
+            check_epilogue(checks["armijo_tail_select"], f"{tag}_b{b}", F[b], sumF,
+                           g_own.float(), node_llh.float(), cand_own.float(), cfg)
+        if not kc:
+            tabs, rows_checked = model._grad_tabs, 0
+            for i, row in enumerate(model.rows_grid):
+                group = list(range(i * C, (i + 1) * C))
+                out, cnt, fb = closure_grad_allreduce(
+                    [gn_k[b] for b in group], [tabs["out"][b] for b in group],
+                    [tabs["in"][b] for b in group], [tabs["count"][b] for b in group],
+                    tabs["cap"], list(row), "s", "c")
+                want = psum([gn_k[b] for b in group], list(row))[0]
+                if int(fb):
+                    raise AssertionError(f"{tag}: the auto cap fell back")
+                for j, b in enumerate(group):
+                    rows = torch.unique(model.block_csr[b].src)
+                    own_rows = torch.arange(j * n_blk, (j + 1) * n_blk, device=rows.device)
+                    rows = torch.unique(torch.cat([rows, own_rows]))
+                    if not torch.equal(out[j][rows], want[rows]):
+                        raise AssertionError(f"{tag}: closure_grad_allreduce differs "
+                                             "from the dense psum")
+                    rows_checked += int(rows.numel())
+            body["closure_grad_allreduce"] = {
+                "bit_equal": True, "rows_checked": rows_checked,
+                "grad_cap": model._grad_cap, "pair_max": model._grad_pair_max}
+    return body
+
+
+def twod_cap1(g) -> dict:
+    """The odd graph on (2, 2) at K = 37: a closure_grad_cap = 1 build falls
+    back to the dense psum on every step (the counters say so each step),
+    and its history and F are the dense build's bit for bit."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.parallel import TwoDShardedBigClamModel
+
+    cfg = BigClamConfig(num_communities=ODD["k"], partition="2d", replica_cols=2)
+    # small weights: at 0.3 and above every row collapses to zero in one
+    # step on this graph, and any two builds then agree trivially
+    F0 = np.random.default_rng(23).uniform(0.0, 0.1, (g.num_nodes, ODD["k"]))
+    runs = {}
+    for name, c in (("cap1", cfg.replace(closure_grad_cap=1)),
+                    ("dense", cfg.replace(grad_exchange="dense"))):
+        model = TwoDShardedBigClamModel(g, c, twod_grid(2, 2))
+        st, hist, comm = model.init_state(F0), [], []
+        for _ in range(TWOD_ODD_CAP_STEPS):
+            st = model._step(st)
+            hist.append(float(st.llh))
+            comm.append(model.last_comm(st))
+        runs[name] = (hist, model.extract_F(st), comm, model)
+    hist, F, comm, model = runs["cap1"]
+    if not all(fb and ids > 1 for ids, fb in comm):
+        raise AssertionError(f"cap 1 did not fall back every step: {comm}")
+    if hist != runs["dense"][0] or not np.array_equal(F, runs["dense"][1]):
+        raise AssertionError("the cap-1 fallback differs from the dense build")
+    return {"steps": TWOD_ODD_CAP_STEPS, "comm": comm, "pair_max": model._grad_pair_max,
+            "llh_history": hist, "bit_equal_dense": True}
+
+
+def phase_twod_odd() -> tuple:
+    """twod_odd_case over TWOD_ODD_CASES (the odd and hub graphs), then the
+    cap-1 fallback (twod_cap1)."""
+    checks = {n: Check(n) for n in TWOD_CHECKS}
+    graphs = {"odd": odd_graph(), "hub": hub_graph()}
+    out = {}
+    for gname, shape, k in TWOD_ODD_CASES:
+        tag = f"{gname}_{shape[0]}x{shape[1]}_k{k}"
+        out[tag] = twod_odd_case(checks, graphs[gname], shape, k, tag)
+    out["cap1"] = twod_cap1(graphs["odd"])
+    out["kernels"] = {n: c.parts for n, c in checks.items() if c.parts}
+    return checks, out
+
+
+def twod_launches_want(counts, p: int, cols: int, n_kb: int, steps: int) -> dict:
+    """The launches `steps` 2D steps on p positions imply: per position and
+    step, at C = 1 kernel A (flat) or each window kernel once a window and
+    the node pass; at C > 1 #8, #9 (flat) or the window kernels and the
+    neighbour sums (K-blocked), and the epilogue."""
+    want = dict.fromkeys(counts, 0)
+    per = p * steps
+    if n_kb:
+        want.update(edge_dots_kb=per * n_kb, grad_from_x=per * n_kb,
+                    cand_dots_kb=per * n_kb)
+        if cols == 1:
+            want["cand_select_from_x"] = per
+        else:
+            want.update(cand_from_x=per, armijo_tail_select=per)
+    elif cols == 1:
+        want["fused_superstep"] = per
+    else:
+        want.update(ring_grad_phase=per, ring_cand_phase=per, armijo_tail_select=per)
+    return want
+
+
+def twod_run(g, path, k, cols, want_path, n_kb, ref_hist, ref_name) -> tuple:
+    """`cli fit --mesh 4,1 --partition 2d --replica-cols cols` on the card
+    under the comms counter, the launch counters zeroed around it: the path,
+    the launches twod_launches_want implies, the LLH within LLH_RTOL of
+    `ref_hist`, the counted collective bytes a step equal to the model's
+    (`comms_bytes_per_step`), the peak beside the modeled bytes (check_peak)
+    and the exchange's counters. Returns (history, body)."""
+    from bigclam_tpu_torch.obs import comms
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with comms.counting() as ctr:
+        out, _, counts, state = run_path(g, path, k, [
+            "--max-iters", str(TWOD_ITERS), "--mesh", f"{TWOD_MESH},1",
+            "--partition", "2d", "--replica-cols", str(cols)])
+    peak = torch.cuda.max_memory_allocated() - base
+    rows = TWOD_MESH // cols
+    if (out["kernel_path"], out["mesh"]) != (want_path, f"{rows}x{cols}"):
+        raise AssertionError(f"ran {out['kernel_path']} on {out['mesh']}, want "
+                             f"{want_path} on {rows}x{cols}")
+    steps = out["steps"]
+    want = twod_launches_want(counts, TWOD_MESH, cols, n_kb, steps)
+    if counts != want:
+        raise AssertionError(f"{want_path} {rows}x{cols} launches {counts}, want {want}")
+    hist = out["llh_history"]
+    rel = llh_rel(hist, ref_hist[: len(hist)])
+    if rel > LLH_RTOL:
+        raise AssertionError(f"{want_path} {rows}x{cols} LLH {hist} vs {ref_name} "
+                             f"{ref_hist}")
+    counted = {s: b / steps for s, b in ctr.bytes.items() if s.startswith("twod/")}
+    counted_total = round(sum(counted.values()), 1)
+    if abs(counted_total - out["comms_bytes_per_step"]) > 1.0:
+        raise AssertionError(f"counted {counted_total} B a step, modeled "
+                             f"{out['comms_bytes_per_step']}")
+    modeled = out["hbm_modeled_bytes"]
+    ids, fell_back = (0, False)
+    if getattr(state, "comm_ids", None) is not None:
+        ids, fell_back = int(state.comm_ids), bool(int(state.comm_dense))
+    return hist, {
+        "kernel_path": want_path, "mesh": out["mesh"], "grad_exchange":
+        out["grad_exchange"], "replica_cols": out["replica_cols"],
+        "llh_history": hist, f"max_rel_vs_{ref_name}": rel, "steps": steps,
+        "sec_per_iter": out["sec_per_iter"], "launches": counts,
+        "comms_bytes_per_step_counted": counted_total,
+        "comms_bytes_per_step_modeled": out["comms_bytes_per_step"],
+        "counted_sites": counted, "exchanged_ids": ids, "fell_back": fell_back,
+        "peak_gb_measured": peak / 1e9, "peak_gb_modeled": modeled / 1e9,
+        "peak_modeled_over_measured": check_peak(f"{want_path} {rows}x{cols}", peak,
+                                                 modeled, 1),
+        "stage_seconds": out["stage_seconds"],
+    }
+
+
+def phase_twod_full(g, path, main_hist) -> tuple:
+    """`full` through `cli fit --mesh 4,1` (the 1D all-gather, csr_fused)
+    and `--partition 2d` at --replica-cols 1 (csr_fused_2d on kernel A, its
+    history bit for bit the 1D one) and 2 (csr_fused_2d on #8/#9 with the
+    closure exchange, within LLH_RTOL of main's), each twod_run's numbers
+    beside the all-gather's seconds a step."""
+    out, counts_by = {}, {}
+    ag, _, ag_counts, _ = run_path(g, path, FULL["k"], [
+        "--max-iters", str(TWOD_ITERS), "--mesh", f"{TWOD_MESH},1"])
+    if ag["kernel_path"] != "csr_fused":
+        raise AssertionError(f"the all-gather ran {ag['kernel_path']}")
+    out["allgather_4x1"] = {"llh_history": ag["llh_history"],
+                            "sec_per_iter": ag["sec_per_iter"], "launches": ag_counts}
+    for cols in (1, 2):
+        hist, body = twod_run(g, path, FULL["k"], cols, "csr_fused_2d", 0,
+                              main_hist, "main")
+        if cols == 1 and hist != ag["llh_history"]:
+            raise AssertionError(f"2d at C = 1 {hist} is not the all-gather's "
+                                 f"{ag['llh_history']} bit for bit")
+        body["bit_equal_allgather"] = cols == 1
+        body["allgather_sec_per_iter"] = ag["sec_per_iter"]
+        tag = f"csr_fused_2d_{TWOD_MESH // cols}x{cols}"
+        out[tag] = body
+        counts_by[tag] = body["launches"]
+    return counts_by, out
+
+
+def phase_twod_xlk(g, path, kb_hist) -> tuple:
+    """`xl_k` through `cli fit --mesh 4,1 --partition 2d` at (4, 1) and
+    (2, 2): csr_fused_2d_kb, twod_run's numbers against kb_main's one-card
+    csr_fused_kb history."""
+    from bigclam_tpu_torch.models.bigclam import mesh_k_plan
+
+    kc, k_pad = mesh_k_plan(XLK["k"], 1, True)
+    out, counts_by = {"kc": kc, "k_pad": k_pad}, {}
+    for cols in (1, 2):
+        _, body = twod_run(g, path, XLK["k"], cols, "csr_fused_2d_kb", k_pad // kc,
+                           kb_hist, "kb_main")
+        tag = f"csr_fused_2d_kb_{TWOD_MESH // cols}x{cols}"
+        out[tag] = body
+        counts_by[tag] = body["launches"]
+    return counts_by, out
+
+
+def phase_twod_store(cache, F0) -> dict:
+    """store_full's 4-shard cache through StoreTwoDShardedBigClamModel at
+    (4, 1) and (2, 2) on the card: the baked closure lists (no streaming),
+    the blobs read, and TWOD_STORE_ITERS steps from main's F0 (the cache's
+    order is the text graph's, store_full checks) bit for bit the
+    in-memory 2D trainer's on the cache's graph (history and F)."""
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.store import GraphStore
+    from bigclam_tpu_torch.parallel import (
+        StoreTwoDShardedBigClamModel, TwoDShardedBigClamModel,
+    )
+
+    store = GraphStore.open(cache)
+    g = store.load_graph()
+    out = {}
+    for cols in (1, 2):
+        cfg = BigClamConfig(num_communities=FULL["k"], partition="2d",
+                            replica_cols=cols, max_iters=TWOD_STORE_ITERS,
+                            conv_tol=0.0)
+        grid = twod_grid(STORE_SHARDS // cols, cols)
+        t0 = time.perf_counter()
+        st = StoreTwoDShardedBigClamModel(store, cfg, grid)
+        build_st = time.perf_counter() - t0
+        if "streamed" in st.path_reason or st.engaged_path != "csr_fused_2d":
+            raise AssertionError(f"store 2d: {st.engaged_path}; {st.path_reason}")
+        r_st = st.fit(F0)
+        files = [f for group in st.files_read for f in group]
+        del st
+        t0 = time.perf_counter()
+        mem = TwoDShardedBigClamModel(g, cfg, grid)
+        build_mem = time.perf_counter() - t0
+        r_mem = mem.fit(F0)
+        del mem
+        if (list(r_st.llh_history) != list(r_mem.llh_history)
+                or not np.array_equal(r_st.F, r_mem.F)):
+            raise AssertionError(f"store 2d at C = {cols} differs from the in-memory "
+                                 "trainer")
+        out[f"{STORE_SHARDS // cols}x{cols}"] = {
+            "bit_equal_in_memory": True, "llh_history": list(r_st.llh_history),
+            "files_read": len(files), "build_s_store": build_st,
+            "build_s_in_memory": build_mem}
+    return out
+
+
+def phase_twod_parity(tmp) -> dict:
+    """The parity graph: `csr_fused_2d` on (2, 2) of the card (5 steps from
+    one conductance init) against the CPU float64 `xla_2d` on (2, 2) and on
+    one device (LLH_RTOL); a (2, 2) fit checkpointed and resumed, bit for
+    bit the uninterrupted fit; `sweep --mesh 4,1 --partition 2d
+    --replica-cols 2` on the card against the CPU float64 one-device sweep:
+    the same grid and chosen K (unless a stop ratio lies within 1e-4 of
+    ksweep_tol)."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.models.bigclam import BigClamModel
+    from bigclam_tpu_torch.parallel import TwoDShardedBigClamModel, make_mesh_2d
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    path = os.path.join(tmp, "twod_parity_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    cfg = BigClamConfig(num_communities=PARITY["k"], max_iters=4, conv_tol=0.0,
+                        partition="2d", replica_cols=2)
+    F0 = cli.init_F(g, cfg, "conductance")
+    f64 = cfg.replace(dtype="float64")
+    card = TwoDShardedBigClamModel(g, cfg, twod_grid(2, 2))
+    cpu = TwoDShardedBigClamModel(g, f64, make_mesh_2d((2, 2), ["cpu"] * 4))
+    if (card.engaged_path, cpu.engaged_path) != ("csr_fused_2d", "xla_2d"):
+        raise AssertionError((card.engaged_path, cpu.engaged_path))
+    reset_launch_counts()
+    a = card.fit(F0).llh_history
+    counts = {n: c for n, c in launch_counts().items() if c}
+    b = cpu.fit(F0).llh_history
+    one = BigClamModel(g, f64.replace(partition="1d", replica_cols=1),
+                       device="cpu").fit(F0).llh_history
+    rel = max(llh_rel(a, b), llh_rel(a, one))
+    if rel > LLH_RTOL:
+        raise AssertionError(f"2d card LLH {a} vs cpu float64 {b} / {one}")
+    out = {"gpu_llh": a, "cpu_f64_2x2_llh": b, "cpu_f64_single_llh": one,
+           "max_rel": rel, "launches": counts, "grad_exchange": card.grad_exchange}
+    ck = cfg.replace(checkpoint_every=1)
+    full = TwoDShardedBigClamModel(g, ck, twod_grid(2, 2)).fit(F0)
+    cm = CheckpointManager(os.path.join(tmp, "twod_parity_ckpt"))
+    TwoDShardedBigClamModel(g, ck.replace(max_iters=MESH_PARITY_CKPT_AT),
+                            twod_grid(2, 2)).fit(F0, checkpoints=cm)
+    res = TwoDShardedBigClamModel(g, ck, twod_grid(2, 2)).fit(F0, checkpoints=cm)
+    if not np.array_equal(res.F, full.F) or (list(res.llh_history[-2:])
+                                             != list(full.llh_history[-2:])):
+        raise AssertionError("the resumed 2d fit differs from the uninterrupted one")
+    out["resume_2x2"] = {"checkpoint_at": MESH_PARITY_CKPT_AT, "bit_equal": True}
+    gpu, s_counts, _ = run_sweep(path, SWEEP_PARITY, [
+        "--device", DEVICE, "--mesh", "4,1", "--partition", "2d",
+        "--replica-cols", "2"])
+    cpu_s, _, _ = run_sweep(path, SWEEP_PARITY, ["--device", "cpu", "--dtype", "float64"])
+    llh = [cpu_s["llh_by_k"][str(k)] for k in cpu_s["kset"] if str(k) in cpu_s["llh_by_k"]]
+    ratios = [1.0 - y / x for x, y in zip(llh, llh[1:])]
+    near_tie = any(abs(r - 1e-3) <= 1e-4 for r in ratios)
+    if gpu["kset"] != cpu_s["kset"] or (gpu["chosen_k"] != cpu_s["chosen_k"]
+                                        and not near_tie):
+        raise AssertionError(f"sweep --partition 2d chose {gpu['chosen_k']} on "
+                             f"{gpu['kset']}, cpu float64 {cpu_s['chosen_k']}")
+    common = [k for k in gpu["llh_by_k"] if k in cpu_s["llh_by_k"]]
+    srel = max(abs(gpu["llh_by_k"][k] - cpu_s["llh_by_k"][k]) / abs(cpu_s["llh_by_k"][k])
+               for k in common)
+    if srel > LLH_RTOL:
+        raise AssertionError(f"sweep 2d LLH {gpu['llh_by_k']} vs {cpu_s['llh_by_k']}")
+    out["sweep_2d_2x2"] = {"kset": gpu["kset"],
+                           "chosen_k": [gpu["chosen_k"], cpu_s["chosen_k"]],
+                           "max_rel": srel, "stop_ratios": ratios,
+                           "launches": {n: c for n, c in s_counts.items() if c}}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -6248,6 +6758,7 @@ def main(argv=None) -> int:
     run("host_odd", phase_host_odd)
     run("quality_odd", phase_quality_odd)
     kbmesh_odd_checks, _ = run("kbmesh_odd", phase_kbmesh_odd)
+    twod_odd_checks, _ = run("twod_odd", phase_twod_odd)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path = os.path.join(tmp, "full_graph.txt")
@@ -6291,11 +6802,13 @@ def main(argv=None) -> int:
         run("ring_multi", phase_ring_multi, gi, F0, main_hist)
         tp_full_counts, _ = run("tp_full", phase_tp_full, gi, F0, main_hist,
                                 main_out["sec_per_iter"])
+        twod_full_counts, _ = run("twod_full", phase_twod_full, g, path, main_hist)
         cache, cdir, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
                              main_out, main_counts)
         run("store_native_dp4", phase_store_native_dp4, gi, path, tmp, cache,
             F0, ag_body["csr_fused"]["sec_per_iter"],
             ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
+        run("twod_store", phase_twod_store, cache, F0)
         run("store_heal", phase_store_heal, path, tmp, cache, main_out)
         run("store_delta", phase_store_delta, gi, path, tmp, cdir)
         q_full = run("quality_full", phase_quality_full, gi, F0, main_out,
@@ -6314,6 +6827,7 @@ def main(argv=None) -> int:
         run("vmem_parity", phase_vmem_parity, tmp)
         run("sweep_parity", phase_sweep_parity, tmp)
         run("mesh_parity", phase_mesh_parity, tmp)
+        run("twod_parity", phase_twod_parity, tmp)
         run("resilience_odd", phase_resilience_odd, tmp)
         run("obs_ledger", phase_obs_ledger, tmp)
 
@@ -6336,6 +6850,8 @@ def main(argv=None) -> int:
         F_kb = np.asarray(res.F, np.float64)
         kbmesh_counts, _ = run("kbmesh_xlk", phase_kbmesh_xlk, g, path,
                                list(res.llh_history), F_kb)
+        twod_xlk_counts, _ = run("twod_xlk", phase_twod_xlk, g, path,
+                                 list(res.llh_history))
         run("store_kb", phase_store_kb, path, tmp)
         run("obs_memory", phase_obs_memory, g, F_kb, "xl_k")
         run("obs_profile", phase_obs_profile, g, path, "xl_k", F_kb)
@@ -6361,6 +6877,10 @@ def main(argv=None) -> int:
         kb_checks[name].max_rel = max(kb_checks[name].max_rel, c.max_rel)
     checks.update(kb_checks, member_lookup=sp_check, **vm_checks,
                   **{name: ring_checks[name] for name in RING})
+    for name, c in twod_odd_checks.items():
+        # the kernels on closure-table inputs count toward their errors
+        checks[name].max_abs = max(checks[name].max_abs, c.max_abs)
+        checks[name].max_rel = max(checks[name].max_rel, c.max_rel)
     times.update(kb_times, **sp_times, **vm_times, **ring_times)
     bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd,
                **ring_bnd)
@@ -6398,6 +6918,11 @@ def main(argv=None) -> int:
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name]}
                if name in (*RING, "armijo_tail_select") else {}),
+            **({"launches_twod_full": {tag: mesh_launches(c, name)
+                                       for tag, c in twod_full_counts.items()},
+                "launches_twod_xlk": {tag: mesh_launches(c, name)
+                                      for tag, c in twod_xlk_counts.items()}}
+               if name in TWOD_CHECKS else {}),
             "max_abs_err": checks[name].max_abs,
             "max_rel_err": checks[name].max_rel,
             "ms": times[name]["ms"], "kernel_ms": times[name]["ms"],

@@ -144,3 +144,31 @@ def test_single_device_models_bake_no_comms(graph):
     one = _model(Graph(graph.indptr, graph.indices, graph.raw_ids),
                  "allgather", 1, False)
     assert one.comms.bytes_per_step() == 0.0
+
+
+@pytest.mark.parametrize("rows,cols,gx,gcap", [
+    (4, 1, "closure", 0), (2, 2, "closure", 40), (2, 2, "dense", 0),
+    (1, 4, "closure", 60), (2, 4, "closure", 0), (3, 2, "dense", 0),
+])
+def test_twod_sites_carry_the_jax_sites(rows, cols, gx, gcap):
+    """The port's 2D model carries JAX twod_step_model's site names,
+    payloads and participants (health off); a site over one axis runs once
+    per group of the other, so its count is JAX's times the groups, and
+    the port's total is p times the JAX per-device figure."""
+    p = rows * cols
+    n_pad, k_pad, isz, s, cap = 120 * p, 64, 4, 16, 50
+    ours = pcomms.twod_step_model(n_pad, k_pad, rows, cols, isz, s,
+                                  closure_cap=cap, grad_exchange=gx,
+                                  grad_cap=gcap, fused=True)
+    ref = jcomms.twod_step_model(n_pad, k_pad, rows, cols, isz, s,
+                                 closure_cap=cap, grad_exchange=gx,
+                                 grad_cap=gcap, fused=True)
+    assert [x.site for x in ours.sites] == [x.site for x in ref.sites]
+    for o, r in zip(ours.sites, ref.sites):
+        assert (o.op, o.payload_bytes, o.participants) == (
+            r.op, r.payload_bytes, r.participants)
+        assert o.count == r.count * p // r.participants
+    assert ours.bytes_per_step() == pytest.approx(p * ref.bytes_per_step(),
+                                                  rel=1e-12)
+    assert pcomms.wire_bytes("all_to_all", 100, 4) == 300.0
+    assert pcomms.wire_bytes("psum_scatter", 100, 1) == 0.0

@@ -4,7 +4,8 @@ non-CSR candidate kernel's ops.edge_kernels, the K sweep's
 models.model_selection, the graph store's graph.stream and graph.store,
 the serving stack's ops.foldin, serve.* and models.refit, quality mode's
 ops.components and models.quality, the sparse sharded trainer's
-parallel.sparse_collectives and parallel.sparse_sharded, and the
+parallel.sparse_collectives and parallel.sparse_sharded, the 2D
+partition's parallel.twod, and the
 observability and resilience modules among them) and runs every
 subcommand's `--help`, then finds no jax and no bigclam_tpu module
 loaded; a static scan finds no such import in any port file or in
@@ -57,7 +58,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "serve.snapshot", "serve.batcher", "serve.server",
                      "models.refit", "ops.components", "models.quality",
                      "parallel.sparse_collectives",
-                     "parallel.sparse_sharded"):
+                     "parallel.sparse_sharded", "parallel.twod"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules

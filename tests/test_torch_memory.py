@@ -170,6 +170,10 @@ def test_preflight_com_youtube_dense_names_sparse(capsys):
     assert rc == 0 and "verdict: FITS" in out.out
 
 
+# refused before the 2D trainer landed; now priced (a (4, 1) grid of cards)
+PRICED = (["--partition", "2d", "--devices", "4"],)
+
+
 @pytest.mark.parametrize("flags", [
     ["--device-kind", "v5e"],
     ["--partition", "2d", "--devices", "4"],
@@ -180,10 +184,18 @@ def test_preflight_com_youtube_dense_names_sparse(capsys):
     ["--mesh", "2,2", "--partition", "2d"],
 ])
 def test_preflight_refuses_what_the_port_does_not_run(capsys, flags):
+    """What no port trainer runs exits 1 naming why; the 2D partition on
+    four cards (PRICED), refused before its trainer landed, gets a verdict,
+    and on a K-sharded mesh is refused in the JAX preflight's words."""
     rc, out = _preflight(capsys, "--nodes", "1000", "--edges", "5000",
                          "--k", "64", *flags)
+    if flags in PRICED:
+        assert rc == 0 and "partition 2d(cols=1) csr_fused_2d" in out.out
+        return
     assert rc == 1 and out.out == ""
     assert "error:" in out.err
+    if "2d" in flags:
+        assert "partition=2d requires tp == 1" in out.err
 
 
 @pytest.mark.parametrize("flags,path,k_pad", [
@@ -277,3 +289,33 @@ def test_cli_fit_stamps_the_models(tmp_path, capsys, graph):
     assert cli.main(common + ["--mesh", "2,1", "--schedule", "ring"]) == 0
     mesh = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert mesh["comms_bytes_per_step"] > 0 and mesh["hbm_modeled_bytes"] > 0
+
+
+@pytest.mark.parametrize("rows,cols,gx,gcap", [
+    (4, 1, "dense", 0), (2, 2, "closure", 40), (2, 2, "dense", 0),
+    (1, 4, "closure", 60),
+])
+def test_twod_memory_model_carries_the_jax_buffers(rows, cols, gx, gcap):
+    """At one position a card the port's 2D model prices JAX's 2D buffers
+    at JAX's bytes (the row-group gather, the closure table, the row-group
+    gradient, the state's F); the touched-rows exchange prices one phase's
+    staging (JAX's formula prices a send and a receive buffer) and adds
+    the (n_row, K) result; the port's later phases (candidate sweep,
+    tails) ride `transient/later_phase_excess`."""
+    n_pad, k_pad, isz, s, cap = 960, 64, 4, 16, 50
+    args = (n_pad, k_pad, rows, cols, isz, s, {"graph/x": 100.0})
+    ours = pmem.twod_memory_model(*args, closure_cap=cap, grad_exchange=gx,
+                                  grad_cap=gcap, path="csr_fused_2d")
+    ref = jmem.twod_memory_model(*args, closure_cap=cap, grad_exchange=gx,
+                                 grad_cap=gcap, fused=True)
+    mine, theirs = ours.buffer_bytes(), ref.buffer_bytes()
+    names = ["state/F", "transient/closure_recv"] + (
+        ["transient/F_rowgather", "transient/grad_row"] if cols > 1 else [])
+    for name in names:
+        assert mine[name] == theirs[name], name
+    if gx == "closure":
+        n_row = cols * n_pad // (rows * cols)
+        assert (mine["transient/grad_closure_exchange"]
+                == theirs["transient/grad_closure_exchange"]
+                + (n_row - cols * gcap) * k_pad * isz)
+    assert ours.params["grad_exchange"] == ref.params["grad_exchange"] == gx

@@ -205,10 +205,13 @@ def test_preflight_on_a_cache(caches):
     rcj, ref, _ = _run(jax_main, base)
     assert ref["workload"]["n"] == one["workload"]["n"]
     assert ref["workload"]["directed_edges"] == one["workload"]["directed_edges"]
-    for flags in (["--partition", "2d", "--mesh", "4,1"],
-                  ["--store-native"]):
-        rc, _, err = _run(cli.main, base + flags)
-        assert rc == 1 and "error:" in err
+    # the 2D partition, refused before its trainer landed, is priced from
+    # the manifest's baked closure pair counts (no coupon-collector note)
+    rc, tw, _ = _run(cli.main, base + ["--partition", "2d", "--mesh", "4,1"])
+    assert rc == 0 and tw["workload"]["partition"] == "2d"
+    assert not any("coupon-collector" in n for n in tw["notes"])
+    rc, _, err = _run(cli.main, base + ["--store-native"])
+    assert rc == 1 and "error:" in err
     # --serve prices a serving fleet on the manifest's numbers, as JAX's
     rc, sv, _ = _run(cli.main, base + ["--serve"])
     rcj, ref, _ = _run(jax_main, base + ["--serve"])

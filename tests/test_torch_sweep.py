@@ -2,8 +2,8 @@
 against the JAX package: the K grid with the reference's integer-division
 quirks, `sweep_k` in float64 on the dense and the sparse trainer (same
 grid and chosen K, LLH per K at rtol 1e-10), the sweep_state.json journal
-read across the two packages, resume and its rng invariance, the named
-refusals, and the CLI JSON keys."""
+read across the two packages, resume and its rng invariance, mesh and 2D
+sweeps against the single device's, and the CLI JSON keys."""
 
 import contextlib
 import io
@@ -26,14 +26,16 @@ from bigclam_tpu_torch import cli
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import BigClamModel
-from bigclam_tpu_torch.models.model_selection import (
-    NotPortedError,
-    build_kset,
-    sweep_k,
-)
+from bigclam_tpu_torch.models.model_selection import build_kset, sweep_k
 from bigclam_tpu_torch.models.sparse import SparseBigClamModel
 from bigclam_tpu_torch.ops import seeding
-from bigclam_tpu_torch.parallel import ShardedBigClamModel, make_mesh
+from bigclam_tpu_torch.parallel import (
+    ShardedBigClamModel,
+    TwoDShardedBigClamModel,
+    make_mesh,
+    make_mesh_2d,
+    twod_mesh_shape,
+)
 
 torch.set_num_threads(2)
 
@@ -195,27 +197,31 @@ def test_resume_mid_grid_equals_uninterrupted_run(tmp_path):
     [({"quality_mode": True, "mesh_shape": (2, 1)}, False),
      ({"quality_mode": True, "partition": "2d"}, True),
      ({"mesh_shape": (1, 2)}, False),
-     ({"mesh_shape": (2, 1)}, False), ({"partition": "2d"}, False)],
+     ({"mesh_shape": (2, 1)}, False),
+     ({"partition": "2d", "replica_cols": 2}, False)],
 )
 def test_unported_options_are_refused_by_name(planted, kw, annealing):
-    """The 2D partition (ROADMAP item 17) is refused by name, with or
-    without quality mode and device annealing (both of which the sweep
-    runs). A mesh, refused as item 14 before the mesh sweep landed, now
-    sweeps through a factory of the all-gather trainer over that mesh (as
-    `cli sweep --mesh` passes one): the same grid, chosen K and LLH per K
-    (1e-10) as the single device's sweep."""
+    """Meshes and the 2D partition, refused (ROADMAP items 14 and 17)
+    before the mesh sweep and the 2D trainer landed, now sweep through a
+    factory of the trainer over that mesh (as `cli sweep --mesh` and
+    `--partition 2d` pass one), with and without quality mode and device
+    annealing: the same grid, chosen K and LLH per K (1e-10) as the single
+    device's sweep."""
     cfg = BigClamConfig(**_sweep_cfg(**kw))
     g = _port_graph(planted)
-    if cfg.partition != "1d":
-        with pytest.raises(NotPortedError, match="not ported yet"):
-            sweep_k(g, cfg, device_annealing=annealing, device="cpu")
-        return
-    dp, tp = cfg.mesh_shape
-    mesh = make_mesh((dp, tp), [torch.device("cpu")] * (dp * tp))
+    cpu = torch.device("cpu")
+    if cfg.partition == "2d":
+        mesh = make_mesh_2d(twod_mesh_shape(cfg, 2), [cpu] * 2)
+        factory = lambda c: TwoDShardedBigClamModel(g, c, mesh)  # noqa: E731
+    else:
+        dp, tp = cfg.mesh_shape
+        mesh = make_mesh((dp, tp), [cpu] * (dp * tp))
+        factory = lambda c: ShardedBigClamModel(g, c, mesh)  # noqa: E731
     got = sweep_k(g, cfg, device_annealing=annealing, device="cpu",
-                  model_factory=lambda c: ShardedBigClamModel(g, c, mesh))
-    want = sweep_k(g, cfg.replace(mesh_shape=(1, 1)), device_annealing=annealing,
-                   device="cpu")
+                  model_factory=factory)
+    want = sweep_k(g, cfg.replace(mesh_shape=(1, 1), partition="1d",
+                                  replica_cols=1),
+                   device_annealing=annealing, device="cpu")
     _same_sweep(got, want)
 
 
