@@ -126,14 +126,18 @@ collective bytes a step (`comms_bytes_per_step`, obs.comms).
 
 Serving (JAX `serve`/`refit` keys and defaults): `fit --publish-dir`
 publishes the final F as the next snapshot generation (`--publish-shards
-S`: S row-range archives of a fleet generation, which the JAX package's
-router serves); `serve` answers communities_of / members_of from the
-snapshot and suggest_for by fold-in on `--device` (no card raises, as
-`fit` does), with `--watch-snapshots` hot swaps; `refit` folds the rows a
-delta touched (plus a halo) into the latest snapshot and publishes the
-next generation; `fit --follow DIR` runs delta ingest -> refit -> publish
-per new edge file. `serve --fleet/--fleet-shard/--listen` are refused by
-name (ROADMAP item 18); `preflight --serve` prices a serving fleet.
+S`: S row-range archives of a fleet generation); `serve` answers
+communities_of / members_of from the snapshot and suggest_for by fold-in
+on `--device` (no card raises, as `fit` does), with `--watch-snapshots`
+hot swaps; `refit` folds the rows a delta touched (plus a halo) into the
+latest snapshot and publishes the next generation; `fit --follow DIR`
+runs delta ingest -> refit -> publish per new edge file; `fit
+--export-gexf PATH` writes the graph and its communities as GEXF.
+The sharded fleet: `serve --fleet DIR --fleet-shard S --listen HOST:PORT`
+is one shard's replica (fold-in on `--device`), `route` routes queries
+over the replicas, and `fleet up|status|add-replica|drain|down`
+supervises them (`fleet --device` goes to every replica it spawns);
+`preflight --serve` prices a serving fleet.
 
 Quality mode (models/quality.py; NOT reference semantics): `fit
 --quality` runs the noise-floor init, restart annealing under the relaxed
@@ -160,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -361,6 +366,26 @@ def _add_fit_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--save-f", default=None,
                    help="write the final (N, K) F as a .npy file")
+    _add_run_flags(p)
+
+
+INIT_CHOICES = ["conductance", "random", "rowkeyed"]
+
+
+def _add_ignored_init(p: argparse.ArgumentParser) -> None:
+    """`--init` on `sweep` and `refit`: the JAX CLI's `_add_common` gives
+    them the flag and they ignore it (a sweep seeds each K by conductance,
+    a refit warm-starts from the snapshot)."""
+    p.add_argument(
+        "--init", default="conductance", choices=INIT_CHOICES,
+        help="accepted and ignored, as in the JAX CLI (a sweep seeds by "
+             "conductance; a refit starts from the published snapshot)",
+    )
+
+
+def _add_run_flags(p: argparse.ArgumentParser) -> None:
+    """The metrics, heartbeat, health and --quiet flags that `fit`,
+    `sweep` and `refit` share with the JAX CLI's `_add_common`."""
     p.add_argument("--metrics", default=None, help="JSONL metrics path")
     p.add_argument(
         "--heartbeat-s", type=float, default=300.0,
@@ -403,8 +428,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--k", type=int, default=100,
                    help="number of communities (default 100, as in the JAX CLI)")
     f.add_argument(
-        "--init", default="conductance",
-        choices=["conductance", "random", "rowkeyed"],
+        "--init", default="conductance", choices=INIT_CHOICES,
         help="F initialization: conductance seeding (the reference "
              "default), a {0,1} Bernoulli(0.5) random init, or the "
              "row-keyed counter init",
@@ -442,11 +466,17 @@ def build_parser() -> argparse.ArgumentParser:
              "a repair round)",
     )
     f.add_argument("--out", default=None, help="write communities (SNAP cmty)")
+    f.add_argument(
+        "--export-gexf", default=None,
+        help="write a Gephi-compatible GEXF with community attributes",
+    )
     _add_fit_flags(f)
     _add_publish_flags(f)
 
     w = sub.add_parser("sweep", help="automatic K selection over a log grid")
     _add_train_flags(w)
+    _add_run_flags(w)
+    _add_ignored_init(w)
     w.add_argument("--min-com", type=int, default=1000)
     w.add_argument("--max-com", type=int, default=9000)
     w.add_argument("--div-com", type=int, default=100)
@@ -479,6 +509,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_ingest_parser(sub)
     _add_obs_parsers(sub)
     _add_serve_parsers(sub)
+    _add_fleet_parsers(sub)
     return p
 
 
@@ -550,12 +581,23 @@ def _add_serve_parsers(sub) -> None:
              "utils.checkpoint.publish): the latest published snapshot "
              "is served, falling back past corrupt ones",
     )
-    sv.add_argument("--fleet", default=None, metavar="DIR",
-                    help="refused: fleet replicas are ROADMAP item 18")
-    sv.add_argument("--fleet-shard", type=int, default=None, metavar="S",
-                    help="refused: fleet replicas are ROADMAP item 18")
-    sv.add_argument("--listen", default=None, metavar="HOST:PORT",
-                    help="refused: fleet replicas are ROADMAP item 18")
+    sv.add_argument(
+        "--fleet", default=None, metavar="DIR",
+        help="fleet-replica mode: serve ONE shard of a fleet publication "
+             "(`cli fit --publish-shards`) over TCP line-framed JSON — "
+             "needs --fleet-shard and --listen; `cli route` is the client "
+             "(XOR --snapshots)",
+    )
+    sv.add_argument(
+        "--fleet-shard", type=int, default=0, metavar="S",
+        help="which shard of the fleet manifest this replica serves",
+    )
+    sv.add_argument(
+        "--listen", default=None, metavar="HOST:PORT",
+        help="bind address for --fleet replica mode (port 0 picks a free "
+             "port; the chosen endpoint is printed as JSON on stdout "
+             "before serving starts)",
+    )
     sv.add_argument(
         "--max-queue-depth", type=int, default=0,
         help="admission control: reject new queries with a fast "
@@ -655,6 +697,7 @@ def _add_serve_parsers(sub) -> None:
     )
     _add_train_flags(rf)
     _add_fit_flags(rf)
+    _add_ignored_init(rf)
     rf.add_argument(
         "--snapshots", required=True,
         help="snapshot directory (`cli fit --publish-dir`): the latest "
@@ -691,6 +734,265 @@ def _add_serve_parsers(sub) -> None:
     )
     rf.add_argument("--no-publish", action="store_true",
                     help="skip publishing the result (measurement runs)")
+
+
+def _add_fleet_parsers(sub) -> None:
+    """`route` and `fleet`: the JAX CLI's flags and defaults, with the
+    port's `fleet --device` (passed to every replica it spawns)."""
+    p_rt = sub.add_parser(
+        "route",
+        help="fleet query router: dispatch "
+             "membership queries over `cli serve --fleet` replicas by "
+             "node range, scatter-gather members_of across shards, pin "
+             "every query to the fleet-wide serving generation "
+             "(barrier-free rollout), pick the least-loaded healthy "
+             "replica",
+    )
+    p_rt.add_argument(
+        "--fleet", required=True, metavar="DIR",
+        help="fleet publication directory (`cli fit --publish-shards`):"
+             " the manifest's row ranges are the routing table",
+    )
+    p_rt.add_argument(
+        "--endpoints", default=None, metavar="HOST:PORT,...",
+        help="comma-separated replica endpoints (every replica of "
+             "every shard; shard ownership is discovered from their "
+             "status answers); alternative: --members",
+    )
+    p_rt.add_argument(
+        "--members", default=None, metavar="FILE",
+        help="watched membership file (published by `cli fleet up`): "
+             "the endpoint set follows it — add-replica/drain reshape "
+             "the fleet mid-stream with zero dropped queries",
+    )
+    p_rt.add_argument(
+        "--wait-fleet-s", type=float, default=30.0,
+        help="with --members: how long to wait for the fleet to come "
+             "up before erroring (kills the start-order race between "
+             "`fleet up` and `route`)",
+    )
+    p_rt.add_argument(
+        "--daemon", action="store_true",
+        help="serve the router itself over the replica wire (newline-"
+             "framed JSON TCP, --listen): a long-lived tier instead of "
+             "a one-shot batch — `{\"family\": \"status\"}` answers "
+             "router.stats(), `{\"family\": \"stop\"}` shuts it down",
+    )
+    p_rt.add_argument(
+        "--listen", default=None, metavar="HOST:PORT",
+        help="--daemon bind address (port 0 picks a free port; the "
+             "chosen endpoint is printed as JSON before serving)",
+    )
+    p_rt.add_argument(
+        "--deadline-s", type=float, default=0.0,
+        help="per-query wall deadline: a routed query past it answers "
+             "{\"error\": \"deadline_exceeded\"} (counted + rate-"
+             "verdicted; 0 = off)",
+    )
+    p_rt.add_argument(
+        "--retry-rounds", type=int, default=1,
+        help="refresh+re-dispatch rounds an idempotent read sub-query "
+             "gets after EVERY replica of its shard failed — the "
+             "window in which the supervisor restarts a killed "
+             "replica (0 = fail immediately)",
+    )
+    p_rt.add_argument(
+        "--hedge", action="store_true",
+        help="tail-latency hedging: duplicate a slow read sub-query "
+             "to a second replica after --hedge-delay-s (first answer "
+             "wins, loser cancelled; hedged/hedge_wins counted)",
+    )
+    p_rt.add_argument(
+        "--hedge-delay-s", type=float, default=0.0,
+        help="explicit hedge delay (0 = derive from the rolling wire "
+             "p99 once --hedge-min-samples accumulated)",
+    )
+    p_rt.add_argument(
+        "--hedge-min-samples", type=int, default=64,
+        help="wire-latency samples needed before a derived hedge "
+             "delay engages",
+    )
+    p_rt.add_argument(
+        "--query", action="append", default=None, metavar="FAMILY:ARG",
+        help="one query: communities_of:<u>, members_of:<c>, "
+             "suggest_for:<u>, or a JSON object (repeatable)",
+    )
+    p_rt.add_argument(
+        "--queries", default=None,
+        help="JSONL file of query objects (one per line) — the load-"
+             "test path",
+    )
+    p_rt.add_argument(
+        "--results", default=None,
+        help="write one JSON answer per query line here (default: "
+             "answers echo to stdout only for <= 16 queries)",
+    )
+    p_rt.add_argument(
+        "--repeat", type=int, default=1,
+        help="run the query set this many times (load testing)",
+    )
+    p_rt.add_argument(
+        "--max-workers", type=int, default=16,
+        help="concurrent in-flight queries (the open-loop driver's "
+             "parallelism)",
+    )
+    p_rt.add_argument(
+        "--health-interval-s", type=float, default=0.0,
+        help="re-health-check replicas and re-evaluate the serving "
+             "generation every this many seconds (0 = only at startup; "
+             "the barrier-free rollout needs this to flip mid-stream)",
+    )
+    p_rt.add_argument(
+        "--request-timeout-s", type=float, default=60.0,
+        help="per-sub-query TCP timeout before failing over to the "
+             "next replica of the shard",
+    )
+    p_rt.add_argument(
+        "--stop", action="store_true",
+        help="send a stop op to every endpoint and exit (fleet "
+             "teardown; no queries run)",
+    )
+    p_rt.add_argument(
+        "--telemetry-dir", default=None,
+        help="run-telemetry directory: route events + the final router "
+             "stats (render with `cli report`)",
+    )
+    p_rt.add_argument(
+        "--heartbeat-s", type=float, default=300.0,
+        help="stall-heartbeat deadline with --telemetry-dir "
+             "(0 disables)",
+    )
+    p_rt.add_argument(
+        "--perf-ledger", default=None,
+        help="append this route run's record (router p50/p99/QPS/shed "
+             "rate, shards x replicas in the match key) to a "
+             "perf-ledger JSONL; `cli perf diff` VERDICTS them",
+    )
+    p_rt.add_argument("--quiet", action="store_true")
+
+    p_fl = sub.add_parser(
+        "fleet",
+        help="fleet supervisor: own the `serve "
+             "--fleet` replica processes — restart-on-exit with "
+             "RetryPolicy backoff, crash-loop quarantine, membership "
+             "published to a watched file `cli route --members` "
+             "follows; up/status/down/add-replica/drain",
+    )
+    p_fl.add_argument(
+        "action",
+        choices=["up", "status", "down", "add-replica", "drain"],
+        help="up: spawn + supervise (parks until a down op); the rest "
+             "talk to a running supervisor's --control endpoint",
+    )
+    p_fl.add_argument(
+        "--fleet", default=None, metavar="DIR",
+        help="fleet publication directory (`cli fit --publish-shards`)",
+    )
+    p_fl.add_argument(
+        "--shards", type=int, default=1,
+        help="up: shards in the fleet manifest",
+    )
+    p_fl.add_argument(
+        "--replicas", type=int, default=1,
+        help="up: replicas per shard",
+    )
+    p_fl.add_argument("--host", default="127.0.0.1",
+                      help="bind host for replicas + control")
+    p_fl.add_argument(
+        "--control-port", type=int, default=0,
+        help="up: control socket port (0 picks; printed in the hello)",
+    )
+    p_fl.add_argument(
+        "--control", default=None, metavar="HOST:PORT",
+        help="status/down/add-replica/drain: the control endpoint "
+             "`fleet up` printed",
+    )
+    p_fl.add_argument(
+        "--members", default=None, metavar="FILE",
+        help="membership file path (default: <fleet>/members.json); "
+             "status can read it directly without --control",
+    )
+    p_fl.add_argument(
+        "--graph", default=None,
+        help="compiled graph cache passed to every replica "
+             "(suggest_for needs it)",
+    )
+    p_fl.add_argument(
+        "--watch-snapshots", type=float, default=1.0,
+        help="replica snapshot poll interval: how a RESTARTED replica "
+             "rejoins at the newest generation (0 = off)",
+    )
+    p_fl.add_argument(
+        "--replica-args", default=None, metavar="'ARGS...'",
+        help="extra `cli serve` flags passed through to every replica "
+             "(shell-quoted string, e.g. '--max-queue-depth 256')",
+    )
+    p_fl.add_argument(
+        "--log-dir", default=None,
+        help="per-member replica stderr logs (default: discarded)",
+    )
+    p_fl.add_argument(
+        "--restart-base-s", type=float, default=0.25,
+        help="restart backoff base (RetryPolicy schedule: base * "
+             "factor^n with deterministic per-member jitter)",
+    )
+    p_fl.add_argument(
+        "--restart-max-s", type=float, default=10.0,
+        help="restart backoff ceiling",
+    )
+    p_fl.add_argument(
+        "--quarantine-after", type=int, default=3,
+        help="consecutive failures (never up for --stable-s) before a "
+             "slot is quarantined — crash-loop detection",
+    )
+    p_fl.add_argument(
+        "--stable-s", type=float, default=5.0,
+        help="uptime that resets a member's failure count",
+    )
+    p_fl.add_argument(
+        "--drain-grace-s", type=float, default=0.5,
+        help="drain: wait this long after publishing state=draining "
+             "before the wire drain op (one router reload interval — "
+             "the zero-drop handshake)",
+    )
+    p_fl.add_argument(
+        "--up-timeout-s", type=float, default=60.0,
+        help="up: how long to wait for every replica's hello before "
+             "printing all_up=false (supervision continues either way)",
+    )
+    p_fl.add_argument(
+        "--member", default=None, metavar="ID",
+        help="drain: which member (e.g. s0r1)",
+    )
+    p_fl.add_argument(
+        "--shard", type=int, default=0,
+        help="add-replica: which shard the new replica serves",
+    )
+    p_fl.add_argument("--seed", type=int, default=0,
+                      help="backoff-jitter seed")
+    p_fl.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="up / add-replica: each replica's --device, where its "
+             "suggest family folds in (default cuda; a replica without a "
+             "card exits at start, there is no CPU fallback)",
+    )
+    p_fl.add_argument(
+        "--telemetry-dir", default=None,
+        help="run-telemetry directory: membership / replica_restart / "
+             "replica_quarantined events + the final supervision "
+             "counters (render with `cli report`)",
+    )
+    p_fl.add_argument(
+        "--heartbeat-s", type=float, default=0.0,
+        help="stall-heartbeat deadline with --telemetry-dir "
+             "(0 disables)",
+    )
+    p_fl.add_argument(
+        "--perf-ledger", default=None,
+        help="append the supervision record (replica_restarts) to a "
+             "perf-ledger JSONL",
+    )
+    p_fl.add_argument("--quiet", action="store_true")
 
 
 def _add_ingest_parser(sub) -> None:
@@ -967,11 +1269,10 @@ def config_from_args(args):
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=checkpoint_every,
-        metrics_path=getattr(args, "metrics", None),
+        metrics_path=args.metrics,
         # the steps compute health packs only for a monitor to read: with
         # no --telemetry-dir there is none, and they compute nothing
-        health_every=(max(getattr(args, "health_every", 0) or 0, 0)
-                      if getattr(args, "telemetry_dir", None) else 0),
+        health_every=(max(args.health_every, 0) if args.telemetry_dir else 0),
         seeding_degree_cap=args.seeding_degree_cap,
         use_pallas_csr={"auto": None, "on": True, "off": False}[args.csr_kernels],
         csr_fused={"auto": None, "off": False}[args.csr_fused],
@@ -1082,20 +1383,7 @@ def quality_config(args, cfg):
             "discrete repair stage reads the global CSR, which a "
             "store-native trainer never loads); drop --store-native"
         )
-    refuse_device_annealing_tp(args, cfg)
     return cfg
-
-
-def refuse_device_annealing_tp(args, cfg) -> None:
-    """--quality --device-annealing on a K-sharded mesh is refused by name
-    (models/quality.py fit_quality_device); the host schedule runs there."""
-    if (cfg.quality_mode and getattr(args, "device_annealing", False)
-            and args.mesh and parse_mesh(args.mesh)[1] > 1):
-        raise SystemExit(
-            "error: --device-annealing on a K-sharded mesh (TP > 1) is not "
-            "ported yet (ROADMAP queue 1 item 20); drop --device-annealing "
-            "for the host schedule, or use --mesh DP,1"
-        )
 
 
 def parse_mesh(text: str) -> tuple:
@@ -1378,8 +1666,9 @@ def open_telemetry(args, entry: str):
     return install(RunTelemetry(
         tdir,
         entry=entry,
-        heartbeat_s=getattr(args, "heartbeat_s", 0.0),
-        quiet=getattr(args, "quiet", False),
+        heartbeat_s=args.heartbeat_s,
+        quiet=args.quiet,
+        # ingest, serve, route and fleet have no --heartbeat-escalate
         heartbeat_escalate=getattr(args, "heartbeat_escalate", 0),
         # passed through, not via os.environ: an env mutation would leak
         # the ledger into later in-process main() calls
@@ -1640,7 +1929,7 @@ def _fit(args, tel):
         out["quality_cycles"] = state.num_cycles
         out["quality_total_iters"] = state.total_iters
         out["cycles_llh"] = [round(v, 2) for v in state.cycles_llh]
-    if args.out or args.save_f or args.publish_dir:
+    if args.out or args.save_f or args.publish_dir or args.export_gexf:
         with prof.stage("extract"):
             if args.out:
                 com = extraction.extract_community_arrays(res.F, g)
@@ -1652,6 +1941,19 @@ def _fit(args, tel):
             if args.save_f:
                 np.save(args.save_f, res.F)
                 out["save_f"] = args.save_f
+            if args.export_gexf:
+                from bigclam_tpu_torch.utils.viz import export_gexf
+
+                # res.F is the fit's F, already fetched to the host; the
+                # writer indexes nodes by row, so the members are rows (the
+                # JAX CLI passes raw ids, which index past the rows of a
+                # graph whose raw ids are not 0..n-1)
+                delta = extraction.delta_threshold(g.num_nodes, g.num_edges)
+                nodes, comms = np.nonzero(extraction.membership_mask(res.F, delta))
+                rows = extraction._group_pairs(nodes, comms,
+                                               np.arange(g.num_nodes))
+                export_gexf(args.export_gexf, g, communities=rows, F=res.F)
+                out["export_gexf"] = args.export_gexf
     if args.follow:
         # the continuous fit -> publish -> serve loop: per new edge file in
         # the delta directory, delta re-ingest -> warm-start refit ->
@@ -1677,7 +1979,9 @@ def _fit(args, tel):
 
 def sweep(args, callback=None) -> dict:
     """Run `sweep` for parsed arguments; callback(k, llh) after each K.
-    Returns the JSON-ready result dict."""
+    Each K's {"k", "llh"} goes to the --metrics JSONL and, unless --quiet,
+    to stderr (the JAX CLI's MetricsLogger). Returns the JSON-ready result
+    dict."""
     tel = open_telemetry(args, "sweep")
     try:
         return _sweep(args, callback, tel)
@@ -1693,16 +1997,16 @@ def _sweep(args, callback, tel) -> dict:
         cfg = cfg.replace(quality_mode=True)
         if cfg.representation == "sparse":
             raise SystemExit(QUALITY_SPARSE_REFUSAL)
-        refuse_device_annealing_tp(args, cfg)
     g = load_graph(args)
     store = store_for_model(args, cfg)  # refuses --store-native without --mesh
     # the sweep seeds once, at K_max, with the same seeding config
-    phi = baked_phi(args._store, cfg, args.seed_backend,
-                    getattr(args, "quiet", False))
+    phi = baked_phi(args._store, cfg, args.seed_backend, args.quiet)
+    from bigclam_tpu_torch.utils.metrics import MetricsLogger
+
+    ml = MetricsLogger(args.metrics, echo=not args.quiet)
 
     def per_k(k, llh):
-        if tel is not None:
-            tel.metric_record({"k": k, "llh": llh})
+        ml.log({"k": k, "llh": llh})     # the telemetry's metric record too
         if callback is not None:
             callback(k, llh)
 
@@ -1733,7 +2037,7 @@ def _sweep(args, callback, tel) -> dict:
 
     from bigclam_tpu_torch.utils.profiling import trace as capture
 
-    with capture(args.profile_dir):
+    with ml, capture(args.profile_dir):
         res = sup.run_fit(attempt, site="sweep")
     out = {
         "chosen_k": res.chosen_k,
@@ -1874,7 +2178,6 @@ def profile(args) -> dict:
 
 
 def _profile(args, tel) -> dict:
-    import os
     import statistics
 
     import torch
@@ -2052,8 +2355,6 @@ def preflight(args) -> int:
     without a card. Exit 0 fits, 2 does not fit, 1 bad input or a
     configuration the port does not run (named as the JAX preflight names
     it)."""
-    import os
-
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.obs import memory as M
 
@@ -2220,18 +2521,15 @@ def _serve(args, tel=None) -> int:
     from bigclam_tpu_torch.utils.device import resolve_device
     from bigclam_tpu_torch.utils.profiling import StageProfile
 
-    fleet = [flag for flag, v in (("--fleet", args.fleet),
-                                  ("--fleet-shard", args.fleet_shard),
-                                  ("--listen", args.listen)) if v is not None]
-    if fleet:
-        print(f"error: not ported yet: {', '.join(fleet)}: fleet replicas "
-              "are ROADMAP queue 1 item 18 (the JAX package's `cli serve "
-              "--fleet` serves the port's `fit --publish-shards` archives)",
-              file=sys.stderr)
+    if bool(args.snapshots) == bool(args.fleet):
+        print(
+            "error: serve needs exactly one of --snapshots (single-"
+            "process) or --fleet (shard-replica mode)",
+            file=sys.stderr,
+        )
         return 1
-    if not args.snapshots:
-        print("error: serve needs --snapshots", file=sys.stderr)
-        return 1
+    if args.fleet:
+        return serve_fleet_replica(args, tel)
     # no card raises DeviceUnavailableError here, before anything loads
     device = resolve_device(args.device)
     prof = StageProfile()
@@ -2307,6 +2605,402 @@ def _serve(args, tel=None) -> int:
         tel.set_final(out)
     print(json.dumps(out))
     return 1 if out.get("serve_errors") else 0
+
+
+def serve_fleet_replica(args, tel=None) -> int:
+    """One shard replica of a serving fleet (JAX
+    `_cmd_serve_fleet_replica`): load this shard's rows of the latest
+    fleet generation (`cli fit --publish-shards`) and answer the
+    line-framed JSON sub-query protocol over TCP until a `stop` op or
+    Ctrl-C; the suggest family folds in on --device.
+
+        cli serve --fleet snaps/ --fleet-shard 0 --listen 127.0.0.1:0 \\
+            --graph g.cache --max-queue-depth 256 --shed-wait-ms 50
+
+    `cli route` is the client; N replicas of the same shard bind
+    different ports and the router dispatches to the least loaded.
+    --watch-snapshots polls for newer fleet generations (the replica
+    holds the two newest; the router flips fleet-wide, barrier-free)."""
+    from bigclam_tpu_torch.graph.store import GraphStore, is_cache_dir
+    from bigclam_tpu_torch.resilience.faults import maybe_fire
+    from bigclam_tpu_torch.serve.fleet import ReplicaServer, ShardReplica
+    from bigclam_tpu_torch.serve.snapshot import SnapshotError
+
+    if not args.listen:
+        print("error: --fleet needs --listen HOST:PORT", file=sys.stderr)
+        return 1
+    # supervisor-tagged member id + the crash-loop fault site: firing
+    # BEFORE the snapshot load means an injected kill here costs the
+    # chaos drill milliseconds per respawn, not a full shard load
+    member = os.environ.get("BIGCLAM_FLEET_MEMBER", "")
+    maybe_fire("replica.start", member=member, shard=int(args.fleet_shard))
+    host, _, port_s = args.listen.rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        print(f"error: --listen {args.listen!r}: port must be an integer",
+              file=sys.stderr)
+        return 1
+    store = None
+    if args.graph:
+        if not is_cache_dir(args.graph):
+            print(
+                "error: --fleet replicas need a compiled cache --graph "
+                "(suggest_for reads the shard's adjacency range from "
+                "the store; text graphs have no ranges)",
+                file=sys.stderr,
+            )
+            return 1
+        # read-only, like every serving path
+        store = GraphStore.open(args.graph, self_heal=False)
+    try:
+        # no card raises DeviceUnavailableError here, before the load
+        replica = ShardReplica(
+            args.fleet,
+            args.fleet_shard,
+            store=store,
+            cache_slots=args.cache_slots,
+            foldin_max_iters=args.foldin_max_iters,
+            foldin_conv_tol=args.foldin_conv_tol,
+            foldin_max_deg=args.foldin_max_deg,
+            watch_interval_s=args.watch_snapshots,
+            device=args.device,
+        )
+    except (SnapshotError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    server = ReplicaServer(
+        replica,
+        host=host or "127.0.0.1",
+        port=port,
+        max_batch=args.max_batch,
+        budget_s=args.latency_budget_ms / 1e3,
+        max_queue_depth=args.max_queue_depth,
+        shed_wait_s=args.shed_wait_ms / 1e3,
+    )
+    # the bound endpoint, printed BEFORE serving starts: the launcher
+    # reads this line to learn the port when --listen ended in :0
+    print(json.dumps({
+        "listening": f"{server.host}:{server.port}",
+        "shard": args.fleet_shard,
+        "generations": replica.generations,
+        "device": replica.device.type,
+    }), flush=True)
+    try:
+        server.serve_until_stopped()
+    except KeyboardInterrupt:
+        pass
+    out = replica.status()
+    out["shed"] = server._batcher.shed
+    out["depth_peak"] = server._batcher.depth_peak
+    server.close()
+    replica.close()
+    if tel is not None:
+        tel.set_final(out)
+    print(json.dumps(out))
+    return 1 if out.get("errors") else 0
+
+
+def parse_endpoints(spec: str, timeout_s: float):
+    """--endpoints 'host:port,host:port,...' -> TcpReplica transports."""
+    from bigclam_tpu_torch.serve.router import TcpReplica
+
+    out = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        host, _, port_s = item.rpartition(":")
+        try:
+            port = int(port_s)
+        except ValueError:
+            raise SystemExit(f"error: --endpoints {item!r}: expected HOST:PORT")
+        out.append(TcpReplica(host or "127.0.0.1", port, timeout_s=timeout_s))
+    if not out:
+        raise SystemExit("error: --endpoints named no endpoints")
+    return out
+
+
+def route(args) -> int:
+    """Run `route` for parsed arguments."""
+    tel = open_telemetry(args, "route")
+    try:
+        return _route(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _route(args, tel=None) -> int:
+    """The fleet query router (JAX `_cmd_route`): route the three query
+    families over a sharded replica fleet.
+
+        cli route --fleet snaps/ \\
+            --endpoints 127.0.0.1:7001,127.0.0.1:7002 \\
+            --queries load.jsonl --results answers.jsonl
+
+    communities_of / suggest_for go to their node's shard (least-loaded
+    healthy replica); members_of scatter-gathers every shard and merges
+    under the sorted-by-raw-id contract. Every query is pinned to the
+    fleet-wide serving generation, so a mid-stream publication flips the
+    whole fleet at once. Stats carry the `cli serve` serve_* keys plus
+    per-shard latency tables. --stop sends a stop op to every endpoint
+    instead (fleet teardown); --members follows a supervisor's
+    membership file; --daemon serves route() itself over the replica
+    wire; --deadline-s / --retry-rounds / --hedge are the per-query
+    failure budget."""
+    from bigclam_tpu_torch.serve.router import FleetRouter, RouterError
+
+    members = args.members
+    endpoints = []
+    if args.endpoints:
+        endpoints = parse_endpoints(args.endpoints, args.request_timeout_s)
+    elif not members:
+        print("error: route needs --endpoints and/or --members",
+              file=sys.stderr)
+        return 1
+    if args.stop:
+        # teardown is idempotent: an endpoint that is ALREADY gone is a
+        # success for the operator's goal — note it, keep tearing down
+        # the survivors, exit 0
+        stopped = already_down = 0
+        for t in endpoints:
+            try:
+                t.request({"family": "stop"})
+                stopped += 1
+            except Exception as e:   # noqa: BLE001 — best-effort stop
+                already_down += 1
+                print(f"note: {t.host}:{t.port}: already down ({e})",
+                      file=sys.stderr)
+            t.close()
+        print(json.dumps({"stopped": stopped, "already_down": already_down,
+                          "of": len(endpoints)}))
+        return 0
+    queries = [parse_query_spec(q) for q in (args.query or [])]
+    if args.queries:
+        with open(args.queries) as f:
+            for lineno, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    queries.append(json.loads(line))
+                except ValueError as e:
+                    print(f"error: {args.queries}:{lineno}: not JSON ({e})",
+                          file=sys.stderr)
+                    return 1
+    if not queries and not args.daemon:
+        print(
+            "error: nothing to route — pass --query and/or --queries "
+            "(or --daemon, or --stop)",
+            file=sys.stderr,
+        )
+        return 1
+
+    def make_router():
+        return FleetRouter(
+            args.fleet,
+            endpoints,
+            max_workers=args.max_workers,
+            health_interval_s=args.health_interval_s,
+            request_timeout_s=args.request_timeout_s,
+            deadline_s=args.deadline_s,
+            retry_rounds=args.retry_rounds,
+            hedge=args.hedge,
+            hedge_delay_s=args.hedge_delay_s,
+            hedge_min_samples=args.hedge_min_samples,
+            members_file=members,
+        )
+
+    router = None
+    wait_deadline = time.monotonic() + max(args.wait_fleet_s, 0.0)
+    while router is None:
+        try:
+            router = make_router()
+        except RouterError as e:
+            # with a membership file the fleet may still be COMING UP
+            # (supervisor spawning replicas): bounded patience instead of
+            # a start-order race
+            if members and time.monotonic() < wait_deadline:
+                time.sleep(0.25)
+                continue
+            print(f"error: {e}", file=sys.stderr)
+            for t in endpoints:
+                t.close()
+            return 1
+    if tel is not None:
+        # the stall heartbeat runs ON the router process: stall events
+        # carry the in-flight trace registry, so a wedged replica hop is
+        # attributable from the stall line alone
+        tel.open_traces = router.open_trace_count
+        tel.oldest_inflight_s = router.oldest_inflight_s
+    if args.daemon:
+        from bigclam_tpu_torch.serve.router import RouterServer
+
+        lhost, _, lport_s = (args.listen or "127.0.0.1:0").rpartition(":")
+        try:
+            lport = int(lport_s)
+        except ValueError:
+            print(f"error: --listen {args.listen!r}: port must be an integer",
+                  file=sys.stderr)
+            router.close()
+            return 1
+        server = RouterServer(router, host=lhost or "127.0.0.1", port=lport)
+        # the bound endpoint, printed BEFORE serving (the replica hello
+        # line's contract: launchers read it for a :0 port)
+        print(json.dumps({"routing": f"{server.host}:{server.port}",
+                          "fleet": args.fleet}), flush=True)
+        try:
+            server.serve_until_stopped()
+        except KeyboardInterrupt:
+            server.close()
+        out = router.stats()
+        out["fleet"] = args.fleet
+        if tel is not None:
+            tel.set_final(out)
+        print(json.dumps(out))
+        return 0
+    try:
+        results = []
+        for _ in range(max(args.repeat, 1)):
+            results = router.run_queries(queries)
+        out = router.stats()
+        out["fleet"] = args.fleet
+        if args.results:
+            with open(args.results, "w") as f:
+                for r in results:
+                    f.write(json.dumps(r) + "\n")
+            out["results"] = args.results
+        elif not args.quiet and len(queries) <= 16:
+            for r in results:
+                print(json.dumps(r))
+    finally:
+        router.close()
+    if tel is not None:
+        tel.set_final(out)
+    print(json.dumps(out))
+    return 1 if out.get("serve_errors") else 0
+
+
+def fleet(args) -> int:
+    """Run `fleet` for parsed arguments."""
+    tel = open_telemetry(args, "fleet")
+    try:
+        return _fleet(args, tel)
+    finally:
+        close_telemetry(tel)
+
+
+def _fleet(args, tel=None) -> int:
+    """The self-healing fleet supervisor (JAX `_cmd_fleet`): own the
+    replica processes of a serving fleet — restart-on-exit with
+    RetryPolicy backoff, crash-loop quarantine, elastic membership
+    published to a watched members file the router reconciles. Each
+    replica is `bigclam_tpu_torch.cli serve --fleet` on --device.
+
+        cli fleet up --fleet snaps/ --shards 2 --replicas 2 \\
+            --members members.json
+        cli fleet status --control 127.0.0.1:4444
+        cli fleet add-replica --control ... --shard 0
+        cli fleet drain --control ... --member s0r1
+        cli fleet down --control ...
+
+    `up` prints a hello line with the control endpoint + members path,
+    then parks until a `down` op (or Ctrl-C)."""
+    from bigclam_tpu_torch.resilience.retry import RetryPolicy
+    from bigclam_tpu_torch.serve.supervise import FleetSupervisor, control_op
+
+    if args.action == "up":
+        if not args.fleet:
+            print("error: fleet up needs --fleet DIR", file=sys.stderr)
+            return 1
+        members = args.members or os.path.join(args.fleet, "members.json")
+        replica_args = []
+        if args.replica_args:
+            import shlex
+
+            replica_args = shlex.split(args.replica_args)
+        sup = FleetSupervisor(
+            args.fleet,
+            members,
+            shards=args.shards,
+            replicas=args.replicas,
+            host=args.host,
+            control_port=args.control_port,
+            policy=RetryPolicy(
+                base_s=args.restart_base_s,
+                max_s=args.restart_max_s,
+                seed=args.seed,
+            ),
+            quarantine_after=args.quarantine_after,
+            stable_s=args.stable_s,
+            drain_grace_s=args.drain_grace_s,
+            replica_args=replica_args,
+            graph=args.graph,
+            watch_snapshots_s=args.watch_snapshots,
+            log_dir=args.log_dir,
+            seed=args.seed,
+            device=args.device,
+        )
+        sup.up()
+        all_up = sup.wait_all_up(timeout=args.up_timeout_s)
+        st = sup.status()
+        # the launcher contract (like the replica hello line): control
+        # endpoint + members path on stdout BEFORE parking
+        print(json.dumps({
+            "control": st["control"],
+            "members": members,
+            "all_up": all_up,
+            "fleet_members": [m["id"] for m in st["members"]],
+        }), flush=True)
+        try:
+            sup.wait_down()
+        except KeyboardInterrupt:
+            sup.down()
+        st = sup.status()
+        out = {
+            "replica_restarts": st["replica_restarts"],
+            "quarantined": st["quarantined"],
+            "fleet_members": {
+                m["id"]: {"state": m["state"], "shard": m["shard"],
+                          "restarts": m["restarts"]}
+                for m in st["members"]
+            },
+        }
+        if tel is not None:
+            tel.set_final(out)
+        print(json.dumps(out))
+        return 0
+    if args.action == "status" and not args.control and args.members:
+        # offline roster: read the membership file directly (works even
+        # with the supervisor gone)
+        try:
+            with open(args.members) as f:
+                print(json.dumps(json.load(f)))
+        except (OSError, ValueError) as e:
+            print(f"error: {args.members}: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if not args.control:
+        print(f"error: fleet {args.action} needs --control HOST:PORT "
+              "(printed by `fleet up`)", file=sys.stderr)
+        return 1
+    op = {"op": args.action.replace("-", "_")}
+    if args.action == "add-replica":
+        op["shard"] = int(args.shard)
+    if args.action == "drain":
+        if not args.member:
+            print("error: fleet drain needs --member ID", file=sys.stderr)
+            return 1
+        op["member"] = args.member
+    try:
+        res = control_op(args.control, op)
+    except (OSError, ValueError, ConnectionError) as e:
+        print(f"error: control {args.control}: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(res))
+    if args.action == "drain" and not res.get("ok"):
+        return 1
+    return 0
 
 
 def refit(args) -> int:
@@ -2499,9 +3193,10 @@ def serve_preflight(args, n: int, directed: int, notes: list) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command in ("perf", "report", "watch", "preflight", "ingest",
-                        "serve", "refit"):
+                        "serve", "route", "fleet", "refit"):
         return {"perf": perf, "report": report, "watch": watch,
                 "preflight": preflight, "ingest": ingest, "serve": serve,
+                "route": route, "fleet": fleet,
                 "refit": refit}[args.command](args)
     from bigclam_tpu_torch.utils.profiling import NoDeviceKernelsError
 
@@ -2509,8 +3204,7 @@ def main(argv=None) -> int:
         if args.command == "fit":
             out, _, _ = fit(args)
         elif args.command == "sweep":
-            out = sweep(args, callback=lambda k, llh: print(
-                json.dumps({"k": k, "llh": llh}), file=sys.stderr, flush=True))
+            out = sweep(args)
         elif args.command == "profile":
             out = profile(args)
         else:

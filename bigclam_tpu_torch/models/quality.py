@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from bigclam_tpu_torch.models.bigclam import FitResult
+from bigclam_tpu_torch.parallel.mesh import state_blocks
 
 
 def is_primary() -> bool:
@@ -1071,8 +1072,9 @@ def fit_quality(
 
 
 def _parts(F) -> list:
-    """The tensors of a state's F: the dense trainer's one padded tensor,
-    or a mesh trainer's per-shard row blocks (internal row order)."""
+    """The row parts of a state's F: the dense trainer's one padded
+    tensor, or a mesh trainer's per-shard row blocks (internal row order);
+    at tp > 1 a part is its shard's tuple of column blocks."""
     return [F] if isinstance(F, torch.Tensor) else list(F)
 
 
@@ -1081,13 +1083,29 @@ def _as_layout(F, parts):
     return parts[0] if isinstance(F, torch.Tensor) else tuple(parts)
 
 
+def _map_parts(fn, parts: list) -> list:
+    """fn applied to every block of the row parts, in their layout."""
+    return [fn(p) if isinstance(p, torch.Tensor) else tuple(fn(b) for b in p)
+            for p in parts]
+
+
+def _col_blocks(part):
+    """(block, its first column, the column past its last) for each column
+    block of a row part: the part itself at tp = 1."""
+    c0 = 0
+    for b in state_blocks(part):
+        c1 = c0 + int(b.shape[1])
+        yield b, c0, c1
+        c0 = c1
+
+
 def _row_blocks(F, n: int):
-    """(tensor, its first internal row, its live rows) for each part of F;
-    rows at or past n are padding."""
+    """(row part, its first internal row, its live rows) for each part of
+    F; rows at or past n are padding."""
     lo = 0
-    for f in _parts(F):
-        r = int(f.shape[0])
-        yield f, lo, max(min(n - lo, r), 0)
+    for p in _parts(F):
+        r = int(state_blocks(p)[0].shape[0])
+        yield p, lo, max(min(n - lo, r), 0)
         lo += r
 
 
@@ -1095,40 +1113,52 @@ def kick_F(F, noise: torch.Tensor, n: int, kc: int, min_f: float,
            max_f: float):
     """New tensors holding clip(F + noise, min_f, max_f) on the live
     (n, kc) block and F elsewhere: padding rows and columns keep their
-    exact zeros. `noise` is (n, kc) in the internal row order."""
+    exact zeros. `noise` is (n, kc) in the internal row order; column
+    block j of a tp > 1 shard takes its columns [c0, c0 + K_loc) of it
+    that fall below kc."""
     out = []
-    for f, lo, live in _row_blocks(F, n):
-        f = f.clone()
-        if live:
-            blk = f[:live, :kc] + noise[lo:lo + live].to(f.device)
-            f[:live, :kc] = blk.clamp_(min_f, max_f)
-        out.append(f)
+    for p, lo, live in _row_blocks(F, n):
+        blocks = []
+        for f, c0, c1 in _col_blocks(p):
+            f = f.clone()
+            w = min(kc, c1) - c0
+            if live and w > 0:
+                blk = f[:live, :w] + noise[lo:lo + live, c0:c0 + w].to(f.device)
+                f[:live, :w] = blk.clamp_(min_f, max_f)
+            blocks.append(f)
+        out.append(blocks[0] if isinstance(p, torch.Tensor) else tuple(blocks))
     return _as_layout(F, out)
 
 
 def scatter_set_(parts: list, rows, cols, vals) -> None:
     """parts[rows, cols] = vals in place (internal row ids over the
-    stacked parts). Entries outside the padded F are dropped, never
-    raised, as the JAX package's `.at[].set(mode="drop")`."""
+    stacked parts, columns over a part's column blocks). Entries outside
+    the padded F are dropped, never raised, as the JAX package's
+    `.at[].set(mode="drop")`."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     vals = np.broadcast_to(np.asarray(vals, np.float64), rows.shape)
     lo = 0
-    for f in parts:
-        r, k = f.shape
-        sel = (rows >= lo) & (rows < lo + r) & (cols >= 0) & (cols < k)
-        if sel.any():
-            idx = (torch.from_numpy(rows[sel] - lo).to(f.device),
-                   torch.from_numpy(cols[sel]).to(f.device))
-            f.index_put_(idx, torch.from_numpy(
-                np.ascontiguousarray(vals[sel])).to(f.device, f.dtype))
+    for p in parts:
+        r = int(state_blocks(p)[0].shape[0])
+        for f, c0, c1 in _col_blocks(p):
+            sel = ((rows >= lo) & (rows < lo + r) & (cols >= c0)
+                   & (cols < c1))
+            if sel.any():
+                idx = (torch.from_numpy(rows[sel] - lo).to(f.device),
+                       torch.from_numpy(cols[sel] - c0).to(f.device))
+                f.index_put_(idx, torch.from_numpy(
+                    np.ascontiguousarray(vals[sel])).to(f.device, f.dtype))
         lo += r
 
 
 def clear_col_(parts: list, col: int) -> None:
-    """Column `col` of every part set to zero in place."""
-    for f in parts:
-        f[:, col] = 0.0
+    """Column `col` of every part set to zero in place, in the column
+    block that owns it."""
+    for p in parts:
+        for f, c0, c1 in _col_blocks(p):
+            if c0 <= col < c1:
+                f[:, col - c0] = 0.0
 
 
 # the polish kicks' tags: JAX folds 0x0F17_0000 + 64 * round + polish into
@@ -1242,7 +1272,7 @@ def _repair_stage_device(
                 )
 
     perm = getattr(model, "_perm", None)   # edits arrive in ORIGINAL ids
-    dev = _parts(best_state.F)[0].device
+    dev = state_blocks(best_state.F)[0].device
     edges_dev = device_edges(g, dev)       # one upload for every round
     # merge/split detection runs in ORIGINAL ids (on the fetched F); a
     # balanced trainer's g is relabeled, so its edges cannot serve there
@@ -1289,7 +1319,7 @@ def _repair_stage_device(
             )
         del F_host
         if nrep:
-            parts = [f.clone() for f in _parts(best_state.F)]
+            parts = _map_parts(torch.clone, _parts(best_state.F))
             for e in edits:
                 if e[0] == "clear":
                     clear_col_(parts, e[1])
@@ -1326,9 +1356,13 @@ def _repair_stage_device(
         # --- (b) atomize re-tiling from the DEVICE mask (no F fetch) ---
         if cfg.quality_reassign:
             with profile.stage("atomize_components"):
+                # the live columns of every column block, joined per shard
                 mask_cols = torch.cat([
-                    (f[:live, :kc] >= delta).to(dev)
-                    for f, _, live in _row_blocks(best_state.F, n)
+                    torch.cat([
+                        (f[:live, :max(min(kc, c1) - c0, 0)] >= delta).to(dev)
+                        for f, c0, c1 in _col_blocks(p)
+                    ], dim=1)
+                    for p, _, live in _row_blocks(best_state.F, n)
                 ]).T
                 # on a card the batched pass keeps F resident; on the CPU
                 # the scipy oracle runs on the same bool mask (kc x n
@@ -1357,7 +1391,7 @@ def _repair_stage_device(
                     )
                     for at, d in kept
                 ])
-                parts = [torch.zeros_like(f) for f in _parts(best_state.F)]
+                parts = _map_parts(torch.zeros_like, _parts(best_state.F))
                 scatter_set_(parts, rows, cols, vals)
                 F_at = _as_layout(best_state.F, parts)
                 del parts
@@ -1424,15 +1458,6 @@ def fit_quality_device(
     from bigclam_tpu_torch.obs import trace as _trace
     from bigclam_tpu_torch.utils.profiling import StageProfile
 
-    if getattr(model, "tp", 1) > 1:
-        from bigclam_tpu_torch.parallel.sharded import MeshNotPortedError
-
-        raise MeshNotPortedError(
-            f"the device-resident quality schedule on a K-sharded mesh "
-            f"(tp={model.tp}) is not ported yet (ROADMAP queue 1 item 20: "
-            "its kicks and edits walk whole-row shards); the host schedule "
-            "(fit_quality, no --device-annealing) runs there"
-        )
     profile = profile if profile is not None else StageProfile()
     cfg = model.cfg
     n, k = F0.shape
@@ -1444,7 +1469,7 @@ def fit_quality_device(
 
     state0 = model.init_state(F0)          # the ONE host->device upload
     profile.count("f_host_uploads")
-    dtype, dev = _parts(state0.F)[0].dtype, _parts(state0.F)[0].device
+    dtype, dev = state_blocks(state0.F)[0].dtype, state_blocks(state0.F)[0].device
     if noise is None:
         noise = DeviceNoise(cfg.seed, key_salt)
 

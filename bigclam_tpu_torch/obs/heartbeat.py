@@ -110,6 +110,15 @@ class Heartbeat:
         devices = list(tel.last_devices)
         spans = _trace.open_spans()
         health, sync_s = tel.last_health, tel.last_sync_s
+        # the router's in-flight trace registry (`cli route` sets these on
+        # its telemetry): open traces with a growing oldest age read as a
+        # wedged replica hop; None off the router entry
+        ot = getattr(tel, "open_traces", None)
+        open_traces = ot() if callable(ot) else ot
+        oi = getattr(tel, "oldest_inflight_s", None)
+        oldest_inflight_s = oi() if callable(oi) else oi
+        if isinstance(oldest_inflight_s, float):
+            oldest_inflight_s = round(oldest_inflight_s, 3)
         self.telemetry.event(
             "stall",
             silent_s=round(silent_s, 3),
@@ -119,6 +128,8 @@ class Heartbeat:
             spans=spans,
             health=health,
             sync_s=sync_s,
+            open_traces=open_traces,
+            oldest_inflight_s=oldest_inflight_s,
         )
         if self.echo:
             where = f"; open span: {spans[-1]}" if spans else ""

@@ -10,7 +10,6 @@ edge-block partition on a (rows, cols) mesh with the closure exchange
 from bigclam_tpu_torch.parallel.mesh import Mesh, Mesh2D, make_mesh, make_mesh_2d
 from bigclam_tpu_torch.parallel.ring import RingBigClamModel, StoreRingBigClamModel
 from bigclam_tpu_torch.parallel.sharded import (
-    MeshNotPortedError,
     ShardedBigClamModel,
     StoreShardedBigClamModel,
 )
@@ -22,7 +21,7 @@ from bigclam_tpu_torch.parallel.twod import (
 )
 
 __all__ = [
-    "Mesh", "Mesh2D", "MeshNotPortedError", "RingBigClamModel",
+    "Mesh", "Mesh2D", "RingBigClamModel",
     "ShardedBigClamModel", "SparseShardedBigClamModel",
     "StoreRingBigClamModel", "StoreShardedBigClamModel",
     "StoreTwoDShardedBigClamModel", "TwoDShardedBigClamModel", "make_mesh",

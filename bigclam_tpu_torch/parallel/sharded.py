@@ -121,11 +121,6 @@ from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
 from bigclam_tpu_torch.utils.profiling import part
 
 
-class MeshNotPortedError(NotImplementedError):
-    """A mesh configuration the port does not run yet; the message names
-    the ROADMAP item that brings it."""
-
-
 def _shard_bounds(src: np.ndarray, n_pad: int, dp: int) -> np.ndarray:
     """Edge-array index bounds of the dp row split over src-sorted edges."""
     shard_rows = n_pad // dp

@@ -61,9 +61,9 @@ installed every site costs one module-dict lookup.
 
 This module touches no device: the one device fault (nan_inject) is
 APPLIED by the fit loop (to a clone of F), not here — this module only
-matches specs and mutates files/processes. The port has the sites fit.step
-and checkpoint.save; the others name the JAX package's serving and store
-sites, so a plan written for it still parses here.
+matches specs and mutates files/processes. The port has every site above
+(the fleet's replica.start and replica.answer_write in `cli serve --fleet`
+and serve/fleet.py), so a plan written for either package drives both.
 """
 
 from __future__ import annotations
@@ -237,3 +237,28 @@ def apply_file_fault(spec: dict, path: str) -> None:
     spec arrived without one — offsets are explicit or mid-file anyway)."""
     plan = _STATE["plan"] or FaultPlan([])
     plan.apply_to_file(spec, path)
+
+
+def apply_wire_fault(spec: dict, wfile, payload: bytes) -> Optional[str]:
+    """Apply a replica.answer_write wire fault to one outgoing answer
+    frame. Returns what the transport handler must do next:
+
+      "close"  — torn_frame: half the frame went out, hang up now
+      "skip"   — garbage_line: a non-JSON line replaced the answer;
+                 keep the connection (the peer discards it)
+      None     — stall (the sleep already happened) or an unknown kind:
+                 write the real answer normally
+    """
+    kind = spec["kind"]
+    if kind == "torn_frame":
+        wfile.write(payload[: max(len(payload) // 2, 1)])
+        wfile.flush()
+        return "close"
+    if kind == "garbage_line":
+        wfile.write(b"!! injected garbage frame !!\n")
+        wfile.flush()
+        return "skip"
+    if kind == "stall":
+        time.sleep(float(spec.get("seconds", 1.0)))
+        return None
+    return None

@@ -3,8 +3,9 @@ the query surface behind `cli serve`.
 
 Port of bigclam_tpu/serve with the JAX package's LAZY attribute
 re-exports (PEP 562): the package init does not decide for its submodules
-what gets imported. The sharded fleet (serve.fleet, serve.router) is not
-ported: its names raise FleetNotPortedError.
+what gets imported. The sharded fleet is serve.fleet (a shard's replica),
+serve.router (the query router) and serve.supervise (the replicas'
+process parent).
 """
 
 _LAZY = {
@@ -36,29 +37,19 @@ _LAZY = {
     "MembershipServer": (
         "bigclam_tpu_torch.serve.server", "MembershipServer",
     ),
+    # the sharded fleet: replicas, their router, and its transport
+    "ShardReplica": ("bigclam_tpu_torch.serve.fleet", "ShardReplica"),
+    "ReplicaServer": ("bigclam_tpu_torch.serve.fleet", "ReplicaServer"),
+    "LocalReplica": ("bigclam_tpu_torch.serve.fleet", "LocalReplica"),
+    "FleetRouter": ("bigclam_tpu_torch.serve.router", "FleetRouter"),
+    "TcpReplica": ("bigclam_tpu_torch.serve.router", "TcpReplica"),
+    "RouterError": ("bigclam_tpu_torch.serve.router", "RouterError"),
 }
-
-# the JAX package's fleet names (serve.fleet, serve.router)
-FLEET_NAMES = (
-    "ShardReplica", "ReplicaServer", "LocalReplica", "FleetRouter",
-    "TcpReplica", "RouterError",
-)
-
-
-class FleetNotPortedError(NotImplementedError):
-    """A name of the sharded serving fleet, which the port lacks."""
-
 
 __all__ = sorted(_LAZY)
 
 
 def __getattr__(name):
-    if name in FLEET_NAMES:
-        raise FleetNotPortedError(
-            f"{name}: not ported yet: ROADMAP item 18 (the serving fleet's "
-            "router and replicas; the JAX package's jax-free fleet serves "
-            "the port's `fit --publish-shards` archives)"
-        )
     try:
         mod_name, attr = _LAZY[name]
     except KeyError:

@@ -86,9 +86,10 @@ exits non-zero:
             launches counted from 0 around the fit; the native host
             library loaded; the graph, seeding and extract stage seconds
             beside those before the native library and the array writer;
-            the file's sha256 equal to that of the plain
-            dict writer's file (extract_communities + save_communities)
-            for the same F and graph
+            the file's bytes, every line, equal to the plain writer's for
+            the same F and graph (membership_mask's pairs sorted and
+            formatted in bulk on the card, its first lines
+            save_communities' own)
   host_full the host stages at full, each against its plain version and
             timed: the native parse against parse_bytes (equal arrays),
             then graph_from_edges; the native exact triangle counts, and
@@ -240,7 +241,7 @@ exits non-zero:
             the byte; one cache-fed fit step on the card
   quality_full (after store_delta) fit_quality_device at full from
             mesh_init's F0 on csr_fused, QUALITY_FULL's schedule (6
-            cycles, 2 repair rounds, 100 steps a fit): the stage seconds and
+            cycles, 1 repair round, 100 steps a fit): the stage seconds and
             transfer counts (one upload, at most rounds + 1 fetches),
             fused_superstep launched once for every step run, omp_lo
             float32(1 - max_p_q) on every launch and the parity cfg back
@@ -250,6 +251,17 @@ exits non-zero:
             (also under the parity clip); then the component pass on the
             card beside scipy over the final F's 1,000 columns, labels
             equal
+  quality_tp (after quality_full) `cli fit --mesh 2,2 --quality
+            --device-annealing` on the full file, four positions on one
+            card, cut to 2 cycles of at most 20 steps and one repair
+            round: the window kernels and cand_nbr_from_x launched as
+            many times as the K-sharded steps run imply, steps and seconds
+            a step beside quality_full's and tp_full's, stage seconds and
+            transfer counts, the peak beside the fit's memory model plus
+            two F-sized tensors (check_peak), the zero rows and the LLH
+            before and after; then the parity graph on (2, 2) (K = 100 in
+            two column blocks of 64): cycle 0 on the card against CPU
+            float64 on a (2, 2) mesh fed the same kicks, within 1e-4
   serve_publish `cli fit --graph <store_full's 4-shard cache> --k 1000
             --max-iters 5 --publish-dir snaps` on the card: the published
             F equal to --save-f's bit for bit, fused_superstep once a
@@ -258,11 +270,12 @@ exits non-zero:
             published as a sparse generation: seconds, archive bytes,
             generations
   serve_full `cli serve --snapshots snaps --graph <cache>` on the card, a
-            seeded mix (default_rng(16)) of 4,096 queries x 3: 45%
-            communities_of, 45% members_of (Zipf 1.1 over communities by
-            mass), 10% suggest_for (half existing nodes, half new ones
-            with 20-60 neighbour ids); dense, then sparse: p50/p99/QPS,
-            cache hit rate, fold-in batches and iterations, no error, 64
+            seeded mix (default_rng(16)) of 4,096 queries (dense once,
+            sparse x 3): 45% communities_of, 45% members_of (Zipf 1.1
+            over communities by mass), 10% suggest_for (half existing
+            nodes, half new ones with 20-60 neighbour ids); dense, then
+            sparse: p50/p99/QPS, cache hit rate, fold-in batches and
+            iterations, no error, 64
             suggest answers of an in-process server against the CPU
             float64 FoldInEngine (LLH at 1e-4, sets equal but at
             near-ties), fold-in ms per batch at B=8 and 64, the dense
@@ -280,6 +293,18 @@ exits non-zero:
             previous generation, the restricted objective never falling
             unless escalated, the next generation, and the first batch
             against the CPU float64 fold-in
+  fleet_full (after refit_full) `cli fit --representation sparse
+            --sparse-m 64 --publish-shards 2` on store_full's cache (a fleet
+            generation of serve_publish's sparse fit), `cli fleet up
+            --shards 2 --replicas 1 --device cuda` with a members file,
+            serve_full's 4,096-query mix through `cli route --members`:
+            reads equal single-process `cli serve` on the un-sharded
+            archive of the same member lists bit for bit, suggests within
+            1e-4 of CPU float64, no serve error, every replica on the
+            card; one replica killed and restarted by the supervisor, a
+            second round (the first 512 queries) the same; `fleet
+            drain`, `fleet down`; p50/p99/QPS beside serve_full's, the
+            restart seconds
   follow_parity at parity size `cli fit --follow --follow-max 2` on the
             card in a thread while an in-process MembershipServer (watch
             0.1 s) serves a stream; two deltas dropped in turn: 2
@@ -297,6 +322,10 @@ exits non-zero:
             CPU float64 run from the same kicked F (LLH within 1e-5), the
             kernels' omp_lo float32(1 - max_p_q) during and the parity
             value after; the device schedule run twice, bit for bit or not
+  gexf      (after quality_parity) `cli fit --export-gexf` on the parity
+            graph on the card (csr_fused, a launch a step) and in CPU
+            float64: the file parses, its nodes and edges are the graph's,
+            its community attributes the CPU run's but at near-ties
   sweep_parity `cli sweep` over the grid (50, 100, 3), 5 iterations per K,
             on the card against `--device cpu --dtype float64`: the same
             grid and chosen K (unless a stop ratio lies within 1e-4 of
@@ -469,10 +498,12 @@ under this tree's library and the other one, outputs compared bit for bit
 and both timed as `full` times a kernel and its plain version), one
 `kernels` line (per kernel: launches on its path, error against the plain
 version, kernel / plain time, the card's lower bound for the same work;
-fused_superstep's row adds its launches in quality_full and in
-quality_parity's three fits, member_lookup's in sparse_mesh_full and
-sparse_mesh_local, the rows a 2D step launches theirs in twod_full and
-twod_xlk; twod_odd's comparisons count toward their errors)
+fused_superstep's row adds its launches in quality_full, in
+quality_parity's three fits and in gexf, member_lookup's in
+sparse_mesh_full, sparse_mesh_local and fleet_full's fit, the K-blocked
+rows theirs in quality_tp and its parity run, the rows a 2D step
+launches theirs in twod_full and twod_xlk; twod_odd's comparisons count
+toward their errors)
 and, last, {"ok": true, "device": {...}}. The ring, mesh and store
 phases run after sweep_main, in the order listed; mesh_parity after
 sweep_parity.
@@ -1486,9 +1517,93 @@ def run_path(g, path, k, extra, out_path=None):
     return out, res, counts, state
 
 
-def phase_main(g, path, tmp):
-    from bigclam_tpu_torch.ops.extraction import extract_communities, save_communities
+def plain_writer_bytes(F, g, head: int) -> tuple:
+    """The plain writer's file for F and g, every line, built in bulk on
+    DEVICE: membership_mask's (node, community) pairs (nonzero, node-major,
+    as extract_communities takes them) sorted by (community, raw id) as
+    one int64 key, each raw id's decimal digits taken from its value, a
+    tab after each member but the last of its community and a newline
+    after that. Returns the bytes (uint8), the non-empty communities and
+    the raw ids of the first `head` of them."""
+    from bigclam_tpu_torch.ops.extraction import delta_threshold, membership_mask
 
+    mask = torch.from_numpy(
+        membership_mask(F, delta_threshold(g.num_nodes, g.num_edges))).to(DEVICE)
+    pairs = torch.nonzero(mask)                     # (node, community) rows
+    del mask
+    raw = np.asarray(g.raw_ids, dtype=np.int64)
+    if raw.min() < 0:
+        raise AssertionError(f"a negative raw id {raw.min()}")
+    n = raw.size
+    by_raw = np.argsort(raw, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[by_raw] = np.arange(n)
+    key = pairs[:, 1] * n + torch.from_numpy(rank).to(DEVICE)[pairs[:, 0]]
+    del pairs
+    key = torch.sort(key).values
+    comm, r = key // n, key % n
+    del key
+    live = torch.unique_consecutive(comm)
+    # each raw id (in raw-id order) right-aligned in w digit columns, then
+    # a separator column
+    raw_sorted = raw[by_raw]
+    w = len(str(int(raw_sorted[-1])))
+    width = np.ones(n, dtype=np.int8)
+    for d in range(1, w):
+        width += raw_sorted >= 10 ** d
+    table = np.zeros((n, w + 1), dtype=np.uint8)
+    table[:, :w] = ord("0") + raw_sorted[:, None] // 10 ** np.arange(w - 1, -1, -1) % 10
+    rows = torch.from_numpy(table).to(DEVICE)[r]
+    last = torch.ones(r.numel(), dtype=torch.bool, device=DEVICE)
+    last[:-1] = comm[1:] != comm[:-1]
+    rows[:, w] = torch.where(last, ord("\n"), ord("\t")).to(torch.uint8)
+    del last
+    first = {}
+    for c in live[:head].tolist():
+        lo, hi = torch.searchsorted(
+            comm, torch.tensor([c, c + 1], device=DEVICE)).tolist()
+        first[c] = raw_sorted[r[lo:hi].cpu().numpy()].tolist()
+    used = (torch.arange(w + 1, device=DEVICE)[None, :]
+            >= (w - torch.from_numpy(width).to(DEVICE)[r])[:, None])
+    del comm, r
+    return rows[used].cpu().numpy(), live.cpu().numpy(), first
+
+
+# communities save_communities itself writes, at the head of the file
+WRITER_PIN_LINES = 3
+
+
+def hold_writer(cpath, F, g) -> dict:
+    """The array writer's file against the plain writer's, every byte:
+    plain_writer_bytes for the same F and graph, whose first
+    WRITER_PIN_LINES lines are those save_communities writes for the same
+    communities."""
+    from bigclam_tpu_torch.ops.extraction import save_communities
+
+    want, live, head = plain_writer_bytes(F, g, WRITER_PIN_LINES)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    pin = cpath + ".plain_head"
+    save_communities(pin, head)
+    pinned = np.fromfile(pin, dtype=np.uint8)
+    os.remove(pin)
+    if not np.array_equal(pinned, want[:pinned.size]):
+        raise AssertionError("the bulk plain bytes are not save_communities' "
+                             f"for the first {len(head)} communities")
+    got = np.fromfile(cpath, dtype=np.uint8)
+    if got.size != want.size or not np.array_equal(got, want):
+        m = min(got.size, want.size)
+        diff = np.flatnonzero(got[:m] != want[:m])
+        at = int(diff[0]) if diff.size else m
+        line = int(np.count_nonzero(want[:at] == ord("\n"))) + 1
+        raise AssertionError(
+            f"communities.txt ({got.size} bytes) differs from the plain "
+            f"writer's ({want.size} bytes) first at byte {at}, line {line}")
+    return {"lines": int(live.size), "bytes": int(want.size), "bytes_equal": True,
+            "save_communities_lines": len(head)}
+
+
+def phase_main(g, path, tmp):
     status = native_status()
     cpath = os.path.join(tmp, "communities.txt")
     out, res, counts, state = run_path(g, path, FULL["k"], ["--max-iters", "5"], cpath)
@@ -1499,16 +1614,9 @@ def phase_main(g, path, tmp):
         raise AssertionError(f"fused kernel launches {counts} vs {out['steps']} steps")
     if not hist[-1] > hist[0]:
         raise AssertionError(f"LLH did not increase: {hist}")
-    # the array writer's file against the plain dict writer's for this F
-    plain = os.path.join(tmp, "communities_plain.txt")
-    t0 = time.perf_counter()
-    save_communities(plain, extract_communities(res.F, g))
-    plain_s = time.perf_counter() - t0
-    sha, sha_plain = file_sha256(cpath), file_sha256(plain)
-    if sha != sha_plain:
-        raise AssertionError(f"communities.txt {sha} != the plain writer's {sha_plain}")
-    size = os.path.getsize(plain)
-    os.remove(plain)
+    # the array writer's file against the plain writer's, every byte
+    held, plain_s = wall(hold_writer, cpath, res.F, g)
+    sha, size = file_sha256(cpath), os.path.getsize(cpath)
     e = g.num_directed_edges
     stages = out["stage_seconds"]
     return out, res, counts, state, {
@@ -1525,7 +1633,7 @@ def phase_main(g, path, tmp):
         "communities": out["communities"],
         "communities_bytes": size,
         "communities_sha256": sha,
-        "plain_writer": {"sha256_equal": True, "extract_and_save_s": plain_s},
+        "plain_writer": {**held, "hold_s": plain_s},
         "launches": counts,
         "n": g.num_nodes, "directed_edges": e, "k": FULL["k"],
         "max_degree": int(g.degrees.max()),
@@ -5138,8 +5246,11 @@ def phase_store_delta(gi, path, tmp, cdir):
 # ------------------------------------------------------ serving and refit
 SERVE_FIT_ITERS = 1000        # the served dense fit runs to convergence
 SERVE_SPARSE_ITERS = 60       # the sparse fit's cap (its steps are ~6x dearer)
-SERVE_QUERIES = 4096          # serve_full's mix, run SERVE_REPEAT times
-SERVE_REPEAT = 3
+SERVE_QUERIES = 4096          # serve_full's mix, run SERVE_REPEAT[tag] times
+# passes of the mix a snapshot: the dense pass cut from 3 to 1 (every
+# query once) after a proof took 1,278 s of the 1,200 allowed on a slow
+# host, its dense pass 124 s of that (PERF.md §6, PR 21)
+SERVE_REPEAT = {"dense": 1, "sparse": 3}
 SERVE_SEED = 16
 SERVE_ZIPF = 1.1              # members_of: Zipf rank over communities by mass
 SERVE_NEW_DEG = (20, 60)      # a new node's neighbour ids
@@ -5377,17 +5488,17 @@ def foldin_ms(engine, items) -> dict:
 
 
 def run_cli_serve(snapdir, cache, qfile, tmp, tag) -> dict:
-    """`cli serve` of the query file SERVE_REPEAT times on the card, with
+    """`cli serve` of the query file SERVE_REPEAT[tag] times on the card, with
     telemetry and no --results (a load test: the answers of members_of
     run to every member); its stats JSON, the fold-in batches and the
     wall seconds. Exit 0 means no query errored."""
     tel = os.path.join(tmp, f"serve_tel_{tag}")
     t0 = time.perf_counter()
     out = cli_json(["serve", "--snapshots", snapdir, "--graph", cache,
-                    "--queries", qfile, "--repeat", str(SERVE_REPEAT),
+                    "--queries", qfile, "--repeat", str(SERVE_REPEAT[tag]),
                     "--device", DEVICE, "--telemetry-dir", tel, "--quiet"])
     wall = time.perf_counter() - t0
-    if out["serve_errors"] or out["serve_queries"] != SERVE_REPEAT * SERVE_QUERIES:
+    if out["serve_errors"] or out["serve_queries"] != SERVE_REPEAT[tag] * SERVE_QUERIES:
         raise AssertionError(f"serve {tag}: {out}")
     serve = [e for e in events_of(tel) if e["kind"] == "serve"]
     out["foldin_batches"] = sum(1 for e in serve if e.get("n_suggest_for"))
@@ -5451,7 +5562,7 @@ def wait_generation(server, step: int, timeout: float = 300.0) -> float:
 
 def phase_serve_full(gi, tmp, cache, snaps, snaps_sparse):
     """`cli serve` on the card of SERVE_QUERIES queries (default_rng(16))
-    SERVE_REPEAT times, dense and then sparse: p50/p99/QPS, cache hit rate,
+    SERVE_REPEAT[tag] times, dense and then sparse: p50/p99/QPS, cache hit rate,
     fold-in batches, no error; fold-in ms per batch at B=8 and 64; and an
     in-process server on the same snapshot answering SERVE_CHECK suggests,
     held against the CPU float64 engine; the dense snapshot's zero rows
@@ -5893,8 +6004,9 @@ QUALITY_RELAXED = 1.0 - 1e-6  # a pinned cycle clip near full's auto 1 - 5.9e-6
 # measured gaps)
 QUALITY_LLH_RTOL = 1e-5
 # quality_full's schedule, sized to stay within about three minutes on the
-# card (PERF.md §6 has its stage seconds)
-QUALITY_FULL = dict(restart_cycles=6, repair_rounds=2, max_iters=100)
+# card (PERF.md §6 has its stage seconds); one repair round, cut from two
+# after the slow host's proof of PR 21 (its two rounds took 98 s)
+QUALITY_FULL = dict(restart_cycles=6, repair_rounds=1, max_iters=100)
 
 
 def random_columns(g, rng, cols: int) -> np.ndarray:
@@ -6723,6 +6835,437 @@ def phase_twod_parity(tmp) -> dict:
     return out
 
 
+# --- quality on a K-sharded mesh, the serving fleet, the GEXF export ----------
+
+# quality_tp's cut of the CLI schedule at full on (2, 2): 2 cycles of at
+# most 20 steps and one repair round (the defaults are 40 cycles, 1,000
+# steps a fit and 3 rounds; a tp_full step takes about 177 ms)
+QUALITY_TP = dict(restart_cycles=2, max_iters=20, repair_rounds=1)
+# F-sized tensors the device schedule keeps beside a fit's working set,
+# which the memory model prices: the best state, and the kicked or edited
+# input while its fit runs (quality_full's peak is main's plus 2 F)
+QUALITY_RESIDENT_F = 2
+QUALITY_TP_PARITY_ITERS = 30      # cycle 0's step cap on the parity graph
+FLEET_SHARDS = 2
+FLEET_UP_TIMEOUT_S = 300          # each replica imports torch and reaches the card
+FLEET_ROUND2_QUERIES = 512        # the round after the restart: the mix's first
+
+
+def shared_noise(seed: int):
+    """The device schedule's kicks drawn once a tag on the CPU in float64
+    (DeviceNoise's stream), handed to the card and to a CPU reference
+    alike."""
+    from bigclam_tpu_torch.models.quality import DeviceNoise
+
+    draw = DeviceNoise(seed)
+
+    def noise(tag, shape, eps, dtype, device):
+        return draw(tag, shape, eps, torch.float64, "cpu").to(device, dtype)
+
+    return noise
+
+
+@contextlib.contextmanager
+def quality_tp_schedule():
+    """`cli fit --quality`'s config with QUALITY_TP's repair_rounds (the
+    CLI has no flag for it)."""
+    from bigclam_tpu_torch import cli
+
+    orig = cli.quality_config
+
+    def cut(args, cfg):
+        return orig(args, cfg).replace(repair_rounds=QUALITY_TP["repair_rounds"])
+
+    cli.quality_config = cut
+    try:
+        yield
+    finally:
+        cli.quality_config = orig
+
+
+def phase_quality_tp(path, tmp, main_out, main_zero_rows, q_full, tp_body) -> dict:
+    """`cli fit --mesh 2,2 --quality --device-annealing` at full on one
+    card (QUALITY_TP's schedule): the launches of the K-sharded step (the
+    window kernels and cand_nbr_from_x a block) against the steps run,
+    steps and seconds a step beside quality_full's and tp_full's, stage
+    seconds and transfer counts, the peak beside the fit's memory model
+    plus QUALITY_RESIDENT_F F-sized tensors (check_peak), the zero rows
+    and the LLH before and after. Then the parity graph at (2, 2) on the
+    card against CPU float64 on a (2, 2) mesh fed the same kicks: cycle 0
+    within LLH_RTOL, with its launches."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models import quality as q
+    from bigclam_tpu_torch.models.agm import sample_planted_graph
+    from bigclam_tpu_torch.models.bigclam import mesh_k_plan
+    from bigclam_tpu_torch.parallel import ShardedBigClamModel, make_mesh
+
+    k = FULL["k"]
+    fits = []                          # (steps, seconds) of each fit_state
+    orig_fit_state = ShardedBigClamModel.fit_state
+
+    def timed_fit_state(self, state, callback=None, **kw):
+        t0 = time.perf_counter()
+        res = orig_fit_state(self, state, callback=callback, **kw)
+        fits.append((len(res[3]), time.perf_counter() - t0))
+        return res
+
+    metrics = os.path.join(tmp, "quality_tp.jsonl")
+    args = fit_args([
+        "--graph", path, "--k", str(k), "--init", "conductance", "--device",
+        DEVICE, "--mesh", "2,2", "--quality", "--device-annealing",
+        "--restart-cycles", str(QUALITY_TP["restart_cycles"]), "--max-iters",
+        str(QUALITY_TP["max_iters"]), "--metrics", metrics])
+    card = DEVICE == "cuda"
+    ShardedBigClamModel.fit_state = timed_fit_state
+    try:
+        with quality_tp_schedule():
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if card else 0
+            reset_launch_counts()
+            (out, res, qres), wall_s = wall(cli.fit, args)
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base if card else 0
+    finally:
+        ShardedBigClamModel.fit_state = orig_fit_state
+    steps = cli_steps(metrics)
+    n = out["n"]
+    if res.F.shape != (n, k) or not np.isfinite(res.F).all():
+        raise AssertionError("quality_tp: a malformed F")
+    if card and (out["kernel_path"], out["mesh"]) != ("csr_fused", "2x2"):
+        raise AssertionError(f"quality_tp ran {out['kernel_path']} on {out['mesh']}")
+    if steps != sum(s for s, _ in fits) or not steps:
+        raise AssertionError(f"quality_tp: {steps} steps recorded, fits {fits}")
+    st = qres.stages
+    rounds = st["counts"].get("repair_rounds", 0)
+    if (st["counts"]["f_host_uploads"] != 1
+            or st["counts"]["f_device_fetches"] > rounds + 1
+            or rounds > QUALITY_TP["repair_rounds"]):
+        raise AssertionError(f"quality_tp transfers: {st['counts']}")
+    kc, k_pad = mesh_k_plan(k, 2, True)
+    n_kb = (k_pad // 2) // (kc or k_pad // 2)
+    want = tp_launches_want(counts, "allgather", 2, 2, n_kb, steps)
+    if card and counts != want:
+        raise AssertionError(f"quality_tp launches {counts}, want {want}")
+    f_bytes = -(-n // 2) * 2 * k_pad * 4
+    modeled = out["hbm_modeled_bytes"] + QUALITY_RESIDENT_F * f_bytes
+    ratio = (check_peak("quality_tp 2x2", peak, modeled, 2) if card else None)
+    # the parity graph at (2, 2): cycle 0 on the card against CPU float64
+    p = PARITY
+    g, _ = sample_planted_graph(p["n"], p["k"], p_in=p["p_in"],
+                                rng=np.random.default_rng(p["seed"]))
+    pcfg = BigClamConfig(num_communities=p["k"], quality_mode=True,
+                         restart_cycles=1, quality_repair=False,
+                         max_iters=QUALITY_TP_PARITY_ITERS)
+    F0 = cli.init_F(g, pcfg, "conductance")
+    noise = shared_noise(pcfg.seed)
+    reset_launch_counts()
+    pcard = q.fit_quality_device(ShardedBigClamModel(g, pcfg, grid_mesh(2, 2)),
+                                 F0, noise=noise)
+    pcounts = launch_counts()
+    pcpu = q.fit_quality_device(
+        ShardedBigClamModel(g, pcfg.replace(dtype="float64"),
+                            make_mesh((2, 2), [torch.device("cpu")] * 4)),
+        F0, noise=noise)
+    a, b = pcard.fit.llh_history, pcpu.fit.llh_history
+    prel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    c0 = abs(pcard.cycles_llh[0] - pcpu.cycles_llh[0]) / abs(pcpu.cycles_llh[0])
+    if max(prel, c0) > LLH_RTOL or not all(map(math.isfinite, a)):
+        raise AssertionError(f"quality_tp parity: card {a} vs cpu float64 {b}")
+    pkc, pk_pad = mesh_k_plan(p["k"], 2, True)
+    pwant = tp_launches_want(pcounts, "allgather", 2, 2,
+                             (pk_pad // 2) // (pkc or pk_pad // 2), len(a))
+    if card and pcounts != pwant:
+        raise AssertionError(f"quality_tp parity launches {pcounts}, want {pwant}")
+    anneal = fits[:qres.num_cycles]
+    tp_sec = tp_body["csr_fused_2x2"]["sec_per_iter"]
+    return {
+        "schedule": QUALITY_TP, "schedule_seconds": wall_s,
+        "stage_seconds": out["stage_seconds"], "stages": st,
+        "cycles": qres.num_cycles, "cycles_llh": list(qres.cycles_llh),
+        "total_iters": qres.total_iters, "repairs": qres.num_repairs,
+        "steps": steps, "launches": counts, "k_pad": k_pad, "kc": kc,
+        "fits": [{"steps": s, "seconds": t} for s, t in fits],
+        "sec_per_step": sum(t for _, t in fits) / steps,
+        "sec_per_step_anneal": (sum(t for _, t in anneal)
+                                / max(sum(s for s, _ in anneal), 1)),
+        "quality_full_sec_per_step": q_full["sec_per_step"],
+        "tp_full_sec_per_step": tp_sec,
+        "peak_gb_measured": peak / 1e9,
+        "peak_gb_modeled_fit": out["hbm_modeled_bytes"] / 1e9,
+        "peak_gb_modeled": modeled / 1e9, "peak_modeled_over_measured": ratio,
+        "zero_rows_before": main_zero_rows,
+        "zero_rows_after": int((~res.F.any(axis=1)).sum()),
+        "llh_before": main_out["llh"], "llh_after": qres.fit.llh,
+        "parity": {"n": g.num_nodes, "k": p["k"], "k_pad": pk_pad,
+                   "steps_card": len(a), "steps_cpu": len(b), "max_rel": prel,
+                   "cycle0_rel": c0, "cycle0_llh_card": pcard.cycles_llh[0],
+                   "cycle0_llh_cpu": pcpu.cycles_llh[0], "launches": pcounts},
+    }
+
+
+def fleet_env() -> dict:
+    """The environment of a child `python -m bigclam_tpu_torch.cli`: this
+    checkout first on its path."""
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def read_members(path) -> dict:
+    with open(path) as f:
+        return {m["id"]: m for m in json.load(f)["members"]}
+
+
+def route_round(fleet, members, qfile, results) -> tuple:
+    """`cli route --members` of the query file: (its stats, its answers)."""
+    out = cli_json(["route", "--fleet", fleet, "--members", members,
+                    "--queries", qfile, "--results", results, "--quiet"])
+    if out["serve_errors"] or out["mixed_generation"]:
+        raise AssertionError(f"route: {out}")
+    with open(results) as f:
+        return out, [json.loads(line) for line in f]
+
+
+def hold_routed(queries, answers, single, snap, gi, held=None) -> dict:
+    """Routed reads equal the single-process answers bit for bit; routed
+    suggests (the first `held` of them, all by default) against the CPU
+    float64 engine (hold_suggests)."""
+    sq, sa = [], []
+    for q, a, b in zip(queries, answers, single):
+        if "error" in a:
+            raise AssertionError(f"routed {q}: {a}")
+        if q["family"] == "suggest_for":
+            sq.append(q)
+            sa.append(a)
+        elif q["family"] == "members_of":
+            if a["members"] != b["members"]:
+                raise AssertionError(f"routed {q}: members differ")
+        elif a["communities"] != b["communities"]:
+            raise AssertionError(f"routed {q}: communities differ")
+    return {"reads_equal": len(queries) - len(sq), "suggests": len(sq),
+            "held_vs_cpu_float64": hold_suggests(snap, gi, sq[:held], sa[:held])}
+
+
+def phase_fleet_full(gi, tmp, cache, serve_body) -> dict:
+    """A 2-shard fleet generation of serve_publish's sparse fit (`cli fit
+    --representation sparse --sparse-m 64 --publish-shards 2` on
+    store_full's cache) started by `cli fleet up --shards 2 --replicas 1
+    --device cuda` with a members file; serve_full's 4,096-query mix
+    routed by `cli route --members`: reads equal single-process `cli
+    serve` on the un-sharded archive of the same member lists bit for
+    bit, suggests within 1e-4 of CPU float64, no serve error, every
+    replica on the card; then one replica killed, restarted by the
+    supervisor, and a second round of the mix's first
+    FLEET_ROUND2_QUERIES answering the same (its first SERVE_CHECK
+    suggests held); `fleet drain` and `fleet down`. The dense fit's fleet would answer each members_of with
+    its 110,400 zero rows (serve_full), 4,096 times a round, as JSON."""
+    import signal
+
+    from bigclam_tpu_torch.ops.sparse_members import from_dense
+    from bigclam_tpu_torch.serve.router import TcpReplica
+    from bigclam_tpu_torch.serve.snapshot import (
+        ServingSnapshot,
+        load_fleet_shard,
+        publish_snapshot,
+    )
+
+    card = DEVICE == "cuda"
+    n, k = gi.num_nodes, FULL["k"]
+    fleet = os.path.join(tmp, "fleet")
+    f_npy = os.path.join(tmp, "fleet_F.npy")
+    out, res, state, counts, pub_s = serve_fit([
+        "--graph", cache, "--max-iters", str(SERVE_SPARSE_ITERS),
+        "--representation", "sparse", "--sparse-m", str(SPARSE_M),
+        "--publish-dir", fleet, "--publish-shards", str(FLEET_SHARDS),
+        "--save-f", f_npy])
+    del state
+    if out["publish_shards"] != FLEET_SHARDS:
+        raise AssertionError(f"fleet publication: {out}")
+    if card and (out["kernel_path"] != "sparse_merge_pallas"
+                 or not counts["member_lookup"]):
+        raise AssertionError(f"fleet fit {out['kernel_path']} {counts}")
+    F = np.load(f_npy)
+    if not np.array_equal(F, res.F):
+        raise AssertionError("the fleet fit's --save-f F is not its F")
+    del res
+    os.remove(f_npy)
+    # the un-sharded archive of the same member lists, as the fit cut them
+    ids, w, _ = from_dense(F, SPARSE_M, k, n)
+    del F
+    single_dir = os.path.join(tmp, "fleet_single")
+    publish_snapshot(single_dir, step=None, ids=ids, w=w, raw_ids=gi.raw_ids,
+                     num_edges=gi.num_edges,
+                     cfg=snapshot_cfg(load_fleet_shard(fleet, 0).meta),
+                     meta={"llh": out["llh"]})
+    del ids, w
+    qfile = os.path.join(tmp, "serve_queries.jsonl")
+    with open(qfile) as f:
+        queries = [json.loads(line) for line in f]
+    single_out = cli_json(["serve", "--snapshots", single_dir, "--graph", cache,
+                           "--queries", qfile, "--results",
+                           os.path.join(tmp, "fleet_single.jsonl"), "--device",
+                           DEVICE, "--quiet"])
+    with open(os.path.join(tmp, "fleet_single.jsonl")) as f:
+        single = [json.loads(line) for line in f]
+    snap = ServingSnapshot.load(single_dir)
+    members = os.path.join(tmp, "fleet_members.json")
+    logs = os.path.join(tmp, "fleet_logs")
+    t0 = time.perf_counter()
+    up = subprocess.Popen(
+        [sys.executable, "-m", "bigclam_tpu_torch.cli", "fleet", "up", "--fleet",
+         fleet, "--shards", str(FLEET_SHARDS), "--replicas", "1", "--graph", cache,
+         "--members", members, "--device", DEVICE, "--log-dir", logs,
+         "--up-timeout-s", str(FLEET_UP_TIMEOUT_S), "--drain-grace-s", "0.2"],
+        stdout=subprocess.PIPE, text=True, env=fleet_env(),
+        start_new_session=True)
+    try:
+        hello = json.loads(up.stdout.readline() or "{}")
+        up_s = time.perf_counter() - t0
+        if not hello.get("all_up"):
+            raise AssertionError(f"fleet up: {hello}")
+        ctl = ["--control", hello["control"]]
+        devices = {}
+        for mid, m in read_members(members).items():
+            host, port = m["endpoint"].rsplit(":", 1)
+            t = TcpReplica(host, int(port), timeout_s=60.0)
+            try:
+                devices[mid] = t.request({"family": "status"})["device"]
+            finally:
+                t.close()
+        if card and set(devices.values()) != {"cuda"}:
+            raise AssertionError(f"fleet replicas on {devices}")
+        stats1, answers1 = route_round(fleet, members, qfile,
+                                       os.path.join(tmp, "routed1.jsonl"))
+        held1 = hold_routed(queries, answers1, single, snap, gi)
+        # kill one replica: the supervisor restarts it at the newest generation
+        victim = read_members(members)["s0r0"]
+        os.kill(victim["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while True:
+            m = read_members(members)["s0r0"]
+            if m["pid"] != victim["pid"] and m["state"] == "up":
+                break
+            if time.perf_counter() - t_kill > FLEET_UP_TIMEOUT_S:
+                raise AssertionError(f"s0r0 not restarted: {m}")
+            time.sleep(0.05)
+        restart_s = time.perf_counter() - t_kill
+        q2 = os.path.join(tmp, "fleet_round2.jsonl")
+        with open(q2, "w") as f:
+            f.writelines(json.dumps(q) + "\n" for q in queries[:FLEET_ROUND2_QUERIES])
+        stats2, answers2 = route_round(fleet, members, q2,
+                                       os.path.join(tmp, "routed2.jsonl"))
+        held2 = hold_routed(queries[:FLEET_ROUND2_QUERIES], answers2, single,
+                            snap, gi, SERVE_CHECK)
+        drain = cli_json(["fleet", "drain", "--member", "s1r0", *ctl])
+        if not drain.get("ok"):
+            raise AssertionError(f"fleet drain: {drain}")
+        cli_json(["fleet", "down", *ctl])
+        final = json.loads(up.stdout.read().strip().splitlines()[-1])
+        if up.wait(timeout=120) != 0 or final["replica_restarts"] < 1:
+            raise AssertionError(f"fleet up ended {up.returncode}: {final}")
+    finally:
+        if up.poll() is None:
+            os.killpg(up.pid, signal.SIGKILL)
+            up.wait()
+    keys = ("serve_p50_s", "serve_p99_s", "serve_qps", "serve_queries",
+            "serve_errors", "router_retries", "transport_failovers")
+    return {
+        "publication": {"generation": out["generation"], "publish_s": pub_s,
+                        "shards": FLEET_SHARDS, "kernel_path": out["kernel_path"],
+                        "launches": counts, "steps": out["steps"]},
+        "fleet_up_s": up_s, "replica_devices": devices,
+        "round1": {key: stats1.get(key) for key in keys}, "held1": held1,
+        "restart_s": restart_s,
+        "round2": {key: stats2.get(key) for key in keys}, "held2": held2,
+        "single_process": {key: single_out.get(key) for key in keys},
+        "serve_full": {tag: {key: serve_body[tag][key] for key in (
+            "serve_p50_s", "serve_p99_s", "serve_qps")} for tag in ("dense", "sparse")},
+        "final": final,
+    }
+
+
+def gexf_nodes(path) -> tuple:
+    """{node id: (community, n_communities)} and the edge count of a GEXF
+    file."""
+    import xml.etree.ElementTree as ET
+
+    ns = {"g": "http://gexf.net/1.2"}
+    root = ET.parse(path).getroot()
+    nodes = {}
+    for node in root.iterfind(".//g:nodes/g:node", ns):
+        vals = {v.get("for"): int(v.get("value"))
+                for v in node.iterfind(".//g:attvalue", ns)}
+        nodes[node.get("id")] = (vals["0"], vals["1"])
+    return nodes, len(root.findall(".//g:edges/g:edge", ns))
+
+
+def phase_gexf(tmp) -> dict:
+    """`cli fit --export-gexf` on the parity graph on the card (csr_fused, a
+    launch a step) and in CPU float64: the file parses, its nodes and
+    edges are the graph's, and its community attributes equal the CPU
+    run's but at near-ties (TIE) in either run's F: the primary community
+    only where the row's top two are near-tied, the membership count only
+    where a column lies near the delta threshold (or the row's maximum,
+    below it, is near-tied with its second)."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.graph.ingest import build_graph
+    from bigclam_tpu_torch.ops.extraction import delta_threshold
+
+    path = os.path.join(tmp, "gexf_graph.txt")
+    planted_file(PARITY, path)
+    g = build_graph(path)
+    base = ["--graph", path, "--k", str(PARITY["k"]), "--max-iters", "4",
+            "--conv-tol", "0", "--init", "conductance"]
+    runs = {}
+    for tag, extra in (("card", ["--device", DEVICE]),
+                       ("cpu", ["--device", "cpu", "--dtype", "float64"])):
+        gexf = os.path.join(tmp, f"gexf_{tag}.gexf")
+        reset_launch_counts()
+        out, res, _ = cli.fit(fit_args(base + extra + ["--export-gexf", gexf]))
+        counts = launch_counts()
+        if out["export_gexf"] != gexf:
+            raise AssertionError(f"gexf {tag}: {out.get('export_gexf')}")
+        nodes, edges = gexf_nodes(gexf)
+        if (len(nodes), edges) != (g.num_nodes, g.num_edges):
+            raise AssertionError(f"gexf {tag}: {len(nodes)} nodes, {edges} edges; "
+                                 f"the graph has {g.num_nodes}, {g.num_edges}")
+        runs[tag] = {"out": out, "F": res.F, "nodes": nodes, "counts": counts,
+                     "bytes": os.path.getsize(gexf)}
+    card = runs["card"]
+    if DEVICE == "cuda" and (card["out"]["kernel_path"] != "csr_fused"
+                             or card["counts"]["fused_superstep"] != card["out"]["steps"]):
+        raise AssertionError(f"gexf fit {card['out']['kernel_path']} {card['counts']}")
+    delta = delta_threshold(g.num_nodes, g.num_edges)
+    flips = 0
+    for u in range(g.num_nodes):          # a GEXF node id is its row
+        att, want = card["nodes"][str(u)], runs["cpu"]["nodes"][str(u)]
+        if att == want:
+            continue
+        rows = (card["F"][u], runs["cpu"]["F"][u])
+        tops = [np.sort(row)[-2:] for row in rows]
+        # the primary community (argmax) at a near-tie of the row's top two
+        near_top = any(t[1] - t[0] <= TIE * max(1.0, t[1]) for t in tops)
+        # the membership count at a column near delta, or at the fallback
+        # to the row's maximum (below delta) at a near-tie of its top two
+        near_count = any(np.any(np.abs(row - delta) <= TIE * max(1.0, delta))
+                         for row in rows) or (
+            near_top and min(t[1] for t in tops) < delta * (1 + TIE))
+        if ((att[0] != want[0] and not near_top)
+                or (att[1] != want[1] and not near_count)):
+            raise AssertionError(f"gexf row {u}: card {att}, cpu {want}")
+        flips += 1
+    return {"n": g.num_nodes, "edges": g.num_edges,
+            "launches": card["counts"]["fused_superstep"],
+            "steps": card["out"]["steps"], "bytes": card["bytes"],
+            "near_tie_flips": flips,
+            "llh_card": card["out"]["llh"], "llh_cpu": runs["cpu"]["out"]["llh"],
+            "stage_seconds": card["out"]["stage_seconds"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -6800,8 +7343,8 @@ def main(argv=None) -> int:
         ag_body = run("allgather_main", phase_allgather_main, g, path, gi, F0,
                       main_hist)
         run("ring_multi", phase_ring_multi, gi, F0, main_hist)
-        tp_full_counts, _ = run("tp_full", phase_tp_full, gi, F0, main_hist,
-                                main_out["sec_per_iter"])
+        tp_full_counts, tp_full_body = run("tp_full", phase_tp_full, gi, F0,
+                                           main_hist, main_out["sec_per_iter"])
         twod_full_counts, _ = run("twod_full", phase_twod_full, g, path, main_hist)
         cache, cdir, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
                              main_out, main_counts)
@@ -6814,13 +7357,18 @@ def main(argv=None) -> int:
         q_full = run("quality_full", phase_quality_full, gi, F0, main_out,
                      main_zero_rows)
         del g, F0
+        q_tp = run("quality_tp", phase_quality_tp, path, tmp, main_out,
+                   main_zero_rows, q_full, tp_full_body)
         snaps, snaps_sparse, _ = run("serve_publish", phase_serve_publish,
                                      gi, tmp, cache)
-        run("serve_full", phase_serve_full, gi, tmp, cache, snaps, snaps_sparse)
+        serve_body = run("serve_full", phase_serve_full, gi, tmp, cache, snaps,
+                         snaps_sparse)
         run("refit_full", phase_refit_full, gi, tmp, cache, snaps)
+        fleet_body = run("fleet_full", phase_fleet_full, gi, tmp, cache, serve_body)
         del gi
         run("follow_parity", phase_follow_parity, tmp)
         q_parity = run("quality_parity", phase_quality_parity, tmp)
+        gexf_body = run("gexf", phase_gexf, tmp)
         run("parity", phase_parity, tmp)
         run("sparse_parity", phase_sparse_parity, tmp)
         run("sparse_mesh_parity", phase_sparse_mesh_parity, tmp)
@@ -6905,15 +7453,20 @@ def main(argv=None) -> int:
                 "launches_kbmesh_xlk": {tag: mesh_launches(c, name)
                                         for tag, c in kbmesh_counts.items()},
                 "launches_tp_full": {tag: mesh_launches(c, name)
-                                     for tag, c in tp_full_counts.items()}}
+                                     for tag, c in tp_full_counts.items()},
+                "launches_quality_tp": mesh_launches(q_tp["launches"], name),
+                "launches_quality_tp_parity": mesh_launches(
+                    q_tp["parity"]["launches"], name)}
                if name in K_BLOCKED else {}),
             **({"launches_resilience_full": res_full["a"]["launches"],
                 "launches_quality_full": q_full["launches"],
                 "launches_quality_parity": {
-                    k: v["launches"] for k, v in q_parity["runs"].items()}}
+                    k: v["launches"] for k, v in q_parity["runs"].items()},
+                "launches_gexf": gexf_body["launches"]}
                if name == "fused_superstep" else {}),
             **({"launches_sparse_mesh_full": sm_full_counts[name],
-                "launches_sparse_mesh_local": sm_local_counts[name]}
+                "launches_sparse_mesh_local": sm_local_counts[name],
+                "launches_fleet_full": fleet_body["publication"]["launches"][name]}
                if name == "member_lookup" else {}),
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name]}

@@ -237,3 +237,65 @@ def test_cli_fit_without_k_trains_at_the_jax_default(tmp_path, planted):
     assert out["k"] == ref["k"] == 100
     assert len(out["llh_history"]) == len(ref_hist) == 4
     np.testing.assert_allclose(out["llh_history"], ref_hist, rtol=1e-9)
+
+
+def test_export_gexf_writes_the_jax_bytes(tmp_path, planted):
+    """utils/viz.py is a copy: the same graph, communities and F (with a
+    zero row, a tie on a row max and a node in no community) give the JAX
+    writer's bytes, with F and without, and under the node cap."""
+    from bigclam_tpu.utils.viz import export_gexf as jax_export
+
+    from bigclam_tpu_torch.utils.viz import export_gexf
+
+    gj, gp, _ = planted
+    F = np.random.default_rng(8).exponential(0.3, (gp.num_nodes, 10))
+    F[3] = 0.0
+    F[4, :2] = F[4].max() + 1.0
+    com = pext.extract_communities(F, gp)
+    com[0] = [u for u in com[0] if u != 7]
+    for kw in ({"F": F}, {}, {"F": F, "max_nodes": 100, "max_edges": 200}):
+        ours, ref = tmp_path / "p.gexf", tmp_path / "j.gexf"
+        export_gexf(str(ours), gp, communities=com, **kw)
+        jax_export(str(ref), gj, communities=com, **kw)
+        assert ours.read_bytes() == ref.read_bytes()
+
+
+def test_cli_fit_export_gexf_matches_the_jax_cli(tmp_path, planted):
+    """`fit --export-gexf` in float64 on the CPU: the file is the JAX
+    writer's bytes for the fit's F (saved beside it), and against the JAX
+    CLI's file the nodes, edges and membership counts are equal; the
+    primary community (argmax F) may differ only at a near-tie of F."""
+    import re
+
+    from bigclam_tpu.cli import main as jax_main
+    from bigclam_tpu.utils.viz import export_gexf as jax_export
+
+    gj, gp, _ = planted
+    path = tmp_path / "g.txt"
+    keep = gp.src < gp.dst
+    np.savetxt(path, np.stack([gp.src[keep], gp.dst[keep]], axis=1), fmt="%d")
+    argv = ["fit", "--graph", str(path), "--k", "10", "--max-iters", "30",
+            "--dtype", "float64", "--quiet"]
+    out = _cli_json(cli.main, argv + ["--device", "cpu", "--export-gexf",
+                                      str(tmp_path / "p.gexf"), "--save-f",
+                                      str(tmp_path / "f.npy")])
+    ref = _cli_json(jax_main, argv + ["--csr-kernels", "off", "--export-gexf",
+                                      str(tmp_path / "j.gexf")])
+    assert out["export_gexf"] == str(tmp_path / "p.gexf")
+    assert ref["export_gexf"] == str(tmp_path / "j.gexf")
+    F = np.load(tmp_path / "f.npy")
+    g_file = jing.build_graph(str(path))
+    jax_export(str(tmp_path / "w.gexf"), g_file,
+               communities=jext.extract_communities(F, g_file), F=F)
+    ours = (tmp_path / "p.gexf").read_bytes()
+    assert ours == (tmp_path / "w.gexf").read_bytes()
+    node = re.compile(rb'<node id="(\d+)".*?value="(-?\d+)".*?value="(\d+)"')
+    a = node.findall(ours)
+    b = node.findall((tmp_path / "j.gexf").read_bytes())
+    assert len(a) == len(b) == gp.num_nodes
+    assert ours.count(b"<edge ") == (tmp_path / "j.gexf").read_bytes().count(b"<edge ")
+    assert [(u, m) for u, _, m in a] == [(u, m) for u, _, m in b]
+    for (u, ca, _), (_, cb, _) in zip(a, b):
+        if ca != cb:
+            row = np.sort(F[int(u)])
+            assert row[-1] - row[-2] <= 1e-6 * row[-1], (u, row[-2:])

@@ -2,8 +2,9 @@
 a fresh interpreter imports every module of bigclam_tpu_torch (the
 non-CSR candidate kernel's ops.edge_kernels, the K sweep's
 models.model_selection, the graph store's graph.stream and graph.store,
-the serving stack's ops.foldin, serve.* and models.refit, quality mode's
-ops.components and models.quality, the sparse sharded trainer's
+the serving stack's ops.foldin, serve.* and models.refit, the fleet's
+serve.router, serve.fleet and serve.supervise, the GEXF export's
+utils.viz, quality mode's ops.components and models.quality, the sparse sharded trainer's
 parallel.sparse_collectives and parallel.sparse_sharded, the 2D
 partition's parallel.twod, and the
 observability and resilience modules among them) and runs every
@@ -42,7 +43,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
         ):
             __import__(m.name)
         for sub in ("fit", "sweep", "eval", "ingest", "profile", "perf",
-                    "report", "watch", "preflight", "serve", "refit"):
+                    "report", "watch", "preflight", "serve", "route",
+                    "fleet", "refit"):
             try:
                 cli.main([sub, "--help"])
             except SystemExit as e:
@@ -58,7 +60,9 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "serve.snapshot", "serve.batcher", "serve.server",
                      "models.refit", "ops.components", "models.quality",
                      "parallel.sparse_collectives",
-                     "parallel.sparse_sharded", "parallel.twod"):
+                     "parallel.sparse_sharded", "parallel.twod",
+                     "serve.router", "serve.fleet", "serve.supervise",
+                     "utils.viz"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -80,6 +84,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     assert "--ksweep-tol" in r.stdout and "--no-nmi" in r.stdout
     assert "--watch-snapshots" in r.stdout and "--refit-batch" in r.stdout
     assert "--publish-shards" in r.stdout and "--follow-timeout" in r.stdout
+    assert "--export-gexf" in r.stdout and "--fleet-shard" in r.stdout
+    assert "--hedge-delay-s" in r.stdout and "--quarantine-after" in r.stdout
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -87,7 +93,9 @@ def test_static_scan_finds_no_jax_or_reference_import():
     for name in ("stream.py", "store.py"):
         assert REPO / "bigclam_tpu_torch" / "graph" / name in PORT_FILES
     for rel in ("serve/__init__.py", "serve/snapshot.py", "serve/batcher.py",
-                "serve/server.py", "ops/foldin.py", "models/refit.py"):
+                "serve/server.py", "ops/foldin.py", "models/refit.py",
+                "serve/router.py", "serve/fleet.py", "serve/supervise.py",
+                "utils/viz.py"):
         assert REPO / "bigclam_tpu_torch" / rel in PORT_FILES
     dynamic = re.compile(r"""(import_module|__import__)\(\s*["'](jax|bigclam_tpu)\b(?!_torch)""")
     for path in PORT_FILES:

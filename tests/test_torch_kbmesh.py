@@ -345,23 +345,30 @@ def test_tp_health_extraction_and_comms(planted):
 def test_tp_host_quality_schedule_matches_jax(planted):
     """The host quality schedule (fit_quality: host kicks, repair) on a
     (2, 2) float64 mesh against the JAX fit_quality on the same mesh; the
-    device-resident schedule is refused there by name (ROADMAP item 20)."""
+    device-resident schedule (no longer refused there) against the JAX
+    fit_quality_device on the same mesh, fed the JAX draws."""
     from bigclam_tpu.models.quality import fit_quality as jax_fit_quality
+    from bigclam_tpu.models.quality import fit_quality_device as jax_fit_quality_device
 
     from bigclam_tpu_torch.models.quality import fit_quality, fit_quality_device
-    from bigclam_tpu_torch.parallel import MeshNotPortedError
+    from test_torch_quality_device import jax_noise
 
     jcfg = JaxConfig(num_communities=8, dtype="float64", max_iters=30,
                      quality_mode=True, restart_cycles=2)
     F0 = np.random.default_rng(2).uniform(0.0, 0.3, (planted.num_nodes, 8))
-    jr = jax_fit_quality(JaxSharded(planted, jcfg, _jax_mesh((2, 2))), F0)
+    jm = JaxSharded(planted, jcfg, _jax_mesh((2, 2)))
+    jr = jax_fit_quality(jm, F0)
     pm = ShardedBigClamModel(_port_graph(planted),
                              BigClamConfig(**dataclasses.asdict(jcfg)), _mesh((2, 2)))
     pr = fit_quality(pm, F0)
     np.testing.assert_allclose(pr.fit.llh, jr.fit.llh, rtol=1e-10)
     np.testing.assert_allclose(pr.fit.F, jr.fit.F, rtol=1e-9, atol=1e-10)
-    with pytest.raises(MeshNotPortedError, match="item 20"):
-        fit_quality_device(pm, F0)
+    jd = jax_fit_quality_device(jm, F0)
+    pd = fit_quality_device(pm, F0, noise=jax_noise(jm, F0, jcfg.seed))
+    assert (pd.num_cycles, pd.total_iters, pd.num_repairs) == (
+        jd.num_cycles, jd.total_iters, jd.num_repairs)
+    np.testing.assert_allclose(pd.cycles_llh, jd.cycles_llh, rtol=1e-10)
+    np.testing.assert_allclose(pd.fit.llh, jd.fit.llh, rtol=1e-10)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -169,18 +169,21 @@ def test_quality_refuses_store_native_up_front(edge_file, tmp_path):
     assert "--store-native" in msg and msg.startswith("error: ")
 
 
-def test_sweep_quality_refuses_sparse_and_mesh(edge_file):
-    """Sparse quality sweeps stay refused; a quality sweep over a mesh now
-    runs through fit's mesh factory (it was refused as ROADMAP item 14),
-    and only the device-resident schedule on a K-sharded mesh (item 20) and
-    --distributed (item 14's multi-process half) are refused by name."""
+def test_sweep_quality_refuses_sparse_and_mesh(edge_file, capsys):
+    """Sparse quality sweeps stay refused, and --distributed (item 14's
+    multi-process half) by name; a quality sweep over a mesh runs through
+    fit's mesh factory, the device-resident schedule on a K-sharded mesh
+    too (it was refused as item 20; tests/test_torch_quality_tp.py holds it
+    against the JAX CLI)."""
     base = ["sweep", "--graph", edge_file, "--min-com", "6", "--max-com",
             "12", "--div-com", "2", "--quality", "--device", "cpu"]
     assert "--representation sparse" in _refusal(
         cli.main, base + ["--representation", "sparse"])
     assert "item 14" in _refusal(cli.main, base + ["--distributed"])
-    assert "item 20" in _refusal(
-        cli.main, base + ["--mesh", "1,2", "--device-annealing"])
+    assert cli.main(base + ["--mesh", "1,2", "--device-annealing", "--quiet",
+                            "--max-iters", "5"]) == 0
+    out = _json_out(capsys)
+    assert out["mesh"] == "1x2" and out["kset"] == [6, 8, 11, 12]
 
 
 def test_old_refusal_texts_are_gone(capsys):

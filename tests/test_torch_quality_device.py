@@ -203,33 +203,48 @@ def test_device_quality_sharded_padding_inert(small, cls, dp, balance):
 
 def test_kick_and_edits_keep_padding_zero(small):
     """The kick, the scatter edits and clear_col touch only the live
-    block: K padded to 32 on csr_fused, rows padded on a dp = 7 mesh."""
+    block: K padded to 32 on csr_fused, rows padded on a dp = 7 mesh, and
+    on a (2, 2) K-sharded mesh with the kernels (k_pad 64 > K = 25: two
+    column blocks of 32, the second holding padding columns past K) the
+    kick block by block, each edit and clear in the block owning its
+    column."""
+    from bigclam_tpu_torch.parallel.mesh import row_shards
+
     g, cfg, _ = small
-    n, k = g.num_nodes, cfg.num_communities
-    kc = k - 3
+    n = g.num_nodes
     noise = tq.DeviceNoise(cfg.seed, 5)
     dense = BigClamModel(g, cfg.replace(use_pallas_csr=True), device="cpu")
     mesh = ShardedBigClamModel(g, cfg, make_mesh((7, 1), [torch.device("cpu")] * 7),
                                balance=True)
-    for model in (dense, mesh):
+    tp2 = ShardedBigClamModel(g, cfg.replace(num_communities=40, use_pallas_csr=True),
+                              make_mesh((2, 2), [torch.device("cpu")] * 4))
+    assert tp2.tp == 2 and tp2.k_pad == 64
+    for model in (dense, mesh, tp2):
+        k = model.cfg.num_communities
+        kc = k - 3
         st = model.init_state(np.ones((n, k)))
         F = tq.kick_F(st.F, noise(0, (n, kc), 0.01, torch.float32, "cpu"),
                       n, kc, 0.0, 1000.0)
-        full = torch.cat(tq._parts(F)).numpy()
+        full = torch.cat(row_shards(F)).numpy()
         assert full.shape == (model.n_pad, model.k_pad)
         assert (model.n_pad, model.k_pad) != (n, k)
         assert np.all(full[n:] == 0) and np.all(full[:, k:] == 0)
         assert np.all(full[:n, kc:k] == 1.0)          # beyond kick_cols
         assert np.all((full[:n, :kc] >= 1.0) & (full[:n, :kc] < 1.01))
-        assert np.all(torch.cat(tq._parts(st.F)).numpy()[:n, :k] == 1.0)
-        parts = [f.clone() for f in tq._parts(F)]
-        rows = np.array([0, n - 1, model.n_pad + 7, 3])
-        tq.scatter_set_(parts, rows, np.array([1, 2, 1, model.k_pad]), 9.0)
+        assert np.all(torch.cat(row_shards(st.F)).numpy()[:n, :k] == 1.0)
+        parts = tq._map_parts(torch.clone, tq._parts(F))
+        rows = np.array([0, n - 1, model.n_pad + 7, 3, 5])
+        # k - 5 and k - 4: in the second column block at tp = 2 (K = 40)
+        tq.scatter_set_(parts, rows, np.array([1, 2, 1, model.k_pad, k - 5]), 9.0)
         tq.clear_col_(parts, 4)
-        out = torch.cat(parts).numpy()
-        assert out[0, 1] == 9.0 and out[n - 1, 2] == 9.0
-        assert np.all(out[n:] == 0) and np.all(out[:, 4] == 0)
-        assert np.count_nonzero(out == 9.0) == 2      # out of range dropped
+        tq.clear_col_(parts, k - 4)
+        out = torch.cat(row_shards(tq._as_layout(F, parts))).numpy()
+        assert out[0, 1] == 9.0 and out[n - 1, 2] == 9.0 and out[5, k - 5] == 9.0
+        assert np.all(out[n:] == 0) and np.all(out[:, k:] == 0)
+        assert np.all(out[:, 4] == 0) and np.all(out[:, k - 4] == 0)
+        assert np.count_nonzero(out == 9.0) == 3      # out of range dropped
+        keep = np.setdiff1d(np.arange(k), [1, 2, 4, k - 5, k - 4])
+        assert np.array_equal(out[6:n, keep], full[6:n, keep])
 
 
 def test_default_noise_deterministic_per_seed_and_salt(small):

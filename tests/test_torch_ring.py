@@ -46,7 +46,6 @@ from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import BigClamModel
 from bigclam_tpu_torch.ops import ring_kernels as rk
 from bigclam_tpu_torch.parallel import (
-    MeshNotPortedError,
     RingBigClamModel,
     make_mesh,
 )

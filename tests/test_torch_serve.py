@@ -476,18 +476,26 @@ def test_float64_snapshot_serves_on_the_card_in_float32(tmp_path, fitted):
     assert all("suggested" in a for a in answers)
 
 
-def test_fleet_names_are_refused_by_name():
+FLEET_NAMES = {"ShardReplica": "fleet", "ReplicaServer": "fleet",
+               "LocalReplica": "fleet", "FleetRouter": "router",
+               "TcpReplica": "router", "RouterError": "router"}
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_NAMES))
+def test_fleet_names_are_exported(name):
+    """The six fleet names of the JAX package's serve/ are the port's
+    serve.fleet and serve.router classes, lazily exported."""
+    import importlib
+
     import bigclam_tpu_torch.serve as serve
 
-    assert serve.MembershipServer is tserver.MembershipServer
-    for name in ("ShardReplica", "ReplicaServer", "LocalReplica",
-                 "FleetRouter", "TcpReplica", "RouterError"):
-        with pytest.raises(serve.FleetNotPortedError, match="ROADMAP item 18"):
-            getattr(serve, name)
+    mod = importlib.import_module(f"bigclam_tpu_torch.serve.{FLEET_NAMES[name]}")
+    assert getattr(serve, name) is getattr(mod, name)
+    assert name in serve.__all__ and not hasattr(serve, "FleetNotPortedError")
 
 
 # ----------------------------------------------------------- copy pins
-def _docless_ast(path: pathlib.Path, package: str) -> str:
+def _docless_tree(path: pathlib.Path, package: str) -> ast.Module:
     """The module's AST with every docstring dropped and the package name
     replaced by a placeholder."""
     tree = ast.parse(path.read_text().replace(package + ".", "PKG."))
@@ -497,13 +505,53 @@ def _docless_ast(path: pathlib.Path, package: str) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
 
 
-@pytest.mark.parametrize("name", ["snapshot", "batcher"])
+def _docless_ast(path: pathlib.Path, package: str) -> str:
+    return ast.dump(_docless_tree(path, package))
+
+
+@pytest.mark.parametrize("name", ["snapshot", "batcher", "router"])
 def test_serving_copies_are_their_jax_sources(name):
     ours = REPO / "bigclam_tpu_torch" / "serve" / f"{name}.py"
     ref = REPO / "bigclam_tpu" / "serve" / f"{name}.py"
     assert _docless_ast(ours, "bigclam_tpu_torch") == _docless_ast(
         ref, "bigclam_tpu")
     assert f"Copied from bigclam_tpu/serve/{name}.py" in ours.read_text()
+
+
+def _defs(path: pathlib.Path, package: str) -> dict:
+    """Docless AST of every module-level statement, keyed by a function's
+    or class method's qualified name (other statements by position)."""
+    out = {}
+    for i, node in enumerate(_docless_tree(path, package).body):
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                out[f"{node.name}.{getattr(sub, 'name', i)}"] = ast.dump(sub)
+            node.body = [b for b in node.body if not isinstance(
+                b, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        out[getattr(node, "name", f"stmt{i}")] = ast.dump(node)
+    return out
+
+
+# what the port changes in its copies: the replica resolves a --device
+# and builds the torch FoldInEngine there, reports it in its status, and
+# the supervisor passes its --device to the children it spawns
+FLEET_EDITS = {
+    "fleet": {"ShardReplica.__init__", "ShardReplica._engine_for",
+              "ShardReplica.status"},
+    "supervise": {"FleetSupervisor.__init__", "FleetSupervisor._spawn"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_EDITS))
+def test_fleet_copies_are_their_jax_sources_but_for_the_device(name):
+    ours = _defs(REPO / "bigclam_tpu_torch" / "serve" / f"{name}.py",
+                 "bigclam_tpu_torch")
+    ref = _defs(REPO / "bigclam_tpu" / "serve" / f"{name}.py", "bigclam_tpu")
+    assert set(ours) == set(ref)
+    differ = {k for k in ref if ours[k] != ref[k]}
+    assert differ == FLEET_EDITS[name]
+    text = (REPO / "bigclam_tpu_torch" / "serve" / f"{name}.py").read_text()
+    assert f"Copied from bigclam_tpu/serve/{name}.py" in text

@@ -173,11 +173,19 @@ def test_cli_serve_prints_answers_for_a_few_queries(world):
 
 
 def test_cli_serve_refusals(world):
+    """--snapshots with --fleet is refused in the JAX CLI's words;
+    --fleet-shard and --listen without --fleet leave single-process serve
+    as it is (as in the JAX CLI)."""
     base = ["serve", "--snapshots", world["snaps"], "--query", "members_of:1"]
-    for extra in (["--fleet", world["snaps"]], ["--listen", "localhost:0"],
-                  ["--fleet-shard", "1"]):
-        rc, _, _, err = _run(cli.main, base + extra + ["--device", "cpu"])
-        assert rc == 1 and "ROADMAP queue 1 item 18" in err, err
+    rc, _, _, err = _run(cli.main, base + ["--fleet", world["snaps"], "--device", "cpu"])
+    rcj, _, _, errj = _run(jax_main, base + ["--fleet", world["snaps"]])
+    assert rc == rcj == 1 and err == errj
+    assert "exactly one of --snapshots" in err
+    for extra in (["--listen", "localhost:0"], ["--fleet-shard", "1"]):
+        rc, ours, lines, err = _run(cli.main, base + extra + ["--device", "cpu"])
+        rcj, ref, jlines, _ = _run(jax_main, base + extra)
+        assert rc == rcj == 0, err
+        assert lines[:-1] == jlines[:-1] and ours["serve_errors"] == 0
     rc, _, _, err = _run(cli.main, ["serve", "--snapshots",
                                     world["snaps"], "--device", "cpu"])
     assert rc == 1 and "nothing to serve" in err

@@ -32,7 +32,6 @@ from bigclam_tpu_torch.models.bigclam import BigClamModel
 from bigclam_tpu_torch.ops import csr_kernels as ck
 from bigclam_tpu_torch.ops import fused
 from bigclam_tpu_torch.parallel import (
-    MeshNotPortedError,
     ShardedBigClamModel,
     make_mesh,
 )
@@ -174,8 +173,7 @@ def test_mesh_shapes_and_refusals():
     mesh = make_mesh((2, 2), [CPU] * 4)
     assert mesh.shape == {"nodes": 2, "k": 2} and mesh.size == 4
     assert mesh.label() == "2x2"
-    # a K-sharded mesh and a K-blocked mesh build and engage (they were
-    # refused by name with MeshNotPortedError before the TP split landed)
+    # a K-sharded mesh and a K-blocked mesh build and engage
     m = ShardedBigClamModel(g, BigClamConfig(num_communities=5), mesh)
     assert (m.engaged_path, m.tp, m.k_pad, m.kc, m.tp_split) == ("xla", 2, 6, 0, True)
     st = m.init_state()
@@ -185,7 +183,6 @@ def test_mesh_shapes_and_refusals():
         _cpu_mesh(2),
     )
     assert (m.engaged_path, m.kc, m.k_pad) == ("csr_fused_kb", 32, 32)
-    assert not issubclass(MeshNotPortedError, ValueError)
     with pytest.raises(ValueError, match="use_pallas_csr=False selects"):
         ShardedBigClamModel(
             g, BigClamConfig(num_communities=4, use_pallas_csr=True, dtype="float64"),
