@@ -77,9 +77,15 @@ DP node shards with the capped sparse allreduce of sumF
 `_psum`, `sparse_xla_*` on the CPU; its JSON adds `sparse_comm` and
 `sparse_comm_cap`); with sparse, `--schedule ring`, TP > 1, `--balance`,
 `--store-native`, `--quality` and `--partition 2d` are refused with the
-JAX CLI's words. `--distributed` (multi-process meshes, ROADMAP item 14)
-is refused by name. `--mesh P,1 --partition 2d [--replica-cols C]` trains
-the 2D edge-block partition on a (P / C, C) grid (parallel/twod.py: path
+JAX CLI's words. `fit`/`sweep --distributed` run every rank of a
+torch.distributed process group (torchrun's variables or the JAX names;
+parallel/multihost.py) on one card each, `--mesh` optional ((ranks, 1)
+by default); rank 0 alone writes `--out`, `--publish-dir`,
+`--export-gexf`, checkpoints and telemetry events; without a coordinator
+it warns in the JAX CLI's words and runs single-process; `--partition
+2d`, `refit` and `--follow` are refused as in the JAX CLI. `--mesh P,1
+--partition 2d [--replica-cols C]` trains the 2D edge-block partition on
+a (P / C, C) grid (parallel/twod.py: path
 `csr_fused_2d`, `csr_fused_2d_kb` above K = 1,024, `xla_2d` on the CPU;
 `--store-native` from a cache of P shards); its JSON adds `replica_cols`
 and `grad_exchange`, and `mesh` is "rowsxcols". Without `--mesh`, with
@@ -282,8 +288,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--distributed", action="store_true",
-        help="refused: a multi-process mesh (torch.distributed, one process "
-             "a card) is ROADMAP queue 1 item 14; --mesh runs one controller",
+        help="multi-process run: join the torch.distributed process group "
+             "(coordinator from MASTER_ADDR/MASTER_PORT as torchrun sets it, "
+             "or JAX_COORDINATOR_ADDRESS) and build the mesh over every "
+             "rank's card, host-major (one card a rank: cuda:LOCAL_RANK; "
+             "--mesh defaults to (ranks, 1)). Run the same command on every "
+             "rank; rank 0 alone writes files",
     )
     p.add_argument(
         "--balance", action="store_true",
@@ -1241,12 +1251,6 @@ def config_from_args(args):
     from bigclam_tpu_torch.config import BigClamConfig
 
     refuse_partition_2d(args)
-    if getattr(args, "distributed", False):
-        raise SystemExit(
-            "error: --distributed is not ported yet (ROADMAP queue 1 item 14: "
-            "multi-process meshes over torch.distributed); --mesh DP,TP runs "
-            "the mesh from one process"
-        )
     sweep = args.command == "sweep"
     checkpoint_every = args.checkpoint_every
     if not sweep and args.checkpoint_dir and checkpoint_every <= 0:
@@ -1395,15 +1399,45 @@ def parse_mesh(text: str) -> tuple:
     return dp, tp
 
 
+NO_COORDINATOR_WARNING = (
+    "warning: --distributed but no coordinator found (set "
+    "JAX_COORDINATOR_ADDRESS + JAX_NUM_PROCESSES + JAX_PROCESS_ID, or "
+    "torchrun's MASTER_ADDR + MASTER_PORT + WORLD_SIZE + RANK, on every "
+    "host); continuing single-process over local devices only"
+)
+
+
+def distributed_mesh(device, mesh):
+    """--distributed: join the process group (parallel/multihost.py
+    `initialize_distributed`; idempotent), or warn in the JAX CLI's words
+    and run single-process where no coordinator is named; then the mesh
+    (multihost.make_multihost_mesh): `mesh` ('DP,TP', optional) over every
+    rank's card, (ranks, 1) by default."""
+    from bigclam_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        make_multihost_mesh,
+    )
+    from bigclam_tpu_torch.utils.dist import process_count
+
+    if not initialize_distributed(device=device) and process_count() == 1:
+        print(NO_COORDINATOR_WARNING, file=sys.stderr)
+    try:
+        return make_multihost_mesh(parse_mesh(mesh) if mesh else None, device)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+
+
 def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
-                    store=None):
+                    store=None, distributed=False):
     """The sharded trainer of `schedule` on a `mesh` ('DP,TP') of the first
     DP*TP cards, or of DP*TP shards on the CPU for device `cpu`; with
     `store` (a GraphStore, --store-native) the store-backed trainer, one
     cache shard per mesh position; with --representation sparse the sparse
     sharded trainer on a (DP, 1) mesh (the ring schedule, TP > 1 and
     --balance refused with the JAX CLI's words); with cfg.partition "2d"
-    the 2D edge-block trainer on a (DP / C, C) grid, C = replica_cols."""
+    the 2D edge-block trainer on a (DP / C, C) grid, C = replica_cols.
+    `distributed`: the mesh spans the process group's ranks
+    (distributed_mesh), `mesh` optional."""
     import torch
 
     from bigclam_tpu_torch.parallel import (
@@ -1424,6 +1458,26 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
         if schedule == "ring":
             raise SystemExit(SPARSE_RING_REFUSAL)
         refuse_sparse_csr_kernels(cfg)
+    if store is not None and balance:
+        raise SystemExit(
+            "error: --store-native takes balance from the cache; "
+            "re-ingest with `cli ingest --balance` instead of --balance"
+        )
+    if distributed:
+        m = distributed_mesh(device, mesh)
+        tp = m.shape["k"]
+        if store is not None:
+            cls = StoreRingBigClamModel if schedule == "ring" else StoreShardedBigClamModel
+            return cls(store, cfg, m)
+        if cfg.representation == "sparse":
+            try:
+                return SparseShardedBigClamModel(g, cfg, m, balance=balance)
+            except ValueError as e:
+                if tp > 1 or balance:
+                    raise SystemExit(f"error: {e}") from None
+                raise
+        cls = RingBigClamModel if schedule == "ring" else ShardedBigClamModel
+        return cls(g, cfg, m, balance=balance)
     dp, tp = parse_mesh(mesh)
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -1437,11 +1491,6 @@ def make_mesh_model(g, cfg, device, mesh, schedule="allgather", balance=False,
         devices = [cards[i % len(cards)] for i in range(dp * tp)]
     else:
         devices = [dev] * (dp * tp)
-    if store is not None and balance:
-        raise SystemExit(
-            "error: --store-native takes balance from the cache; "
-            "re-ingest with `cli ingest --balance` instead of --balance"
-        )
     if cfg.partition == "2d":
         try:
             grid = make_mesh_2d(twod_mesh_shape(cfg, dp), devices)
@@ -1470,7 +1519,7 @@ def store_for_model(args, cfg):
     flag), after the JAX CLI's refusals."""
     if not getattr(args, "store_native", False):
         return None
-    if not args.mesh:
+    if not (args.mesh or getattr(args, "distributed", False)):
         raise SystemExit(
             "error: --store-native needs a sharded run (--mesh) — the store "
             "trainers load one shard file per mesh position"
@@ -1494,9 +1543,10 @@ def build_model(g, cfg, args):
     """The trainer `fit` and `profile` run: the mesh's (store-backed with
     --store-native) or the single device's."""
     store = store_for_model(args, cfg)
-    if args.mesh:
+    if args.mesh or getattr(args, "distributed", False):
         return make_mesh_model(g, cfg, args.device, args.mesh, args.schedule,
-                               args.balance, store=store)
+                               args.balance, store=store,
+                               distributed=getattr(args, "distributed", False))
     return make_model(g, cfg, args.device)
 
 
@@ -1673,6 +1723,9 @@ def open_telemetry(args, entry: str):
         # passed through, not via os.environ: an env mutation would leak
         # the ledger into later in-process main() calls
         ledger_path=ledger,
+        # a --distributed run decides the single-writer gate once the
+        # process group is joined (multihost.initialize_distributed)
+        auto_gate=not getattr(args, "distributed", False),
     ))
 
 
@@ -1729,7 +1782,7 @@ def check_follow(args, cfg) -> None:
             "fleet yet (drop --publish-shards; re-run `cli fit "
             "--publish-shards` per generation instead)"
         )
-    if cfg.quality_mode:
+    if cfg.quality_mode or getattr(args, "distributed", False):
         raise SystemExit(
             "error: --follow supports single-chip dense fits for now (the "
             "sharded/sparse refit loop rides the ROADMAP item 1 pod drill)"
@@ -1818,6 +1871,7 @@ def _fit(args, tel):
     from bigclam_tpu_torch.ops import extraction
     from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
     from bigclam_tpu_torch.utils.device import device_kind
+    from bigclam_tpu_torch.utils.dist import is_primary
     from bigclam_tpu_torch.utils.metrics import MetricsLogger
     from bigclam_tpu_torch.utils.profiling import StageProfile
     from bigclam_tpu_torch.utils.profiling import trace as capture
@@ -1921,7 +1975,7 @@ def _fit(args, tel):
         if hasattr(model, "comm_mode"):
             out["sparse_comm"] = model.comm_mode
             out["sparse_comm_cap"] = model.comm_cap
-    if args.mesh:
+    if args.mesh or args.distributed:
         out["mesh"] = model.mesh.label()
     stamp_partition(out, cfg, model)
     stamp_models(out, model)
@@ -1929,7 +1983,9 @@ def _fit(args, tel):
         out["quality_cycles"] = state.num_cycles
         out["quality_total_iters"] = state.total_iters
         out["cycles_llh"] = [round(v, 2) for v in state.cycles_llh]
-    if args.out or args.save_f or args.publish_dir or args.export_gexf:
+    # every rank holds res.F (fetched); rank 0 alone writes files
+    if (args.out or args.save_f or args.publish_dir or args.export_gexf) \
+            and is_primary():
         with prof.stage("extract"):
             if args.out:
                 com = extraction.extract_community_arrays(res.F, g)
@@ -2024,8 +2080,10 @@ def _sweep(args, callback, tel) -> dict:
             # (JAX `_make_model`), else the single device's
             model_factory=(
                 (lambda c: make_mesh_model(g, c, args.device, args.mesh,
-                                           args.schedule, args.balance, store=store))
-                if args.mesh else (lambda c: make_model(g, c, args.device))
+                                           args.schedule, args.balance, store=store,
+                                           distributed=args.distributed))
+                if args.mesh or args.distributed
+                else (lambda c: make_model(g, c, args.device))
             ),
             callback=per_k,
             state_dir=args.checkpoint_dir,
@@ -3027,10 +3085,10 @@ def _refit(args, tel=None) -> int:
     from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
     from bigclam_tpu_torch.utils.profiling import StageProfile
 
-    if args.mesh or args.store_native:
+    if args.mesh or getattr(args, "distributed", False) or args.store_native:
         raise SystemExit(
             "error: refit is single-device for now — drop --mesh/"
-            "--store-native"
+            "--distributed/--store-native"
         )
     prof = StageProfile()
     with prof.stage("snapshot_load"):
@@ -3212,6 +3270,11 @@ def main(argv=None) -> int:
     except NoDeviceKernelsError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if getattr(args, "distributed", False):
+            from bigclam_tpu_torch.parallel.multihost import shutdown_distributed
+
+            shutdown_distributed()
     print(json.dumps(out))
     return 0
 

@@ -84,6 +84,7 @@ from bigclam_tpu_torch.ops.objective import (
     grad_llh,
 )
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
+from bigclam_tpu_torch.utils.dist import is_primary
 
 # CSR-path K padding: whole 32-column warp steps per row
 CSR_K_MULTIPLE = 32
@@ -565,11 +566,16 @@ def run_fit_loop(
             and int(state.it) <= cfg.max_iters   # never persist the final
             and state_to_arrays is not None      # speculative (unevaluated) F
         ):
+            # state_to_arrays may be a COLLECTIVE (fetch_global all-gathers
+            # across ranks), so every rank enters it; only the file write
+            # is single-writer (utils.dist)
             with _span("fit_loop/checkpoint", it=int(state.it)):
-                checkpoints.save(
-                    int(state.it), state_to_arrays(state),
-                    meta={"llh_history": hist, **(ckpt_meta or {})},
-                )
+                arrays = state_to_arrays(state)
+                if is_primary():
+                    checkpoints.save(
+                        int(state.it), arrays,
+                        meta={"llh_history": hist, **(ckpt_meta or {})},
+                    )
                 if tel is not None:
                     tel.event("checkpoint", step=int(state.it))
     if extract_F is None:
@@ -618,8 +624,9 @@ def _abort_nonfinite(state, new_state, llh_t: float, hist, rollbacks: int = 0):
     if tel is not None:
         tel.event("nonfinite", **diag)
         dump = os.path.join(tel.directory, "nonfinite_dump.npz")
-        np.savez(dump, **{k: np.asarray(v) for k, v in diag.items()
-                          if v is not None})
+        if is_primary():
+            np.savez(dump, **{k: np.asarray(v) for k, v in diag.items()
+                              if v is not None})
         tel.finalize()           # the report must exist even on abort
     raise FloatingPointError(
         f"non-finite LLH {llh_t} at iteration {diag['iter']}: "

@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from bigclam_tpu_torch.utils.dist import is_primary
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import BigClamModel, FitResult
@@ -191,11 +192,12 @@ def sweep_k(
             res_llh = res.llh
             llh_by_k[k] = res_llh
             best_fit = res
-            if state_path is not None:
+            # one writer (rank 0) of the journal and the checkpoint dir
+            if state_path is not None and is_primary():
                 with open(state_path + ".tmp", "w") as f:
                     json.dump({str(kk): v for kk, v in llh_by_k.items()}, f)
                 os.replace(state_path + ".tmp", state_path)
-            if ckpt_dir is not None:
+            if ckpt_dir is not None and is_primary():
                 # journaled: the K's checkpoints are spent, and must never
                 # leak into a later K, whose model shape they would match
                 shutil.rmtree(ckpt_dir, ignore_errors=True)

@@ -51,13 +51,7 @@ import torch
 
 from bigclam_tpu_torch.models.bigclam import FitResult
 from bigclam_tpu_torch.parallel.mesh import state_blocks
-
-
-def is_primary() -> bool:
-    """The process that owns shared-filesystem writes. One controller
-    drives every trainer of the port, so it is always this one (the JAX
-    package's bigclam_tpu/utils/dist.py `is_primary`, single-process)."""
-    return True
+from bigclam_tpu_torch.utils.dist import is_primary
 
 
 def _cycle_event(cycle: int, llh: float, kept: bool, iters: int) -> None:
@@ -1089,20 +1083,30 @@ def _map_parts(fn, parts: list) -> list:
             for p in parts]
 
 
-def _col_blocks(part):
+def _origin(model) -> tuple:
+    """(first internal row, first column) of the state this process holds:
+    (0, 0) but on a multi-process mesh, whose rank holds a block of the
+    grid (parallel/multihost.py)."""
+    mesh = getattr(model, "mesh", None)
+    if not getattr(mesh, "distributed", False):
+        return (0, 0)
+    return (model.row0 * (model.n_pad // model.dp),
+            model.col0 * (model.k_pad // model.tp))
+
+
+def _col_blocks(part, c0: int = 0):
     """(block, its first column, the column past its last) for each column
-    block of a row part: the part itself at tp = 1."""
-    c0 = 0
+    block of a row part (the first at column c0): the part itself at
+    tp = 1."""
     for b in state_blocks(part):
         c1 = c0 + int(b.shape[1])
         yield b, c0, c1
         c0 = c1
 
 
-def _row_blocks(F, n: int):
+def _row_blocks(F, n: int, lo: int = 0):
     """(row part, its first internal row, its live rows) for each part of
-    F; rows at or past n are padding."""
-    lo = 0
+    F (the first at internal row lo); rows at or past n are padding."""
     for p in _parts(F):
         r = int(state_blocks(p)[0].shape[0])
         yield p, lo, max(min(n - lo, r), 0)
@@ -1110,16 +1114,17 @@ def _row_blocks(F, n: int):
 
 
 def kick_F(F, noise: torch.Tensor, n: int, kc: int, min_f: float,
-           max_f: float):
+           max_f: float, origin: tuple = (0, 0)):
     """New tensors holding clip(F + noise, min_f, max_f) on the live
     (n, kc) block and F elsewhere: padding rows and columns keep their
     exact zeros. `noise` is (n, kc) in the internal row order; column
     block j of a tp > 1 shard takes its columns [c0, c0 + K_loc) of it
-    that fall below kc."""
+    that fall below kc. `origin` (_origin) places a rank's blocks in the
+    global draw, so every rank's kicks are the single controller's."""
     out = []
-    for p, lo, live in _row_blocks(F, n):
+    for p, lo, live in _row_blocks(F, n, origin[0]):
         blocks = []
-        for f, c0, c1 in _col_blocks(p):
+        for f, c0, c1 in _col_blocks(p, origin[1]):
             f = f.clone()
             w = min(kc, c1) - c0
             if live and w > 0:
@@ -1130,18 +1135,18 @@ def kick_F(F, noise: torch.Tensor, n: int, kc: int, min_f: float,
     return _as_layout(F, out)
 
 
-def scatter_set_(parts: list, rows, cols, vals) -> None:
+def scatter_set_(parts: list, rows, cols, vals, origin: tuple = (0, 0)) -> None:
     """parts[rows, cols] = vals in place (internal row ids over the
-    stacked parts, columns over a part's column blocks). Entries outside
-    the padded F are dropped, never raised, as the JAX package's
-    `.at[].set(mode="drop")`."""
+    stacked parts, columns over a part's column blocks; the parts start at
+    `origin`). Entries outside the parts are dropped, never raised, as the
+    JAX package's `.at[].set(mode="drop")`."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     vals = np.broadcast_to(np.asarray(vals, np.float64), rows.shape)
-    lo = 0
+    lo = origin[0]
     for p in parts:
         r = int(state_blocks(p)[0].shape[0])
-        for f, c0, c1 in _col_blocks(p):
+        for f, c0, c1 in _col_blocks(p, origin[1]):
             sel = ((rows >= lo) & (rows < lo + r) & (cols >= c0)
                    & (cols < c1))
             if sel.any():
@@ -1152,11 +1157,11 @@ def scatter_set_(parts: list, rows, cols, vals) -> None:
         lo += r
 
 
-def clear_col_(parts: list, col: int) -> None:
+def clear_col_(parts: list, col: int, origin: tuple = (0, 0)) -> None:
     """Column `col` of every part set to zero in place, in the column
-    block that owns it."""
+    block that owns it (the parts' columns start at origin[1])."""
     for p in parts:
-        for f, c0, c1 in _col_blocks(p):
+        for f, c0, c1 in _col_blocks(p, origin[1]):
             if c0 <= col < c1:
                 f[:, col - c0] = 0.0
 
@@ -1272,6 +1277,7 @@ def _repair_stage_device(
                 )
 
     perm = getattr(model, "_perm", None)   # edits arrive in ORIGINAL ids
+    origin = _origin(model)
     dev = state_blocks(best_state.F)[0].device
     edges_dev = device_edges(g, dev)       # one upload for every round
     # merge/split detection runs in ORIGINAL ids (on the fetched F); a
@@ -1322,11 +1328,12 @@ def _repair_stage_device(
             parts = _map_parts(torch.clone, _parts(best_state.F))
             for e in edits:
                 if e[0] == "clear":
-                    clear_col_(parts, e[1])
+                    clear_col_(parts, e[1], origin)
                 else:
                     _, rows, col, val = e
                     rows = rows if perm is None else perm[rows]
-                    scatter_set_(parts, rows, np.full(rows.size, col), val)
+                    scatter_set_(parts, rows, np.full(rows.size, col), val,
+                                 origin)
             F_c = _as_layout(best_state.F, parts)
             del parts
             cand_state = None
@@ -1356,14 +1363,24 @@ def _repair_stage_device(
         # --- (b) atomize re-tiling from the DEVICE mask (no F fetch) ---
         if cfg.quality_reassign:
             with profile.stage("atomize_components"):
-                # the live columns of every column block, joined per shard
-                mask_cols = torch.cat([
-                    torch.cat([
-                        (f[:live, :max(min(kc, c1) - c0, 0)] >= delta).to(dev)
-                        for f, c0, c1 in _col_blocks(p)
-                    ], dim=1)
-                    for p, _, live in _row_blocks(best_state.F, n)
-                ]).T
+                if not getattr(getattr(model, "mesh", None), "distributed", False):
+                    # the live columns of every column block, joined per
+                    # shard
+                    mask_cols = torch.cat([
+                        torch.cat([
+                            (f[:live, :max(min(kc, c1) - c0, 0)] >= delta).to(dev)
+                            for f, c0, c1 in _col_blocks(p)
+                        ], dim=1)
+                        for p, _, live in _row_blocks(best_state.F, n)
+                    ]).T
+                else:
+                    # a rank holds part of F: the mask of the whole, read
+                    # through the all-gather every rank enters
+                    from bigclam_tpu_torch.parallel.multihost import fetch_global
+
+                    mask_cols = torch.from_numpy(
+                        fetch_global(best_state.F, model.mesh)[:n, :kc] >= delta
+                    ).to(dev).T
                 # on a card the batched pass keeps F resident; on the CPU
                 # the scipy oracle runs on the same bool mask (kc x n
                 # bools, not F)
@@ -1392,7 +1409,7 @@ def _repair_stage_device(
                     for at, d in kept
                 ])
                 parts = _map_parts(torch.zeros_like, _parts(best_state.F))
-                scatter_set_(parts, rows, cols, vals)
+                scatter_set_(parts, rows, cols, vals, origin)
                 F_at = _as_layout(best_state.F, parts)
                 del parts
                 with profile.stage("atomize_refit"):
@@ -1473,9 +1490,13 @@ def fit_quality_device(
     if noise is None:
         noise = DeviceNoise(cfg.seed, key_salt)
 
+    origin = _origin(model)
+
     def kick_fn(F, tag: int):
+        # every rank draws the whole (n, kc) block from the same seeded
+        # stream and takes its own rows and columns
         return kick_F(F, noise(tag, (n, kc), eps, dtype, dev),
-                      n, kc, cfg.min_f, cfg.max_f)
+                      n, kc, cfg.min_f, cfg.max_f, origin)
 
     cfg_saved = model.cfg
     rebuilt = False

@@ -30,8 +30,10 @@ conventions are the port's own, because its collectives are not JAX's:
   model's per-device figure.
 
 `bytes_per_step` is the TOTAL over mesh positions (not per device, as the
-JAX model prices it): the port runs single-controller, and the counter
-below sees every transfer. Axes of size 1 cost nothing.
+JAX model prices it): a single-controller mesh's counter sees every
+transfer (on a multi-process mesh a rank's counter sees the psums' and
+gathers' every position, and only its own ring hops). Axes of size 1
+cost nothing.
 
 **Reconciliation.** The three helpers report the payload bytes they pass
 between mesh positions, per site, to the counter `counting()` installs

@@ -10,7 +10,7 @@ Base fields on EVERY event:
 
     v          int     schema version (SCHEMA_VERSION)
     run        str     run id — one RunTelemetry instance = one run
-    pid        int     process index (0: the port runs single-controller)
+    pid        int     process index (the rank; 0 before/without a group)
     t          float   seconds since the RunTelemetry was created
                        (kept from v1; same clock as elapsed_s)
     ts         float   wall-clock unix time (time.time) — for correlating

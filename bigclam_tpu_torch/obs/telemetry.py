@@ -6,8 +6,12 @@ run report (`run_report.json`) and their layout are the JAX package's, so
 its jax-free schema validator and `cli report` read a port run. What
 differs on the card:
 
-* **One writer.** The port runs single-controller (one process drives
-  every card of a mesh), so process 0 writes; there is no gate to defer.
+* **One writer.** Under a torch.distributed process group every rank
+  runs the program, so events buffer until `commit_gate()` (auto on the
+  first event; entry points that join a group later construct with
+  `auto_gate=False`, and parallel/multihost.py `initialize_distributed`
+  commits) and only rank 0 opens `events.jsonl`. Every rank counts its
+  events for its own report (`run_report.p<i>.json` past rank 0).
 
 * **Device memory from torch.cuda.** Watermarks read
   `torch.cuda.memory_stats` (current and peak allocated bytes) and
@@ -166,8 +170,17 @@ def _resolve_run_id(directory: str) -> str:
 
 
 def _process_index() -> int:
-    """The port runs single-controller: one process, index 0."""
-    return 0
+    """This process's rank in a joined torch.distributed group; 0 on
+    torch-free entries (ingest) and before or without a group."""
+    from bigclam_tpu_torch.utils.dist import process_index
+
+    return process_index()
+
+
+def _process_count() -> int:
+    from bigclam_tpu_torch.utils.dist import process_count
+
+    return process_count()
 
 
 def _cuda_devices() -> list:
@@ -217,7 +230,8 @@ class RunTelemetry:
             ... run ...
             tel.set_final({"llh": ...})
 
-    Artifacts: `events.jsonl` and `run_report.json`.
+    Artifacts: `events.jsonl` (rank 0 only) and `run_report.json` (rank
+    0) / `run_report.p<i>.json` (the other ranks of a process group).
     """
 
     def __init__(
@@ -228,6 +242,7 @@ class RunTelemetry:
         quiet: bool = False,
         heartbeat_escalate: int = 0,
         ledger_path: Optional[str] = None,
+        auto_gate: bool = True,
     ):
         os.makedirs(directory, exist_ok=True)
         self.directory = directory
@@ -240,9 +255,13 @@ class RunTelemetry:
         self.started_unix = time.time()
         self._t0 = time.perf_counter()
         self._lock = threading.RLock()
-        self._fh: Optional[TextIO] = open(
-            os.path.join(directory, EVENTS_NAME), "a"
-        )
+        # the single-writer event log: events buffer until commit_gate()
+        # (auto on the first event, or after the process group is joined
+        # with auto_gate=False), then only rank 0 opens the file
+        self.auto_gate = auto_gate
+        self._fh: Optional[TextIO] = None
+        self._gated = False
+        self._pending: List[str] = []
         self._finalized = False
         self.event_counts: Dict[str, int] = {}
         self.stage_seconds: Dict[str, float] = {}
@@ -343,9 +362,33 @@ class RunTelemetry:
                     pass
             elif kind == "memory_model":
                 self._fold_memory_model(fields)
+            if not self._gated:
+                if self.auto_gate:
+                    self._commit_gate_locked()
+                else:
+                    self._pending.append(line)
+                    return
             if self._fh is not None:
                 self._fh.write(line + "\n")
                 self._fh.flush()
+
+    def commit_gate(self) -> None:
+        """Decide the single-writer gate NOW (call once the process
+        group's membership is known); flushes buffered events.
+        Idempotent."""
+        with self._lock:
+            self._commit_gate_locked()
+
+    def _commit_gate_locked(self) -> None:
+        if self._gated:
+            return
+        self._gated = True
+        if _process_index() == 0:
+            self._fh = open(os.path.join(self.directory, EVENTS_NAME), "a")
+            for line in self._pending:
+                self._fh.write(line + "\n")
+            self._fh.flush()
+        self._pending = []
 
     def _fold_memory_model(self, fields: Dict[str, Any]) -> None:
         """One `memory_model` event into the per-model buffer tables
@@ -536,7 +579,7 @@ class RunTelemetry:
                 "v": SCHEMA_VERSION,
                 "run": self.run_id,
                 "pid": _process_index(),
-                "processes": 1,
+                "processes": _process_count(),
                 "entry": self.entry,
                 "started_unix": round(self.started_unix, 3),
                 "wall_s": round(time.perf_counter() - self._t0, 3),
@@ -664,7 +707,11 @@ class RunTelemetry:
         }
 
     def report_path(self) -> str:
-        return os.path.join(self.directory, REPORT_NAME)
+        """run_report.json (rank 0) / run_report.p<i>.json (the others,
+        merged by obs.report at render time)."""
+        pid = _process_index()
+        name = REPORT_NAME if pid == 0 else f"run_report.p{pid}.json"
+        return os.path.join(self.directory, name)
 
     def finalize(self) -> Dict[str, Any]:
         """Stop the heartbeat, take a last watermark, emit `end`, write
@@ -679,7 +726,8 @@ class RunTelemetry:
         self.event(
             "end", wall_s=round(time.perf_counter() - self._t0, 3)
         )
-        rep = self.report()
+        self.commit_gate()        # a run with zero primary events still
+        rep = self.report()       # gets its report written
         tmp = self.report_path() + ".tmp"
         with open(tmp, "w") as f:
             json.dump(_finite_safe(rep), f, indent=1, sort_keys=True,

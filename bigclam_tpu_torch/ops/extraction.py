@@ -181,6 +181,7 @@ def extract_community_arrays_device(
     num_communities: int | None = None,
     chunk_rows: int = 1 << 16,
     row_to_node: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> CommunityArrays:
     """extract_community_arrays for F on a device (any torch device), in
     row chunks of at most chunk_rows (and (1 << 27) // k) rows. F_dev may
@@ -188,7 +189,17 @@ def extract_community_arrays_device(
     (default: all columns) are ignored; a sequence of row shards (a mesh
     state's F) is joined on the first shard's device. Row r of F_dev is
     node row_to_node[r] of g (None: node r), as ShardedBigClamModel's
-    internal_row_to_node() gives it for a relabelled trainer."""
+    internal_row_to_node() gives it for a relabelled trainer. The state of
+    a multi-process `mesh` holds this rank's blocks only: every rank
+    enters the all-gather of the whole F (parallel/multihost.py
+    `fetch_global`, the JAX function's readback) and extracts it on its
+    first block's device."""
+    if getattr(mesh, "distributed", False):
+        from bigclam_tpu_torch.parallel.mesh import state_blocks
+        from bigclam_tpu_torch.parallel.multihost import fetch_global
+
+        dev = state_blocks(F_dev)[0].device
+        F_dev = torch.from_numpy(fetch_global(F_dev, mesh)).to(dev)
     if isinstance(F_dev, (list, tuple)):
         from bigclam_tpu_torch.parallel.mesh import row_shards
 
@@ -206,12 +217,13 @@ def extract_communities_device(
     num_communities: int | None = None,
     chunk_rows: int = 1 << 16,
     row_to_node: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> Dict[int, List[int]]:
     """extract_communities for F on a device (bigclam_tpu's
     extract_communities_device): extract_community_arrays_device as a
     dict."""
     return extract_community_arrays_device(
-        F_dev, g, delta, num_communities, chunk_rows, row_to_node
+        F_dev, g, delta, num_communities, chunk_rows, row_to_node, mesh
     ).to_dict()
 
 

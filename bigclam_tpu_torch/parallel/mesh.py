@@ -2,12 +2,20 @@
 
 Port of bigclam_tpu/parallel/mesh.py: `make_mesh` (the 1D (nodes, k)
 mesh) and `make_mesh_2d` (the (rows, cols) grid of the 2D edge-block
-partition, parallel/twod.py). The port runs a mesh
-single-controller, as the JAX package does: one Python process launches
-each shard's work on that shard's `torch.device`. A device may repeat, so
-`[torch.device("cuda:0")] * 4` is a 4-shard mesh on one card and
-`[torch.device("cpu")] * 4` one on the CPU — the counterpart of the JAX
-tests' fake CPU devices.
+partition, parallel/twod.py). A mesh made here runs single-controller:
+one Python process launches each shard's work on that shard's
+`torch.device`. A device may repeat, so `[torch.device("cuda:0")] * 4` is
+a 4-shard mesh on one card and `[torch.device("cpu")] * 4` one on the CPU
+— the counterpart of the JAX tests' fake CPU devices.
+
+A mesh from parallel/multihost.py `make_multihost_mesh` spans the ranks of
+a torch.distributed process group: each rank owns a contiguous block of
+positions in row-major order (the JAX slice-major layout), `devices` holds
+only this rank's block of the grid, `dims` the whole grid's shape and
+`origin` the global (row, column) of devices[0][0]. `grid()` gives the
+trainers their local rows as `Axis` lists, whose `group` says which
+collectives cross ranks; everything else reads a local grid as it reads a
+single-controller one.
 """
 
 from __future__ import annotations
@@ -26,20 +34,73 @@ ROWS_AXIS = "rows"
 COLS_AXIS = "cols"
 
 
+class Axis(list):
+    """The devices of this process's members of one collective over a mesh
+    axis (a column of the grid for the nodes axis, a row for the k axis),
+    in position order, and `group`: the torch.distributed group of the
+    ranks that hold the axis's members, or None when they are all here
+    (every single-controller mesh). A plain list reads as group None."""
+
+    def __init__(self, devices=(), group=None):
+        super().__init__(devices)
+        self.group = group
+
+
+class Grid(list):
+    """A mesh's local grid: its rows as Axis lists (their k-axis groups)
+    and `col_groups`, the nodes-axis group of each local column."""
+
+    def __init__(self, rows=(), col_groups=()):
+        super().__init__(rows)
+        self.col_groups = tuple(col_groups)
+
+
+def column(grid, j: int) -> Axis:
+    """Local column j of a grid (a Grid or a plain list of rows) as an
+    Axis with its nodes-axis group."""
+    groups = getattr(grid, "col_groups", ())
+    return Axis([r[j] for r in grid], groups[j] if groups else None)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (dp, tp) grid of torch devices: row i holds node shard i."""
+    """A (dp, tp) grid of torch devices: row i holds node shard i. On a
+    multi-process mesh (make_multihost_mesh) `devices` is this rank's
+    block of the grid, at global `origin`, and `dims` the whole grid's
+    (dp, tp)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    dims: Optional[Tuple[int, int]] = None
+    origin: Tuple[int, int] = (0, 0)
+    col_groups: tuple = dataclasses.field(default=(), compare=False, repr=False)
+    row_groups: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
-        """{NODES_AXIS: dp, K_AXIS: tp}, as a JAX mesh's `shape`."""
-        return {NODES_AXIS: len(self.devices), K_AXIS: len(self.devices[0])}
+        """{NODES_AXIS: dp, K_AXIS: tp} of the whole grid, as a JAX mesh's
+        `shape`."""
+        dp, tp = self.dims or (len(self.devices), len(self.devices[0]))
+        return {NODES_AXIS: dp, K_AXIS: tp}
 
     @property
     def size(self) -> int:
-        return len(self.devices) * len(self.devices[0])
+        return self.shape[NODES_AXIS] * self.shape[K_AXIS]
+
+    @property
+    def distributed(self) -> bool:
+        """Was the mesh built over a process group (its collectives and
+        reads go through torch.distributed)?"""
+        return self.dims is not None
+
+    def local_rows(self) -> range:
+        """The global indices of the node rows this process holds blocks of."""
+        return range(self.origin[0], self.origin[0] + len(self.devices))
+
+    def grid(self, resolve=lambda d: d) -> Grid:
+        """The local grid with each device mapped by `resolve`."""
+        rows = self.row_groups or (None,) * len(self.devices)
+        return Grid([Axis([resolve(d) for d in row], g)
+                     for row, g in zip(self.devices, rows)], self.col_groups)
 
     def node_devices(self) -> list:
         """The device of each node shard (the first of its row)."""

@@ -75,6 +75,7 @@ from bigclam_tpu_torch.ops.ring_kernels import (
     ring_grad_phase,
     ring_grad_phase_plain,
 )
+from bigclam_tpu_torch.parallel import multihost as _mh
 from bigclam_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
 from bigclam_tpu_torch.parallel.sharded import (
     ShardedBigClamModel,
@@ -88,6 +89,7 @@ from bigclam_tpu_torch.parallel.sharded import (
     device_csr,
     finish_step,
     kpsum,
+    one_column,
     psum,
     shard_edges,
 )
@@ -217,12 +219,22 @@ class RingRotation:
     sweep on the current streams. Both compute the same bits. Where a shard
     and its successor share a device (a mesh of a repeated device, any CPU
     mesh) the hop is a no-op: the rotating shard IS the other shard's
-    F_loc, which is never written."""
+    F_loc, which is never written.
 
-    def __init__(self, devices: list, overlap: bool, stride: int = 1):
+    On a multi-process mesh `devices` are this rank's positions, `phases`
+    the whole ring's dp and `peers` the (predecessor, successor) ranks
+    (multihost.ring_peers): a hop sends the first local row's blocks to
+    the predecessor and takes the successor's in place of the last local
+    row's (multihost.hop, one dist.batch_isend_irecv); hops inside the
+    rank stay the copies or no-ops above."""
+
+    def __init__(self, devices: list, overlap: bool, stride: int = 1,
+                 phases: int = 0, peers=None):
         self.devices = devices
         self.overlap = overlap
         self.stride = stride
+        self.phases = phases or len(devices) // stride
+        self.peers = peers
         self._side = {}
 
     def _stream(self, device: torch.device) -> "torch.cuda.Stream":
@@ -240,9 +252,15 @@ class RingRotation:
             _comms.count("ring/ppermute_F_rot",
                          sum(t.numel() * t.element_size() for t in rot))
         out, joins = [], []
+        remote = {}
+        if self.peers is not None:
+            got = _mh.hop(rot[:st], rot[p - st:], self.peers, None)
+            remote = {p - st + k: t for k, t in enumerate(got)}
         for i, dst in enumerate(self.devices):
             src_dev, t = self.devices[(i + st) % p], rot[(i + st) % p]
-            if src_dev == dst:
+            if i in remote:
+                out.append(remote[i])
+            elif src_dev == dst:
                 out.append(t)
             elif not self.overlap:
                 out.append(t.to(dst))
@@ -270,7 +288,7 @@ class RingRotation:
         are the step split's `rotation` part, on the first device's stream;
         the sweeps time their own parts."""
         rot = list(shards)
-        dp = len(rot) // self.stride
+        dp = self.phases
         d0 = self.devices[0]
         for r in range(dp):
             if r == dp - 1:
@@ -289,16 +307,19 @@ class RingRotation:
 
 
 def make_ring_train_step(
-    devices: list, buckets: List[List[DeviceCSR]], cfg: BigClamConfig, path: str
+    devices: list, buckets: List[List[DeviceCSR]], cfg: BigClamConfig, path: str,
+    phases: int = 0, peers=None,
 ) -> Callable[[TrainState], TrainState]:
     """One ring iteration (two rotations) on kernel path `path`:
     `csr_ring_fused` / `csr_ring` (kernels #8 and #9) or `xla` (their plain
-    versions). buckets[i][r] is shard i's phase-r bucket on devices[i]."""
+    versions). buckets[i][r] is shard i's phase-r bucket on devices[i]
+    (an Axis where the shards span ranks; `phases` and `peers` as
+    RingRotation takes them)."""
     if path == "xla":
         grad_phase, cand_phase = ring_grad_phase_plain, ring_cand_phase_plain
     else:
         grad_phase, cand_phase = ring_grad_phase, ring_cand_phase
-    rotation = RingRotation(devices, cfg.ring_overlap)
+    rotation = RingRotation(devices, cfg.ring_overlap, phases=phases, peers=peers)
     dp = len(devices)
     num_s = len(cfg.step_candidates)
 
@@ -338,14 +359,15 @@ def make_ring_train_step(
                 kernel=path != "xla",
             )
             outs.append((F_new, sum_loc, node_llh[i].sum(), hist))
-        return finish_step(state, outs, [[d] for d in devices], cfg, grad,
+        return finish_step(state, outs, one_column(devices), cfg, grad,
                            family="ring")
 
     return step
 
 
 def make_ring_tp_step(
-    grid: list, buckets: list, cfg: BigClamConfig, path: str, kc: int
+    grid: list, buckets: list, cfg: BigClamConfig, path: str, kc: int,
+    phases: int = 0, peers=None,
 ) -> Callable[[TrainState], TrainState]:
     """One ring iteration on the TP split (the K-blocked paths at any tp,
     every path at tp > 1): grid[i][j] is the device of block (i, j),
@@ -357,12 +379,14 @@ def make_ring_tp_step(
     busy time; on distinct cards the other devices' work shows only where
     the first device waits for it."""
     dp, tp = len(grid), len(grid[0])
+    whole = tp == 1 and getattr(grid[0], "group", None) is None
     plain = path == "xla"
     grad_fn = grad_from_x_kb_plain if plain else grad_from_x_kb
     cand_fn = cand_dots_kb_plain if plain else cand_dots_kb
     nbr = cand_nbr_from_x_plain if plain else cand_nbr_from_x
     flat_dev = [d for row in grid for d in row]
-    rotation = RingRotation(flat_dev, cfg.ring_overlap, stride=tp)
+    rotation = RingRotation(flat_dev, cfg.ring_overlap, stride=tp,
+                            phases=phases, peers=peers)
     num_s = len(cfg.step_candidates)
 
     def step(state: TrainState) -> TrainState:
@@ -428,7 +452,7 @@ def make_ring_tp_step(
         outs = []
         with part("tails", d0):
             for i in range(dp):
-                if tp == 1:
+                if whole:
                     f, s = F[i][0], sumF[i][0]
                     node_llh = ln[i][0].to(adt) + node_tail(f, s).to(adt)
                     F_new, sum_loc, hist = armijo_tail_select_sharded(
@@ -491,7 +515,7 @@ class RingBigClamModel(ShardedBigClamModel):
     def _build_edges_and_step(self) -> None:
         """Each position's phase buckets (shard_ring_buckets) from its CSR
         (_position_shards), uploaded a position at a time."""
-        dp = len(self.devices)
+        dp = self.dp
         rows = self.n_pad // dp
         self.buckets = []
         max_count = 0
@@ -499,8 +523,11 @@ class RingBigClamModel(ShardedBigClamModel):
             host = shard_ring_buckets(indptr, indices, i, dp, rows)
             max_count = max([max_count] + [ix.shape[0] for _, ix in host])
             self.buckets.append(
-                [device_csr(ip, ix, self.devices[i]) for ip, ix in host]
+                [device_csr(ip, ix, self.devices[i - self.row0]) for ip, ix in host]
             )
+        # each rank sees only its buckets: warn on the ring's largest
+        max_count = _mh.global_max_int(max_count) if self.mesh.distributed \
+            else max_count
         _warn_bucket_imbalance(self.g.num_directed_edges, dp, max_count,
                                self._ring_balance_hint)
         self.set_visit_order(VISIT_ORDER)
@@ -521,8 +548,9 @@ class RingBigClamModel(ShardedBigClamModel):
         if perm is not None:
             rank = np.arange(self.n_pad)
             rank[perm] = np.arange(perm.shape[0])
-        rows = self.n_pad // len(self.devices)
-        for i, row in enumerate(self.buckets):
+        rows = self.n_pad // self.dp
+        for il, row in enumerate(self.buckets):
+            i = self.row0 + il
             shard_rank = None if rank is None else rank[i * rows : (i + 1) * rows]
             for r, b in enumerate(row):
                 order = visit_order(b.indptr.cpu().numpy(), b.indices.cpu().numpy(),
@@ -531,13 +559,15 @@ class RingBigClamModel(ShardedBigClamModel):
         self.visit_order = how
 
     def rebuild_step(self) -> None:
+        peers = _mh.ring_peers(self.mesh)
         if self.tp_split:
             self._step = make_ring_tp_step(
-                self.grid, self.block_buckets, self.cfg, self.engaged_path, self.kc)
+                self.grid, self.block_buckets, self.cfg, self.engaged_path, self.kc,
+                self.dp, peers)
         else:
             self._step = make_ring_train_step(
-                self.devices, self.buckets, self.cfg, self.engaged_path
-            )
+                self.devices, self.buckets, self.cfg, self.engaged_path,
+                self.dp, peers)
         self._note_step_build()
 
     # ------------------------------------------- comms and memory models
@@ -548,7 +578,7 @@ class RingBigClamModel(ShardedBigClamModel):
 
     def _build_comms_model(self):
         return _comms.ring_step_model(
-            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
+            self.n_pad, self.k_pad, self.dp, self.itemsize,
             len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
             model=type(self).__name__, tp=self.tp,
             edges=self.g.num_directed_edges,
@@ -568,8 +598,8 @@ class RingBigClamModel(ShardedBigClamModel):
     def _build_memory_model(self):
         cfg = self.cfg
         d, pos, gb = self._busiest_device()
-        dp = len(self.devices)
-        remote = (sum(self.grid[(i + 1) % dp][j] != d for i, j in pos)
+        dp, nl = self.dp, len(self.grid)
+        remote = (sum(self.grid[(i + 1) % nl][j] != d for i, j in pos)
                   if dp > 1 else 0)
         return _mem.ring_memory_model(
             self.n_pad, self.k_pad // self.tp, dp, self.itemsize,

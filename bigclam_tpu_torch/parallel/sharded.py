@@ -2,9 +2,11 @@
 
 Port of the single-host part of bigclam_tpu/parallel/sharded.py
 (`make_sharded_train_step`, the flat, fused, K-blocked and tp > 1 steps of
-`make_sharded_csr_train_step`, `ShardedBigClamModel`). The mesh runs
-single-controller (parallel/mesh.py): this process launches each shard's
-work on that shard's device.
+`make_sharded_csr_train_step`, `ShardedBigClamModel`). A single-controller
+mesh (parallel/mesh.py) has this process launch each shard's work on that
+shard's device; on a multi-process mesh (parallel/multihost.py) a rank
+builds, holds and steps its own positions, and the collectives below
+cross ranks where an axis's members do.
 
 Layout: F is cut into dp contiguous row shards of n_pad/dp rows (padding
 rows at the tail, all zero). At tp = 1 shard i lives on mesh device i and
@@ -109,15 +111,20 @@ from bigclam_tpu_torch.ops.linesearch import (
     step_etas,
 )
 from bigclam_tpu_torch.ops.objective import accum_dtype, edge_chunk_bound, grad_llh
+from bigclam_tpu_torch.parallel import multihost as _mh
 from bigclam_tpu_torch.parallel.balance import balance_graph
 from bigclam_tpu_torch.parallel.mesh import (
     K_AXIS,
     NODES_AXIS,
+    Axis,
+    Grid,
     Mesh,
+    column,
     row_shards,
     state_blocks,
 )
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
+from bigclam_tpu_torch.utils.dist import process_count as _process_count
 from bigclam_tpu_torch.utils.profiling import part
 
 
@@ -172,7 +179,13 @@ def psum(parts, devices, site: str = "") -> list:
     """The sum of the shards' partials, taken in shard order on the first
     device and copied to every shard's device, so every shard holds the
     same bits, as after a JAX psum. `site` names it to the comms counter
-    (obs.comms: each other position's partial in, the total back out)."""
+    (obs.comms: each other position's partial in, the total back out).
+    Where `devices` is an Axis whose members span ranks, every member's
+    partial is all-gathered first (parallel/multihost.py `exchange`) and
+    summed in the same order."""
+    group = getattr(devices, "group", None)
+    if group is not None:
+        parts = _mh.exchange(parts, group)
     total = parts[0].to(devices[0])
     for p in parts[1:]:
         total = total + p.to(devices[0])
@@ -187,7 +200,11 @@ def all_gather(parts, devices, site: str = "") -> list:
     tensor per distinct device: on a mesh of one repeated device every
     shard reads the same copy). The comms counter is told what every mesh
     position receives (the other shards), whether its device repeats or
-    not."""
+    not. Where `devices` is an Axis whose members span ranks, the shards
+    of every rank come in through one all-gather first."""
+    group = getattr(devices, "group", None)
+    if group is not None:
+        parts = _mh.exchange(parts, group)
     full = {}
     for d in devices:
         if d not in full:
@@ -258,7 +275,7 @@ def finish_step(state: TrainState, outs, grid: list, cfg: BigClamConfig,
     latches every step (ops.diagnostics.latch_extras)."""
     F_new, sums, llhs, hists = zip(*outs)
     site = family
-    first = [r[0] for r in grid]
+    first = column(grid, 0)
     sumF = as_layout(column_psum(block_grid(sums), grid, f"{site}/psum_sumF"))
     hist = psum(hists, first, f"{site}/psum_scalars")[0]
     health = None
@@ -299,7 +316,7 @@ def column_psum(blocks: list, grid: list, site: str) -> list:
     """psum over the dp shards of each column block: blocks[i][j] in,
     [i][j] out (every shard of a column holds the same bits)."""
     dp, tp = len(grid), len(grid[0])
-    cols = [psum([blocks[i][j] for i in range(dp)], [r[j] for r in grid], site)
+    cols = [psum([blocks[i][j] for i in range(dp)], column(grid, j), site)
             for j in range(tp)]
     return [[cols[j][i] for j in range(tp)] for i in range(dp)]
 
@@ -307,8 +324,17 @@ def column_psum(blocks: list, grid: list, site: str) -> list:
 def kpsum(parts: list, row: list, site: str) -> list:
     """The psum over the k axis of one node row: the tp blocks' partials
     summed in block order and copied to every block's device; the identity
-    at tp = 1."""
-    return list(parts) if len(parts) == 1 else psum(parts, row, site)
+    at tp = 1. A row whose blocks span ranks (an Axis with a group) sums
+    across them."""
+    if len(parts) == 1 and getattr(row, "group", None) is None:
+        return list(parts)
+    return psum(parts, row, site)
+
+
+def one_column(devices) -> Grid:
+    """The grid of a tp = 1 mesh from its column of shard devices (an
+    Axis keeps its nodes-axis group)."""
+    return Grid([Axis([d]) for d in devices], (getattr(devices, "group", None),))
 
 
 def armijo_tail_select_tp(
@@ -378,6 +404,9 @@ def make_tp_train_step(
     the first block's device, grid[0][0] (parallel.ring make_ring_tp_step
     says what that reads on one card and on distinct cards)."""
     dp, tp = len(grid), len(grid[0])
+    # one column block a row, none on another rank: the k psums are the
+    # identity and the node pass ends the step
+    whole = tp == 1 and getattr(grid[0], "group", None) is None
     plain = path == "xla"
     fold = path in ("csr_fused", "csr_fused_kb")
     nbr = cand_nbr_from_x_plain if plain else cand_nbr_from_x
@@ -391,7 +420,7 @@ def make_tp_train_step(
             F_full = [[None] * tp for _ in range(dp)]
             for j in range(tp):
                 cols = all_gather([F[i][j] for i in range(dp)],
-                                  [r[j] for r in grid], "sharded/all_gather_F")
+                                  column(grid, j), "sharded/all_gather_F")
                 for i in range(dp):
                     F_full[i][j] = cols[i]
         outs, grads = [], []
@@ -409,7 +438,7 @@ def make_tp_train_step(
                                       F_full[i][j], plain)
                     for j in range(tp)
                 ))
-            if tp == 1:
+            if whole:
                 with part("tails", d0):
                     F_new, node_llh, ok = cand_select_from_x(
                         xc[0], Fi[0], sumF[i][0], g[0], ln[0], c[0], cfg)
@@ -438,7 +467,7 @@ def make_sharded_train_step(
 ) -> Callable[[TrainState], TrainState]:
     """One all-gather iteration on kernel path `path` (`csr_fused`, `csr`
     or `xla`); shards[i] is shard i's CSR (global destination ids) on
-    devices[i]."""
+    devices[i] (an Axis where the shards span ranks)."""
 
     def shard_update(F_loc, sumF, csr, F_full):
         """((F_new, its column sums, LLH of the rows, histogram), grad)"""
@@ -468,7 +497,7 @@ def make_sharded_train_step(
             shard_update(F[i], sumF[i], shards[i], F_full[i])
             for i in range(len(devices))
         ))
-        return finish_step(state, outs, [[d] for d in devices], cfg, grads)
+        return finish_step(state, outs, one_column(devices), cfg, grads)
 
     return step
 
@@ -490,10 +519,13 @@ class ShardedBigClamModel(MemoryAccountedModel):
         self.g = g
         self.cfg = cfg
         self.mesh = mesh
-        self.tp = tp
-        # grid[i][j]: the device of block (i, j); devices: each shard's first
-        self.grid = [[resolve_device(d) for d in row] for row in mesh.devices]
-        self.devices = [row[0] for row in self.grid]
+        self.dp, self.tp = dp, tp
+        # grid[i][j]: the device of this process's block (row0 + i,
+        # col0 + j) — every block of a single-controller mesh; devices:
+        # each local row's first, as the nodes axis of local column 0
+        self.grid = mesh.grid(resolve_device)
+        self.devices = column(self.grid, 0)
+        self.row0, self.col0 = mesh.origin
         self.device = self.devices[0]
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         if cfg.min_f != 0.0:
@@ -531,9 +563,11 @@ class ShardedBigClamModel(MemoryAccountedModel):
         return self.tp > 1 or (self.kernels and bool(self.kc))
 
     def _position_shards(self):
-        """(position, (indptr, indices)): each mesh position's CSR over its
-        rows, destinations global (shard_edges)."""
-        return enumerate(shard_edges(self.g, len(self.devices), self.n_pad))
+        """(global node row, (indptr, indices)) of each node row this
+        process holds: its CSR over its rows, destinations global
+        (shard_edges)."""
+        shards = shard_edges(self.g, self.dp, self.n_pad)
+        return ((i, shards[i]) for i in self.mesh.local_rows())
 
     def _on_row(self, i: int, csr) -> list:
         """Shard i's CSR (or its list of ring buckets) on each block device
@@ -551,7 +585,7 @@ class ShardedBigClamModel(MemoryAccountedModel):
 
     def _build_edges_and_step(self) -> None:
         self.shard_csr = [
-            device_csr(indptr, indices, self.devices[i])
+            device_csr(indptr, indices, self.devices[i - self.row0])
             for i, (indptr, indices) in self._position_shards()
         ]
         self.block_csr = [self._on_row(i, c) for i, c in enumerate(self.shard_csr)]
@@ -580,7 +614,7 @@ class ShardedBigClamModel(MemoryAccountedModel):
 
     def _build_comms_model(self):
         return _comms.sharded_step_model(
-            self.n_pad, self.k_pad, len(self.devices), self.itemsize,
+            self.n_pad, self.k_pad, self.dp, self.itemsize,
             len(self.cfg.step_candidates), llh_itemsize=self._llh_itemsize(),
             model=type(self).__name__, tp=self.tp,
             edges=self.g.num_directed_edges,
@@ -596,16 +630,17 @@ class ShardedBigClamModel(MemoryAccountedModel):
     _balance_hint = "relabel (--balance)"
 
     def _shard_edge_counts(self) -> np.ndarray:
-        return shard_edge_counts(self.g.src, self.n_pad, len(self.devices))
+        return shard_edge_counts(self.g.src, self.n_pad, self.dp)
 
     def _emit_balance(self) -> None:
         from bigclam_tpu_torch.obs import telemetry as _obs
 
         if _obs.current() is None:
             return
-        dp = len(self.devices)
+        dp = self.dp
         _comms.emit_shard_balance(
             "shard_edges", self._shard_edge_counts(), dp,
+            process_count=_process_count(),
             hint=self._balance_hint, model=type(self).__name__, dp=dp,
         )
 
@@ -628,7 +663,7 @@ class ShardedBigClamModel(MemoryAccountedModel):
         model describes (every device, on distinct cards, holds about the
         same). A position is a block (i, j) of the grid; the graph bytes
         are those of the shards whose blocks it holds."""
-        n_loc = self.n_pad // len(self.devices)
+        n_loc = self.n_pad // self.dp
         k_loc = self.k_pad // self.tp
         best = None
         cells = [(i, j, d) for i, row in enumerate(self.grid) for j, d in enumerate(row)]
@@ -649,12 +684,12 @@ class ShardedBigClamModel(MemoryAccountedModel):
         d, pos, gb = self._busiest_device()
         k_loc = self.k_pad // self.tp
         return _mem.sharded_memory_model(
-            self.n_pad, k_loc, len(self.devices), self.itemsize,
+            self.n_pad, k_loc, self.dp, self.itemsize,
             len(cfg.step_candidates), gb,
             "csr_grouped_kb" if self.tp > 1 else self.engaged_path,
             max(self.shard_csr[i].num_directed_edges for i, _ in pos),
             positions=len(pos), first_device=d == self.devices[0],
-            gathers=len({j for _, j in pos}) if len(self.devices) > 1 else 0,
+            gathers=len({j for _, j in pos}) if self.dp > 1 else 0,
             chunk=edge_chunk_bound(cfg, k_loc, self.itemsize),
             health_on=int(cfg.health_every or 0) > 0,
             rollback=int(cfg.rollback_budget or 0) > 0,
@@ -678,15 +713,12 @@ class ShardedBigClamModel(MemoryAccountedModel):
     def _shard_state(self, F_host: np.ndarray, llh: Optional[float] = None,
                      it: int = 0) -> TrainState:
         """TrainState from a host (n_pad, k_pad) F in internal row order:
-        one block per mesh device (whole rows of a shard at tp = 1)."""
-        rows = self.n_pad // len(self.devices)
-        cols = self.k_pad // self.tp
-        Ft = torch.from_numpy(np.ascontiguousarray(F_host)).to(self.dtype)
-        blocks = [
-            [Ft[i * rows : (i + 1) * rows, j * cols : (j + 1) * cols].to(d, copy=True)
-             .contiguous() for j, d in enumerate(row)]
-            for i, row in enumerate(self.grid)
-        ]
+        one block per mesh position this process holds (whole rows of a
+        shard at tp = 1), placed as multihost.put_sharded does."""
+        rows = self.n_pad // self.dp
+        lo = self.row0 * rows
+        blocks = _mh.place_rows(F_host[lo : lo + len(self.grid) * rows],
+                                self.grid, self.tp, self.col0, self.dtype)
         return self.reset_state(as_layout(blocks), llh=llh, it=it)
 
     def health_sig(self, state: TrainState) -> torch.Tensor:
@@ -751,9 +783,11 @@ class ShardedBigClamModel(MemoryAccountedModel):
         return inv
 
     def extract_F(self, state: TrainState) -> np.ndarray:
-        """Fetch the live (N, K) F block to the host in ORIGINAL node ids."""
+        """Fetch the live (N, K) F block to the host in ORIGINAL node ids
+        (on a multi-process mesh every rank gets all of it:
+        multihost.fetch_global)."""
         n, k = self.g.num_nodes, self.cfg.num_communities
-        F = torch.cat([f.cpu() for f in row_shards(state.F)]).numpy()
+        F = _mh.fetch_global(state.F, self.mesh)
         return self._from_internal_rows(F[:n])[:, :k]
 
     # --- checkpoints ----------------------------------------------------
@@ -770,14 +804,15 @@ class ShardedBigClamModel(MemoryAccountedModel):
             "n_pad": self.n_pad,
             "k_pad": self.k_pad,
             "balanced": self._perm is not None,
-            "node_shards": len(self.devices) if self._perm is not None else 0,
+            "node_shards": self.dp if self._perm is not None else 0,
             "seed": self.cfg.seed,
         }
 
     def _state_to_arrays(self, state: TrainState) -> dict:
+        # a collective on a multi-process mesh: every rank enters it
         return {
-            "F": torch.cat([f.cpu() for f in row_shards(state.F)]).numpy(),
-            "sumF": row_shards(state.sumF)[0].cpu().numpy(),
+            "F": _mh.fetch_global(state.F, self.mesh),
+            "sumF": _mh.fetch_rows(state.sumF, self.mesh)[0],
             "llh": state.llh.cpu().numpy(),
             "it": np.asarray(state.it, np.int32),
         }
@@ -846,8 +881,9 @@ class _StoreGraphView:
 
 class StoreBacked:
     """The plumbing the store-backed trainers share (JAX
-    `_StoreBackedMixin`, single-controller): the shard-count check, the
-    per-position shard loads with their `files_read`, the manifest's edge
+    `_StoreBackedMixin`): the shard-count check, one load of this
+    process's shard range (`host_shard`) split into the per-position CSRs
+    with their `files_read`, the manifest's edge
     counts for the balance telemetry, and the per-position row-keyed
     init. Balance is baked at ingest (`cli ingest --balance`): the cache's
     node order is the trainer's row order, and results come back in cache
@@ -866,7 +902,7 @@ class StoreBacked:
         self.files_read: List[tuple] = []
 
     def _check_rows(self) -> None:
-        dp = len(self.devices)
+        dp = self.dp
         if self.n_pad != dp * self.store.rows_per_shard:
             raise ValueError(
                 f"cache rows_per_shard={self.store.rows_per_shard} x dp={dp} "
@@ -874,21 +910,29 @@ class StoreBacked:
             )
 
     def _position_shards(self):
-        """(position, (indptr, indices)) for each mesh position from its own
-        shard file, one load at a time, recording each position's
-        files_read."""
+        """(global node row, (indptr, indices)) for each node row this
+        process holds, from ONLY its own shard files: one load of the
+        rank's shard range (multihost.load_shard_ids, kept as
+        `host_shard`: shard_ids, lo, hi, files_read), recording each
+        position's files_read."""
         self._check_rows()
-        dp = len(self.devices)
-        rows = self.n_pad // dp
-        self.files_read = []
-        for i in range(dp):
-            hs = self.store.load_shard(i, dp, verify=self._shard_verify)
-            self.files_read.append(hs.files_read)
-            # the local indptr (rebased at hs.lo) extended with empty rows
-            # past hs.hi: the form shard_edges gives
-            indptr = np.full(rows + 1, hs.indptr[-1], dtype=np.int64)
-            indptr[: hs.indptr.shape[0]] = hs.indptr
-            yield i, (indptr, hs.indices)
+        rows = self.n_pad // self.dp
+        n = self.store.num_nodes
+        local = self.mesh.local_rows()
+        hs = _mh.load_shard_ids(self.store, local, self._shard_verify)
+        self.host_shard = hs
+        self.files_read = [
+            tuple(f for f in hs.files_read if f.startswith(f"shard_{i:05d}."))
+            for i in local
+        ]
+        for i in local:
+            a, b = min(i * rows, n) - hs.lo, min((i + 1) * rows, n) - hs.lo
+            e0, e1 = int(hs.indptr[a]), int(hs.indptr[b])
+            # the position's rows rebased to its first edge, extended with
+            # empty rows past N: the form shard_edges gives
+            indptr = np.full(rows + 1, e1 - e0, dtype=np.int64)
+            indptr[: b - a + 1] = hs.indptr[a : b + 1] - e0
+            yield i, (indptr, hs.indices[e0:e1])
 
     _balance_hint = "re-ingest the cache with --balance"
 
@@ -904,7 +948,7 @@ class StoreBacked:
         return _mem.host_rss_model(
             self.g.num_nodes, self.g.num_directed_edges, cfg.num_communities,
             self.itemsize, n_pad=self.n_pad, k_pad=self.k_pad,
-            store_native=True, num_shards=len(self.devices),
+            store_native=True, num_shards=self.dp,
         )
 
     def init_state(self, F0: Optional[np.ndarray] = None) -> TrainState:
@@ -916,17 +960,18 @@ class StoreBacked:
         if F0 is not None:
             return super().init_state(F0)
         n, k = self.g.num_nodes, self.cfg.num_communities
-        rows = self.n_pad // len(self.devices)
+        rows = self.n_pad // self.dp
         cols = self.k_pad // self.tp
         F = []
-        for i, row in enumerate(self.grid):
+        for il, row in enumerate(self.grid):
+            i = self.row0 + il
             lo, hi = i * rows, min((i + 1) * rows, n)
             local = np.zeros((rows, self.k_pad), dtype=np.float64)
             if hi > lo:
                 local[: hi - lo, :k] = rowkeyed_init_rows(lo, hi, k, self.cfg.seed)
             Ft = torch.from_numpy(local).to(self.dtype)
-            F.append([Ft[:, j * cols : (j + 1) * cols].to(d).contiguous()
-                      for j, d in enumerate(row)])
+            F.append([Ft[:, (self.col0 + jl) * cols : (self.col0 + jl + 1) * cols]
+                      .to(d).contiguous() for jl, d in enumerate(row)])
         return self.reset_state(as_layout(F))
 
 

@@ -17,9 +17,12 @@ pairs of the touched communities only, in fixed-capacity buffers:
                into a (K,) buffer of its own, the buffers added in shard
                order
 
-The mesh runs single-controller (parallel/mesh.py), so the collectives
-are sequences of copies between the shards' devices, as the dense
-helpers `psum` and `all_gather` are. The combine adds in the order
+On a single-controller mesh (parallel/mesh.py) the collectives are
+sequences of copies between the shards' devices, as the dense helpers
+`psum` and `all_gather` are; on a multi-process one their Axis carries
+the process group and the gathers and `pmax` cross ranks
+(parallel/multihost.py `exchange`), so the host read of the worst count
+is every rank's, and every rank takes the same branch. The combine adds in the order
 `psum` adds the shards' partials, and an untouched community adds an
 exact 0, so the sparse exchange and the dense psum give the same bits
 on every device; an index_add_ of all shards' pairs into one (K,) vector
@@ -42,6 +45,7 @@ from typing import Callable, List, Tuple
 import torch
 
 from bigclam_tpu_torch.obs import comms as _comms
+from bigclam_tpu_torch.parallel import multihost as _mh
 from bigclam_tpu_torch.parallel.sharded import _nbytes, all_gather, psum
 
 # comms sites of the exchange (the JAX site names, obs.comms
@@ -115,6 +119,9 @@ def pmax(parts, devices, site: str = "") -> list:
     """The largest of the shards' partials, taken on the first device and
     copied to every shard's device (counted as `psum` counts: each other
     position's partial in, the result back out)."""
+    group = getattr(devices, "group", None)
+    if group is not None:
+        parts = _mh.exchange(parts, group)
     top = parts[0].to(devices[0])
     for p in parts[1:]:
         top = torch.maximum(top, p.to(devices[0]))
@@ -183,7 +190,8 @@ def sparse_allreduce_sum(
         out = {}
         for d, t, v in zip(devices, tids, tvals):
             if d not in out:
-                out[d] = _combine(t, v, len(vals), cap, k_pad)
+                # every shard's pairs, those of other ranks' too
+                out[d] = _combine(t, v, t.shape[0] // cap, cap, k_pad)
         return [out[d] for d in devices]
 
     return capped_exchange(dense_fn, sparse_fn, [c[2] for c in compact],

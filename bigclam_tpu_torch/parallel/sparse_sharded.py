@@ -4,7 +4,9 @@ the node axis of a (dp, 1) mesh, with the sparse allreduce of sumF.
 Port of bigclam_tpu/parallel/sparse_sharded.py (`shard_touched_counts`,
 `make_sparse_sharded_step`, `SparseShardedBigClamModel`). The mesh runs
 single-controller (parallel/mesh.py): this process launches each shard's
-work on that shard's device, and a device may repeat.
+work on that shard's device, and a device may repeat; on a multi-process
+mesh (parallel/multihost.py) a rank holds and steps its own shards, and
+the gathers, psums and the capped exchange cross ranks.
 
 The dense mesh steps move O(K) a node: an all-gather of the (n_loc, K) F
 shards and a (K,) psum of sumF. On the sparse representation both scale
@@ -63,7 +65,8 @@ from bigclam_tpu_torch.ops import diagnostics as dx
 from bigclam_tpu_torch.ops import sparse_members as sm
 from bigclam_tpu_torch.ops.objective import EdgeChunks, accum_dtype, edge_chunk_bound
 from bigclam_tpu_torch.ops.sparse_members import SparseTrainState, SupportBlocks
-from bigclam_tpu_torch.parallel.mesh import K_AXIS, NODES_AXIS, Mesh
+from bigclam_tpu_torch.parallel import multihost as _mh
+from bigclam_tpu_torch.parallel.mesh import K_AXIS, NODES_AXIS, Mesh, column
 from bigclam_tpu_torch.parallel.sharded import (
     all_gather,
     device_csr,
@@ -78,6 +81,7 @@ from bigclam_tpu_torch.parallel.sparse_collectives import (
     static_mode,
 )
 from bigclam_tpu_torch.utils.device import resolve_device
+from bigclam_tpu_torch.utils.dist import process_count
 from bigclam_tpu_torch.utils.profiling import part
 
 SITE_MEMBERS = "sparse/all_gather_members"
@@ -113,14 +117,17 @@ def make_sparse_sharded_step(
     cap: int,
     mode: str,
     n_live: Optional[int] = None,
+    row0: int = 0,
 ) -> Callable[[SparseTrainState], SparseTrainState]:
     """One sharded sparse iteration. edges[i] / blocks[i] are shard i's
     edge chunks and support blocks on devices[i] (sources local, dst
     GLOBAL — they index the gathered rows); `mode` is the static
     collective choice (sparse_collectives.static_mode); `n_live` the live
     node count of the support-churn denominator (None: the padded rows).
-    Its parts are timed under utils.profiling.step_split on the first
-    device's current stream."""
+    On a multi-process mesh `devices` is an Axis of this rank's shards,
+    the first of them node shard `row0`, and the churn counts this rank's
+    rows. Its parts are timed under utils.profiling.step_split on the
+    first device's current stream."""
     sup_every = max(int(cfg.support_every), 1)
     use_sparse = mode == "sparse"
     dp = len(devices)
@@ -162,11 +169,11 @@ def make_sparse_sharded_step(
             with part("grad_sweep", d0):
                 grad, node_llh = sm.sparse_grad_llh(
                     ids[i], w[i], sumF[i], edges[i], cfg, k_pad,
-                    ids_dst=ids_full[i], w_dst=w_full[i], row0=i * n_loc)
+                    ids_dst=ids_full[i], w_dst=w_full[i], row0=(row0 + i) * n_loc)
             with part("cand_sweep", d0):
                 cand_nbr = sm.sparse_candidates(
                     ids[i], w[i], grad, edges[i], cfg, k_pad,
-                    ids_dst=ids_full[i], w_dst=w_full[i], row0=i * n_loc)
+                    ids_dst=ids_full[i], w_dst=w_full[i], row0=(row0 + i) * n_loc)
             with part("armijo", d0):
                 wn, hist = sm.sparse_armijo_update(
                     ids[i], w[i], sumF[i], grad, node_llh, cand_nbr, cfg, k_pad)
@@ -251,7 +258,10 @@ class SparseShardedBigClamModel(SparseBigClamModel):
             )
         self.mesh = mesh
         self.dp = mesh.shape[NODES_AXIS]
-        self.devices = [resolve_device(d) for d in mesh.node_devices()]
+        # this process's node shards (every shard single-controller), the
+        # first of them shard row0: an Axis with the nodes-axis group
+        self.devices = column(mesh.grid(resolve_device), 0)
+        self.row0 = mesh.origin[0]
         super().__init__(g, cfg, device=self.devices[0])
 
     def _path_reason(self) -> str:
@@ -272,9 +282,10 @@ class SparseShardedBigClamModel(SparseBigClamModel):
         self.n_pad = _round_up(max(g.num_nodes, dp), dp * self.block_b)
         self.n_loc = self.n_pad // dp
         chunk = edge_chunk_bound(cfg, self.m, self.itemsize)
+        shards = shard_edges(g, dp, self.n_pad)
         self.shard_csr = [
-            device_csr(indptr, indices, self.devices[i])
-            for i, (indptr, indices) in enumerate(shard_edges(g, dp, self.n_pad))
+            device_csr(*shards[self.row0 + i], d)
+            for i, d in enumerate(self.devices)
         ]
         self.edges = [EdgeChunks(c.src, c.dst, chunk) for c in self.shard_csr]
         sl, dd, mm = sm.support_blocks_host(g, self.n_pad, self.block_b)
@@ -286,7 +297,7 @@ class SparseShardedBigClamModel(SparseBigClamModel):
                 mask=torch.as_tensor(mm[i * bps:(i + 1) * bps]).to(self.dtype).to(d),
                 block_b=self.block_b,
             )
-            for i, d in enumerate(self.devices)
+            for i, d in enumerate(self.devices, start=self.row0)
         ]
         # a build-time guess of one M row a shard, with slack;
         # _on_init_sparsified refines it from the REAL initial touched
@@ -341,6 +352,7 @@ class SparseShardedBigClamModel(SparseBigClamModel):
         step = make_sparse_sharded_step(
             self.devices, self.edges, self.blocks, self.cfg, self.k_pad,
             self.m, self.comm_cap, self.comm_mode, n_live=self.g.num_nodes,
+            row0=self.row0,
         )
         comm = "spall" if self.comm_mode == "sparse" else "psum"
         return step, f"sparse_{merge}_{comm}"
@@ -395,7 +407,8 @@ class SparseShardedBigClamModel(SparseBigClamModel):
             return
         _comms.emit_shard_balance(
             "shard_edges", shard_edge_counts(self.g.src, self.n_pad, self.dp),
-            self.dp, hint="pre-balance at ingest (cli ingest --balance)",
+            self.dp, process_count=process_count(),
+            hint="pre-balance at ingest (cli ingest --balance)",
             model=type(self).__name__, dp=self.dp,
         )
 
@@ -412,7 +425,7 @@ class SparseShardedBigClamModel(SparseBigClamModel):
         }
 
     def _graph_device_arrays(self) -> dict:
-        return self._position_graph(range(self.dp))
+        return self._position_graph(range(len(self.devices)))
 
     def _memory_state_arrays(self, state) -> list:
         return [state.F, state.ids, state.sumF, state.llh, state.accept_hist,
@@ -453,11 +466,12 @@ class SparseShardedBigClamModel(SparseBigClamModel):
         ids_t = torch.from_numpy(np.asarray(ids, np.int32))
         w_t = torch.from_numpy(np.asarray(w)).to(self.dtype)
         r = self.n_loc
+        # this process's shards only on a multi-process mesh
         return (
             tuple(ids_t[i * r:(i + 1) * r].to(d, copy=True)
-                  for i, d in enumerate(self.devices)),
+                  for i, d in enumerate(self.devices, start=self.row0)),
             tuple(w_t[i * r:(i + 1) * r].to(d, copy=True)
-                  for i, d in enumerate(self.devices)),
+                  for i, d in enumerate(self.devices, start=self.row0)),
         )
 
     def reset_state(self, ids, w, llh: Optional[float] = None,
@@ -484,19 +498,21 @@ class SparseShardedBigClamModel(SparseBigClamModel):
 
     def _joined(self, state: SparseTrainState) -> SparseTrainState:
         """The state with its row shards joined on the first device (the
-        single-device layout the fold-in reads)."""
+        single-device layout the fold-in reads; every rank's shards on a
+        multi-process mesh)."""
         d0 = self.devices[0]
         return state._replace(
-            F=torch.cat([x.to(d0) for x in state.F]),
-            ids=torch.cat([x.to(d0) for x in state.ids]),
+            F=torch.from_numpy(_mh.fetch_global(state.F, self.mesh)).to(d0),
+            ids=torch.from_numpy(_mh.fetch_global(state.ids, self.mesh)).to(d0),
             sumF=state.sumF[0],
         )
 
     def extract_F(self, state: SparseTrainState) -> np.ndarray:
-        """Densify the live (N, K) block on the host."""
+        """Densify the live (N, K) block on the host (a collective on a
+        multi-process mesh: multihost.fetch_global)."""
         return sm.to_dense(
-            torch.cat([x.cpu() for x in state.ids]).numpy(),
-            torch.cat([x.cpu() for x in state.F]).numpy(),
+            _mh.fetch_global(state.ids, self.mesh),
+            _mh.fetch_global(state.F, self.mesh),
             self.g.num_nodes, self.cfg.num_communities,
         )
 
@@ -542,9 +558,10 @@ class SparseShardedBigClamModel(SparseBigClamModel):
         return meta
 
     def _state_to_arrays(self, state: SparseTrainState) -> dict:
+        # a collective on a multi-process mesh: every rank enters it
         return {
-            "F": torch.cat([x.cpu() for x in state.F]).numpy(),
-            "ids": torch.cat([x.cpu() for x in state.ids]).numpy(),
+            "F": _mh.fetch_global(state.F, self.mesh),
+            "ids": _mh.fetch_global(state.ids, self.mesh),
             "sumF": state.sumF[0].cpu().numpy(),
             "llh": state.llh.cpu().numpy(),
             "it": np.asarray(state.it, np.int32),

@@ -862,6 +862,9 @@ class TwoDShardedBigClamModel(ShardedBigClamModel):
         self.mesh = mesh
         self.R, self.C, self.p = R, C, R * C
         self.tp = 1
+        # the 1D machinery's node shards (the p blocks) and origin: the 2D
+        # mesh is single-controller
+        self.dp, self.row0, self.col0 = self.p, 0, 0
         # rows_grid[i][j]: position (i, j)'s device; the 1D machinery reads
         # the p positions as node shards (grid[b] = [device of block b])
         self.rows_grid = [[resolve_device(d) for d in row] for row in mesh.devices]

@@ -135,8 +135,7 @@ def record_resume(
     extra: Optional[dict] = None,
 ) -> Optional[dict]:
     """Append one attempt record to the lineage file (primary process
-    only; the port runs single-controller, so that is this process) and
-    emit a `resume` event. `directory` None (no telemetry dir) still emits
+    only: rank 0 of a process group) and emit a `resume` event. `directory` None (no telemetry dir) still emits
     the event when telemetry is active elsewhere; returns the record."""
     from bigclam_tpu_torch.obs import telemetry as _obs
 

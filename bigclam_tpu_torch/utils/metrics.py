@@ -4,7 +4,8 @@ Port of bigclam_tpu/utils/metrics.py. Every step emits a structured
 record — iteration, LLH, relative change, wall-clock, edges/sec, the
 accepted-step histogram — appended to a JSONL file (`--metrics`) and/or
 echoed to stderr, and forwarded to the run telemetry as a `step` event.
-The port runs single-controller, so this process always writes.
+Under a process group only rank 0 writes and echoes; every rank still
+forwards to its own telemetry.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ class MetricsLogger:
         self._opened = True
         self._t0 = time.perf_counter()
         self.load_s = round(self._t0 - self._created, 4)
+        # decided at the first record, once the group is joined
+        from bigclam_tpu_torch.utils.dist import is_primary
+
+        if not is_primary():
+            self.path, self.echo = None, False
         if self.path:
             self._fh = open(self.path, "a")
 

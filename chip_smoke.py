@@ -101,9 +101,14 @@ exits non-zero:
             exact counts; the device extraction of main's F on the card
             against the host one (equal ids, offsets and members), with
             its peak device memory
+  mesh_init the file ingested as `cli fit` reads it and its conductance F0
+  store_full (as listed below, run here since PR 22) the full graph's
+            4-shard cache: from here on the full-size `cli` runs read it
+            (`--graph <cache>`: the same graph and, from its baked scores,
+            main's F0) in place of the text, whose parse main and
+            host_full time (each parse took 3-4.6 s, a dozen of them)
   split     the same graph and init with --csr-fused off (path `csr`),
             2 steps, launches counted from 0 around the fit
-  mesh_init the file ingested as `cli fit` reads it and its conductance F0
   full      each kernel against its plain version at the main path's
             shapes (the main fit's final F), and both timed with CUDA
             events: the median of 10 runs, taken as two rounds of 5
@@ -158,7 +163,7 @@ exits non-zero:
             Armijo update (the epilogue kernel, the column sums, the
             histogram), and traced once with torch.profiler; one `xla`
             step (use_pallas=False) on the same state for comparison
-  sweep_main `cli sweep --min-com 500 --max-com 1000 --div-com 4
+  sweep_main `cli sweep --min-com 500 --max-com 1000 --div-com 2
             --max-iters 5` on the same file: the grid, at least 2 trained
             Ks, finite LLHs, the seconds per K; path `csr_fused`
   parity    planted N=2,400, K=100: 5 steps on the card (f32 kernels)
@@ -215,16 +220,18 @@ exits non-zero:
             `cli fit --graph <cache>` at K=1,000, 5 iterations: the baked
             scores used, `csr_fused` with main's launches, the LLH history
             bit for bit main's, its graph and seeding stages beside main's;
-            then `--cache-dir` on the text twice (1 iteration each): the
-            first compiles, the second reloads, both on main's history
+            then `--cache-dir` twice on the parity graph's text (N=2,400,
+            K=100, 1 iteration each; at full until PR 22, whose compile
+            seed-baked the graph a second time, 33 s): the first compiles,
+            the second reloads, both on the text-fed fit's history
   store_native_dp4 `cli ingest --balance --shards 4 --no-seed-bake
             --no-closure-bake`, then `cli fit --mesh
             4,1 --store-native` on one card repeated four times: the
             unbalanced cache under allgather (`csr_fused`, 4 launches a
             step) and ring (`csr_ring_fused`), the balanced one under ring;
             each held against the in-memory trainer on the same layout and
-            F0, run twice (bit for bit where those two agree, else within
-            1e-6), each position's files_read its own shard's blobs,
+            F0 bit for bit (where they differ, a second in-memory run: if
+            the two in-memory runs differ too, within 1e-6), each position's files_read its own shard's blobs,
             sec_per_iter beside allgather_main's and ring_dp4's dp = 4
             steps, the host memory of the store-native build beside the
             in-memory one (RSS growth and tracemalloc's allocation peak)
@@ -233,8 +240,8 @@ exits non-zero:
             rebuilds it from the text and trains to main's history bit for
             bit; with --no-self-heal `cli.main` raises ShardCorruption
   store_delta a delta of 1% new edges among the first half of the nodes
-            (default_rng(15)) by `cli ingest --delta` on the 8-shard
-            --cache-dir cache: touched shards and share, seconds, the
+            (default_rng(15)) by `cli ingest --delta` on a copy of
+            store_full's 4-shard cache: touched shards and share, seconds, the
             re-baked phi; the cache's graph equal to a fresh in-memory
             ingest of text + delta (build_graph), the re-baked phi equal to
             its exact conductance, the untouched shards' blobs unchanged to
@@ -249,8 +256,8 @@ exits non-zero:
             steps and seconds a step beside main's, peak device memory,
             the zero rows and the LLH before (main's 5-step fit) and after
             (also under the parity clip); then the component pass on the
-            card beside scipy over the final F's 1,000 columns, labels
-            equal
+            card beside scipy over the final F's first 128 columns
+            (QUALITY_COMPONENT_COLS), labels equal
   quality_tp (after quality_full) `cli fit --mesh 2,2 --quality
             --device-annealing` on the full file, four positions on one
             card, cut to 2 cycles of at most 20 steps and one repair
@@ -270,8 +277,8 @@ exits non-zero:
             published as a sparse generation: seconds, archive bytes,
             generations
   serve_full `cli serve --snapshots snaps --graph <cache>` on the card, a
-            seeded mix (default_rng(16)) of 4,096 queries (dense once,
-            sparse x 3): 45% communities_of, 45% members_of (Zipf 1.1
+            seeded mix (default_rng(16)) of 4,096 queries (dense: its
+            first 1,024 once; sparse: all x 3): 45% communities_of, 45% members_of (Zipf 1.1
             over communities by mass), 10% suggest_for (half existing
             nodes, half new ones with 20-60 neighbour ids); dense, then
             sparse: p50/p99/QPS, cache hit rate, fold-in batches and
@@ -297,7 +304,8 @@ exits non-zero:
             --sparse-m 64 --publish-shards 2` on store_full's cache (a fleet
             generation of serve_publish's sparse fit), `cli fleet up
             --shards 2 --replicas 1 --device cuda` with a members file,
-            serve_full's 4,096-query mix through `cli route --members`:
+            serve_full's mix's first 1,024 queries through `cli route
+            --members`:
             reads equal single-process `cli serve` on the un-sharded
             archive of the same member lists bit for bit, suggests within
             1e-4 of CPU float64, no serve error, every replica on the
@@ -343,7 +351,8 @@ exits non-zero:
             checkpoints at 2, 4 and 6 with their save seconds and bytes,
             health samples at 0, 2, 4, 6, every event valid against the
             schema, sec_per_iter beside main's; the same fit in a
-            subprocess killed (SIGKILL, BIGCLAM_FAULTS) at fit.step 4 and
+            subprocess (started beside (a), so (a)'s seconds share the
+            host with it) killed (SIGKILL, BIGCLAM_FAULTS) at fit.step 4 and
             resumed in-process with --resume auto (b): its LLH history
             equal to (a)'s bit for bit (band 1e-6), 3 launches, the resume
             lineage; a NaN injected into F at 3 on the model's fit (c):
@@ -490,6 +499,31 @@ on the one card:
             K=3,000 with --replica-cols 1 and 2 (csr_fused_2d_kb, 3 windows
             of 1,024), twod_full's numbers against kb_main's history
 
+Multi-process meshes (parallel/multihost.py), after kbmesh_xlk; rank 0
+of each run in this process (its launch counters zeroed around it), the
+others subprocesses started during the run before (they wait in the
+rendezvous), every rank from an empty directory of its own:
+
+  dist      nccl1: one NCCL rank (WORLD_SIZE=1) of `cli fit --distributed
+            --mesh 4,1 --store-native --schedule ring` on store_full's
+            cache, store_native_dp4's 4 iterations: `csr_ring_fused`, #8,
+            #9 and the epilogue launched the schedule's count, the LLH
+            history store_native_dp4's ring run's bit for bit; gloo2_full:
+            two ranks sharing the card over gloo (BIGCLAM_DIST_BACKEND=
+            gloo), the same cache on the all-gather schedule with --out,
+            --checkpoint-dir --checkpoint-every 2 and --telemetry-dir:
+            store_native_dp4's all-gather history bit for bit on both
+            ranks, each rank's files_read its two shards, rank 0 alone
+            writing the communities file (held every byte by hold_writer
+            against the fetched F), the checkpoints and the events
+            (`processes: 2`), kernel A launched 2 x steps on rank 0;
+            gloo2_xlk: two ranks at --mesh 2,2 on the xl_k file in memory
+            (`csr_fused_kb`, a node row of column blocks a rank):
+            kbmesh_xlk's (2, 2) all-gather history bit for bit; both gloo
+            runs 2 iterations (DIST_GLOO_ITERS), held against the same
+            steps of their single-controller runs, rows 10-12 and 7 launched rank 0's share. Per run and rank
+            sec_per_iter, stage seconds and the bytes moved across ranks
+
 Then one `side_by_side` line (with --against: each named kernel on the
 inputs of its timing phase (`full`, `sparse_full`, `vmem_full`,
 `ring_full`, `kb_full`; in `kb_full` the gradient also without the fold,
@@ -536,6 +570,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -569,8 +604,10 @@ VMEM_ODD_K = (37, 1100)
 VMEM_ODD_CHUNK = 1000
 VMEM_HUB_K = (37, 1000)
 VMEM_HUB_CHUNK = 500      # splits the degree-700 hub across two chunks
-SWEEP_MAIN = dict(min_com=500, max_com=1000, div_com=4,
-                  kset=[500, 594, 706, 839, 997, 1000])
+# div 2 since PR 22 (was 4: six Ks of ~2.4 s), after a proof ran past the
+# 1,200 s limit
+SWEEP_MAIN = dict(min_com=500, max_com=1000, div_com=2,
+                  kset=[500, 707, 999, 1000])
 SWEEP_PARITY = dict(min_com=50, max_com=100, div_com=3)
 HOST_CAP = 16             # the capped estimator's cap at full (binds: max degree 58)
 HOST_EXACT_CAP = 64       # >= full's max degree: the estimate is the exact count
@@ -987,10 +1024,12 @@ def launch_counts() -> dict:
             **ring_kernels.launch_counts(), **linesearch.launch_counts()}
 
 
-def time_ms(fn, reps: int = 5) -> list:
-    """CUDA-event times (ms) of `reps` runs of fn() after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
+def time_ms(fn, reps: int = 5, warm: bool = True) -> list:
+    """CUDA-event times (ms) of `reps` runs of fn(), after a warm-up unless
+    `warm` is False."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -1003,14 +1042,25 @@ def time_ms(fn, reps: int = 5) -> list:
     return times
 
 
+# a plain version whose warm-up takes this long is timed once on each side
+# of the kernel's runs: at full its 12 calls took 2.2-2.4 s each, 57 s of
+# `full` alone, on a script that must end in 1,200 s (PERF.md §6, PR 22)
+PLAIN_SLOW_MS = 250.0
+
+
 def time_pair(kern, plain, reps: int = 5) -> dict:
     """Median CUDA-event times of a kernel and its plain version over
     2 x reps runs each, taken in the order plain, kernel, kernel, plain
     (reps runs after a warm-up each), so that drift on the card hits both
-    alike."""
-    p = time_ms(plain, reps)
+    alike. A plain version whose warm-up takes PLAIN_SLOW_MS or more runs
+    once on each side, with no second warm-up."""
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    reps_p = 1 if (time.perf_counter() - t0) * 1e3 >= PLAIN_SLOW_MS else reps
+    p = time_ms(plain, reps_p, warm=False)
     k = time_ms(kern, reps) + time_ms(kern, reps)
-    p += time_ms(plain, reps)
+    p += time_ms(plain, reps_p, warm=reps_p > 1)
     return {"ms": statistics.median(k), "plain_ms": statistics.median(p),
             "ms_runs": k, "plain_ms_runs": p}
 
@@ -1477,6 +1527,37 @@ def fit_args(extra):
     return cli.build_parser().parse_args(["fit", "--quiet", *extra])
 
 
+def decimal_columns(x) -> tuple:
+    """Non-negative integers as right-aligned ASCII digits: a (len(x),
+    width) uint8 matrix and the mask of each row's digits."""
+    x = np.asarray(x, np.int64)
+    width = len(str(int(x.max()))) if x.size else 1
+    digits = np.empty((x.size, width), np.uint8)
+    rest = x.copy()
+    for j in range(width - 1, -1, -1):
+        digits[:, j] = rest % 10 + 48
+        rest //= 10
+    count = np.ones(x.size, np.int64)
+    for j in range(1, width):
+        count += x >= 10 ** j
+    return digits, np.arange(width)[None, :] >= width - count[:, None]
+
+
+def write_edge_list(path, src, dst) -> None:
+    """`src[i] dst[i]` a line, as np.savetxt(fmt="%d") writes them, built in
+    bulk (savetxt formats each line in Python: 5-8 s at full)."""
+    a, a_keep = decimal_columns(src)
+    b, b_keep = decimal_columns(dst)
+    n = a.shape[0]
+    sep = np.full((n, 1), ord(" "), np.uint8)
+    end = np.full((n, 1), ord("\n"), np.uint8)
+    keep = np.ones((n, 1), bool)
+    lines = np.concatenate([a, sep, b, end], axis=1)
+    mask = np.concatenate([a_keep, keep, b_keep, keep], axis=1)
+    with open(path, "wb") as f:
+        f.write(lines[mask].tobytes())
+
+
 def planted_file(cfg, path):
     """Sample an AGM planted graph and write it to `path` as a SNAP edge
     list (each undirected edge once); returns the sampled Graph."""
@@ -1486,7 +1567,8 @@ def planted_file(cfg, path):
         cfg["n"], cfg["k"], p_in=cfg["p_in"],
         rng=np.random.default_rng(cfg["seed"]),
     )
-    np.savetxt(path, np.stack([g.src, g.dst], axis=1)[g.src < g.dst], fmt="%d")
+    once = g.src < g.dst
+    write_edge_list(path, g.src[once], g.dst[once])
     return g
 
 
@@ -3193,7 +3275,7 @@ def phase_sweep_main(g, path) -> dict:
         raise AssertionError(f"sweep launches {counts} for {trained} Ks")
     return {**out, "trained": trained, "launches": counts,
             "seconds_by_k": {str(k): t for k, t in sec},
-            "seconds_first_k_includes": "ingest, conductance seeding, model build"}
+            "seconds_first_k_includes": "graph load, conductance seeding, model build"}
 
 
 def phase_vmem_parity(tmp) -> dict:
@@ -4251,20 +4333,44 @@ def history_match(a, b, rtol: float = RESUME_RTOL) -> dict:
 def phase_resilience_full(g, path, tmp, gi, F0, main_out):
     """`cli fit` at full on csr_fused with checkpoints, telemetry, health
     and metrics (a); the same fit killed in a subprocess at fit.step 4
-    and resumed (b); a NaN injected at 3 and rolled back (c); health every
-    10 against 0, the health pack and the snapshot refresh timed (d); peak
-    memory with and without the rollback snapshot."""
+    (started beside (a)) and resumed (b); a NaN injected at 3 and rolled
+    back (c); health every 10 against 0, the health pack and the snapshot
+    refresh timed (d); peak memory with and without the rollback
+    snapshot."""
+    d = lambda name: os.path.join(tmp, name)  # noqa: E731
+    # (b)'s fit, killed after the checkpoint at 4, runs in a subprocess
+    # beside (a) (its start, 8 s of imports and the graph's parse, took 24
+    # s of the script's 1,200 in turn); (a)'s seconds share the host with it
+    args_b = res_fit_args(path, d("res_ck_b"), d("res_tel_b"))
+    env = dict(os.environ)
+    env["BIGCLAM_FAULTS"] = json.dumps(
+        {"faults": [{"kind": "kill", "site": "fit.step", "at": RES_KILL_AT}]})
+    killed_log = open(d("res_killed.log"), "w+")
+    t0_b = time.perf_counter()
+    killed = subprocess.Popen(
+        [sys.executable, "-m", "bigclam_tpu_torch.cli", "fit", *args_b, "--quiet"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.DEVNULL, stderr=killed_log, text=True)
+    try:
+        parts = resilience_full_a(d, path, main_out)
+        rc = killed.wait(timeout=900)
+    finally:
+        if killed.poll() is None:
+            killed.kill()
+            killed.wait()
+    killed_s = time.perf_counter() - t0_b
+    killed_log.seek(0)
+    killed_err = killed_log.read()
+    killed_log.close()
+    return resilience_full_rest(d, gi, F0, args_b, rc, killed_err, killed_s, parts)
+
+
+def resilience_full_a(d, path, main_out) -> dict:
+    """resilience_full's (a): the uninterrupted fit at full with
+    checkpoints every 2, telemetry, health and metrics."""
     from bigclam_tpu_torch import cli
-    from bigclam_tpu_torch.config import BigClamConfig
-    from bigclam_tpu_torch.models.bigclam import BigClamModel, clone_state, refresh_state
-    from bigclam_tpu_torch.ops import diagnostics as dx
-    from bigclam_tpu_torch.ops.fused import fused_superstep
-    from bigclam_tpu_torch.ops.linesearch import accept_stats
-    from bigclam_tpu_torch.resilience import read_lineage
     from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
 
-    d = lambda name: os.path.join(tmp, name)  # noqa: E731
-    # (a) the uninterrupted fit
     args_a = res_fit_args(path, d("res_ck_a"), d("res_tel_a"),
                           ["--metrics", d("res_metrics.jsonl")])
     torch.cuda.synchronize()
@@ -4294,21 +4400,36 @@ def phase_resilience_full(g, path, tmp, gi, F0, main_out):
     metrics_lines = len(open(d("res_metrics.jsonl")).read().splitlines())
     steps_a = out_a["steps"]
     del res_a
+    return {
+        "kernel_path": out_a["kernel_path"], "llh_history": hist_a,
+        "steps": steps_a, "launches": counts_a["fused_superstep"],
+        "sec_per_iter": out_a["sec_per_iter"],
+        "sec_per_iter_without_saves": (out_a["sec_per_iter"] * steps_a - save_s) / steps_a,
+        "main_sec_per_iter": main_out["sec_per_iter"],
+        "checkpoint_saves": saves, "checkpoint_save_s": save_s / saves,
+        "checkpoint_bytes": archive_bytes, "peak_gb": peak_a,
+        "health_samples": health_a, "metrics_lines": metrics_lines,
+        "telemetry": tel_a, "stage_seconds": out_a["stage_seconds"],
+        "shared_host_with_b": True,
+    }
 
+
+def resilience_full_rest(d, gi, F0, args_b, rc, killed_err, killed_s, a) -> dict:
+    """resilience_full's (b) from the killed subprocess's end, (c), (d) and
+    the peaks; `a` is (a)'s body."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.config import BigClamConfig
+    from bigclam_tpu_torch.models.bigclam import BigClamModel, clone_state, refresh_state
+    from bigclam_tpu_torch.ops import diagnostics as dx
+    from bigclam_tpu_torch.ops.fused import fused_superstep
+    from bigclam_tpu_torch.ops.linesearch import accept_stats
+    from bigclam_tpu_torch.resilience import read_lineage
+    from bigclam_tpu_torch.utils.checkpoint import CheckpointManager
+
+    hist_a = a["llh_history"]
     # (b) killed in a subprocess after the checkpoint at 4, then resumed
-    args_b = res_fit_args(path, d("res_ck_b"), d("res_tel_b"))
-    env = dict(os.environ)
-    env["BIGCLAM_FAULTS"] = json.dumps(
-        {"faults": [{"kind": "kill", "site": "fit.step", "at": RES_KILL_AT}]})
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "bigclam_tpu_torch.cli", "fit", *args_b, "--quiet"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-        capture_output=True, text=True, timeout=900,
-    )
-    killed_s = time.perf_counter() - t0
-    if r.returncode != -9 or "FAULT kill" not in r.stderr:
-        raise AssertionError(f"the killed fit ended rc {r.returncode}: {r.stderr[-2000:]}")
+    if rc != -9 or "FAULT kill" not in killed_err:
+        raise AssertionError(f"the killed fit ended rc {rc}: {killed_err[-2000:]}")
     valid = CheckpointManager(d("res_ck_b")).latest_valid_step()
     if valid != RES_KILL_AT:
         raise AssertionError(f"newest valid checkpoint {valid}, want {RES_KILL_AT}")
@@ -4396,19 +4517,9 @@ def phase_resilience_full(g, path, tmp, gi, F0, main_out):
     # of a step at cadence 10 in a long fit
     sample_ms = (step_s[1] - step_s[0]) * (RES_HEALTH_ITERS + 1) / 2 * 1e3
     return {
-        "a": {
-            "kernel_path": out_a["kernel_path"], "llh_history": hist_a,
-            "steps": steps_a, "launches": counts_a["fused_superstep"],
-            "sec_per_iter": out_a["sec_per_iter"],
-            "sec_per_iter_without_saves": (out_a["sec_per_iter"] * steps_a - save_s) / steps_a,
-            "main_sec_per_iter": main_out["sec_per_iter"],
-            "checkpoint_saves": saves, "checkpoint_save_s": save_s / saves,
-            "checkpoint_bytes": archive_bytes, "peak_gb": peak_a,
-            "health_samples": health_a, "metrics_lines": metrics_lines,
-            "telemetry": tel_a, "stage_seconds": out_a["stage_seconds"],
-        },
+        "a": a,
         "b": {
-            "killed_rc": r.returncode, "killed_s": killed_s,
+            "killed_rc": rc, "killed_s": killed_s,
             "resumed_from": valid, "resumed_launches": counts_b["fused_superstep"],
             "llh_history": out_b["llh_history"], **resume,
             "sec_per_iter": out_b["sec_per_iter"], "telemetry": tel_b,
@@ -4884,15 +4995,16 @@ def ingest(path, cache, *flags) -> dict:
     return ingest_body(out, time.perf_counter() - t0)
 
 
-def store_fit(extra, quiet: bool = True):
-    """`cli fit` at full width with the launch counters zeroed just before
-    and read just after; (out, res, counts, stderr text)."""
+def store_fit(extra, quiet: bool = True, k: int = 0):
+    """`cli fit` at full width (or K = k, where given) with the launch
+    counters zeroed just before and read just after; (out, res, counts,
+    stderr text)."""
     import io
 
     from bigclam_tpu_torch import cli
 
     args = cli.build_parser().parse_args([
-        "fit", "--k", str(FULL["k"]), "--init", "conductance",
+        "fit", "--k", str(k or FULL["k"]), "--init", "conductance",
         "--conv-tol", "0", "--device", DEVICE,
         *(["--quiet"] if quiet else []), *extra,
     ])
@@ -4919,7 +5031,8 @@ def phase_store_full(gi, path, tmp, F0, main_out, main_counts):
     """`cli ingest --shards 4` of main's edge list (seed scores and closure
     lists baked), then `cli fit --graph <cache>` at full: the baked scores
     used, F0 and the LLH history bit for bit main's, kernel A's launches
-    main's; then `--cache-dir` on the text, compiled once and reloaded."""
+    main's; then `--cache-dir` on the parity graph's text, compiled once
+    and reloaded, both on the text-fed fit's history."""
     from bigclam_tpu_torch import cli
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.graph.store import GraphStore
@@ -4949,22 +5062,30 @@ def phase_store_full(gi, path, tmp, F0, main_out, main_counts):
     if out["llh_history"] != main_out["llh_history"]:
         raise AssertionError(f"cache-fed history {out['llh_history']} vs main "
                              f"{main_out['llh_history']}")
-    # --cache-dir on the text: the first fit compiles, the second reloads
-    cdir = os.path.join(tmp, "full_s8.cache")
+    # --cache-dir on the parity graph's text: the first fit compiles, the
+    # second reloads
+    ppath = os.path.join(tmp, "cache_dir_graph.txt")
+    planted_file(PARITY, ppath)
+    # the text-fed fit seeded by exact host counts, as the bake seeds (on
+    # the card `auto` would count on the device at this size)
+    ref, _, _, _ = store_fit(["--graph", ppath, "--max-iters", "1", "--seed-backend",
+                              "numpy"], k=PARITY["k"])
+    cdir = os.path.join(tmp, "parity.cache")
     runs = []
     for _ in range(2):
         t0 = time.perf_counter()
-        o, _, c, e = store_fit(["--graph", path, "--cache-dir", cdir,
-                                "--max-iters", "1"], quiet=False)
-        if o["llh_history"] != main_out["llh_history"][:2] or BAKED_NOTE not in e:
-            raise AssertionError(f"--cache-dir history {o['llh_history']}")
+        o, _, c, e = store_fit(["--graph", ppath, "--cache-dir", cdir,
+                                "--max-iters", "1"], quiet=False, k=PARITY["k"])
+        if o["llh_history"] != ref["llh_history"] or BAKED_NOTE not in e:
+            raise AssertionError(f"--cache-dir history {o['llh_history']} vs "
+                                 f"{ref['llh_history']}")
         runs.append({"compiled": "compiling graph cache" in e,
                      "wall_s": time.perf_counter() - t0,
                      "stage_seconds": o["stage_seconds"], "launches": c})
     if [r["compiled"] for r in runs] != [True, False]:
         raise AssertionError(f"--cache-dir compiled {runs}")
     main_stages = main_out["stage_seconds"]
-    return cache, cdir, {
+    return cache, {
         "ingest": ing, "load_graph_s": load_s,
         "fit": {"kernel_path": out["kernel_path"],
                 "llh_history": out["llh_history"],
@@ -5026,8 +5147,9 @@ def phase_store_native_dp4(gi, path, tmp, cache, F0, ag_s, ring_s):
     """`cli fit --mesh 4,1 --store-native` on one card repeated four times:
     the unbalanced 4-shard cache under allgather and ring, and a balanced
     one (`ingest --balance --shards 4`) under ring, each held against the
-    in-memory trainer on the same layout and F0 (bit for bit where two
-    in-memory runs agree bit for bit, else within the path's band), each
+    in-memory trainer on the same layout and F0 (bit for bit, or within
+    the path's band where a second in-memory run differs from the first),
+    each
     position's files_read its own shard's blobs, the host RSS of the
     store-native build beside the in-memory one."""
     from bigclam_tpu_torch import cli
@@ -5088,27 +5210,28 @@ def phase_store_native_dp4(gi, path, tmp, cache, F0, ag_s, ring_s):
         if ring and perm is not None and mm.visit_order != "pre_balance":
             raise AssertionError(f"visit order {mm.visit_order}")
         h1, F1 = mesh_fit(mm, F0m)
-        h2, F2 = mesh_fit(mm, F0m)
-        deterministic = h1 == h2 and np.array_equal(F1, F2)
-        del mm
         F_store = res.F if perm is None else res.F[perm]
         hist = out["llh_history"]
+        # a second in-memory run only where the first differs from the
+        # store-native one: it decides whether the path's band applies
+        # (None: not run, the store-native run was the first's bits)
+        deterministic = None
+        if hist != h1 or not np.array_equal(F_store, F1):
+            h2, F2 = mesh_fit(mm, F0m)
+            deterministic = h1 == h2 and np.array_equal(F1, F2)
+        del mm
         if deterministic:
-            if hist != h1 or not np.array_equal(F_store, F1):
-                raise AssertionError(f"{name}: store-native {hist} vs "
-                                     f"in-memory {h1}")
-            rel = 0.0
-        else:
-            rel = llh_rel(hist, h1)
-            if rel > (STORE_RING_RTOL if ring else 0.0):
-                raise AssertionError(f"{name}: store-native {hist} vs "
-                                     f"in-memory {h1} ({rel})")
+            raise AssertionError(f"{name}: store-native {hist} vs in-memory {h1}")
+        rel = 0.0 if deterministic is None else llh_rel(hist, h1)
+        if rel > (STORE_RING_RTOL if ring else 0.0):
+            raise AssertionError(f"{name}: store-native {hist} vs "
+                                 f"in-memory {h1} ({rel})")
         cases[name] = {
             "kernel_path": out["kernel_path"], "mesh": out["mesh"],
             "balanced": perm is not None, "llh_history": hist,
             "in_memory_llh_history": h1,
             "in_memory_runs_bit_identical": deterministic,
-            "bit_identical": deterministic, "max_rel": rel,
+            "bit_identical": deterministic is None, "max_rel": rel,
             "launches": counts, "sec_per_iter": out["sec_per_iter"],
             "sec_per_iter_in_memory_phase": ring_s if ring else ag_s,
             "stage_seconds": out["stage_seconds"],
@@ -5169,10 +5292,11 @@ def phase_store_heal(path, tmp, cache, main_out):
                              "error": str(refused)[:300]}}
 
 
-def phase_store_delta(gi, path, tmp, cdir):
+def phase_store_delta(gi, path, tmp, cache):
     """A delta of 1% new edges among existing nodes (default_rng(15)),
     both ends in the first half of the node range, applied with `cli
-    ingest --delta` to the 8-shard --cache-dir cache: the touched shards,
+    ingest --delta` to a copy of store_full's 4-shard cache (later phases
+    read the cache itself): the touched shards,
     their share and the re-baked phi; the cache's graph equal to a fresh
     in-memory ingest of text + delta (build_graph) and the touched shards'
     phi to its exact conductance, the untouched shards' blobs byte for
@@ -5181,6 +5305,8 @@ def phase_store_delta(gi, path, tmp, cdir):
     from bigclam_tpu_torch.graph.store import GraphStore
     from bigclam_tpu_torch.ops.seeding import conductance
 
+    cdir = os.path.join(tmp, "delta.cache")
+    shutil.copytree(cache, cdir)
     store = GraphStore.open(cdir)
     rng = np.random.default_rng(DELTA_SEED)
     m = int(DELTA_FRAC * gi.num_edges)
@@ -5246,11 +5372,13 @@ def phase_store_delta(gi, path, tmp, cdir):
 # ------------------------------------------------------ serving and refit
 SERVE_FIT_ITERS = 1000        # the served dense fit runs to convergence
 SERVE_SPARSE_ITERS = 60       # the sparse fit's cap (its steps are ~6x dearer)
-SERVE_QUERIES = 4096          # serve_full's mix, run SERVE_REPEAT[tag] times
-# passes of the mix a snapshot: the dense pass cut from 3 to 1 (every
-# query once) after a proof took 1,278 s of the 1,200 allowed on a slow
-# host, its dense pass 124 s of that (PERF.md §6, PR 21)
-SERVE_REPEAT = {"dense": 1, "sparse": 3}
+SERVE_QUERIES = 4096          # serve_full's mix
+# (queries of the mix, passes) a snapshot's `cli serve` runs: the dense
+# pass cut from 3 passes to 1 after a proof took 1,278 s of the 1,200
+# allowed on a slow host, its dense pass 124 s of that (PERF.md §6, PR
+# 21), then to the mix's first 1,024 queries after a proof ran past the
+# limit in `dist` (PR 22): the dense pass answered 181 QPS, 23 s a 4,096
+SERVE_PASS = {"dense": (1024, 1), "sparse": (SERVE_QUERIES, 3)}
 SERVE_SEED = 16
 SERVE_ZIPF = 1.1              # members_of: Zipf rank over communities by mass
 SERVE_NEW_DEG = (20, 60)      # a new node's neighbour ids
@@ -5487,18 +5615,23 @@ def foldin_ms(engine, items) -> dict:
     return out
 
 
-def run_cli_serve(snapdir, cache, qfile, tmp, tag) -> dict:
-    """`cli serve` of the query file SERVE_REPEAT[tag] times on the card, with
-    telemetry and no --results (a load test: the answers of members_of
-    run to every member); its stats JSON, the fold-in batches and the
-    wall seconds. Exit 0 means no query errored."""
+def run_cli_serve(snapdir, cache, queries, tmp, tag) -> dict:
+    """`cli serve` on the card of the first SERVE_PASS[tag] queries of the
+    mix, as many passes as it says, with telemetry and no --results (a
+    load test: the answers of members_of run to every member); its stats
+    JSON, the fold-in batches and the wall seconds. Exit 0 means no query
+    errored."""
+    count, passes = SERVE_PASS[tag]
+    qfile = os.path.join(tmp, f"serve_queries_{tag}.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries[:count])
     tel = os.path.join(tmp, f"serve_tel_{tag}")
     t0 = time.perf_counter()
     out = cli_json(["serve", "--snapshots", snapdir, "--graph", cache,
-                    "--queries", qfile, "--repeat", str(SERVE_REPEAT[tag]),
+                    "--queries", qfile, "--repeat", str(passes),
                     "--device", DEVICE, "--telemetry-dir", tel, "--quiet"])
     wall = time.perf_counter() - t0
-    if out["serve_errors"] or out["serve_queries"] != SERVE_REPEAT[tag] * SERVE_QUERIES:
+    if out["serve_errors"] or out["serve_queries"] != passes * count:
         raise AssertionError(f"serve {tag}: {out}")
     serve = [e for e in events_of(tel) if e["kind"] == "serve"]
     out["foldin_batches"] = sum(1 for e in serve if e.get("n_suggest_for"))
@@ -5561,8 +5694,9 @@ def wait_generation(server, step: int, timeout: float = 300.0) -> float:
 
 
 def phase_serve_full(gi, tmp, cache, snaps, snaps_sparse):
-    """`cli serve` on the card of SERVE_QUERIES queries (default_rng(16))
-    SERVE_REPEAT[tag] times, dense and then sparse: p50/p99/QPS, cache hit rate,
+    """`cli serve` on the card of a mix of SERVE_QUERIES queries
+    (default_rng(16)), as SERVE_PASS[tag] cuts it, dense and then sparse:
+    p50/p99/QPS, cache hit rate,
     fold-in batches, no error; fold-in ms per batch at B=8 and 64; and an
     in-process server on the same snapshot answering SERVE_CHECK suggests,
     held against the CPU float64 engine; the dense snapshot's zero rows
@@ -5591,7 +5725,7 @@ def phase_serve_full(gi, tmp, cache, snaps, snaps_sparse):
                 with open(qfile, "w") as f:
                     f.writelines(json.dumps(q) + "\n" for q in queries)
                 suggests = [q for q in queries if q["family"] == "suggest_for"]
-            stats = run_cli_serve(snapdir, cache, qfile, tmp, tag)
+            stats = run_cli_serve(snapdir, cache, queries, tmp, tag)
             held = suggests[:SERVE_CHECK]
             answers = server.run_queries(held)
             engine = FoldInEngine(snap, device=DEVICE)
@@ -6007,6 +6141,10 @@ QUALITY_LLH_RTOL = 1e-5
 # card (PERF.md §6 has its stage seconds); one repair round, cut from two
 # after the slow host's proof of PR 21 (its two rounds took 98 s)
 QUALITY_FULL = dict(restart_cycles=6, repair_rounds=1, max_iters=100)
+# quality_full's closing card-vs-scipy component pass: the final F's first
+# columns (all 1,000 took 10.6 s on the card until PR 22, whose proof ran
+# past the 1,200 s limit)
+QUALITY_COMPONENT_COLS = 128
 
 
 def random_columns(g, rng, cols: int) -> np.ndarray:
@@ -6250,7 +6388,8 @@ def phase_quality_full(gi, F0, main_out, main_zero_rows) -> dict:
     csr_fused (QUALITY_FULL's schedule): stage seconds, the transfer
     counts, steps and seconds a step beside main's, peak device memory,
     the zero rows and the LLH before and after; the component pass on the
-    card beside scipy on the final F's columns, labels equal."""
+    card beside scipy on the final F's first QUALITY_COMPONENT_COLS
+    columns, labels equal."""
     from bigclam_tpu_torch.config import BigClamConfig
     from bigclam_tpu_torch.models import quality as q
     from bigclam_tpu_torch.models.bigclam import BigClamModel
@@ -6330,7 +6469,8 @@ def phase_quality_full(gi, F0, main_out, main_zero_rows) -> dict:
     model.rebuild_step()
     del model
     # the component pass on the card beside scipy, on the final columns
-    member = (F >= delta_threshold(gi.num_nodes, gi.num_edges)).T
+    member = (F[:, :QUALITY_COMPONENT_COLS]
+              >= delta_threshold(gi.num_nodes, gi.num_edges)).T
     edges = comp.device_edges(gi, torch.device(DEVICE))
     (labels, _, _), card_s = wall(comp.column_component_stats, member, *edges, n)
     t0 = time.perf_counter()
@@ -6848,7 +6988,11 @@ QUALITY_RESIDENT_F = 2
 QUALITY_TP_PARITY_ITERS = 30      # cycle 0's step cap on the parity graph
 FLEET_SHARDS = 2
 FLEET_UP_TIMEOUT_S = 300          # each replica imports torch and reaches the card
-FLEET_ROUND2_QUERIES = 512        # the round after the restart: the mix's first
+# the rounds before and after the restart route the mix's first ROUND1 and
+# ROUND2 queries: round 1 was the whole 4,096 (16 s at 250 QPS) until a
+# proof ran past the 1,200 s limit (PERF.md §6, PR 22)
+FLEET_ROUND1_QUERIES = 1024
+FLEET_ROUND2_QUERIES = 512
 
 
 def shared_noise(seed: int):
@@ -7054,12 +7198,12 @@ def phase_fleet_full(gi, tmp, cache, serve_body) -> dict:
     """A 2-shard fleet generation of serve_publish's sparse fit (`cli fit
     --representation sparse --sparse-m 64 --publish-shards 2` on
     store_full's cache) started by `cli fleet up --shards 2 --replicas 1
-    --device cuda` with a members file; serve_full's 4,096-query mix
-    routed by `cli route --members`: reads equal single-process `cli
-    serve` on the un-sharded archive of the same member lists bit for
-    bit, suggests within 1e-4 of CPU float64, no serve error, every
-    replica on the card; then one replica killed, restarted by the
-    supervisor, and a second round of the mix's first
+    --device cuda` with a members file; the first FLEET_ROUND1_QUERIES of
+    serve_full's mix routed by `cli route --members`: reads equal
+    single-process `cli serve` on the un-sharded archive of the same
+    member lists bit for bit, suggests within 1e-4 of CPU float64, no
+    serve error, every replica on the card; then one replica killed,
+    restarted by the supervisor, and a second round of the mix's first
     FLEET_ROUND2_QUERIES answering the same (its first SERVE_CHECK
     suggests held); `fleet drain` and `fleet down`. The dense fit's fleet would answer each members_of with
     its 110,400 zero rows (serve_full), 4,096 times a round, as JSON."""
@@ -7102,9 +7246,11 @@ def phase_fleet_full(gi, tmp, cache, serve_body) -> dict:
                      cfg=snapshot_cfg(load_fleet_shard(fleet, 0).meta),
                      meta={"llh": out["llh"]})
     del ids, w
-    qfile = os.path.join(tmp, "serve_queries.jsonl")
-    with open(qfile) as f:
-        queries = [json.loads(line) for line in f]
+    with open(os.path.join(tmp, "serve_queries.jsonl")) as f:
+        queries = [json.loads(line) for line in f][:FLEET_ROUND1_QUERIES]
+    qfile = os.path.join(tmp, "fleet_round1.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries)
     single_out = cli_json(["serve", "--snapshots", single_dir, "--graph", cache,
                            "--queries", qfile, "--results",
                            os.path.join(tmp, "fleet_single.jsonl"), "--device",
@@ -7266,6 +7412,358 @@ def phase_gexf(tmp) -> dict:
             "stage_seconds": card["out"]["stage_seconds"]}
 
 
+# the multi-process phase: each run's rank 0 runs in this process through
+# cli.fit, ranks 1.. as `python -c DIST_RANK_CODE <fit argv>` from a
+# directory of their own; a rank that fails, or a run past DIST_TIMEOUT_S,
+# ends the script (a rank blocked in a collective cannot be interrupted)
+DIST_TIMEOUT_S = 150
+DIST_RANK_CODE = """
+import json, os, sys, time
+import torch.distributed as dist
+from bigclam_tpu_torch import cli
+from bigclam_tpu_torch.parallel import multihost as mh
+while not os.path.exists(os.environ["CHIP_SMOKE_DIST_GO"]):
+    time.sleep(0.02)
+built = []
+make = cli.make_mesh_model
+def spy(*a, **kw):
+    built.append(make(*a, **kw))
+    built.append(dist.get_backend())
+    return built[0]
+cli.make_mesh_model = spy
+rc = cli.main(["fit", *sys.argv[1:]])
+hs = getattr(built[0], "host_shard", None) if built else None
+print(json.dumps({"rc": rc, "origin": list(built[0].mesh.origin) if built else None,
+                  "backend": built[1] if built else None,
+                  "files_read": list(hs.files_read) if hs is not None else None,
+                  "cross_rank_bytes": mh.cross_rank_bytes()}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_env(world: int, rank: int, port: int, backend) -> dict:
+    """torchrun's variables for one rank on this host (and the backend
+    override, where given)."""
+    from bigclam_tpu_torch.parallel.multihost import BACKEND_ENV
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": str(rank)}
+    if backend:
+        env[BACKEND_ENV] = backend
+    return env
+
+
+# every rank subprocess the phase started: all are killed when a run fails
+DIST_PROCS = []
+
+
+def kill_dist_procs() -> None:
+    for p in DIST_PROCS:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dist_spawn(tag: str, argv, world: int, backend, tmp, ports: set) -> dict:
+    """Ranks 1.. of `cli fit <argv> --distributed` on `world` ranks of this
+    host, started as subprocesses ahead of rank 0 (started during the run
+    before, their imports overlap it; each then waits for the run's go
+    file, which dist_run writes as rank 0 starts: a rank that waits in the
+    rendezvous instead retries its connection at growing intervals, 10 s
+    late), each from its own empty directory <tmp>/<tag>_rank<r> (so what
+    each wrote is what that directory holds), on a port no other run of
+    the phase takes; dist_run runs rank 0."""
+    from bigclam_tpu_torch.parallel.multihost import BACKEND_ENV
+
+    argv = [*argv, "--distributed"]
+    port = free_port()
+    while port in ports:
+        port = free_port()
+    ports.add(port)
+    dirs = [os.path.join(tmp, f"{tag}_rank{r}") for r in range(world)]
+    for d in dirs:
+        os.makedirs(d)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for r in range(1, world):
+        env = {k: v for k, v in os.environ.items() if k != BACKEND_ENV}
+        env.update(dist_env(world, r, port, backend),
+                   PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""),
+                   CHIP_SMOKE_DIST_GO=os.path.join(tmp, f"{tag}.go"))
+        so = open(os.path.join(tmp, f"{tag}_rank{r}.out"), "w")
+        se = open(os.path.join(tmp, f"{tag}_rank{r}.err"), "w")
+        logs.append((so, se))
+        procs.append(subprocess.Popen([sys.executable, "-c", DIST_RANK_CODE, *argv],
+                                      cwd=dirs[r], env=env, stdout=so, stderr=se))
+        DIST_PROCS.append(procs[-1])
+    return {"tag": tag, "argv": argv, "world": world, "backend": backend,
+            "port": port, "dirs": dirs, "procs": procs, "logs": logs,
+            "go": os.path.join(tmp, f"{tag}.go")}
+
+
+def dist_run(spawned: dict) -> dict:
+    """Rank 0 of a dist_spawn'ed run in this process, with the launch
+    counters zeroed just before and read just after, its model and the
+    process group's backend captured at the build; then the other ranks'
+    ends. Returns rank 0's (out, res), launch counts, model, graph,
+    backend, cross-rank bytes and seconds (from rank 0's start), and each
+    other rank's JSON, its report line (origin, backend, files_read,
+    cross-rank bytes) and directory."""
+    from bigclam_tpu_torch import cli
+    from bigclam_tpu_torch.parallel import multihost as mh
+    from bigclam_tpu_torch.parallel.multihost import BACKEND_ENV
+
+    tag, argv, world, backend = (spawned[k] for k in ("tag", "argv", "world",
+                                                       "backend"))
+    port, dirs, procs, logs = (spawned[k] for k in ("port", "dirs", "procs", "logs"))
+    t0 = time.perf_counter()
+    done = threading.Event()
+
+    def watchdog():
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while not done.wait(0.5):
+            bad = [p.returncode for p in procs if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                kill_dist_procs()
+                emit({"phase": "dist", "error": f"{tag}: a rank exited {bad}"
+                      if bad else f"{tag}: past {DIST_TIMEOUT_S} s"})
+                os._exit(1)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+    built = []
+    make = cli.make_mesh_model
+
+    def spy(*a, **kw):
+        import torch.distributed as dist
+
+        built.append((make(*a, **kw), a[0], dist.get_backend()))
+        return built[-1][0]
+
+    saved = {k: os.environ.get(k) for k in (*dist_env(world, 0, port, "gloo"),)}
+    cwd = os.getcwd()
+    try:
+        os.environ.update(dist_env(world, 0, port, backend))
+        if not backend:
+            os.environ.pop(BACKEND_ENV, None)
+        os.chdir(dirs[0])
+        cli.make_mesh_model = spy
+        args = cli.build_parser().parse_args(["fit", *argv])
+        reset_launch_counts()
+        mh.reset_cross_rank_bytes()
+        open(spawned["go"], "w").close()
+        try:
+            out, res, _ = cli.fit(args)
+        finally:
+            mh.shutdown_distributed()
+        counts = launch_counts()
+        seconds0 = time.perf_counter() - t0
+        others = []
+        for p, (so, se), r in zip(procs, logs, range(1, world)):
+            rc = p.wait(timeout=max(DIST_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            so.close()
+            se.close()
+            if rc != 0:
+                raise AssertionError(f"{tag}: rank {r} exited {rc}")
+            with open(so.name) as f:
+                fit_json = json.loads(f.read().strip().splitlines()[-1])
+            with open(se.name) as f:
+                report = json.loads(f.read().strip().splitlines()[-1])
+            others.append({"out": fit_json, "report": report, "dir": dirs[r]})
+    except BaseException:
+        kill_dist_procs()
+        raise
+    finally:
+        done.set()
+        cli.make_mesh_model = make
+        os.chdir(cwd)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    model, g, used = built[0]
+    return {"out": out, "res": res, "counts": counts, "model": model, "graph": g,
+            "backend": used, "cross": mh.cross_rank_bytes(), "dir": dirs[0],
+            "seconds": time.perf_counter() - t0, "seconds_rank0": seconds0,
+            "others": others}
+
+
+def same_history(tag: str, got, want, deterministic: bool, why: str) -> float:
+    """A distributed run's LLH history against the same steps of its
+    single-controller run (which may run more): bit for bit, or within
+    DIST_RTOL where the single-controller runs themselves differ run to
+    run (`why` names that non-determinism)."""
+    want = want[:len(got)]
+    if len(got) < 2 or len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} LLH values against {len(want)}")
+    if got == want:
+        return 0.0
+    rel = llh_rel(got, want)
+    if deterministic or rel > DIST_RTOL:
+        raise AssertionError(f"{tag}: LLH {got} vs the single controller's {want}"
+                             + ("" if deterministic else f" ({why}: {rel})"))
+    return rel
+
+
+DIST_RTOL = 1e-5
+DIST_SHARDS = {0: (0, 1), 1: (2, 3)}      # gloo2_full: each rank's shard files
+# the two gloo runs' steps (0..2), held against the first steps of their
+# single-controller runs: a gloo step took 4.21 s at full and 1.23 s at
+# xl_k, and a proof with 4 and 5 ran past the 1,200 s limit (PR 22)
+DIST_GLOO_ITERS = 2
+
+
+def dist_body(run: dict) -> dict:
+    """The numbers a dist run prints: per rank sec_per_iter, stage seconds
+    and the bytes it moved across ranks."""
+    out = run["out"]
+    return {
+        "kernel_path": out["kernel_path"], "mesh": out["mesh"],
+        "backend": run["backend"], "llh_history": out["llh_history"],
+        "steps": out["steps"], "launches_rank0": run["counts"],
+        "seconds": run["seconds"],
+        "ranks": [{"sec_per_iter": out["sec_per_iter"],
+                   "stage_seconds": out["stage_seconds"],
+                   "cross_rank_bytes": run["cross"]}]
+        + [{"sec_per_iter": o["out"]["sec_per_iter"],
+            "stage_seconds": o["out"]["stage_seconds"],
+            "cross_rank_bytes": o["report"]["cross_rank_bytes"]}
+           for o in run["others"]],
+    }
+
+
+def phase_dist(cache, xlk_path, tmp, dp4: dict, kbmesh: dict) -> tuple:
+    """Multi-process meshes (parallel/multihost.py) on the one card:
+    nccl1, one NCCL rank, `cli fit --distributed --mesh 4,1 --store-native
+    --schedule ring` on store_full's cache, its history store_native_dp4's
+    ring run's; gloo2_full, two ranks over gloo sharing the card, the same
+    cache on the all-gather schedule with --out, checkpoints and telemetry:
+    store_native_dp4's all-gather history, each rank reading its two
+    shards, rank 0 alone writing (the communities file held by hold_writer
+    against the fetched F, every byte), `processes: 2` in the events;
+    gloo2_xlk, two ranks at --mesh 2,2 on the xl_k file in memory, a node
+    row of column blocks each: kbmesh_xlk's (2, 2) all-gather history.
+    The gloo runs take DIST_GLOO_ITERS steps, held against the same first
+    steps of their single controllers, and each one's rank 1 starts
+    during the run before. Each run's launches on rank 0 are its
+    positions' share of the schedule's."""
+    try:
+        return dist_phase_runs(cache, xlk_path, tmp, dp4, kbmesh)
+    finally:
+        kill_dist_procs()
+
+
+def dist_phase_runs(cache, xlk_path, tmp, dp4: dict, kbmesh: dict) -> tuple:
+    from bigclam_tpu_torch.models.bigclam import mesh_k_plan
+
+    body, counts, ports = {}, {}, set()
+    base = ["--init", "conductance", "--conv-tol", "0", "--device", DEVICE, "--quiet"]
+    store = ["--graph", cache, "--k", str(FULL["k"]), "--mesh", f"{STORE_SHARDS},1",
+             "--store-native", *base]
+
+    gloo = ["--max-iters", str(DIST_GLOO_ITERS)]
+    full = dist_spawn("gloo2_full", [*store, *gloo, "--out", "communities.txt",
+                                     "--checkpoint-dir", "ck", "--checkpoint-every",
+                                     "2", "--telemetry-dir", "tel"], 2, "gloo", tmp,
+                      ports)
+    run = dist_run(dist_spawn("nccl1", [*store, "--max-iters", str(STORE_ITERS),
+                                        "--schedule", "ring"], 1, None, tmp, ports))
+    out, ring = run["out"], dp4["ring"]
+    if (run["backend"], out["kernel_path"], out["mesh"]) != ("nccl", "csr_ring_fused",
+                                                             "4x1"):
+        raise AssertionError(f"nccl1 ran {out['kernel_path']} on {out['mesh']} over "
+                             f"{run['backend']}")
+    want = ring_launches_want(run["counts"], STORE_SHARDS, out["steps"])
+    if run["counts"] != want:
+        raise AssertionError(f"nccl1 launches {run['counts']}, want {want}")
+    rel = same_history("nccl1", out["llh_history"], ring["llh_history"],
+                       ring["in_memory_runs_bit_identical"] is not False,
+                       "the ring's run-to-run band (store_native_dp4)")
+    body["nccl1"] = {**dist_body(run), "max_rel_vs_single_controller": rel}
+    counts["nccl1"] = run["counts"]
+    del run
+
+    xlk = dist_spawn("gloo2_xlk", ["--graph", xlk_path, "--k", str(XLK["k"]),
+                                   "--mesh", "2,2", *base, *gloo], 2, "gloo", tmp,
+                     ports)
+    run = dist_run(full)
+    out, ag = run["out"], dp4["allgather"]
+    if (run["backend"], out["kernel_path"]) != ("gloo", "csr_fused"):
+        raise AssertionError(f"gloo2_full ran {out['kernel_path']} over {run['backend']}")
+    rank1 = run["others"][0]
+    if rank1["out"]["llh_history"] != out["llh_history"]:
+        raise AssertionError("gloo2_full: the ranks' histories differ")
+    rel = same_history("gloo2_full", out["llh_history"], ag["llh_history"],
+                       ag["in_memory_runs_bit_identical"] is not False,
+                       "the all-gather's run-to-run band (store_native_dp4)")
+    want = {**dict.fromkeys(run["counts"], 0),
+            "fused_superstep": 2 * out["steps"]}
+    if run["counts"] != want:
+        raise AssertionError(f"gloo2_full launches {run['counts']}, want {want}")
+    files = {0: set(run["model"].host_shard.files_read),
+             1: set(rank1["report"]["files_read"])}
+    for r, ids in DIST_SHARDS.items():
+        own = {f"shard_{s:05d}.{kind}.npy" for s in ids for kind in ("indptr", "indices")}
+        if files[r] != own:
+            raise AssertionError(f"gloo2_full: rank {r} read {sorted(files[r])}")
+    d0, d1 = run["dir"], rank1["dir"]
+    ck0 = sorted(f for f in os.listdir(os.path.join(d0, "ck")) if f.endswith(".npz"))
+    wrote1 = sorted(os.path.relpath(os.path.join(r, f), d1)
+                    for r, _, fs in os.walk(d1) for f in fs)
+    if not ck0 or not os.path.exists(os.path.join(d0, "tel", "events.jsonl")):
+        raise AssertionError(f"gloo2_full: rank 0 wrote checkpoints {ck0} and "
+                             f"{os.listdir(os.path.join(d0, 'tel'))}")
+    # rank 1 keeps its own run report (and the run id it resolved) only
+    if set(wrote1) - {os.path.join("tel", "run_report.p1.json"),
+                      os.path.join("tel", "run_id")}:
+        raise AssertionError(f"gloo2_full: rank 1 wrote {wrote1}")
+    with open(os.path.join(d0, "tel", "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    init = [e for e in events if e["kind"] == "distributed_init"]
+    with open(os.path.join(d0, "tel", "run_report.json")) as f:
+        report = json.load(f)
+    if (not init or init[0]["processes"] != 2 or report["processes"] != 2
+            or any(e["pid"] != 0 for e in events)):
+        raise AssertionError(f"gloo2_full: events {init}, report processes "
+                             f"{report['processes']}")
+    held = hold_writer(os.path.join(d0, "communities.txt"), run["res"].F, run["graph"])
+    body["gloo2_full"] = {
+        **dist_body(run), "max_rel_vs_single_controller": rel,
+        "files_read": {r: sorted(v) for r, v in files.items()},
+        "rank0_checkpoints": ck0, "rank1_wrote": wrote1,
+        "events": len(events), "processes": report["processes"],
+        "communities": {**held, "communities": out["communities"]},
+    }
+    counts["gloo2_full"] = run["counts"]
+    del run
+
+    run = dist_run(xlk)
+    out, ref = run["out"], kbmesh["csr_fused_kb_2x2"]
+    if (out["kernel_path"], out["mesh"]) != ("csr_fused_kb", "2x2"):
+        raise AssertionError(f"gloo2_xlk ran {out['kernel_path']} on {out['mesh']}")
+    if run["others"][0]["report"]["origin"] != [1, 0]:
+        raise AssertionError(f"gloo2_xlk: rank 1 at {run['others'][0]['report']}")
+    if run["others"][0]["out"]["llh_history"] != out["llh_history"]:
+        raise AssertionError("gloo2_xlk: the ranks' histories differ")
+    rel = same_history("gloo2_xlk", out["llh_history"], ref["llh_history"], True, "")
+    kc, k_pad = mesh_k_plan(XLK["k"], 2, True)
+    want = tp_launches_want(run["counts"], "allgather", 1, 2,
+                            (k_pad // 2) // (kc or k_pad // 2), out["steps"])
+    if run["counts"] != want:
+        raise AssertionError(f"gloo2_xlk launches {run['counts']}, want {want}")
+    body["gloo2_xlk"] = {**dist_body(run), "max_rel_vs_single_controller": rel}
+    counts["gloo2_xlk"] = run["counts"]
+    return counts, body
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -7313,51 +7811,52 @@ def main(argv=None) -> int:
         del state
         main_hist = list(res.llh_history)
         main_zero_rows = int((~res.F.any(axis=1)).sum())
-        split_counts, _ = run("split", phase_split, g, path, tmp, main_hist)
         t0 = time.perf_counter()
         gi, F0 = mesh_init(path)
         emit({"phase": "mesh_init", "seconds": time.perf_counter() - t0,
               "n": gi.num_nodes, "directed_edges": gi.num_directed_edges})
+        # later full-size cli runs read this cache in place of the text
+        cache, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
+                       main_out, main_counts)
+        split_counts, _ = run("split", phase_split, g, cache, tmp, main_hist)
         checks, times, bnd, _ = run("full", phase_full, g, res.F, F0)
         del res
-        res_full = run("resilience_full", phase_resilience_full, g, path, tmp, gi,
+        res_full = run("resilience_full", phase_resilience_full, g, cache, tmp, gi,
                        F0, main_out)
         run("obs_memory", phase_obs_memory, gi, F0, "full")
-        run("obs_profile", phase_obs_profile, gi, path, "full", F0)
-        state, sparse_counts, sp_main = run("sparse_main", phase_sparse_main, g, path)
+        run("obs_profile", phase_obs_profile, gi, cache, "full", F0)
+        state, sparse_counts, sp_main = run("sparse_main", phase_sparse_main, g, cache)
         sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
         del state
         sm_full_counts, _ = run("sparse_mesh_full", phase_sparse_mesh_full, g, gi,
-                                path, F0, sp_main)
+                                cache, F0, sp_main)
         sm_local_counts, _ = run("sparse_mesh_local", phase_sparse_mesh_local)
-        res, vmem_counts, _ = run("vmem_main", phase_vmem_main, g, path, main_hist)
+        res, vmem_counts, _ = run("vmem_main", phase_vmem_main, g, cache, main_hist)
         vm_checks, vm_times, vm_bnd, _ = run("vmem_full", phase_vmem_full, g, res.F)
         del res
-        run("sweep_main", phase_sweep_main, g, path)
-        ring_main_counts, _ = run("ring_main", phase_ring_main, g, path, main_hist)
+        run("sweep_main", phase_sweep_main, g, cache)
+        ring_main_counts, _ = run("ring_main", phase_ring_main, g, cache, main_hist)
         model, state, ring_counts, ring_dp4_body = run("ring_dp4", phase_ring_dp4,
                                                        gi, F0, main_hist)
         ring_checks, ring_times, ring_bnd, _ = run("ring_full", phase_ring_full,
                                                    model, state)
         del model, state
-        ag_body = run("allgather_main", phase_allgather_main, g, path, gi, F0,
+        ag_body = run("allgather_main", phase_allgather_main, g, cache, gi, F0,
                       main_hist)
         run("ring_multi", phase_ring_multi, gi, F0, main_hist)
         tp_full_counts, tp_full_body = run("tp_full", phase_tp_full, gi, F0,
                                            main_hist, main_out["sec_per_iter"])
-        twod_full_counts, _ = run("twod_full", phase_twod_full, g, path, main_hist)
-        cache, cdir, _ = run("store_full", phase_store_full, gi, path, tmp, F0,
-                             main_out, main_counts)
-        run("store_native_dp4", phase_store_native_dp4, gi, path, tmp, cache,
-            F0, ag_body["csr_fused"]["sec_per_iter"],
-            ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
+        twod_full_counts, _ = run("twod_full", phase_twod_full, g, cache, main_hist)
+        _, dp4_body = run("store_native_dp4", phase_store_native_dp4, gi, path, tmp,
+                          cache, F0, ag_body["csr_fused"]["sec_per_iter"],
+                          ring_dp4_body["csr_ring_fused"]["sec_per_iter"])
         run("twod_store", phase_twod_store, cache, F0)
         run("store_heal", phase_store_heal, path, tmp, cache, main_out)
-        run("store_delta", phase_store_delta, gi, path, tmp, cdir)
+        run("store_delta", phase_store_delta, gi, path, tmp, cache)
         q_full = run("quality_full", phase_quality_full, gi, F0, main_out,
                      main_zero_rows)
         del g, F0
-        q_tp = run("quality_tp", phase_quality_tp, path, tmp, main_out,
+        q_tp = run("quality_tp", phase_quality_tp, cache, tmp, main_out,
                    main_zero_rows, q_full, tp_full_body)
         snaps, snaps_sparse, _ = run("serve_publish", phase_serve_publish,
                                      gi, tmp, cache)
@@ -7396,8 +7895,10 @@ def main(argv=None) -> int:
         kb_checks, kb_times, kb_bnd, _ = run("kb_full", phase_kb_full, g, res.F)
         kb_res_counts, _ = run("resilience_kb", phase_resilience_kb, g, res.F)
         F_kb = np.asarray(res.F, np.float64)
-        kbmesh_counts, _ = run("kbmesh_xlk", phase_kbmesh_xlk, g, path,
-                               list(res.llh_history), F_kb)
+        kbmesh_counts, kbmesh_body = run("kbmesh_xlk", phase_kbmesh_xlk, g, path,
+                                         list(res.llh_history), F_kb)
+        dist_counts, _ = run("dist", phase_dist, cache, path, tmp, dp4_body,
+                             kbmesh_body)
         twod_xlk_counts, _ = run("twod_xlk", phase_twod_xlk, g, path,
                                  list(res.llh_history))
         run("store_kb", phase_store_kb, path, tmp)
@@ -7456,20 +7957,25 @@ def main(argv=None) -> int:
                                      for tag, c in tp_full_counts.items()},
                 "launches_quality_tp": mesh_launches(q_tp["launches"], name),
                 "launches_quality_tp_parity": mesh_launches(
-                    q_tp["parity"]["launches"], name)}
+                    q_tp["parity"]["launches"], name),
+                "launches_dist_gloo2_xlk_rank0": mesh_launches(
+                    dist_counts["gloo2_xlk"], name)}
                if name in K_BLOCKED else {}),
             **({"launches_resilience_full": res_full["a"]["launches"],
                 "launches_quality_full": q_full["launches"],
                 "launches_quality_parity": {
                     k: v["launches"] for k, v in q_parity["runs"].items()},
-                "launches_gexf": gexf_body["launches"]}
+                "launches_gexf": gexf_body["launches"],
+                "launches_dist_gloo2_full_rank0":
+                    dist_counts["gloo2_full"]["fused_superstep"]}
                if name == "fused_superstep" else {}),
             **({"launches_sparse_mesh_full": sm_full_counts[name],
                 "launches_sparse_mesh_local": sm_local_counts[name],
                 "launches_fleet_full": fleet_body["publication"]["launches"][name]}
                if name == "member_lookup" else {}),
             **({"launches_ring_main": ring_main_counts[name],
-                "launches_ring_dp4": ring_counts[name]}
+                "launches_ring_dp4": ring_counts[name],
+                "launches_dist_nccl1": dist_counts["nccl1"][name]}
                if name in (*RING, "armijo_tail_select") else {}),
             **({"launches_twod_full": {tag: mesh_launches(c, name)
                                        for tag, c in twod_full_counts.items()},

@@ -23,6 +23,15 @@ from bigclam_tpu_torch.models.agm import sample_planted_graph
 SUBCOMMANDS = ("fit", "sweep", "eval", "ingest", "profile", "perf", "report",
                "watch", "preflight", "serve", "route", "fleet", "refit")
 
+# environment variables the port reads that the JAX package does not, and
+# what each does
+DELIBERATE_ENV = {
+    # the process group's backend for a cuda mesh: gloo in the place of
+    # nccl, with cuda tensors staged through host memory (two ranks share
+    # one card so)
+    "BIGCLAM_DIST_BACKEND": "bigclam_tpu_torch/parallel/multihost.py",
+}
+
 # option -> what the port has in its place (None: the port lacks it)
 DEVICE = ("cuda", ("cuda", "cpu"))
 DELIBERATE = {
@@ -101,6 +110,33 @@ def test_subcommand_options_match_the_jax_cli(parsers, name):
         assert set(jsub) == set(psub)
         for sub in jsub:
             assert _options(psub[sub]) == _options(jsub[sub]), sub
+
+
+@pytest.mark.parametrize("name", ["fit", "sweep", "profile", "refit"])
+def test_distributed_flag_matches_the_jax_cli(parsers, name):
+    """`--distributed` is the JAX CLI's store_true flag wherever the JAX
+    parser has it; fit and sweep run it (tests/test_torch_multihost.py),
+    refit refuses it in the JAX CLI's words."""
+    jax, port = parsers
+    (ref,) = [a for a in jax[name]._actions if "--distributed" in a.option_strings]
+    (ours,) = [a for a in port[name]._actions if "--distributed" in a.option_strings]
+    assert isinstance(ours, argparse._StoreTrueAction)
+    assert isinstance(ref, argparse._StoreTrueAction)
+    assert (ours.default, ours.dest) == (ref.default, ref.dest)
+    if name == "refit":
+        with pytest.raises(SystemExit, match="--distributed"):
+            cli.main(["refit", "--graph", "g", "--snapshots", "s", "--delta", "d",
+                      "--distributed", "--device", "cpu"])
+
+
+def test_deliberate_environment_is_the_ports_own():
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    jax_src = "".join(p.read_text() for p in (repo / "bigclam_tpu").rglob("*.py"))
+    for name, path in DELIBERATE_ENV.items():
+        assert name in (repo / path).read_text()
+        assert name not in jax_src
 
 
 def test_serve_fleet_shard_defaults_to_zero():

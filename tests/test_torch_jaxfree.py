@@ -6,11 +6,12 @@ the serving stack's ops.foldin, serve.* and models.refit, the fleet's
 serve.router, serve.fleet and serve.supervise, the GEXF export's
 utils.viz, quality mode's ops.components and models.quality, the sparse sharded trainer's
 parallel.sparse_collectives and parallel.sparse_sharded, the 2D
-partition's parallel.twod, and the
+partition's parallel.twod, the multi-process meshes' parallel.multihost
+and utils.dist, and the
 observability and resilience modules among them) and runs every
 subcommand's `--help`, then finds no jax and no bigclam_tpu module
-loaded; a static scan finds no such import in any port file or in
-chip_smoke.py; and the graph stream's spawned parse workers load neither
+loaded; a static scan finds no such import in any port file, in
+chip_smoke.py or in the two-process tests' worker; and the graph stream's spawned parse workers load neither
 either."""
 
 import ast
@@ -23,7 +24,7 @@ import textwrap
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "bigclam_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_multihost_worker.py"
 ]
 
 
@@ -62,7 +63,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
                      "parallel.sparse_collectives",
                      "parallel.sparse_sharded", "parallel.twod",
                      "serve.router", "serve.fleet", "serve.supervise",
-                     "utils.viz"):
+                     "utils.viz", "parallel.multihost", "utils.dist"):
             assert "bigclam_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -86,6 +87,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     assert "--publish-shards" in r.stdout and "--follow-timeout" in r.stdout
     assert "--export-gexf" in r.stdout and "--fleet-shard" in r.stdout
     assert "--hedge-delay-s" in r.stdout and "--quarantine-after" in r.stdout
+    assert "torch.distributed" in r.stdout      # the --distributed help
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -95,7 +97,7 @@ def test_static_scan_finds_no_jax_or_reference_import():
     for rel in ("serve/__init__.py", "serve/snapshot.py", "serve/batcher.py",
                 "serve/server.py", "ops/foldin.py", "models/refit.py",
                 "serve/router.py", "serve/fleet.py", "serve/supervise.py",
-                "utils/viz.py"):
+                "utils/viz.py", "parallel/multihost.py", "utils/dist.py"):
         assert REPO / "bigclam_tpu_torch" / rel in PORT_FILES
     dynamic = re.compile(r"""(import_module|__import__)\(\s*["'](jax|bigclam_tpu)\b(?!_torch)""")
     for path in PORT_FILES:

@@ -169,21 +169,30 @@ def test_quality_refuses_store_native_up_front(edge_file, tmp_path):
     assert "--store-native" in msg and msg.startswith("error: ")
 
 
-def test_sweep_quality_refuses_sparse_and_mesh(edge_file, capsys):
-    """Sparse quality sweeps stay refused, and --distributed (item 14's
-    multi-process half) by name; a quality sweep over a mesh runs through
-    fit's mesh factory, the device-resident schedule on a K-sharded mesh
-    too (it was refused as item 20; tests/test_torch_quality_tp.py holds it
-    against the JAX CLI)."""
+def test_sweep_quality_refuses_sparse_and_mesh(edge_file, capsys, monkeypatch):
+    """Sparse quality sweeps stay refused; a quality sweep over a mesh runs
+    through fit's mesh factory, the device-resident schedule on a K-sharded
+    mesh too (it was refused as item 20; tests/test_torch_quality_tp.py
+    holds it against the JAX CLI), and with --distributed but no
+    coordinator it warns in the JAX CLI's words and runs the same mesh
+    single-process (it was refused as item 14)."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
     base = ["sweep", "--graph", edge_file, "--min-com", "6", "--max-com",
             "12", "--div-com", "2", "--quality", "--device", "cpu"]
     assert "--representation sparse" in _refusal(
         cli.main, base + ["--representation", "sparse"])
-    assert "item 14" in _refusal(cli.main, base + ["--distributed"])
-    assert cli.main(base + ["--mesh", "1,2", "--device-annealing", "--quiet",
-                            "--max-iters", "5"]) == 0
-    out = _json_out(capsys)
-    assert out["mesh"] == "1x2" and out["kset"] == [6, 8, 11, 12]
+    runs = []
+    for extra in ([], ["--distributed"]):
+        assert cli.main(base + ["--mesh", "1,2", "--device-annealing", "--quiet",
+                                "--max-iters", "5"] + extra) == 0
+        cap = capsys.readouterr()
+        runs.append((json.loads(cap.out.strip().splitlines()[-1]), cap.err))
+    assert "--distributed but no coordinator found" not in runs[0][1]
+    assert "continuing single-process over local devices only" in runs[1][1]
+    for out, _ in runs:
+        assert out["mesh"] == "1x2" and out["kset"] == [6, 8, 11, 12]
+    assert runs[0][0]["llh_by_k"] == runs[1][0]["llh_by_k"]
 
 
 def test_old_refusal_texts_are_gone(capsys):

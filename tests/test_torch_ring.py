@@ -405,7 +405,8 @@ def test_cli_fit_ring_mesh_matches_jax_cli(edge_file):
 @pytest.mark.parametrize(
     "extra, error, words",
     [
-        (["--mesh", "2,2", "--distributed"], SystemExit, "item 14"),
+        (["--mesh", "2,1", "--distributed", "--partition", "2d"], SystemExit,
+         "--partition 2d is single-controller for now"),
         (["--mesh", "2,1", "--representation", "sparse"], SystemExit,
          "--schedule ring is not supported with --representation sparse"),
         (["--mesh", "1,2", "--representation", "sparse"], SystemExit,
@@ -413,8 +414,9 @@ def test_cli_fit_ring_mesh_matches_jax_cli(edge_file):
     ],
 )
 def test_cli_mesh_refusals(edge_file, extra, error, words):
-    """What a mesh still refuses by name: --distributed (multi-process
-    meshes, the rest of item 14), and on a sparse mesh the ring schedule,
+    """What a mesh still refuses by name: --distributed with the 2D
+    partition (the JAX CLI's refusal; --distributed itself runs:
+    tests/test_torch_multihost.py), and on a sparse mesh the ring schedule,
     with the JAX CLI's words (the sparse exchange is an all-gather of the
     member rows). A K-sharded mesh and K above 1,024 on a mesh, refused
     here before the TP split, run: test_cli_fit_k_sharded_and_k_blocked_meshes;

@@ -255,17 +255,28 @@ def test_cli_sweep_json_matches_jax_cli(planted, tmp_path, capsys):
     ]
 
 
-def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys):
-    """`sweep --distributed` is refused by name (the multi-process half of
-    ROADMAP item 14; `sweep --mesh`, refused here before, runs:
-    test_cli_sweep_mesh_matches_jax_mesh_factory); --quality and
+def test_cli_sweep_refuses_unported_flags(planted, tmp_path, capsys, monkeypatch):
+    """`sweep --distributed` without a coordinator warns in the JAX CLI's
+    words and sweeps the same mesh single-process (it was refused as the
+    multi-process half of ROADMAP item 14; two ranks:
+    tests/test_torch_multihost.py); `sweep --mesh`, refused here before,
+    runs: test_cli_sweep_mesh_matches_jax_mesh_factory; --quality and
     --device-annealing are parser flags, and the help lists nothing as not
     ported."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
     path = _edge_file(tmp_path, planted)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["sweep", "--graph", path, "--device", "cpu", "--mesh", "2,1",
-                  "--distributed"])
-    assert "item 14" in str(exc.value.code)
+    base = ["sweep", "--graph", path, "--device", "cpu", "--mesh", "2,1",
+            "--min-com", "2", "--max-com", "4", "--div-com", "2",
+            "--max-iters", "3", "--quiet"]
+    runs = []
+    for extra in ([], ["--distributed"]):
+        assert cli.main(base + extra) == 0
+        cap = capsys.readouterr()
+        runs.append((json.loads(cap.out.strip().splitlines()[-1]), cap.err))
+    assert "no coordinator found" not in runs[0][1]
+    assert "continuing single-process over local devices only" in runs[1][1]
+    assert runs[0][0]["llh_by_k"] == runs[1][0]["llh_by_k"]
     args = cli.build_parser().parse_args(
         ["sweep", "--graph", path, "--quality", "--device-annealing"])
     assert args.quality and args.device_annealing
