@@ -343,7 +343,27 @@ def make_train_step(
         "csr_fused_kb": kblocked_step, "csr_grouped_kb": kblocked_step,
         "pallas_vmem": xla_step, "xla": xla_step,
     }
-    return steps[path]
+    step = steps[path]
+
+    def counted_step(state: TrainState) -> TrainState:
+        new_state = step(state)
+        count_rows(new_state.accept_hist)
+        return new_state
+
+    return counted_step
+
+
+def count_rows(hist: torch.Tensor, padding: int = 0) -> None:
+    """The step counters of the span table (obs.trace), from the step's
+    accepted-step histogram: `step/rows`, its live rows (the `padding`
+    rows, which take no step, out of it), and `step/rows_accepted`, those
+    that took a step (every slot but the last). Summed on the device;
+    nothing unless spans record."""
+    from bigclam_tpu_torch.obs import trace as _trace
+
+    if _trace.enabled():
+        _trace.count("step/rows", hist.sum() - padding)
+        _trace.count("step/rows_accepted", hist[:-1].sum())
 
 
 def clone_state(state):
@@ -473,12 +493,17 @@ def run_fit_loop(
     OBSERVABILITY (bigclam_tpu_torch.obs): each iteration beats the stall
     heartbeat of the installed RunTelemetry, and its phases run under
     emit=False spans (fit_loop/dispatch, /sync, /callback, plus
-    fit_loop/checkpoint per save and fit_loop/extract_F). On CUDA the
-    dispatch only enqueues the step; the host blocks in /sync, reading the
-    LLH, so /sync is device time plus waits plus the read back. With
+    fit_loop/checkpoint per save and fit_loop/extract_F); the rollback
+    snapshot's clone or refresh (fit_loop/snapshot) and a rollback's
+    restore (fit_loop/rollback) are also timed on a one-device state's
+    device. On CUDA the dispatch only enqueues the step; the host blocks
+    in /sync, reading the LLH, so /sync is device time plus waits plus the
+    read back, and the device-timed spans closed before it are resolved
+    there (obs.trace.settle, no sync of its own). With
     cfg.health_every > 0 and telemetry on, a HealthMonitor turns the
-    steps' health packs into `health` and `anomaly` events. Telemetry
-    off costs one None check per iteration.
+    steps' health packs into `health` and `anomaly` events. With spans
+    off (no telemetry, profiler capture or obs.trace.recording scope) a
+    span costs its on-check.
     """
     from bigclam_tpu_torch.obs import telemetry as _obs
     from bigclam_tpu_torch.obs import trace as _trace
@@ -491,6 +516,8 @@ def run_fit_loop(
 
         monitor = HealthMonitor(cfg, tel, sig_fn=health_sig, n_live=health_n)
     _span = _trace.span
+    # the device of a one-device state's spans (a mesh's are host time)
+    dev = state.F.device if isinstance(state.F, torch.Tensor) else None
     cb_arity = _callback_arity(callback)
     hist: list[float] = list(initial_hist)
     # --- rollback state (see docstring) ---
@@ -511,6 +538,7 @@ def run_fit_loop(
             new_state = step_fn(state)
         with _span("fit_loop/sync", emit=False):
             llh_t = float(new_state.llh)       # host sync: LLH of state.F
+        _trace.settle()
         if not math.isfinite(llh_t):
             target = snapshot if snapshot is not None else fallback
             if rollbacks >= budget or target is None:
@@ -524,7 +552,8 @@ def run_fit_loop(
                     step_scale=scale,
                 )
             # restore a COPY: the target stays intact for later rollbacks
-            state = clone_state(target)
+            with _span("fit_loop/rollback", emit=False, device=dev):
+                state = clone_state(target)
             del hist[(snap_hist_len if snapshot is not None
                       else len(initial_hist)):]
             since_snap = 0
@@ -533,8 +562,9 @@ def run_fit_loop(
             continue
         if budget and (snapshot is None or since_snap >= snap_every):
             # state.F is VERIFIED finite (llh_t is its LLH)
-            snapshot = (refresh_state(snapshot, state) if snapshot is not None
-                        else clone_state(state))
+            with _span("fit_loop/snapshot", emit=False, device=dev):
+                snapshot = (refresh_state(snapshot, state) if snapshot is not None
+                            else clone_state(state))
             snap_hist_len = len(hist)
             since_snap = 0
             fallback = None      # the snapshot supersedes the initial state

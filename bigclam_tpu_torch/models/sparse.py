@@ -39,6 +39,7 @@ from bigclam_tpu_torch.models.bigclam import (
     MemoryAccountedModel,
     _round_up,
     check_ckpt_meta,
+    count_rows,
     fit_with_resume,
     rowkeyed_init_F,
 )
@@ -47,6 +48,7 @@ from bigclam_tpu_torch.ops import sparse_members as sm
 from bigclam_tpu_torch.ops.objective import EdgeChunks, edge_chunk_bound
 from bigclam_tpu_torch.ops.sparse_members import SparseTrainState
 from bigclam_tpu_torch.utils.device import resolve_device, resolve_dtype
+from bigclam_tpu_torch.utils.profiling import part
 
 
 def effective_m(cfg: BigClamConfig) -> int:
@@ -67,22 +69,34 @@ def make_sparse_train_step(
     """One sparse iteration; the same step contract as
     models.bigclam.make_train_step (the state's LLH is that of its input).
     `n_live` is the live node count of the support-churn denominator
-    (padding rows never admit; None falls back to the padded count)."""
+    (padding rows never admit; None falls back to the padded count).
+
+    Its parts are spans timed on the state's device (utils.profiling.part,
+    the mesh step's names): `support` (the support update), `sums` (each
+    of the two column sums), `grad_sweep`, `cand_sweep` and `armijo`; the
+    histogram feeds the step counters (count_rows)."""
     sup_every = max(int(cfg.support_every), 1)
 
     def step(state: SparseTrainState) -> SparseTrainState:
         ids0, w = state.ids, state.F
-        ids = ids0
+        ids, d = ids0, w.device
         if state.it % sup_every == 0:
-            ids, w = sm.support_update(ids0, w, blocks, m, k_pad)
+            with part("support", d):
+                ids, w = sm.support_update(ids0, w, blocks, m, k_pad)
         # recomputed, not carried: a support update may drop members
-        sumF = sm.sparse_sumF(ids, w, k_pad)
-        grad, node_llh = sm.sparse_grad_llh(ids, w, sumF, edges, cfg, k_pad)
-        cand_nbr = sm.sparse_candidates(ids, w, grad, edges, cfg, k_pad)
-        w_new, hist = sm.sparse_armijo_update(
-            ids, w, sumF, grad, node_llh, cand_nbr, cfg, k_pad
-        )
-        sumF_new = sm.sparse_sumF(ids, w_new, k_pad)
+        with part("sums", d):
+            sumF = sm.sparse_sumF(ids, w, k_pad)
+        with part("grad_sweep", d):
+            grad, node_llh = sm.sparse_grad_llh(ids, w, sumF, edges, cfg, k_pad)
+        with part("cand_sweep", d):
+            cand_nbr = sm.sparse_candidates(ids, w, grad, edges, cfg, k_pad)
+        with part("armijo", d):
+            w_new, hist = sm.sparse_armijo_update(
+                ids, w, sumF, grad, node_llh, cand_nbr, cfg, k_pad
+            )
+        with part("sums", d):
+            sumF_new = sm.sparse_sumF(ids, w_new, k_pad)
+        count_rows(hist, ids.shape[0] - n_live if n_live else 0)
         health = None
         if dx.health_on(cfg):
             # support churn: the fraction of live member-id slots the

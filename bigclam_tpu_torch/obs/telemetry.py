@@ -266,11 +266,11 @@ class RunTelemetry:
         self.event_counts: Dict[str, int] = {}
         self.stage_seconds: Dict[str, float] = {}
         self.stage_counts: Dict[str, int] = {}
-        # span sinks (obs.trace): per-path running totals — the run
-        # report's span table reads these
-        self.span_seconds: Dict[str, float] = {}
-        self.span_counts: Dict[str, int] = {}
-        self.span_orphans = 0
+        # the span table (obs.trace) as this run found it: the report's
+        # span section is what the run added to it
+        from bigclam_tpu_torch.obs import trace as _trace
+
+        self._span_base = _trace.totals()
         # per-step wall-clock samples (sec_per_iter forwarded by the
         # MetricsLogger sink)
         self._step_secs: List[float] = []
@@ -450,18 +450,14 @@ class RunTelemetry:
         fields: Optional[Dict[str, Any]] = None,
         orphans: int = 0,
     ) -> None:
-        """obs.trace sink: fold one closed span into the per-path totals
-        and (emit=True) write its `span` event. Must stay cheap — the fit
+        """obs.trace sink: fold one closed span into the span table and
+        (emit=True) write its `span` event. Must stay cheap — the fit
         loop closes several emit=False spans per iteration."""
-        with self._lock:
-            self.span_seconds[path] = (
-                self.span_seconds.get(path, 0.0) + seconds
-            )
-            self.span_counts[path] = self.span_counts.get(path, 0) + 1
-            if orphans:
-                self.span_orphans += orphans
-            if path.endswith("fit_loop/sync"):
-                self.last_sync_s = round(seconds, 6)
+        from bigclam_tpu_torch.obs import trace as _trace
+
+        _trace.fold(path, seconds, orphans)
+        if path.endswith("fit_loop/sync"):
+            self.last_sync_s = round(seconds, 6)
         if emit:
             payload = dict(fields) if fields else {}
             if not ok:
@@ -573,7 +569,23 @@ class RunTelemetry:
         chosen K, ...)."""
         self.final.update(outcome)
 
+    def _spans(self) -> Dict[str, Any]:
+        """The report's span section: what this run added to the span
+        table (obs.trace), in the JAX layout."""
+        from bigclam_tpu_torch.obs import trace as _trace
+
+        now, base = _trace.totals(), self._span_base
+        seconds, counts = {}, {}
+        for path, row in now["spans"].items():
+            was = base["spans"].get(path, {"host_s": 0.0, "count": 0})
+            if row["count"] > was["count"]:
+                seconds[path] = round(row["host_s"] - was["host_s"], 4)
+                counts[path] = row["count"] - was["count"]
+        return {"seconds": seconds, "counts": counts,
+                "orphans": now["orphans"] - base["orphans"]}
+
     def report(self) -> Dict[str, Any]:
+        spans = self._spans()
         with self._lock:
             return {
                 "v": SCHEMA_VERSION,
@@ -590,14 +602,7 @@ class RunTelemetry:
                     },
                     "counts": dict(self.stage_counts),
                 },
-                "spans": {
-                    "seconds": {
-                        k: round(v, 4)
-                        for k, v in self.span_seconds.items()
-                    },
-                    "counts": dict(self.span_counts),
-                    "orphans": self.span_orphans,
-                },
+                "spans": spans,
                 "steps_timed": len(self._step_secs),
                 "health": {
                     "samples": self.health_samples,

@@ -2,13 +2,14 @@
 points.
 
 Port of bigclam_tpu/utils/profiling.py: `trace` (a torch.profiler capture
-where the JAX package takes a jax.profiler one), `annotate`,
-`StageProfile` (wall-clock stage buckets that forward to the run
-telemetry), `IngestProfile` (the graph store's stages with host RSS
-samples), the host RSS probes, `step_time` (synchronizing the card),
+where the JAX package takes a jax.profiler one), `StageProfile`
+(wall-clock stage buckets that forward to the run telemetry),
+`IngestProfile` (the graph store's stages with host RSS samples), the
+host RSS probes, `step_time` (synchronizing the card),
 `comm_hidden_fraction` and `overlap_report` (the ring's overlapped
-against serial rotation); and the port's own `step_split`, which times
-the named parts of the TP-split mesh steps on the card.
+against serial rotation); and the port's own `part` and `step_split`,
+which time the named parts of a step on the card through the span tracer
+(obs.trace).
 """
 
 from __future__ import annotations
@@ -79,15 +80,13 @@ def trace(log_dir: Optional[str], require_device: Optional[bool] = None
     when log_dir is None. CUDA activity is captured when a card is
     present; with `require_device` (default: when a card is present) a
     capture that recorded no CUDA kernel raises NoDeviceKernelsError
-    after the files are written. Flags the capture to the span tracer
-    (obs.trace), so spans open record_function annotations meanwhile."""
+    after the files are written. Spans (obs.trace) record and open
+    record_function annotations while the capture is live."""
     if log_dir is None:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from bigclam_tpu_torch.obs import trace as _trace
 
     cuda = torch.cuda.is_available()
     if require_device is None:
@@ -98,13 +97,11 @@ def trace(log_dir: Optional[str], require_device: Optional[bool] = None
     os.makedirs(log_dir, exist_ok=True)
     cap = Capture()
     with profile(activities=activities) as prof:
-        _trace.capture_started()
         try:
             yield cap
         finally:
             if cuda:
                 torch.cuda.synchronize()
-            _trace.capture_stopped()
     cap.prof = prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
@@ -123,15 +120,6 @@ def trace(log_dir: Optional[str], require_device: Optional[bool] = None
             "kernel (CUDA activity requested: "
             f"{cuda}); the profiler did not see the device"
         )
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named sub-scope inside a trace (torch.profiler.record_function)."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield
 
 
 class StageProfile:
@@ -337,72 +325,40 @@ def overlap_report(model, state, steps: int = 5, warmup: int = 1) -> dict:
     return rep
 
 
-# --- the parts of a mesh step, timed on the card ------------------------------
-
-_SPLIT: dict = {"on": None}
-
-
-class _Part:
-    """Times one named part of a step with a pair of CUDA events on the
-    current stream of `device` (wall time on the CPU)."""
-
-    def __init__(self, rec: list, name: str, device):
-        self.rec, self.name, self.device = rec, name, device
-
-    def __enter__(self):
-        import time
-
-        import torch
-
-        if self.device.type == "cuda":
-            self.t0 = torch.cuda.Event(enable_timing=True)
-            self.t0.record(torch.cuda.current_stream(self.device))
-        else:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        import time
-
-        import torch
-
-        if self.device.type == "cuda":
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record(torch.cuda.current_stream(self.device))
-            self.rec.append((self.name, self.t0, t1))
-        else:
-            self.rec.append((self.name, self.t0, time.perf_counter()))
+# --- the parts of a step, timed on the card ---------------------------------
 
 
 def part(name: str, device):
-    """The context of one named part of a mesh step (parallel/sharded.py
-    and parallel/ring.py mark dots, k_psum, consume, tails, gather,
-    rotation (the ring's hops alone) and finish, none inside another): a
-    shared no-op unless `step_split` is recording, so an unrecorded step
-    pays one dict lookup a part."""
-    rec = _SPLIT["on"]
-    return contextlib.nullcontext() if rec is None else _Part(rec, name, device)
+    """The span (obs.trace) of one named part of a step, timed on the
+    current stream of `device` (wall time on the CPU): the mesh steps
+    (parallel/sharded.py and parallel/ring.py mark dots, k_psum, consume,
+    tails, gather, rotation (the ring's hops alone) and finish, none inside
+    another) and the one-chip sparse step (models/sparse.py). The shared
+    no-op unless spans record."""
+    from bigclam_tpu_torch.obs.trace import span
+
+    return span(name, emit=False, device=device)
 
 
 @contextlib.contextmanager
 def step_split() -> Iterator[dict]:
-    """Record the parts of the steps run inside the block; on exit the
-    yielded dict holds milliseconds per part name, summed (the card is
+    """Record the parts of the steps run inside the block (an
+    obs.trace.recording() scope); on exit the yielded dict holds
+    milliseconds per part name, summed over the part's paths (the card is
     synchronized first). Parts on one card's one stream add up to its
     busy time; a ring hop on side streams is timed where it is issued and
     where the first device's stream waits for it."""
-    import torch
+    from bigclam_tpu_torch.obs import trace as _trace
 
-    rec: list = []
     out: dict = {}
-    prev, _SPLIT["on"] = _SPLIT["on"], rec
+    before = _trace.totals()["spans"]
     try:
-        yield out
+        with _trace.recording():
+            yield out
     finally:
-        _SPLIT["on"] = prev
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        for name, t0, t1 in rec:
-            ms = (t0.elapsed_time(t1) if hasattr(t0, "elapsed_time")
-                  else (t1 - t0) * 1e3)
-            out[name] = out.get(name, 0.0) + ms
+        for path, row in _trace.totals()["spans"].items():
+            was = before.get(path, {"device_ms": 0.0, "count": 0})
+            if row["device_ms"] is not None and row["count"] > was["count"]:
+                name = path.rsplit("/", 1)[-1]
+                out[name] = (out.get(name, 0.0) + row["device_ms"]
+                             - (was["device_ms"] or 0.0))

@@ -420,6 +420,7 @@ def test_tp_memory_model_prices_the_tails_and_the_split_parts_do_not_nest(
     (n_loc, K_loc) temporaries (none at tp = 1), and the step split's
     parts (utils.profiling.step_split) are disjoint intervals: the ring's
     `rotation` times its hops alone, not the sweeps whose parts it holds."""
+    from bigclam_tpu_torch.obs import trace
     from bigclam_tpu_torch.utils import profiling
 
     ours, _ = CLASSES[schedule]
@@ -431,12 +432,13 @@ def test_tp_memory_model_prices_the_tails_and_the_split_parts_do_not_nest(
     tails = {b.name: b.total_bytes for b in m.memory.buffers}.get("transient/tp_tails", 0)
     assert tails == (2 * n_loc * k_loc * 4 if shape[1] > 1 else 0)
     st = m.init_state(_F0(planted))
+    trace.reset()
     with profiling.step_split() as split:
-        rec = profiling._SPLIT["on"]
         m._step(st)
-    spans = sorted((t0, t1, name) for name, t0, t1 in rec)
-    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
-        assert end <= start, (a, b)
+    # parts are spans (obs.trace): one inside another would nest its path
+    paths = trace.totals()["spans"]
+    for path in paths:
+        assert not set(path.split("/")[:-1]) & set(split), path
     assert {"dots", "k_psum", "consume", "tails", "finish"} <= set(split)
     assert ("rotation" in split) == (schedule == "ring")
 
