@@ -6,7 +6,9 @@
 // take a window of at most kMaxK columns of wider rows. The candidate
 // kernels (A, C, #9, #14 and cand_dots_kb) share the staged ladder below,
 // B and #8 the staged neighbour gradient (staged_grad_pass), edge_dots_kb
-// and grad_from_x the staged window walk (window_walk).
+// and grad_from_x the staged window walk (window_walk). The sparse kernels
+// (member_lookup.cu, cand_sweep.cu) take its warp helpers and
+// reduce16_transpose through member_rows.cuh.
 //
 // Layout: the kernels read the graph's CSR directly. One warp owns one
 // source node u; its neighbours are the contiguous slice

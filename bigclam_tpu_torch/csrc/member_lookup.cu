@@ -54,98 +54,30 @@
 //      shared-memory reads overlap.
 // out is written with evict-first stores (st.global.cs), so that the 2.2
 // GB a sweep does not push the state rows the next edges read out of the
-// 50 MB L2.
-#include "edge_common.cuh"
+// 50 MB L2. The row helpers (slot loads, staging, the search) live in
+// member_rows.cuh, shared with the candidate sweep (cand_sweep.cu).
+#include "member_rows.cuh"
 
 namespace {
 
 using bigclam::kFull;
+using bigclam::kMemberStages;
 using bigclam::kWarp;
+using bigclam::padded_m;
+using bigclam::slot_ids;
+using bigclam::slot_row;
 
 constexpr int kThreads = 128;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr int kMaxM = 1024;
 constexpr int kSpan = kWarp;        // edges a warp: one id per lane
-constexpr int kMemberStages = 3;    // staged rows: one in use, two in flight
 constexpr int kTableIds = 1024;     // k_pad at most: 32 KB of tables a block
 constexpr int kTableM = 128;        // M at most (4 slots a lane, no spill)
-
-// Words (4 bytes) of one staged row pair: M ids, then M weights from word
-// `padded_m(m)` on, so that both halves start on 16 bytes.
-inline __host__ __device__ int padded_m(int m) { return (m + 3) & ~3; }
 
 // Shared-memory bytes of one block of the span kernel: 96 KB at M = 1,024,
 // so above 48 KB it needs the opt-in.
 inline int span_smem_bytes(int m) {
-  return 4 * kWarpsPerBlock * kMemberStages * 2 * padded_m(m);
-}
-
-// Lower bound of t in row[0, m) (the first p with row[p] >= t, or m), for
-// SPL values of t at once: the same halving steps for every t (they depend
-// on m alone), so the SPL chains of shared-memory reads interleave.
-template <int SPL>
-__device__ __forceinline__ void lower_bounds(const int* row, int m,
-                                             const int (&t)[SPL],
-                                             int (&pos)[SPL]) {
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) pos[i] = 0;
-  for (int n = m; n > 1;) {
-    const int half = n >> 1;
-#pragma unroll
-    for (int i = 0; i < SPL; ++i)
-      pos[i] = row[pos[i] + half] < t[i] ? pos[i] + half : pos[i];
-    n -= half;
-  }
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) pos[i] += row[pos[i]] < t[i] ? 1 : 0;
-}
-
-// Copies v's ids and weights into the row pair at `dst` (ids at word 0,
-// weights at word padded_m(m)).
-__device__ __forceinline__ void stage_member_row(float* dst, const int* ids,
-                                                 const float* w, int v, int m,
-                                                 int lane, bool vec) {
-  const int64_t at = static_cast<int64_t>(v) * m;
-  const float* iv = reinterpret_cast<const float*>(ids + at);
-  const float* wv = w + at;
-  if (vec) {  // m % 4 == 0: padded_m(m) == m, so chunk q lands at word 4q
-    const int mq = m >> 2;
-    for (int q = lane; q < 2 * mq; q += kWarp)
-      bigclam::cp_async16(dst + 4 * q, q < mq ? iv + 4 * q : wv + 4 * (q - mq),
-                          true);
-  } else {
-    const int mp = padded_m(m);
-    for (int k = lane; k < m; k += kWarp) {
-      bigclam::cp_async4(dst + k, iv + k, true);
-      bigclam::cp_async4(dst + mp + k, wv + k, true);
-    }
-  }
-}
-
-// Row r's ids at the lane's slots lane + 32 i (k_pad past m).
-template <int SPL>
-__device__ __forceinline__ void slot_ids(const int* ids, int r, int m,
-                                         int k_pad, int lane, int (&id)[SPL]) {
-  const int* p = ids + static_cast<int64_t>(r) * m;
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int k = lane + kWarp * i;
-    id[i] = k < m ? __ldg(p + k) : k_pad;
-  }
-}
-
-// Row r's ids and weights at the lane's slots lane + 32 i.
-template <int SPL>
-__device__ __forceinline__ void slot_row(const int* ids, const float* w, int r,
-                                         int m, int k_pad, int lane,
-                                         int (&id)[SPL], float (&wt)[SPL]) {
-  slot_ids<SPL>(ids, r, m, k_pad, lane, id);
-  const float* p = w + static_cast<int64_t>(r) * m;
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int k = lane + kWarp * i;
-    wt[i] = k < m ? __ldg(p + k) : 0.f;
-  }
+  return kWarpsPerBlock * bigclam::member_ring_bytes(m);
 }
 
 // An id that indexes the table (the sentinel k_pad does not).
@@ -234,8 +166,8 @@ member_lookup_span_kernel(const int* __restrict__ ids,
   int next = 0;  // the next edge of the span whose v row is staged
   auto issue = [&](int slot) {
     if (next < rem)
-      stage_member_row(ring + slot * words, ids, w,
-                       __shfl_sync(kFull, my_dst, next), m, lane, vec);
+      bigclam::stage_member_row(ring + slot * words, ids, w,
+                                __shfl_sync(kFull, my_dst, next), m, lane, vec);
     ++next;
     bigclam::cp_async_commit();  // one group an edge, empty past the end
   };
@@ -254,18 +186,8 @@ member_lookup_span_kernel(const int* __restrict__ ids,
     }
     bigclam::cp_async_wait<kMemberStages - 1>();  // edge j's row has landed
     __syncwarp();
-    const float* row = ring + slot * words;
-    const int* row_ids = reinterpret_cast<const int*>(row);
-    int pos[SPL];
-    lower_bounds<SPL>(row_ids, m, t, pos);
     float val[SPL];
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) {
-      const int p = pos[i];
-      val[i] = t[i] < k_pad && p < m && row_ids[p] == t[i]
-                   ? row[padded_m(m) + p]
-                   : 0.f;
-    }
+    bigclam::staged_lookup<SPL>(ring + slot * words, m, k_pad, t, val);
     __syncwarp();  // the slot is free for the next issue
     slot = slot == kMemberStages - 1 ? 0 : slot + 1;
     float* o = out + (e0 + j) * m;

@@ -11,9 +11,10 @@ outer iteration is
        sparse sumF
 
 on one of two paths, named as in the JAX package: `sparse_merge_pallas`,
-where every member lookup runs in the CUDA kernel csrc/member_lookup.cu
+where the grad pass's member lookups run in the CUDA kernel
+csrc/member_lookup.cu and the whole candidate pass in csrc/cand_sweep.cu
 (auto on `cuda`; cfg.sparse_pallas_merge=True on the CPU runs the
-kernel's plain version), and `sparse_xla`, the plain torch lookup. The
+kernels' plain versions), and `sparse_xla`, the plain torch lookup. The
 iteration counter is a host int, so the support-update decision is a
 plain `if`.
 

@@ -31,7 +31,7 @@ SOURCES = (
     "fused_superstep", "grad_llh", "candidates",
     "edge_dots_kb", "grad_from_x", "cand_dots_kb", "cand_from_x",
     "member_lookup", "candidate_edge_terms",
-    "ring_grad_phase", "ring_cand_phase",
+    "ring_grad_phase", "ring_cand_phase", "cand_sweep",
 )
 
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -86,6 +86,9 @@ ENTRIES = {
     # F, grad, src, dst, runs, n_runs, E, K, etas, num_s, omp_lo, omp_hi,
     # min_f, max_f, out, smem_bytes, stream
     "bigclam_candidate_edge_terms": [P, P, P, P, P, L, L, I, P, I, R, R, R, R, P, I, P],
+    # ids, w, grad, ids_dst, w_dst, src, dst, E, n, M, k_pad, etas, num_s,
+    # omp_lo, omp_hi, min_f, max_f, acc64, out, stream
+    "bigclam_cand_sweep": [P, P, P, P, P, P, P, L, I, I, I, P, I, R, R, R, R, I, P, P],
 }
 
 

@@ -13,7 +13,8 @@ ops.objective / ops.linesearch restricted to the support:
   * edge dot F_u.F_v = sum over u's slots of w_u times the neighbour's
     weight in that community (`member_lookup`: a batched searchsorted of
     u's ids in v's sorted ids; on the card the CUDA kernel
-    csrc/member_lookup.cu, which reads both rows straight from the state);
+    csrc/member_lookup.cu, which reads both rows straight from the state,
+    and, inside the candidate sweep, csrc/cand_sweep.cu);
   * gradient = the looked-up neighbour weights over omp, summed per source
     slot, in slot space (N, M);
   * ||grad||^2 = slot terms + the closed-form off-support correction
@@ -39,11 +40,12 @@ import torch
 
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.ops import build
+from bigclam_tpu_torch.ops.csr_kernels import MAX_S
 from bigclam_tpu_torch.ops.linesearch import accept_stats, step_etas
 from bigclam_tpu_torch.ops.objective import EdgeChunks, accum_dtype, edge_terms
 
-# member slots the CUDA kernel takes (one warp per edge, the neighbour's
-# ids and weights staged in 8 bytes of shared memory per slot)
+# member slots the CUDA kernels take (a warp's span of edges, the
+# neighbour's ids and weights staged in 8 bytes of shared memory per slot)
 MAX_M = 1024
 
 # candidate entries one support-update batch holds (whole node blocks)
@@ -263,13 +265,16 @@ member_lookup_rows.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the member-lookup kernel's launch counter to 0."""
+    """Set the member-lookup and candidate-sweep kernels' launch counters
+    to 0."""
     member_lookup_rows.launches = 0
+    sparse_candidates_kernel.launches = 0
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {"member_lookup": member_lookup_rows.launches}
+    return {"member_lookup": member_lookup_rows.launches,
+            "cand_sweep": sparse_candidates_kernel.launches}
 
 
 def merge_kernel_want(cfg: BigClamConfig, device: torch.device) -> bool:
@@ -383,9 +388,14 @@ def sparse_candidates(
     row0: int = 0,
 ) -> torch.Tensor:
     """Neighbour-sum candidate terms for every Armijo step, (S, N) — the
-    sparse twin of ops.linesearch.candidates_pass. The member lookup runs
-    once per chunk and serves all candidates (the support does not move
-    within a step). ids_dst/w_dst/row0 as in sparse_grad_llh."""
+    sparse twin of ops.linesearch.candidates_pass. ids_dst/w_dst/row0 as
+    in sparse_grad_llh. CUDA tensors on the `sparse_merge_pallas` path
+    run the sweep in the kernel (sparse_candidates_kernel); the rest run
+    the plain body below, where the member lookup runs once per chunk and
+    serves all candidates (the support does not move within a step)."""
+    if w.device.type == "cuda" and merge_kernel_want(cfg, w.device):
+        return sparse_candidates_kernel(ids, w, grad, edges, cfg, k_pad,
+                                        ids_dst, w_dst)
     n = ids.shape[0]
     adt = accum_dtype(cfg, w)
     etas = step_etas(cfg, w)
@@ -398,6 +408,67 @@ def sparse_candidates(
             _, ell = edge_terms((nw * vals).sum(dim=1), cfg)
             out[i].index_add_(0, s, ell.to(adt))
     return out
+
+
+def sparse_candidates_kernel(
+    ids: torch.Tensor,
+    w: torch.Tensor,
+    grad: torch.Tensor,
+    edges: EdgeChunks,
+    cfg: BigClamConfig,
+    k_pad: int,
+    ids_dst: Optional[torch.Tensor] = None,
+    w_dst: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """sparse_candidates by csrc/cand_sweep.cu: the member lookup, the
+    step rows, their dots, the edge terms and the per-node sums of every
+    edge in one launch per MAX_S (16) step candidates, with the source rows
+    (ids, w, grad) read at the edges' sources and the destination rows
+    (ids_dst, w_dst; default ids, w) at their destinations. Counts each
+    launch in `sparse_candidates_kernel.launches` and, while spans record,
+    its edges in the span table's counter `cand_sweep/edges`; raises where
+    the kernel cannot run (more than MAX_M slots, state not float32, an
+    accumulation neither float32 nor float64)."""
+    from bigclam_tpu_torch.obs import trace
+
+    ids_d, w_d = (ids, w) if ids_dst is None else (ids_dst, w_dst)
+    src, dst = edges.src, edges.dst
+    _check_cuda(ids, w, src, dst)
+    _check_cuda(ids_d, w_d, src, dst)
+    if grad.dtype != torch.float32:
+        raise TypeError(f"grad must be float32, got {grad.dtype}")
+    if grad.shape != ids.shape or not grad.is_contiguous() or grad.device != ids.device:
+        raise ValueError(f"grad must be contiguous of shape {tuple(ids.shape)} "
+                         f"on {ids.device}")
+    if ids_d.shape[1] != ids.shape[1]:
+        raise ValueError(f"destination rows of {ids_d.shape[1]} slots, "
+                         f"source rows of {ids.shape[1]}")
+    adt = accum_dtype(cfg, w)
+    if adt not in (torch.float32, torch.float64):
+        raise TypeError(f"the candidate sweep accumulates in float32 or "
+                        f"float64, not {adt}")
+    etas = np.asarray(cfg.step_candidates, np.float32)
+    n, m = ids.shape
+    e = int(src.shape[0])
+    out = torch.zeros((etas.size, n), dtype=adt, device=w.device)
+    for s0 in range(0, etas.size, MAX_S):
+        part = etas[s0 : s0 + MAX_S]
+        build.launch(
+            w.device, "bigclam_cand_sweep",
+            ids.data_ptr(), w.data_ptr(), grad.data_ptr(), ids_d.data_ptr(),
+            w_d.data_ptr(), src.data_ptr(), dst.data_ptr(), e, n, m,
+            int(k_pad), part.ctypes.data, part.size,
+            float(np.float32(1.0 - cfg.max_p)), float(np.float32(1.0 - cfg.min_p)),
+            float(np.float32(cfg.min_f)), float(np.float32(cfg.max_f)),
+            int(adt == torch.float64), out[s0].data_ptr(),
+        )
+        sparse_candidates_kernel.launches += 1
+        if trace.enabled():
+            trace.count("cand_sweep/edges", e)
+    return out
+
+
+sparse_candidates_kernel.launches = 0
 
 
 def sparse_armijo_update(

@@ -118,17 +118,23 @@ exits non-zero:
             conductance F0 (errors reported: the tails cancel there)
   sparse_main `cli fit --representation sparse --sparse-m 64` on the same
             file, conductance init, 5 iterations, no --out; path
-            `sparse_merge_pallas`, the member-lookup launches counted from
-            0 around the fit (2 edge sweeps x chunks x steps); the LLH
-            rises; peak device memory and the state's bytes against a
-            dense F's
+            `sparse_merge_pallas`, the launches counted from 0 around the
+            fit (member lookups: the grad sweep's chunks x steps; one
+            candidate sweep a step); the LLH rises; peak device memory and
+            the state's bytes against a dense F's
   sparse_full the member-lookup kernel against its plain version over
             every edge of sparse_main's final state (bit for bit), both
-            timed as `full` times kernels, and one step timed split into
-            the member kernel, the rest of the grad/candidate passes, the
+            timed as `full` times kernels; the candidate-sweep kernel
+            against the plain sweep on the step's inputs (float32 band),
+            both timed; one step timed split into the member kernel, the
+            candidate kernel, the rest of the grad/candidate passes, the
             Armijo update, the support update and the two sumF scatters,
             and traced once with torch.profiler (device busy time, top
             ops and kernels)
+  cand_sweep_yt the candidate-sweep kernel at the benchmark's sparse cell's
+            shapes (N 1,134,890, 2E 5,975,248, K 8,385, M 64, 16 steps;
+            random member rows and CSR-order edges) against the plain
+            sweep, both timed beside the sweep's bound
   sparse_mesh_full `cli fit --mesh 4,1 --representation sparse
             --sparse-m 64` on the same file (the four positions share the
             card), 5 iterations: the path and its exchange mode, the
@@ -690,6 +696,17 @@ KERNELS = {
         redesigned=("spans of 32 edges a warp, u's ids in registers, v's members in a "
                     "tagged id table (k_pad <= 1,024), else staged by cp.async and searched"),
     ),
+    # no TPU counterpart: the JAX package leaves the sparse candidate
+    # sweep to XLA's fusion after member_lookup_pallas
+    "cand_sweep": dict(
+        source="bigclam_tpu_torch/csrc/cand_sweep.cu",
+        replaces=None,
+        tpu_kernel=None,
+        also_computes="bigclam_tpu/ops/sparse_members.py:380 (sparse_candidates, XLA)",
+        redesigned=("member_lookup's span layout, the lookup kept in registers, "
+                    "nf_s per source, 16 dots, one transposing reduction, edge "
+                    "terms and per-source sums added by atomics"),
+    ),
     "candidate_edge_terms": dict(
         source="bigclam_tpu_torch/csrc/candidate_edge_terms.cu",
         replaces="bigclam_tpu/ops/pallas_kernels.py:71",
@@ -755,6 +772,10 @@ LIBRARY_NOTES = {
     "candidate_edge_terms": (
         "no single PyTorch call forms the 16 clipped candidate rows and "
         "their log-survival edge terms"
+    ),
+    "cand_sweep": (
+        "no single PyTorch call: the member lookup, the 16 clipped candidate "
+        "rows, their dots, the log-survival terms and the per-node sums"
     ),
     "ring_grad_phase": (
         "none: no single PyTorch call forms the per-edge survival terms, "
@@ -1345,6 +1366,21 @@ def member_bound(n: int, e: int, m: int) -> dict:
     over the float32 rate, as the card's table names no int32 rate."""
     nbytes = 8.0 * n * m + 16.0 * e + 4.0 * e * m
     ops = e * m * (math.log2(m) + 1.0)
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def cand_sweep_bound(n: int, e: int, m: int, num_s: int) -> dict:
+    """Least time for one candidate sweep over e edges at m slots: the
+    source rows (ids, weights, gradient: 12 bytes a slot) and the
+    destination rows (8 bytes a slot) read once, src and dst (16 bytes an
+    edge), the (S, n) float32 sums written once, over the HBM rate; the
+    lookup's compares (log2 m + 1 a slot) and the candidates' dots (2m + 2
+    an edge and candidate) over the float32 rate."""
+    nbytes = 20.0 * n * m + 16.0 * e + 4.0 * num_s * n
+    ops = e * m * (math.log2(m) + 1.0) + e * num_s * (2.0 * m + 2.0)
     tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
     return {"bound_ms": max(tb, to) * 1e3,
             "bound_by": "bytes" if tb >= to else "operations",
@@ -2403,11 +2439,12 @@ def sparse_cfg(k: int, m: int, **kw):
 
 def sparse_launches(e: int, m: int, steps: int) -> int:
     """Member-lookup launches of `steps` sparse steps: one per edge chunk
-    in each of the two edge sweeps (grad/LLH and candidates)."""
+    of the grad/LLH sweep (the candidate sweep is one cand_sweep launch a
+    step)."""
     from bigclam_tpu_torch.ops.objective import edge_chunk_bound
 
     chunk = edge_chunk_bound(sparse_cfg(1, m), m, 4)
-    return 2 * -(-e // chunk) * steps
+    return -(-e // chunk) * steps
 
 
 def compare_member(check, what, ids, w, edges, k_pad):
@@ -2495,6 +2532,7 @@ def phase_sparse_main(g, path):
     e = g.num_directed_edges
     want = dict.fromkeys(counts, 0)
     want["member_lookup"] = sparse_launches(e, SPARSE_M, out["steps"])
+    want["cand_sweep"] = out["steps"]
     if counts != want or want["member_lookup"] < 1:
         raise AssertionError(f"sparse launches {counts}, want {want}")
     if not hist[-1] > hist[0]:
@@ -2530,6 +2568,7 @@ def phase_sparse_full(g, state):
     ids, w, k_pad, edges = state.ids, state.F, model.k_pad, model.edges
     check = Check("member_lookup")
     compare_member(check, "every_edge", ids, w, edges, k_pad)
+    cand_check = Check("cand_sweep")
 
     def sweep(fn):
         def run():
@@ -2550,6 +2589,12 @@ def phase_sparse_full(g, state):
     sumF = sm.sparse_sumF(ids_s, w_s, k_pad)
     grad, node_llh = sm.sparse_grad_llh(ids_s, w_s, sumF, edges, cfg, k_pad)
     cand = sm.sparse_candidates(ids_s, w_s, grad, edges, cfg, k_pad)
+    plain_cfg = cfg.replace(sparse_pallas_merge=False)
+    cand_check.close("step_inputs", cand,
+                     sm.sparse_candidates(ids_s, w_s, grad, edges, plain_cfg, k_pad))
+    cand_ms = time_pair(
+        lambda: sm.sparse_candidates(ids_s, w_s, grad, edges, cfg, k_pad),
+        lambda: sm.sparse_candidates(ids_s, w_s, grad, edges, plain_cfg, k_pad))
     torch.cuda.reset_peak_memory_stats()
     step = {
         "step_ms": med(lambda: model._step(state)),
@@ -2564,18 +2609,73 @@ def phase_sparse_full(g, state):
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": profile_call(lambda: model._step(state)),
     }
-    # the passes run two member-lookup sweeps
-    step["member_kernel_ms"] = 2 * times["member_lookup"]["ms"]
-    step["passes_rest_ms"] = step["passes_ms"] - step["member_kernel_ms"]
+    # the grad pass runs one member-lookup sweep, the candidate pass one
+    # candidate-sweep launch
+    step["member_kernel_ms"] = times["member_lookup"]["ms"]
+    step["cand_kernel_ms"] = cand_ms["ms"]
+    step["passes_rest_ms"] = (step["passes_ms"] - step["member_kernel_ms"]
+                              - step["cand_kernel_ms"])
     # the step computes sumF twice (before the passes and after Armijo)
     step["other_ms"] = step["step_ms"] - (
         step["support_ms"] + step["passes_ms"] + step["armijo_ms"] + 2 * step["sumF_ms"]
     )
-    return check, times, bnd, {
+    return {"member_lookup": check, "cand_sweep": cand_check}, times, bnd, {
         "kernels": {"member_lookup": {**check.parts, **times["member_lookup"],
-                                      **bnd["member_lookup"]}},
+                                      **bnd["member_lookup"]},
+                    "cand_sweep": {**cand_check.parts, **cand_ms,
+                                   **cand_sweep_bound(g.num_nodes, e, m,
+                                                      len(cfg.step_candidates))}},
         "step": step, "m": m, "n_pad": model.n_pad, "block_b": model.block_b,
         "edge_chunk": edges.chunk,
+    }
+
+
+# the benchmark's sparse cell (clambench/configs/yt_k8385_sparse.json):
+# com-Youtube's nodes and directed edges, K = 8,385, M = 64, 16 steps
+CAND_YT = dict(n=1_134_890, e=5_975_248, k=8_385, m=64, seed=26)
+
+
+def phase_cand_sweep_yt() -> tuple:
+    """The candidate-sweep kernel at the sparse cell's shapes against the
+    plain sweep (float32 band) and both timed beside the bound: random
+    member rows of K ids (a random fill a row, a gradient of both signs),
+    edges in CSR order from uniform sources, swept in the model's chunks
+    on the plain path."""
+    from bigclam_tpu_torch.ops import sparse_members as sm
+    from bigclam_tpu_torch.ops.objective import EdgeChunks, edge_chunk_bound
+
+    c = CAND_YT
+    n, e, k, m = c["n"], c["e"], c["k"], c["m"]
+    gen = torch.Generator(device=DEVICE).manual_seed(c["seed"])
+    ids = torch.randint(0, k, (n, m), generator=gen, device=DEVICE).sort(dim=1).values
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    fill = torch.randint(0, m + 1, (n, 1), generator=gen, device=DEVICE)
+    ids[dup | (torch.arange(m, device=DEVICE) >= fill)] = k
+    ids = ids.sort(dim=1).values.to(torch.int32).contiguous()
+    live = ids < k
+    w = torch.rand((n, m), generator=gen, device=DEVICE) * live
+    grad = torch.randn((n, m), generator=gen, device=DEVICE) * 0.5 * live
+    src = torch.randint(0, n, (e,), generator=gen, device=DEVICE).sort().values
+    dst = torch.randint(0, n, (e,), generator=gen, device=DEVICE)
+    cfg = sparse_cfg(k, m)
+    edges = EdgeChunks(src, dst, edge_chunk_bound(cfg, m, 4))
+    plain_cfg = cfg.replace(sparse_pallas_merge=False)
+    check = Check("cand_sweep")
+    reset_launch_counts()
+    got = sm.sparse_candidates(ids, w, grad, edges, cfg, k)
+    torch.cuda.synchronize()
+    if launch_counts()["cand_sweep"] != 1:
+        raise AssertionError(f"launches {launch_counts()}")
+    check.close("yt_shapes", got, sm.sparse_candidates(ids, w, grad, edges, plain_cfg, k))
+    times = time_pair(lambda: sm.sparse_candidates(ids, w, grad, edges, cfg, k),
+                      lambda: sm.sparse_candidates(ids, w, grad, edges, plain_cfg, k))
+    times["library_ms"] = None
+    bnd = cand_sweep_bound(n, e, m, len(cfg.step_candidates))
+    return check, times, bnd, {
+        "kernels": {"cand_sweep": {**check.parts, **times, **bnd}},
+        "card": CARD.get("nvidia_smi"), **c, "edge_chunk": edges.chunk,
+        "live_slots": int(live.sum()), "sources": int(torch.unique(src).numel()),
     }
 
 
@@ -2679,8 +2779,9 @@ def member_spy(check, tag):
 
 def mesh_member_launches(model, steps: int) -> int:
     """Member-lookup launches of `steps` steps of a sparse mesh: one per
-    edge chunk of each shard in each of the two edge sweeps."""
-    return steps * sum(2 * -(-int(e.src.shape[0]) // e.chunk) for e in model.edges)
+    edge chunk of each shard in the grad/LLH sweep (the candidate sweep is
+    one cand_sweep launch a shard and step)."""
+    return steps * sum(-(-int(e.src.shape[0]) // e.chunk) for e in model.edges)
 
 
 def check_allreduce(vals, pres, devices, k_pad) -> dict:
@@ -2790,6 +2891,7 @@ def phase_sparse_mesh_full(g, gi, path, F0, sp_main) -> tuple:
                                       repeated_mesh(SPARSE_MESH_DP))
     want = dict.fromkeys(counts, 0)
     want["member_lookup"] = mesh_member_launches(model, out["steps"])
+    want["cand_sweep"] = out["steps"] * len(model.edges)
     if counts != want:
         raise AssertionError(f"sparse mesh launches {counts}, want {want}")
     hist = out["llh_history"]
@@ -2883,6 +2985,7 @@ def phase_sparse_mesh_local() -> tuple:
         raise AssertionError(f"exchanges {comm} (K = {c['k']})")
     want = dict.fromkeys(counts, 0)
     want["member_lookup"] = mesh_member_launches(model, len(hist))
+    want["cand_sweep"] = len(hist) * len(model.edges)
     if counts != want:
         raise AssertionError(f"sparse mesh launches {counts}, want {want}")
     if not (all(math.isfinite(v) for v in hist) and hist[-1] > hist[0]):
@@ -4627,7 +4730,7 @@ def phase_resilience_odd(tmp) -> dict:
         "csr": ("grad_llh_csr", "candidates_csr"),
         "csr_fused_kb": K_BLOCKED_COUNTERS, "csr_grouped_kb": K_BLOCKED_COUNTERS,
         "pallas_vmem": ("candidate_edge_terms", "armijo_tail_select"),
-        "sparse_merge_pallas": ("member_lookup",),
+        "sparse_merge_pallas": ("member_lookup", "cand_sweep"),
         "csr_ring_fused": ("ring_grad_phase", "ring_cand_phase",
                            "armijo_tail_select"),
     }
@@ -7826,7 +7929,8 @@ def main(argv=None) -> int:
         run("obs_memory", phase_obs_memory, gi, F0, "full")
         run("obs_profile", phase_obs_profile, gi, cache, "full", F0)
         state, sparse_counts, sp_main = run("sparse_main", phase_sparse_main, g, cache)
-        sp_check, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
+        sp_checks, sp_times, sp_bnd, _ = run("sparse_full", phase_sparse_full, g, state)
+        cand_check, cand_times, cand_bnd, _ = run("cand_sweep_yt", phase_cand_sweep_yt)
         del state
         sm_full_counts, _ = run("sparse_mesh_full", phase_sparse_mesh_full, g, gi,
                                 cache, F0, sp_main)
@@ -7919,19 +8023,26 @@ def main(argv=None) -> int:
     sel.max_abs = max(sel.max_abs, ring_checks["armijo_tail_select"].max_abs)
     sel.max_rel = max(sel.max_rel, ring_checks["armijo_tail_select"].max_rel)
     # the member lookups of the dp = 3 sparse mesh count toward its error
-    sp_check.max_abs = max(sp_check.max_abs, sm_odd_check.max_abs)
+    sp_checks["member_lookup"].max_abs = max(sp_checks["member_lookup"].max_abs,
+                                             sm_odd_check.max_abs)
+    # the candidate sweep's errors at full and at the sparse cell's shapes
+    for attr in ("max_abs", "max_rel"):
+        setattr(cand_check, attr, max(getattr(cand_check, attr),
+                                      getattr(sp_checks["cand_sweep"], attr)))
     for name, c in kbmesh_odd_checks.items():
         # the window kernels' F_dst, directed and accumulate comparisons
         kb_checks[name].max_abs = max(kb_checks[name].max_abs, c.max_abs)
         kb_checks[name].max_rel = max(kb_checks[name].max_rel, c.max_rel)
-    checks.update(kb_checks, member_lookup=sp_check, **vm_checks,
+    checks.update(kb_checks, member_lookup=sp_checks["member_lookup"],
+                  cand_sweep=cand_check, **vm_checks,
                   **{name: ring_checks[name] for name in RING})
     for name, c in twod_odd_checks.items():
         # the kernels on closure-table inputs count toward their errors
         checks[name].max_abs = max(checks[name].max_abs, c.max_abs)
         checks[name].max_rel = max(checks[name].max_rel, c.max_rel)
-    times.update(kb_times, **sp_times, **vm_times, **ring_times)
+    times.update(kb_times, **sp_times, **vm_times, **ring_times, cand_sweep=cand_times)
     bnd.update({name: kb_bnd[name] for name in K_BLOCKED}, **sp_bnd, **vm_bnd,
+               cand_sweep=cand_bnd,
                **ring_bnd)
     launches = {
         "fused_superstep": main_counts["fused_superstep"],
@@ -7939,6 +8050,7 @@ def main(argv=None) -> int:
         "candidates_csr": split_counts["candidates_csr"],
         **{name: kb_counts[COUNTER.get(name, name)] for name in K_BLOCKED},
         "member_lookup": sparse_counts["member_lookup"],
+        "cand_sweep": sparse_counts["cand_sweep"],
         "candidate_edge_terms": vmem_counts["candidate_edge_terms"],
         "armijo_tail_select": vmem_counts["armijo_tail_select"],
         **{name: ring_counts[name] for name in RING},
@@ -7972,7 +8084,7 @@ def main(argv=None) -> int:
             **({"launches_sparse_mesh_full": sm_full_counts[name],
                 "launches_sparse_mesh_local": sm_local_counts[name],
                 "launches_fleet_full": fleet_body["publication"]["launches"][name]}
-               if name == "member_lookup" else {}),
+               if name in ("member_lookup", "cand_sweep") else {}),
             **({"launches_ring_main": ring_main_counts[name],
                 "launches_ring_dp4": ring_counts[name],
                 "launches_dist_nccl1": dist_counts["nccl1"][name]}

@@ -12,11 +12,17 @@
   at LLH rtol 1e-5; at M >= K the sparse trajectory equals the port's
   dense `xla` one (rtol 1e-11, as tests/test_sparse.py holds the JAX pair).
 * `cli fit --representation sparse --device cpu` and its refusals.
+* `sparse_candidates` runs its plain body on CPU tensors and on the
+  `sparse_xla` path; the candidate-sweep wrapper's launch arguments, its
+  launch counter and its span-table counter (checked on the CPU with the
+  launch stubbed).
 * On a card only: the CUDA member-lookup kernel equals its plain version
-  bit for bit.
+  bit for bit; the candidate-sweep kernel equals the plain sweep in the
+  float32 band.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -37,6 +43,8 @@ from bigclam_tpu_torch import cli
 from bigclam_tpu_torch.config import BigClamConfig
 from bigclam_tpu_torch.graph.csr import Graph
 from bigclam_tpu_torch.models.bigclam import BigClamModel
+from bigclam_tpu_torch.obs import trace
+from bigclam_tpu_torch.ops import build
 from bigclam_tpu_torch.models.sparse import (
     SparseBigClamModel,
     effective_m,
@@ -196,6 +204,140 @@ def test_merge_dispatch_and_member_limit():
     for m in (0, sm.MAX_M + 1):
         with pytest.raises(sm.MemberLimitError, match="--sparse-m"):
             sm.check_member_limit(m)
+
+
+def _sweep_inputs(rng, n, m, k, device="cpu", offset=0):
+    """Member rows of k ids on `device` (off 16 bytes with offset > 0), a
+    gradient of both signs (some steps clip to 0), 0 in sentinel slots."""
+    ids, w, k = _member_state(rng, n, m, device, k, offset)
+    grad = torch.as_tensor(rng.normal(0.0, 0.5, (n, m)), dtype=torch.float32)
+    grad = torch.where(ids.cpu() < k, grad, torch.zeros(()))
+    return ids, w, grad.to(device), k
+
+
+@pytest.mark.parametrize("merge", [None, True, False])
+def test_candidates_run_the_plain_body_on_cpu(merge, monkeypatch):
+    """On CPU tensors sparse_candidates never reaches the kernel wrapper,
+    whichever the merge switch: the same bits on every setting, equal to
+    the JAX sweep, and no candidate-sweep launch counted."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel wrapper ran on CPU tensors")
+
+    g = _random_graph(0)
+    F0 = np.random.default_rng(1).uniform(0.0, 1.0, (g.num_nodes, 6))
+    jm, pm, sj, sp = _state_pair(g, _jcfg(6, 4), F0)
+    cfg = pm.cfg.replace(sparse_pallas_merge=merge)
+    sumF = sm.sparse_sumF(sp.ids, sp.F, 6)
+    grad, _ = sm.sparse_grad_llh(sp.ids, sp.F, sumF, pm.edges, cfg, 6)
+    monkeypatch.setattr(sm, "sparse_candidates_kernel", refuse)
+    sm.reset_launch_counts()
+    got = sm.sparse_candidates(sp.ids, sp.F, grad, pm.edges, cfg, 6)
+    assert sm.launch_counts()["cand_sweep"] == 0
+    plain = sm.sparse_candidates(sp.ids, sp.F, grad, pm.edges,
+                                 pm.cfg.replace(sparse_pallas_merge=False), 6)
+    assert torch.equal(got, plain)
+    sumF_j = jsm.sparse_sumF(sj.ids, sj.F, 6)
+    grad_j, _ = jsm.sparse_grad_llh(sj.ids, sj.F, sumF_j, jm._edges, jm.cfg, 6)
+    want = jsm.sparse_candidates(sj.ids, sj.F, grad_j, jm._edges, jm.cfg, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+
+
+def _stub_launches(monkeypatch):
+    """Record each launch as (entry, arguments, the step sizes read from
+    the host array the call points at)."""
+    calls = []
+
+    def launch(dev, entry, *a):
+        etas = (ctypes.c_float * a[12]).from_address(a[11])
+        calls.append((entry, a, np.array(etas, np.float32)))
+
+    monkeypatch.setattr(build, "launch", launch)
+    return calls
+
+
+@pytest.mark.parametrize("steps,sharded", [(15, False), (20, False), (15, True)])
+def test_cand_sweep_launch_arguments(steps, sharded, monkeypatch):
+    """The wrapper's launches, with the launch stubbed on the CPU: one per
+    16 step candidates (21 candidates: 16, then 5 into the rows after),
+    each with the C entry's argument count, the source rows and the
+    destination rows (the gathered ones on the sharded form), every edge,
+    the float32 clip bounds and step sizes, and the (S, N) zeros."""
+    rng = np.random.default_rng(steps)
+    ids, w, grad, k = _sweep_inputs(rng, 40, 6, 20)
+    ids_d, w_d = (ids.clone(), w.clone()) if sharded else (None, None)
+    src, dst = (torch.as_tensor(x) for x in _csr_order_edges(rng, 40, 30, 8))
+    cfg = BigClamConfig(num_communities=k, representation="sparse", sparse_m=6,
+                        max_backtracks=steps, max_p=0.999, min_p=0.01)
+    calls = _stub_launches(monkeypatch)
+    sm.reset_launch_counts()
+    out = sm.sparse_candidates_kernel(ids, w, grad, EdgeChunks(src, dst, 50), cfg,
+                                      k, ids_d, w_d)
+    s = len(cfg.step_candidates)
+    assert out.shape == (s, 40) and out.dtype == torch.float32
+    assert not out.any()
+    groups = [(0, 16), (16, s - 16)] if s > 16 else [(0, s)]
+    assert sm.launch_counts() == {"member_lookup": 0, "cand_sweep": len(groups)}
+    assert len(calls) == len(groups)
+    etas = np.asarray(cfg.step_candidates, np.float32)
+    rows = (ids_d, w_d) if sharded else (ids, w)
+    for (entry, a, got), (s0, ns) in zip(calls, groups):
+        assert entry == "bigclam_cand_sweep"
+        assert len(a) + 1 == len(build.ENTRIES[entry])     # + the stream
+        assert a[:7] == (ids.data_ptr(), w.data_ptr(), grad.data_ptr(),
+                         rows[0].data_ptr(), rows[1].data_ptr(),
+                         src.data_ptr(), dst.data_ptr())
+        assert a[7:11] == (src.numel(), 40, 6, k)
+        np.testing.assert_array_equal(got, etas[s0 : s0 + ns])
+        assert a[13:17] == (float(np.float32(1 - 0.999)), float(np.float32(1 - 0.01)),
+                            0.0, 1000.0)
+        assert a[17:] == (0, out[s0].data_ptr())
+
+
+def test_cand_sweep_counts_edges_only_while_spans_record(monkeypatch):
+    """`cand_sweep/edges` adds each launch's edges to the span table inside
+    a recording scope, and nothing outside one."""
+    rng = np.random.default_rng(3)
+    ids, w, grad, k = _sweep_inputs(rng, 30, 4, 12)
+    src, dst = (torch.as_tensor(x) for x in _csr_order_edges(rng, 30, 20, 6))
+    edges = EdgeChunks(src, dst, 16)
+    cfg = BigClamConfig(num_communities=k, representation="sparse", sparse_m=4)
+    _stub_launches(monkeypatch)
+    trace.reset()
+    try:
+        sm.sparse_candidates_kernel(ids, w, grad, edges, cfg, k)
+        assert "cand_sweep/edges" not in trace.totals()["counters"]
+        with trace.recording():
+            sm.sparse_candidates_kernel(ids, w, grad, edges, cfg, k)
+            sm.sparse_candidates_kernel(ids, w, grad, edges, cfg, k)
+        sm.sparse_candidates_kernel(ids, w, grad, edges, cfg, k)
+        assert trace.totals()["counters"]["cand_sweep/edges"] == 2 * src.numel()
+    finally:
+        trace.reset()
+
+
+def test_cand_sweep_wrapper_refusals(monkeypatch):
+    """What the kernel does not take raises before a launch: more than
+    MAX_M slots, float64 state or gradient, a float16 accumulation,
+    destination rows of another width."""
+    calls = _stub_launches(monkeypatch)
+    e = torch.zeros(3, dtype=torch.int64)
+    edges = EdgeChunks(e, e, 4)
+    cfg = BigClamConfig(num_communities=3, representation="sparse", sparse_m=4)
+    ids = torch.full((4, 4), 3, dtype=torch.int32)
+    w = torch.zeros((4, 4))
+    wide = torch.full((4, sm.MAX_M + 1), 3, dtype=torch.int32)
+    with pytest.raises(sm.MemberLimitError):
+        sm.sparse_candidates_kernel(wide, wide.float(), wide.float(), edges, cfg, 3)
+    with pytest.raises(TypeError, match="float32"):
+        sm.sparse_candidates_kernel(ids, w.double(), w, edges, cfg, 3)
+    with pytest.raises(TypeError, match="grad"):
+        sm.sparse_candidates_kernel(ids, w, w.double(), edges, cfg, 3)
+    with pytest.raises(TypeError, match="accumulates"):
+        sm.sparse_candidates_kernel(ids, w, w, edges, cfg.replace(accum_dtype="float16"), 3)
+    with pytest.raises(ValueError, match="slots"):
+        sm.sparse_candidates_kernel(ids, w, w, edges, cfg, 3, ids[:, :2].contiguous(),
+                                    w[:, :2].contiguous())
+    assert calls == []
 
 
 # --- sweeps, Armijo and support update -------------------------------------
@@ -491,7 +633,7 @@ def test_cuda_member_lookup_equals_plain(m, cuda_device):
     sm.reset_launch_counts()
     got = sm.member_lookup_rows(ids, w, src, dst, k)
     torch.cuda.synchronize()
-    assert sm.launch_counts() == {"member_lookup": 1}
+    assert sm.launch_counts() == {"member_lookup": 1, "cand_sweep": 0}
     assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, src, dst, k))
 
 
@@ -547,7 +689,8 @@ def test_cuda_member_lookup_on_csr_runs(m, k, offset, cuda_device):
         got = sm.member_lookup_rows(ids, w, s, d, k)
         torch.cuda.synchronize()
         assert torch.equal(got, sm.member_lookup_rows_plain(ids, w, s, d, k))
-    assert sm.launch_counts() == {"member_lookup": -(-src.size // 150)}
+    assert sm.launch_counts() == {"member_lookup": -(-src.size // 150),
+                                  "cand_sweep": 0}
 
 
 @pytest.mark.cuda
@@ -591,9 +734,120 @@ def test_cuda_sparse_passes_match_the_plain_merge(cuda_device):
         out[name] = [t.cpu().numpy() for t in (grad, llh, cand)]
     torch.cuda.synchronize()
     chunks = -(-g.num_directed_edges // mk.edges.chunk)
-    assert sm.launch_counts() == {"member_lookup": 2 * chunks}
+    # the kernel path's grad pass looks up each chunk; its candidate pass
+    # is one candidate-sweep launch
+    assert sm.launch_counts() == {"member_lookup": chunks, "cand_sweep": 1}
     for a, b in zip(out["kernel"], out["plain"]):
         np.testing.assert_allclose(a, b, rtol=3e-5, atol=3e-5)
+
+
+def _sweep_pair(ids, w, grad, edges, cfg, k, **dst):
+    """The candidate sweep on the kernel path (one launch, counted) and on
+    the plain path, synchronized."""
+    sm.reset_launch_counts()
+    got = sm.sparse_candidates(ids, w, grad, edges, cfg, k, **dst)
+    torch.cuda.synchronize()
+    launches = sm.launch_counts()["cand_sweep"]
+    want = sm.sparse_candidates(ids, w, grad, edges,
+                                cfg.replace(sparse_pallas_merge=False), k, **dst)
+    assert sm.launch_counts()["cand_sweep"] == launches
+    return got, want, launches
+
+
+def _sweep_cfg(k, m, **kw):
+    return BigClamConfig(num_communities=k, representation="sparse", sparse_m=m, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,offset", [
+    (1, 8, 0), (5, 10, 0), (37, 74, 0), (37, 2000, 0), (64, 128, 0),
+    (64, 1024, 0), (64, 1025, 0), (64, 8385, 0), (64, 2000, 1), (100, 2000, 0),
+    (1024, 2048, 0),
+])
+def test_cuda_cand_sweep_equals_plain(m, k, offset, cuda_device):
+    """The candidate-sweep kernel against the plain sweep on edges in CSR
+    order (a hub of 200 edges that the plain path's 150-edge chunks cut,
+    nodes without edges), in the float32 band of the plain merge test
+    (rtol = atol = 3e-5: the same terms, the dots and the per-node sums in
+    another order): one lane a slot (M <= 32), two (M = 64), four and 32,
+    k_pad on both sides of 1,024, rows on and off 16 bytes; one launch."""
+    rng = np.random.default_rng(m + k + offset)
+    n = 300
+    ids, w, grad, k = _sweep_inputs(rng, n, m, k, cuda_device, offset)
+    src, dst = _csr_order_edges(rng, n)
+    assert (np.bincount(src, minlength=n) == 0).any()
+    edges = EdgeChunks(torch.as_tensor(src, device=cuda_device),
+                       torch.as_tensor(dst, device=cuda_device), 150)
+    assert src[149] == src[150]
+    got, want, launches = _sweep_pair(ids, w, grad, edges, _sweep_cfg(k, m), k)
+    assert launches == 1 and got.shape == (16, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(5, 10), (64, 2000)])
+@pytest.mark.parametrize("e", [1, 31, 33, 129])
+def test_cuda_cand_sweep_edge_counts(e, m, k, cuda_device):
+    """1, 31, 33 and 129 edges (a warp's span and one either side, one past
+    four spans), starting inside a run of the CSR order."""
+    rng = np.random.default_rng(e + m)
+    n = 300
+    ids, w, grad, k = _sweep_inputs(rng, n, m, k, cuda_device)
+    src, dst = _csr_order_edges(rng, n)
+    edges = EdgeChunks(torch.as_tensor(src[5 : 5 + e], device=cuda_device),
+                       torch.as_tensor(dst[5 : 5 + e], device=cuda_device), 64)
+    got, want, launches = _sweep_pair(ids, w, grad, edges, _sweep_cfg(k, m), k)
+    assert launches == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [5, 64])
+def test_cuda_cand_sweep_sharded_form(m, cuda_device):
+    """The sharded trainer's form: a shard's own rows [r0, r1) as sources
+    (local ids), the rows of every shard as destinations (ids_dst, w_dst,
+    row0); against the plain sweep of the same form and against the
+    one-device sweep's columns of those rows."""
+    rng = np.random.default_rng(m)
+    n, r0, r1 = 300, 100, 220
+    ids, w, grad, k = _sweep_inputs(rng, n, m, None, cuda_device)
+    src, dst = _csr_order_edges(rng, n)
+    keep = (src >= r0) & (src < r1)
+    dev = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    loc = EdgeChunks(dev(src[keep] - r0), dev(dst[keep]), 150)
+    cfg = _sweep_cfg(k, m)
+    shard = [t[r0:r1].contiguous() for t in (ids, w, grad)]
+    got, want, launches = _sweep_pair(*shard, loc, cfg, k, ids_dst=ids, w_dst=w, row0=r0)
+    assert launches == 1 and got.shape == (16, r1 - r0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
+    whole = sm.sparse_candidates(ids, w, grad, EdgeChunks(dev(src), dev(dst), 150), cfg, k)
+    np.testing.assert_allclose(got.cpu().numpy(), whole[:, r0:r1].cpu().numpy(),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_cand_sweep_float64_sums_and_21_steps(cuda_device):
+    """A float64 accumulation (float64 atomics) and 21 step candidates (two
+    launches: 16 steps, then 5 into the rows after), against the plain
+    sweep; while spans record, `cand_sweep/edges` counts every edge of
+    each launch."""
+    rng = np.random.default_rng(21)
+    n = 300
+    ids, w, grad, k = _sweep_inputs(rng, n, 64, 1100, cuda_device)
+    src, dst = _csr_order_edges(rng, n)
+    edges = EdgeChunks(torch.as_tensor(src, device=cuda_device),
+                       torch.as_tensor(dst, device=cuda_device), 150)
+    cfg = _sweep_cfg(k, 64, accum_dtype="float64", max_backtracks=20)
+    trace.reset()
+    try:
+        with trace.recording():
+            got, want, launches = _sweep_pair(ids, w, grad, edges, cfg, k)
+        counted = trace.totals()["counters"]["cand_sweep/edges"]
+    finally:
+        trace.reset()
+    assert launches == 2 and counted == 2 * src.size
+    assert got.shape == (21, n) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.cuda
